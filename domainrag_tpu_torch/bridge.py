@@ -1,0 +1,48 @@
+"""Carry the JAX package's weights and configs into the port.
+
+:func:`params` takes a parameter tree as nested dicts and lists of numpy
+arrays (``jax.tree.map(np.asarray, params)`` of any ``init`` that
+``tiny_bundle`` builds: ``flux.init``, ``vae.init``, ``t5.init``,
+``clip.init_text``, ``siglip.init``, ``redux.init``) and returns the
+same tree of torch tensors: same keys, linear weights kept in their
+``(in, out)`` layout, and every 4-D conv kernel turned once from JAX's
+HWIO into torch's OIHW. :func:`config` rebuilds a config dataclass of the
+port from the JAX package's by field name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from .core import device as device_mod
+
+
+def _tensor(x, dev: torch.device) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.ndim == 4:                        # conv kernel: HWIO -> OIHW
+        arr = arr.transpose(3, 2, 0, 1)
+    return torch.from_numpy(np.array(arr, order="C")).to(dev)
+
+
+def _convert(tree: Any, dev: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _convert(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_convert(v, dev) for v in tree)
+    return _tensor(tree, dev)
+
+
+def params(tree: Any, device=None) -> Any:
+    """numpy parameter tree -> torch tree on ``device`` (the card unless
+    ``device="cpu"``), dtypes kept."""
+    return _convert(tree, device_mod.resolve(device))
+
+
+def config(jax_cfg: Any, port_cls: type) -> Any:
+    """A port config dataclass with the values of the JAX one's fields."""
+    return port_cls(**{f.name: getattr(jax_cfg, f.name)
+                       for f in dataclasses.fields(port_cls)})

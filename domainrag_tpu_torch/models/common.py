@@ -1,0 +1,212 @@
+"""Shared functional building blocks (port of
+``domainrag_tpu/models/common.py``).
+
+Models are plain functions over nested param dicts with the JAX package's
+keys: ``init(cfg, init_ctx) -> params`` and ``apply(params, x, ...)``.
+Linear weights keep the ``(in, out)`` layout; convolution weights are in
+torch's ``(out, in, kh, kw)`` layout (the bridge converts HWIO once) while
+activations stay NHWC at every public function. Weights may be stored in
+the dtype they are cast to at use; norm scales stay float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# initializers (same scales as the JAX package's; drawn on the device)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Init:
+    """Random-init context: one generator, the device it draws on, and the
+    dtype weights are stored in."""
+
+    generator: torch.Generator
+    device: torch.device
+    dtype: torch.dtype = torch.float32
+
+    def normal(self, shape: Sequence[int], std: float) -> torch.Tensor:
+        x = torch.randn(tuple(shape), generator=self.generator,
+                        device=self.device, dtype=torch.float32)
+        return x.mul_(std).to(self.dtype)
+
+    def zeros(self, shape: Sequence[int]) -> torch.Tensor:
+        return torch.zeros(tuple(shape), device=self.device, dtype=self.dtype)
+
+    def ones_f32(self, shape: Sequence[int]) -> torch.Tensor:
+        return torch.ones(tuple(shape), device=self.device,
+                          dtype=torch.float32)
+
+
+def linear_init(init: Init, d_in: int, d_out: int, bias: bool = True,
+                std: Optional[float] = None) -> Params:
+    if std is None:
+        std = math.sqrt(1.0 / d_in)
+    p = {"w": init.normal((d_in, d_out), std)}
+    if bias:
+        p["b"] = init.zeros((d_out,))
+    return p
+
+
+def layernorm_init(init: Init, dim: int) -> Params:
+    return {"scale": init.ones_f32((dim,)),
+            "bias": torch.zeros(dim, device=init.device)}
+
+
+def rmsnorm_init(init: Init, dim: int) -> Params:
+    return {"scale": init.ones_f32((dim,))}
+
+
+def groupnorm_init(init: Init, dim: int) -> Params:
+    return layernorm_init(init, dim)
+
+
+def conv_init(init: Init, kh: int, kw: int, c_in: int, c_out: int,
+              bias: bool = True) -> Params:
+    """Torch layout (out, in, kh, kw); std sqrt(1/fan_in) as in JAX."""
+    p = {"w": init.normal((c_out, c_in, kh, kw),
+                          math.sqrt(1.0 / (kh * kw * c_in)))}
+    if bias:
+        p["b"] = init.zeros((c_out,))
+    return p
+
+
+def mha_init(init: Init, dim: int, bias: bool = True) -> Params:
+    return {name: linear_init(init, dim, dim, bias=bias)
+            for name in ("q", "k", "v", "o")}
+
+
+# ---------------------------------------------------------------------------
+# dense ops
+# ---------------------------------------------------------------------------
+
+def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ w (+ b) in x's dtype. A plain GEMM: the JAX package left it to
+    XLA, so here it is ``torch.matmul`` (f32 accumulation inside)."""
+    y = torch.matmul(x, p["w"].to(x.dtype))
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """LayerNorm with f32 statistics regardless of compute dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * p["scale"]).to(x.dtype)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """OpenAI CLIP's activation: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# conv / norm (NHWC at the API)
+# ---------------------------------------------------------------------------
+
+def _same_pads(size: int, k: int, stride: int):
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(p: Params, x: torch.Tensor, stride: int = 1,
+           padding="SAME") -> torch.Tensor:
+    """NHWC conv with an (out, in, kh, kw) weight. ``padding`` is "SAME"
+    or explicit ((top, bottom), (left, right)). The NCHW view of NHWC data
+    is channels-last, so cuDNN runs it without a copy."""
+    w = p["w"].to(x.dtype)
+    kh, kw = w.shape[2], w.shape[3]
+    if padding == "SAME":
+        padding = (_same_pads(x.shape[1], kh, stride),
+                   _same_pads(x.shape[2], kw, stride))
+    (t, b), (l, r) = padding
+    xn = x.permute(0, 3, 1, 2)
+    if t == b and l == r:
+        y = F.conv2d(xn, w, stride=stride, padding=(t, l))
+    else:
+        y = F.conv2d(F.pad(xn, (l, r, t, b)), w, stride=stride)
+    y = y.permute(0, 2, 3, 1)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def groupnorm(p: Params, x: torch.Tensor, groups: int = 32,
+              eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm over NHWC with f32 statistics: mean and E[x^2] in one
+    reduction, then one per-channel affine y = x * a + b (the JAX
+    package's single-reduction formulation)."""
+    b, h, w, c = x.shape
+    cg = c // groups
+    xf = x.float().reshape(b, h, w, groups, cg)
+    mean = xf.mean(dim=(1, 2, 4))                            # (B, G)
+    m2 = xf.square().mean(dim=(1, 2, 4))
+    var = torch.clamp(m2 - mean.square(), min=0.0)
+    inv = torch.rsqrt(var + eps)
+    inv_c = inv.repeat_interleave(cg, dim=-1)                # (B, C)
+    mean_c = mean.repeat_interleave(cg, dim=-1)
+    a = inv_c * p["scale"][None]
+    off = p["bias"][None] - mean_c * a
+    y = x.float() * a[:, None, None, :] + off[:, None, None, :]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (dense; f32 softmax)
+# ---------------------------------------------------------------------------
+
+def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, s, d = x.shape
+    return x.reshape(b, s, n_heads, d // n_heads).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, dh = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * dh)
+
+
+def sdpa(q, k, v, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scaled dot-product attention over (B, H, S, Dh); f32 softmax."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask, -1e9)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs.to(q.dtype), v)
+
+
+def mha(p: Params, x: torch.Tensor, n_heads: int, mask=None
+        ) -> torch.Tensor:
+    q = split_heads(linear(p["q"], x), n_heads)
+    k = split_heads(linear(p["k"], x), n_heads)
+    v = split_heads(linear(p["v"], x), n_heads)
+    return linear(p["o"], merge_heads(sdpa(q, k, v, mask)))
+
+
+def causal_mask(seq: int, device=None) -> torch.Tensor:
+    return torch.tril(torch.ones((1, 1, seq, seq), dtype=torch.bool,
+                                 device=device))

@@ -1,0 +1,282 @@
+"""Flux MMDiT — the rectified-flow transformer of FLUX.1-dev (port of
+``domainrag_tpu/models/flux/model.py:39-337, 431-448``).
+
+Hidden 3072 = 24 heads x 128, 19 double-stream + 38 single-stream
+blocks, 3-axis RoPE with axes_dim (16, 56, 56), AdaLN modulation from a
+timestep + guidance + pooled-text vector. Runs in the caller's dtype
+(bf16 at full width) with f32 LayerNorm statistics. Each block's
+attention goes through ``ops.mmdit_attention``: the Hopper kernels on
+the card, the plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...ops.mmdit_attention import (mmdit_double_attention,
+                                    mmdit_single_attention)
+from ..common import (Init, Params, gelu_tanh, linear, linear_init,
+                      rmsnorm_init)
+
+
+@dataclasses.dataclass(frozen=True)
+class FluxConfig:
+    in_channels: int = 64
+    out_channels: int = 64
+    hidden: int = 3072
+    heads: int = 24
+    head_dim: int = 128
+    depth_double: int = 19
+    depth_single: int = 38
+    mlp_ratio: int = 4
+    text_dim: int = 4096             # T5-XXL
+    pooled_dim: int = 768            # CLIP-L pooled
+    time_embed_dim: int = 256
+    axes_dim: Tuple[int, int, int] = (16, 56, 56)
+    theta: int = 10000
+    guidance_embed: bool = True      # flux-dev (distilled guidance input)
+
+    @property
+    def mlp_hidden(self) -> int:
+        return self.hidden * self.mlp_ratio
+
+
+TINY_FLUX = FluxConfig(in_channels=16, out_channels=16, hidden=64, heads=4,
+                       head_dim=16, depth_double=2, depth_single=2,
+                       text_dim=32, pooled_dim=24, time_embed_dim=32,
+                       axes_dim=(4, 6, 6))
+
+FLUX_DEV = FluxConfig()
+
+
+# ---------------------------------------------------------------------------
+# embeddings and RoPE
+# ---------------------------------------------------------------------------
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10000.0,
+                       time_factor: float = 1000.0) -> torch.Tensor:
+    """Sinusoidal embedding of sigma in [0,1] (BFL convention: t*1000)."""
+    t = t.float() * time_factor
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t[..., None] * freqs
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def _mlp_embedder_init(ini: Init, d_in: int, hidden: int) -> Params:
+    return {"in": linear_init(ini, d_in, hidden),
+            "out": linear_init(ini, hidden, hidden)}
+
+
+def _mlp_embedder(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return linear(p["out"], F.silu(linear(p["in"], x)))
+
+
+def rope_cos_sin(ids: torch.Tensor, axes_dim: Tuple[int, ...], theta: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ids (S, n_axes) int positions -> cos/sin (S, head_dim/2) f32, the
+    per-axis frequency tables concatenated."""
+    cos_parts, sin_parts = [], []
+    for axis, dim in enumerate(axes_dim):
+        pos = ids[..., axis].float()
+        scale = torch.arange(0, dim, 2, dtype=torch.float32,
+                             device=ids.device) / dim
+        omega = 1.0 / (theta ** scale)
+        angles = pos[..., None] * omega
+        cos_parts.append(torch.cos(angles))
+        sin_parts.append(torch.sin(angles))
+    return torch.cat(cos_parts, dim=-1), torch.cat(sin_parts, dim=-1)
+
+
+def make_image_ids(grid_h: int, grid_w: int) -> np.ndarray:
+    """(grid_h*grid_w, 3): axis0 = 0, axis1 = row, axis2 = col."""
+    ids = np.zeros((grid_h, grid_w, 3), np.int32)
+    ids[..., 1] = np.arange(grid_h)[:, None]
+    ids[..., 2] = np.arange(grid_w)[None, :]
+    return ids.reshape(-1, 3)
+
+
+def make_text_ids(seq_len: int) -> np.ndarray:
+    return np.zeros((seq_len, 3), np.int32)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _qknorm_init(ini: Init, head_dim: int) -> Params:
+    return {"q": rmsnorm_init(ini, head_dim),
+            "k": rmsnorm_init(ini, head_dim)}
+
+
+def _double_block_init(ini: Init, cfg: FluxConfig) -> Params:
+    h, mh = cfg.hidden, cfg.mlp_hidden
+    return {
+        "img_mod": linear_init(ini, h, 6 * h),
+        "txt_mod": linear_init(ini, h, 6 * h),
+        "img_qkv": linear_init(ini, h, 3 * h),
+        "txt_qkv": linear_init(ini, h, 3 * h),
+        "img_qknorm": _qknorm_init(ini, cfg.head_dim),
+        "txt_qknorm": _qknorm_init(ini, cfg.head_dim),
+        "img_proj": linear_init(ini, h, h),
+        "txt_proj": linear_init(ini, h, h),
+        "img_mlp1": linear_init(ini, h, mh),
+        "img_mlp2": linear_init(ini, mh, h),
+        "txt_mlp1": linear_init(ini, h, mh),
+        "txt_mlp2": linear_init(ini, mh, h),
+    }
+
+
+def _single_block_init(ini: Init, cfg: FluxConfig) -> Params:
+    h, mh = cfg.hidden, cfg.mlp_hidden
+    return {
+        "mod": linear_init(ini, h, 3 * h),
+        "linear1": linear_init(ini, h, 3 * h + mh),
+        "linear2": linear_init(ini, h + mh, h),
+        "qknorm": _qknorm_init(ini, cfg.head_dim),
+    }
+
+
+def _ln_no_affine(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def _modulate(x, shift, scale):
+    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+
+
+def _double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
+    vec_act = F.silu(vec)
+    (i_shift1, i_scale1, i_gate1, i_shift2, i_scale2,
+     i_gate2) = linear(p["img_mod"], vec_act).chunk(6, dim=-1)
+    (t_shift1, t_scale1, t_gate1, t_shift2, t_scale2,
+     t_gate2) = linear(p["txt_mod"], vec_act).chunk(6, dim=-1)
+
+    img_in = _modulate(_ln_no_affine(img), i_shift1, i_scale1)
+    txt_in = _modulate(_ln_no_affine(txt), t_shift1, t_scale1)
+    # joint [txt; img] attention (BFL order) over the raw fused qkv GEMM
+    # outputs: head split, qk-RMSNorm, RoPE and softmax in one op
+    txt_attn, img_attn = mmdit_double_attention(
+        linear(p["txt_qkv"], txt_in), linear(p["img_qkv"], img_in),
+        p["txt_qknorm"], p["img_qknorm"], cos, sin, cfg.heads, cfg.head_dim)
+
+    img = img + i_gate1[:, None, :] * linear(p["img_proj"], img_attn)
+    txt = txt + t_gate1[:, None, :] * linear(p["txt_proj"], txt_attn)
+
+    img_h = _modulate(_ln_no_affine(img), i_shift2, i_scale2)
+    img = img + i_gate2[:, None, :] * linear(
+        p["img_mlp2"], gelu_tanh(linear(p["img_mlp1"], img_h)))
+    txt_h = _modulate(_ln_no_affine(txt), t_shift2, t_scale2)
+    txt = txt + t_gate2[:, None, :] * linear(
+        p["txt_mlp2"], gelu_tanh(linear(p["txt_mlp1"], txt_h)))
+    return img, txt
+
+
+def _single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig):
+    shift, scale, gate = linear(p["mod"], F.silu(vec)).chunk(3, dim=-1)
+    x_in = _modulate(_ln_no_affine(x), shift, scale)
+    proj = linear(p["linear1"], x_in)
+    # the attention reads q/k/v in place from proj's first 3h lanes
+    out = mmdit_single_attention(proj, p["qknorm"], cos, sin, cfg.heads,
+                                 cfg.head_dim)
+    combined = torch.cat([out, gelu_tanh(proj[..., 3 * cfg.hidden:])],
+                         dim=-1)
+    return x + gate[:, None, :] * linear(p["linear2"], combined)
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+def init(cfg: FluxConfig, ini: Init) -> Params:
+    params: Params = {
+        "img_in": linear_init(ini, cfg.in_channels, cfg.hidden),
+        "txt_in": linear_init(ini, cfg.text_dim, cfg.hidden),
+        "time_in": _mlp_embedder_init(ini, cfg.time_embed_dim, cfg.hidden),
+        "vector_in": _mlp_embedder_init(ini, cfg.pooled_dim, cfg.hidden),
+        "final_mod": linear_init(ini, cfg.hidden, 2 * cfg.hidden),
+        "final_proj": linear_init(ini, cfg.hidden, cfg.out_channels),
+        "double": [_double_block_init(ini, cfg)
+                   for _ in range(cfg.depth_double)],
+        "single": [_single_block_init(ini, cfg)
+                   for _ in range(cfg.depth_single)],
+    }
+    if cfg.guidance_embed:
+        params["guidance_in"] = _mlp_embedder_init(ini, cfg.time_embed_dim,
+                                                   cfg.hidden)
+    return params
+
+
+def apply(params: Params, img_tokens: torch.Tensor,
+          txt_tokens: torch.Tensor, pooled: torch.Tensor,
+          timestep: torch.Tensor, img_ids: torch.Tensor,
+          txt_ids: torch.Tensor, cfg: FluxConfig,
+          guidance: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One velocity prediction.
+
+    img_tokens (B, S_img, in_channels) packed latents; txt_tokens
+    (B, S_txt, text_dim); pooled (B, pooled_dim); timestep (B,) sigma in
+    [0,1]; guidance (B,); img_ids/txt_ids (S, 3) RoPE position ids.
+    Returns (B, S_img, out_channels) in img_tokens' dtype."""
+    dtype = img_tokens.dtype
+    img = linear(params["img_in"], img_tokens)
+    txt = linear(params["txt_in"], txt_tokens.to(dtype))
+    vec = _mlp_embedder(params["time_in"],
+                        timestep_embedding(timestep, cfg.time_embed_dim)
+                        .to(dtype))
+    if cfg.guidance_embed:
+        if guidance is None:
+            raise ValueError("flux-dev requires a guidance value")
+        vec = vec + _mlp_embedder(
+            params["guidance_in"],
+            timestep_embedding(guidance, cfg.time_embed_dim).to(dtype))
+    vec = vec + _mlp_embedder(params["vector_in"], pooled.to(dtype))
+
+    ids = torch.cat([txt_ids, img_ids], dim=0)
+    cos, sin = rope_cos_sin(ids, cfg.axes_dim, cfg.theta)
+
+    for block in params["double"]:
+        img, txt = _double_block(block, img, txt, vec, cos, sin, cfg)
+    x = torch.cat([txt, img], dim=1)
+    for block in params["single"]:
+        x = _single_block(block, x, vec, cos, sin, cfg)
+    img = x[:, txt.shape[1]:]
+
+    shift, scale = linear(params["final_mod"], F.silu(vec)).chunk(2, dim=-1)
+    img = _modulate(_ln_no_affine(img), shift, scale)
+    return linear(params["final_proj"], img)
+
+
+# ---------------------------------------------------------------------------
+# latent packing (diffusers _pack_latents layout: channel-major, then 2x2)
+# ---------------------------------------------------------------------------
+
+def pack_latents(latents: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) NHWC latents -> (B, H/2*W/2, C*4) tokens; feature
+    index = c*4 + dy*2 + dx."""
+    b, h, w, c = latents.shape
+    x = latents.reshape(b, h // 2, 2, w // 2, 2, c)
+    x = x.permute(0, 1, 3, 5, 2, 4)            # B, h2, w2, C, dy, dx
+    return x.reshape(b, (h // 2) * (w // 2), c * 4)
+
+
+def unpack_latents(tokens: torch.Tensor, grid_h: int, grid_w: int
+                   ) -> torch.Tensor:
+    """Inverse of :func:`pack_latents` -> (B, 2*grid_h, 2*grid_w, C)."""
+    b, s, d = tokens.shape
+    c = d // 4
+    x = tokens.reshape(b, grid_h, grid_w, c, 2, 2)
+    x = x.permute(0, 1, 4, 2, 5, 3)            # B, h2, dy, w2, dx, C
+    return x.reshape(b, grid_h * 2, grid_w * 2, c)

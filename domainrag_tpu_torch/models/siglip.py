@@ -1,0 +1,85 @@
+"""SigLIP vision tower — the FLUX.1-Redux image encoder (port of
+``domainrag_tpu/models/siglip.py``).
+
+Patch tokens of SigLIP-so400m/384 (27x27 = 729 tokens, width 1152),
+``last_hidden_state`` only (post layernorm, no pooling head).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .common import (Init, Params, gelu_tanh, layernorm, layernorm_init,
+                     linear, linear_init, mha, mha_init)
+
+
+@dataclasses.dataclass(frozen=True)
+class SiglipVisionConfig:
+    image_size: int = 384
+    patch_size: int = 14
+    hidden: int = 1152
+    layers: int = 27
+    heads: int = 16
+    mlp_dim: int = 4304
+    layer_norm_eps: float = 1e-6
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def seq_len(self) -> int:
+        return self.grid ** 2
+
+
+SIGLIP_SO400M = SiglipVisionConfig()
+TINY_SIGLIP = SiglipVisionConfig(image_size=28, patch_size=7, hidden=48,
+                                 layers=2, heads=4, mlp_dim=96)
+
+
+def init(cfg: SiglipVisionConfig, ini: Init) -> Params:
+    params: Params = {
+        "patch_w": ini.normal((cfg.patch_size * cfg.patch_size * 3,
+                               cfg.hidden), 0.02),
+        "patch_b": ini.zeros((cfg.hidden,)),
+        "pos_emb": ini.normal((cfg.seq_len, cfg.hidden), 0.02),
+        "post_ln": layernorm_init(ini, cfg.hidden),
+        "blocks": [],
+    }
+    for _ in range(cfg.layers):
+        params["blocks"].append({
+            "ln1": layernorm_init(ini, cfg.hidden),
+            "attn": mha_init(ini, cfg.hidden, bias=True),
+            "ln2": layernorm_init(ini, cfg.hidden),
+            "fc1": linear_init(ini, cfg.hidden, cfg.mlp_dim),
+            "fc2": linear_init(ini, cfg.mlp_dim, cfg.hidden),
+        })
+    return params
+
+
+def _patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
+    b, h, w, c = images.shape
+    gh, gw = h // patch, w // patch
+    # floor like the HF strided conv: 384 px with patch 14 gives 27x27
+    # patches and the trailing 384 - 27*14 = 6 pixels are discarded
+    x = images[:, :gh * patch, :gw * patch]
+    x = x.reshape(b, gh, patch, gw, patch, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, gh * gw, patch * patch * c)
+
+
+def apply(params: Params, images: torch.Tensor,
+          cfg: SiglipVisionConfig = SIGLIP_SO400M) -> torch.Tensor:
+    """images (B, S, S, 3) siglip-preprocessed -> (B, seq, hidden)."""
+    dtype = images.dtype
+    x = torch.matmul(_patchify(images, cfg.patch_size),
+                     params["patch_w"].to(dtype))
+    x = x + params["patch_b"].to(dtype)
+    x = x + params["pos_emb"].to(dtype)
+    for block in params["blocks"]:
+        h = layernorm(block["ln1"], x, cfg.layer_norm_eps)
+        x = x + mha(block["attn"], h, cfg.heads)
+        h = layernorm(block["ln2"], x, cfg.layer_norm_eps)
+        x = x + linear(block["fc2"], gelu_tanh(linear(block["fc1"], h)))
+    return layernorm(params["post_ln"], x, cfg.layer_norm_eps)

@@ -1,0 +1,119 @@
+"""T5 v1.1 encoder — Flux's T5-XXL text encoder (port of
+``domainrag_tpu/models/t5.py:41-139``).
+
+RMSNorm (no mean subtraction), relative position bias computed from
+block 0's table and shared by all layers, UNSCALED attention logits (T5
+bakes the 1/sqrt(d) into init), gated-gelu MLP, final RMSNorm. Runs in
+f32, the dtype the JAX package's ``encode_prompt`` runs it in.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from .common import (Init, Params, linear, linear_init, rmsnorm,
+                     rmsnorm_init)
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_kv: int = 64
+    d_ff: int = 10240
+    layers: int = 24
+    heads: int = 64
+    rel_buckets: int = 32
+    rel_max_distance: int = 128
+    layer_norm_eps: float = 1e-6
+
+
+T5_XXL = T5Config()
+TINY_T5 = T5Config(vocab_size=120, d_model=32, d_kv=8, d_ff=64, layers=2,
+                   heads=4)
+
+
+def relative_position_bucket(relative_position: torch.Tensor,
+                             num_buckets: int = 32,
+                             max_distance: int = 128) -> torch.Tensor:
+    """Bidirectional bucketing (transformers
+    ``T5Attention._relative_position_bucket``)."""
+    num_buckets //= 2
+    ret = (relative_position > 0).to(torch.int64) * num_buckets
+    n = relative_position.abs()
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    val_if_large = max_exact + (
+        torch.log(n.float() / max_exact + 1e-9)
+        / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)).to(torch.int64)
+    val_if_large = torch.clamp(val_if_large, max=num_buckets - 1)
+    return ret + torch.where(is_small, n, val_if_large)
+
+
+def init(cfg: T5Config, ini: Init) -> Params:
+    inner = cfg.heads * cfg.d_kv
+    params: Params = {"embed": ini.normal((cfg.vocab_size, cfg.d_model), 1.0),
+                      "final_norm": rmsnorm_init(ini, cfg.d_model),
+                      "blocks": []}
+    for i in range(cfg.layers):
+        attn = {
+            "q": linear_init(ini, cfg.d_model, inner, bias=False),
+            "k": linear_init(ini, cfg.d_model, inner, bias=False),
+            "v": linear_init(ini, cfg.d_model, inner, bias=False),
+            "o": linear_init(ini, inner, cfg.d_model, bias=False),
+        }
+        if i == 0:
+            attn["rel_bias"] = ini.normal((cfg.rel_buckets, cfg.heads), 0.02)
+        params["blocks"].append({
+            "ln_attn": rmsnorm_init(ini, cfg.d_model),
+            "attn": attn,
+            "ln_ff": rmsnorm_init(ini, cfg.d_model),
+            "wi_0": linear_init(ini, cfg.d_model, cfg.d_ff, bias=False),
+            "wi_1": linear_init(ini, cfg.d_model, cfg.d_ff, bias=False),
+            "wo": linear_init(ini, cfg.d_ff, cfg.d_model, bias=False),
+        })
+    return params
+
+
+def _self_attention(p: Params, x: torch.Tensor, bias: torch.Tensor,
+                    cfg: T5Config) -> torch.Tensor:
+    b, s, _ = x.shape
+
+    def heads(t):
+        return t.reshape(b, s, cfg.heads, cfg.d_kv).transpose(1, 2)
+
+    q = heads(linear(p["q"], x))
+    k = heads(linear(p["k"], x))
+    v = heads(linear(p["v"], x))
+    # NO 1/sqrt(d) scaling (T5 convention)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) + bias
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs.to(v.dtype), v)
+    out = out.transpose(1, 2).reshape(b, s, cfg.heads * cfg.d_kv)
+    return linear(p["o"], out)
+
+
+def apply(params: Params, token_ids: torch.Tensor, cfg: T5Config = T5_XXL
+          ) -> torch.Tensor:
+    """token_ids (B, S) -> encoder hidden states (B, S, d_model), f32."""
+    s = token_ids.shape[1]
+    x = params["embed"].float()[token_ids.long()]
+    pos = torch.arange(s, device=token_ids.device)
+    rel = pos[None, :] - pos[:, None]                    # key - query
+    buckets = relative_position_bucket(rel, cfg.rel_buckets,
+                                       cfg.rel_max_distance)
+    table = params["blocks"][0]["attn"]["rel_bias"].float()
+    bias = table[buckets].permute(2, 0, 1)[None]         # (1, H, S, S)
+    for block in params["blocks"]:
+        h = rmsnorm(block["ln_attn"], x, cfg.layer_norm_eps)
+        x = x + _self_attention(block["attn"], h, bias, cfg)
+        h = rmsnorm(block["ln_ff"], x, cfg.layer_norm_eps)
+        gated = torch.nn.functional.gelu(linear(block["wi_0"], h),
+                                         approximate="tanh") \
+            * linear(block["wi_1"], h)
+        x = x + linear(block["wo"], gated)
+    return rmsnorm(params["final_norm"], x, cfg.layer_norm_eps)

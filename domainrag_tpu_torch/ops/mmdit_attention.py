@@ -1,0 +1,236 @@
+"""Fused MMDiT attention (port of ``domainrag_tpu/ops/mmdit_attention.py``).
+
+Two entry points replace the whole per-block attention chain of the Flux
+MMDiT — head split, qk-RMSNorm, interleaved RoPE, softmax and the output
+merge — reading q/k/v straight from the fused qkv GEMM output in its
+(B, S, W) lane layout and writing (B, S, H*128):
+
+- :func:`mmdit_double_attention` replaces the TPU ``_joint_kernel``
+  (ops/mmdit_attention.py:400): joint [txt; img] attention over the two
+  streams of a double block;
+- :func:`mmdit_single_attention` replaces the TPU ``_seq_kernel``
+  (ops/mmdit_attention.py:328): one stream whose first 3*H*128 lanes
+  are q/k/v (the single block's MLP lanes are never read).
+
+On a CUDA tensor each launches the hand-written Hopper kernels of
+``csrc/mmdit_attention.cu`` (its header states the bound and the design)
+or raises; it never falls back. On a CPU tensor it runs the plain
+version, :func:`reference_double` / :func:`reference_single`, which
+mirror the JAX ``_reference_double`` / ``_reference_single`` (:189-211):
+dense f32 scores and softmax, probabilities rounded to the input dtype.
+The kernels fold the log2(e)/sqrt(128) prescale into q before its bf16
+round and stream K/V with an online softmax, so they agree with the
+plain version to |err| <= 4e-3 + 2e-2*|ref| per element and 1e-2 in
+relative Frobenius norm in bf16, not bit for bit.
+
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence, Tuple
+
+import torch
+
+LOG2_E = 1.4426950408889634
+_EPS = 1e-6             # qk-rmsnorm epsilon (models.common.rmsnorm)
+HEAD_DIM = 128          # the only head width the kernels take
+
+
+# ---------------------------------------------------------------------------
+# plain version (the CPU path and the kernels' oracle)
+# ---------------------------------------------------------------------------
+
+def _rms(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + _EPS)
+    return (y * w.float()).to(x.dtype)
+
+
+def rope_interleaved(x: torch.Tensor, cos: torch.Tensor,
+                     sin: torch.Tensor) -> torch.Tensor:
+    """x (B, H, S, D); cos/sin (S, D/2). The pair (x[2i], x[2i+1])
+    rotates by angle i — not the half-split ``rotate_half`` layout."""
+    shape = x.shape
+    xf = x.float().reshape(*shape[:-1], shape[-1] // 2, 2)
+    x0, x1 = xf[..., 0], xf[..., 1]
+    c, s = cos.float(), sin.float()
+    out = torch.stack([x0 * c - x1 * s, x0 * s + x1 * c], dim=-1)
+    return out.reshape(shape).to(x.dtype)
+
+
+def _split_heads(qkv: torch.Tensor, heads: int, head_dim: int):
+    b, s, _ = qkv.shape
+    qkv = qkv[..., :3 * heads * head_dim].reshape(b, s, 3, heads, head_dim)
+    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def attention_reference(q, k, v) -> torch.Tensor:
+    """Dense attention over (B, H, S, D); f32 scores and softmax, the
+    probabilities rounded to q's dtype for the P.V product."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs.float(), v.float()).to(q.dtype)
+
+
+def prenormed_double(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i, cos, sin,
+                     heads: int, head_dim: int):
+    """(q, k, v) in (B, H, S_txt + S_img, D), q/k normed and roped."""
+    tq, tk, tv = _split_heads(txt_qkv, heads, head_dim)
+    iq, ik, iv = _split_heads(img_qkv, heads, head_dim)
+    q = torch.cat([_rms(tq, wq_t), _rms(iq, wq_i)], dim=2)   # text first
+    k = torch.cat([_rms(tk, wk_t), _rms(ik, wk_i)], dim=2)
+    v = torch.cat([tv, iv], dim=2)
+    return rope_interleaved(q, cos, sin), rope_interleaved(k, cos, sin), v
+
+
+def prenormed_single(proj, wq, wk, cos, sin, heads: int, head_dim: int):
+    q, k, v = _split_heads(proj, heads, head_dim)
+    return (rope_interleaved(_rms(q, wq), cos, sin),
+            rope_interleaved(_rms(k, wk), cos, sin), v)
+
+
+def reference_double(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i, cos, sin,
+                     heads: int, head_dim: int):
+    q, k, v = prenormed_double(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i,
+                               cos, sin, heads, head_dim)
+    out = _merge_heads(attention_reference(q, k, v))
+    t_len = txt_qkv.shape[1]
+    return out[:, :t_len], out[:, t_len:]
+
+
+def reference_single(proj, wq, wk, cos, sin, heads: int, head_dim: int):
+    q, k, v = prenormed_single(proj, wq, wk, cos, sin, heads, head_dim)
+    return _merge_heads(attention_reference(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# kernel launch
+# ---------------------------------------------------------------------------
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from . import _build
+        lib = _build.load("mmdit_attention")
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.mmdit_attention.argtypes = [
+            p, ll, ll, i, p, ll, ll, i, p, p, p, p, p, p, p, p, p, p,
+            i, i, ctypes.c_float, p]
+        lib.mmdit_attention.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check_stream(x: torch.Tensor, heads: int, what: str) -> None:
+    if x.dtype != torch.bfloat16 or x.dim() != 3:
+        raise ValueError(f"{what}: expected a (B, S, W) bf16 tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.shape[-1] < 3 * heads * HEAD_DIM or x.stride(-1) != 1:
+        raise ValueError(f"{what}: needs >= {3 * heads * HEAD_DIM} "
+                         f"unit-stride lanes, got shape {tuple(x.shape)} "
+                         f"strides {x.stride()}")
+    if x.data_ptr() % 16 or x.stride(0) % 8 or x.stride(1) % 8:
+        raise ValueError(f"{what}: rows must be 16-byte aligned "
+                         f"(strides {x.stride()})")
+
+
+def _launch(streams: Sequence[torch.Tensor],
+            norm_w: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+            cos: torch.Tensor, sin: torch.Tensor, heads: int,
+            head_dim: int):
+    """One or two row sources -> one (B, S_i, H*128) output per source."""
+    if head_dim != HEAD_DIM:
+        raise ValueError(f"the CUDA kernels take head_dim {HEAD_DIM} only, "
+                         f"got {head_dim}")
+    dev = streams[0].device
+    b = streams[0].shape[0]
+    for i, x in enumerate(streams):
+        _check_stream(x, heads, f"stream {i}")
+        if x.device != dev or x.shape[0] != b:
+            raise ValueError("streams differ in device or batch")
+    lens = [x.shape[1] for x in streams]
+    s_tot = sum(lens)
+    half = head_dim // 2
+    cos = cos.to(device=dev, dtype=torch.float32).contiguous()
+    sin = sin.to(device=dev, dtype=torch.float32).contiguous()
+    if cos.shape != (s_tot, half) or sin.shape != (s_tot, half):
+        raise ValueError(f"cos/sin must be ({s_tot}, {half}), got "
+                         f"{tuple(cos.shape)}")
+    ws = [tuple(w.to(device=dev, dtype=torch.float32).contiguous()
+                for w in pair) for pair in norm_w]
+    for w in (t for pair in ws for t in pair):
+        if w.shape != (head_dim,):
+            raise ValueError(f"norm weights must be ({head_dim},)")
+    qs = torch.empty((b, heads, s_tot, head_dim), dtype=torch.bfloat16,
+                     device=dev)
+    ks = torch.empty_like(qs)
+    outs = [torch.empty((b, n, heads * head_dim), dtype=torch.bfloat16,
+                        device=dev) for n in lens]
+    a, bb = streams[0], streams[-1]
+    (wq_a, wk_a), (wq_b, wk_b) = ws[0], ws[-1]
+    s_b = lens[1] if len(streams) == 2 else 0
+    rc = _lib().mmdit_attention(
+        a.data_ptr(), a.stride(0), a.stride(1), lens[0],
+        bb.data_ptr(), bb.stride(0), bb.stride(1), s_b,
+        wq_a.data_ptr(), wk_a.data_ptr(), wq_b.data_ptr(), wk_b.data_ptr(),
+        cos.data_ptr(), sin.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+        outs[0].data_ptr(), outs[-1].data_ptr(), b, heads,
+        LOG2_E / math.sqrt(head_dim),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mmdit_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
+def mmdit_double_attention(txt_qkv, img_qkv, txt_qknorm, img_qknorm,
+                           cos, sin, heads: int, head_dim: int):
+    """Joint [txt; img] attention from the two raw qkv GEMM outputs.
+
+    txt_qkv/img_qkv: (B, S, 3*heads*head_dim) fused projections;
+    *_qknorm: rmsnorm param dicts ({"q": {"scale"}, "k": {"scale"}});
+    cos/sin: RoPE tables (S_txt + S_img, head_dim/2), text rows first.
+    Returns (txt_attn, img_attn), each (B, S, heads*head_dim)."""
+    wq_t, wk_t = txt_qknorm["q"]["scale"], txt_qknorm["k"]["scale"]
+    wq_i, wk_i = img_qknorm["q"]["scale"], img_qknorm["k"]["scale"]
+    if txt_qkv.device.type == "cpu":
+        return reference_double(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i,
+                                cos, sin, heads, head_dim)
+    out_t, out_i = _launch([txt_qkv, img_qkv], [(wq_t, wk_t), (wq_i, wk_i)],
+                           cos, sin, heads, head_dim)
+    mmdit_double_attention.launches += 1
+    return out_t, out_i
+
+
+def mmdit_single_attention(proj, qknorm, cos, sin, heads: int,
+                           head_dim: int):
+    """Attention over one joint stream from the fused linear1 output.
+
+    proj: (B, S, W) with q/k/v in the first 3*heads*head_dim lanes (the
+    trailing MLP lanes are not read). Returns (B, S, heads*head_dim)."""
+    wq, wk = qknorm["q"]["scale"], qknorm["k"]["scale"]
+    if proj.device.type == "cpu":
+        return reference_single(proj, wq, wk, cos, sin, heads, head_dim)
+    (out,) = _launch([proj], [(wq, wk)], cos, sin, heads, head_dim)
+    mmdit_single_attention.launches += 1
+    return out
+
+
+mmdit_double_attention.launches = 0
+mmdit_single_attention.launches = 0
