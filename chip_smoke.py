@@ -8,27 +8,53 @@ Run from the repository root with no arguments::
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
-2. build every CUDA kernel of the stage-3 path from ``csrc/`` (one ``nvcc``
-   per source, started together) and print the compiler's register report;
-3. each kernel at its full-width main-path shape (B = 1, 24 heads x 128,
-   1241 text + 4096 image tokens, single-block rows 21504 wide) against
-   its plain PyTorch version, with its time, the plain version's, one
-   PyTorch library call's (SDPA on pre-normed q/k/v, a yardstick only)
-   and the least time the card could take (``bound_ms``);
-4. the slice on a small input: a head_dim-128 toy bundle generates on the
-   card (kernels) and on the CPU (plain versions) from the same weights
-   and noise, and the images must agree;
-5. the slice at full width: a random FLUX.1-dev bundle (MMDiT, T5-XXL,
-   CLIP-L, SigLIP so400m, Redux, VAE; ~46 GB) drawn on the card, and
-   ``GenerateStage.generate_sample`` on a synthetic sample at 1024x1024,
-   cut to 4 denoise steps (stage default 50) and 2 ranks (default 5),
-   denoised one rank at a time. It checks the written PNGs, that the
-   image was finite before quantisation, and that every kernel ran 19 or
-   38 times per step per rank chunk;
-6. one full-width denoise step (batch 1, 1024 px) under
+2. build every CUDA kernel of the stage-3 and stage-4 paths from
+   ``csrc/`` (one ``nvcc`` per source, started together) and print the
+   compiler's register report;
+3. each one-pass kernel at its full-width main-path shape (B = 1, 24
+   heads x 128, 1241 text + 4096 image tokens, single-block rows 21504
+   wide) against its plain PyTorch version, with its time, the plain
+   version's, one PyTorch library call's (SDPA on pre-normed q/k/v, a
+   yardstick only) and the least time the card could take
+   (``bound_ms``);
+4. the same for the multi-pass kernel (joint lengths above 17408) at the
+   fill's lengths: 1241 + 16384 = 17625 tokens (2048 px) and 1241 +
+   30625 = 31866 (the 2800 px cap), both variants at B = 1, and the
+   single variant at B = 4 x 31866, whose element offsets pass 2^31
+   (compared on its last batch element), each against the multi-pass
+   plain version;
+5. the stage-3 slice on a small input: a head_dim-128 toy bundle
+   generates on the card (kernels) and on the CPU (plain versions) from
+   the same weights and noise, and the images must agree;
+6. the stage-4 fill on a small input: a head_dim-128 toy Fill bundle with
+   the one-pass ceiling lowered (so the toy runs the multi-pass kernel)
+   and the VAE tiled, on the card and on the CPU, from the same weights
+   and noise;
+7. the stage-3 slice at full width: a random FLUX.1-dev bundle (MMDiT,
+   T5-XXL, CLIP-L, SigLIP so400m, Redux, VAE; ~46 GB) drawn on the card,
+   and ``GenerateStage.generate_sample`` on a synthetic sample at
+   1024x1024, cut to 4 denoise steps (stage default 50) and 2 ranks
+   (default 5), denoised one rank at a time. It checks the written PNGs,
+   that the image was finite before quantisation, and that every
+   one-pass kernel ran 19 or 38 times per step per rank chunk (the
+   multi-pass one never);
+8. one full-width denoise step (batch 1, 1024 px) under
    ``torch.profiler``, its device time grouped into the attention
-   kernels, the GEMMs and the rest (full table in
-   ``chiprun_out/chip_smoke/profile.txt``).
+   kernels, the GEMMs and the rest (full table in ``profile.txt`` under
+   ``OUT``, the script's output directory);
+9. stage 4 at full width: the stage-3 bundle is freed and a random
+   FLUX.1-Fill-dev bundle drawn (384 input channels), and
+   ``compose.process_dataset`` runs a synthetic UODD 1-shot dataset (one
+   1024x1024 sample, two bboxes) whose two backgrounds are phase 7's
+   PNGs. UODD's parameters lift it to 2048x2048 (17625 tokens, the
+   multi-pass regime), strength 0.4, guidance 30, the VAE tiled (9 tiles
+   per encode and decode). Cuts: 10 steps (stage default 50, so 4 denoise
+   steps instead of 20), 2 backgrounds (default 5), ``max_rank_batch``
+   1. It checks every artifact, finiteness, and that the multi-pass
+   kernel ran 19 or 38 times per step per background and the one-pass
+   one never;
+10. one full-width fill denoise step (batch 1, 2048 px, 384 channels)
+    under ``torch.profiler`` (full table in ``OUT/profile_fill.txt``).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -36,6 +62,7 @@ Then a ``{"kernels": [...]}`` line and, last, the device line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -53,6 +80,8 @@ STEPS = 4                 # cut: the stage default is 50
 RANKS = 2                 # cut: the stage default is 5 retrieval ranks
 MAX_RANK_BATCH = 1        # ranks denoised one at a time
 SIZE = 1024               # the stage default resolution
+FILL_STEPS = 10           # cut: the compose default is 50
+FILL_SIZE = 2048          # UODD's upscale of the 1024 px sample
 S_TXT = 512 + 729         # T5 tokens + Redux image tokens
 HEADS, HD = 24, 128
 # Kernel vs plain version, bf16: every element within ATOL + RTOL*|plain|
@@ -66,10 +95,10 @@ PEAK_BF16 = 989e12        # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bytes/s
 
 
-def _ms(fn, reps: int) -> float:
+def _ms(fn, reps: int, warmup: int = 2) -> float:
     """Median CUDA-event time of one call, after a warm-up."""
     import torch
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = []
@@ -96,6 +125,12 @@ def _bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
+def _weight_bytes(bundle) -> int:
+    return sum(_bytes(getattr(bundle, f.name))
+               for f in dataclasses.fields(bundle)
+               if f.name.endswith("_params"))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -119,14 +154,75 @@ def phase_build():
                 print(f"  ptxas: {line.strip()}")
 
 
-def _rope_tables(dev):
+def _rope_tables(dev, grid=SIZE // 16):
     import torch
     from domainrag_tpu_torch.models.flux import model as fm
-    grid = SIZE // 16
     ids = np.concatenate([fm.make_text_ids(S_TXT),
                           fm.make_image_ids(grid, grid)])
     return fm.rope_cos_sin(torch.as_tensor(ids, device=dev),
                            fm.FLUX_DEV.axes_dim, fm.FLUX_DEV.theta)
+
+
+def _bound(batch, s_tot):
+    """The least time for one attention call: two S x S x 128 products per
+    head at the bf16 peak, or the bytes (q/k/v lanes read once, the output
+    written once, the f32 RoPE tables read once) at the memory rate."""
+    hd = HEADS * HD
+    ops = 4.0 * batch * HEADS * s_tot * s_tot * HD / PEAK_BF16 * 1e3
+    nbytes = (batch * 4 * s_tot * hd * 2 + 2 * s_tot * (HD // 2) * 4) \
+        / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops, nbytes),
+            "bound_by": "operations" if ops >= nbytes else "bytes"}
+
+
+def _check(name, got, want):
+    """Kernel vs plain: raises unless within the tolerance; returns the
+    max abs error."""
+    err = (got.float() - want.float()).abs()
+    max_abs = err.max().item()
+    rel = max_abs / max(want.float().abs().max().item(), 1e-30)
+    rel_norm = (err.norm() / want.float().norm()).item()
+    ok = (bool((err <= ATOL + RTOL * want.float().abs()).all())
+          and rel_norm < REL_NORM)
+    print(f"kernel {name}: max_abs_err {max_abs:.3e} rel {rel:.3e} "
+          f"rel_norm {rel_norm:.3e} (tol {ATOL} + {RTOL}*|ref|, norm "
+          f"{REL_NORM})")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return max_abs
+
+
+def _cat(x):
+    import torch
+    return torch.cat(x, 1) if isinstance(x, tuple) else x
+
+
+def _row(name, replaces, kernel, plain, prenormed, bound, reps,
+         compare=None):
+    """One kernel's line: held against its plain version (on ``compare``'s
+    pair when given, else on the whole outputs), then timed beside the
+    plain version and SDPA on the pre-normed q/k/v (B, H, S, D).
+    ``reps``: (kernel, plain, plain warm-up, SDPA) repetitions."""
+    import torch
+    import torch.nn.functional as F
+    got, want = compare() if compare else (_cat(kernel()), _cat(plain()))
+    torch.cuda.synchronize()
+    max_abs = _check(name, got, want)
+    del got, want
+    row = {"name": name, "route": "cuda",
+           "source": "domainrag_tpu_torch/csrc/mmdit_attention.cu",
+           "replaces": f"domainrag_tpu/{replaces}",
+           "launches": 0, "max_abs_err": max_abs,
+           "ms": _ms(kernel, reps[0]),
+           "plain_ms": _ms(plain, reps[1], reps[2]), **bound}
+    q, k, v = prenormed()
+    row["library_ms"] = _ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                            reps[3])
+    del q, k, v
+    print(f"kernel {name}: ms {row['ms']:.3f} plain_ms "
+          f"{row['plain_ms']:.3f} library_ms {row['library_ms']:.3f} "
+          f"bound_ms {row['bound_ms']:.3f} ({row['bound_by']})")
+    return row
 
 
 def phase_kernels(dev):
@@ -166,57 +262,117 @@ def phase_kernels(dev):
          lambda: mma.reference_single(proj, *w(sn), cos, sin, HEADS, HD),
          lambda: mma.prenormed_single(proj, *w(sn), cos, sin, HEADS, HD)),
     ]
-    # the work: two S x S x 128 products per head; the bytes: q/k/v lanes
-    # read once, the output written once, the f32 RoPE tables read once
-    flops = 4.0 * HEADS * s_tot * s_tot * HD
-    nbytes = 4 * s_tot * hd * 2 + 2 * s_tot * (HD // 2) * 4
-    bound_ops, bound_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = _bound(1, s_tot)
+    return {case[0]: _row(*case, bound, (20, 5, 2, 20)) for case in cases}
+
+
+def phase_mp_kernels(dev):
+    """The multi-pass kernel at the fill's joint lengths (B3), against the
+    multi-pass plain version: 2048 px and the 2800 px cap, both variants,
+    and the single variant at B = 4 x 31866 (its last batch element lies
+    past 2^31 elements into the GEMM output; compared there)."""
+    import torch
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    hd = HEADS * HD
+
+    def norm():
+        return {"q": {"scale": 0.5 + torch.rand(HD, generator=g, device=dev)},
+                "k": {"scale": 0.5 + torch.rand(HD, generator=g, device=dev)}}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    def heads(x):
+        b, s, _ = x.shape
+        return x.reshape(b, s, HEADS, HD).transpose(1, 2)
+
+    w = lambda n: (n["q"]["scale"], n["k"]["scale"])     # noqa: E731
+    replaces = "ops/mmdit_attention.py:533"
     rows = {}
-    for name, replaces, kernel, plain, prenormed in cases:
-        got, want = (torch.cat(x, 1) if isinstance(x, tuple) else x
-                     for x in (kernel(), plain()))
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        max_abs = err.max().item()
-        rel = max_abs / max(want.float().abs().max().item(), 1e-30)
-        rel_norm = (err.norm() / want.float().norm()).item()
-        ok = (bool((err <= ATOL + RTOL * want.float().abs()).all())
-              and rel_norm < REL_NORM)
-        del got, want, err
-        q, k, v = prenormed()
-        rows[name] = {
-            "name": name, "route": "cuda",
-            "source": "domainrag_tpu_torch/csrc/mmdit_attention.cu",
-            "replaces": f"domainrag_tpu/{replaces}",
-            "launches": 0, "max_abs_err": max_abs,
-            "ms": _ms(kernel, 20), "plain_ms": _ms(plain, 5),
-            "bound_ms": max(bound_ops, bound_bytes),
-            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-            "library_ms": _ms(
-                lambda: F.scaled_dot_product_attention(q, k, v), 20),
-        }
-        del q, k, v
-        print(f"kernel {name}: max_abs_err {max_abs:.3e} rel {rel:.3e} "
-              f"rel_norm {rel_norm:.3e} (tol {ATOL} + {RTOL}*|ref|, norm "
-              f"{REL_NORM}) ms {rows[name]['ms']:.3f} "
-              f"plain_ms {rows[name]['plain_ms']:.3f} library_ms "
-              f"{rows[name]['library_ms']:.3f} bound_ms "
-              f"{rows[name]['bound_ms']:.3f} ({rows[name]['bound_by']})")
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version")
+    for grid, batch in ((FILL_SIZE // 16, 1), (2800 // 16, 1),
+                        (2800 // 16, 4)):
+        s_img = grid * grid
+        s_tot = S_TXT + s_img
+        if s_tot <= mma._MAX_ONEPASS:
+            raise AssertionError(f"{s_tot} tokens stay in the one-pass "
+                                 "regime")
+        cos, sin = _rope_tables(dev, grid)
+        suffix = f"_s{s_tot}_b{batch}"
+        if batch == 1:
+            txt, img = randn(1, S_TXT, 3 * hd), randn(1, s_img, 3 * hd)
+            tn, inorm = norm(), norm()
+            name = "mmdit_mp_joint_attention" + suffix
+
+            def prenormed_double():
+                def prep(part, which):
+                    lanes = slice(part * hd, (part + 1) * hd)
+                    return heads(torch.cat([
+                        mma.prep_norm_rope(txt[..., lanes],
+                                           tn[which]["scale"],
+                                           cos[:S_TXT], sin[:S_TXT]),
+                        mma.prep_norm_rope(img[..., lanes],
+                                           inorm[which]["scale"],
+                                           cos[S_TXT:], sin[S_TXT:])], 1))
+                return prep(0, "q"), prep(1, "k"), heads(torch.cat(
+                    [txt[..., 2 * hd:], img[..., 2 * hd:]], 1))
+
+            rows[name] = _row(
+                name, replaces,
+                lambda: mma.mmdit_double_attention(
+                    txt, img, tn, inorm, cos, sin, HEADS, HD),
+                lambda: mma.reference_mp_double(
+                    txt, img, *w(tn), *w(inorm), cos, sin, HEADS, HD),
+                prenormed_double, _bound(1, s_tot), (10, 2, 1, 10))
+            del txt, img
+        proj, sn = randn(batch, s_tot, 7 * hd), norm()
+        name = "mmdit_mp_seq_attention" + suffix
+
+        def prenormed_single():
+            return (heads(mma.prep_norm_rope(proj[..., :hd], sn["q"]["scale"],
+                                             cos, sin)),
+                    heads(mma.prep_norm_rope(proj[..., hd:2 * hd],
+                                             sn["k"]["scale"], cos, sin)),
+                    heads(proj[..., 2 * hd:3 * hd]))
+
+        def last_element():
+            got = mma.mmdit_single_attention(proj, sn, cos, sin, HEADS, HD)
+            return got[-1:], mma.reference_mp_single(
+                proj[-1:], *w(sn), cos, sin, HEADS, HD)
+
+        rows[name] = _row(
+            name, replaces,
+            lambda: mma.mmdit_single_attention(proj, sn, cos, sin, HEADS, HD),
+            lambda: mma.reference_mp_single(proj, *w(sn), cos, sin, HEADS,
+                                            HD),
+            prenormed_single, _bound(batch, s_tot),
+            (10, 1 if batch > 1 else 2, 1, 10),
+            compare=last_element if batch > 1 else None)
+        del proj
+        torch.cuda.empty_cache()
     return rows
 
 
-def _small_bundle(dev):
+def _small_bundle(dev, fill=False):
     """A toy bundle whose MMDiT has head_dim 128 (the kernels' width)."""
     import torch
     from domainrag_tpu_torch.models.flux import pipeline as fp
-    cfgs = fp.tiny_configs()
+    cfgs = fp.tiny_configs(fill)
     cfgs["flux_cfg"] = dataclasses.replace(
         cfgs["flux_cfg"], hidden=256, heads=2, head_dim=128, depth_double=2,
         depth_single=2, axes_dim=(16, 56, 56))
     return fp._random_bundle(cfgs, 7, torch.device("cpu"), torch.bfloat16,
                              torch.bfloat16, **fp.tiny_tokenizers(cfgs))
+
+
+def _to_card(cpu, dev):
+    return dataclasses.replace(
+        cpu, device=dev,
+        **{f.name: _tree(lambda t: t.to(dev), getattr(cpu, f.name))
+           for f in dataclasses.fields(cpu) if f.name.endswith("_params")})
 
 
 def phase_small_slice(dev):
@@ -225,10 +381,7 @@ def phase_small_slice(dev):
     import torch
     from domainrag_tpu_torch.models.flux import pipeline as fp
     cpu = _small_bundle(dev)
-    card = dataclasses.replace(
-        cpu, device=dev,
-        **{f.name: _tree(lambda t: t.to(dev), getattr(cpu, f.name))
-           for f in dataclasses.fields(cpu) if f.name.endswith("_params")})
+    card = _to_card(cpu, dev)
     uniq = np.random.default_rng(1).uniform(
         -1, 1, (3, 28, 28, 3)).astype(np.float32)
     pairs = np.asarray([[0, 2], [1, 2]])
@@ -252,6 +405,59 @@ def phase_small_slice(dev):
         raise AssertionError("small slice: card and CPU images disagree")
 
 
+def phase_small_fill(dev):
+    """Small fill: a toy Fill bundle (head_dim 128, bf16) on the card and
+    on the CPU from the same weights, image, mask and noise, with the
+    one-pass ceiling lowered so that its 288 tokens run the multi-pass
+    kernel and the VAE tiled (16 tiles of 12 latent cells, ragged at the
+    edge). Same limits as the stage-3 small slice."""
+    import torch
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+    from domainrag_tpu_torch.models.flux import pipeline as fp
+    from domainrag_tpu_torch.models.flux import scheduler as sched
+    cpu = _small_bundle(dev, fill=True)
+    card = _to_card(cpu, dev)
+    rng = np.random.default_rng(2)
+    size, steps, strength = 64, 4, 0.75
+    image = fp.from_uint8(rng.integers(0, 255, (1, size, size, 3), np.uint8))
+    mask = np.ones((1, size, size), np.float32)
+    mask[:, 16:40, 8:30] = 0.0                 # keep region
+    px = rng.uniform(-1, 1, (1, 1, 28, 28, 3)).astype(np.float32)
+    seq = (size // cpu.latent_factor) ** 2
+    noise = torch.randn((1, seq, cpu.vae_cfg.latent_channels * 4),
+                        generator=torch.Generator().manual_seed(4))
+    sigmas = torch.as_tensor(sched.make_schedule(
+        steps, image_seq_len=seq, strength=strength).sigmas)
+    gate = mma._MAX_ONEPASS
+    mma._MAX_ONEPASS = 64
+    try:
+        before = mma.mmdit_double_attention.mp_launches
+        images = []
+        for bundle in (card, cpu):
+            e, p = fp.redux_prior_pairs(bundle, px, "", [1.0], [1.0])
+            dt, d = bundle.compute_dtype, bundle.device
+            with torch.inference_mode():
+                images.append(fp._fill_float(
+                    bundle, torch.as_tensor(image, device=d).to(dt),
+                    torch.as_tensor(mask, device=d).to(dt),
+                    noise.to(device=d, dtype=dt), e, p, sigmas.to(d), 30.0,
+                    hires=True, vae_tile=12, vae_overlap=4
+                ).float().cpu())
+        mp = mma.mmdit_double_attention.mp_launches - before
+    finally:
+        mma._MAX_ONEPASS = gate
+    diff = (images[0] - images[1]).abs()
+    print(f"small fill ({size} px, {steps} steps x strength {strength}, "
+          f"head_dim 128, multi-pass kernel {mp} double launches, tiled "
+          f"VAE): card vs CPU image max abs diff {diff.max().item():.3e} "
+          f"mean {diff.mean().item():.3e}")
+    if mp == 0:
+        raise AssertionError("small fill: the multi-pass kernel never ran")
+    if not (bool(torch.isfinite(images[0]).all())
+            and diff.mean().item() < 7e-3 and diff.max().item() < 5e-2):
+        raise AssertionError("small fill: card and CPU images disagree")
+
+
 def phase_slice(dev, rows):
     import torch
     from PIL import Image
@@ -268,11 +474,8 @@ def phase_slice(dev, rows):
     t0 = time.perf_counter()
     bundle = fp.full_bundle(seed=0)
     torch.cuda.synchronize()
-    weight_bytes = sum(_bytes(getattr(bundle, f.name))
-                       for f in dataclasses.fields(bundle)
-                       if f.name.endswith("_params"))
-    print(f"full-width bundle: {weight_bytes / 1e9:.2f} GB of weights drawn "
-          f"on the card in {time.perf_counter() - t0:.1f} s")
+    print(f"full-width bundle: {_weight_bytes(bundle) / 1e9:.2f} GB of "
+          f"weights drawn on the card in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
     inputs = OUT / "inputs"
@@ -297,24 +500,14 @@ def phase_slice(dev, rows):
         redux=ReduxConfig(), top_ranks=RANKS, max_rank_batch=MAX_RANK_BATCH)
 
     torch.cuda.reset_peak_memory_stats()
-    mma.mmdit_double_attention.launches = 0
-    mma.mmdit_single_attention.launches = 0
+    _reset_counts(mma)
     fp.generate.nonfinite_images = 0
     timer = StepTimer(sync=torch.cuda.synchronize)
     paths = GenerateStage(bundle, cfg).generate_sample(
         "sample0", target, refs, str(OUT / "sample0"), timer=timer)
     torch.cuda.synchronize()
-    launches = {"mmdit_joint_attention": mma.mmdit_double_attention.launches,
-                "mmdit_seq_attention": mma.mmdit_single_attention.launches}
     chunks = math.ceil(RANKS / MAX_RANK_BATCH)
-    depth = bundle.flux_cfg                 # 19 double + 38 single blocks
-    expected = {"mmdit_joint_attention": depth.depth_double * STEPS * chunks,
-                "mmdit_seq_attention": depth.depth_single * STEPS * chunks}
-    print(f"launches on the main path: {launches} (expected {expected})")
-    if launches != expected:
-        raise AssertionError("kernel launch counts differ from the path")
-    for name, n in launches.items():
-        rows[name]["launches"] = n
+    _read_counts(mma, rows, "one-pass", bundle.flux_cfg, STEPS * chunks)
 
     if len(paths) != RANKS:
         raise AssertionError(f"{len(paths)} images for {RANKS} ranks")
@@ -333,20 +526,47 @@ def phase_slice(dev, rows):
           f"stage spans { {k: round(v, 3) for k, v in timer.totals.items()} }"
           f", max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return bundle
+    return bundle, paths
 
 
-def phase_profile(bundle):
-    """One full-width denoise step (batch 1, 1024 px, random latents and
-    conditioning) under torch.profiler: device time per kernel, grouped,
-    beside the wall time of the same step untraced."""
+def _reset_counts(mma):
+    for wrapper in (mma.mmdit_double_attention, mma.mmdit_single_attention):
+        wrapper.launches = wrapper.mp_launches = 0
+
+
+def _read_counts(mma, rows, regime, depth, passes):
+    """The launch counts of a path's run: the regime's kernel ran once per
+    block per pass (19 double and 38 single blocks), the other regime's
+    never. Writes them into the regime's rows."""
+    d, s = mma.mmdit_double_attention, mma.mmdit_single_attention
+    counts = {"one-pass": (d.launches, s.launches),
+              "multi-pass": (d.mp_launches, s.mp_launches)}
+    want = (depth.depth_double * passes, depth.depth_single * passes)
+    other = "multi-pass" if regime == "one-pass" else "one-pass"
+    print(f"launches on the path: {regime} double/single {counts[regime]} "
+          f"(expected {want}), {other} {counts[other]} (expected (0, 0))")
+    if counts[regime] != want or counts[other] != (0, 0):
+        raise AssertionError("kernel launch counts differ from the path")
+    prefix = "mmdit_mp_" if regime == "multi-pass" else "mmdit_"
+    for name, row in rows.items():
+        if name.startswith(prefix + "joint"):
+            row["launches"] = counts[regime][0]
+        elif name.startswith(prefix + "seq"):
+            row["launches"] = counts[regime][1]
+
+
+def phase_profile(bundle, size, out_name):
+    """One full-width denoise step (batch 1, ``size`` px, random latents
+    and conditioning at the bundle's input width) under torch.profiler:
+    device time per kernel, grouped, beside the wall time of the same
+    step untraced."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from domainrag_tpu_torch.models.flux import model as fm
 
     dev, cfg, dt = bundle.device, bundle.flux_cfg, bundle.compute_dtype
-    grid = SIZE // 16
+    grid = size // 16
     g = torch.Generator(device=dev)
     g.manual_seed(1)
 
@@ -400,15 +620,131 @@ def phase_profile(bundle):
         else:
             groups["other"] += ms
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "profile.txt").write_text("".join(
+    (OUT / out_name).write_text("".join(
         f"{ms:10.3f} ms {n:6d}x  {name}\n" for ms, n, name in kernels))
-    print(f"profile: one denoise step, device time {total:.3f} ms "
+    print(f"profile: one denoise step ({size} px, {grid * grid + S_TXT} "
+          f"tokens, {cfg.in_channels} input channels), device time "
+          f"{total:.3f} ms "
           f"(untraced wall {wall_ms:.3f} ms), {sum(n for _, n, _ in kernels)}"
           f" device events; "
           + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
                       for k, v in groups.items()))
     for ms, n, name in kernels[:8]:
         print(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
+
+
+def phase_compose(dev, rows, backgrounds):
+    """Stage 4 at full width through ``compose.process_dataset`` on a
+    synthetic UODD 1-shot sample whose backgrounds are ``backgrounds``
+    (the stage-3 PNGs), as the pipeline chains the stages."""
+    import shutil
+    import torch
+    from PIL import Image
+    from domainrag_tpu_torch.core.coco import write_coco
+    from domainrag_tpu_torch.core.config import ComposeConfig
+    from domainrag_tpu_torch.core.log import StepTimer
+    from domainrag_tpu_torch.core.manifest import Manifest
+    from domainrag_tpu_torch.models.flux import pipeline as fp
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+    from domainrag_tpu_torch.stages import compose
+
+    dataset, shot, sample = "UODD", 1, "uodd_0"
+    cfg = ComposeConfig(num_steps=FILL_STEPS, max_rank_batch=MAX_RANK_BATCH)
+    params = cfg.dataset_params[dataset]
+    n_steps = int(FILL_STEPS * params.strength)
+    print(f"compose cuts: {FILL_STEPS} steps (stage default 50; x strength "
+          f"{params.strength} = {n_steps} denoise steps instead of "
+          f"{int(50 * params.strength)}), {len(backgrounds)} backgrounds "
+          f"(stage default 5), max_rank_batch {MAX_RANK_BATCH}; {dataset}: "
+          f"{SIZE}x{SIZE} source lifted to {FILL_SIZE}x{FILL_SIZE}, guidance "
+          f"{params.guidance_scale}, tiled VAE")
+    t0 = time.perf_counter()
+    bundle = fp.full_bundle(seed=1, fill=True)
+    torch.cuda.synchronize()
+    print(f"full-width Fill bundle ({bundle.flux_cfg.in_channels} input "
+          f"channels): {_weight_bytes(bundle) / 1e9:.2f} GB of weights "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+
+    root = OUT / "compose"
+    shutil.rmtree(root, ignore_errors=True)
+    ds = root / "datasets" / dataset
+    (ds / "train").mkdir(parents=True)
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:SIZE, 0:SIZE]
+    source = np.stack([xx * 255 // SIZE, yy * 255 // SIZE,
+                       (xx + yy) * 255 // (2 * SIZE)], -1)
+    source = np.clip(source + rng.integers(-30, 30, source.shape), 0, 255)
+    Image.fromarray(source.astype(np.uint8)).save(
+        ds / "train" / f"{sample}.jpg")
+    write_coco(str(ds / "annotations" / f"{shot}_shot.json"),
+               images=[{"id": 1, "file_name": f"{sample}.jpg",
+                        "width": SIZE, "height": SIZE}],
+               annotations=[{"id": 1, "image_id": 1, "category_id": 1,
+                             "bbox": [200, 300, 180, 140]},
+                            {"id": 2, "image_id": 1, "category_id": 2,
+                             "bbox": [620, 540, 96, 120]}],
+               categories=[{"id": 1, "name": "scallop"},
+                           {"id": 2, "name": "seaurchin"}])
+    output = root / "output"
+    bg_dir = (output / "result" / f"{dataset}_{shot}shot_retrieval"
+              / "results_0" / sample)
+    bg_dir.mkdir(parents=True)
+    for path in backgrounds:
+        shutil.copy(path, bg_dir / Path(path).name)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(mma)
+    fp.fill_batch.nonfinite_images = 0
+    timer = StepTimer(sync=torch.cuda.synchronize)
+    result = compose.process_dataset(
+        compose.ComposeStage(bundle, cfg, seed=0), dataset, shot,
+        str(root / "datasets"), str(output), timer=timer)
+    torch.cuda.synchronize()
+    op = output / "outpaint_hires" / "process_0" / dataset / f"{shot}_shot"
+    entry = Manifest(str(op / "manifest.json")).entry(sample)
+    if entry.get("status") != "done":
+        raise AssertionError(f"compose failed on {sample}: {entry}")
+    _read_counts(mma, rows, "multi-pass", bundle.flux_cfg,
+                 n_steps * math.ceil(len(backgrounds) / MAX_RANK_BATCH))
+
+    (record,) = result["samples"]
+    outs = record["outpainted_images"]
+    if len(outs) != len(backgrounds):
+        raise AssertionError(f"{len(outs)} results for {len(backgrounds)} "
+                             "backgrounds")
+    for out in outs:
+        for key, shape in (("outpainted_image_path", (FILL_SIZE, FILL_SIZE)),
+                           ("final_result_path", (SIZE, SIZE)),
+                           ("mask_path", (FILL_SIZE, FILL_SIZE))):
+            arr = np.asarray(Image.open(out[key]))
+            if arr.dtype != np.uint8 or arr.shape[:2] != shape:
+                raise AssertionError(f"{out[key]}: {arr.dtype} {arr.shape}")
+        if not Path(out["params_path"]).exists():
+            raise AssertionError(f"missing {out['params_path']}")
+    finals = sorted((output / "final_results" / "process_0" / f"{shot}_shot"
+                     / dataset).glob("*_final_result*.png"))
+    if not (op / f"outpaint_results_{shot}shot.json").exists() \
+            or len(finals) != len(backgrounds):
+        raise AssertionError("compose result JSON or final collection "
+                             "missing")
+    if fp.fill_batch.nonfinite_images:
+        raise AssertionError(f"{fp.fill_batch.nonfinite_images} filled "
+                             "images not finite before quantisation")
+    mean = {k: timer.totals[k] / timer.counts[k] for k in timer.totals}
+    print(f"compose: {len(outs)} backgrounds -> hires PNGs uint8 "
+          f"{FILL_SIZE}x{FILL_SIZE}x3, finals {SIZE}x{SIZE}, masks, params "
+          f"JSON, result JSON, {len(finals)} collected finals; finite before "
+          f"quantisation; prior {mean['prior']:.3f} s per sample, encode "
+          f"{mean['encode']:.3f} s per tiled encode ({timer.counts['encode']}"
+          f"), {mean['step']:.3f} s per denoise step (mean of "
+          f"{timer.counts['step']}, batch {MAX_RANK_BATCH}, "
+          f"{FILL_SIZE // 16 * (FILL_SIZE // 16) + S_TXT} tokens), decode "
+          f"{mean['decode']:.3f} s per tiled decode, save {mean['save']:.3f} "
+          f"s per background, spans "
+          f"{ {k: round(v, 3) for k, v in timer.totals.items()} }, "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return bundle
 
 
 def main() -> int:
@@ -424,10 +760,21 @@ def main() -> int:
         check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
     dev = device_mod.resolve("cuda")
+    t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels(dev)
+    rows.update(phase_mp_kernels(dev))
     phase_small_slice(dev)
-    phase_profile(phase_slice(dev, rows))
+    phase_small_fill(dev)
+    bundle, backgrounds = phase_slice(dev, rows)
+    phase_profile(bundle, SIZE, "profile.txt")
+    del bundle                 # two ~46 GB bundles do not fit 80 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle = phase_compose(dev, rows, backgrounds)
+    phase_profile(bundle, FILL_SIZE, "profile_fill.txt")
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

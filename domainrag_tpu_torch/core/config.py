@@ -1,14 +1,86 @@
-"""Stage-3 configuration (own copy of
-``domainrag_tpu/core/config.py:141-201``).
+"""Stage-3 and stage-4 configuration (own copy of
+``domainrag_tpu/core/config.py:17-124, 141-240, 271-275``).
 
-The port's ``generate`` accepts the cache intervals only at their exact
-default of 1; the fields stay so that a config asking for a cache raises
-instead of being ignored.
+The port's ``generate`` and ``fill_batch`` accept the cache intervals
+only at their exact default of 1; the fields stay so that a config asking
+for a cache raises instead of being ignored.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
+from typing import Dict, Optional
+
+
+@dataclass(frozen=True)
+class DatasetParams:
+    """Per-dataset knobs for the compose (Flux-Fill outpaint) stage.
+
+    Mirrors the tables at ``outpainting_updown_sampling_redux.py:31-95``.
+    """
+
+    strength: float = 0.75          # default_strength (ref :83)
+    guidance_scale: float = 30.0    # default_guidance_scale (ref :86)
+    image_prompt_scale: float = 1.0
+    upscale_dimension: int = 1024   # min target dim for upsampling
+    redux_prompt: str = ""
+
+
+# Reference tables, outpainting_updown_sampling_redux.py:31-81.
+DATASET_PARAMS: Dict[str, DatasetParams] = {
+    "FISH": DatasetParams(
+        strength=0.8, guidance_scale=35.0, image_prompt_scale=1.2,
+        upscale_dimension=1024,
+        redux_prompt=(
+            "wihout fish, A crystal-clear underwater environment, crisp and "
+            "in sharp focus, foreground clarity is high; natural lighting "
+            "and color continuity."
+        ),
+    ),
+    "DIOR": DatasetParams(strength=0.8, guidance_scale=30.0),
+    "ArTaxOr": DatasetParams(strength=0.9, guidance_scale=30.0),
+    "UODD": DatasetParams(strength=0.4, guidance_scale=30.0,
+                          upscale_dimension=2048),
+    "NEU-DET": DatasetParams(strength=0.3, guidance_scale=30.0),
+    "clipart1k": DatasetParams(strength=0.9, guidance_scale=40.0),
+    "NWPU_VHR-10": DatasetParams(strength=0.8, guidance_scale=30.0),
+    "Camouflage": DatasetParams(strength=0.6, guidance_scale=30.0),
+    "coco": DatasetParams(strength=0.8, guidance_scale=30.0),
+}
+
+
+def get_dataset_params(dataset: str,
+                       custom_upscale: Optional[Dict[str, int]] = None
+                       ) -> DatasetParams:
+    """Case-insensitive lookup with defaults for unknown datasets.
+
+    ``custom_upscale`` mirrors ``--custom_upscale DATASET:DIM``
+    (outpainting_updown_sampling_redux.py:1920-1932).
+    """
+    params = None
+    for key, value in DATASET_PARAMS.items():
+        if key.lower() == dataset.lower():
+            params = value
+            break
+    if params is None:
+        params = DatasetParams()
+    if custom_upscale:
+        for key, dim in custom_upscale.items():
+            if key.lower() == dataset.lower():
+                params = replace(params, upscale_dimension=int(dim))
+    return params
+
+
+@dataclass(frozen=True)
+class ResolutionPolicy:
+    """Up/down-sampling window for the compose stage.
+
+    Mirrors ``MIN_DIMENSION``/``MAX_DIMENSION``
+    (outpainting_updown_sampling_redux.py:89-92).
+    """
+
+    min_dimension: int = 1024
+    max_dimension: int = 2800
 
 
 @dataclass(frozen=True)
@@ -49,3 +121,33 @@ class GenerateConfig:
     # denoise the ranks of one sample in chunks of at most this many;
     # None = all ranks in one batch
     max_rank_batch: object = None
+
+
+@dataclass(frozen=True)
+class ComposeConfig:
+    """Stage-4 Flux-Fill outpaint/composite."""
+
+    resolution: ResolutionPolicy = field(default_factory=ResolutionPolicy)
+    num_steps: int = 50
+    # denoise the backgrounds of one sample in chunks of at most this
+    # many; None = all backgrounds in one batch
+    max_rank_batch: object = None
+    dataset_params: Dict[str, DatasetParams] = field(
+        default_factory=lambda: dict(DATASET_PARAMS))
+    # round fill resolutions up to this multiple (0 = exact sizes): the
+    # image is padded with edge pixels, keep-masked, and the output is
+    # cropped back
+    resolution_bucket: int = 0
+    # >= this many pixels: the VAE runs tiled — the reference's 2048 px
+    # upscale / 2800 px cap regime
+    # (outpainting_updown_sampling_redux.py:72-82,104-108). 0 disables.
+    hires_threshold_px: int = 2048 * 2048
+    # the velocity cache is not ported: only 1 is accepted
+    velocity_cache_interval: object = 1
+
+
+def worker_slice(items, worker_id: int, num_workers: int):
+    """Deterministic round-robin shard of a sorted work list."""
+    if num_workers <= 1:
+        return list(items)
+    return [x for i, x in enumerate(items) if i % num_workers == worker_id]

@@ -1,7 +1,10 @@
-"""Host-side image loading and SigLIP preprocessing (own copy of
-``domainrag_tpu/core/imaging.py:46-93``)."""
+"""Host-side image loading, SigLIP preprocessing, the compose stage's
+keep-mask and resolution policy (own copy of
+``domainrag_tpu/core/imaging.py:46-93, 124-215``)."""
 
 from __future__ import annotations
+
+from typing import List, Sequence, Tuple
 
 import numpy as np
 from PIL import Image
@@ -27,3 +30,100 @@ def siglip_preprocess(image: Image.Image, size: int = 384) -> np.ndarray:
     image = ensure_rgb(image).resize((size, size), Image.BICUBIC)
     arr = np.asarray(image, dtype=np.float32) / 255.0
     return (arr - SIGLIP_MEAN) / SIGLIP_STD
+
+
+Bbox = Tuple[float, float, float, float]  # x, y, w, h
+
+
+def outpaint_keep_mask(width: int, height: int,
+                       bboxes: Sequence[Bbox]) -> np.ndarray:
+    """Keep-foreground mask: 0 inside bboxes (keep pixels), 255 elsewhere
+    (redraw). Parity with ``generate_outpaint_mask``
+    (outpainting_updown_sampling_redux.py:836-870)."""
+    mask = np.full((height, width), 255, dtype=np.uint8)
+    for x, y, w, h in bboxes:
+        x2 = x + w
+        y2 = y + h
+        x0 = max(0, min(x, width - 1))
+        y0 = max(0, min(y, height - 1))
+        x1 = max(0, min(x2, width))
+        y1 = max(0, min(y2, height))
+        xi0, yi0 = int(x0), int(y0)
+        xi1, yi1 = min(int(x1), width - 1), min(int(y1), height - 1)
+        if xi1 >= xi0 and yi1 >= yi0:
+            mask[yi0:yi1 + 1, xi0:xi1 + 1] = 0
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# Resolution policy (outpainting_updown_sampling_redux.py:403-498)
+# ---------------------------------------------------------------------------
+
+class ResolutionConflictError(ValueError):
+    """Image needs up- AND down-sampling at once (ref :424-427)."""
+
+
+def resolve_resolution(width: int, height: int,
+                       min_dimension: int = 1024,
+                       max_dimension: int = 2800
+                       ) -> Tuple[Tuple[int, int], float, float, bool, bool]:
+    """Truth-table parity with ``process_image_resolution``.
+
+    Returns ((new_w, new_h), up_factor, down_factor, was_up, was_down).
+    """
+    max_size = max(width, height)
+    min_size = min(width, height)
+
+    if min_size < min_dimension and max_size > max_dimension:
+        raise ResolutionConflictError(
+            f"image {width}x{height} needs both upscale (<{min_dimension}) "
+            f"and downscale (>{max_dimension})")
+
+    if min_size < min_dimension:
+        scale_w = min_dimension / width if width < min_dimension else 1.0
+        scale_h = min_dimension / height if height < min_dimension else 1.0
+        up = max(scale_w, scale_h)
+        return (int(width * up), int(height * up)), up, 1.0, True, False
+
+    if max_size > max_dimension:
+        down = max_dimension / max_size
+        return (int(width * down), int(height * down)), 1.0, down, False, True
+
+    return (width, height), 1.0, 1.0, False, False
+
+
+def scale_bboxes(bboxes: Sequence[Bbox], factor: float) -> List[List[int]]:
+    """int-truncating coordinate scaling (ref :1167-1179)."""
+    return [[int(c * factor) for c in bbox] for bbox in bboxes]
+
+
+def apply_resolution(image: Image.Image,
+                     min_dimension: int = 1024,
+                     max_dimension: int = 2800):
+    """PIL bicubic resize per the policy; returns
+    (image, up, down, was_up, was_down)."""
+    (nw, nh), up, down, was_up, was_down = resolve_resolution(
+        image.width, image.height, min_dimension, max_dimension)
+    if was_up or was_down:
+        image = image.resize((nw, nh), Image.BICUBIC)
+    return image, up, down, was_up, was_down
+
+
+def restore_resolution(image: Image.Image, up: float, down: float,
+                       was_up: bool, was_down: bool) -> Image.Image:
+    """Invert apply_resolution (ref downscale_image/upscale_image
+    :462-498,1264-1278)."""
+    if was_up and up > 1.0:
+        return image.resize((int(image.width / up), int(image.height / up)),
+                            Image.BICUBIC)
+    if was_down and down < 1.0:
+        inv = 1.0 / down
+        return image.resize((int(image.width * inv), int(image.height * inv)),
+                            Image.BICUBIC)
+    return image
+
+
+def to_multiple_of(value: int, multiple: int, minimum: int = 0) -> int:
+    """Floor to a multiple with a lower bound (batch_generate_flux_kshot.py:
+    448-456 floors H/W to multiples of 16 with min 64)."""
+    return max((value // multiple) * multiple, minimum)

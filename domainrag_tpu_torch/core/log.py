@@ -1,11 +1,25 @@
-"""Named wall-clock spans (own copy of ``domainrag_tpu/core/log.py``'s
-``StepTimer``)."""
+"""The framework logger and named wall-clock spans (own copy of
+``domainrag_tpu/core/log.py``'s ``get_logger`` and ``StepTimer``)."""
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import time
 from typing import Callable, Dict, Iterator, Optional
+
+_FORMAT = "%(asctime)s [%(levelname)s] %(name)s: %(message)s"
+
+
+def get_logger(name: str = "domainrag_tpu_torch") -> logging.Logger:
+    """A logger that writes to stderr at INFO (one handler per name)."""
+    logger = logging.getLogger(name)
+    if not logger.handlers:
+        handler = logging.StreamHandler()
+        handler.setFormatter(logging.Formatter(_FORMAT))
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+    return logger
 
 
 class StepTimer:

@@ -1,11 +1,15 @@
-// Fused MMDiT attention for Hopper (sm_90a): the two Flux attention
-// variants of domainrag_tpu/ops/mmdit_attention.py in one source.
+// Fused MMDiT attention for Hopper (sm_90a): the Flux attention kernels
+// of domainrag_tpu/ops/mmdit_attention.py in one source.
 //
-// Replaces:
+// Replaces, through the one-pass entry mmdit_attention (S <= 17408):
 //   _joint_kernel (ops/mmdit_attention.py:400) - double block, joint
 //       [txt; img] attention over the txt and img qkv GEMM outputs;
 //   _seq_kernel   (ops/mmdit_attention.py:328) - single block, one stream
-//       whose first 3*H*128 lanes are q/k/v (the MLP lanes are skipped).
+//       whose first 3*H*128 lanes are q/k/v (the MLP lanes are skipped);
+// and, through the multi-pass entry mmdit_attention_mp
+// (17408 < S <= 49152, the >= 2048 px fill):
+//   _flash_mp_kernel (ops/mmdit_attention.py:533) behind its
+//       _prep_norm_rope pass (:568), both variants.
 // The joint variant is the single variant with two row sources: every
 // row index r of the joint sequence maps to stream a (txt, r < s_a) or to
 // stream b (img). The single block passes s_b = 0.
@@ -13,15 +17,21 @@
 // Math per (batch, head), head_dim 128, bf16 in and out:
 //   q, k  <- qk-RMSNorm (f32 stats, eps 1e-6, * w in f32, round to bf16)
 //            then interleaved-pair RoPE in f32 (pair (x[2i], x[2i+1])
-//            rotates by cos/sin[i]); q is also scaled by log2(e)/sqrt(128)
-//            before its bf16 round, so the softmax runs in exp2;
-//   o     <- softmax(q k^T) v with f32 scores, f32 running max and sum,
-//            P rounded to bf16 for the P.V product; o / max(l, 1e-30).
+//            rotates by cos/sin[i]), rounded to bf16;
+//   s     <- q k^T in f32, in the exp2 domain: the one-pass regime scales
+//            q by log2(e)/sqrt(128) before its bf16 round (the TPU
+//            one-pass kernels' rounding), the multi-pass regime rounds q
+//            unscaled and multiplies the f32 scores (the TPU multi-pass
+//            rounding) - two template instances of one streaming kernel;
+//   o     <- softmax(s) v with f32 running max and sum, P rounded to bf16
+//            for the P.V product; o / max(l, 1e-30).
 //
-// Bound on the card. Per call at B = 1, H = 24, S = 5337 the two products
-// are 4*H*S^2*128 = 350 GFLOP: 0.35 ms at 989 TFLOP/s bf16. The bytes
-// (q/k/v lanes read once, o written once, ~131 MB) take 0.04 ms at
-// 3.35 TB/s, so the call is compute-bound; its B*H*S^2 = 0.68 G exp2
+// Bound on the card: 4*B*H*S^2*128 FLOP of the two products at 989
+// TFLOP/s bf16. One-pass main path (B = 1, H = 24, S = 5337): 350 GFLOP,
+// 0.35 ms. Multi-pass: 3.82 TFLOP, 3.86 ms at S = 17625 (2048 px fill);
+// 12.5 TFLOP, 12.6 ms at S = 31866 (2800 px cap). The bytes (q/k/v lanes
+// read once, o written once; 0.78 GB per batch element at 31866) take
+// 0.23 ms at 3.35 TB/s, so every call is compute-bound; its B*H*S^2 exp2
 // also load the special-function units.
 //
 // Design.
@@ -53,6 +63,18 @@
 //    free of bank conflicts. No padding copies: ragged tails (1241 text
 //    rows, 5337 total) are zero-filled on load and masked to -1e30 in the
 //    scores. wgmma, TMA and warp specialisation are left for later work.
+//  * The multi-pass regime needs no kernel of its own on this card: the
+//    TPU multi-pass kernel exists because a TPU core cannot hold 31k rows
+//    of K in VMEM, and flash_kernel already streams K/V at any length
+//    with O(1) shared memory. What differs is the rounding, so the
+//    multi-pass entry runs the prep with q unscaled and the
+//    flash_kernel<true> instance, which multiplies the f32 scores before
+//    the mask. The TPU path's concat of the two streams and its padding
+//    to 1024-row tiles are not carried over: the two row sources and the
+//    masked ragged tails do the same without copies. Grid: ceil(S/128)
+//    q tiles x H x B (249 x 24 x B at 31866); no reduction across blocks.
+//    Offsets: at B = 4, S = 31866 and a 21504-lane row the GEMM output
+//    spans 2.7e9 elements, past 2^31, so every element offset is 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -247,9 +269,12 @@ __device__ __forceinline__ void load_v_tile(bf16* tile, const Rows& v,
 // MT 16-row q tiles
 // ---------------------------------------------------------------------------
 
+// SCALE_S: multiply the f32 scores by s_scale (the multi-pass rounding);
+// otherwise q arrives prescaled and s_scale is unused.
+template <bool SCALE_S>
 __global__ void __launch_bounds__(THREADS)
     flash_kernel(const bf16* qs, const bf16* ks, Rows v, bf16* out_a,
-                 bf16* out_b, int heads) {
+                 bf16* out_b, int heads, float s_scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sK = sQ + BM * D;
@@ -325,6 +350,15 @@ __global__ void __launch_bounds__(THREADS)
           mma_bf16(s[mt][2 * p + 1], qa[mt], kb[2], kb[3]);
         }
       }
+    }
+
+    if (SCALE_S) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][t][e] *= s_scale;
     }
 
     const int kv0 = j * BN;
@@ -443,25 +477,14 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-}  // namespace
-
-// q/k/v of each source stream sit at lane offsets 0, H*128 and 2*H*128 of
-// rows `*_row` elements apart (9216 for the double block, 21504 for the
-// single block with its MLP lanes). cos/sin: (s_a + s_b, 64) f32; norm
-// weights: (128,) f32. qs/ks: (B, H, s_a + s_b, 128) bf16 scratch.
-// out_a/out_b: (B, s_a, H*128) / (B, s_b, H*128) bf16. Returns the CUDA
-// error code of the launches (0 = success).
-extern "C" int mmdit_attention(
-    const void* a, long long a_batch, long long a_row, int s_a,
-    const void* b, long long b_batch, long long b_row, int s_b,
-    const void* wq_a, const void* wk_a, const void* wq_b, const void* wk_b,
-    const void* cos_t, const void* sin_t, void* qs, void* ks, void* out_a,
-    void* out_b, int batch, int heads, float q_scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int s_tot = s_a + s_b;
-  Rows src{static_cast<const bf16*>(a), a_batch, a_row, s_a,
-           static_cast<const bf16*>(b), b_batch, b_row, s_b};
-
+// Prep, then streaming attention. q_scale multiplies q before its bf16
+// round; s_scale, with SCALE_S, the f32 scores.
+template <bool SCALE_S>
+int launch(Rows src, const void* wq_a, const void* wk_a, const void* wq_b,
+           const void* wk_b, const void* cos_t, const void* sin_t, void* qs,
+           void* ks, void* out_a, void* out_b, int batch, int heads,
+           float q_scale, float s_scale, cudaStream_t st) {
+  const int s_tot = src.s_a + src.s_b;
   const long long warps = (long long)batch * s_tot * heads;
   const int prep_threads = 256;
   const long long prep_blocks = (warps * 32 + prep_threads - 1) / prep_threads;
@@ -476,13 +499,58 @@ extern "C" int mmdit_attention(
   Rows vrows = src;
   vrows.a += 2 * heads * D;
   vrows.b += 2 * heads * D;
-  err = cudaFuncSetAttribute(flash_kernel,
+  err = cudaFuncSetAttribute(flash_kernel<SCALE_S>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((s_tot + BM - 1) / BM, heads, batch);
-  flash_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
+  flash_kernel<SCALE_S><<<grid, THREADS, SMEM_BYTES, st>>>(
       static_cast<const bf16*>(qs), static_cast<const bf16*>(ks), vrows,
-      static_cast<bf16*>(out_a), static_cast<bf16*>(out_b), heads);
+      static_cast<bf16*>(out_a), static_cast<bf16*>(out_b), heads, s_scale);
   return (int)cudaGetLastError();
+}
+
+Rows make_rows(const void* a, long long a_batch, long long a_row, int s_a,
+               const void* b, long long b_batch, long long b_row, int s_b) {
+  return Rows{static_cast<const bf16*>(a), a_batch, a_row, s_a,
+              static_cast<const bf16*>(b), b_batch, b_row, s_b};
+}
+
+}  // namespace
+
+// q/k/v of each source stream sit at lane offsets 0, H*128 and 2*H*128 of
+// rows `*_row` elements apart (9216 for the double block, 21504 for the
+// single block with its MLP lanes). cos/sin: (s_a + s_b, 64) f32; norm
+// weights: (128,) f32. qs/ks: (B, H, s_a + s_b, 128) bf16 scratch.
+// out_a/out_b: (B, s_a, H*128) / (B, s_b, H*128) bf16. Both entries return
+// the CUDA error code of their launches (0 = success).
+
+// One-pass regime: `scale` (log2(e)/sqrt(128)) multiplies q before its
+// bf16 round.
+extern "C" int mmdit_attention(
+    const void* a, long long a_batch, long long a_row, int s_a,
+    const void* b, long long b_batch, long long b_row, int s_b,
+    const void* wq_a, const void* wk_a, const void* wq_b, const void* wk_b,
+    const void* cos_t, const void* sin_t, void* qs, void* ks, void* out_a,
+    void* out_b, int batch, int heads, float scale, void* stream) {
+  return launch<false>(make_rows(a, a_batch, a_row, s_a, b, b_batch, b_row,
+                                 s_b),
+                       wq_a, wk_a, wq_b, wk_b, cos_t, sin_t, qs, ks, out_a,
+                       out_b, batch, heads, scale, 1.0f,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Multi-pass regime (replaces _flash_mp_kernel): q is rounded unscaled and
+// `scale` multiplies the f32 scores.
+extern "C" int mmdit_attention_mp(
+    const void* a, long long a_batch, long long a_row, int s_a,
+    const void* b, long long b_batch, long long b_row, int s_b,
+    const void* wq_a, const void* wk_a, const void* wq_b, const void* wk_b,
+    const void* cos_t, const void* sin_t, void* qs, void* ks, void* out_a,
+    void* out_b, int batch, int heads, float scale, void* stream) {
+  return launch<true>(make_rows(a, a_batch, a_row, s_a, b, b_batch, b_row,
+                                s_b),
+                      wq_a, wk_a, wq_b, wk_b, cos_t, sin_t, qs, ks, out_a,
+                      out_b, batch, heads, 1.0f, scale,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -53,6 +53,8 @@ TINY_FLUX = FluxConfig(in_channels=16, out_channels=16, hidden=64, heads=4,
                        axes_dim=(4, 6, 6))
 
 FLUX_DEV = FluxConfig()
+# FLUX.1-Fill-dev: latents + masked-image latents + 256 mask channels
+FLUX_FILL_DEV = FluxConfig(in_channels=384)
 
 
 # ---------------------------------------------------------------------------

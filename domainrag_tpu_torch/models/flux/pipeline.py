@@ -1,17 +1,25 @@
-"""Flux text/Redux-conditioned generation — the stage-3 serving path
-(port of ``domainrag_tpu/models/flux/pipeline.py:40-252, 304-310,
-440-448, 1000-1157``).
+"""Flux text/Redux-conditioned generation and Flux-Fill — the serving
+paths of stages 3 and 4 (port of ``domainrag_tpu/models/flux/pipeline.py:
+40-252, 304-310, 440-477, 1000-1272, 1475-1649``).
 
 First-party equivalent of diffusers' ``FluxPriorReduxPipeline`` +
 ``FluxPipeline`` as the reference drives them for background generation
 (batch_generate_flux_kshot.py:139-151, 459-474: dual-image Redux prior,
-guidance 2.5, 50 steps, 1024x1024, fixed seed). Eager PyTorch: prompt
-encode, prior fusion, the Euler loop over the MMDiT, VAE decode.
+guidance 2.5, 50 steps, 1024x1024, fixed seed), and of
+``FluxFillPipeline`` for the compose stage (strength-trimmed partial
+denoise from the noised image latents, conditioned on the masked-image
+latents and the packed mask). Eager PyTorch: prompt encode, prior
+fusion, VAE encode, the Euler loop over the MMDiT, VAE decode; at
+``hires_threshold_px`` and above the VAE runs tiled.
 
 Dtypes follow the JAX package: the MMDiT runs in ``compute_dtype`` (bf16
-at full width), T5 / CLIP text / SigLIP / Redux in f32, the VAE decode in
-f32. Out of this slice: velocity and block caches, meshes, int8 modes and
-fill; ``generate`` takes those arguments only at their defaults.
+at full width), T5 / CLIP text / SigLIP / Redux in f32. The fill's image
+enters the VAE encoder in ``compute_dtype`` (so the encode runs in bf16
+at full width) and the latents and conditioning enter the MMDiT in it;
+the VAE decode runs in f32. Out of these slices: velocity and block
+caches, meshes, pipelining and int8 modes; ``generate`` and
+``fill_batch`` take those arguments only at their defaults and raise
+otherwise.
 """
 
 from __future__ import annotations
@@ -64,15 +72,18 @@ class FluxBundle:
         return self.vae_cfg.spatial_factor * 2
 
 
-def tiny_configs():
+def tiny_configs(fill: bool = False):
     """The JAX package's ``tiny_bundle`` configs (pipeline.py:80-116):
-    structure-identical to the 12B deployment, toy sizes."""
+    structure-identical to the 12B deployment, toy sizes. ``fill`` widens
+    the MMDiT input to latents + masked-image latents + f^2*4 mask
+    channels."""
     vae_cfg = vae_mod.TINY_VAE
     t5_cfg = t5_mod.TINY_T5
+    lat_packed = vae_cfg.latent_channels * 4
+    fill_in = 2 * lat_packed + vae_cfg.spatial_factor ** 2 * 4
     flux_cfg = dataclasses.replace(
-        flux_mod.TINY_FLUX, in_channels=vae_cfg.latent_channels * 4,
-        out_channels=vae_cfg.latent_channels * 4, text_dim=t5_cfg.d_model,
-        pooled_dim=64)
+        flux_mod.TINY_FLUX, in_channels=fill_in if fill else lat_packed,
+        out_channels=lat_packed, text_dim=t5_cfg.d_model, pooled_dim=64)
     clip_cfg = dataclasses.replace(clip_mod.TINY_TEXT, hidden=64)
     siglip_cfg = siglip_mod.TINY_SIGLIP
     redux_cfg = redux_mod.ReduxEncoderConfig(
@@ -110,21 +121,25 @@ def _random_bundle(cfgs: dict, seed: int, dev: torch.device,
         compute_dtype=compute_dtype, device=dev, **cfgs, **extra)
 
 
-def tiny_bundle(seed: int = 0, device=None) -> FluxBundle:
+def tiny_bundle(seed: int = 0, device=None, fill: bool = False
+                ) -> FluxBundle:
     """Random tiny bundle (f32 compute) on ``device`` (the card unless
-    ``device="cpu"``)."""
-    cfgs = tiny_configs()
+    ``device="cpu"``); a Flux-Fill one with ``fill``."""
+    cfgs = tiny_configs(fill)
     return _random_bundle(cfgs, seed, device_mod.resolve(device),
                           torch.float32, torch.float32,
                           **tiny_tokenizers(cfgs))
 
 
-def full_bundle(seed: int = 0, device=None) -> FluxBundle:
+def full_bundle(seed: int = 0, device=None, fill: bool = False
+                ) -> FluxBundle:
     """Random full-width FLUX.1-dev deployment drawn on the device: the
     12B MMDiT (3072 hidden, 24x128 heads, 19 + 38 blocks) in bf16, T5-XXL,
     CLIP-L text, SigLIP so400m, Redux 1152->12288->4096 and the FLUX VAE
-    decoder in f32 — about 46 GB."""
-    cfgs = dict(flux_cfg=flux_mod.FLUX_DEV, vae_cfg=vae_mod.FLUX_VAE,
+    (encoder and decoder) in f32 — about 46 GB. ``fill`` gives the
+    FLUX.1-Fill-dev MMDiT (384 input channels)."""
+    flux_cfg = flux_mod.FLUX_FILL_DEV if fill else flux_mod.FLUX_DEV
+    cfgs = dict(flux_cfg=flux_cfg, vae_cfg=vae_mod.FLUX_VAE,
                 t5_cfg=t5_mod.T5_XXL, clip_text_cfg=clip_mod.CLIP_L_TEXT,
                 siglip_cfg=siglip_mod.SIGLIP_SO400M,
                 redux_cfg=redux_mod.REDUX_DEV)
@@ -180,6 +195,22 @@ def redux_prior(bundle: FluxBundle, images: np.ndarray,
                                    pooled_prompt_embeds_scale)
 
 
+def redux_prior_pairs(bundle: FluxBundle, images: np.ndarray, prompt: str,
+                      prompt_embeds_scale: Sequence[float],
+                      pooled_prompt_embeds_scale: Sequence[float]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched K-image priors: images (N, K, S, S, 3) siglip-preprocessed,
+    one shared prompt, scales (K,). Returns ((N, S_txt + S_img, D),
+    (N, P)) — :func:`redux_prior_pairs_indexed` with every image its own
+    entry."""
+    images = np.asarray(images)
+    n, k = images.shape[:2]
+    return redux_prior_pairs_indexed(
+        bundle, images.reshape((n * k,) + images.shape[2:]),
+        np.arange(n * k).reshape(n, k), prompt, prompt_embeds_scale,
+        pooled_prompt_embeds_scale)
+
+
 def redux_prior_pairs_indexed(bundle: FluxBundle,
                               unique_images: np.ndarray,
                               pair_idx: np.ndarray,
@@ -208,8 +239,13 @@ def redux_prior_pairs_indexed(bundle: FluxBundle,
 # generation (text/Redux -> image)
 # ---------------------------------------------------------------------------
 
-def _decode_tokens(vae_params, tokens, grid_h, grid_w, vae_cfg):
+def _decode_tokens(vae_params, tokens, grid_h, grid_w, vae_cfg,
+                   tiled: bool = False, tile: int = 96, overlap: int = 16):
+    """Packed tokens -> (B, H, W, 3) image, the decode in f32."""
     lat = flux_mod.unpack_latents(tokens.float(), grid_h, grid_w)
+    if tiled:
+        return vae_mod.decode_tiled(vae_params, lat, vae_cfg, tile=tile,
+                                    overlap=overlap)
     return vae_mod.decode(vae_params, lat, vae_cfg)
 
 
@@ -222,6 +258,33 @@ def _noise(bundle: FluxBundle, seeds: Sequence[int], seq: int, c: int
         torch.randn((seq, c), generator=device_mod.generator(s, bundle.device),
                     device=bundle.device, dtype=torch.float32)
         for s in seeds])
+
+
+def _denoise(bundle: FluxBundle, x: torch.Tensor, prompt_embeds, pooled,
+             sigmas: torch.Tensor, guidance: float, grid_h: int,
+             grid_w: int, timer: StepTimer,
+             cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The Euler loop over the MMDiT in ``compute_dtype``, one ``step``
+    span per step. ``cond`` (the fill's conditioning tokens) joins the
+    latents' channels at every call."""
+    dev, dt = bundle.device, bundle.compute_dtype
+    embeds = prompt_embeds.to(device=dev, dtype=dt)
+    pooled_c = pooled.to(device=dev, dtype=dt)
+    img_ids = torch.as_tensor(flux_mod.make_image_ids(grid_h, grid_w),
+                              device=dev)
+    txt_ids = torch.as_tensor(flux_mod.make_text_ids(embeds.shape[1]),
+                              device=dev)
+    b = x.shape[0]
+    guid = torch.full((b,), float(guidance), dtype=torch.float32, device=dev)
+    for i in range(sigmas.shape[0] - 1):
+        sigma, sigma_next = sigmas[i], sigmas[i + 1]
+        with timer.span("step"):
+            inp = x if cond is None else torch.cat([x, cond], dim=-1)
+            v = flux_mod.apply(bundle.flux_params, inp, embeds, pooled_c,
+                               sigma.expand(b), img_ids, txt_ids,
+                               bundle.flux_cfg, guidance=guid)
+            x = sched_mod.euler_step(x, v, sigma, sigma_next)
+    return x
 
 
 def _generate_float(bundle: FluxBundle, prompt_embeds: torch.Tensor,
@@ -240,22 +303,9 @@ def _generate_float(bundle: FluxBundle, prompt_embeds: torch.Tensor,
         num_steps, image_seq_len=grid_h * grid_w,
         **(scheduler_overrides or {}))
     sigmas = torch.as_tensor(schedule.sigmas, dtype=torch.float32, device=dev)
-    x = noise.to(device=dev, dtype=bundle.compute_dtype)
-    embeds = prompt_embeds.to(device=dev, dtype=bundle.compute_dtype)
-    pooled_c = pooled.to(device=dev, dtype=bundle.compute_dtype)
-    img_ids = torch.as_tensor(flux_mod.make_image_ids(grid_h, grid_w),
-                              device=dev)
-    txt_ids = torch.as_tensor(flux_mod.make_text_ids(embeds.shape[1]),
-                              device=dev)
-    b = x.shape[0]
-    guid = torch.full((b,), float(guidance), dtype=torch.float32, device=dev)
-    for i in range(schedule.num_steps):
-        sigma, sigma_next = sigmas[i], sigmas[i + 1]
-        with timer.span("step"):
-            v = flux_mod.apply(bundle.flux_params, x, embeds, pooled_c,
-                               sigma.expand(b), img_ids, txt_ids,
-                               bundle.flux_cfg, guidance=guid)
-            x = sched_mod.euler_step(x, v, sigma, sigma_next)
+    x = _denoise(bundle, noise.to(device=dev, dtype=bundle.compute_dtype),
+                 prompt_embeds, pooled, sigmas, guidance, grid_h, grid_w,
+                 timer)
     with timer.span("decode"):
         return _decode_tokens(bundle.vae_params, x, grid_h, grid_w,
                               bundle.vae_cfg)
@@ -311,3 +361,139 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
     """[-1, 1] float -> uint8 (diffusers postprocess convention)."""
     return (np.clip(img / 2.0 + 0.5, 0.0, 1.0) * 255.0).round().astype(
         np.uint8)
+
+
+def from_uint8(img: np.ndarray) -> np.ndarray:
+    return img.astype(np.float32) / 127.5 - 1.0
+
+
+# ---------------------------------------------------------------------------
+# fill (inpaint/outpaint composition)
+# ---------------------------------------------------------------------------
+
+def pack_mask(mask: torch.Tensor, vae_factor: int) -> torch.Tensor:
+    """(B, H, W) binary mask (1 = repaint) -> (B, S, vae_factor^2 * 4)
+    tokens: f x f pixel-unshuffle into channels, then 2x2 latent packing
+    (diffusers FluxFillPipeline mask conditioning)."""
+    b, h, w = mask.shape
+    f = vae_factor
+    x = mask.reshape(b, h // f, f, w // f, f).permute(0, 1, 3, 2, 4)
+    return flux_mod.pack_latents(x.reshape(b, h // f, w // f, f * f))
+
+
+def _fill_conditioning(vae_params, image, mask, noise, sigma0, vae_cfg,
+                       tiled_vae: bool, vae_tile: int, vae_overlap: int,
+                       timer: StepTimer):
+    """-> (initial latents at sigma_0, conditioning tokens), both in the
+    noise's dtype (the compute dtype). The image and mask arrive in it, so
+    the VAE encode runs in it too; each encode is an ``encode`` span."""
+    def enc(x):
+        with timer.span("encode"):
+            if tiled_vae:
+                return vae_mod.encode_tiled(vae_params, x, vae_cfg,
+                                            tile=vae_tile,
+                                            overlap=vae_overlap)
+            return vae_mod.encode(vae_params, x, vae_cfg)
+
+    masked_tokens = flux_mod.pack_latents(enc(image * (1.0 - mask[..., None])))
+    mask_tokens = pack_mask(mask, vae_cfg.spatial_factor)
+    image_tokens = flux_mod.pack_latents(enc(image))
+    # scale_noise works in f32; the denoise stream must come back to the
+    # compute dtype (in the JAX package a promoted f32 stream once sent
+    # the whole fill transformer to f32 and the unfused attention)
+    latents = sched_mod.scale_noise(image_tokens, noise, sigma0).to(
+        noise.dtype)
+    cond = torch.cat([masked_tokens, mask_tokens], dim=-1).to(latents.dtype)
+    return latents, cond
+
+
+def _fill_float(bundle: FluxBundle, image: torch.Tensor, mask: torch.Tensor,
+                noise: torch.Tensor, prompt_embeds, pooled,
+                sigmas: torch.Tensor, guidance: float, hires: bool,
+                vae_tile: int = 96, vae_overlap: int = 16,
+                timer: Optional[StepTimer] = None) -> torch.Tensor:
+    """The fill core -> (B, H, W, 3) f32 in [-1, 1]. ``image`` (B, H, W, 3)
+    in [-1, 1], ``mask`` (B, H, W) 0/1 (1 = repaint) and ``noise``
+    (B, S_img, 4*latent_channels), all in ``compute_dtype`` on the
+    bundle's device; ``sigmas`` the strength-trimmed schedule. ``hires``
+    runs the VAE encode and decode tiled. Spans: ``encode`` per encode,
+    ``step`` per denoise step, ``decode``."""
+    timer = timer or StepTimer()
+    lf = bundle.latent_factor
+    grid_h, grid_w = image.shape[1] // lf, image.shape[2] // lf
+    latents, cond = _fill_conditioning(
+        bundle.vae_params, image, mask, noise, sigmas[0], bundle.vae_cfg,
+        hires, vae_tile, vae_overlap, timer)
+    x = _denoise(bundle, latents, prompt_embeds, pooled, sigmas, guidance,
+                 grid_h, grid_w, timer, cond=cond)
+    with timer.span("decode"):
+        return _decode_tokens(bundle.vae_params, x, grid_h, grid_w,
+                              bundle.vae_cfg, hires, vae_tile, vae_overlap)
+
+
+def fill(bundle: FluxBundle, image: np.ndarray, mask: np.ndarray,
+         prompt_embeds: torch.Tensor, pooled: torch.Tensor,
+         num_steps: int = 50, guidance: float = 30.0,
+         strength: float = 0.75, seed: int = 0) -> np.ndarray:
+    """Flux-Fill outpaint. image (H, W, 3) uint8; mask (H, W) uint8 with
+    255 = repaint, 0 = keep (the compose-stage keep-mask,
+    outpainting_updown_sampling_redux.py:836-870). Returns uint8 image."""
+    return fill_batch(bundle, image[None],
+                      np.broadcast_to(mask, (1,) + mask.shape),
+                      prompt_embeds, pooled, num_steps=num_steps,
+                      guidance=guidance, strength=strength, seeds=[seed])[0]
+
+
+@torch.inference_mode()
+def fill_batch(bundle: FluxBundle, images: np.ndarray, masks: np.ndarray,
+               prompt_embeds: torch.Tensor, pooled: torch.Tensor,
+               num_steps: int = 50, guidance: float = 30.0,
+               strength: float = 0.75,
+               seeds: Sequence[int] = (0,),
+               mesh=None, pipe_axis: Optional[str] = None,
+               hires_threshold_px: int = 2048 * 2048,
+               vae_tile: int = 96, vae_overlap: int = 16,
+               velocity_cache_interval=1,
+               noise: Optional[torch.Tensor] = None,
+               timer: Optional[StepTimer] = None) -> np.ndarray:
+    """Batched Fill over same-shape samples: images (B, H, W, 3) uint8,
+    masks (B, H, W) uint8 (255 = repaint), prompt_embeds (B, S, D), pooled
+    (B, P), one seed per row. Returns (B, H, W, 3) uint8.
+
+    ``strength`` trims the schedule: the denoise starts from the image
+    latents noised to the first kept sigma. At ``hires_threshold_px``
+    pixels and above (the reference's >= 2048 px upscale / <= 2800 px
+    cap, outpainting_updown_sampling_redux.py:72-82,104-108) the VAE runs
+    tiled (``vae_tile``/``vae_overlap`` latent cells). ``noise``:
+    (B, S_img, 4*latent_channels) in place of the per-seed draw, as in
+    :func:`generate`; ``timer`` gets the spans of :func:`_fill_float`.
+    Images with a non-finite value before quantisation are counted in
+    ``fill_batch.nonfinite_images``. Meshes, pipelining and the velocity
+    cache are not ported and raise when asked for."""
+    if mesh is not None or pipe_axis is not None:
+        raise NotImplementedError("meshes and pipelining are not ported")
+    if velocity_cache_interval != 1:
+        raise NotImplementedError("the velocity cache is not ported")
+    dev, dt = bundle.device, bundle.compute_dtype
+    b, h, w = images.shape[:3]
+    lf = bundle.latent_factor
+    seq = (h // lf) * (w // lf)
+    hires = hires_threshold_px > 0 and h * w >= hires_threshold_px
+    schedule = sched_mod.make_schedule(num_steps, image_seq_len=seq,
+                                       strength=strength)
+    img = torch.as_tensor(from_uint8(np.asarray(images)), device=dev).to(dt)
+    m = torch.as_tensor((np.asarray(masks, np.float32) / 255.0) > 0.5,
+                        device=dev).to(dt)
+    if noise is None:
+        noise = _noise(bundle, seeds, seq, bundle.vae_cfg.latent_channels * 4)
+    out = _fill_float(
+        bundle, img, m, noise.to(device=dev, dtype=dt), prompt_embeds,
+        pooled, torch.as_tensor(schedule.sigmas, dtype=torch.float32,
+                                device=dev),
+        guidance, hires, vae_tile, vae_overlap, timer).float().cpu().numpy()
+    fill_batch.nonfinite_images += int((~np.isfinite(out)).any(
+        axis=(1, 2, 3)).sum())
+    return to_uint8(out)
+
+
+fill_batch.nonfinite_images = 0

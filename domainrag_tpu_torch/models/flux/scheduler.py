@@ -4,7 +4,8 @@
 diffusers ``FlowMatchEulerDiscreteScheduler`` as ``FluxPipeline`` drives
 it: base sigma grid ``linspace(1, 1/steps, steps)`` plus a terminal 0,
 flux-dev dynamic shifting (``mu`` from the image token count), Euler
-update ``x += (sigma_next - sigma) * v`` in f32.
+update ``x += (sigma_next - sigma) * v`` in f32, and the fill's forward
+noising ``scale_noise``.
 """
 
 from __future__ import annotations
@@ -64,6 +65,14 @@ def make_schedule(num_steps: int,
     init_steps = min(int(num_steps * strength), num_steps)
     t_start = max(num_steps - init_steps, 0)
     return FlowSchedule(sigmas=sigmas[t_start:], start_index=t_start)
+
+
+def scale_noise(sample: torch.Tensor, noise: torch.Tensor,
+                sigma: torch.Tensor) -> torch.Tensor:
+    """Forward noising at sigma (diffusers ``scale_noise``), in f32: the
+    JAX package's f32 ``sigma`` promotes bf16 operands, while a 0-d torch
+    tensor would not, so both are widened here. Callers cast back."""
+    return sigma * noise.float() + (1.0 - sigma) * sample.float()
 
 
 def euler_step(x: torch.Tensor, velocity: torch.Tensor,

@@ -1,18 +1,25 @@
-"""Flux AutoencoderKL decoder: 16 latent channels, 8x spatial factor
-(port of ``domainrag_tpu/models/flux/vae.py:27-200``; the encoder comes
-with the fill path).
+"""Flux AutoencoderKL: 16 latent channels, 8x spatial factor (port of
+``domainrag_tpu/models/flux/vae.py``).
 
 Resnet blocks with GroupNorm/silu, a single-head mid-block attention
-(dense: the JAX package has no Pallas kernel for it), nearest-2x
-upsampling. Latents are denormalized as ``z / scaling + shift``. Runs in
-f32 with TF32 off (``core.device.resolve``).
+(dense: the JAX package has no Pallas kernel for it), stride-2
+downsampling with diffusers' asymmetric (0, 1) padding, nearest-2x
+upsampling. Latents are normalized as ``(mean - shift) * scaling`` and
+denormalized as ``z / scaling + shift``. Every op runs in its input's
+dtype (the weights are cast to it), so the fill's encode runs in bf16 at
+full width and the decode in f32, as in the JAX package; TF32 is off
+(``core.device.resolve``).
+
+The tiled paths (:func:`encode_tiled`, :func:`decode_tiled`) bound the
+activation memory of the >=2048 px fill: overlapping latent tiles run one
+after another and are blended linearly into an f32 accumulator.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,8 +100,22 @@ def _mid(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def init(cfg: VaeConfig, ini: Init) -> Params:
-    """Decoder weights (the tree the JAX package keeps under "decoder")."""
+    """Encoder and decoder weights (the JAX package's tree)."""
     blocks = cfg.block_out
+    enc: Params = {"conv_in": conv_init(ini, 3, 3, 3, blocks[0]), "down": []}
+    c_prev = blocks[0]
+    for i, c in enumerate(blocks):
+        stage: Params = {"res": []}
+        for _ in range(cfg.layers_per_block):
+            stage["res"].append(_resnet_init(ini, c_prev, c))
+            c_prev = c
+        if i < len(blocks) - 1:
+            stage["down"] = conv_init(ini, 3, 3, c, c)
+        enc["down"].append(stage)
+    enc["mid"] = _mid_init(ini, c_prev)
+    enc["norm_out"] = groupnorm_init(ini, c_prev)
+    enc["conv_out"] = conv_init(ini, 3, 3, c_prev, 2 * cfg.latent_channels)
+
     dec: Params = {"conv_in": conv_init(ini, 3, 3, cfg.latent_channels,
                                         blocks[-1]),
                    "mid": _mid_init(ini, blocks[-1]),
@@ -110,7 +131,32 @@ def init(cfg: VaeConfig, ini: Init) -> Params:
         dec["up"].append(stage)
     dec["norm_out"] = groupnorm_init(ini, c_prev)
     dec["conv_out"] = conv_init(ini, 3, 3, c_prev, 3)
-    return {"decoder": dec}
+    return {"encoder": enc, "decoder": dec}
+
+
+def encode_moments(params: Params, images: torch.Tensor,
+                   cfg: VaeConfig = FLUX_VAE) -> torch.Tensor:
+    """Images (B, H, W, 3) in [-1, 1] -> moments (B, H/f, W/f, 2*C)."""
+    enc = params["encoder"]
+    g = cfg.norm_groups
+    x = conv2d(enc["conv_in"], images)
+    for stage in enc["down"]:
+        for res in stage["res"]:
+            x = _resnet(res, x, g)
+        if "down" in stage:
+            # diffusers downsampler: asymmetric pad (0, 1) then stride 2
+            x = conv2d(stage["down"], x, stride=2, padding=((0, 1), (0, 1)))
+    x = _mid(enc["mid"], x, g)
+    x = F.silu(groupnorm(enc["norm_out"], x, g))
+    return conv2d(enc["conv_out"], x)
+
+
+def encode(params: Params, images: torch.Tensor,
+           cfg: VaeConfig = FLUX_VAE) -> torch.Tensor:
+    """Normalized latents of the posterior's mode (the fill path draws no
+    sample)."""
+    mean = encode_moments(params, images, cfg)[..., :cfg.latent_channels]
+    return (mean - cfg.shift_factor) * cfg.scaling_factor
 
 
 def decode(params: Params, latents: torch.Tensor,
@@ -129,3 +175,80 @@ def decode(params: Params, latents: torch.Tensor,
             x = conv2d(stage["up"], x)
     x = F.silu(groupnorm(dec["norm_out"], x, g))
     return conv2d(dec["conv_out"], x)
+
+
+def _blend_profile(n: int, ramp_lo: int, ramp_hi: int,
+                   device=None) -> torch.Tensor:
+    w = torch.ones(n, dtype=torch.float32, device=device)
+    if ramp_lo > 0:
+        w[:ramp_lo] = (torch.arange(ramp_lo, device=device) + 1.0) \
+            / (ramp_lo + 1.0)
+    if ramp_hi > 0:
+        r = (torch.arange(ramp_hi, device=device) + 1.0) / (ramp_hi + 1.0)
+        w[n - ramp_hi:] = r.flip(0)
+    return w
+
+
+def _tile_starts(n: int, tile: int, overlap: int) -> List[int]:
+    return list(range(0, max(n - overlap, 1), tile - overlap))
+
+
+def _tiled(fn, x: torch.Tensor, lh: int, lw: int, scale_in: int,
+           scale_out: int, channels: int, tile: int,
+           overlap: int) -> torch.Tensor:
+    """``fn`` over overlapping tiles of ``tile`` latent cells, one tile
+    after another, blended into an f32 accumulator. ``x`` is cut at
+    ``scale_in`` pixels per latent cell and ``fn``'s output placed at
+    ``scale_out``."""
+    out = weight = None
+    dtype = None
+    for y in _tile_starts(lh, tile, overlap):
+        for xx in _tile_starts(lw, tile, overlap):
+            y1, x1 = min(y + tile, lh), min(xx + tile, lw)
+            y0, x0 = max(y1 - tile, 0), max(x1 - tile, 0)
+            patch = fn(x[:, y0 * scale_in:y1 * scale_in,
+                         x0 * scale_in:x1 * scale_in])
+            ph, pw = patch.shape[1], patch.shape[2]
+            r = overlap * scale_out
+            wy = _blend_profile(ph, (y0 > 0) * r, (y1 < lh) * r, x.device)
+            wx = _blend_profile(pw, (x0 > 0) * r, (x1 < lw) * r, x.device)
+            wmap = (wy[:, None] * wx[None, :])[None, :, :, None]
+            if out is None:
+                dtype = patch.dtype
+                out = torch.zeros((x.shape[0], lh * scale_out, lw * scale_out,
+                                   channels), dtype=torch.float32,
+                                  device=x.device)
+                weight = torch.zeros((1, lh * scale_out, lw * scale_out, 1),
+                                     dtype=torch.float32, device=x.device)
+            ys, xs = slice(y0 * scale_out, y1 * scale_out), \
+                slice(x0 * scale_out, x1 * scale_out)
+            out[:, ys, xs] += patch.float() * wmap
+            weight[:, ys, xs] += wmap
+    return (out / weight.clamp_min(1e-8)).to(dtype)
+
+
+def decode_tiled(params: Params, latents: torch.Tensor,
+                 cfg: VaeConfig = FLUX_VAE, tile: int = 96,
+                 overlap: int = 16) -> torch.Tensor:
+    """:func:`decode` over overlapping latent tiles with linear blending
+    (exact :func:`decode` when one tile covers the latents)."""
+    _, lh, lw, _ = latents.shape
+    if lh <= tile and lw <= tile:
+        return decode(params, latents, cfg)
+    return _tiled(lambda z: decode(params, z, cfg), latents, lh, lw, 1,
+                  cfg.spatial_factor, 3, tile, overlap)
+
+
+def encode_tiled(params: Params, images: torch.Tensor,
+                 cfg: VaeConfig = FLUX_VAE, tile: int = 96,
+                 overlap: int = 16) -> torch.Tensor:
+    """:func:`encode` over overlapping tiles (``tile``/``overlap`` in
+    latent cells, as :func:`decode_tiled`), blending the normalized
+    latents (seams see a truncated receptive field, as in diffusers'
+    tiled VAE)."""
+    f = cfg.spatial_factor
+    lh, lw = images.shape[1] // f, images.shape[2] // f
+    if lh <= tile and lw <= tile:
+        return encode(params, images, cfg)
+    return _tiled(lambda x: encode(params, x, cfg), images, lh, lw, f, 1,
+                  cfg.latent_channels, tile, overlap)

@@ -5,25 +5,45 @@ MMDiT — head split, qk-RMSNorm, interleaved RoPE, softmax and the output
 merge — reading q/k/v straight from the fused qkv GEMM output in its
 (B, S, W) lane layout and writing (B, S, H*128):
 
-- :func:`mmdit_double_attention` replaces the TPU ``_joint_kernel``
-  (ops/mmdit_attention.py:400): joint [txt; img] attention over the two
+- :func:`mmdit_double_attention`: joint [txt; img] attention over the two
   streams of a double block;
-- :func:`mmdit_single_attention` replaces the TPU ``_seq_kernel``
-  (ops/mmdit_attention.py:328): one stream whose first 3*H*128 lanes
+- :func:`mmdit_single_attention`: one stream whose first 3*H*128 lanes
   are q/k/v (the single block's MLP lanes are never read).
 
-On a CUDA tensor each launches the hand-written Hopper kernels of
-``csrc/mmdit_attention.cu`` (its header states the bound and the design)
-or raises; it never falls back. On a CPU tensor it runs the plain
-version, :func:`reference_double` / :func:`reference_single`, which
-mirror the JAX ``_reference_double`` / ``_reference_single`` (:189-211):
-dense f32 scores and softmax, probabilities rounded to the input dtype.
-The kernels fold the log2(e)/sqrt(128) prescale into q before its bf16
-round and stream K/V with an online softmax, so they agree with the
-plain version to |err| <= 4e-3 + 2e-2*|ref| per element and 1e-2 in
-relative Frobenius norm in bf16, not bit for bit.
+Two regimes, split on the joint length S as in the JAX package:
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+- one pass, S <= ``_MAX_ONEPASS`` (17408; 1024 px is 5337 tokens): the
+  TPU ``_joint_kernel`` (ops/mmdit_attention.py:400) and ``_seq_kernel``
+  (:328). The log2(e)/sqrt(128) prescale is folded into q before its
+  bf16 round. Plain version :func:`reference_double` /
+  :func:`reference_single`, mirroring the JAX ``_reference_double`` /
+  ``_reference_single`` (:189-211): dense f32 scores and softmax,
+  probabilities rounded to the input dtype.
+- multi-pass, ``_MAX_ONEPASS`` < S <= ``_MAX_MULTIPASS`` (49152; the
+  2048 px fill is 17625 tokens, the 2800 px cap 31866): the TPU
+  ``_flash_mp_kernel`` (:533) behind one ``_prep_norm_rope`` pass (:568).
+  q and k are normed and roped and rounded WITHOUT the prescale, which
+  multiplies the f32 scores instead. Plain version
+  :func:`reference_mp_double` / :func:`reference_mp_single`: exp2
+  softmax with the exact row max, P rounded to the input dtype, one
+  head and one block of q rows at a time, so that 31866 tokens need
+  ~0.5 GB of scores and not 97 GB.
+
+Above ``_MAX_MULTIPASS`` the JAX package leaves the fused path for the
+unfused composition, which on the TPU reaches the generic flash kernel
+(``ops/attention.py`` ``_flash_kernel``), not ported yet: the wrappers
+raise there, on every device.
+
+On a CUDA tensor each wrapper launches the hand-written Hopper kernels of
+``csrc/mmdit_attention.cu`` (its header states the bound and the design)
+for the regime or raises; it never falls back. On a CPU tensor it runs
+the regime's plain version. The kernels stream K/V with an online
+softmax, so they agree with the plain version to |err| <= 4e-3 +
+2e-2*|ref| per element and 1e-2 in relative Frobenius norm in bf16, not
+bit for bit.
+
+Each wrapper counts its kernel launches: one-pass in
+``<wrapper>.launches``, multi-pass in ``<wrapper>.mp_launches``.
 """
 
 from __future__ import annotations
@@ -37,6 +57,10 @@ import torch
 LOG2_E = 1.4426950408889634
 _EPS = 1e-6             # qk-rmsnorm epsilon (models.common.rmsnorm)
 HEAD_DIM = 128          # the only head width the kernels take
+# joint lengths of the two regimes (the JAX package's gates, :70, :86)
+_MAX_ONEPASS = 17408
+_MAX_MULTIPASS = 49152
+_MP_ROWS = 4096         # q rows per block of the plain multi-pass version
 
 
 # ---------------------------------------------------------------------------
@@ -51,8 +75,10 @@ def _rms(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def rope_interleaved(x: torch.Tensor, cos: torch.Tensor,
                      sin: torch.Tensor) -> torch.Tensor:
-    """x (B, H, S, D); cos/sin (S, D/2). The pair (x[2i], x[2i+1])
-    rotates by angle i — not the half-split ``rotate_half`` layout."""
+    """x (..., D); cos/sin (..., D/2), broadcasting against x's leading
+    dims: (S, D/2) for (B, H, S, D), (S, 1, D/2) for (B, S, H, D). The
+    pair (x[2i], x[2i+1]) rotates by angle i — not the half-split
+    ``rotate_half`` layout."""
     shape = x.shape
     xf = x.float().reshape(*shape[:-1], shape[-1] // 2, 2)
     x0, x1 = xf[..., 0], xf[..., 1]
@@ -112,6 +138,85 @@ def reference_single(proj, wq, wk, cos, sin, heads: int, head_dim: int):
     return _merge_heads(attention_reference(q, k, v))
 
 
+def prep_norm_rope(x: torch.Tensor, w: torch.Tensor, cos: torch.Tensor,
+                   sin: torch.Tensor, head_dim: int = HEAD_DIM
+                   ) -> torch.Tensor:
+    """qk-RMSNorm + interleaved RoPE over a (B, S, H*head_dim) stream,
+    with no prescale (the JAX ``_prep_norm_rope``, :568-581): f32
+    statistics, rounded to x's dtype after the weight scale, rotated in
+    f32 and cast back."""
+    b, s, hd = x.shape
+    y = _rms(x.reshape(b, s, hd // head_dim, head_dim), w)
+    return rope_interleaved(y, cos[:, None], sin[:, None]).reshape(b, s, hd)
+
+
+def _mp_attention(q, k, v, heads: int, head_dim: int) -> torch.Tensor:
+    """Dense multi-pass numerics over (B, S, H*D) prenormed q/k and raw v:
+    s = (q k^T in f32) * log2(e)/sqrt(D), p = exp2(s - rowmax), P rounded
+    to v's dtype for P.V, o = (P V) / max(sum p, 1e-30). One (batch,
+    head, block of q rows) at a time."""
+    b, s, _ = q.shape
+    scale = LOG2_E / math.sqrt(head_dim)
+    out = torch.empty((b, s, heads * head_dim), dtype=v.dtype,
+                      device=v.device)
+    for bi in range(b):
+        for h in range(heads):
+            lanes = slice(h * head_dim, (h + 1) * head_dim)
+            kh = k[bi, :, lanes].float()
+            vh = v[bi, :, lanes].float()
+            for r0 in range(0, s, _MP_ROWS):
+                rows = slice(r0, r0 + _MP_ROWS)
+                sc = torch.matmul(q[bi, rows, lanes].float(), kh.T)
+                sc.mul_(scale)
+                sc.sub_(sc.amax(-1, keepdim=True)).exp2_()
+                l = sc.sum(-1, keepdim=True)
+                o = torch.matmul(sc.to(v.dtype).float(), vh)
+                out[bi, rows, lanes] = (o / l.clamp_min(1e-30)).to(v.dtype)
+    return out
+
+
+def _lanes(qkv: torch.Tensor, heads: int, head_dim: int):
+    hd = heads * head_dim
+    return qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:3 * hd]
+
+
+def reference_mp_double(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i, cos, sin,
+                        heads: int, head_dim: int):
+    """Plain multi-pass joint attention (the JAX ``_fused_double_mp``,
+    :867-898, with the kernel's streaming replaced by the exact max)."""
+    tq, tk, tv = _lanes(txt_qkv, heads, head_dim)
+    iq, ik, iv = _lanes(img_qkv, heads, head_dim)
+    t_len = tq.shape[1]
+    ct, st = cos[:t_len], sin[:t_len]
+    ci, si = cos[t_len:], sin[t_len:]
+    q = torch.cat([prep_norm_rope(tq, wq_t, ct, st, head_dim),
+                   prep_norm_rope(iq, wq_i, ci, si, head_dim)], dim=1)
+    k = torch.cat([prep_norm_rope(tk, wk_t, ct, st, head_dim),
+                   prep_norm_rope(ik, wk_i, ci, si, head_dim)], dim=1)
+    out = _mp_attention(q, k, torch.cat([tv, iv], dim=1), heads, head_dim)
+    return out[:, :t_len], out[:, t_len:]
+
+
+def reference_mp_single(proj, wq, wk, cos, sin, heads: int, head_dim: int):
+    """Plain multi-pass single-stream attention (the JAX
+    ``_fused_single_mp``, :924-942)."""
+    q, k, v = _lanes(proj, heads, head_dim)
+    return _mp_attention(prep_norm_rope(q, wq, cos, sin, head_dim),
+                         prep_norm_rope(k, wk, cos, sin, head_dim), v,
+                         heads, head_dim)
+
+
+def _multipass(s_total: int) -> bool:
+    """The regime of a joint length: False one pass, True multi-pass;
+    raises above the multi-pass range."""
+    if s_total > _MAX_MULTIPASS:
+        raise NotImplementedError(
+            f"joint length {s_total} > {_MAX_MULTIPASS}: the JAX package "
+            "runs the unfused composition there, whose TPU kernel (B5, "
+            "ops/attention.py _flash_kernel) is not ported")
+    return s_total > _MAX_ONEPASS
+
+
 # ---------------------------------------------------------------------------
 # kernel launch
 # ---------------------------------------------------------------------------
@@ -125,10 +230,10 @@ def _lib():
         from . import _build
         lib = _build.load("mmdit_attention")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mmdit_attention.argtypes = [
-            p, ll, ll, i, p, ll, ll, i, p, p, p, p, p, p, p, p, p, p,
-            i, i, ctypes.c_float, p]
-        lib.mmdit_attention.restype = ctypes.c_int
+        for fn in (lib.mmdit_attention, lib.mmdit_attention_mp):
+            fn.argtypes = [p, ll, ll, i, p, ll, ll, i, p, p, p, p, p, p, p,
+                           p, p, p, i, i, ctypes.c_float, p]
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -149,8 +254,10 @@ def _check_stream(x: torch.Tensor, heads: int, what: str) -> None:
 def _launch(streams: Sequence[torch.Tensor],
             norm_w: Sequence[Tuple[torch.Tensor, torch.Tensor]],
             cos: torch.Tensor, sin: torch.Tensor, heads: int,
-            head_dim: int):
-    """One or two row sources -> one (B, S_i, H*128) output per source."""
+            head_dim: int, multipass: bool):
+    """One or two row sources -> one (B, S_i, H*128) output per source.
+    ``multipass`` launches the multi-pass entry (no q prescale; the
+    prescale multiplies the f32 scores) instead of the one-pass one."""
     if head_dim != HEAD_DIM:
         raise ValueError(f"the CUDA kernels take head_dim {HEAD_DIM} only, "
                          f"got {head_dim}")
@@ -181,7 +288,9 @@ def _launch(streams: Sequence[torch.Tensor],
     a, bb = streams[0], streams[-1]
     (wq_a, wk_a), (wq_b, wk_b) = ws[0], ws[-1]
     s_b = lens[1] if len(streams) == 2 else 0
-    rc = _lib().mmdit_attention(
+    lib = _lib()
+    entry = lib.mmdit_attention_mp if multipass else lib.mmdit_attention
+    rc = entry(
         a.data_ptr(), a.stride(0), a.stride(1), lens[0],
         bb.data_ptr(), bb.stride(0), bb.stride(1), s_b,
         wq_a.data_ptr(), wk_a.data_ptr(), wq_b.data_ptr(), wk_b.data_ptr(),
@@ -190,8 +299,8 @@ def _launch(streams: Sequence[torch.Tensor],
         LOG2_E / math.sqrt(head_dim),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"mmdit_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"mmdit_attention kernel launch failed "
+                           f"(multipass={multipass}): CUDA error {rc}")
     return outs
 
 
@@ -209,12 +318,17 @@ def mmdit_double_attention(txt_qkv, img_qkv, txt_qknorm, img_qknorm,
     Returns (txt_attn, img_attn), each (B, S, heads*head_dim)."""
     wq_t, wk_t = txt_qknorm["q"]["scale"], txt_qknorm["k"]["scale"]
     wq_i, wk_i = img_qknorm["q"]["scale"], img_qknorm["k"]["scale"]
+    mp = _multipass(txt_qkv.shape[1] + img_qkv.shape[1])
     if txt_qkv.device.type == "cpu":
-        return reference_double(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i,
-                                cos, sin, heads, head_dim)
+        plain = reference_mp_double if mp else reference_double
+        return plain(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i, cos, sin,
+                     heads, head_dim)
     out_t, out_i = _launch([txt_qkv, img_qkv], [(wq_t, wk_t), (wq_i, wk_i)],
-                           cos, sin, heads, head_dim)
-    mmdit_double_attention.launches += 1
+                           cos, sin, heads, head_dim, mp)
+    if mp:
+        mmdit_double_attention.mp_launches += 1
+    else:
+        mmdit_double_attention.launches += 1
     return out_t, out_i
 
 
@@ -225,12 +339,18 @@ def mmdit_single_attention(proj, qknorm, cos, sin, heads: int,
     proj: (B, S, W) with q/k/v in the first 3*heads*head_dim lanes (the
     trailing MLP lanes are not read). Returns (B, S, heads*head_dim)."""
     wq, wk = qknorm["q"]["scale"], qknorm["k"]["scale"]
+    mp = _multipass(proj.shape[1])
     if proj.device.type == "cpu":
-        return reference_single(proj, wq, wk, cos, sin, heads, head_dim)
-    (out,) = _launch([proj], [(wq, wk)], cos, sin, heads, head_dim)
-    mmdit_single_attention.launches += 1
+        plain = reference_mp_single if mp else reference_single
+        return plain(proj, wq, wk, cos, sin, heads, head_dim)
+    (out,) = _launch([proj], [(wq, wk)], cos, sin, heads, head_dim, mp)
+    if mp:
+        mmdit_single_attention.mp_launches += 1
+    else:
+        mmdit_single_attention.launches += 1
     return out
 
 
-mmdit_double_attention.launches = 0
-mmdit_single_attention.launches = 0
+for _wrapper in (mmdit_double_attention, mmdit_single_attention):
+    _wrapper.launches = 0
+    _wrapper.mp_launches = 0

@@ -7,10 +7,14 @@ does, is left out::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: the kernels fold the log2(e)/sqrt(128) prescale into q before
-its bf16 round and round P to bf16 against a running max, so they agree
-with the dense plain version to |err| <= 4e-3 + 2e-2*|ref| per element
-and 1e-2 in relative Frobenius norm, in bf16 (as ``chip_smoke.py``).
+Tolerance: the kernels round P to bf16 against a running max (and, in
+the one-pass regime, fold the log2(e)/sqrt(128) prescale into q before
+its bf16 round), so they agree with the dense plain version of their
+regime to |err| <= 4e-3 + 2e-2*|ref| per element and 1e-2 in relative
+Frobenius norm, in bf16 (as ``chip_smoke.py``). The multi-pass kernel is
+held to the multi-pass plain version (``reference_mp_*``), never to the
+one-pass one; the one-pass ceiling is lowered so that small shapes reach
+it.
 """
 
 import pytest
@@ -96,3 +100,86 @@ def test_kernel_reads_strided_rows_in_place(dev):
     same = mma.mmdit_single_attention(proj.contiguous(), qn, cos, sin,
                                       heads, 128)
     assert torch.equal(got, same)
+
+
+@pytest.fixture
+def low_gate(monkeypatch):
+    """Joint lengths above 64 tokens take the multi-pass kernel."""
+    monkeypatch.setattr(mma, "_MAX_ONEPASS", 64)
+
+
+@pytest.mark.parametrize("batch,s_txt,s_img,heads", [
+    (2, 40, 88, 3), (2, 64, 192, 2), (1, 77, 300, 24)])
+def test_mp_double_kernel_matches_plain(dev, low_gate, batch, s_txt, s_img,
+                                        heads):
+    w = 3 * heads * 128
+    (txt, img), cos, sin, (tn, inorm) = _inputs(
+        dev, 3, [(batch, s_txt, w), (batch, s_img, w)], s_txt + s_img, heads)
+    n = (mma.mmdit_double_attention.launches,
+         mma.mmdit_double_attention.mp_launches)
+    got_t, got_i = mma.mmdit_double_attention(txt, img, tn, inorm, cos, sin,
+                                              heads, 128)
+    torch.cuda.synchronize()
+    assert (mma.mmdit_double_attention.launches,
+            mma.mmdit_double_attention.mp_launches) == (n[0], n[1] + 1)
+    want_t, want_i = mma.reference_mp_double(
+        txt, img, tn["q"]["scale"], tn["k"]["scale"], inorm["q"]["scale"],
+        inorm["k"]["scale"], cos, sin, heads, 128)
+    _check(got_t, want_t)
+    _check(got_i, want_i)
+
+
+@pytest.mark.parametrize("batch,s,heads", [
+    (2, 130, 3), (2, 333, 2), (1, 1000, 24)])
+def test_mp_single_kernel_matches_plain(dev, low_gate, batch, s, heads):
+    w = 7 * heads * 128                       # q/k/v + MLP lanes
+    (proj,), cos, sin, (qn, _) = _inputs(dev, 4, [(batch, s, w)], s, heads)
+    n = (mma.mmdit_single_attention.launches,
+         mma.mmdit_single_attention.mp_launches)
+    got = mma.mmdit_single_attention(proj, qn, cos, sin, heads, 128)
+    torch.cuda.synchronize()
+    assert (mma.mmdit_single_attention.launches,
+            mma.mmdit_single_attention.mp_launches) == (n[0], n[1] + 1)
+    want = mma.reference_mp_single(proj, qn["q"]["scale"], qn["k"]["scale"],
+                                   cos, sin, heads, 128)
+    _check(got, want)
+
+
+def test_mp_kernel_reads_strided_rows_in_place(dev, low_gate):
+    """Both streams as row windows of larger tensors, read in place."""
+    heads, w = 2, 3 * 2 * 128
+    (big_t, big_i), cos, sin, (tn, inorm) = _inputs(
+        dev, 5, [(2, 60, w), (2, 150, w)], 37 + 101, heads)
+    txt, img = big_t[:, 5:42], big_i[:, 20:121]
+    got = mma.mmdit_double_attention(txt, img, tn, inorm, cos, sin, heads,
+                                     128)
+    want = mma.reference_mp_double(
+        txt, img, tn["q"]["scale"], tn["k"]["scale"], inorm["q"]["scale"],
+        inorm["k"]["scale"], cos, sin, heads, 128)
+    for g, w_ in zip(got, want):
+        _check(g, w_)
+    same = mma.mmdit_double_attention(txt.contiguous(), img.contiguous(), tn,
+                                      inorm, cos, sin, heads, 128)
+    assert all(torch.equal(a, b) for a, b in zip(got, same))
+
+
+def test_mp_kernel_rounds_like_the_multipass_plain(dev, monkeypatch):
+    """The multi-pass kernel rounds q unscaled and scales the f32 scores:
+    it is nearer the multi-pass plain version than the one-pass kernel
+    (q prescaled before its bf16 round) is on the same input. A
+    multi-pass entry that kept the one-pass fold would equal the one-pass
+    kernel and fail here, though it stays inside the tolerance."""
+    heads, s = 4, 600
+    (proj,), cos, sin, (qn, _) = _inputs(dev, 6, [(2, s, 7 * heads * 128)],
+                                         s, heads)
+    onepass = mma.mmdit_single_attention(proj, qn, cos, sin, heads, 128)
+    monkeypatch.setattr(mma, "_MAX_ONEPASS", 64)
+    multipass = mma.mmdit_single_attention(proj, qn, cos, sin, heads, 128)
+    want = mma.reference_mp_single(proj, qn["q"]["scale"], qn["k"]["scale"],
+                                   cos, sin, heads, 128).float()
+
+    def rel(x):
+        return ((x.float() - want).norm() / want.norm()).item()
+
+    assert rel(multipass) < 0.8 * rel(onepass), (rel(multipass),
+                                                  rel(onepass))
