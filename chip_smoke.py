@@ -8,9 +8,9 @@ Run from the repository root with no arguments::
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
-2. build every CUDA kernel of the stage-3 and stage-4 paths from
-   ``csrc/`` (one ``nvcc`` per source, started together) and print the
-   compiler's register report;
+2. build every CUDA kernel of the stage-3, stage-4 and trainer paths
+   from ``csrc/`` (one ``nvcc`` per source, started together) and print
+   the compiler's register report;
 3. each one-pass kernel at its full-width main-path shape (B = 1, 24
    heads x 128, 1241 text + 4096 image tokens, single-block rows 21504
    wide) against its plain PyTorch version, with its time, the plain
@@ -54,13 +54,46 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel ran 19 or 38 times per step per background and the one-pass
    one never;
 10. one full-width fill denoise step (batch 1, 2048 px, 384 channels)
-    under ``torch.profiler`` (full table in ``OUT/profile_fill.txt``).
+    under ``torch.profiler`` (full table in ``OUT/profile_fill.txt``);
+11. the Fill bundle is freed; the generic flash kernels (B5 forward, B6
+    dq and dk/dv) against their plain versions: a small causal +
+    ``kv_valid`` case with ragged lengths in bf16 and f32, the trainer's
+    attention shape (2, 24, 4608, 128) in bf16 and f32 with each kernel's
+    time beside the plain version's, SDPA's (forward, and its autograd
+    backward for the B6 rows) and the bound, and B5 above the multi-pass
+    ceiling at (1, 24, 50393, 128) bf16, compared on two heads;
+12. the serving path above the multi-pass ceiling: both attention
+    wrappers at 1241 + 49152 = 50393 joint tokens (a 4096x3072 image),
+    where they take the unfused composition and so B5; launches counted
+    on this run alone (B5 2, the fused kernels 0), heads 0-1 of each
+    output against the plain B5 forward;
+13. a small trainer card vs CPU: a head_dim-128 toy MMDiT (hidden 256,
+    one double and one single block) at 128 px, three ``train_step``s
+    from the same weights, batches, t and eps, with bf16 and with f32
+    batches, losses, first-step gradients and updates within stated
+    limits, launch counts asserted;
+14. the trainer at FLUX.1-dev width cut in depth to 2 double + 4 single
+    blocks (default 19 + 38; 1.31 B f32 params drawn on the card):
+    ``train.loop.fit`` with remat for 4 steps on synthetic bf16 batches
+    (batch 2, 1024 px = 4096 image tokens, 512 T5 tokens), one checkpoint
+    written at the end under ``OUT`` and restored (then deleted); finite
+    losses, changed params and the launch counts per step (B1 4, B2 8,
+    B5 6, B6 6 + 6, B3 0), seconds per step, peak memory, checkpoint time;
+15. one traced full-width train step (``OUT/profile_train.txt``), grouped
+    into the fused forward, B5, B6, GEMMs, the optimizer and the rest;
+16. one full-width ``fit`` step on f32 batches (the dtype
+    ``latent_batches_from_images`` yields): no fused kernel, B5 12 and B6
+    6 + 6 launches, finite loss, changed params; the f32 kernel rows
+    take these counts;
+17. the bounds of the kernels still to port (B4, B7, B8) at their shapes
+    on their paths (arithmetic; nothing runs).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -93,6 +126,9 @@ HEADS, HD = 24, 128
 ATOL, RTOL, REL_NORM = 4e-3, 2e-2, 1e-2
 PEAK_BF16 = 989e12        # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bytes/s
+PEAK_F32 = 67e12          # H100 SXM f32 FMA FLOP/s (no tensor cores)
+PEAK_INT8 = 1979e12       # H100 SXM dense int8 OP/s
+SOURCES = ("mmdit_attention", "flash_attention")
 
 
 def _ms(fn, reps: int, warmup: int = 2) -> float:
@@ -143,15 +179,20 @@ def _leaves(tree):
 
 
 def phase_build():
+    """One nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from domainrag_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    path = _build.build()
-    print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
-    log = path.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        paths = list(pool.map(_build.build, SOURCES))
+    print(f"build: {', '.join(p.name for p in paths)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for path in paths:
+        log = path.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line or "entry" in line:
+                    print(f"  ptxas: {line.strip()[:160]}")
 
 
 def _rope_tables(dev, grid=SIZE // 16):
@@ -225,6 +266,18 @@ def _row(name, replaces, kernel, plain, prenormed, bound, reps,
     return row
 
 
+def _dense(fn):
+    """``fn`` run inside ``dense_attention()``: the unfused composition as
+    the plain version of the one-pass kernels (its attention dense, not
+    the generic flash kernel)."""
+    from domainrag_tpu_torch.ops import attention as attn
+
+    def run():
+        with attn.dense_attention():
+            return fn()
+    return run
+
+
 def phase_kernels(dev):
     """Each kernel vs its plain version at the main-path shape."""
     import torch
@@ -253,13 +306,14 @@ def phase_kernels(dev):
         ("mmdit_joint_attention", "ops/mmdit_attention.py:400",
          lambda: mma.mmdit_double_attention(
              txt, img, tn, inorm, cos, sin, HEADS, HD),
-         lambda: mma.reference_double(
-             txt, img, *w(tn), *w(inorm), cos, sin, HEADS, HD),
+         _dense(lambda: mma.reference_double(
+             txt, img, *w(tn), *w(inorm), cos, sin, HEADS, HD)),
          lambda: mma.prenormed_double(txt, img, *w(tn), *w(inorm), cos, sin,
                                       HEADS, HD)),
         ("mmdit_seq_attention", "ops/mmdit_attention.py:328",
          lambda: mma.mmdit_single_attention(proj, sn, cos, sin, HEADS, HD),
-         lambda: mma.reference_single(proj, *w(sn), cos, sin, HEADS, HD),
+         _dense(lambda: mma.reference_single(proj, *w(sn), cos, sin, HEADS,
+                                             HD)),
          lambda: mma.prenormed_single(proj, *w(sn), cos, sin, HEADS, HD)),
     ]
     bound = _bound(1, s_tot)
@@ -530,8 +584,24 @@ def phase_slice(dev, rows):
 
 
 def _reset_counts(mma):
+    from domainrag_tpu_torch.ops import attention as attn
     for wrapper in (mma.mmdit_double_attention, mma.mmdit_single_attention):
         wrapper.launches = wrapper.mp_launches = 0
+    f = attn.flash_attention
+    f.launches = f.dq_launches = f.dkv_launches = 0
+
+
+def _flash_counts():
+    from domainrag_tpu_torch.ops import attention as attn
+    f = attn.flash_attention
+    return f.launches, f.dq_launches, f.dkv_launches
+
+
+def _flash_launches(rows, tag, counts):
+    """Writes a trainer run's B5 / B6 dq / B6 dkv counts into the rows at
+    the trainer's attention shape in ``tag``'s dtype, and no other row."""
+    for kind, n in zip(("fwd", "bwd_dq", "bwd_dkv"), counts):
+        rows[f"flash_{kind}_{tag}_b{TRAIN_B}_s{S_TRAIN}"]["launches"] = n
 
 
 def _read_counts(mma, rows, regime, depth, passes):
@@ -544,8 +614,10 @@ def _read_counts(mma, rows, regime, depth, passes):
     want = (depth.depth_double * passes, depth.depth_single * passes)
     other = "multi-pass" if regime == "one-pass" else "one-pass"
     print(f"launches on the path: {regime} double/single {counts[regime]} "
-          f"(expected {want}), {other} {counts[other]} (expected (0, 0))")
-    if counts[regime] != want or counts[other] != (0, 0):
+          f"(expected {want}), {other} {counts[other]} (expected (0, 0)), "
+          f"generic flash fwd/dq/dkv {_flash_counts()} (expected (0, 0, 0))")
+    if counts[regime] != want or counts[other] != (0, 0) \
+            or _flash_counts() != (0, 0, 0):
         raise AssertionError("kernel launch counts differ from the path")
     prefix = "mmdit_mp_" if regime == "multi-pass" else "mmdit_"
     for name, row in rows.items():
@@ -747,6 +819,614 @@ def phase_compose(dev, rows, backgrounds):
     return bundle
 
 
+# ---------------------------------------------------------------------------
+# the trainer's slice: generic flash attention (B5, B6) and training
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_GRID, TRAIN_TXT = 2, 64, 512   # batch, 1024 px, T5 tokens
+TRAIN_STEPS = 4
+TRAIN_DEPTH = (2, 4)      # cut: FLUX.1-dev has 19 double + 38 single blocks
+S_TRAIN = TRAIN_GRID * TRAIN_GRID + TRAIN_TXT          # 4608 joint tokens
+S_LONG = 1241 + 49152     # above _MAX_MULTIPASS: the unfused serving path
+# Gradients, bf16: relative Frobenius norm GRAD_REL and every element
+# within GRAD_ELEM * max|plain| (P and dS rounded to bf16 for the tensor-
+# core products, where the plain version keeps every product in f32).
+# f32 (no TF32): F32_REL in norm and F32_REL * max|plain| per element
+# (measured on the H100: 1.3e-6 in norm; summation order and exp2f/expf).
+GRAD_REL, GRAD_ELEM, F32_REL = 1e-2, 2e-2, 1e-5
+LSE_ATOL = 1e-3
+
+
+def _check_grad(name, got, want, f32):
+    """Gradient (or f32 output) vs plain: raises unless within the
+    tolerance; returns the max abs error."""
+    err = (got.float() - want.float()).abs()
+    max_abs = err.max().item()
+    top = want.float().abs().max().item()
+    rel_norm = (err.norm() / want.float().norm().clamp_min(1e-30)).item()
+    rel, elem = (F32_REL, F32_REL) if f32 else (GRAD_REL, GRAD_ELEM)
+    print(f"kernel {name}: max_abs_err {max_abs:.3e} (max|ref| {top:.3e}) "
+          f"rel_norm {rel_norm:.3e} (tol {rel} in norm, {elem}*max|ref|)")
+    if not (max_abs <= elem * top and rel_norm < rel):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return max_abs
+
+
+def _flash_bound(flop_per, shape, f32):
+    """The least time for ``flop_per``*B*H*Sq*Skv*D FLOP at the peak of
+    the dtype, or the bytes (each of q/k/v/o read or written once)."""
+    b, h, s_q, s_kv, d = shape
+    ops = flop_per * b * h * s_q * s_kv * d / (PEAK_F32 if f32 else
+                                               PEAK_BF16) * 1e3
+    nbytes = 4 * b * h * max(s_q, s_kv) * d * (4 if f32 else 2) \
+        / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops, nbytes),
+            "bound_by": "operations" if ops >= nbytes else "bytes"}
+
+
+def _flash_row(name, replaces, max_abs, ms, plain_ms, library_ms, bound):
+    row = {"name": name, "route": "cuda",
+           "source": "domainrag_tpu_torch/csrc/flash_attention.cu",
+           "replaces": f"domainrag_tpu/{replaces}", "launches": 0,
+           "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, **bound}
+    print(f"kernel {name}: ms {ms:.3f} plain_ms {plain_ms:.3f} library_ms "
+          f"{library_ms:.3f} bound_ms {row['bound_ms']:.3f} "
+          f"({row['bound_by']})")
+    return row
+
+
+def phase_flash_kernels(dev):
+    """B5 and B6 against their plain versions: at the trainer's attention
+    shape (2, 24, 4608, 128) in bf16 and f32 (forward, dq, dk/dv), B5
+    above _MAX_MULTIPASS at (1, 24, 50393, 128) bf16 (compared on two
+    heads with the blocked plain version), and a small causal + kv_valid
+    case with ragged lengths in both dtypes."""
+    import torch
+    import torch.nn.functional as F
+    from domainrag_tpu_torch.ops import attention as attn
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+
+    def qkvo(shape, dtype):
+        b, h, s_q, s_kv, d = shape
+        return [torch.randn(sh, generator=g, device=dev).to(dtype)
+                for sh in ((b, h, s_q, d), (b, h, s_kv, d), (b, h, s_kv, d),
+                           (b, h, s_q, d))]
+
+    rows = {}
+    # the small causal + kv_valid case, ragged (1000 = 15 x 64 + 40)
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        q, k, v, do = qkvo((1, 4, 1000, 1000, 128), dtype)
+        out, lse = attn._kernel_forward(q, k, v, True, 613)
+        want, want_lse = attn.flash_forward_reference(q, k, v, True, 613)
+        tag = f"flash small causal kv_valid {dtype}"
+        if f32:
+            _check_grad(tag + " out", out, want, True)
+        else:
+            _check(tag + " out", out, want)
+        if (lse - want_lse).abs().max().item() > LSE_ATOL:
+            raise AssertionError(f"{tag}: lse disagrees")
+        got = attn._kernel_backward(q, k, v, want, want_lse, do, True, 613)
+        ref = attn.flash_backward_reference(q, k, v, want, want_lse, do,
+                                            True, 613)
+        for nm, a, b in zip(("dq", "dk", "dv"), got, ref):
+            _check_grad(f"{tag} {nm}", a, b, f32)
+
+    for dtype, reps in ((torch.bfloat16, (20, 3, 20, 10)),
+                        (torch.float32, (5, 3, 5, 3))):
+        f32 = dtype == torch.float32
+        tag = "f32" if f32 else "bf16"
+        shape = (TRAIN_B, HEADS, S_TRAIN, S_TRAIN, HD)
+        q, k, v, do = qkvo(shape, dtype)
+        out, lse = attn._kernel_forward(q, k, v, False, None)
+        want, want_lse = attn.flash_forward_reference(q, k, v)
+        torch.cuda.synchronize()
+        max_abs = (_check_grad(f"flash_fwd_{tag}", out, want, True) if f32
+                   else _check(f"flash_fwd_{tag}", out, want))
+        if (lse - want_lse).abs().max().item() > LSE_ATOL:
+            raise AssertionError(f"flash_fwd_{tag}: lse disagrees")
+        name = f"flash_fwd_{tag}_b{TRAIN_B}_s{S_TRAIN}"
+        rows[name] = _flash_row(
+            name, "ops/attention.py:110", max_abs,
+            _ms(lambda: attn._kernel_forward(q, k, v, False, None), reps[0]),
+            _ms(lambda: attn.flash_forward_reference(q, k, v), reps[1], 1),
+            _ms(lambda: F.scaled_dot_product_attention(q, k, v), reps[2]),
+            _flash_bound(4, shape, f32))
+        # backward from the plain forward's out/lse
+        buf = attn.backward_buffers(q, k, v, want, want_lse, do, False)
+        attn.launch_backward(buf, 0)
+        attn.launch_backward(buf, 1)
+        ref = attn.flash_backward_reference(q, k, v, want, want_lse, do)
+        torch.cuda.synchronize()
+        unpad = [x.reshape(q.shape) for x in (buf.dq, buf.dk, buf.dv)]
+        errs = [_check_grad(f"flash_bwd_{tag} {nm}", a, b, f32)
+                for nm, a, b in zip(("dq", "dk", "dv"), unpad, ref)]
+        plain_ms = _ms(lambda: attn.flash_backward_reference(
+            q, k, v, want, want_lse, do), reps[1], 1)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        sdpa = F.scaled_dot_product_attention(*leaves)
+        library_ms = _ms(lambda: torch.autograd.grad(
+            sdpa, leaves, do, retain_graph=True), reps[3])
+        for which, kname, flop, err in ((0, "dq", 6, errs[0]),
+                                        (1, "dkv", 8, max(errs[1:]))):
+            name = f"flash_bwd_{kname}_{tag}_b{TRAIN_B}_s{S_TRAIN}"
+            rows[name] = _flash_row(
+                name, "ops/attention.py:" + ("296" if which == 0 else "336"),
+                err, _ms(lambda: attn.launch_backward(buf, which), reps[3]),
+                plain_ms, library_ms, _flash_bound(flop, shape, f32))
+        del q, k, v, do, out, want, buf, ref, leaves, sdpa, unpad
+        torch.cuda.empty_cache()
+
+    # above _MAX_MULTIPASS: the serving path's unfused composition
+    shape = (1, HEADS, S_LONG, S_LONG, HD)
+    q, k, v, _ = qkvo(shape, torch.bfloat16)
+    out, lse = attn._kernel_forward(q, k, v, False, None)
+    want, want_lse = attn.flash_forward_reference(q[:, :2], k[:, :2],
+                                                  v[:, :2])
+    torch.cuda.synchronize()
+    max_abs = _check(f"flash_fwd_bf16_s{S_LONG} (heads 0-1)", out[:, :2],
+                     want)
+    if (lse[:, :2] - want_lse).abs().max().item() > LSE_ATOL:
+        raise AssertionError("flash_fwd long: lse disagrees")
+    del out, want
+    name = f"flash_fwd_bf16_b1_s{S_LONG}"
+    rows[name] = _flash_row(
+        name, "ops/attention.py:43", max_abs,
+        _ms(lambda: attn._kernel_forward(q, k, v, False, None), 3),
+        _ms(lambda: attn.flash_forward_reference(q, k, v), 1, 0),
+        _ms(lambda: F.scaled_dot_product_attention(q, k, v), 3),
+        _flash_bound(4, shape, False))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_long_serving(dev, rows):
+    """The serving path above _MAX_MULTIPASS: a 4096 x 3072 px image
+    (256 x 192 = 49152 latent tokens) behind the 1241-token Redux prompt
+    is S_LONG joint tokens, where both attention wrappers take the unfused
+    composition and so B5. Each wrapper runs once, with the counts set to 0
+    just before and read just after; heads 0-1 of each output are held
+    against the plain B5 forward on the same pre-normed q/k/v."""
+    import torch
+    from domainrag_tpu_torch.models.flux import model as fm
+    from domainrag_tpu_torch.ops import attention as attn
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+
+    gh, gw = 256, 192
+    s_img = gh * gw
+    if S_TXT + s_img != S_LONG or S_LONG <= mma._MAX_MULTIPASS:
+        raise AssertionError(f"{S_TXT + s_img} tokens are not the long path")
+    ids = np.concatenate([fm.make_text_ids(S_TXT), fm.make_image_ids(gh, gw)])
+    cos, sin = fm.rope_cos_sin(torch.as_tensor(ids, device=dev),
+                               fm.FLUX_DEV.axes_dim, fm.FLUX_DEV.theta)
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    hd = HEADS * HD
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def norm():
+        return {"q": {"scale": 0.5 + torch.rand(HD, generator=g, device=dev)},
+                "k": {"scale": 0.5 + torch.rand(HD, generator=g, device=dev)}}
+
+    txt, img, proj = randn(1, S_TXT, 3 * hd), randn(1, s_img, 3 * hd), \
+        randn(1, S_LONG, 7 * hd)
+    tn, inorm, sn = norm(), norm(), norm()
+    w = lambda n: (n["q"]["scale"], n["k"]["scale"])     # noqa: E731
+    torch.cuda.synchronize()
+    _reset_counts(mma)
+    with torch.no_grad():
+        out_d = torch.cat(mma.mmdit_double_attention(
+            txt, img, tn, inorm, cos, sin, HEADS, HD), 1)
+        out_s = mma.mmdit_single_attention(proj, sn, cos, sin, HEADS, HD)
+    torch.cuda.synchronize()
+    d, s = mma.mmdit_double_attention, mma.mmdit_single_attention
+    counts = (d.launches + d.mp_launches, s.launches + s.mp_launches,
+              *_flash_counts())
+    print(f"launches on the path: {S_LONG} tokens, fused double/single "
+          f"{counts[:2]} (expected (0, 0)), generic flash fwd/dq/dkv "
+          f"{counts[2:]} (expected (2, 0, 0))")
+    if counts != (0, 0, 2, 0, 0):
+        raise AssertionError("long serving path: launch counts differ")
+    for tag, out, (q, k, v) in (
+            ("double", out_d, mma.prenormed_double(
+                txt, img, *w(tn), *w(inorm), cos, sin, HEADS, HD)),
+            ("single", out_s, mma.prenormed_single(
+                proj, *w(sn), cos, sin, HEADS, HD))):
+        if out.shape != (1, S_LONG, hd) or not torch.isfinite(out).all():
+            raise AssertionError(f"long serving path ({tag}): output")
+        want, _ = attn.flash_forward_reference(q[:, :2], k[:, :2], v[:, :2])
+        got = out[..., :2 * HD].reshape(1, S_LONG, 2, HD).transpose(1, 2)
+        _check(f"long serving path {tag} (heads 0-1)", got, want)
+        del q, k, v, want, got
+    rows[f"flash_fwd_bf16_b1_s{S_LONG}"]["launches"] = counts[2]
+    del txt, img, proj, out_d, out_s
+    torch.cuda.empty_cache()
+
+
+def _train_cfg_small():
+    from domainrag_tpu_torch.models.flux import model as fm
+    return dataclasses.replace(
+        fm.TINY_FLUX, hidden=256, heads=2, head_dim=128, depth_double=1,
+        depth_single=1, axes_dim=(16, 56, 56), in_channels=64,
+        out_channels=64)
+
+
+def _leaves_cat(tree):
+    import torch
+    from domainrag_tpu_torch.train import flow_match
+    return torch.cat([t.detach().float().reshape(-1).cpu()
+                      for t in flow_match.leaves(tree)])
+
+
+def phase_small_trainer(dev):
+    """A head_dim-128 toy MMDiT (hidden 256, one double and one single
+    block) at 128 px: three ``train_step``s on the card and on the CPU
+    from the same weights, batches, t and eps, once with bf16 batches (the
+    fused forward, B5/B6 in the backward) and once with f32 batches (B5/B6
+    only). Also the first step's gradients, card vs CPU."""
+    import torch
+    from domainrag_tpu_torch.models.common import Init
+    from domainrag_tpu_torch.models.flux import model as fm
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+    from domainrag_tpu_torch.train import flow_match
+
+    cfg = _train_cfg_small()
+    tcfg = flow_match.TrainConfig(learning_rate=1e-4)
+    steps, grid, s_txt = 3, 8, 32
+    rng = np.random.default_rng(21)
+    cpu = torch.device("cpu")
+    base = fm.init(cfg, Init(torch.Generator().manual_seed(21), cpu))
+    ids = (torch.as_tensor(fm.make_image_ids(grid, grid)),
+           torch.as_tensor(fm.make_text_ids(s_txt)))
+    data = [{"x0": rng.standard_normal((2, grid * grid, 64)),
+             "txt": rng.standard_normal((2, s_txt, cfg.text_dim)),
+             "pooled": rng.standard_normal((2, cfg.pooled_dim)),
+             "t": 1 / (1 + np.exp(-rng.standard_normal(2))),
+             "eps": rng.standard_normal((2, grid * grid, 64))}
+            for _ in range(steps)]
+    # per step: each block's fused forward twice (forward and the remat
+    # recompute), the unfused recompute's B5 and B6 once per block; f32
+    # runs B5 in each forward instead
+    want_counts = {torch.bfloat16: (2, 2, 2, 2, 2),
+                   torch.float32: (0, 0, 4, 2, 2)}
+    for dtype in (torch.bfloat16, torch.float32):
+        runs = []
+        for where in (dev, cpu):
+            params = _tree(lambda t: t.clone().to(where), base)
+            step, params, opt = flow_match.make_train_step(cfg, tcfg, params)
+            batches = [{"x0": torch.as_tensor(d["x0"], dtype=dtype,
+                                              device=where),
+                        "txt": torch.as_tensor(d["txt"], dtype=dtype,
+                                               device=where),
+                        "pooled": torch.as_tensor(d["pooled"], dtype=dtype,
+                                                  device=where),
+                        "img_ids": ids[0].to(where),
+                        "txt_ids": ids[1].to(where)} for d in data]
+            t_eps = [(torch.as_tensor(d["t"], dtype=torch.float32),
+                      torch.as_tensor(d["eps"], dtype=torch.float32))
+                     for d in data]
+            loss = flow_match.flow_match_loss(params, batches[0], None, cfg,
+                                              tcfg, *t_eps[0])
+            grads = torch.autograd.grad(loss, flow_match.leaves(params))
+            grad0 = torch.cat([gr.float().reshape(-1).cpu() for gr in grads])
+            _reset_counts(mma)
+            losses = []
+            for b, (t, e) in zip(batches, t_eps):
+                params, opt, l_ = step(params, opt, b, None, t=t, eps=e)
+                losses.append(l_.item())
+            counts = (mma.mmdit_double_attention.launches,
+                      mma.mmdit_single_attention.launches, *_flash_counts())
+            runs.append((losses, grad0, _leaves_cat(params), counts))
+        (l_card, g_card, p_card, counts), (l_cpu, g_cpu, p_cpu, _) = runs
+        p0 = _leaves_cat(base)
+        d_card, d_cpu = p_card - p0, p_cpu - p0
+        grad_rel = ((g_card - g_cpu).norm() / g_cpu.norm()).item()
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+        upd_rel = ((d_card - d_cpu).norm() / d_cpu.norm()).item()
+        upd_max = (d_card - d_cpu).abs().max().item()
+        want = tuple(steps * n for n in want_counts[dtype])
+        print(f"small trainer ({dtype}, {steps} steps, 128 px, head_dim 128):"
+              f" losses card {[round(x, 6) for x in l_card]} CPU "
+              f"{[round(x, 6) for x in l_cpu]} (max rel {loss_rel:.3e}), "
+              f"first-step grads rel_norm {grad_rel:.3e}, param updates "
+              f"rel_norm {upd_rel:.3e} max abs {upd_max:.3e} (lr "
+              f"{tcfg.learning_rate}); launches B1/B2/B5/B6dq/B6dkv {counts}"
+              f" (expected {want})")
+        f32 = dtype == torch.float32
+        lim = SMALL_TRAIN_F32 if f32 else SMALL_TRAIN_BF16
+        if counts != want:
+            raise AssertionError("small trainer: launch counts differ")
+        if not (all(np.isfinite(l_card)) and loss_rel < lim[0]
+                and grad_rel < lim[1] and upd_rel < lim[2]):
+            raise AssertionError(f"small trainer ({dtype}): card and CPU "
+                                 "disagree")
+
+
+# card vs CPU limits of the small trainer: (loss rel, first-step grads
+# rel norm, param updates rel norm), about 5x what was measured on the
+# H100. f32: summation order only, then Adam (g/(|g|+eps) ~ sign g)
+# amplifies it for near-zero gradients. bf16: the kernels round P against
+# a running max and P, dS to bf16, the CPU plain versions do not, and Adam
+# turns the sign of small gradients.
+SMALL_TRAIN_F32 = (1e-6, 1e-5, 5e-4)
+SMALL_TRAIN_BF16 = (1e-3, 2e-2, 0.15)
+
+
+class _Spans:
+    """A StepTimer that also keeps each span's seconds."""
+
+    def __init__(self):
+        import torch
+        from domainrag_tpu_torch.core.log import StepTimer
+        self.timer = StepTimer(sync=torch.cuda.synchronize)
+        self.each = {}
+
+    @contextlib.contextmanager
+    def span(self, name):
+        before = self.timer.totals.get(name, 0.0)
+        with self.timer.span(name):
+            yield
+        self.each.setdefault(name, []).append(self.timer.totals[name]
+                                              - before)
+
+
+def _full_train_setup(dev):
+    import torch
+    from domainrag_tpu_torch.models.common import Init
+    from domainrag_tpu_torch.models.flux import model as fm
+    cfg = dataclasses.replace(fm.FLUX_DEV, depth_double=TRAIN_DEPTH[0],
+                              depth_single=TRAIN_DEPTH[1])
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    params = fm.init(cfg, Init(g, dev, torch.float32))
+    img_ids = torch.as_tensor(fm.make_image_ids(TRAIN_GRID, TRAIN_GRID),
+                              device=dev)
+    txt_ids = torch.as_tensor(fm.make_text_ids(TRAIN_TXT), device=dev)
+
+    def batches():
+        while True:
+            yield {"x0": torch.randn((TRAIN_B, TRAIN_GRID ** 2,
+                                      cfg.in_channels), generator=g,
+                                     device=dev).to(torch.bfloat16),
+                   "txt": torch.randn((TRAIN_B, TRAIN_TXT, cfg.text_dim),
+                                      generator=g, device=dev
+                                      ).to(torch.bfloat16),
+                   "pooled": torch.randn((TRAIN_B, cfg.pooled_dim),
+                                         generator=g, device=dev
+                                         ).to(torch.bfloat16),
+                   "img_ids": img_ids, "txt_ids": txt_ids}
+    return cfg, params, batches
+
+
+def phase_train(dev, rows):
+    """The trainer at FLUX.1-dev width cut in depth: ``fit`` with remat
+    for TRAIN_STEPS steps on synthetic bf16 batches (batch 2, 1024 px =
+    4096 image tokens, 512 T5 tokens), one checkpoint at the end under
+    OUT, restored; the launch counts per step."""
+    import shutil
+    import torch
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+    from domainrag_tpu_torch.train import checkpoint as ckpt
+    from domainrag_tpu_torch.train import flow_match, loop
+
+    print(f"trainer cuts: depth {TRAIN_DEPTH[0]} double + {TRAIN_DEPTH[1]} "
+          f"single blocks (FLUX.1-dev has 19 + 38), {TRAIN_STEPS} steps, "
+          f"batch {TRAIN_B}, {TRAIN_GRID * 16} px ({TRAIN_GRID ** 2} image "
+          f"tokens) + {TRAIN_TXT} T5 tokens, synthetic bf16 batches")
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, batches = _full_train_setup(dev)
+    n_params = sum(t.numel() for t in flow_match.leaves(params))
+    probe = params["single"][-1]["linear1"]["w"]
+    before = probe.clone()
+    print(f"trainer params: {n_params / 1e9:.3f} B f32 drawn on the card")
+    root = OUT / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    spans = _Spans()
+    _reset_counts(mma)
+    params, losses = loop.fit(
+        params, cfg, batches(), TRAIN_STEPS,
+        flow_match.TrainConfig(remat=True), checkpoint_dir=str(root),
+        checkpoint_every=1000, seed=0, log_every=1, timer=spans)
+    torch.cuda.synchronize()
+    counts = (mma.mmdit_double_attention.launches,
+              mma.mmdit_single_attention.launches,
+              mma.mmdit_double_attention.mp_launches
+              + mma.mmdit_single_attention.mp_launches, *_flash_counts())
+    d, sg = cfg.depth_double, cfg.depth_single
+    # per step: each fused block twice (forward, remat recompute), then one
+    # unfused recompute per block in the backward: B5 once, B6 once
+    want = tuple(TRAIN_STEPS * n for n in (2 * d, 2 * sg, 0, d + sg, d + sg,
+                                           d + sg))
+    print(f"launches on the path: B1 {counts[0]}, B2 {counts[1]}, B3 "
+          f"{counts[2]}, B5 {counts[3]}, B6 dq {counts[4]}, B6 dkv "
+          f"{counts[5]} (expected {want})")
+    if counts != want:
+        raise AssertionError("trainer: kernel launch counts differ")
+    _flash_launches(rows, "bf16", counts[3:])
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"trainer losses {losses}")
+    moved = (probe - before).abs().max().item()
+    if not moved > 0:
+        raise AssertionError("trainer: the params did not change")
+    t0 = time.perf_counter()
+    restored = ckpt.restore_checkpoint(str(root))
+    t_restore = time.perf_counter() - t0
+    if ckpt.latest_step(str(root)) != TRAIN_STEPS or not torch.equal(
+            restored["params"]["single"][-1]["linear1"]["w"],
+            probe.detach().cpu()):
+        raise AssertionError("trainer: the checkpoint does not restore the "
+                             "final params")
+    size = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    del restored
+    shutil.rmtree(root)
+    steps = spans.each["step"]
+    print(f"trainer: losses {[round(x, 5) for x in losses]}, params moved "
+          f"(max |dw| {moved:.3e} on one leaf), {statistics.mean(steps[1:]):.3f}"
+          f" s per step (mean of steps 2-{TRAIN_STEPS}; first "
+          f"{steps[0]:.3f} s), max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, checkpoint "
+          f"step_{TRAIN_STEPS} {size / 1e9:.2f} GB written in "
+          f"{spans.each['save'][0]:.2f} s, restored in {t_restore:.2f} s")
+    return cfg, params, batches
+
+
+def phase_profile_train(dev, cfg, params, batches):
+    """One full-width train step (the phase_train model and batch) under
+    torch.profiler, device time grouped (full table in
+    OUT/profile_train.txt), beside the wall time of the same step
+    untraced."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from domainrag_tpu_torch.train import flow_match
+
+    step, params, opt = flow_match.make_train_step(
+        cfg, flow_match.TrainConfig(remat=True), params)
+    it = batches()
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    step(params, opt, next(it), g)              # the moments are allocated
+    batch = next(it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, opt, batch, g)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, opt, batch, g)
+        torch.cuda.synchronize()
+    kernels = []
+    for e in prof.key_averages():
+        # device-side kernels only: a user annotation's range (the
+        # optimizer step's) spans kernels counted already
+        if e.device_type != DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            kernels.append((us / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    total = sum(ms for ms, _, _ in kernels)
+    if not total:
+        print("profile: the profiler recorded no device time (not measured)")
+        return
+    groups = {"fused forward (B1/B2)": 0.0, "B5": 0.0, "B6": 0.0,
+              "GEMM (cuBLAS)": 0.0, "optimizer": 0.0, "other": 0.0}
+    for ms, _, name in kernels:
+        if "flash_kernel" in name or "norm_rope_kernel" in name:
+            groups["fused forward (B1/B2)"] += ms
+        elif "fwd_bf16_kernel" in name or "fwd_simt_kernel" in name:
+            groups["B5"] += ms
+        elif re.search(r"(dq|dkv)_(bf16|simt)_kernel", name):
+            groups["B6"] += ms
+        elif re.search(r"gemm|nvjet|cutlass|xmma|cublas", name, re.I):
+            groups["GEMM (cuBLAS)"] += ms
+        elif re.search(r"multi_tensor_apply|adam", name, re.I):
+            groups["optimizer"] += ms
+        else:
+            groups["other"] += ms
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "profile_train.txt").write_text("".join(
+        f"{ms:10.3f} ms {n:6d}x  {name}\n" for ms, n, name in kernels))
+    print(f"profile: one train step (batch {TRAIN_B}, {S_TRAIN} tokens, "
+          f"{TRAIN_DEPTH[0]} + {TRAIN_DEPTH[1]} blocks, remat), device time "
+          f"{total:.3f} ms (untraced wall {wall_ms:.3f} ms), "
+          f"{sum(n for _, n, _ in kernels)} device events; "
+          + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                      for k, v in groups.items()))
+    for ms, n, name in kernels[:10]:
+        print(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
+
+
+def phase_train_f32(dev, cfg, params, batches, rows):
+    """One full-width ``fit`` step (the phase_train model) on f32 batches,
+    the dtype ``latent_batches_from_images`` yields: the fused kernels want
+    bf16, so every block runs the unfused composition, B5 in its forward
+    and in its remat recompute and B6 in its backward. The counts are set
+    to 0 just before and read just after; the f32 rows take them."""
+    import torch
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+    from domainrag_tpu_torch.train import flow_match, loop
+
+    lanes = ("x0", "txt", "pooled")
+    f32 = ({k: v.float() if k in lanes else v for k, v in b.items()}
+           for b in batches())
+    probe = params["double"][0]["img_qkv"]["w"]
+    before = probe.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _reset_counts(mma)
+    params, losses = loop.fit(params, cfg, f32, 1,
+                              flow_match.TrainConfig(remat=True), seed=1,
+                              log_every=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = (mma.mmdit_double_attention.launches,
+              mma.mmdit_single_attention.launches,
+              mma.mmdit_double_attention.mp_launches
+              + mma.mmdit_single_attention.mp_launches, *_flash_counts())
+    n = cfg.depth_double + cfg.depth_single
+    want = (0, 0, 0, 2 * n, n, n)
+    print(f"launches on the path (f32 trainer, one step): B1 {counts[0]}, "
+          f"B2 {counts[1]}, B3 {counts[2]}, B5 {counts[3]}, B6 dq "
+          f"{counts[4]}, B6 dkv {counts[5]} (expected {want})")
+    if counts != want:
+        raise AssertionError("f32 trainer: kernel launch counts differ")
+    moved = (probe.detach() - before).abs().max().item()
+    if len(losses) != 1 or not np.isfinite(losses[0]) or not moved > 0:
+        raise AssertionError(f"f32 trainer: loss {losses}, max |dw| {moved}")
+    _flash_launches(rows, "f32", counts[3:])
+    print(f"f32 trainer: loss {losses[0]:.5f}, params moved (max |dw| "
+          f"{moved:.3e} on one leaf), {secs:.3f} s for the step (the first, "
+          f"with the optimizer's state allocated), max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def unported_bounds():
+    """The least time of each TPU kernel still to port, at its shape on
+    its path: the larger of its operations at the card's peak for their
+    type and its bytes (inputs read once, outputs written once) at the
+    memory rate. Nothing runs on the card."""
+    def bound(name, ops, peak, nbytes):
+        t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        return {"name": name, "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    s1 = S_TXT + (SIZE // 16) ** 2                       # 5337 at 1024 px
+    s2 = S_TXT + (FILL_SIZE // 16) ** 2                  # 17625 at 2048 px
+    m, k, n = s1, 3072, 21504          # W8A8 single-block linear1, batch 1
+    q_n, bank_n, dim, top = 128, 100_000, 512, 100       # stage-2 search
+    rows = [
+        bound(f"B4 int8_gemm.py:117 _kernel (W8A8 linear1, M={m} K={k} "
+              f"N={n})", 2.0 * m * k * n, PEAK_INT8,
+              m * k + k * n + 2 * m * n + 4 * (m + n) + 2 * n),
+        bound(f"B7 int8 branches of _seq_kernel / _joint_kernel (1 x "
+              f"{s1} tokens, 24 x 128 heads, int8 QK and P.V)",
+              4.0 * HEADS * s1 * s1 * HD, PEAK_INT8,
+              4 * s1 * HEADS * HD * 2),
+        bound(f"B7 mmdit_attention.py:638 _flash_mp_kernel_i8 (1 x {s2} "
+              "tokens, int8 QK and P.V)", 4.0 * HEADS * s2 * s2 * HD,
+              PEAK_INT8, 4 * s2 * HEADS * HD * 2),
+        bound(f"B8 topk.py:183 _topk_kernel ({q_n} queries x {bank_n} x "
+              f"{dim} f32 bank, top {top})", 2.0 * q_n * bank_n * dim,
+              PEAK_F32, 4 * (bank_n + q_n) * dim + 8 * q_n * top),
+    ]
+    for row in rows:
+        print(f"bound of a kernel still to port: {row['name']}: "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -773,6 +1453,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     bundle = phase_compose(dev, rows, backgrounds)
     phase_profile(bundle, FILL_SIZE, "profile_fill.txt")
+    del bundle                 # the trainer needs the card to itself
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.update(phase_flash_kernels(dev))
+    phase_long_serving(dev, rows)
+    phase_small_trainer(dev)
+    cfg, params, batches = phase_train(dev, rows)
+    phase_profile_train(dev, cfg, params, batches)
+    phase_train_f32(dev, cfg, params, batches, rows)
+    unported_bounds()
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.mmdit_attention import (mmdit_double_attention,
                                     mmdit_single_attention)
@@ -225,12 +226,15 @@ def apply(params: Params, img_tokens: torch.Tensor,
           txt_tokens: torch.Tensor, pooled: torch.Tensor,
           timestep: torch.Tensor, img_ids: torch.Tensor,
           txt_ids: torch.Tensor, cfg: FluxConfig,
-          guidance: Optional[torch.Tensor] = None) -> torch.Tensor:
+          guidance: Optional[torch.Tensor] = None,
+          remat: bool = False) -> torch.Tensor:
     """One velocity prediction.
 
     img_tokens (B, S_img, in_channels) packed latents; txt_tokens
     (B, S_txt, text_dim); pooled (B, pooled_dim); timestep (B,) sigma in
     [0,1]; guidance (B,); img_ids/txt_ids (S, 3) RoPE position ids.
+    ``remat=True`` checkpoints every block (its activations are recomputed
+    in the backward pass), as training the 12B model needs.
     Returns (B, S_img, out_channels) in img_tokens' dtype."""
     dtype = img_tokens.dtype
     img = linear(params["img_in"], img_tokens)
@@ -249,11 +253,16 @@ def apply(params: Params, img_tokens: torch.Tensor,
     ids = torch.cat([txt_ids, img_ids], dim=0)
     cos, sin = rope_cos_sin(ids, cfg.axes_dim, cfg.theta)
 
+    def run(block_fn, *args):
+        if remat:
+            return checkpoint(block_fn, *args, cfg, use_reentrant=False)
+        return block_fn(*args, cfg)
+
     for block in params["double"]:
-        img, txt = _double_block(block, img, txt, vec, cos, sin, cfg)
+        img, txt = run(_double_block, block, img, txt, vec, cos, sin)
     x = torch.cat([txt, img], dim=1)
     for block in params["single"]:
-        x = _single_block(block, x, vec, cos, sin, cfg)
+        x = run(_single_block, block, x, vec, cos, sin)
     img = x[:, txt.shape[1]:]
 
     shift, scale = linear(params["final_mod"], F.silu(vec)).chunk(2, dim=-1)

@@ -1,0 +1,369 @@
+"""Generic flash attention (port of ``domainrag_tpu/ops/attention.py``).
+
+(B, H, S, D) attention with a natural-log LSE, differentiable through a
+custom backward, as the JAX package's ``flash_attention`` (:455-493):
+
+- forward, B5: the TPU ``_flash_kernel_1pass`` (:110) and ``_flash_kernel``
+  (:43) behind ``_flash_forward`` (:184). q is multiplied by
+  log2(e)/sqrt(D) in f32 and rounded back to its dtype before the kernel
+  (:199-200); the softmax is exp2; the LSE is m*ln2 + log(l) (:107, :137).
+  An optional causal mask and a runtime ``kv_valid`` bound mask kv
+  positions; masked probabilities are zeroed explicitly (:89-93).
+- backward, B6: the TPU ``_flash_bwd_dq_kernel`` (:296) and
+  ``_flash_bwd_dkv_kernel`` (:336) behind ``_flash_backward`` (:382), from
+  the stored LSE and delta = rowsum(dO*O): p = exp(s/sqrt(D) - lse) in
+  natural units on an unscaled q, ds = p*(dp - delta), dq = ds k/sqrt(D),
+  dk = ds^T q/sqrt(D), dv = p^T dO.
+
+On a CUDA tensor the wrappers launch the hand-written Hopper kernels of
+``csrc/flash_attention.cu`` (its header states each kernel's bound and
+design) or raise; on a CPU tensor they run the plain versions
+:func:`flash_forward_reference` / :func:`flash_backward_reference`, which
+work one (batch, head) and one block of q rows at a time so that a
+50k-token check fits in memory. Launches are counted on
+:func:`flash_attention`: ``.launches`` (forward, also through
+:func:`flash_attention_lse`), ``.dq_launches`` and ``.dkv_launches``.
+
+:func:`attention` is the dispatcher the unfused MMDiT composition calls
+(:592-620): a ``mask`` takes the dense masked path, a CPU tensor the dense
+:func:`attention_reference`, a CUDA tensor the kernels. Inside
+:func:`dense_attention` (or with ``force_reference``) every tensor takes
+the dense path: the plain versions of the fused MMDiT kernels use it.
+The tensor- and sequence-parallel contexts of the JAX module belong to
+scale-out and are not ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import math
+import threading
+from types import SimpleNamespace
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+LOG2_E = 1.4426950408889634
+LN_2 = 0.6931471805599453
+HEAD_DIM = 128          # the kernels' head width; narrower heads are padded
+_ROWS = 4096            # q rows per block of the plain versions
+
+
+# ---------------------------------------------------------------------------
+# dense reference and the dispatcher's contexts
+# ---------------------------------------------------------------------------
+
+def attention_reference(q, k, v, causal: bool = False) -> torch.Tensor:
+    """Dense attention over (B, H, S, D): f32 scores and softmax, the
+    probabilities rounded to q's dtype for the P.V product (:28-40)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s_q, s_k = logits.shape[-2], logits.shape[-1]
+        keep = torch.ones((s_q, s_k), dtype=torch.bool,
+                          device=q.device).tril()
+        logits = logits.masked_fill(~keep, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs.float(), v.float()).to(q.dtype)
+
+
+_FORCE_REFERENCE = threading.local()
+
+
+@contextlib.contextmanager
+def dense_attention():
+    """Every :func:`attention` call inside takes the dense path, on every
+    device (the plain versions of the fused kernels, and debugging)."""
+    prev = getattr(_FORCE_REFERENCE, "value", False)
+    _FORCE_REFERENCE.value = True
+    try:
+        yield
+    finally:
+        _FORCE_REFERENCE.value = prev
+
+
+def forced_dense() -> bool:
+    return getattr(_FORCE_REFERENCE, "value", False)
+
+
+# ---------------------------------------------------------------------------
+# plain versions of B5 and B6 (the CPU path and the kernels' oracle)
+# ---------------------------------------------------------------------------
+
+def _mask(rows: range, s_kv: int, kv_valid: int, causal: bool,
+          device) -> torch.Tensor:
+    kv_pos = torch.arange(s_kv, device=device)
+    keep = (kv_pos < kv_valid)[None, :].expand(len(rows), s_kv)
+    if causal:
+        q_pos = torch.arange(rows.start, rows.stop, device=device)
+        keep = keep & (kv_pos[None, :] <= q_pos[:, None])
+    return keep
+
+
+def flash_forward_reference(q, k, v, causal: bool = False,
+                            kv_valid: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The B5 numerics, dense per block of q rows: q prescaled by
+    log2(e)/sqrt(D) and rounded to its dtype, s = q k^T in f32, masked to
+    -1e30, p = exp2(s - rowmax) zeroed where masked, P rounded to v's
+    dtype for P.V, o = (P V) / max(sum p, 1e-30). Returns (out (B, H, Sq,
+    D) in q's dtype, lse (B, H, Sq) f32, natural log)."""
+    b, h, s_q, d = q.shape
+    s_kv = k.shape[2]
+    kv_valid = s_kv if kv_valid is None else int(kv_valid)
+    qs = (q.float() * (LOG2_E / math.sqrt(d))).to(q.dtype)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        for hi in range(h):
+            kf, vf = k[bi, hi].float(), v[bi, hi].float()
+            for r0 in range(0, s_q, _ROWS):
+                rows = range(r0, min(r0 + _ROWS, s_q))
+                keep = _mask(rows, s_kv, kv_valid, causal, q.device)
+                s = torch.matmul(qs[bi, hi, r0:rows.stop].float(), kf.T)
+                s = s.masked_fill(~keep, NEG_INF)
+                m = s.amax(-1, keepdim=True)
+                p = torch.exp2(s - m).masked_fill(~keep, 0.0)
+                l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+                o = torch.matmul(p.to(v.dtype).float(), vf) / l
+                out[bi, hi, r0:rows.stop] = o.to(q.dtype)
+                lse[bi, hi, r0:rows.stop] = (m * LN_2 + torch.log(l))[:, 0]
+    return out, lse
+
+
+def flash_backward_reference(q, k, v, out, lse, dout, causal: bool = False,
+                             kv_valid: Optional[int] = None):
+    """The B6 numerics with every product in f32 (:287-380): delta =
+    rowsum(dO*O); per block of q rows, p = exp(q k^T/sqrt(D) - lse) zeroed
+    where masked, ds = p*(dp - delta) with dp = dO v^T, dq = ds k/sqrt(D),
+    dk += ds^T q/sqrt(D), dv += p^T dO. Returns (dq, dk, dv) in the
+    inputs' dtypes."""
+    b, h, s_q, d = q.shape
+    s_kv = k.shape[2]
+    kv_valid = s_kv if kv_valid is None else int(kv_valid)
+    scale = 1.0 / math.sqrt(d)
+    delta = (dout.float() * out.float()).sum(-1)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    for bi in range(b):
+        for hi in range(h):
+            kf, vf = k[bi, hi].float(), v[bi, hi].float()
+            dk_acc = torch.zeros_like(kf)
+            dv_acc = torch.zeros_like(vf)
+            for r0 in range(0, s_q, _ROWS):
+                rows = range(r0, min(r0 + _ROWS, s_q))
+                sl = slice(r0, rows.stop)
+                keep = _mask(rows, s_kv, kv_valid, causal, q.device)
+                qf, do = q[bi, hi, sl].float(), dout[bi, hi, sl].float()
+                s = torch.matmul(qf, kf.T) * scale
+                p = torch.exp(s.masked_fill(~keep, NEG_INF)
+                              - lse[bi, hi, sl, None]).masked_fill(~keep, 0.0)
+                ds = p * (torch.matmul(do, vf.T) - delta[bi, hi, sl, None])
+                dq[bi, hi, sl] = (torch.matmul(ds, kf) * scale).to(q.dtype)
+                dk_acc += torch.matmul(ds.T, qf) * scale
+                dv_acc += torch.matmul(p.T, do)
+            dk[bi, hi] = dk_acc.to(k.dtype)
+            dv[bi, hi] = dv_acc.to(v.dtype)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# kernel launch
+# ---------------------------------------------------------------------------
+
+_LIB = None
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from . import _build
+        lib = _build.load("flash_attention")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_fwd.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
+        lib.flash_bwd.argtypes = [i] + [p] * 9 + [i] * 6 + [ctypes.c_float,
+                                                            p]
+        for fn in (lib.flash_fwd, lib.flash_bwd):
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(tensors, what: str):
+    q = tensors[0]
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{what}: the CUDA kernels take bf16 or f32, got "
+                         f"{q.dtype}")
+    if q.dim() != 4 or q.shape[-1] > HEAD_DIM:
+        raise ValueError(f"{what}: expected (B, H, S, D <= {HEAD_DIM}), got "
+                         f"{tuple(q.shape)}")
+    for t in tensors[1:]:
+        if t.dtype != q.dtype or t.device != q.device \
+                or t.shape[:2] != q.shape[:2] or t.shape[-1] != q.shape[-1]:
+            raise ValueError(f"{what}: q/k/v differ in dtype, device, batch,"
+                             " heads or head width")
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, D) -> contiguous (B*H, S, 128), D zero-padded (the JAX
+    ``_pad_to``: padded lanes add nothing to q.k and give zero output)."""
+    b, h, s, d = x.shape
+    if d < HEAD_DIM:
+        x = F.pad(x, (0, HEAD_DIM - d))
+    return x.reshape(b * h, s, HEAD_DIM).contiguous()
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _kernel_forward(q, k, v, causal: bool, kv_valid: Optional[int]):
+    _check((q, k, v), "flash forward")
+    b, h, s_q, d = q.shape
+    s_kv = k.shape[2]
+    kv_valid = s_kv if kv_valid is None else int(kv_valid)
+    if not 0 < kv_valid <= s_kv:
+        raise ValueError(f"kv_valid {kv_valid} outside (0, {s_kv}]")
+    qs = (q.float() * (LOG2_E / math.sqrt(d))).to(q.dtype)
+    qp, kp, vp = _rows(qs), _rows(k), _rows(v)
+    out = torch.empty_like(qp)
+    lse = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)
+    rc = _lib().flash_fwd(_DTYPES[q.dtype], qp.data_ptr(), kp.data_ptr(),
+                          vp.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                          b * h, s_q, s_kv, kv_valid, int(causal),
+                          _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash forward kernel launch failed: CUDA error "
+                           f"{rc}")
+    flash_attention.launches += 1
+    return (out.reshape(b, h, s_q, HEAD_DIM)[..., :d],
+            lse.reshape(b, h, s_q))
+
+
+def backward_buffers(q, k, v, out, lse, dout, causal: bool,
+                     kv_valid: Optional[int] = None) -> SimpleNamespace:
+    """The B6 kernels' inputs (head width padded to 128, delta =
+    rowsum(dO*O) in f32, outside the kernels as in JAX) and their outputs,
+    allocated; :func:`launch_backward` fills dq or dk/dv."""
+    _check((q, k, v, out, dout), "flash backward")
+    b, h, s_q, d = q.shape
+    s_kv = k.shape[2]
+    delta = (dout.float() * out.float()).sum(-1).reshape(b * h, s_q)
+    kp = _rows(k)
+    return SimpleNamespace(
+        shape=(b, h, s_q, s_kv, d), causal=bool(causal),
+        kv_valid=s_kv if kv_valid is None else int(kv_valid),
+        q=_rows(q), k=kp, v=_rows(v), dout=_rows(dout),
+        lse=lse.float().reshape(b * h, s_q).contiguous(), delta=delta,
+        dq=torch.empty_like(_rows(q)), dk=torch.empty_like(kp),
+        dv=torch.empty_like(kp))
+
+
+def launch_backward(buf: SimpleNamespace, which: int) -> None:
+    """Launch the dq kernel (``which`` 0) or the dk/dv kernel (1)."""
+    b, h, s_q, s_kv, d = buf.shape
+    rc = _lib().flash_bwd(
+        _DTYPES[buf.q.dtype], buf.q.data_ptr(), buf.k.data_ptr(),
+        buf.v.data_ptr(), buf.dout.data_ptr(), buf.lse.data_ptr(),
+        buf.delta.data_ptr(), buf.dq.data_ptr(), buf.dk.data_ptr(),
+        buf.dv.data_ptr(), which, b * h, s_q, s_kv, buf.kv_valid,
+        int(buf.causal), 1.0 / math.sqrt(d), _stream(buf.q))
+    if rc != 0:
+        raise RuntimeError(f"flash backward kernel launch failed "
+                           f"({'dkv' if which else 'dq'}): CUDA error {rc}")
+    if which:
+        flash_attention.dkv_launches += 1
+    else:
+        flash_attention.dq_launches += 1
+
+
+def _kernel_backward(q, k, v, out, lse, dout, causal: bool,
+                     kv_valid: Optional[int]):
+    buf = backward_buffers(q, k, v, out, lse, dout, causal, kv_valid)
+    launch_backward(buf, 0)
+    launch_backward(buf, 1)
+    b, h, s_q, s_kv, d = buf.shape
+
+    def unpad(x, s):
+        return x.reshape(b, h, s, HEAD_DIM)[..., :d]
+
+    return unpad(buf.dq, s_q), unpad(buf.dk, s_kv), unpad(buf.dv, s_kv)
+
+
+def _forward(q, k, v, causal, kv_valid=None):
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, causal, kv_valid)
+    return _kernel_forward(q, k, v, causal, kv_valid)
+
+
+def _backward(q, k, v, out, lse, dout, causal):
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, out, lse, dout, causal)
+    return _kernel_backward(q, k, v, out, lse, dout, causal, None)
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX ``_flash_attention_diff`` custom VJP: the forward saves
+    (q, k, v, out, lse) (:461-463) and the backward runs B6."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, lse, dout.contiguous(),
+                               ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False) -> torch.Tensor:
+    """(B, H, Sq, D) x (B, H, Skv, D) -> (B, H, Sq, D), D <= 128, any
+    lengths. Differentiable: the backward runs the dq and dk/dv kernels
+    (B6) from the stored LSE."""
+    return _FlashAttention.apply(q, k, v, causal)
+
+
+def flash_attention_lse(q, k, v, kv_valid: Optional[int] = None):
+    """Flash forward returning (out (B, H, Sq, D), lse (B, H, Sq, 1) f32):
+    the partial-softmax form (:270-284). Not differentiable."""
+    with torch.no_grad():
+        out, lse = _forward(q, k, v, False, kv_valid)
+    return out, lse[..., None]
+
+
+def attention(q, k, v, causal: bool = False, mask=None,
+              force_reference: bool = False) -> torch.Tensor:
+    """Dispatch (:592-620): a ``mask`` takes the dense masked path; a CPU
+    tensor, :func:`dense_attention` or ``force_reference`` the dense
+    reference; a CUDA tensor the flash kernels (B5 forward, B6
+    backward). ``force_reference`` is kept for the JAX signature: it does
+    for one call what :func:`dense_attention` does for a block of code."""
+    if mask is not None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        logits = logits.masked_fill(~mask, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        return torch.matmul(probs.float(), v.float()).to(q.dtype)
+    if force_reference or forced_dense() or q.device.type == "cpu":
+        return attention_reference(q, k, v, causal=causal)
+    return flash_attention(q, k, v, causal=causal)
+
+
+flash_attention.launches = 0
+flash_attention.dq_launches = 0
+flash_attention.dkv_launches = 0

@@ -29,10 +29,15 @@ Two regimes, split on the joint length S as in the JAX package:
   head and one block of q rows at a time, so that 31866 tokens need
   ~0.5 GB of scores and not 97 GB.
 
-Above ``_MAX_MULTIPASS`` the JAX package leaves the fused path for the
-unfused composition, which on the TPU reaches the generic flash kernel
-(``ops/attention.py`` ``_flash_kernel``), not ported yet: the wrappers
-raise there, on every device.
+The fused kernels take what the JAX package's ``_fused_ok`` (:1161-1179)
+lets through: bf16 streams with head_dim 128 and a joint length up to
+``_MAX_MULTIPASS``, outside :func:`ops.attention.dense_attention`. Every
+other call (f32, another head width, a longer sequence) runs the unfused
+composition :func:`reference_double` / :func:`reference_single`, whose
+attention is :func:`ops.attention.attention`: on the card the generic
+flash kernels (B5, and B6 in the backward), on the CPU the dense
+reference. Under ``dense_attention()`` that composition is the plain
+version of the one-pass kernels on every device.
 
 On a CUDA tensor each wrapper launches the hand-written Hopper kernels of
 ``csrc/mmdit_attention.cu`` (its header states the bound and the design)
@@ -41,6 +46,11 @@ the regime's plain version. The kernels stream K/V with an online
 softmax, so they agree with the plain version to |err| <= 4e-3 +
 2e-2*|ref| per element and 1e-2 in relative Frobenius norm in bf16, not
 bit for bit.
+
+Both wrappers are differentiable as the JAX ``_make_double`` /
+``_make_single`` custom VJPs (:1095-1145): the forward is the fused
+kernel, the backward recomputes the unfused composition and returns its
+gradients for the qkv streams and the f32 qk-norm scales.
 
 Each wrapper counts its kernel launches: one-pass in
 ``<wrapper>.launches``, multi-pass in ``<wrapper>.mp_launches``.
@@ -53,6 +63,8 @@ import math
 from typing import Sequence, Tuple
 
 import torch
+
+from .attention import attention, forced_dense
 
 LOG2_E = 1.4426950408889634
 _EPS = 1e-6             # qk-rmsnorm epsilon (models.common.rmsnorm)
@@ -98,15 +110,6 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def attention_reference(q, k, v) -> torch.Tensor:
-    """Dense attention over (B, H, S, D); f32 scores and softmax, the
-    probabilities rounded to q's dtype for the P.V product."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.matmul(probs.float(), v.float()).to(q.dtype)
-
-
 def prenormed_double(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i, cos, sin,
                      heads: int, head_dim: int):
     """(q, k, v) in (B, H, S_txt + S_img, D), q/k normed and roped."""
@@ -128,14 +131,14 @@ def reference_double(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i, cos, sin,
                      heads: int, head_dim: int):
     q, k, v = prenormed_double(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i,
                                cos, sin, heads, head_dim)
-    out = _merge_heads(attention_reference(q, k, v))
+    out = _merge_heads(attention(q, k, v))
     t_len = txt_qkv.shape[1]
     return out[:, :t_len], out[:, t_len:]
 
 
 def reference_single(proj, wq, wk, cos, sin, heads: int, head_dim: int):
     q, k, v = prenormed_single(proj, wq, wk, cos, sin, heads, head_dim)
-    return _merge_heads(attention_reference(q, k, v))
+    return _merge_heads(attention(q, k, v))
 
 
 def prep_norm_rope(x: torch.Tensor, w: torch.Tensor, cos: torch.Tensor,
@@ -207,14 +210,16 @@ def reference_mp_single(proj, wq, wk, cos, sin, heads: int, head_dim: int):
 
 
 def _multipass(s_total: int) -> bool:
-    """The regime of a joint length: False one pass, True multi-pass;
-    raises above the multi-pass range."""
-    if s_total > _MAX_MULTIPASS:
-        raise NotImplementedError(
-            f"joint length {s_total} > {_MAX_MULTIPASS}: the JAX package "
-            "runs the unfused composition there, whose TPU kernel (B5, "
-            "ops/attention.py _flash_kernel) is not ported")
+    """The fused regime of a joint length: False one pass, True
+    multi-pass."""
     return s_total > _MAX_ONEPASS
+
+
+def _fused_ok(head_dim: int, dtype: torch.dtype, s_total: int) -> bool:
+    """The JAX ``_fused_ok`` gate: bf16, head_dim 128, at most
+    ``_MAX_MULTIPASS`` joint tokens, and not inside ``dense_attention``."""
+    return (head_dim == HEAD_DIM and dtype == torch.bfloat16
+            and s_total <= _MAX_MULTIPASS and not forced_dense())
 
 
 # ---------------------------------------------------------------------------
@@ -305,19 +310,11 @@ def _launch(streams: Sequence[torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# public API
+# fused forward, unfused backward (the JAX custom VJPs)
 # ---------------------------------------------------------------------------
 
-def mmdit_double_attention(txt_qkv, img_qkv, txt_qknorm, img_qknorm,
-                           cos, sin, heads: int, head_dim: int):
-    """Joint [txt; img] attention from the two raw qkv GEMM outputs.
-
-    txt_qkv/img_qkv: (B, S, 3*heads*head_dim) fused projections;
-    *_qknorm: rmsnorm param dicts ({"q": {"scale"}, "k": {"scale"}});
-    cos/sin: RoPE tables (S_txt + S_img, head_dim/2), text rows first.
-    Returns (txt_attn, img_attn), each (B, S, heads*head_dim)."""
-    wq_t, wk_t = txt_qknorm["q"]["scale"], txt_qknorm["k"]["scale"]
-    wq_i, wk_i = img_qknorm["q"]["scale"], img_qknorm["k"]["scale"]
+def _double_forward(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i, cos, sin,
+                    heads: int, head_dim: int):
     mp = _multipass(txt_qkv.shape[1] + img_qkv.shape[1])
     if txt_qkv.device.type == "cpu":
         plain = reference_mp_double if mp else reference_double
@@ -332,13 +329,7 @@ def mmdit_double_attention(txt_qkv, img_qkv, txt_qknorm, img_qknorm,
     return out_t, out_i
 
 
-def mmdit_single_attention(proj, qknorm, cos, sin, heads: int,
-                           head_dim: int):
-    """Attention over one joint stream from the fused linear1 output.
-
-    proj: (B, S, W) with q/k/v in the first 3*heads*head_dim lanes (the
-    trailing MLP lanes are not read). Returns (B, S, heads*head_dim)."""
-    wq, wk = qknorm["q"]["scale"], qknorm["k"]["scale"]
+def _single_forward(proj, wq, wk, cos, sin, heads: int, head_dim: int):
     mp = _multipass(proj.shape[1])
     if proj.device.type == "cpu":
         plain = reference_mp_single if mp else reference_single
@@ -349,6 +340,86 @@ def mmdit_single_attention(proj, qknorm, cos, sin, heads: int,
     else:
         mmdit_single_attention.launches += 1
     return out
+
+
+def _unfused_grads(ctx, reference, grads, n_diff: int):
+    """Gradients of the unfused composition at the saved inputs (the JAX
+    ``bwd``: ``jax.vjp(ref, *res)[1](g)``), for the first ``n_diff``
+    inputs (the qkv streams and the qk-norm scales; cos/sin get None)."""
+    saved = ctx.saved_tensors
+    want = [i for i in range(n_diff) if ctx.needs_input_grad[i]]
+    with torch.enable_grad():
+        args = [x.detach().requires_grad_(i in want)
+                for i, x in enumerate(saved)]
+        out = reference(*args, *ctx.dims)
+    got = torch.autograd.grad(out, [args[i] for i in want], grads,
+                              allow_unused=True) if want else ()
+    result = [None] * (len(saved) + len(ctx.dims))
+    for i, g in zip(want, got):
+        result[i] = g
+    return tuple(result)
+
+
+class _FusedDouble(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i, cos, sin,
+                heads, head_dim):
+        ctx.save_for_backward(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i, cos,
+                              sin)
+        ctx.dims = (heads, head_dim)
+        return _double_forward(txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i, cos,
+                               sin, heads, head_dim)
+
+    @staticmethod
+    def backward(ctx, g_t, g_i):
+        return _unfused_grads(ctx, reference_double, (g_t, g_i), 6)
+
+
+class _FusedSingle(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, proj, wq, wk, cos, sin, heads, head_dim):
+        ctx.save_for_backward(proj, wq, wk, cos, sin)
+        ctx.dims = (heads, head_dim)
+        return _single_forward(proj, wq, wk, cos, sin, heads, head_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _unfused_grads(ctx, reference_single, (g,), 3)
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+
+def mmdit_double_attention(txt_qkv, img_qkv, txt_qknorm, img_qknorm,
+                           cos, sin, heads: int, head_dim: int):
+    """Joint [txt; img] attention from the two raw qkv GEMM outputs.
+
+    txt_qkv/img_qkv: (B, S, 3*heads*head_dim) fused projections;
+    *_qknorm: rmsnorm param dicts ({"q": {"scale"}, "k": {"scale"}});
+    cos/sin: RoPE tables (S_txt + S_img, head_dim/2), text rows first.
+    Returns (txt_attn, img_attn), each (B, S, heads*head_dim)."""
+    wq_t, wk_t = txt_qknorm["q"]["scale"], txt_qknorm["k"]["scale"]
+    wq_i, wk_i = img_qknorm["q"]["scale"], img_qknorm["k"]["scale"]
+    args = (txt_qkv, img_qkv, wq_t, wk_t, wq_i, wk_i, cos, sin, heads,
+            head_dim)
+    if not _fused_ok(head_dim, txt_qkv.dtype,
+                     txt_qkv.shape[1] + img_qkv.shape[1]):
+        return reference_double(*args)
+    return _FusedDouble.apply(*args)
+
+
+def mmdit_single_attention(proj, qknorm, cos, sin, heads: int,
+                           head_dim: int):
+    """Attention over one joint stream from the fused linear1 output.
+
+    proj: (B, S, W) with q/k/v in the first 3*heads*head_dim lanes (the
+    trailing MLP lanes are not read). Returns (B, S, heads*head_dim)."""
+    args = (proj, qknorm["q"]["scale"], qknorm["k"]["scale"], cos, sin,
+            heads, head_dim)
+    if not _fused_ok(head_dim, proj.dtype, proj.shape[1]):
+        return reference_single(*args)
+    return _FusedSingle.apply(*args)
 
 
 for _wrapper in (mmdit_double_attention, mmdit_single_attention):

@@ -1,0 +1,134 @@
+"""Training loop (port of ``domainrag_tpu/train/loop.py``): domain
+fine-tuning of the Flux MMDiT on the pipeline's own outputs (or any latent
+dataset).
+
+``fit`` runs the flow-matching step on one device with periodic
+checkpoints, graceful SIGINT stop and progress/ETA reporting, as the JAX
+``fit`` does over a mesh. The port has no W8A8 serving mode yet, so there
+is no mode for ``fit`` to refuse.
+"""
+
+from __future__ import annotations
+
+import glob as globlib
+import os
+from typing import Iterable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..core import device as device_mod
+from ..core import imaging
+from ..core.interrupt import should_stop
+from ..core.log import StepTimer, get_logger
+from ..core.progress import ProgressReporter
+from ..models.flux import model as flux_mod
+from . import checkpoint as ckpt_mod
+from . import flow_match
+
+logger = get_logger("domainrag_tpu_torch.train")
+
+
+def latent_batches_from_images(image_dirs, vae_params, vae_cfg, bundle,
+                               batch_size: int, generator: torch.Generator,
+                               prompt: str = "") -> Iterator[dict]:
+    """Stream training batches from directories of images: VAE-encode (the
+    posterior's mode, f32) to packed latent tokens, pair with the (shared)
+    encoded prompt. Images are picked by ``generator`` (with replacement
+    only when there are fewer images than ``batch_size``)."""
+    from ..models.flux import pipeline as fp
+    from ..models.flux import vae as vae_mod
+
+    paths = sorted(p for d in image_dirs
+                   for p in globlib.glob(os.path.join(d, "*.png"))
+                   + globlib.glob(os.path.join(d, "*.jpg")))
+    if not paths:
+        return
+    dev = bundle.device
+    with torch.no_grad():
+        txt, pooled = fp.encode_prompt(bundle, [prompt])
+    lf = bundle.latent_factor
+    while True:
+        if len(paths) < batch_size:
+            picks = torch.randint(len(paths), (batch_size,),
+                                  generator=generator,
+                                  device=generator.device)
+        else:
+            picks = torch.randperm(len(paths), generator=generator,
+                                   device=generator.device)[:batch_size]
+        pixels = []
+        size = None
+        for idx in picks.tolist():
+            img = imaging.load_rgb(paths[idx])
+            if size is None:
+                w = imaging.to_multiple_of(img.width, lf, lf * 2)
+                h = imaging.to_multiple_of(img.height, lf, lf * 2)
+                size = (w, h)
+            pixels.append(np.asarray(img.resize(size)) / 127.5 - 1.0)
+        batch_px = torch.as_tensor(np.stack(pixels), dtype=torch.float32,
+                                   device=dev)
+        with torch.no_grad():
+            latents = vae_mod.encode(vae_params, batch_px, vae_cfg)
+        x0 = flux_mod.pack_latents(latents)
+        yield {
+            "x0": x0,
+            "txt": txt.expand((batch_size,) + tuple(txt.shape[1:])),
+            "pooled": pooled.expand((batch_size,) + tuple(pooled.shape[1:])),
+            "img_ids": torch.as_tensor(flux_mod.make_image_ids(
+                latents.shape[1] // 2, latents.shape[2] // 2), device=dev),
+            "txt_ids": torch.as_tensor(flux_mod.make_text_ids(txt.shape[1]),
+                                       device=dev),
+        }
+
+
+def fit(params, flux_cfg: flux_mod.FluxConfig,
+        batches: Iterable[dict],
+        num_steps: int,
+        train_cfg: Optional[flow_match.TrainConfig] = None,
+        mesh=None, model_parallel: int = 1, fsdp: bool = True,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 100,
+        seed: int = 0,
+        log_every: int = 10,
+        timer: Optional[StepTimer] = None):
+    """Run ``num_steps`` flow-matching steps on the device of ``params``
+    (f32 leaves, trained in place). t and eps come from a generator on
+    that device seeded with ``seed``. ``timer`` gets a ``step`` span per
+    step and a ``save`` span per checkpoint. Returns (final_params,
+    losses)."""
+    train_cfg = train_cfg or flow_match.TrainConfig()
+    if mesh is not None or model_parallel > 1:
+        raise NotImplementedError("meshes and tensor parallelism need "
+                                  "scale-out (not ported)")
+    step_fn, params, opt_state = flow_match.make_train_step(
+        flux_cfg, train_cfg, params)
+    dev = flow_match.leaves(params)[0].device
+    generator = device_mod.generator(seed, dev)
+    timer = timer or StepTimer()
+    reporter = ProgressReporter(num_steps, label="train-steps",
+                                log_every=log_every)
+    losses = []
+    it = iter(batches)
+    for step in range(num_steps):
+        if should_stop():
+            logger.warning("graceful stop at step %d", step)
+            break
+        try:
+            batch = next(it)
+        except StopIteration:
+            logger.warning("data exhausted at step %d", step)
+            break
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        with timer.span("step"):
+            params, opt_state, loss = step_fn(params, opt_state, batch,
+                                              generator)
+            losses.append(float(loss))
+        reporter.update(ok=bool(np.isfinite(losses[-1])),
+                        detail=f"loss={losses[-1]:.4f}")
+        if checkpoint_dir and (step + 1) % checkpoint_every == 0:
+            with timer.span("save"):
+                ckpt_mod.save_checkpoint(checkpoint_dir, step + 1, params)
+    if checkpoint_dir:
+        with timer.span("save"):
+            ckpt_mod.save_checkpoint(checkpoint_dir, num_steps, params)
+    return params, losses

@@ -11,7 +11,8 @@ Tolerance: the kernels round P to bf16 against a running max (and, in
 the one-pass regime, fold the log2(e)/sqrt(128) prescale into q before
 its bf16 round), so they agree with the dense plain version of their
 regime to |err| <= 4e-3 + 2e-2*|ref| per element and 1e-2 in relative
-Frobenius norm, in bf16 (as ``chip_smoke.py``). The multi-pass kernel is
+Frobenius norm, in bf16 (as ``chip_smoke.py``). The one-pass plain
+version is the unfused composition under ``dense_attention()``. The multi-pass kernel is
 held to the multi-pass plain version (``reference_mp_*``), never to the
 one-pass one; the one-pass ceiling is lowered so that small shapes reach
 it.
@@ -20,6 +21,7 @@ it.
 import pytest
 import torch
 
+from domainrag_tpu_torch.ops import attention as attn
 from domainrag_tpu_torch.ops import mmdit_attention as mma
 
 pytestmark = pytest.mark.cuda
@@ -66,9 +68,10 @@ def test_double_kernel_matches_plain(dev, batch, s_txt, s_img, heads):
                                               heads, 128)
     torch.cuda.synchronize()
     assert mma.mmdit_double_attention.launches == n + 1
-    want_t, want_i = mma.reference_double(
-        txt, img, tn["q"]["scale"], tn["k"]["scale"], inorm["q"]["scale"],
-        inorm["k"]["scale"], cos, sin, heads, 128)
+    with attn.dense_attention():
+        want_t, want_i = mma.reference_double(
+            txt, img, tn["q"]["scale"], tn["k"]["scale"], inorm["q"]["scale"],
+            inorm["k"]["scale"], cos, sin, heads, 128)
     _check(got_t, want_t)
     _check(got_i, want_i)
 
@@ -82,8 +85,9 @@ def test_single_kernel_matches_plain(dev, batch, s, heads):
     got = mma.mmdit_single_attention(proj, qn, cos, sin, heads, 128)
     torch.cuda.synchronize()
     assert mma.mmdit_single_attention.launches == n + 1
-    want = mma.reference_single(proj, qn["q"]["scale"], qn["k"]["scale"],
-                                cos, sin, heads, 128)
+    with attn.dense_attention():
+        want = mma.reference_single(proj, qn["q"]["scale"], qn["k"]["scale"],
+                                    cos, sin, heads, 128)
     _check(got, want)
 
 
@@ -94,8 +98,9 @@ def test_kernel_reads_strided_rows_in_place(dev):
     (big,), cos, sin, (qn, _) = _inputs(dev, 2, [(2, 100, w)], 77, heads)
     proj = big[:, 10:87]
     got = mma.mmdit_single_attention(proj, qn, cos, sin, heads, 128)
-    want = mma.reference_single(proj, qn["q"]["scale"], qn["k"]["scale"],
-                                cos, sin, heads, 128)
+    with attn.dense_attention():
+        want = mma.reference_single(proj, qn["q"]["scale"], qn["k"]["scale"],
+                                    cos, sin, heads, 128)
     _check(got, want)
     same = mma.mmdit_single_attention(proj.contiguous(), qn, cos, sin,
                                       heads, 128)
@@ -183,3 +188,210 @@ def test_mp_kernel_rounds_like_the_multipass_plain(dev, monkeypatch):
 
     assert rel(multipass) < 0.8 * rel(onepass), (rel(multipass),
                                                   rel(onepass))
+
+
+# ---------------------------------------------------------------------------
+# generic flash attention: B5 forward, B6 backward (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+# Tolerances against the plain versions (ops.attention), as chip_smoke.py:
+# - bf16 output: the one-pass bar above (P rounded against a running max);
+# - bf16 gradients: 1e-2 in relative Frobenius norm and every element within
+#   2e-2 * max|ref| (P and dS are rounded to bf16 for the tensor-core
+#   products, where the plain version keeps every product in f32);
+# - f32: no TF32 anywhere, so only summation order and exp2f/expf differ
+#   (1.3e-6 in relative norm measured on the H100): F32_REL in relative
+#   norm and per element F32_REL * max|ref|;
+# - lse (f32 in both instances): LSE_ATOL absolute.
+GRAD_REL, GRAD_ELEM = 1e-2, 2e-2
+F32_REL = 1e-5
+LSE_ATOL = 1e-3
+
+FLASH_CASES = [            # (b, h, s_q, s_kv, d, causal, kv_valid)
+    (1, 2, 128, 128, 128, False, None),     # aligned
+    (2, 3, 200, 200, 64, False, None),      # ragged, D = 64 padded
+    (1, 2, 300, 300, 128, True, None),      # causal, ragged
+    (2, 2, 150, 333, 128, False, 77),       # kv_valid, s_q != s_kv
+    (1, 2, 1000, 1000, 128, True, 613),     # causal + kv_valid, ragged
+]
+FLASH_IDS = ["aligned", "ragged_d64", "causal", "kv_valid", "causal_kv"]
+
+
+def _qkv(dev, dtype, b, h, s_q, s_kv, d, seed=7):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    return (rnd(b, h, s_q, d), rnd(b, h, s_kv, d), rnd(b, h, s_kv, d),
+            rnd(b, h, s_q, d))
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def _check_grad(got, want, dtype):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    top = want.float().abs().max().item()
+    rel, elem = (GRAD_REL, GRAD_ELEM) if dtype == torch.bfloat16 \
+        else (F32_REL, F32_REL)
+    assert err.max().item() <= elem * top, (err.max().item(), top)
+    assert _rel(got, want) < rel, _rel(got, want)
+
+
+def _check_out(got, want, dtype):
+    if dtype == torch.bfloat16:
+        _check(got, want)
+    else:
+        _check_grad(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,h,s_q,s_kv,d,causal,kv_valid", FLASH_CASES,
+                         ids=FLASH_IDS)
+def test_flash_forward_matches_plain(dev, dtype, b, h, s_q, s_kv, d, causal,
+                                     kv_valid):
+    q, k, v, _ = _qkv(dev, dtype, b, h, s_q, s_kv, d)
+    n = attn.flash_attention.launches
+    out, lse = attn._kernel_forward(q, k, v, causal, kv_valid)
+    torch.cuda.synchronize()
+    assert attn.flash_attention.launches == n + 1
+    want, want_lse = attn.flash_forward_reference(q, k, v, causal, kv_valid)
+    _check_out(out, want, dtype)
+    assert (lse - want_lse).abs().max().item() < LSE_ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,h,s_q,s_kv,d,causal,kv_valid", FLASH_CASES,
+                         ids=FLASH_IDS)
+def test_flash_backward_matches_plain(dev, dtype, b, h, s_q, s_kv, d, causal,
+                                      kv_valid):
+    q, k, v, dout = _qkv(dev, dtype, b, h, s_q, s_kv, d)
+    out, lse = attn.flash_forward_reference(q, k, v, causal, kv_valid)
+    n = (attn.flash_attention.dq_launches, attn.flash_attention.dkv_launches)
+    got = attn._kernel_backward(q, k, v, out, lse, dout, causal, kv_valid)
+    torch.cuda.synchronize()
+    assert (attn.flash_attention.dq_launches,
+            attn.flash_attention.dkv_launches) == (n[0] + 1, n[1] + 1)
+    want = attn.flash_backward_reference(q, k, v, out, lse, dout, causal,
+                                         kv_valid)
+    for g_, w_ in zip(got, want):
+        _check_grad(g_, w_, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_autograd_card_vs_cpu(dev, dtype):
+    """flash_attention's autograd on the card (B5 + B6) against the same
+    Function on the CPU (the plain versions)."""
+    q, k, v, dout = _qkv(dev, dtype, 2, 2, 190, 190, 64, seed=8)
+    grads = []
+    for x in (q, k, v, dout), tuple(t.cpu() for t in (q, k, v, dout)):
+        leaves = [t.clone().requires_grad_() for t in x[:3]]
+        out = attn.flash_attention(*leaves, causal=True)
+        out.backward(x[3])
+        grads.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    _check_out(grads[0][0], grads[1][0], dtype)
+    for g_, w_ in zip(grads[0][1:], grads[1][1:]):
+        _check_grad(g_, w_, dtype)
+
+
+def _counts():
+    f = attn.flash_attention
+    return (mma.mmdit_double_attention.launches,
+            mma.mmdit_single_attention.launches,
+            mma.mmdit_single_attention.mp_launches,
+            f.launches, f.dq_launches, f.dkv_launches)
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 128),
+                                      (torch.bfloat16, 64)],
+                         ids=["f32", "head_dim64"])
+def test_unfused_streams_run_b5(dev, dtype, hd):
+    """An f32 stream and a head_dim-64 stream leave the fused kernels for
+    the unfused composition, which runs B5 on the card (forward and
+    backward), and agree with the CPU."""
+    heads, s = 2, 96
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    proj = torch.randn((1, s, 7 * heads * hd), generator=g, device=dev)
+    proj = proj.to(dtype)
+    ang = torch.rand((s, hd // 2), generator=g, device=dev) * 6.283
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    norm = {"q": {"scale": 0.5 + torch.rand(hd, generator=g, device=dev)},
+            "k": {"scale": 0.5 + torch.rand(hd, generator=g, device=dev)}}
+    before = _counts()
+    x = proj.clone().requires_grad_()
+    out = mma.mmdit_single_attention(x, norm, cos, sin, heads, hd)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    after = _counts()
+    assert after[:3] == before[:3]                       # no fused kernel
+    assert [a - b for a, b in zip(after[3:], before[3:])] == [1, 1, 1]
+    xc = proj.cpu().requires_grad_()
+    norm_c = {n: {"scale": w["scale"].cpu()} for n, w in norm.items()}
+    ref = mma.mmdit_single_attention(xc, norm_c, cos.cpu(), sin.cpu(), heads,
+                                     hd)
+    ref.float().square().sum().backward()
+    _check_out(out.detach().cpu(), ref.detach(), dtype)
+    _check_grad(x.grad.cpu(), xc.grad, dtype)
+
+
+def test_above_multipass_runs_b5(dev, monkeypatch):
+    """Above the (lowered) multi-pass ceiling a bf16 head_dim-128 call
+    runs B5, not B1-B3, and agrees with the dense composition."""
+    monkeypatch.setattr(mma, "_MAX_ONEPASS", 64)
+    monkeypatch.setattr(mma, "_MAX_MULTIPASS", 128)
+    heads = 2
+    (txt, img), cos, sin, (tn, inorm) = _inputs(
+        dev, 10, [(1, 40, 3 * heads * 128), (1, 120, 3 * heads * 128)], 160,
+        heads)
+    before = _counts(), mma.mmdit_double_attention.mp_launches
+    got = mma.mmdit_double_attention(txt, img, tn, inorm, cos, sin, heads,
+                                     128)
+    torch.cuda.synchronize()
+    after = _counts(), mma.mmdit_double_attention.mp_launches
+    assert after[1] == before[1] and after[0][0] == before[0][0]
+    assert after[0][3] == before[0][3] + 1
+    with attn.dense_attention():
+        want = mma.reference_double(
+            txt, img, tn["q"]["scale"], tn["k"]["scale"], inorm["q"]["scale"],
+            inorm["k"]["scale"], cos, sin, heads, 128)
+    for g_, w_ in zip(got, want):
+        _check(g_, w_)
+
+
+@pytest.mark.parametrize("onepass", [True, False], ids=["onepass", "mp"])
+def test_fused_autograd_card_vs_cpu(dev, monkeypatch, onepass):
+    """Both fused wrappers' autograd on the card (fused forward, unfused
+    B5/B6 backward) against the CPU (plain forward, dense backward), for
+    the qkv streams and the f32 qk-norm scales."""
+    if not onepass:
+        monkeypatch.setattr(mma, "_MAX_ONEPASS", 64)
+    heads = 2
+    (txt, img, proj), cos, sin, (tn, inorm) = _inputs(
+        dev, 11, [(1, 40, 3 * heads * 128), (1, 88, 3 * heads * 128),
+                  (1, 128, 7 * heads * 128)], 128, heads)
+    results = []
+    for where in (dev, torch.device("cpu")):
+        leaves = [t.to(where).clone().requires_grad_()
+                  for t in (txt, img, proj, tn["q"]["scale"], tn["k"]["scale"],
+                            inorm["q"]["scale"], inorm["k"]["scale"])]
+        lt, li, lp, wqt, wkt, wqi, wki = leaves
+        c, s_ = cos.to(where), sin.to(where)
+        ot, oi = mma.mmdit_double_attention(
+            lt, li, {"q": {"scale": wqt}, "k": {"scale": wkt}},
+            {"q": {"scale": wqi}, "k": {"scale": wki}}, c, s_, heads, 128)
+        op = mma.mmdit_single_attention(
+            lp, {"q": {"scale": wqt}, "k": {"scale": wkt}}, c, s_, heads, 128)
+        loss = sum((o.float() * torch.cos(o.float())).sum()
+                   for o in (ot, oi, op))
+        loss.backward()
+        results.append([t.grad.float().cpu() for t in leaves])
+    # bf16 forward and backward each within 1e-2 of their plain versions
+    for g_, w_ in zip(*results):
+        assert _rel(g_, w_) < 2e-2, _rel(g_, w_)

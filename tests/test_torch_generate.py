@@ -35,6 +35,7 @@ from domainrag_tpu_torch.models import t5 as tt5
 from domainrag_tpu_torch.models.flux import model as tflux
 from domainrag_tpu_torch.models.flux import pipeline as tfp
 from domainrag_tpu_torch.models.flux import vae as tvae
+from domainrag_tpu_torch.ops import attention as tattn
 from domainrag_tpu_torch.ops import mmdit_attention as tmma
 from domainrag_tpu_torch.stages import generate as tgen
 
@@ -256,6 +257,15 @@ def test_port_imports_no_jax(path):
                 f"{path.name} imports {name}")
 
 
+def test_import_check_covers_the_trainer():
+    """The import check above walks the trainer's modules and the generic
+    flash attention too."""
+    names = {str(p.relative_to(PORT)) for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"ops/attention.py", "train/flow_match.py", "train/loop.py",
+            "train/checkpoint.py", "train/__init__.py"} <= names
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -271,6 +281,7 @@ def test_wrappers_launch_or_raise_off_cpu(monkeypatch):
         raise RuntimeError("no kernel here")
 
     monkeypatch.setattr(tmma, "_lib", no_kernel)
+    monkeypatch.setattr(tattn, "_lib", no_kernel)
     heads, hd = 2, 128
     meta = dict(device="meta", dtype=torch.bfloat16)
     norm = {"q": {"scale": torch.ones(hd)}, "k": {"scale": torch.ones(hd)}}
@@ -284,9 +295,14 @@ def test_wrappers_launch_or_raise_off_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no kernel here"):
         tmma.mmdit_single_attention(torch.cat([txt, img], 1), norm, cos,
                                     sin, heads, hd)
-    with pytest.raises(ValueError, match="head_dim"):
-        tmma.mmdit_single_attention(torch.cat([txt, img], 1), norm, cos,
-                                    sin, 3, 64)
+    # another head width takes the unfused composition: the generic flash
+    # kernel (B5), which raises here as well
+    norm64 = {"q": {"scale": torch.ones(64, device="meta")},
+              "k": {"scale": torch.ones(64, device="meta")}}
+    tab64 = torch.zeros(24, 32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel here"):
+        tmma.mmdit_single_attention(torch.cat([txt, img], 1), norm64, tab64,
+                                    tab64, 3, 64)
     assert before == (tmma.mmdit_double_attention.launches,
                       tmma.mmdit_single_attention.launches)
 

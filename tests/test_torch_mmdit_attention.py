@@ -360,21 +360,49 @@ def test_gate_routes_like_jax(monkeypatch):
 
 
 def test_above_multipass_raises(monkeypatch):
-    """Above _MAX_MULTIPASS the JAX package leaves the fused path for a
-    kernel (B5) the port does not have: the wrappers raise."""
-    monkeypatch.setattr(tmma, "_MAX_ONEPASS", 64)
-    monkeypatch.setattr(tmma, "_MAX_MULTIPASS", 128)
+    """Above _MAX_MULTIPASS both packages leave the fused path for the
+    unfused composition: on the CPU the port agrees with the JAX wrappers
+    there, and a tensor off the CPU goes to the generic flash kernel (B5)
+    and raises when that launch fails - it never reaches the fused
+    kernels nor a plain version."""
+    for mod in (tmma, jmma):
+        monkeypatch.setattr(mod, "_MAX_ONEPASS", 64)
+        monkeypatch.setattr(mod, "_MAX_MULTIPASS", 128)
     txt, img, ws, cos, sin = _double_args(20, 1, 64, 192)
-    norm = _qknorm(ws[0], ws[1], torch.from_numpy)
+    wqt, wkt, wqi, wki = ws
+    want = jmma.mmdit_double_attention(
+        jnp.asarray(txt, jnp.bfloat16), jnp.asarray(img, jnp.bfloat16),
+        _qknorm(wqt, wkt, jnp.asarray), _qknorm(wqi, wki, jnp.asarray),
+        jnp.asarray(cos), jnp.asarray(sin), HEADS, HD, interpret=True)
     tables = (torch.from_numpy(cos), torch.from_numpy(sin))
-    with pytest.raises(NotImplementedError, match="B5"):
-        tmma.mmdit_double_attention(_t(txt, torch.bfloat16),
-                                    _t(img, torch.bfloat16), norm, norm,
-                                    *tables, HEADS, HD)
-    with pytest.raises(NotImplementedError, match="B5"):
-        tmma.mmdit_single_attention(
-            torch.cat([_t(txt, torch.bfloat16), _t(img, torch.bfloat16)], 1),
-            norm, *tables, HEADS, HD)
+    got = tmma.mmdit_double_attention(
+        _t(txt, torch.bfloat16), _t(img, torch.bfloat16),
+        _qknorm(wqt, wkt, torch.from_numpy),
+        _qknorm(wqi, wki, torch.from_numpy), *tables, HEADS, HD)
+    for g, w in zip(got, want):           # both run the dense composition
+        _close(g.float(), w, 1e-2, 1e-2)
+
+    def no_b5():
+        raise RuntimeError("no B5 kernel here")
+
+    def no_fused():
+        raise AssertionError("the fused kernels must not run here")
+
+    from domainrag_tpu_torch.ops import attention as tattn
+    monkeypatch.setattr(tattn, "_lib", no_b5)
+    monkeypatch.setattr(tmma, "_lib", no_fused)
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    norm = _qknorm(wqt, wkt, lambda w: torch.from_numpy(w).to("meta"))
+    tables = tuple(t.to("meta") for t in tables)
+    mt = torch.empty(1, 64, 3 * HEADS * HD, **meta)
+    mi = torch.empty(1, 192, 3 * HEADS * HD, **meta)
+    before = tattn.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no B5 kernel"):
+        tmma.mmdit_double_attention(mt, mi, norm, norm, *tables, HEADS, HD)
+    with pytest.raises(RuntimeError, match="no B5 kernel"):
+        tmma.mmdit_single_attention(torch.cat([mt, mi], 1), norm, *tables,
+                                    HEADS, HD)
+    assert tattn.flash_attention.launches == before
 
 
 def test_mp_wrappers_launch_or_raise_off_cpu(monkeypatch):
