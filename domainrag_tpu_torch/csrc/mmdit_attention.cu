@@ -76,9 +76,7 @@
 //    Offsets: at B = 4, S = 31866 and a 21504-lane row the GEMM output
 //    spans 2.7e9 elements, past 2^31, so every element offset is 64-bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -93,8 +91,6 @@ constexpr int KV_ELEMS = BN * D;
 constexpr int SMEM_BYTES = (BM + 4 * BN) * D * 2;  // Q + 2 K + 2 V (96 KB)
 constexpr float NEG_INF = -1e30f;
 constexpr float RMS_EPS = 1e-6f;
-
-typedef __nv_bfloat16 bf16;
 
 // Two row sources of one joint sequence: rows [0, s_a) of stream a, then
 // rows [0, s_b) of stream b. Strides are in elements.
@@ -111,10 +107,6 @@ __device__ __forceinline__ const bf16* row_ptr(const Rows& r, int batch,
                                                int row) {
   return row < r.s_a ? r.a + batch * r.a_batch + row * r.a_row
                      : r.b + batch * r.b_batch + (row - r.s_a) * r.b_row;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 // ---------------------------------------------------------------------------
@@ -175,58 +167,8 @@ __global__ void norm_rope_kernel(Rows src, const float* wq_a,
 }
 
 // ---------------------------------------------------------------------------
-// PTX helpers
+// tiles (PTX helpers in common.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a * b, m16n8k16, bf16 inputs, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Element offset of 16-byte chunk c (0..15) of row `row` in a swizzled
 // (rows, 128) bf16 tile: chunk c lives at c ^ (row & 7).

@@ -18,6 +18,8 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..ops.int8_gemm import w8a8_linear
+
 Params = Dict[str, Any]
 
 
@@ -89,10 +91,39 @@ def mha_init(init: Init, dim: int, bias: bool = True) -> Params:
 # dense ops
 # ---------------------------------------------------------------------------
 
+# Serving mode (models.quant): when on, quantized linears also quantize
+# their activations per token to int8 and run the exact int8 product (W8A8,
+# the B4 kernel on the card). A process-wide mode, read at every call, as
+# the JAX package's trace-time flag (common.py:44-62).
+_INT8_ACTIVATIONS = False
+
+
+def set_int8_activations(enabled: bool) -> None:
+    global _INT8_ACTIVATIONS
+    _INT8_ACTIVATIONS = bool(enabled)
+
+
+def int8_activations_enabled() -> bool:
+    return _INT8_ACTIVATIONS
+
+
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x @ w (+ b) in x's dtype. A plain GEMM: the JAX package left it to
-    XLA, so here it is ``torch.matmul`` (f32 accumulation inside)."""
-    y = torch.matmul(x, p["w"].to(x.dtype))
+    """x @ w (+ b) in x's dtype, with the three paths of the JAX
+    ``common.linear`` (:69-104):
+
+    - dense ``{"w"}``: a plain GEMM, which the JAX package left to XLA, so
+      here ``torch.matmul`` (f32 accumulation inside);
+    - quantized ``{"w_q", "w_s"}``, weight-only int8:
+      ``(x @ w_q.to(x.dtype)) * w_s.to(x.dtype)``, XLA in the JAX package
+      and ``torch.matmul`` here;
+    - quantized under :func:`set_int8_activations`, W8A8:
+      :func:`ops.int8_gemm.w8a8_linear` (bias added in its epilogue)."""
+    if "w_q" in p:
+        if _INT8_ACTIVATIONS:
+            return w8a8_linear(x, p["w_q"], p["w_s"], p.get("b"))
+        y = torch.matmul(x, p["w_q"].to(x.dtype)) * p["w_s"].to(x.dtype)
+    else:
+        y = torch.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

@@ -16,10 +16,13 @@ Dtypes follow the JAX package: the MMDiT runs in ``compute_dtype`` (bf16
 at full width), T5 / CLIP text / SigLIP / Redux in f32. The fill's image
 enters the VAE encoder in ``compute_dtype`` (so the encode runs in bf16
 at full width) and the latents and conditioning enter the MMDiT in it;
-the VAE decode runs in f32. Out of these slices: velocity and block
-caches, meshes, pipelining and int8 modes; ``generate`` and
-``fill_batch`` take those arguments only at their defaults and raise
-otherwise.
+the VAE decode runs in f32. The int8 serving modes need no argument
+here: a bundle whose MMDiT was quantized by ``models.quant.quantize_tree``
+runs weight-only int8, W8A8 under ``common.set_int8_activations(True)``
+and int8 attention under ``ops.mmdit_attention.set_int8_qk`` /
+``set_int8_pv``. Out of these slices: velocity and block caches, meshes
+and pipelining; ``generate`` and ``fill_batch`` take those arguments only
+at their defaults and raise otherwise.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 ``csrc/<name>.cu`` has a plain C interface and becomes
 ``build/lib<name>-<hash>.so`` at the repository root, keyed by a hash of
-the source and the flags, so a changed source rebuilds and an unchanged
-one loads at once. The compiler's ``-Xptxas -v`` report (registers,
+the source, the shared headers (``csrc/*.cuh``) and the flags, so a
+changed source or header rebuilds and an unchanged one loads at once. The compiler's ``-Xptxas -v`` report (registers,
 shared memory, spills per kernel) is kept beside the library as
 ``lib<name>-<hash>.log``.
 
@@ -42,10 +42,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # the shared helpers
+        h.update(header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str = "mmdit_attention") -> Path:

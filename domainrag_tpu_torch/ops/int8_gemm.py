@@ -1,0 +1,144 @@
+"""W8A8 int8 GEMM (port of ``domainrag_tpu/ops/int8_gemm.py``).
+
+Weights are per-output-channel symmetric int8, ``w ~ w_q * diag(w_s)``
+(:mod:`models.quant`); activations are quantized per token on the fly,
+``x ~ x_q * diag(x_s)`` with ``x_s = rowmax|x| / 127``. The product
+``x_q @ w_q`` is exact in integers and the epilogue applies the rank-1
+rescale in f32, ``acc * x_s * w_s`` in that order, casts to the output
+dtype and then adds the bias in it: the arithmetic of the JAX ``_kernel``
+(ops/int8_gemm.py:117) and of its XLA W8A8 branch in ``common.linear``,
+so this module is bitwise equal to both.
+
+:func:`quantize_rowwise` stays torch ops outside the kernel, as it stays
+XLA outside Pallas in the JAX package. :func:`w8a8_linear` runs the plain
+version :func:`w8a8_reference` on a CPU tensor and the hand-written
+Hopper kernel of ``csrc/int8_gemm.cu`` (B4) on a CUDA tensor, for every
+shape: the M = 1 modulation and embedder linears, K = 64 (``img_in``)
+and N = 64 (``final_proj``) included. The JAX gate ``w8a8_eligible``
+(M >= 512, K and N tileable) exists because the TPU kernel takes whole
+tiles only, with its XLA formulation, bitwise identical, covering the
+rest; on the card no plain version carries any part of the path, so the
+kernel masks ragged edges instead. The gate is kept for parity (and
+``chip_smoke.py`` reports which shapes it would have sent to XLA). Launches are counted in ``w8a8_linear.launches``, and
+per (M, K, N) in ``w8a8_linear.launches_by_shape``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+
+def div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127 correctly rounded on every device. On a CUDA tensor torch
+    turns the division by a Python number into a multiplication by its
+    reciprocal, which is 1 ulp off the JAX package's ``x / 127.0`` for some
+    x; a tensor divisor keeps the true division."""
+    return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
+
+
+def quantize_rowwise(x: torch.Tensor):
+    """Per-token symmetric int8: (M, K) float -> int8 (M, K), f32 (M, 1)
+    (f32 amax / 127 floored at 1e-12, round half to even, clip)."""
+    xf = x.float()
+    s = div127(xf.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-12)
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def w8a8_reference(xq: torch.Tensor, w_q: torch.Tensor, xs: torch.Tensor,
+                   w_s: torch.Tensor, bias: Optional[torch.Tensor],
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of B4: the integer dot in float64, which is exact on
+    either device (|acc| <= K * 127^2 < 2^53; torch has no general int32
+    matmul on the card), then ``acc.float() * xs * w_s``, cast, ``+ b``."""
+    acc = torch.matmul(xq.double(), w_q.double())
+    y = (acc.float() * xs.float() * w_s.float()).to(out_dtype)
+    if bias is not None:
+        y = y + bias.to(out_dtype)
+    return y
+
+
+def _pick(dim: int, candidates) -> Optional[int]:
+    for c in candidates:
+        if dim % c == 0:
+            return c
+    return None
+
+
+def w8a8_eligible(m: int, k: int, n: int) -> bool:
+    """The JAX package's Pallas gate (ops/int8_gemm.py:181-187): shapes
+    its TPU kernel takes. The port's kernel takes every shape."""
+    return (m >= 512
+            and _pick(k, (1536, 2048, 1024, 512, 256, 128)) is not None
+            and _pick(n, (1024, 512, 256, 128)) is not None)
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from . import _build
+        lib = _build.load("int8_gemm")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.w8a8_gemm.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.w8a8_gemm.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+_OUT_KINDS = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _launch(xq, w_q, xs, w_s, bias, out_dtype):
+    if out_dtype not in _OUT_KINDS:
+        raise ValueError(f"B4 writes bf16 or f32, not {out_dtype}")
+    m, k = xq.shape
+    if w_q.dtype != torch.int8 or w_q.dim() != 2 or w_q.shape[0] != k:
+        raise ValueError(f"w_q must be ({k}, N) int8, got "
+                         f"{tuple(w_q.shape)} {w_q.dtype}")
+    n = w_q.shape[1]
+    dev = xq.device
+    w_q = w_q.contiguous()
+    xs = xs.reshape(m).float().contiguous()
+    w_s = w_s.reshape(n).to(device=dev, dtype=torch.float32).contiguous()
+    b = None if bias is None else bias.reshape(n).to(
+        device=dev, dtype=out_dtype).contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    rc = _lib().w8a8_gemm(
+        xq.contiguous().data_ptr(), w_q.data_ptr(), xs.data_ptr(),
+        w_s.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
+        m, n, k, _OUT_KINDS[out_dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"w8a8_gemm kernel launch failed (M={m} K={k} "
+                           f"N={n}): CUDA error {rc}")
+    return out
+
+
+def w8a8_linear(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """W8A8 linear: per-token activation quant (torch ops), then the exact
+    int8 product with the rescale and bias epilogue. ``x``: (..., K)
+    float; ``w_q``: (K, N) int8; ``w_s``: (N,) f32. Returns (..., N) in
+    x's dtype."""
+    k, n = w_q.shape
+    lead = x.shape[:-1]
+    xq, xs = quantize_rowwise(x.reshape(-1, k))
+    if x.device.type == "cpu":
+        y = w8a8_reference(xq, w_q, xs, w_s, bias, x.dtype)
+    else:
+        y = _launch(xq, w_q, xs, w_s, bias, x.dtype)
+        w8a8_linear.launches += 1
+        shape = (xq.shape[0], k, n)
+        by_shape = w8a8_linear.launches_by_shape
+        by_shape[shape] = by_shape.get(shape, 0) + 1
+    return y.reshape(*lead, n)
+
+
+w8a8_linear.launches = 0
+w8a8_linear.launches_by_shape = {}     # (M, K, N) -> launches

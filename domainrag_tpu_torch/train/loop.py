@@ -4,8 +4,8 @@ dataset).
 
 ``fit`` runs the flow-matching step on one device with periodic
 checkpoints, graceful SIGINT stop and progress/ETA reporting, as the JAX
-``fit`` does over a mesh. The port has no W8A8 serving mode yet, so there
-is no mode for ``fit`` to refuse.
+``fit`` does over a mesh. Like it, ``fit`` refuses the W8A8 serving mode
+(``models.common.set_int8_activations(True)``).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from ..core import imaging
 from ..core.interrupt import should_stop
 from ..core.log import StepTimer, get_logger
 from ..core.progress import ProgressReporter
+from ..models import common
 from ..models.flux import model as flux_mod
 from . import checkpoint as ckpt_mod
 from . import flow_match
@@ -96,6 +97,13 @@ def fit(params, flux_cfg: flux_mod.FluxConfig,
     that device seeded with ``seed``. ``timer`` gets a ``step`` span per
     step and a ``save`` span per checkpoint. Returns (final_params,
     losses)."""
+    if common.int8_activations_enabled():
+        # W8A8 quantizes activations through round(), whose gradient is
+        # zero almost everywhere: training would silently learn nothing
+        raise ValueError(
+            "training is incompatible with the W8A8 serving mode "
+            "(set_int8_activations(True) / --w8a8): activation round() has "
+            "zero gradient. Disable it before fit().")
     train_cfg = train_cfg or flow_match.TrainConfig()
     if mesh is not None or model_parallel > 1:
         raise NotImplementedError("meshes and tensor parallelism need "

@@ -11,7 +11,8 @@ Tolerance: the kernels round P to bf16 against a running max (and, in
 the one-pass regime, fold the log2(e)/sqrt(128) prescale into q before
 its bf16 round), so they agree with the dense plain version of their
 regime to |err| <= 4e-3 + 2e-2*|ref| per element and 1e-2 in relative
-Frobenius norm, in bf16 (as ``chip_smoke.py``). The one-pass plain
+Frobenius norm, in bf16 (as ``chip_smoke.py``). The int8 serving kernels
+(end of the file) are held to the same bar, and the W8A8 GEMM bitwise. The one-pass plain
 version is the unfused composition under ``dense_attention()``. The multi-pass kernel is
 held to the multi-pass plain version (``reference_mp_*``), never to the
 one-pass one; the one-pass ceiling is lowered so that small shapes reach
@@ -395,3 +396,131 @@ def test_fused_autograd_card_vs_cpu(dev, monkeypatch, onepass):
     # bf16 forward and backward each within 1e-2 of their plain versions
     for g_, w_ in zip(*results):
         assert _rel(g_, w_) < 2e-2, _rel(g_, w_)
+
+
+# ---------------------------------------------------------------------------
+# int8 serving: the W8A8 GEMM B4 (csrc/int8_gemm.cu) and the int8 attention
+# B7 (csrc/int8_attention.cu)
+# ---------------------------------------------------------------------------
+# B4 is bitwise equal to its plain version (exact integer dot, the same f32
+# epilogue in the same order). B7 is held to its plain version with the
+# bf16 bar above; the int8 P.V instance quantizes P against the same max
+# window as the plain version (the whole row in one pass, 1024 keys in
+# multi-pass), so it lands on the same integer grid.
+
+from domainrag_tpu_torch.ops import int8_gemm as ig    # noqa: E402
+
+
+@pytest.mark.parametrize("m", [1, 17, 640])
+@pytest.mark.parametrize("k,n", [(64, 3072), (384, 64), (12288, 3072),
+                                 (1000, 70)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_w8a8_kernel_equals_plain(dev, m, k, n, dtype):
+    g = torch.Generator(device=dev)
+    g.manual_seed(m + k + n)
+    x = (torch.randn((m, k), generator=g, device=dev) * 3).to(dtype)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    ws = torch.rand(n, generator=g, device=dev) / 127
+    b = torch.randn(n, generator=g, device=dev) if m != 17 else None
+    before = ig.w8a8_linear.launches
+    got = ig.w8a8_linear(x, wq, ws, b)
+    torch.cuda.synchronize()
+    assert ig.w8a8_linear.launches == before + 1
+    xq, xs = ig.quantize_rowwise(x)
+    want = ig.w8a8_reference(xq, wq, xs, ws, b, dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.fixture
+def int8_attn():
+    """Sets the int8 attention flags for a test; always reset."""
+    def set_(pv):
+        mma.set_int8_qk(True)
+        mma.set_int8_pv(pv)
+    try:
+        yield set_
+    finally:
+        mma.set_int8_qk(False)
+        mma.set_int8_pv(False)
+
+
+def _i8_counts(wrapper):
+    return (wrapper.launches, wrapper.mp_launches, wrapper.i8_launches,
+            wrapper.i8_mp_launches)
+
+
+@pytest.mark.parametrize("pv", [False, True], ids=["qk", "qk_pv"])
+@pytest.mark.parametrize("mp", [False, True], ids=["onepass", "mp"])
+@pytest.mark.parametrize("batch,s_txt,s_img,heads", [
+    (1, 40, 88, 2), (2, 77, 300, 3)])
+def test_i8_double_kernel_matches_plain(dev, monkeypatch, int8_attn, pv, mp,
+                                        batch, s_txt, s_img, heads):
+    if mp:
+        monkeypatch.setattr(mma, "_MAX_ONEPASS", 64)
+    int8_attn(pv)
+    w = 3 * heads * 128
+    (txt, img), cos, sin, (tn, inorm) = _inputs(
+        dev, 12, [(batch, s_txt, w), (batch, s_img, w)], s_txt + s_img, heads)
+    f = mma.mmdit_double_attention
+    before = _i8_counts(f)
+    got = f(txt, img, tn, inorm, cos, sin, heads, 128)
+    torch.cuda.synchronize()
+    step = (0, 0, 0, 1) if mp else (0, 0, 1, 0)
+    assert _i8_counts(f) == tuple(a + b for a, b in zip(before, step))
+    plain = mma.reference_mp_i8_double if mp else mma.reference_i8_double
+    want = plain(txt, img, tn["q"]["scale"], tn["k"]["scale"],
+                 inorm["q"]["scale"], inorm["k"]["scale"], cos, sin, heads,
+                 128, pv=pv)
+    for g_, w_ in zip(got, want):
+        _check(g_, w_)
+
+
+@pytest.mark.parametrize("pv", [False, True], ids=["qk", "qk_pv"])
+@pytest.mark.parametrize("mp", [False, True], ids=["onepass", "mp"])
+@pytest.mark.parametrize("batch,s,heads", [(1, 96, 2), (2, 1500, 3)])
+def test_i8_single_kernel_matches_plain(dev, monkeypatch, int8_attn, pv, mp,
+                                        batch, s, heads):
+    if mp:
+        monkeypatch.setattr(mma, "_MAX_ONEPASS", 64)
+    int8_attn(pv)
+    (proj,), cos, sin, (qn, _) = _inputs(dev, 13, [(batch, s, 7 * heads * 128)],
+                                         s, heads)
+    f = mma.mmdit_single_attention
+    before = _i8_counts(f)
+    got = f(proj, qn, cos, sin, heads, 128)
+    torch.cuda.synchronize()
+    step = (0, 0, 0, 1) if mp else (0, 0, 1, 0)
+    assert _i8_counts(f) == tuple(a + b for a, b in zip(before, step))
+    plain = mma.reference_mp_i8_single if mp else mma.reference_i8_single
+    _check(got, plain(proj, qn["q"]["scale"], qn["k"]["scale"], cos, sin,
+                      heads, 128, pv=pv))
+
+
+def test_i8_mp_kernel_takes_the_1024_key_window(dev, monkeypatch, int8_attn):
+    """With int8 P.V the max window sets the quantisation grid: over 3000
+    keys the multi-pass kernel is far nearer the plain version at 1024-key
+    windows than the same plain version at 2048-key windows."""
+    monkeypatch.setattr(mma, "_MAX_ONEPASS", 64)
+    int8_attn(True)
+    heads, s = 2, 3000
+    (proj,), cos, sin, (qn, _) = _inputs(dev, 14, [(1, s, 7 * heads * 128)],
+                                         s, heads)
+    got = mma.mmdit_single_attention(proj, qn, cos, sin, heads, 128)
+    args = (proj, qn["q"]["scale"], qn["k"]["scale"], cos, sin, heads, 128)
+    near = _rel(got, mma.reference_mp_i8_single(*args, pv=True))
+    far = _rel(got, mma.reference_mp_i8_single(*args, pv=True, bkv=2048))
+    assert near < 0.2 * far, (near, far)
+
+
+def test_scales_divide_by_127_exactly(dev):
+    """The int8 scales are amax / 127 correctly rounded, as the JAX
+    package's; on the card torch divides by a Python number through its
+    reciprocal, which is 1 ulp off for some values, so the plain versions
+    divide by a tensor (ops.int8_gemm.div127)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    x = torch.rand(1 << 16, generator=g, device=dev) * 10
+    want = x.cpu() / 127.0                 # true division on the CPU
+    assert torch.equal(ig.div127(x).cpu(), want)

@@ -266,6 +266,14 @@ def test_import_check_covers_the_trainer():
             "train/checkpoint.py", "train/__init__.py"} <= names
 
 
+def test_import_check_covers_the_int8_modes():
+    """The import check above walks the int8 serving modules too."""
+    names = {str(p.relative_to(PORT)) for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"models/quant.py", "ops/int8_gemm.py", "models/common.py",
+            "ops/mmdit_attention.py"} <= names
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
