@@ -8,8 +8,8 @@ Run from the repository root with no arguments::
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
-2. build every CUDA kernel of the stage-3, stage-4, int8 serving and
-   trainer paths from ``csrc/`` (one ``nvcc`` per source, started
+2. build every CUDA kernel of the stage-2, stage-3, stage-4, int8 serving
+   and trainer paths from ``csrc/`` (one ``nvcc`` per source, started
    together) and print the compiler's register report;
 3. each one-pass kernel at its full-width main-path shape (B = 1, 24
    heads x 128, 1241 text + 4096 image tokens, single-block rows 21504
@@ -30,17 +30,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the same linear; the int8 attention (B7), int8 QK and int8 QK + P.V,
    one pass (joint, single) at 5337 tokens and multi-pass at 17625 and
    31866, under the bf16 bar, timed beside SDPA;
-6. the stage-3 slice on a small input: a head_dim-128 toy bundle
+6. B8, the fused GEMM + top-k, against its plain version: torch.equal on
+   integer-valued banks with a third of the rows duplicated (exact sums,
+   exact ties) at the stage-2 shape (200 queries x 178287 x 512, k 100)
+   and at ragged ones (7 x 333 x 64, 3 x 513 x 32, k 1, d 50 with k 256,
+   k > N); on a random unit-norm bank at the stage-2 shape within 1e-5
+   (indices equal except at near ties), timed beside the plain version
+   and torch.topk(q @ bank.T), and at k 1 beside the matmul alone (the
+   GEMM's share);
+7. stage 2 at full width: a random CLIP ViT-B/32 and ResNet-50 stem
+   (87.86 M f32 params) on the card, 512 synthetic corpus JPEGs through
+   ``load_or_compute_source_features``, the bank filled with random unit
+   rows to COCO train2017 + miniImageNet size (178287 x 512 f32, 365 MB),
+   and ``run_retrieval`` on a synthetic DIOR 10-shot directory (200
+   queries, 20 classes) with the default config (top-100, re-rank 100,
+   grids on): every artifact and JSON schema checked, no B8 launch on the
+   default route, then ``first_stage_topk(use_pallas=True)`` on the same
+   query features: one B8 launch, agreeing with the default route;
+   encode rates, first-stage ms by both routes, re-rank seconds per query
+   and seconds per dataset-shot; which renderer drew the grids; then the
+   same dataset-shot once more under torch.profiler for the device's busy
+   time and idle share (``OUT/profile_retrieval.txt``);
+8. the stage-3 slice on a small input: a head_dim-128 toy bundle
    generates on the card (kernels) and on the CPU (plain versions) from
    the same weights and noise, and the images must agree;
-7. the stage-4 fill on a small input: a head_dim-128 toy Fill bundle with
+9. the stage-4 fill on a small input: a head_dim-128 toy Fill bundle with
    the one-pass ceiling lowered (so the toy runs the multi-pass kernel)
    and the VAE tiled, on the card and on the CPU, from the same weights
    and noise;
-8. the small int8 slices: both toy bundles quantized (every block
+10. the small int8 slices: both toy bundles quantized (every block
    linear), generate and the tiled multi-pass fill under W8A8 + int8 QK +
    int8 P.V, card against CPU, launch counts asserted;
-9. the stage-3 slice at full width: a random FLUX.1-dev bundle (MMDiT,
+11. the stage-3 slice at full width: a random FLUX.1-dev bundle (MMDiT,
    T5-XXL, CLIP-L, SigLIP so400m, Redux, VAE; ~46 GB) drawn on the card,
    and ``GenerateStage.generate_sample`` on a synthetic sample at
    1024x1024, cut to 4 denoise steps (stage default 50) and 2 ranks
@@ -48,20 +69,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    that the image was finite before quantisation, and that every
    one-pass kernel ran 19 or 38 times per step per rank chunk (the
    multi-pass one never);
-10. one full-width denoise step (batch 1, 1024 px) under
+12. one full-width denoise step (batch 1, 1024 px) under
     ``torch.profiler``, its device time grouped into the attention
     kernels, the GEMMs and the rest (full table in ``profile.txt`` under
     ``OUT``, the script's output directory);
-11. stage 3 under the CLI's ``--w8a8 --int8_qk``: the same bundle's MMDiT
+13. stage 3 under the CLI's ``--w8a8 --int8_qk``: the same bundle's MMDiT
     quantized (quantize_tree, 11.9 GB), the same sample; B4 314 and the
     one-pass B7 19 / 38 launches per step per rank chunk, the bf16 fused
     kernels never; seconds per step and the mean uint8 difference to the
     bf16 images (a report); then one traced step with int8 P.V added
     (``OUT/profile_int8.txt``);
-12. stage 4 at full width: the stage-3 bundle is freed and a random
+14. stage 4 at full width: the stage-3 bundle is freed and a random
    FLUX.1-Fill-dev bundle drawn (384 input channels), and
    ``compose.process_dataset`` runs a synthetic UODD 1-shot dataset (one
-   1024x1024 sample, two bboxes) whose two backgrounds are phase 7's
+   1024x1024 sample, two bboxes) whose two backgrounds are phase 11's
    PNGs. UODD's parameters lift it to 2048x2048 (17625 tokens, the
    multi-pass regime), strength 0.4, guidance 30, the VAE tiled (9 tiles
    per encode and decode). Cuts: 10 steps (stage default 50, so 4 denoise
@@ -69,44 +90,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1. It checks every artifact, finiteness, and that the multi-pass
    kernel ran 19 or 38 times per step per background and the one-pass
    one never;
-13. one full-width fill denoise step (batch 1, 2048 px, 384 channels)
+15. one full-width fill denoise step (batch 1, 2048 px, 384 channels)
     under ``torch.profiler`` (full table in ``OUT/profile_fill.txt``);
-14. stage 4 under ``--w8a8 --int8_qk``: the Fill MMDiT quantized, the
+16. stage 4 under ``--w8a8 --int8_qk``: the Fill MMDiT quantized, the
     same dataset through ``compose.process_dataset``; B4 314 and the
     multi-pass B7 19 / 38 per step per background, B3 never; then one
     traced fill step with int8 P.V (``OUT/profile_fill_int8.txt``);
-15. the Fill bundle is freed; the generic flash kernels (B5 forward, B6
+17. the Fill bundle is freed; the generic flash kernels (B5 forward, B6
     dq and dk/dv) against their plain versions: a small causal +
     ``kv_valid`` case with ragged lengths in bf16 and f32, the trainer's
     attention shape (2, 24, 4608, 128) in bf16 and f32 with each kernel's
     time beside the plain version's, SDPA's (forward, and its autograd
     backward for the B6 rows) and the bound, and B5 above the multi-pass
     ceiling at (1, 24, 50393, 128) bf16, compared on two heads;
-16. the serving path above the multi-pass ceiling: both attention
+18. the serving path above the multi-pass ceiling: both attention
     wrappers at 1241 + 49152 = 50393 joint tokens (a 4096x3072 image),
     where they take the unfused composition and so B5; launches counted
     on this run alone (B5 2, the fused kernels 0), heads 0-1 of each
     output against the plain B5 forward;
-17. a small trainer card vs CPU: a head_dim-128 toy MMDiT (hidden 256,
+19. a small trainer card vs CPU: a head_dim-128 toy MMDiT (hidden 256,
     one double and one single block) at 128 px, three ``train_step``s
     from the same weights, batches, t and eps, with bf16 and with f32
     batches, losses, first-step gradients and updates within stated
     limits, launch counts asserted;
-18. the trainer at FLUX.1-dev width cut in depth to 2 double + 4 single
+20. the trainer at FLUX.1-dev width cut in depth to 2 double + 4 single
     blocks (default 19 + 38; 1.31 B f32 params drawn on the card):
     ``train.loop.fit`` with remat for 4 steps on synthetic bf16 batches
     (batch 2, 1024 px = 4096 image tokens, 512 T5 tokens), one checkpoint
     written at the end under ``OUT`` and restored (then deleted); finite
     losses, changed params and the launch counts per step (B1 4, B2 8,
     B5 6, B6 6 + 6, B3 0), seconds per step, peak memory, checkpoint time;
-19. one traced full-width train step (``OUT/profile_train.txt``), grouped
+21. one traced full-width train step (``OUT/profile_train.txt``), grouped
     into the fused forward, B5, B6, GEMMs, the optimizer and the rest;
-20. one full-width ``fit`` step on f32 batches (the dtype
+22. one full-width ``fit`` step on f32 batches (the dtype
     ``latent_batches_from_images`` yields): no fused kernel, B5 12 and B6
     6 + 6 launches, finite loss, changed params; the f32 kernel rows
     take these counts;
-21. the bound of the kernel still to port (B8) at its shape on its path
-    (arithmetic; nothing runs).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -149,7 +168,7 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bytes/s
 PEAK_F32 = 67e12          # H100 SXM f32 FMA FLOP/s (no tensor cores)
 PEAK_INT8 = 1979e12       # H100 SXM dense int8 OP/s
 SOURCES = ("mmdit_attention", "flash_attention", "int8_gemm",
-           "int8_attention")
+           "int8_attention", "topk")
 
 
 def _ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1302,7 +1321,7 @@ def _uint8_diff(a_paths, b_paths):
 
 def phase_slice_int8(bundle, sample, rows, bf16_paths, bf16_step):
     """Stage 3 at full width under the CLI's ``--w8a8 --int8_qk``: the
-    phase-7 bundle's MMDiT quantized (quantize_tree, the bf16 tree
+    phase-11 bundle's MMDiT quantized (quantize_tree, the bf16 tree
     dropped), then the same sample through ``generate_sample``."""
     import shutil
     import torch
@@ -1939,26 +1958,409 @@ def phase_train_f32(dev, cfg, params, batches, rows):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 
-def unported_bounds():
-    """The least time of each TPU kernel still to port, at its shape on
-    its path: the larger of its operations at the card's peak for their
-    type and its bytes (inputs read once, outputs written once) at the
-    memory rate. Nothing runs on the card."""
-    def bound(name, ops, peak, nbytes):
-        t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-        return {"name": name, "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+TOPK_Q, TOPK_N, TOPK_D, TOPK_K = 200, 118_287 + 60_000, 512, 100
+COCO_ROWS, MINI_ROWS = 118_287, 60_000   # COCO train2017, miniImageNet
+CORPUS_IMAGES = 512       # cut: the rest of the bank is random unit rows
+SHOTS = 10
+DIOR_CLASSES = ("airplane", "airport", "baseballfield", "basketballcourt",
+                "bridge", "chimney", "dam", "expresswayservicearea",
+                "expresswaytollstation", "golffield", "groundtrackfield",
+                "harbor", "overpass", "ship", "stadium", "storagetank",
+                "tenniscourt", "trainstation", "vehicle", "windmill")
+# B8 on a random unit-norm bank: the kernel sums k ascending with FFMA,
+# cuBLAS in another order, so scores may differ in the last bits (~1e-7 at
+# |score| <= 1): scores within 1e-5, indices equal wherever the plain
+# version's neighbouring scores are more than 1e-5 apart.
+TOPK_TOL = 1e-5
 
-    q_n, bank_n, dim, top = 128, 100_000, 512, 100       # stage-2 search
-    rows = [
-        bound(f"B8 topk.py:183 _topk_kernel ({q_n} queries x {bank_n} x "
-              f"{dim} f32 bank, top {top})", 2.0 * q_n * bank_n * dim,
-              PEAK_F32, 4 * (bank_n + q_n) * dim + 8 * q_n * top),
-    ]
-    for row in rows:
-        print(f"bound of a kernel still to port: {row['name']}: "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
-    return rows
+
+def _topk_bound(nq, n, d, k):
+    """2*Q*N*d f32 FMA operations at the f32 peak, or the bytes (queries
+    and bank read once, (Q, k) scores and indices written once)."""
+    ops = 2.0 * nq * n * d / PEAK_F32 * 1e3
+    nbytes = (4.0 * (nq + n) * d + 8.0 * nq * k) / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops, nbytes),
+            "bound_by": "operations" if ops >= nbytes else "bytes"}
+
+
+def _int_bank(g, dev, nq, n, d):
+    """tests/test_topk.py's integer-valued case: every inner product is
+    exact in f32 under any order; a third of the rows duplicated, so
+    exact ties occur."""
+    import torch
+    bank = torch.randint(-8, 8, (n, d), generator=g, device=dev).float()
+    bank[n // 3:2 * (n // 3)] = bank[:n // 3]
+    q = torch.randint(-8, 8, (nq, d), generator=g, device=dev).float()
+    return q, bank
+
+
+def _excused(plain_scores, k, tol=TOPK_TOL):
+    """Positions of the first k whose plain score lies within tol of a
+    neighbour (k + 1 scores given): there the two orders may swap."""
+    import torch
+    near = (plain_scores[:, :-1] - plain_scores[:, 1:]).abs() <= tol
+    out = torch.zeros_like(plain_scores[:, :k], dtype=torch.bool)
+    out |= near[:, :k]
+    out[:, 1:] |= near[:, :k - 1]
+    return out
+
+
+def _topk_close(name, got, plain_k1, k):
+    """B8 (or a route) against the plain version's k + 1 best: scores
+    within TOPK_TOL, indices equal except at near ties. Returns the max
+    abs score error."""
+    import torch
+    max_abs = (got[0] - plain_k1[0][:, :k]).abs().max().item()
+    excused = _excused(plain_k1[0], k)
+    bad = (got[1] != plain_k1[1][:, :k]) & ~excused
+    print(f"kernel {name}: max_abs_err {max_abs:.3e} (tol {TOPK_TOL}); "
+          f"{int(excused.sum())} of {excused.numel()} positions within "
+          f"{TOPK_TOL} of a neighbour, {int(bad.sum())} wrong indices "
+          f"elsewhere")
+    if max_abs > TOPK_TOL or bool(bad.any()):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return max_abs
+
+
+def phase_topk_kernel(dev):
+    """B8 against its plain version: torch.equal on integer banks with
+    ties at the stage's shape (200 x 178287 x 512, k 100) and at ragged
+    ones (k = 1, k > N, N and d off the tiles), then a random unit-norm
+    bank at the stage's shape under TOPK_TOL; timed beside the plain
+    version and torch.topk(q @ bank.T) (TF32 off), a yardstick only."""
+    import torch
+    from domainrag_tpu_torch.ops import topk as tk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    for nq, n, d, k in ((TOPK_Q, TOPK_N, TOPK_D, TOPK_K), (7, 333, 64, 100),
+                        (3, 513, 32, 100), (TOPK_Q, TOPK_N, TOPK_D, 1),
+                        (33, 1000, 50, 256), (4, 50, 32, 100)):
+        q, bank = _int_bank(g, dev, nq, n, d)
+        got = tk.topk_ip_fused(q, bank, k)
+        want = tk.reference_topk_ip_fused(q, bank, k)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        print(f"kernel topk_ip_fused {nq}x{n}x{d} k {k}, integer bank with "
+              f"ties: torch.equal to the plain version: {same}")
+        if not same:
+            raise AssertionError("topk_ip_fused disagrees with its plain "
+                                 f"version at {nq}x{n}x{d} k {k}")
+    del q, bank, got, want
+    q = torch.nn.functional.normalize(
+        torch.randn(TOPK_Q, TOPK_D, generator=g, device=dev), dim=1)
+    bank = torch.nn.functional.normalize(
+        torch.randn(TOPK_N, TOPK_D, generator=g, device=dev), dim=1)
+    max_abs = _topk_close(
+        "topk_ip_fused unit-norm bank", tk.topk_ip_fused(q, bank, TOPK_K),
+        tk.reference_topk_ip_fused(q, bank, TOPK_K + 1), TOPK_K)
+    row = {"name": "topk_ip_fused", "route": "cuda",
+           "source": "domainrag_tpu_torch/csrc/topk.cu",
+           "replaces": "domainrag_tpu/ops/topk.py:183", "launches": 0,
+           "max_abs_err": max_abs,
+           "ms": _ms(lambda: tk.topk_ip_fused(q, bank, TOPK_K), 20),
+           "plain_ms": _ms(lambda: tk.reference_topk_ip_fused(
+               q, bank, TOPK_K), 5),
+           "library_ms": _ms(lambda: torch.topk(
+               torch.matmul(q, bank.T), TOPK_K, dim=1), 20),
+           **_topk_bound(TOPK_Q, TOPK_N, TOPK_D, TOPK_K)}
+    print(f"kernel topk_ip_fused {TOPK_Q}x{TOPK_N}x{TOPK_D} k {TOPK_K}: ms "
+          f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
+          f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
+          f"({row['bound_by']})")
+    # where the time goes: k = 1 keeps the GEMM and drops almost every
+    # insertion into the running lists; the library's GEMM alone
+    print(f"kernel topk_ip_fused split: k 1 "
+          f"{_ms(lambda: tk.topk_ip_fused(q, bank, 1), 20):.4f} ms; the "
+          f"library's matmul alone "
+          f"{_ms(lambda: torch.matmul(q, bank.T), 20):.4f} ms")
+    return {"topk_ip_fused": row}
+
+
+def _jpeg(rng, path, w, h):
+    """A smooth random image (blurred low-resolution noise), JPEG."""
+    from PIL import Image
+    low = rng.integers(0, 256, (h // 32 + 2, w // 32 + 2, 3), dtype=np.uint8)
+    Image.fromarray(low).resize((w, h), Image.BILINEAR).save(path,
+                                                             quality=90)
+
+
+def _check_retrieval(results, out, queries, corpus, mapping):
+    """Every artifact of the stage and its JSON schema, as the JAX stage
+    writes them (tests/test_torch_retrieve.py holds the port's tree to
+    JAX's)."""
+    from PIL import Image
+    from domainrag_tpu_torch.stages import retrieve as ret
+    res = Path(results)
+    with open(res / "all_shots_retrieval_results.json") as f:
+        assert json.load(f) == out
+    tag = f"DIOR_{SHOTS}_shot"
+    cats = out["DIOR"][f"{SHOTS}_shot"]
+    with open(res / f"{tag}_retrieval_results.json") as f:
+        assert json.load(f) == cats
+    assert sorted(cats) == sorted(DIOR_CLASSES)
+    corpus = set(corpus)
+    n_samples = 0
+    for cat, entries in cats.items():
+        assert len(entries) == SHOTS
+        for e in entries:
+            n_samples += 1
+            assert list(e) == ["sample_id", "image_path", "category",
+                               "similar_images"]
+            assert e["category"] == cat == mapping[e["sample_id"]]
+            assert e["image_path"] == queries[e["sample_id"]]
+            sims = e["similar_images"]
+            assert len(sims) == TOPK_K
+            assert [s["rank"] for s in sims] == list(range(1, TOPK_K + 1))
+            vals = [s["similarity"] for s in sims]
+            assert all(0 < v <= 1 for v in vals)
+            assert vals == sorted(vals, reverse=True)
+            for s in sims:
+                assert list(s) == ["rank", "similarity", "image_path",
+                                   "source_dataset"]
+                assert s["image_path"] in corpus
+                assert s["source_dataset"] in ("coco", "miniimagenet")
+            stem = f"{tag}_{cat}_{e['sample_id']}"
+            with open(res / f"{stem}_retrieval_results.json") as f:
+                assert json.load(f) == sims
+            with Image.open(res / f"{stem}_visual.jpg") as im:
+                assert im.size[0] > 0
+    assert n_samples == len(DIOR_CLASSES) * SHOTS
+    feats = np.load(res / f"{tag}_inpainted_clip_features.npy")
+    assert feats.shape == (n_samples, 512) and np.isfinite(feats).all()
+    assert np.allclose(np.linalg.norm(feats, axis=1), 1.0, atol=1e-5)
+    with open(res / f"{tag}_inpainted_image_paths.json") as f:
+        assert json.load(f) == [queries[s] for s in sorted(queries)]
+    feat_file, paths_file = ret.bank_cache_files(results, "coco")
+    assert np.load(feat_file).shape == (CORPUS_IMAGES, 512)
+    with open(paths_file) as f:
+        assert len(json.load(f)) == CORPUS_IMAGES
+    return feats
+
+
+def _grid_renderer(results):
+    """Which renderer drew the stage's grids, from a grid's size: the
+    matplotlib figure (16 x 12 in at 72 dpi) or the PIL fallback (4 x 3
+    thumbnails of 256 px)."""
+    from PIL import Image
+    from domainrag_tpu_torch.stages import visualize as vis
+    path = sorted(Path(results).glob("*_visual.jpg"))[0]
+    with Image.open(path) as im:
+        size = im.size
+    pil = (vis.GRID_COLS * vis.THUMB, vis.GRID_ROWS * vis.THUMB)
+    mpl = (4 * 72 * vis.GRID_COLS, 4 * 72 * vis.GRID_ROWS)
+    return {pil: "PIL", mpl: "matplotlib"}.get(size, f"unknown {size}")
+
+
+def _profile_retrieval(bank, clip_enc, stem_p, root, results, dev):
+    """The same dataset-shot again under torch.profiler, into a fresh
+    results directory with a fresh style memo (so it encodes, re-ranks and
+    writes as the first run did): the device's busy time (its kernels'
+    summed time) and idle share over the traced wall time (full kernel
+    table in ``OUT/profile_retrieval.txt``)."""
+    import shutil
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from domainrag_tpu_torch.core.config import RetrievalConfig
+    from domainrag_tpu_torch.stages import encoders, retrieve
+
+    print(f"stage 2 grids drawn by {_grid_renderer(results)}")
+    traced = str(root / "retrieval_results_traced")
+    style_enc = encoders.StyleEncoder(stem_p, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        retrieve.run_retrieval(["DIOR"], [SHOTS], bank, clip_enc, style_enc,
+                               str(root / "lamainpaint"), traced,
+                               RetrievalConfig())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    shutil.rmtree(traced)
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            kernels.append((us / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    busy = sum(ms for ms, _, _ in kernels)
+    if not busy:
+        print("profile stage 2: the profiler recorded no device time "
+              "(idle share not measured)")
+        return
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "profile_retrieval.txt").write_text("".join(
+        f"{ms:10.3f} ms {n:6d}x  {name}\n" for ms, n, name in kernels))
+    print(f"profile stage 2: one dataset-shot traced, wall {wall_ms:.3f} ms, "
+          f"device busy {busy:.3f} ms in "
+          f"{sum(n for _, n, _ in kernels)} device events, idle share "
+          f"{100 * (1 - busy / wall_ms):.3f}%")
+    for ms, n, name in kernels[:5]:
+        print(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
+
+
+def phase_retrieval(dev, rows):
+    """Stage 2 at full width: a random CLIP ViT-B/32 (224 px, patch 32,
+    12 x 768, 12 heads, proj 512) and ResNet-50 stem drawn on the card;
+    512 corpus JPEGs (640x480) through the feature cache, the bank filled
+    to COCO train2017 + miniImageNet size with random unit rows whose
+    paths cycle over the JPEGs; ``run_retrieval`` on a DIOR 10-shot
+    directory (200 queries at 800x800, 20 classes) with the default
+    RetrievalConfig (top-100, re-rank 100, grids on). Then
+    ``first_stage_topk(use_pallas=True)`` (B8, one launch) against the
+    default route on the same query features."""
+    import shutil
+    import torch
+    from domainrag_tpu_torch.core import device as device_mod
+    from domainrag_tpu_torch.core.config import RetrievalConfig
+    from domainrag_tpu_torch.core.log import StepTimer
+    from domainrag_tpu_torch.models import clip, resnet_stem
+    from domainrag_tpu_torch.models.common import Init
+    from domainrag_tpu_torch.ops import topk as tk
+    from domainrag_tpu_torch.stages import encoders, retrieve
+
+    root = OUT / "retrieval"
+    shutil.rmtree(root, ignore_errors=True)
+    corpus_dir = root / "coco" / "train2017"
+    shot_dir = root / "lamainpaint" / "DIOR" / f"{SHOTS}_shot"
+    corpus_dir.mkdir(parents=True)
+    shot_dir.mkdir(parents=True)
+    rng = np.random.default_rng(5)
+    t0 = time.perf_counter()
+    corpus = []
+    for i in range(CORPUS_IMAGES):
+        corpus.append(str(corpus_dir / f"{i:012d}.jpg"))
+        _jpeg(rng, corpus[-1], 640, 480)
+    mapping, queries = {}, {}
+    for c, cls in enumerate(DIOR_CLASSES):
+        for s in range(SHOTS):
+            sid = f"{c * SHOTS + s:05d}"
+            mapping[sid] = cls
+            queries[sid] = str(shot_dir / f"{sid}.jpg")
+            _jpeg(rng, queries[sid], 800, 800)
+    with open(shot_dir / "category_mapping.json", "w") as f:
+        json.dump(mapping, f)
+    print(f"retrieval data: {CORPUS_IMAGES} corpus JPEGs 640x480, "
+          f"{len(queries)} DIOR queries 800x800 in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    ini = Init(device_mod.generator(0, dev), dev)
+    vit_b32 = clip.ClipVisionConfig()      # the defaults are ViT-B/32's
+    clip_p = clip.init_vision(vit_b32, ini)
+    stem_p = resnet_stem.init(ini)
+    n_params = sum(t.numel() for t in _leaves(clip_p)) + sum(
+        t.numel() for t in _leaves(stem_p))
+    clip_enc = encoders.ClipImageEncoder(clip_p, vit_b32,
+                                         batch_size=32, device=dev)
+    style_enc = encoders.StyleEncoder(stem_p, device=dev)
+    print(f"retrieval encoders: CLIP ViT-B/32 + ResNet-50 stem, "
+          f"{n_params / 1e6:.2f} M f32 params")
+
+    x = rng.standard_normal((32, 224, 224, 3)).astype(np.float32)
+    clip_enc.encode_arrays(x)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        clip_enc.encode_arrays(x)           # returns to the host: synced
+    clip_rate = 5 * 32 / (time.perf_counter() - t0)
+    px = torch.from_numpy(rng.random((32, 256, 256, 3), np.float32)).to(dev)
+    style_ms = _ms(lambda: resnet_stem.style_features(stem_p, px), 10)
+
+    results = str(root / "retrieval_results")
+    t0 = time.perf_counter()
+    feats, kept = retrieve.load_or_compute_source_features(
+        results, "coco", corpus, clip_enc)
+    corpus_s = time.perf_counter() - t0
+    assert kept == corpus and feats.shape == (CORPUS_IMAGES, 512)
+    t0 = time.perf_counter()
+    encoders.StyleEncoder(stem_p, device=dev).encode_paths(corpus[:128])
+    style_paths_rate = 128 / (time.perf_counter() - t0)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+
+    def unit_rows(n):
+        return torch.nn.functional.normalize(torch.randn(
+            n, 512, generator=g, device=dev), dim=1).cpu().numpy()
+
+    coco = np.concatenate([feats, unit_rows(COCO_ROWS - CORPUS_IMAGES)])
+    paths = {"coco": corpus + [corpus[i % CORPUS_IMAGES] for i in
+                               range(COCO_ROWS - CORPUS_IMAGES)],
+             "miniimagenet": [corpus[i % CORPUS_IMAGES]
+                              for i in range(MINI_ROWS)]}
+    bank = retrieve.EmbeddingBank.from_sources(
+        {"coco": coco, "miniimagenet": unit_rows(MINI_ROWS)}, paths,
+        device=dev)
+    del coco
+    assert bank.features.shape == (TOPK_N, 512)
+    assert bank.features.device.type == dev.type     # on the card
+    assert bank.size == TOPK_N
+
+    timer = StepTimer(sync=torch.cuda.synchronize)
+    torch.cuda.reset_peak_memory_stats()
+    tk.topk_ip_fused.launches = 0
+    t0 = time.perf_counter()
+    out = retrieve.run_retrieval(["DIOR"], [SHOTS], bank, clip_enc,
+                                 style_enc, str(root / "lamainpaint"),
+                                 results, RetrievalConfig(), timer=timer)
+    stage_s = time.perf_counter() - t0
+    default_launches = tk.topk_ip_fused.launches
+    if default_launches != 0:
+        raise AssertionError("the default first stage launched B8")
+    qfeats = _check_retrieval(results, out, queries, corpus, mapping)
+
+    tk.topk_ip_fused.launches = 0
+    fused = retrieve.first_stage_topk(qfeats, bank, TOPK_K, use_pallas=True)
+    launches = tk.topk_ip_fused.launches
+    if launches != 1:
+        raise AssertionError(f"first_stage_topk(use_pallas=True) launched "
+                             f"B8 {launches} times, not once")
+    rows["topk_ip_fused"]["launches"] = launches
+    qt = torch.from_numpy(qfeats).to(dev)
+    plain = tk.topk_ip(qt, bank.features, TOPK_K + 1)
+    got = (torch.tensor([[r["similarity"] for r in row] for row in fused],
+                        device=dev),
+           torch.tensor([[r["index"] for r in row] for row in fused],
+                        device=dev, dtype=torch.int32))
+    _topk_close("first_stage_topk(use_pallas=True) vs the default route",
+                got, plain, TOPK_K)
+    default_ms = _ms(lambda: tk.topk_ip(qt, bank.features, TOPK_K), 10)
+    fused_ms = _ms(lambda: tk.topk_ip_fused(qt, bank.features, TOPK_K), 10)
+    n_q = len(queries)
+    tot = timer.totals
+    print(f"stage 2 (DIOR {SHOTS}-shot, {n_q} queries, bank {TOPK_N} x 512 f32 "
+          f"on the card): run_retrieval {stage_s:.3f} s per dataset-shot "
+          f"(encode {tot['encode']:.3f} s, search {tot['search']:.3f} s, "
+          f"rerank {tot['rerank']:.3f} s = {tot['rerank'] / n_q:.4f} s per "
+          f"query, write {tot['write']:.3f} s = {tot['write'] / n_q:.4f} s "
+          f"per query); B8 launches {default_launches} in it, "
+          f"{launches} for first_stage_topk(use_pallas=True); "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"stage 2 rates: CLIP encode {clip_rate:.1f} images/s at batch 32 "
+          f"(device, preprocessed); corpus features {CORPUS_IMAGES} JPEGs "
+          f"in {corpus_s:.3f} s = {CORPUS_IMAGES / corpus_s:.1f} images/s "
+          f"(decode + preprocess + encode, through the cache); style "
+          f"{32e3 / style_ms:.1f} images/s at batch 32 (device, 256 px), "
+          f"{style_paths_rate:.1f} images/s from JPEG; first stage "
+          f"{default_ms:.4f} ms by the default route, {fused_ms:.4f} ms by "
+          f"B8 ({n_q} x {TOPK_N} x 512, k {TOPK_K})")
+    print(f"stage 2 cuts: {CORPUS_IMAGES} real corpus images, the other "
+          f"{TOPK_N - CORPUS_IMAGES} bank rows random unit vectors; random "
+          f"weights; one dataset-shot (DIOR {SHOTS}-shot)")
+    _profile_retrieval(bank, clip_enc, stem_p, root, results, dev)
+    for pattern in ("*_visual.jpg", "*_*_retrieval_results.json"):
+        for path in sorted(Path(results).glob(pattern))[2:]:
+            path.unlink()        # checked; keeps OUT small
+    shutil.rmtree(root / "coco")
+    shutil.rmtree(root / "lamainpaint")
+    del bank, clip_p, stem_p, clip_enc, style_enc, qt, plain
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1980,6 +2382,8 @@ def main() -> int:
     rows.update(phase_mp_kernels(dev))
     rows.update(phase_int8_gemm(dev))
     rows.update(phase_int8_attention(dev))
+    rows.update(phase_topk_kernel(dev))
+    phase_retrieval(dev, rows)
     phase_small_slice(dev)
     phase_small_fill(dev)
     phase_small_int8(dev)
@@ -2003,7 +2407,6 @@ def main() -> int:
     cfg, params, batches = phase_train(dev, rows)
     phase_profile_train(dev, cfg, params, batches)
     phase_train_f32(dev, cfg, params, batches, rows)
-    unported_bounds()
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())},

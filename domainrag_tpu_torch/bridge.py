@@ -3,10 +3,13 @@
 :func:`params` takes a parameter tree as nested dicts and lists of numpy
 arrays (``jax.tree.map(np.asarray, params)`` of any ``init`` that
 ``tiny_bundle`` builds: ``flux.init``, ``vae.init``, ``t5.init``,
-``clip.init_text``, ``siglip.init``, ``redux.init``) and returns the
+``clip.init_text``, ``siglip.init``, ``redux.init``; and the retrieval
+trees of ``clip.init_vision`` and ``resnet_stem.init``) and returns the
 same tree of torch tensors: same keys, linear weights kept in their
-``(in, out)`` layout, and every 4-D conv kernel turned once from JAX's
-HWIO into torch's OIHW. :func:`config` rebuilds a config dataclass of the
+``(in, out)`` layout (the vision tower's 2-D ``patch_w``, ``class_emb``,
+``pos_emb``, ``proj`` and the batchnorm statistics go across as they
+are), and every 4-D conv kernel turned once from JAX's HWIO into torch's
+OIHW (the stem's ``conv1``). :func:`config` rebuilds a config dataclass of the
 port from the JAX package's by field name.
 """
 

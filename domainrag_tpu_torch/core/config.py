@@ -1,5 +1,5 @@
-"""Stage-3 and stage-4 configuration (own copy of
-``domainrag_tpu/core/config.py:17-124, 141-240, 271-275``).
+"""Stage-2, stage-3 and stage-4 configuration (own copy of
+``domainrag_tpu/core/config.py:17-240, 271-275``).
 
 The port's ``generate`` and ``fill_batch`` accept the cache intervals
 only at their exact default of 1; the fields stay so that a config asking
@@ -81,6 +81,24 @@ class ResolutionPolicy:
 
     min_dimension: int = 1024
     max_dimension: int = 2800
+
+
+@dataclass(frozen=True)
+class RetrievalConfig:
+    """Stage-2 retriever configuration (retrieval/clip100_resnet_style_all_shots.py).
+
+    ``bank_shard_axis`` is kept for the JAX signature; the port has no
+    sharded bank yet."""
+
+    top_k: int = 100                 # first-stage CLIP top-k (ref :851)
+    rerank_top_k: int = 100          # how many candidates get style re-rank
+    clip_image_size: int = 224
+    clip_embed_dim: int = 512
+    style_resize: int = 256          # ResNet style path resizes to 256x256 (ref :189)
+    style_dim: int = 128             # 64-ch mean ++ 64-ch std (ref :196-199)
+    bank_shard_axis: str = "data"    # mesh axis the embedding bank shards over
+    cache_dir: str = "clip_features_cache"
+    visualize: bool = True           # per-sample top-10 grids (ref :874)
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,10 @@
-"""Host-side image loading, SigLIP preprocessing, the compose stage's
-keep-mask and resolution policy (own copy of
-``domainrag_tpu/core/imaging.py:46-93, 124-215``)."""
+"""Host-side image loading, the retrieval and SigLIP preprocessing, the
+compose stage's keep-mask and resolution policy (own copy of
+``domainrag_tpu/core/imaging.py:16-93, 124-215``).
+
+The JAX package resizes for CLIP and the style path through a native
+resampler proven byte-equal to PIL, with PIL as its fallback; the port
+resizes with PIL itself, so both give the same bytes."""
 
 from __future__ import annotations
 
@@ -8,6 +12,10 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 from PIL import Image
+
+# OpenAI CLIP normalization constants (clip.load preprocess).
+CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
+CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
 
 # SigLIP (FLUX.1-Redux image encoder) preprocessing constants.
 SIGLIP_MEAN = np.array([0.5, 0.5, 0.5], dtype=np.float32)
@@ -22,6 +30,37 @@ def ensure_rgb(image: Image.Image) -> Image.Image:
 
 def load_rgb(path: str) -> Image.Image:
     return ensure_rgb(Image.open(path))
+
+
+def clip_preprocess(image: Image.Image, size: int = 224) -> np.ndarray:
+    """OpenAI CLIP preprocess: bicubic resize (short side -> ``size``),
+    center crop, scale to [0,1], normalize. Returns HWC float32.
+
+    Matches ``clip.load("ViT-B/32")``'s torchvision transform used at
+    retrieval/clip100_resnet_style_all_shots.py:209.
+    """
+    image = ensure_rgb(image)
+    w, h = image.size
+    # torchvision Resize(size) on PIL: scale the SHORT side to `size`.
+    if w <= h:
+        new_w, new_h = size, max(size, int(round(size * h / w)))
+    else:
+        new_w, new_h = max(size, int(round(size * w / h))), size
+    resized = np.asarray(image.resize((new_w, new_h), Image.BICUBIC))
+    # CenterCrop(size): torchvision uses round() on the half-offsets.
+    left = int(round((new_w - size) / 2.0))
+    top = int(round((new_h - size) / 2.0))
+    arr = resized[top:top + size, left:left + size].astype(np.float32) / 255.0
+    return (arr - CLIP_MEAN) / CLIP_STD
+
+
+def style_preprocess(image: Image.Image, size: int = 256) -> np.ndarray:
+    """ResNet-style-path preprocess: bilinear resize to size x size and
+    scale to [0,1] — deliberately NO ImageNet normalization, matching the
+    reference exactly (retrieval/...py:188-190 does only
+    ``cv2.resize(256,256)`` + ``/255.0``). Returns HWC float32."""
+    arr = np.asarray(ensure_rgb(image).resize((size, size), Image.BILINEAR))
+    return arr.astype(np.float32) / 255.0
 
 
 def siglip_preprocess(image: Image.Image, size: int = 384) -> np.ndarray:

@@ -1,10 +1,17 @@
-"""CLIP text tower — Flux's pooled text vector (port of the text half of
-``domainrag_tpu/models/clip.py``: ``ClipTextConfig :42``,
+"""CLIP: the ViT image tower (stage-2 retrieval embeddings) and the text
+tower (Flux's pooled text vector). Port of ``domainrag_tpu/models/clip.py``
+(``ClipVisionConfig :27``, ``init_vision``/``_patchify``/``apply_vision``/
+``encode_image :85-145``, ``ClipTextConfig :42``,
 ``init_text``/``apply_text :152-188``).
 
-Pre-LN transformer with quick-gelu and a causal mask; the pooled output
-is the final-LN hidden state at the first EOS position (transformers
-``CLIPTextModel.pooler_output``, which Flux consumes directly).
+Both towers are the pre-LN transformer with quick-gelu over the dense
+``common.mha`` (the JAX package has no Pallas kernel here). The image
+tower embeds patches by a matmul over channel-last flattened patches with
+``patch_w`` of shape (P*P*3, hidden), so the weight stays 2-D across the
+bridge; ``encode_image`` L2-normalises in f32. The text tower's pooled
+output is the final-LN hidden state at the first EOS position
+(transformers ``CLIPTextModel.pooler_output``, which Flux consumes
+directly).
 """
 
 from __future__ import annotations
@@ -15,6 +22,21 @@ import torch
 
 from .common import (Init, Params, causal_mask, layernorm, layernorm_init,
                      linear, linear_init, mha, mha_init, quick_gelu)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipVisionConfig:
+    image_size: int = 224
+    patch_size: int = 32
+    hidden: int = 768
+    layers: int = 12
+    heads: int = 12
+    mlp_ratio: int = 4
+    projection_dim: int = 512
+
+    @property
+    def seq_len(self) -> int:
+        return (self.image_size // self.patch_size) ** 2 + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +52,8 @@ class ClipTextConfig:
 
 
 CLIP_L_TEXT = ClipTextConfig()
+TINY_VISION = ClipVisionConfig(image_size=32, patch_size=8, hidden=64,
+                               layers=2, heads=4, projection_dim=32)
 TINY_TEXT = ClipTextConfig(vocab_size=100, max_len=16, hidden=64, layers=2,
                            heads=4, projection_dim=32, eos_token_id=99)
 
@@ -49,6 +73,58 @@ def _block_apply(p: Params, x: torch.Tensor, heads: int, mask=None
     x = x + mha(p["attn"], layernorm(p["ln1"], x), heads, mask=mask)
     h = linear(p["fc1"], layernorm(p["ln2"], x))
     return x + linear(p["fc2"], quick_gelu(h))
+
+
+def init_vision(cfg: ClipVisionConfig, ini: Init) -> Params:
+    scale = cfg.hidden ** -0.5
+    return {
+        "patch_w": ini.normal((cfg.patch_size * cfg.patch_size * 3,
+                               cfg.hidden), scale),
+        "class_emb": ini.normal((cfg.hidden,), scale),
+        "pos_emb": ini.normal((cfg.seq_len, cfg.hidden), scale),
+        "ln_pre": layernorm_init(ini, cfg.hidden),
+        "ln_post": layernorm_init(ini, cfg.hidden),
+        "proj": ini.normal((cfg.hidden, cfg.projection_dim), scale),
+        "blocks": [_block_init(ini, cfg.hidden, cfg.mlp_ratio)
+                   for _ in range(cfg.layers)],
+    }
+
+
+def _patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
+    """(B, H, W, 3) -> (B, N, P*P*3), channel-last within each patch (the
+    order of an HWIO conv kernel reshaped to (P*P*I, O))."""
+    b, h, w, c = images.shape
+    gh, gw = h // patch, w // patch
+    x = images.reshape(b, gh, patch, gw, patch, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)               # B, gh, gw, P, P, C
+    return x.reshape(b, gh * gw, patch * patch * c)
+
+
+def apply_vision(params: Params, images: torch.Tensor,
+                 cfg: ClipVisionConfig, project: bool = True
+                 ) -> torch.Tensor:
+    """images: (B, H, W, 3) preprocessed (``imaging.clip_preprocess``).
+    Returns (B, projection_dim) un-normalized embeddings (or the pooled
+    (B, hidden) with ``project=False``)."""
+    dtype = images.dtype
+    x = torch.matmul(_patchify(images, cfg.patch_size),
+                     params["patch_w"].to(dtype))
+    cls = params["class_emb"].to(dtype).expand(x.shape[0], 1, cfg.hidden)
+    x = torch.cat([cls, x], dim=1) + params["pos_emb"].to(dtype)
+    x = layernorm(params["ln_pre"], x)
+    for block in params["blocks"]:
+        x = _block_apply(block, x, cfg.heads)
+    pooled = layernorm(params["ln_post"], x[:, 0])
+    if not project:
+        return pooled
+    return torch.matmul(pooled, params["proj"].to(dtype))
+
+
+def encode_image(params: Params, images: torch.Tensor,
+                 cfg: ClipVisionConfig) -> torch.Tensor:
+    """L2-normalized retrieval embeddings in f32 (index exactness)."""
+    feats = apply_vision(params, images, cfg).float()
+    return feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
 
 
 def init_text(cfg: ClipTextConfig, ini: Init) -> Params:

@@ -82,6 +82,14 @@ def conv_init(init: Init, kh: int, kw: int, c_in: int, c_out: int,
     return p
 
 
+def batchnorm_init(init: Init, dim: int) -> Params:
+    """Inference-mode batchnorm (running statistics)."""
+    return {"scale": init.ones_f32((dim,)),
+            "bias": torch.zeros(dim, device=init.device),
+            "mean": torch.zeros(dim, device=init.device),
+            "var": init.ones_f32((dim,))}
+
+
 def mha_init(init: Init, dim: int, bias: bool = True) -> Params:
     return {name: linear_init(init, dim, dim, bias=bias)
             for name in ("q", "k", "v", "o")}
@@ -204,6 +212,23 @@ def groupnorm(p: Params, x: torch.Tensor, groups: int = 32,
     off = p["bias"][None] - mean_c * a
     y = x.float() * a[:, None, None, :] + off[:, None, None, :]
     return y.to(x.dtype)
+
+
+def batchnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Inference batchnorm over the last (channel) axis, in f32."""
+    inv = torch.rsqrt(p["var"] + eps) * p["scale"]
+    return ((x.float() - p["mean"]) * inv + p["bias"]).to(x.dtype)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int, padding
+             ) -> torch.Tensor:
+    """NHWC max pool; ``padding`` explicit ((t, b), (l, r)) or "VALID".
+    Pads with -inf (torch's ``MaxPool2d`` semantics)."""
+    xn = x.permute(0, 3, 1, 2)
+    if padding != "VALID":
+        (t, b), (l, r) = padding
+        xn = F.pad(xn, (l, r, t, b), value=float("-inf"))
+    return F.max_pool2d(xn, window, stride).permute(0, 2, 3, 1)
 
 
 # ---------------------------------------------------------------------------

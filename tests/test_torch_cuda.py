@@ -524,3 +524,111 @@ def test_scales_divide_by_127_exactly(dev):
     x = torch.rand(1 << 16, generator=g, device=dev) * 10
     want = x.cpu() / 127.0                 # true division on the CPU
     assert torch.equal(ig.div127(x).cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# B8: the fused GEMM + top-k of the stage-2 search. On integer-valued banks
+# every inner product is exact in f32 under any order, so the kernel is held
+# to its plain version with torch.equal, ties (duplicated rows) included.
+# ---------------------------------------------------------------------------
+
+import numpy as np    # noqa: E402
+
+from domainrag_tpu_torch.ops import topk as tk           # noqa: E402
+from domainrag_tpu_torch.stages import retrieve as tret  # noqa: E402
+
+
+def _int_bank(dev, seed, nq, nb, d, ties):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    lo, hi = (-2, 3) if ties else (-8, 8)
+    bank = torch.randint(lo, hi, (nb, d), generator=g, device=dev).float()
+    q = torch.randint(lo, hi, (nq, d), generator=g, device=dev).float()
+    if ties:
+        bank[nb // 3:2 * (nb // 3)] = bank[:nb // 3]
+    return q, bank
+
+
+def _fused_equal(q, bank, k):
+    n = tk.topk_ip_fused.launches
+    got = tk.topk_ip_fused(q, bank, k)
+    torch.cuda.synchronize()
+    assert tk.topk_ip_fused.launches == n + 1
+    want = tk.reference_topk_ip_fused(q, bank, k)
+    assert got[0].shape == (q.shape[0], k) and got[1].dtype == torch.int32
+    assert torch.equal(got[1], want[1]), "indices differ"
+    assert torch.equal(got[0], want[0]), "scores differ"
+
+
+@pytest.mark.parametrize("nq,nb,d,k,ties", [
+    (7, 333, 64, 100, False), (3, 513, 32, 100, True),
+    (200, 20000, 512, 100, True), (65, 4099, 96, 100, True),
+    (33, 1000, 50, 1, True),      # d % 4 != 0: the scalar-load instance
+    (5, 777, 128, 256, True), (1, 100000, 512, 100, False),
+    (4, 50, 32, 100, False),      # k > N: (-FLT_MAX, 2^31 - 1) fillers
+])
+def test_topk_fused_matches_plain(dev, nq, nb, d, k, ties):
+    _fused_equal(*_int_bank(dev, nq + nb + d + k, nq, nb, d, ties), k)
+
+
+def test_topk_fused_unaligned_and_strided(dev):
+    """A bank whose rows start off 16-byte alignment (scalar loads) and a
+    strided query view (made contiguous by the wrapper)."""
+    q, bank = _int_bank(dev, 21, 9, 1500, 64, True)
+    flat = torch.empty(bank.numel() + 1, device=dev)
+    flat[1:] = bank.reshape(-1)
+    _fused_equal(q, flat[1:].view(1500, 64), 100)
+    wide = torch.zeros(9, 128, device=dev)
+    wide[:, ::2] = q
+    _fused_equal(wide[:, ::2], bank, 100)
+
+
+def test_topk_fused_rejects_k_above_256(dev):
+    q, bank = _int_bank(dev, 22, 2, 600, 32, False)
+    with pytest.raises(ValueError, match="k <= 256"):
+        tk.topk_ip_fused(q, bank, 257)
+
+
+def _excused(plain_scores, k, tol=1e-5):
+    """Positions (of the first k) whose score lies within tol of a
+    neighbour in the plain version's order (k + 1 scores given): there
+    the two float orders may swap ranks."""
+    s = plain_scores
+    near = (s[:, :-1] - s[:, 1:]).abs() <= tol          # pair (j, j + 1)
+    out = torch.zeros_like(s[:, :k], dtype=torch.bool)
+    out |= near[:, :k]
+    out[:, 1:] |= near[:, :k - 1]
+    return out
+
+
+def test_topk_fused_unit_norm_bank(dev):
+    """Random unit rows: the kernel's k-ascending FFMA sums and cuBLAS's
+    differ in the last bits, so scores agree within 1e-5 and indices at
+    every position not within 1e-5 of a neighbour."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    bank = torch.nn.functional.normalize(
+        torch.randn(50000, 512, generator=g, device=dev), dim=1)
+    q = torch.nn.functional.normalize(
+        torch.randn(40, 512, generator=g, device=dev), dim=1)
+    got = tk.topk_ip_fused(q, bank, 100)
+    want = tk.reference_topk_ip_fused(q, bank, 101)
+    assert (got[0] - want[0][:, :100]).abs().max().item() <= 1e-5
+    ok = (got[1] == want[1][:, :100]) | _excused(want[0], 100)
+    assert bool(ok.all())
+
+
+def test_first_stage_use_pallas_launches_b8_once(dev):
+    q, bank = _int_bank(dev, 24, 12, 3000, 64, True)
+    paths = [f"{i}.jpg" for i in range(3000)]
+    eb = tret.EmbeddingBank.from_sources({"coco": bank.cpu().numpy()},
+                                         {"coco": paths}, device=dev)
+    n = tk.topk_ip_fused.launches
+    default = tret.first_stage_topk(q.cpu().numpy(), eb, 100)
+    assert tk.topk_ip_fused.launches == n
+    fused = tret.first_stage_topk(q.cpu().numpy(), eb, 100, use_pallas=True)
+    assert tk.topk_ip_fused.launches == n + 1
+    assert fused == default
+    want = tk.topk_ip_numpy(q.cpu().numpy(), bank.cpu().numpy(), 100)[1]
+    np.testing.assert_array_equal(
+        np.array([[r["index"] for r in row] for row in fused]), want)
