@@ -34,54 +34,93 @@
 // Design.
 //  * Where the row max comes from decides the quantisation grid of P, and
 //    with it the result: at 17625 keys a typical probability is ~2^-6 of
-//    the row max and rounds to 1 or 2 of 127, so a kernel streaming 64-key
-//    tiles with its own running max lands several percent away. The int8
-//    P.V instance therefore makes two sweeps per max window (the whole row
-//    in one pass, 1024 keys in multi-pass): sweep A computes the int8 QK^T
-//    tiles for the exact integer row max only; sweep B recomputes them,
-//    quantizes P against that max and accumulates P_q V_q. The extra QK^T
-//    runs at the int8 rate. The QK-only instance rounds P to bf16, which is
-//    nearly scale-free, and streams with an online max per 64-key tile as
-//    the bf16 kernels do.
+//    the row max and rounds to 1 or 2 of 127, so a kernel streaming tiles
+//    with its own running max lands several percent away. The int8 P.V
+//    instance therefore makes two sweeps per max window (the whole row in
+//    one pass, 1024 keys in multi-pass): sweep A loads K only, runs the
+//    int8 QK^T and keeps the integer row max per stream from the s32
+//    scores (no exp2f, no V); sweep B recomputes QK^T, quantizes P against
+//    that max and accumulates P_q V_q. The QK-only instance rounds P to
+//    bf16, which is nearly scale-free, and streams with an online max per
+//    128-key tile.
 //  * K and V scales need a reduction over the whole stream before anything
 //    is quantized, and CUDA blocks run in no order: a stats kernel takes
 //    the per-(b, h, stream) maxima with atomicMax (after a block reduction),
 //    then a quant kernel writes q8 (with its row scales), k8 and, for P.V,
-//    V8 transposed (head_dim-major, so that the P.V MMA's B operand has its
-//    keys contiguous). Both recompute the same normed, roped values.
-//  * The scratch lives in a padded row space: one pass puts the second
-//    stream at the first 64-aligned row after the first, so that no tile
-//    mixes two K or V scales; multi-pass keeps the concatenation
-//    contiguous, so that its 1024-key windows count from the first row.
-//    Rows in the gap and the tail are masked, never computed as keys.
-//  * int8 tensor cores through mma.sync m16n8k32 (s8 in, s32 out). A block
-//    of 4 warps owns 64 q rows, 16 per warp. The score tile's register
-//    layout (2 columns per thread per 8-column tile) differs from the A
-//    operand layout of the P.V product (4 consecutive k per register); the
-//    ldmatrix row addresses of K permute the keys within each 16-key group
-//    so that each thread's scores are exactly its A fragment's keys, at no
-//    cost. The bf16 P.V path permutes V's ldmatrix rows the same way.
+//    V8 transposed (head_dim-major, so that the P.V product's B operand is
+//    K-major: keys contiguous). Both recompute the same normed, roped
+//    values.
+//  * The scratch lives in a padded row space (ops/mmdit_attention.py
+//    _i8_plan): stream b starts at the first 128-row tile boundary after
+//    stream a, so that no 128-key tile mixes two K or V scales; the int8
+//    P.V multi-pass keeps the concatenation contiguous instead (one scale),
+//    so that its 1024-key windows (8 tiles) count from the first row. Rows
+//    in the gap and the tail are zero and masked, never counted as keys.
+//  * Tensor cores through wgmma (sm_90a). A block of 3 warpgroups owns 128
+//    q rows: warpgroup 0 is the producer (setmaxnreg down to 24 registers),
+//    whose one thread issues TMA loads (cp.async.bulk.tensor, 128-byte
+//    swizzle) of the q tile once and of each K (and V) tile into a ring of
+//    stages on mbarriers (4 stages: 32 KB each with int8 V, 48 KB with
+//    bf16 V); warpgroups 1 and 2 (240 registers each) take 64 q rows each.
+//    QK^T is m64n128k32 .s32.s8.s8 with A (q8) and B (k8) K-major from
+//    shared memory. int8 P.V is m64n128k32 .s32.s8.s8 with A = P_q from
+//    registers and B = the V8^T tile (K-major). The QK-only instance's P.V
+//    is m64n128k16 .f32.bf16.bf16 with A = P from registers and B = bf16 V
+//    MN-major (head dims contiguous), loaded in place from the qkv rows
+//    through one 3-d tensor map per stream (lanes, rows, batch) whose row
+//    extent is the stream's length: TMA's zero fill covers the gap and the
+//    tail, so no row is located one by one. The row pitches (3*H*128 and
+//    7*H*128 bf16) and batch strides are multiples of 16 bytes, as TMA
+//    requires (the wrapper checks it).
+//  * Operand layout. The s32 score accumulator gives each thread the key
+//    pairs 8j + 2 tig + {0, 1} (j = 0..3) of every 32-key k-step; the 8-bit
+//    A fragment wants 4 consecutive keys per register (4 tig .. 4 tig + 3
+//    and 16 + 4 tig .. + 3). TMA cannot permute rows, so quant_kernel
+//    writes V8^T's keys permuted within each 32-key group (vperm): key c
+//    sits at the position where its score lands in A, at no cost. The bf16
+//    A fragment matches the accumulator pairs as they are.
+//  * Overlap. The two consumer warpgroups take turns at the tensor cores
+//    (ping-pong on named barriers 1 and 2): one issues its QK^T while the
+//    other runs its exp2, quantisation and l update. Within a warpgroup
+//    each step waits once (wgmma.wait_group 0) for its QK^T and the last
+//    step's P.V, and issues the next step's QK^T as soon as the scores are
+//    consumed (after the max, before the exponentials and this step's
+//    P.V), so that product runs under the softmax; the stage a P.V reads
+//    is released after that wait. Loads run 4 stages ahead in the ring.
+//  * The softmax, not the products, bounds the kernel at these widths: it
+//    runs on the quarter-rate conversion and MUFU pipes. int -> f32 and
+//    f32 -> int go through the mantissa of 1.5 * 2^23 (two full-rate
+//    operations each, exact for |x| < 2^22), and whole tiles skip the
+//    mask. The QK-only instance takes 2^x as ex2.approx.ftz (exp2f without
+//    its subnormal fix-up; a term below 2^-126 beside the row max's 1
+//    changes no bf16 P.V) and skips the o rescale when no row max of the
+//    warp moved.
 //  * Scores are exact in int32 (|s| <= 128 * 127^2); the per-window P.V
 //    sums fit int32 (one pass: 17408 * 127^2 < 2^31). Offsets are 64-bit.
+//    Exactness: the int8 P.V instance quantizes P with the same f32
+//    operations in the same order as the plain version (__fmul_rn,
+//    __fsub_rn, exp2f, round half to even); no ex2.approx and no
+//    fast-math on that path.
 
 #include <climits>
+#include <cuda.h>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int D = 128;            // head_dim
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int BM = WARPS * 16;    // q rows per block
-constexpr int BN = 64;            // keys per tile (and rows per prep block)
-constexpr int NT = BN / 8;        // 8-key score tiles
-constexpr int WIN_TILES = 16;     // 1024-key max window of the multi-pass
+constexpr int BM = 128;           // q rows per block (2 x 64)
+constexpr int BN = 128;           // keys per tile
+constexpr int THREADS = 384;      // producer + 2 consumer warpgroups
+constexpr int WIN_TILES = 8;      // 1024-key max window of the multi-pass
+constexpr int PREP_ROWS = 64;     // padded rows per prep block
 constexpr int PREP_THREADS = 256;
 constexpr int AMAX_V = 3;         // amax layout: k[2], q, v[2][128]
 constexpr int AMAX_N = AMAX_V + 2 * D;
 constexpr float RMS_EPS = 1e-6f;
 constexpr float NEG_BIG = -1e30f;     // the running max's start (NEG_INF)
+constexpr int BAR_PP = 1;             // named barriers 1, 2: the ping-pong
 
 struct Rows {
   const bf16* a;
@@ -120,6 +159,14 @@ __device__ __forceinline__ const bf16* row_ptr(const Rows& R, int stream,
                                                int batch, int row) {
   return stream == 0 ? R.a + batch * R.a_batch + row * R.a_row
                      : R.b + batch * R.b_batch + row * R.b_row;
+}
+
+// Position, within its 32-key group of V8^T, of key c: where the thread
+// holding c's score puts it in the 8-bit A fragment of the P.V product
+// (score column 8j + 2 tig + e -> A key 16 (j >> 1) + 4 tig + 2 (j & 1) + e).
+__device__ __forceinline__ int vperm(int c) {
+  return 16 * ((c >> 4) & 1) + 4 * ((c >> 1) & 3) + 2 * ((c >> 3) & 1) +
+         (c & 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -218,10 +265,10 @@ __global__ void __launch_bounds__(PREP_THREADS)
     stats_kernel(Prep P, float* amax) {
   __shared__ float red[PREP_THREADS / 32][2];
   __shared__ float vred[PREP_THREADS / 32][D];
-  const int r0 = blockIdx.x * BN, h = blockIdx.y, bi = blockIdx.z;
+  const int r0 = blockIdx.x * PREP_ROWS, h = blockIdx.y, bi = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float kmax = 0.f, qmax = 0.f, vmax[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int i = 0; i < BN / (PREP_THREADS / 32); ++i) {
+  for (int i = 0; i < PREP_ROWS / (PREP_THREADS / 32); ++i) {
     const int r = r0 + warp + i * (PREP_THREADS / 32);
     int lrow, pos;
     const int st = locate(P.L, r, &lrow, &pos);
@@ -256,13 +303,13 @@ __global__ void __launch_bounds__(PREP_THREADS)
 #pragma unroll
     for (int i = 0; i < 4; ++i) vred[warp][4 * lane + i] = vmax[i];
   __syncthreads();
-  // one pass never mixes two streams in a block (b0 is 64-aligned), and
+  // one pass never mixes two streams in a block (b0 is tile-aligned), and
   // multi-pass has one slot: the block's slot is that of its first valid
   // row
   float* am = amax + ((long long)bi * P.heads + h) * AMAX_N;
   int lr, ps;
   int bslot = -1;
-  for (int r = r0; r < r0 + BN && bslot < 0; ++r)
+  for (int r = r0; r < r0 + PREP_ROWS && bslot < 0; ++r)
     bslot = locate(P.L, r, &lr, &ps);
   if (bslot < 0) return;
   if (P.L.multipass) bslot = 0;
@@ -284,20 +331,22 @@ __global__ void __launch_bounds__(PREP_THREADS)
 }
 
 // Per (64 padded rows, head, batch) block: q8 with its row scales, k8, and
-// (PV) V8 transposed through a shared tile. Gap and tail rows are zero.
+// (PV) V8 transposed through a shared tile, each 32-key group in vperm
+// order. Gap and tail rows are zero.
 template <bool PV>
 __global__ void __launch_bounds__(PREP_THREADS)
     quant_kernel(Prep P, const float* amax, int8_t* q8, float* qsc,
                  int8_t* k8, int8_t* v8t) {
-  __shared__ __align__(16) int8_t vt[D][BN + 16];
-  const int r0 = blockIdx.x * BN, h = blockIdx.y, bi = blockIdx.z;
+  __shared__ __align__(16) int8_t vt[D][PREP_ROWS + 16];
+  const int r0 = blockIdx.x * PREP_ROWS, h = blockIdx.y, bi = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long bh = (long long)bi * P.heads + h;
   const float* am = amax + bh * AMAX_N;
   const long long n_pad = P.L.n_pad;
-  for (int i = 0; i < BN / (PREP_THREADS / 32); ++i) {
+  for (int i = 0; i < PREP_ROWS / (PREP_THREADS / 32); ++i) {
     const int rr = warp + i * (PREP_THREADS / 32);
     const int r = r0 + rr;
+    const int vc = (rr & ~31) | vperm(rr & 31);    // V8^T key position
     const long long off = (bh * n_pad + r) * D + 4 * lane;
     int lrow, pos;
     const int st = locate(P.L, r, &lrow, &pos);
@@ -307,7 +356,7 @@ __global__ void __launch_bounds__(PREP_THREADS)
       if (lane == 0) qsc[bh * n_pad + r] = 0.f;
       if (PV)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) vt[4 * lane + j][rr] = 0;
+        for (int j = 0; j < 4; ++j) vt[4 * lane + j][vc] = 0;
       continue;
     }
     const int slot = P.L.multipass ? 0 : st;
@@ -338,7 +387,7 @@ __global__ void __launch_bounds__(PREP_THREADS)
       for (int j = 0; j < 4; ++j) {
         const int col = 4 * lane + j;
         const float s = scale_of(am[AMAX_V + slot * D + col]);
-        vt[col][rr] = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(x[j], s)), -127.f),
+        vt[col][vc] = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(x[j], s)), -127.f),
                                     127.f);
       }
     }
@@ -346,7 +395,8 @@ __global__ void __launch_bounds__(PREP_THREADS)
   if (PV) {
     __syncthreads();
     // 128 rows (head dims) of 64 key bytes: 512 chunks of 16 bytes
-    for (int idx = threadIdx.x; idx < D * BN / 16; idx += PREP_THREADS) {
+    for (int idx = threadIdx.x; idx < D * PREP_ROWS / 16;
+         idx += PREP_THREADS) {
       const int d = idx >> 2, c = idx & 3;
       *reinterpret_cast<uint4*>(v8t + (bh * D + d) * n_pad + r0 + 16 * c) =
           *reinterpret_cast<const uint4*>(&vt[d][16 * c]);
@@ -355,30 +405,220 @@ __global__ void __launch_bounds__(PREP_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// tiles (PTX helpers in common.cuh)
+// Hopper primitives: mbarriers, TMA, named barriers, wgmma
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
-  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) |
-         ((uint32_t)(c & 0xff) << 16) | ((uint32_t)(d & 0xff) << 24);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// Byte offset of 16-byte chunk c of row r: 128-byte rows (q8, k8 tiles;
-// 8 chunks, c ^ (r & 7)) and 64-byte rows (V8^T tiles; 4 chunks,
-// c ^ ((r >> 1) & 3)).
-__device__ __forceinline__ int swz128(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
 }
 
-__device__ __forceinline__ int swz64(int r, int c) {
-  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
-// Key (0..63) of score element e of 8-column tile t for the thread with
-// tig: the K ldmatrix rows are permuted so that the thread's 4 scores of
-// a 16-key group are 4 consecutive keys (the A fragment of the P.V MMA).
-__device__ __forceinline__ int key_of(int t, int e, int tig) {
-  return 16 * (t >> 1) + 4 * tig + 2 * (t & 1) + (e & 1);
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a tensor map into shared memory; completion counted in bytes
+// on *bar.
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins the accumulator registers after a wait (or before an issue): no
+// read or write of them moves across the asynchronous product.
+__device__ __forceinline__ void fence_regs(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle (the TMA layout):
+// start >> 4, leading byte offset >> 4, stride byte offset >> 4. K-major
+// tiles of 128-byte rows: lbo unused (16), sbo = 1024 (8 rows); a k-step of
+// 32 bytes within the swizzle atom adds 2 to the start. MN-major bf16 V:
+// lbo = the offset of head dims 64..127 (the second 64-column atom), sbo =
+// 1024 (8 keys); a k-step of 16 keys adds 2048 bytes.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// d (+)= a * b, m64n128k32, s8 in, s32 out; A and B from shared memory
+// (K-major, 128-byte swizzle); accumulate == 0 overwrites d.
+__device__ __forceinline__ void wgmma_s8_ss(int (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += a * b, m64n128k32, s8 in, s32 out; A from registers (per warp the
+// m16n8k32 A fragment of its 16 rows), B from shared memory (K-major,
+// 128-byte swizzle).
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += a * b, m64n128k16, bf16 in, f32 out; A from registers (per warp
+// the m16n8k16 A fragment of its 16 rows), B from shared memory MN-major
+// (N contiguous, 128-byte swizzle: imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // ---------------------------------------------------------------------------
@@ -386,383 +626,579 @@ __device__ __forceinline__ int key_of(int t, int e, int tig) {
 // ---------------------------------------------------------------------------
 
 struct Attn {
-  const int8_t* q8;
+  CUtensorMap tq, tk, tv8;   // q8, k8 (rows of 128 bytes), V8^T
+  CUtensorMap tva, tvb;      // bf16 V in place, per stream (QK only)
   const float* qsc;
-  const int8_t* k8;
-  const int8_t* v8t;
-  Rows v;                  // bf16 V in place (QK-only instance)
   const float* amax;
   Layout L;
   bf16* out_a;
   bf16* out_b;
   int heads;
-  bool int_max;            // one-pass single block: integer-domain max
+  bool int_max;              // one-pass single block: integer-domain max
 };
 
-// 64 x 128 int8 tile rows [row0, row0 + 64) of a (n_pad, 128) slab.
-__device__ __forceinline__ void load_rows128(int8_t* tile, const int8_t* base,
-                                             int row0, int tid) {
+template <bool PV>
+struct Ring {
+  static constexpr int STAGES = 4;
+  static constexpr int KBYTES = BN * D;                     // int8 K tile
+  static constexpr int VBYTES = PV ? BN * D : 2 * BN * D;   // V8^T / bf16 V
+  static constexpr int STAGE = KBYTES + VBYTES;
+  static constexpr int SMEM = 1024 + BM * D + STAGES * STAGE;
+};
+
+// The stream whose K scale the tile [key0, key0 + BN) takes, and how many
+// of its leading keys are real (the rest is the gap or the tail). No tile
+// mixes two scales (_i8_plan); the contiguous layout (b0 == s_a) has one.
+__device__ __forceinline__ void tile_keys(const Layout& L, int key0,
+                                          int* st, int* nv) {
+  int n;
+  if (L.b0 == L.s_a) {
+    *st = key0 < L.s_a ? 0 : 1;
+    n = L.s_a + L.s_b - key0;
+  } else if (key0 < L.b0) {
+    *st = 0;
+    n = L.s_a - key0;
+  } else {
+    *st = 1;
+    n = L.b0 + L.s_b - key0;
+  }
+  *nv = max(0, min(BN, n));
+}
+
+// Step -> (tile, sweep B?): per window, sweep A over its tiles, then B.
+template <bool PV>
+__device__ __forceinline__ int step_tile(int st, int win, int n_tiles,
+                                         bool* is_b) {
+  if (!PV) {
+    *is_b = true;
+    return st;
+  }
+  const int w = st / (2 * win);
+  const int off = st - w * 2 * win;
+  const int n = min(win, n_tiles - w * win);
+  *is_b = off >= n;
+  return w * win + (off >= n ? off - n : off);
+}
+
+// Four values 0..127 as the bytes of one register, a first.
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+// The softmax runs on the quarter-rate conversion and MUFU pipes, which
+// bound this kernel; these two replace a conversion by two full-rate
+// operations, exactly. i2f: int x as f32 for |x| <= 2^22 (scores are below
+// 128 * 127^2 < 2^21, differences of two below 2^22), x added into the
+// mantissa of 1.5 * 2^23, which is then subtracted. rint_i: rintf(v) as an
+// int for |v| < 2^22, round half to even (__fadd_rn rounds v into that
+// mantissa).
+__device__ __forceinline__ float i2f(int x) {
+  return __fsub_rn(__int_as_float(0x4B400000 + x), 12582912.0f);
+}
+
+__device__ __forceinline__ int rint_i(float v) {
+  return __float_as_int(__fadd_rn(v, 12582912.0f)) - 0x4B400000;
+}
+
+// Sweep B of one tile: P_q = round(127 p) against the window's max (the
+// integer max with int_max), packed as the 8-bit A fragments of the four
+// 32-key steps (the thread's keys 8j + 2 tig + {0, 1} are its fragment's
+// 4 tig.. and 16 + 4 tig..; V8^T is stored in vperm order), and the row
+// halves' integer sums. MASKED: keys from nv on are not real (p = 0).
+template <bool MASKED>
+__device__ __forceinline__ void quant_tile(const int (&s)[64],
+                                           const float (&al)[2],
+                                           const float (&m)[2],
+                                           const int (&mint)[2],
+                                           bool int_max, int tig, int nv,
+                                           uint32_t (&a)[4][4],
+                                           int (&lsum)[2]) {
 #pragma unroll
-  for (int i = 0; i < BN * 8 / THREADS; ++i) {
-    const int idx = tid + i * THREADS;
-    const int r = idx >> 3, c = idx & 7;
-    cp_async16(tile + swz128(r, c), base + (long long)(row0 + r) * D + 16 * c,
-               true);
+  for (int kk = 0; kk < 4; ++kk) {
+    int pq[4][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * kk + jj, hr = e >> 1;
+        const int x = s[4 * j + e];
+        const float arg =
+            int_max ? __fmul_rn(i2f(x - mint[hr]), al[hr])
+                    : __fsub_rn(__fmul_rn(i2f(x), al[hr]), m[hr]);
+        const float p =
+            (MASKED && 8 * j + 2 * tig + (e & 1) >= nv) ? 0.f : exp2f(arg);
+        pq[jj][e] = rint_i(__fmul_rn(p, 127.0f));
+        lsum[hr] += pq[jj][e];
+      }
+    a[kk][0] = pack_s8(pq[0][0], pq[0][1], pq[1][0], pq[1][1]);
+    a[kk][1] = pack_s8(pq[0][2], pq[0][3], pq[1][2], pq[1][3]);
+    a[kk][2] = pack_s8(pq[2][0], pq[2][1], pq[3][0], pq[3][1]);
+    a[kk][3] = pack_s8(pq[2][2], pq[2][3], pq[3][2], pq[3][3]);
   }
 }
 
-// V8^T keys [key0, key0 + 64) of all 128 head dims.
-__device__ __forceinline__ void load_vt(int8_t* tile, const int8_t* base,
-                                        long long n_pad, int key0, int tid) {
-#pragma unroll
-  for (int i = 0; i < D * 4 / THREADS; ++i) {
-    const int idx = tid + i * THREADS;
-    const int d = idx >> 2, c = idx & 3;
-    cp_async16(tile + swz64(d, c), base + d * n_pad + key0 + 16 * c, true);
-  }
+// 2^x on the MUFU unit, results below 2^-126 flushed to zero: exp2f
+// without its subnormal fix-up. Only for the QK-only instance, whose P is
+// rounded to bf16 and summed beside the row max's 1, where a term below
+// 2^-126 changes nothing; the int8 P.V instance keeps exp2f.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// bf16 V rows of padded keys [key0, key0 + 64), read in place; zero in the
-// gap and the tail.
-__device__ __forceinline__ void load_v16(bf16* tile, const Attn& A, int bi,
-                                         int h, int key0, int tid) {
+// QK only: the tile's scores in the real domain (keys from nv on -inf when
+// MASKED), the row halves' maxima folded into mx.
+template <bool MASKED>
+__device__ __forceinline__ void real_scores(const int (&s)[64],
+                                            const float (&al)[2], int tig,
+                                            int nv, float (&pf)[64],
+                                            float (&mx)[2]) {
 #pragma unroll
-  for (int i = 0; i < BN * 16 / THREADS; ++i) {
-    const int idx = tid + i * THREADS;
-    const int r = idx >> 4, c = idx & 15;
-    int lrow, pos;
-    const int st = locate(A.L, key0 + r, &lrow, &pos);
-    const bf16* src = st < 0 ? A.v.a
-                             : row_ptr(A.v, st, bi, lrow) + h * D + 8 * c;
-    cp_async16(tile + r * D + ((c ^ (r & 7)) << 3), src, st >= 0);
-  }
-}
-
-// s = q8 k8^T for the warp's 16 rows and one 64-key tile (keys permuted
-// as key_of says).
-__device__ __forceinline__ void qk_tile(const int8_t* sQ, const int8_t* sK,
-                                        int warp, int lane,
-                                        int (&s)[NT][4]) {
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-  for (int t = 0; t < NT; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0;
-  const int mi = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < D / 32; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, sQ + swz128(warp * 16 + ((mi & 1) << 3) + r,
-                               2 * kk + (mi >> 1)));
-#pragma unroll
-    for (int p = 0; p < NT / 2; ++p) {
-      uint32_t b[4];
-      const int key = 16 * p + 4 * (r >> 1) + 2 * (mi >> 1) + (r & 1);
-      ldmatrix_x4(b, sK + swz128(key, 2 * kk + (mi & 1)));
-      mma_s8(s[2 * p], a, b[0], b[1]);
-      mma_s8(s[2 * p + 1], a, b[2], b[3]);
+    for (int e = 0; e < 4; ++e) {
+      float v = __fmul_rn(i2f(s[4 * j + e]), al[e >> 1]);
+      if (MASKED && 8 * j + 2 * tig + (e & 1) >= nv)
+        v = __int_as_float(0xff800000);    // -inf
+      pf[4 * j + e] = v;
+      mx[e >> 1] = fmaxf(mx[e >> 1], v);
     }
+}
+
+// s = q8 k8^T of step st (64 rows x 128 keys) into s, on this warpgroup's
+// turn at the tensor cores (named barriers BAR_PP + cw), not waited for.
+template <int STAGES, int STAGE>
+__device__ __forceinline__ void issue_qk(int st, int (&s)[64],
+                                         uint64_t* full,
+                                         const unsigned char* ring,
+                                         uint64_t dq, int cw) {
+  const int stage = st % STAGES;
+  mbar_wait(&full[stage], (st / STAGES) & 1);
+  bar_sync(BAR_PP + cw, 256);
+  const uint64_t dk = smem_desc(ring + stage * STAGE, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk)
+    wgmma_s8_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+  wgmma_commit();
+  bar_arrive(BAR_PP + 1 - cw, 256);
+}
+
+// The int8 P.V instance at the end of a window or of a stream's keys: the
+// integer sums folded into o (times the V column scales vs) and l.
+__device__ __forceinline__ void fold_in(float (&o)[64], int (&oi)[64],
+                                        float (&l)[2], int (&lsum)[2],
+                                        const float* vs, int tig) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float sv = vs[8 * j + 2 * tig + (e & 1)];
+      o[4 * j + e] =
+          __fadd_rn(o[4 * j + e], __fmul_rn(__int2float_rn(oi[4 * j + e]), sv));
+      oi[4 * j + e] = 0;
+    }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] = __fadd_rn(l[hr], __int2float_rn(lsum[hr]));
+    lsum[hr] = 0;
   }
+}
+
+// Sweep A: the row halves' integer maxima over the tile's real keys.
+template <bool MASKED>
+__device__ __forceinline__ void int_max_tile(const int (&s)[64], int tig,
+                                             int nv, int (&tm)[2]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (!MASKED || 8 * j + 2 * tig + (e & 1) < nv)
+        tm[e >> 1] = max(tm[e >> 1], s[4 * j + e]);
 }
 
 template <bool PV>
-__global__ void __launch_bounds__(THREADS) attn_kernel(Attn A) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* sQ = reinterpret_cast<int8_t*>(smem);
-  int8_t* sK = sQ + BM * D;                        // 2 x 64 x 128
-  unsigned char* sVraw = smem + BM * D + 2 * BN * D;
+__global__ void __launch_bounds__(THREADS, 1)
+    attn_kernel(const __grid_constant__ Attn A) {
+  using R = Ring<PV>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[R::STAGES], empty[R::STAGES], qbar;
   __shared__ float vsc[2][D];
+  // tiles on 1024-byte boundaries: the period of the 128-byte swizzle
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  int8_t* sQ = reinterpret_cast<int8_t*>(smem);
+  unsigned char* ring = smem + BM * D;
 
   const Layout L = A.L;
   const int q0 = blockIdx.x * BM, h = blockIdx.y, bi = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
   const long long bh = (long long)bi * A.heads + h;
   const long long n_pad = L.n_pad;
-  const int8_t* qbase = A.q8 + bh * n_pad * D;
-  const int8_t* kbase = A.k8 + bh * n_pad * D;
-  const int8_t* vtbase = A.v8t + bh * D * n_pad;
-  const float* am = A.amax + bh * AMAX_N;
   const int n_tiles = L.n_pad / BN;
-  const int win = L.multipass ? WIN_TILES : n_tiles;
+  const int win = (PV && L.multipass) ? WIN_TILES : n_tiles;
   const int steps = PV ? 2 * n_tiles : n_tiles;
-  const int b_tile = L.b0 / BN;      // first tile of stream b (one pass)
-  const bool split = !L.multipass && L.s_b > 0;
+  const float* am = A.amax + bh * AMAX_N;
 
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);     // lane 0 of each consumer warp
+    }
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   if (PV) {
-    for (int i = tid; i < 2 * D; i += THREADS) {
+    for (int i = threadIdx.x; i < 2 * D; i += THREADS) {
       const int slot = L.multipass ? 0 : i / D;
       vsc[i / D][i % D] = scale_of(am[AMAX_V + slot * D + i % D]);
     }
   }
-  const float ks[2] = {scale_of(am[0]),
-                       scale_of(am[L.multipass ? 0 : 1])};
-  float alpha[2][2];     // [row half][key stream]
-  int mrow[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = q0 + warp * 16 + g + 8 * hr;
-    mrow[hr] = r;
-    const float sq = A.qsc[bh * n_pad + r];
-    alpha[hr][0] = __fmul_rn(sq, ks[0]);
-    alpha[hr][1] = __fmul_rn(sq, ks[1]);
-  }
+  __syncthreads();
 
-  // step -> (tile, sweep B?): per window, sweep A over its tiles, then B
-  auto step_tile = [&](int st, bool* is_b) {
-    if (!PV) {
-      *is_b = true;
-      return st;
-    }
-    const int w = st / (2 * win);
-    const int off = st - w * 2 * win;
-    const int n = min(win, n_tiles - w * win);
-    *is_b = off >= n;
-    return w * win + (off >= n ? off - n : off);
-  };
-  auto prefetch = [&](int st, int buf) {
-    bool is_b;
-    const int t = step_tile(st, &is_b);
-    load_rows128(sK + buf * BN * D, kbase, t * BN, tid);
-    if (is_b) {
-      if (PV)
-        load_vt(reinterpret_cast<int8_t*>(sVraw) + buf * BN * D, vtbase,
-                n_pad, t * BN, tid);
-      else
-        load_v16(reinterpret_cast<bf16*>(sVraw) + buf * BN * D, A, bi, h,
-                 t * BN, tid);
-    }
-  };
-
-  load_rows128(sQ, qbase, q0, tid);
-  prefetch(0, 0);
-  cp_async_commit();
-
-  float o[16][4];
-  int oi[16][4];
-#pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-    oi[t][0] = oi[t][1] = oi[t][2] = oi[t][3] = 0;
-  }
-  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
-  int imax[2][2], mint[2] = {0, 0}, lsum[2] = {0, 0};
-
-  for (int st = 0; st < steps; ++st) {
-    const int buf = st & 1;
-    if (st + 1 < steps) {
-      prefetch(st + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    bool is_b;
-    const int t = step_tile(st, &is_b);
-    const int key0 = t * BN;
-    const int w0 = (t / win) * win;
-    const int w1 = min(w0 + win, n_tiles);
-    int s[NT][4];
-    qk_tile(sQ, sK + buf * BN * D, warp, lane, s);
-
-    if (PV && !is_b) {
-      // sweep A: the integer row max per stream over the window
-      if (t == w0) {
-        imax[0][0] = imax[0][1] = imax[1][0] = imax[1][1] = INT_MIN;
-      }
-#pragma unroll
-      for (int tt = 0; tt < NT; ++tt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          int lr, ps;
-          const int ks_ = locate(L, key0 + key_of(tt, e, tig), &lr, &ps);
-          if (ks_ == 0)
-            imax[e >> 1][0] = max(imax[e >> 1][0], s[tt][e]);
-          else if (ks_ == 1)
-            imax[e >> 1][1] = max(imax[e >> 1][1], s[tt][e]);
-        }
-      if (t == w1 - 1) {
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-#pragma unroll
-          for (int k2 = 0; k2 < 2; ++k2)
-#pragma unroll
-            for (int off = 1; off <= 2; off <<= 1)
-              imax[hr][k2] = max(imax[hr][k2],
-                                 __shfl_xor_sync(0xffffffffu, imax[hr][k2],
-                                                 off));
-          if (A.int_max) {
-            mint[hr] = imax[hr][0];
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    // producer: one thread issues every load, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&qbar, BM * D);
+      tma_2d(sQ, &A.tq, 0, (int)(bh * n_pad + q0), &qbar);
+      for (int st = 0; st < steps; ++st) {
+        const int s = st % R::STAGES;
+        if (st >= R::STAGES) mbar_wait(&empty[s], (st / R::STAGES - 1) & 1);
+        bool is_b;
+        const int key0 = step_tile<PV>(st, win, n_tiles, &is_b) * BN;
+        unsigned char* sK = ring + s * R::STAGE;
+        unsigned char* sV = sK + R::KBYTES;
+        mbar_expect_tx(&full[s], R::KBYTES + (is_b ? R::VBYTES : 0));
+        tma_2d(sK, &A.tk, 0, (int)(bh * n_pad + key0), &full[s]);
+        if (is_b) {
+          if (PV) {
+            tma_2d(sV, &A.tv8, key0, (int)(bh * D), &full[s]);
           } else {
-            float mw = m[hr];
+            // bf16 V in place; stream b's rows start at b0 (a tile
+            // boundary for this instance), zero past each stream's end
+            const bool sb = key0 >= L.b0;
+            const CUtensorMap* map = sb ? &A.tvb : &A.tva;
+            const int row = sb ? key0 - L.b0 : key0;
+            tma_3d(sV, map, h * D, row, bi, &full[s]);
+            tma_3d(sV + BN * 128, map, h * D + 64, row, bi, &full[s]);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;                    // consumer warpgroup 0 or 1
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tig = lane & 3;
+    const float ks[2] = {scale_of(am[0]),
+                         scale_of(am[L.multipass ? 0 : 1])};
+    float alpha[2][2];     // [row half][key stream]
+    int mrow[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = q0 + 64 * cw + 16 * warp + g + 8 * hr;
+      mrow[hr] = r;
+      const float sq = A.qsc[bh * n_pad + r];
+      alpha[hr][0] = __fmul_rn(sq, ks[0]);
+      alpha[hr][1] = __fmul_rn(sq, ks[1]);
+    }
+    const int b_tile = L.b0 / BN;      // first tile of stream b (one pass)
+    const bool split = !L.multipass && L.s_b > 0;
+
+    // accumulator element 4j + e: row g + 8 (e >> 1), column (key or head
+    // dim) 8j + 2 tig + (e & 1)
+    float o[64];
+    int oi[64], sacc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      o[i] = 0.f;
+      oi[i] = 0;
+      sacc[i] = 0;
+    }
+    float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
+    int imax[2][2] = {{INT_MIN, INT_MIN}, {INT_MIN, INT_MIN}};
+    int mint[2] = {0, 0}, lsum[2] = {0, 0};
+    // accumulators are written by plain instructions only where no product
+    // is in flight, and these fences keep the compiler from moving the
+    // writes into one (ptxas would then serialize every wgmma)
+    fence_regs(o);
+    fence_regs(oi);
+    fence_regs(sacc);
+
+    if (cw == 1) bar_arrive(BAR_PP, 256);    // warpgroup 0 goes first
+    mbar_wait(&qbar, 0);
+    const uint64_t dq = smem_desc(sQ + 64 * D * cw, 16, 1024);
+    issue_qk<R::STAGES, R::STAGE>(0, sacc, full, ring, dq, cw);
+    // Each step waits for its QK^T and for the previous step's P.V, then,
+    // once the scores are consumed, issues the next step's QK^T, which runs
+    // under this step's softmax and P.V. The stage the last P.V reads is
+    // released, and a fold it ends is made, after that wait.
+    int held = -1;       // stage read by the P.V in flight
+    int fold = -1;       // V scale slot of the fold due after it
+    for (int st = 0; st < steps; ++st) {
+      const int s = st % R::STAGES;
+      bool is_b;
+      const int t = step_tile<PV>(st, win, n_tiles, &is_b);
+      const int w0 = (t / win) * win;
+      const int w1 = min(w0 + win, n_tiles);
+      int kst, nv;
+      tile_keys(L, t * BN, &kst, &nv);
+      const unsigned char* sV = ring + s * R::STAGE + R::KBYTES;
+      const bool next = st + 1 < steps;
+      wgmma_wait0();
+      fence_regs(sacc);
+      if (PV)
+        fence_regs(oi);
+      else
+        fence_regs(o);
+      if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+      held = -1;
+      if (PV && fold >= 0) {
+        fold_in(o, oi, l, lsum, vsc[fold], tig);
+        fence_regs(oi);
+        fold = -1;
+      }
+
+      if (PV && !is_b) {
+        // sweep A: the integer row max per stream over the window
+        if (lane == 0) mbar_arrive(&empty[s]);
+        if (t == w0) {
+          imax[0][0] = imax[0][1] = imax[1][0] = imax[1][1] = INT_MIN;
+        }
+        int tm[2] = {INT_MIN, INT_MIN};
+        if (nv < BN)
+          int_max_tile<true>(sacc, tig, nv, tm);
+        else
+          int_max_tile<false>(sacc, tig, nv, tm);
+        issue_qk<R::STAGES, R::STAGE>(next ? st + 1 : st, sacc, full, ring,
+                                      dq, cw);
+        if (kst == 0) {
+          imax[0][0] = max(imax[0][0], tm[0]);
+          imax[1][0] = max(imax[1][0], tm[1]);
+        } else {
+          imax[0][1] = max(imax[0][1], tm[0]);
+          imax[1][1] = max(imax[1][1], tm[1]);
+        }
+        if (t == w1 - 1) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
 #pragma unroll
             for (int k2 = 0; k2 < 2; ++k2)
-              if (imax[hr][k2] != INT_MIN)
-                mw = fmaxf(mw, __fmul_rn(__int2float_rn(imax[hr][k2]),
-                                         alpha[hr][k2]));
-            const float corr = exp2f(__fsub_rn(m[hr], mw));
-            m[hr] = mw;
-            l[hr] = __fmul_rn(l[hr], corr);
 #pragma unroll
-            for (int d = 0; d < 16; ++d) {
-              o[d][2 * hr] = __fmul_rn(o[d][2 * hr], corr);
-              o[d][2 * hr + 1] = __fmul_rn(o[d][2 * hr + 1], corr);
+              for (int off = 1; off <= 2; off <<= 1)
+                imax[hr][k2] = max(imax[hr][k2],
+                                   __shfl_xor_sync(0xffffffffu,
+                                                   imax[hr][k2], off));
+            if (A.int_max) {
+              mint[hr] = imax[hr][0];
+            } else {
+              float mw = m[hr];
+#pragma unroll
+              for (int k2 = 0; k2 < 2; ++k2)
+                if (imax[hr][k2] != INT_MIN)
+                  mw = fmaxf(mw, __fmul_rn(__int2float_rn(imax[hr][k2]),
+                                           alpha[hr][k2]));
+              const float corr = exp2f(__fsub_rn(m[hr], mw));
+              m[hr] = mw;
+              l[hr] = __fmul_rn(l[hr], corr);
+#pragma unroll
+              for (int j = 0; j < 16; ++j) {
+                o[4 * j + 2 * hr] = __fmul_rn(o[4 * j + 2 * hr], corr);
+                o[4 * j + 2 * hr + 1] =
+                    __fmul_rn(o[4 * j + 2 * hr + 1], corr);
+              }
             }
           }
         }
-      }
-    } else if (PV) {
-      // sweep B: P quantized against the window's max, int8 P.V
-      int pq[NT][4];
+      } else if (PV) {
+        // sweep B: P quantized against the window's max, int8 P.V
+        uint32_t a[4][4];
+        const float al[2] = {kst ? alpha[0][1] : alpha[0][0],
+                             kst ? alpha[1][1] : alpha[1][0]};
+        if (nv < BN)
+          quant_tile<true>(sacc, al, m, mint, A.int_max, tig, nv, a, lsum);
+        else
+          quant_tile<false>(sacc, al, m, mint, A.int_max, tig, nv, a, lsum);
+        issue_qk<R::STAGES, R::STAGE>(next ? st + 1 : st, sacc, full, ring,
+                                      dq, cw);
+        const uint64_t dv = smem_desc(sV, 16, 1024);
+        wgmma_fence();
 #pragma unroll
-      for (int tt = 0; tt < NT; ++tt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hr = e >> 1;
-          int lr, ps;
-          const int kst = locate(L, key0 + key_of(tt, e, tig), &lr, &ps);
-          float p = 0.f;
-          if (kst >= 0) {
-            p = A.int_max
-                    ? exp2f(__fmul_rn(__int2float_rn(s[tt][e] - mint[hr]),
-                                      alpha[hr][0]))
-                    : exp2f(__fsub_rn(
-                          __fmul_rn(__int2float_rn(s[tt][e]),
-                                    kst ? alpha[hr][1] : alpha[hr][0]),
-                          m[hr]));
-          }
-          pq[tt][e] = (int)rintf(__fmul_rn(p, 127.0f));
-          lsum[hr] += pq[tt][e];
-        }
-      const int8_t* tv = reinterpret_cast<const int8_t*>(sVraw) + buf * BN * D;
-      const int mi = lane >> 3, r = lane & 7;
-#pragma unroll
-      for (int kk = 0; kk < BN / 32; ++kk) {
-        const int t0 = 4 * kk;
-        uint32_t a[4];
-        a[0] = pack_s8(pq[t0][0], pq[t0][1], pq[t0 + 1][0], pq[t0 + 1][1]);
-        a[1] = pack_s8(pq[t0][2], pq[t0][3], pq[t0 + 1][2], pq[t0 + 1][3]);
-        a[2] = pack_s8(pq[t0 + 2][0], pq[t0 + 2][1], pq[t0 + 3][0],
-                       pq[t0 + 3][1]);
-        a[3] = pack_s8(pq[t0 + 2][2], pq[t0 + 2][3], pq[t0 + 3][2],
-                       pq[t0 + 3][3]);
-#pragma unroll
-        for (int np = 0; np < 8; ++np) {
-          uint32_t b[4];
-          ldmatrix_x4(b, tv + swz64(16 * np + ((mi >> 1) << 3) + r,
-                                    2 * kk + (mi & 1)));
-          mma_s8(oi[2 * np], a, b[0], b[1]);
-          mma_s8(oi[2 * np + 1], a, b[2], b[3]);
-        }
-      }
-      // end of a window or of a stream's keys: fold the integer sums in
-      if (t == w1 - 1 || (split && t == b_tile - 1)) {
-        const int cs = (split && t >= b_tile) ? 1 : 0;
-#pragma unroll
-        for (int d = 0; d < 16; ++d)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float sv = vsc[cs][8 * d + 2 * tig + (e & 1)];
-            o[d][e] = __fadd_rn(o[d][e],
-                                __fmul_rn(__int2float_rn(oi[d][e]), sv));
-            oi[d][e] = 0;
-          }
+        for (int kk = 0; kk < BN / 32; ++kk)
+          wgmma_s8_rs(oi, a[kk], dv + 2 * kk);
+        wgmma_commit();
+        held = s;
+        // end of a window or of a stream's keys: fold the integer sums in
+        if (t == w1 - 1 || (split && t == b_tile - 1))
+          fold = (split && t >= b_tile) ? 1 : 0;
+      } else {
+        // QK only: online softmax per tile, P rounded to bf16, bf16 V
+        float pf[64];
+        float mx[2] = {m[0], m[1]};
+        const float al[2] = {kst ? alpha[0][1] : alpha[0][0],
+                             kst ? alpha[1][1] : alpha[1][0]};
+        if (nv < BN)
+          real_scores<true>(sacc, al, tig, nv, pf, mx);
+        else
+          real_scores<false>(sacc, al, tig, nv, pf, mx);
+        float corr[2];
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
-          l[hr] = __fadd_rn(l[hr], __int2float_rn(lsum[hr]));
-          lsum[hr] = 0;
+#pragma unroll
+          for (int off = 1; off <= 2; off <<= 1)
+            mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], off));
+          corr[hr] = exp2f(m[hr] - mx[hr]);
+          m[hr] = mx[hr];
+          l[hr] *= corr[hr];
         }
-      }
-    } else {
-      // QK only: online softmax per tile, P rounded to bf16, bf16 V
-      float sf[NT][4];
-      float mx[2] = {m[0], m[1]};
+        // once the row maxima settle, most tiles leave them: skip the
+        // rescale (a multiply by 1) when no row of the warp moved
+        if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-      for (int tt = 0; tt < NT; ++tt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          int lr, ps;
-          const int kst = locate(L, key0 + key_of(tt, e, tig), &lr, &ps);
-          sf[tt][e] = kst >= 0
-                          ? __fmul_rn(__int2float_rn(s[tt][e]),
-                                      kst ? alpha[e >> 1][1] : alpha[e >> 1][0])
-                          : __int_as_float(0xff800000);    // -inf
-          mx[e >> 1] = fmaxf(mx[e >> 1], sf[tt][e]);
+          for (int j = 0; j < 16; ++j) {
+            o[4 * j] *= corr[0];
+            o[4 * j + 1] *= corr[0];
+            o[4 * j + 2] *= corr[1];
+            o[4 * j + 3] *= corr[1];
+          }
         }
+        fence_regs(o);
+        // the next QK^T runs under the exponentials and this P.V (at the
+        // last step it reruns this one, which keeps the issue unconditional)
+        issue_qk<R::STAGES, R::STAGE>(next ? st + 1 : st, sacc, full, ring,
+                                      dq, cw);
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-#pragma unroll
-        for (int off = 1; off <= 2; off <<= 1)
-          mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], off));
-        const float corr = exp2f(m[hr] - mx[hr]);
-        m[hr] = mx[hr];
-        l[hr] *= corr;
-#pragma unroll
-        for (int d = 0; d < 16; ++d) {
-          o[d][2 * hr] *= corr;
-          o[d][2 * hr + 1] *= corr;
+        for (int i = 0; i < 64; ++i) {
+          pf[i] = ex2_ftz(pf[i] - m[(i >> 1) & 1]);
+          l[(i >> 1) & 1] += pf[i];
         }
-      }
+        uint32_t a[BN / 16][4];
 #pragma unroll
-      for (int tt = 0; tt < NT; ++tt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sf[tt][e] = exp2f(sf[tt][e] - m[e >> 1]);
-          l[e >> 1] += sf[tt][e];
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          a[kk][0] = pack_bf16(pf[8 * kk], pf[8 * kk + 1]);
+          a[kk][1] = pack_bf16(pf[8 * kk + 2], pf[8 * kk + 3]);
+          a[kk][2] = pack_bf16(pf[8 * kk + 4], pf[8 * kk + 5]);
+          a[kk][3] = pack_bf16(pf[8 * kk + 6], pf[8 * kk + 7]);
         }
-      const bf16* tv = reinterpret_cast<const bf16*>(sVraw) + buf * BN * D;
-      const int mi = lane >> 3, r = lane & 7;
+        // V tile: keys x head dims 0..63, then keys x head dims 64..127
+        const uint64_t dv = smem_desc(sV, BN * 128, 1024);
+        wgmma_fence();
 #pragma unroll
-      for (int jj = 0; jj < BN / 16; ++jj) {
-        uint32_t a[4];
-        a[0] = pack_bf16(sf[2 * jj][0], sf[2 * jj][1]);
-        a[1] = pack_bf16(sf[2 * jj][2], sf[2 * jj][3]);
-        a[2] = pack_bf16(sf[2 * jj + 1][0], sf[2 * jj + 1][1]);
-        a[3] = pack_bf16(sf[2 * jj + 1][2], sf[2 * jj + 1][3]);
-        // k-row k_l = 8 * (mi & 1) + r holds key 4 (r >> 1) + 2 (mi & 1)
-        // + (r & 1) of the 16-key group
-        const int vrow = 16 * jj + 4 * (r >> 1) + 2 * (mi & 1) + (r & 1);
-#pragma unroll
-        for (int t2 = 0; t2 < 8; ++t2) {
-          uint32_t vb[4];
-          const int c = 2 * t2 + (mi >> 1);
-          ldmatrix_x4_trans(vb, tv + vrow * D + ((c ^ (vrow & 7)) << 3));
-          mma_bf16(o[2 * t2], a, vb[0], vb[1]);
-          mma_bf16(o[2 * t2 + 1], a, vb[2], vb[3]);
-        }
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_bf16_rs(o, a[kk], dv + (uint64_t)(kk * 16 * 128 >> 4));
+        wgmma_commit();
+        held = s;
       }
     }
-    __syncthreads();
-  }
+    wgmma_wait0();
+    fence_regs(o);
+    fence_regs(oi);
+    if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+    if (PV && fold >= 0) fold_in(o, oi, l, lsum, vsc[fold], tig);
+    if (cw == 0) bar_sync(BAR_PP, 256);    // warpgroup 1's last hand-over
 
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    float lt = l[hr];
+    for (int hr = 0; hr < 2; ++hr) {
+      float lt = l[hr];
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1)
-      lt += __shfl_xor_sync(0xffffffffu, lt, off);
-    lt = fmaxf(lt, 1e-30f);
-    int lrow, pos;
-    const int st = locate(L, mrow[hr], &lrow, &pos);
-    if (st < 0) continue;
-    bf16* dst = (st == 0 ? A.out_a + ((long long)bi * L.s_a + lrow) *
-                                         A.heads * D
-                         : A.out_b + ((long long)bi * L.s_b + lrow) *
-                                         A.heads * D) +
-                h * D;
+      for (int off = 1; off <= 2; off <<= 1)
+        lt += __shfl_xor_sync(0xffffffffu, lt, off);
+      lt = fmaxf(lt, 1e-30f);
+      int lrow, pos;
+      const int st = locate(L, mrow[hr], &lrow, &pos);
+      if (st < 0) continue;
+      bf16* dst = (st == 0 ? A.out_a + ((long long)bi * L.s_a + lrow) *
+                                           A.heads * D
+                           : A.out_b + ((long long)bi * L.s_b + lrow) *
+                                           A.heads * D) +
+                  h * D;
 #pragma unroll
-    for (int d = 0; d < 16; ++d) {
-      const int col = 8 * d + 2 * tig;
-      *reinterpret_cast<uint32_t*>(dst + col) =
-          pack_bf16(__fdiv_rn(o[d][2 * hr], lt),
-                    __fdiv_rn(o[d][2 * hr + 1], lt));
+      for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + 2 * tig;
+        *reinterpret_cast<uint32_t*>(dst + col) =
+            pack_bf16(__fdiv_rn(o[4 * j + 2 * hr], lt),
+                      __fdiv_rn(o[4 * j + 2 * hr + 1], lt));
+      }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps and launch
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (the
+// library links no libcuda of its own).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map with 128-byte swizzle; boxes past the extent read zeros.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+              const void* base, const cuuint64_t* dims,
+              const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode(map, type, rank, const_cast<void*>(base), dims, strides, box,
+                ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (rows, inner) int8, inner a multiple of 16: boxes of 128 x 128 bytes.
+bool map_i8(CUtensorMap* map, const int8_t* base, long long inner,
+            long long rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner};
+  const cuuint32_t box[2] = {BN, 128};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims, strides,
+                  box);
+}
+
+// One stream's bf16 V lanes in place, (batch, rows, H*128) with row and
+// batch strides in elements: boxes of 128 rows x 64 lanes.
+bool map_v16(CUtensorMap* map, const bf16* v, int heads, int rows,
+             long long row, long long batch_stride, int batch) {
+  const cuuint64_t dims[3] = {(cuuint64_t)heads * D, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)row * 2,
+                                 (cuuint64_t)batch_stride * 2};
+  const cuuint32_t box[3] = {64, BN, 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, dims, strides,
+                  box);
 }
 
 template <bool PV>
 int launch(const Prep& P, int8_t* q8, float* qsc, int8_t* k8, int8_t* v8t,
            float* amax, bf16* out_a, bf16* out_b, int batch,
            cudaStream_t st) {
-  const dim3 grid(P.L.n_pad / BN, P.heads, batch);
+  const dim3 grid(P.L.n_pad / PREP_ROWS, P.heads, batch);
   stats_kernel<PV><<<grid, PREP_THREADS, 0, st>>>(P, amax);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -771,28 +1207,39 @@ int launch(const Prep& P, int8_t* q8, float* qsc, int8_t* k8, int8_t* v8t,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   Attn A;
-  A.q8 = q8;
+  const long long rows = (long long)batch * P.heads * P.L.n_pad;
+  bool ok = map_i8(&A.tq, q8, D, rows) && map_i8(&A.tk, k8, D, rows);
+  if (PV) {
+    ok = ok && map_i8(&A.tv8, v8t, P.L.n_pad, (long long)batch * P.heads * D);
+    A.tva = A.tvb = A.tq;                   // not read
+  } else {
+    const Rows& R = P.src;
+    ok = ok && map_v16(&A.tva, R.a + 2 * P.heads * D, P.heads, R.s_a,
+                       R.a_row, R.a_batch, batch);
+    if (R.s_b > 0)
+      ok = ok && map_v16(&A.tvb, R.b + 2 * P.heads * D, P.heads, R.s_b,
+                         R.b_row, R.b_batch, batch);
+    else
+      A.tvb = A.tva;                        // not read
+    A.tv8 = A.tq;                           // not read
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
   A.qsc = qsc;
-  A.k8 = k8;
-  A.v8t = v8t;
-  A.v = P.src;
-  A.v.a += 2 * P.heads * D;
-  A.v.b += 2 * P.heads * D;
   A.amax = amax;
   A.L = P.L;
   A.out_a = out_a;
   A.out_b = out_b;
   A.heads = P.heads;
   A.int_max = !P.L.multipass && P.L.s_b == 0;
-  const int smem = BM * D + 2 * BN * D + 2 * BN * D * (PV ? 1 : 2);
   err = cudaFuncSetAttribute(attn_kernel<PV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             Ring<PV>::SMEM);
   if (err != cudaSuccess) return (int)err;
-  attn_kernel<PV><<<dim3(P.L.n_pad / BM, P.heads, batch), THREADS, smem,
-                    st>>>(A);
+  attn_kernel<PV><<<dim3(P.L.n_pad / BM, P.heads, batch), THREADS,
+                    Ring<PV>::SMEM, st>>>(A);
   return (int)cudaGetLastError();
 }
+
 
 }  // namespace
 
@@ -800,11 +1247,11 @@ int launch(const Prep& P, int8_t* q8, float* qsc, int8_t* k8, int8_t* v8t,
 // lane offsets 0, H*128, 2*H*128 of rows `*_row` elements apart; the single
 // block passes s_b = 0). cos/sin: (s_a + s_b, 64) f32; norm weights (128,)
 // f32. Scratch in the padded row space of n_pad rows (stream b from row
-// b0): q8, k8 (B, H, n_pad, 128) int8, qsc (B, H, n_pad) f32, v8t
-// (B, H, 128, n_pad) int8 (read only with pv), amax (B, H, 259) f32 zeroed
-// by the caller. out_a/out_b: (B, s_a, H*128) / (B, s_b, H*128) bf16.
-// multipass: the multi-pass numerics (b0 = s_a); otherwise one pass (b0 =
-// s_a rounded up to 64). Returns the CUDA error code (0 = success).
+// b0; ops/mmdit_attention.py _i8_plan): q8, k8 (B, H, n_pad, 128) int8,
+// qsc (B, H, n_pad) f32, v8t (B, H, 128, n_pad) int8 (read only with pv),
+// amax (B, H, 259) f32 zeroed by the caller. out_a/out_b: (B, s_a, H*128) /
+// (B, s_b, H*128) bf16. multipass: the multi-pass numerics. Returns the
+// CUDA error code (0 = success).
 extern "C" int mmdit_attention_i8(
     const void* a, long long a_batch, long long a_row, int s_a,
     const void* b, long long b_batch, long long b_row, int s_b,
@@ -812,7 +1259,10 @@ extern "C" int mmdit_attention_i8(
     const void* cos_t, const void* sin_t, void* q8, void* qsc, void* k8,
     void* v8t, void* amax, void* out_a, void* out_b, int batch, int heads,
     int b0, int n_pad, int multipass, int pv, float prescale, void* stream) {
-  if (n_pad % BN || b0 < s_a || b0 + s_b > n_pad)
+  // whole tiles; stream b on a tile boundary, except in the contiguous
+  // layout of the int8 P.V multi-pass
+  if (n_pad % BN || b0 < s_a || b0 + s_b > n_pad ||
+      (b0 % BN && !(multipass && pv && b0 == s_a)))
     return (int)cudaErrorInvalidValue;
   Prep P;
   P.src = Rows{static_cast<const bf16*>(a), a_batch, a_row, s_a,

@@ -10,7 +10,8 @@
 // (score, index) pairs in the total order (score desc, index asc). A score
 // enters only when it is above -FLT_MAX (the Pallas kernel's masked value),
 // and a row with fewer than k entries is padded with (-FLT_MAX, 2^31 - 1),
-// as topk_ip_pallas returns for k > N. k <= 256.
+// as topk_ip_pallas returns for k > N. Any k >= 1 (topk_ip_pallas pads k to
+// a multiple of 128 and has no upper limit either).
 //
 // Bound on the card: 2*Q*N*d operations at the f32 FMA peak (67 TFLOP/s),
 // or the bytes (queries and bank read once, 8*Q*k written) at 3.35 TB/s.
@@ -33,7 +34,12 @@
 //    Pallas kernel's threshold gate, :219-228), so after the first tiles
 //    almost every candidate is rejected by one compare. Insertions are one
 //    at a time by the warp (ballot for the position, shift, re-prune).
-//    Each (row, split) list is written to scratch.
+//    Each (row, split) list is written to scratch. For k > K_MAX the lists
+//    (32 x k x 8 bytes per block) no longer fit beside the staging buffers,
+//    so the WIDE instance keeps each row's running list in its own (row,
+//    split) slot of that scratch, in global memory (L1-cached; only the
+//    owning warp touches it, and __syncwarp orders its lanes' accesses),
+//    with the same insertions: the same result, slower per insertion.
 //  * Pass 2, topk_merge: one warp per query row merges the sorted split
 //    lists by a tournament (warp argmax of the list heads, k times).
 //  * Ragged Q, N and d edges are masked in the kernel (zero-filled loads,
@@ -57,7 +63,7 @@ constexpr int LDA = TQ + 4;  // transposed query chunk [k][q]
 constexpr int LDB = TN + 4;  // transposed bank chunk [k][n]
 constexpr int LDS = TN + 4;  // score tile [q][n]
 constexpr int BUF = TK * LDA + TK * LDB;   // floats per staging buffer
-constexpr int K_MAX = 256;
+constexpr int K_MAX = 256;   // larger k: the lists live in the scratch
 constexpr int MAX_SPLITS = 256;
 constexpr int BLOCKS_PER_SM = 3;   // (query tile, split) blocks in flight
 constexpr int LISTS_PER_LANE = MAX_SPLITS / 32;
@@ -129,7 +135,7 @@ __device__ __forceinline__ void store_stage(const Stage& st, float* buf,
   }
 }
 
-template <bool VEC>
+template <bool VEC, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 4)
 topk_partial(const float* __restrict__ q, const float* __restrict__ bank,
              float* __restrict__ part_s, int* __restrict__ part_i, int nq,
@@ -137,9 +143,10 @@ topk_partial(const float* __restrict__ q, const float* __restrict__ bank,
   extern __shared__ float4 smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   float* ssm = sm;                              // score tile (over buffers)
+  const int lk = WIDE ? 0 : TQ * k;             // the lists in shared memory
   float* lists_s = sm + 2 * BUF;
-  int* lists_i = reinterpret_cast<int*>(lists_s + TQ * k);
-  int* counts = lists_i + TQ * k;
+  int* lists_i = reinterpret_cast<int*>(lists_s + lk);
+  int* counts = lists_i + lk;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = tid & 15, ty = tid >> 4;       // 16 x 8 thread grid
@@ -148,6 +155,14 @@ topk_partial(const float* __restrict__ q, const float* __restrict__ bank,
   const int n_end = min(n, nb + split_rows);
   const int ntiles = (n_end - nb + TN - 1) / TN;
   const int nchunks = (d + TK - 1) / TK;
+  // row r's running list and its slot of the scratch
+  auto slot = [&](int r) { return ((size_t)(q0 + r) * splits + split) * k; };
+  auto list_s = [&](int r) {
+    return WIDE ? part_s + slot(r) : lists_s + r * k;
+  };
+  auto list_i = [&](int r) {
+    return WIDE ? part_i + slot(r) : lists_i + r * k;
+  };
 
   if (tid < TQ) counts[tid] = 0;
   Stage st;
@@ -205,8 +220,8 @@ topk_partial(const float* __restrict__ q, const float* __restrict__ bank,
     // running top-k: warp w owns rows w, w + 4, ...
     for (int r = warp; r < TQ; r += 4) {
       if (q0 + r >= nq) break;
-      float* ls = lists_s + r * k;
-      int* li = lists_i + r * k;
+      float* ls = list_s(r);
+      int* li = list_i(r);
       int cnt = counts[r];
       float ts = NEG;
       int ti = IMAX;
@@ -275,10 +290,12 @@ topk_partial(const float* __restrict__ q, const float* __restrict__ bank,
   for (int r = warp; r < TQ; r += 4) {
     if (q0 + r >= nq) break;
     const int cnt = counts[r];
-    const size_t out = ((size_t)(q0 + r) * splits + split) * k;
-    for (int j = lane; j < k; j += 32) {
-      part_s[out + j] = j < cnt ? lists_s[r * k + j] : NEG;
-      part_i[out + j] = j < cnt ? lists_i[r * k + j] : IMAX;
+    const float* ls = list_s(r);
+    const int* li = list_i(r);
+    const size_t out = slot(r);
+    for (int j = lane; j < k; j += 32) {   // in place when WIDE
+      part_s[out + j] = j < cnt ? ls[j] : NEG;
+      part_i[out + j] = j < cnt ? li[j] : IMAX;
     }
   }
 }
@@ -367,22 +384,28 @@ extern "C" int topk_ip_fused_splits(int nq, int n, int sm_count) {
 
 // Both passes on `stream`. part_s/part_i: (Q, splits, k) scratch, splits
 // from topk_ip_fused_splits(nq, n, sm_count); out_s / out_i: (Q, k).
-// d % 4 == 0 with 16-byte aligned q and bank takes the float4 loads.
+// d % 4 == 0 with 16-byte aligned q and bank takes the float4 loads;
+// k > K_MAX the WIDE instance (running lists in part_s / part_i).
 // Returns the first CUDA error, 0 on success.
 extern "C" int topk_ip_fused(const void* q, const void* bank, void* part_s,
                              void* part_i, void* out_s, void* out_i, int nq,
                              int n, int d, int k, int sm_count, void* stream) {
-  if (nq <= 0 || n <= 0 || d <= 0 || k <= 0 || k > K_MAX || sm_count <= 0)
+  if (nq <= 0 || n <= 0 || d <= 0 || k <= 0 || sm_count <= 0)
     return (int)cudaErrorInvalidValue;
   int splits, split_rows;
   split_plan(nq, n, sm_count, &splits, &split_rows);
   const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(bank) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool wide = k > K_MAX;
+  const size_t lists = wide ? 0 : (size_t)TQ * k;
   const size_t smem = (size_t)2 * BUF * sizeof(float) +
-                      (size_t)TQ * k * (sizeof(float) + sizeof(int)) +
+                      lists * (sizeof(float) + sizeof(int)) +
                       TQ * sizeof(int);
-  auto kern = vec ? topk_partial<true> : topk_partial<false>;
+  auto kern = vec ? (wide ? topk_partial<true, true>
+                          : topk_partial<true, false>)
+                  : (wide ? topk_partial<false, true>
+                          : topk_partial<false, false>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;

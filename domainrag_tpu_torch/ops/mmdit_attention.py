@@ -72,7 +72,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -586,34 +586,52 @@ def _lib_i8():
     return _LIB_I8
 
 
-_TILE = 64              # key/row tile of the int8 kernels
+_I8_TILE = 128          # q rows per block and keys per tile (int8 kernels)
+
+
+class I8Plan(NamedTuple):
+    """The padded row space of the int8 kernels' scratch: stream a at rows
+    [0, s_a), stream b at [b0, b0 + s_b), ``n_pad`` rows in all."""
+    b0: int
+    n_pad: int
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _i8_plan(s_a: int, s_b: int, multipass: bool, pv: bool) -> I8Plan:
+    """Where the int8 kernels put the two streams. A K/V tile of
+    ``_I8_TILE`` keys must not mix two streams' K or V scales (one pass),
+    and the QK-only instance reads each stream's bf16 V in place from a
+    tile boundary, so stream b starts at the first tile boundary after
+    stream a. The int8 P.V multi-pass keeps the joint sequence contiguous
+    instead (one scale per (batch, head)), so that its max windows of
+    ``_BKV_I8`` keys count from the first joint row, as the plain
+    version's do. n_pad is a whole number of tiles (and of 128-row q
+    blocks)."""
+    b0 = s_a if multipass and pv else _round_up(s_a, _I8_TILE)
+    return I8Plan(b0, _round_up(b0 + s_b, _I8_TILE))
+
+
 def _launch_i8(streams, norm_w, cos, sin, heads: int, head_dim: int,
                multipass: bool, pv: bool):
     """The int8 kernels (B7) of ``csrc/int8_attention.cu`` for the regime:
     one or two row sources -> one (B, S_i, H*128) bf16 output per source.
-    Scratch, in a padded row space of ``n_pad`` rows: int8 q and k
+    Scratch, in the padded row space of :func:`_i8_plan`: int8 q and k
     (B, H, n_pad, 128), q's f32 row scales, int8 V transposed
     (B, H, 128, n_pad) with ``pv``, and the f32 maxima the scales come
-    from. One pass puts the second stream at the first 64-aligned row
-    after the first (so that no tile mixes two K or V scales); multi-pass
-    keeps the joint sequence contiguous (one scale per (batch, head), and
-    1024-column windows counted from its first row)."""
+    from."""
     dev, b, lens, cos, sin, ws = _prepare(streams, norm_w, cos, sin, heads,
                                           head_dim)
     s_a, s_b = lens[0], (lens[1] if len(streams) == 2 else 0)
-    b0 = s_a if multipass else _round_up(s_a, _TILE)
-    n_pad = _round_up(b0 + s_b, _TILE)
-    q8 = torch.empty((b, heads, n_pad, head_dim), dtype=torch.int8,
+    plan = _i8_plan(s_a, s_b, multipass, pv)
+    q8 = torch.empty((b, heads, plan.n_pad, head_dim), dtype=torch.int8,
                      device=dev)
     k8 = torch.empty_like(q8)
-    qsc = torch.empty((b, heads, n_pad), dtype=torch.float32, device=dev)
-    v8t = torch.empty((b, heads, head_dim, n_pad), dtype=torch.int8,
+    qsc = torch.empty((b, heads, plan.n_pad), dtype=torch.float32,
+                      device=dev)
+    v8t = torch.empty((b, heads, head_dim, plan.n_pad), dtype=torch.int8,
                       device=dev) if pv else q8
     amax = torch.zeros((b, heads, 3 + 2 * head_dim), dtype=torch.float32,
                        device=dev)
@@ -623,8 +641,8 @@ def _launch_i8(streams, norm_w, cos, sin, heads: int, head_dim: int,
         *_rows_args(streams, lens, ws),
         cos.data_ptr(), sin.data_ptr(), q8.data_ptr(), qsc.data_ptr(),
         k8.data_ptr(), v8t.data_ptr(), amax.data_ptr(), outs[0].data_ptr(),
-        outs[-1].data_ptr(), b, heads, b0, n_pad, int(multipass), int(pv),
-        LOG2_E / math.sqrt(head_dim),
+        outs[-1].data_ptr(), b, heads, plan.b0, plan.n_pad, int(multipass),
+        int(pv), LOG2_E / math.sqrt(head_dim),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mmdit_attention_i8 kernel launch failed "

@@ -12,7 +12,9 @@
   ``csrc/topk.cu`` and counts ``topk_ip_fused.launches``; on a CPU tensor
   it runs :func:`reference_topk_ip_fused`. Like the Pallas kernel it
   returns (Q, k) even when k exceeds the bank: the tail is
-  ``(NEG_INF, 2**31 - 1)`` fillers. It takes k <= :data:`K_MAX`.
+  ``(NEG_INF, 2**31 - 1)`` fillers. Any k >= 1, as the Pallas kernel
+  (which pads k to a multiple of 128): up to 256 the kernel keeps each
+  row's running list in shared memory, above it in the scratch.
 
 Exactness contract (identical top-100 indices to FAISS f32 IP): scores
 are true f32 sums of products, and the order is (score desc, index asc),
@@ -31,7 +33,6 @@ import torch
 
 NEG_INF = float(np.finfo(np.float32).min)
 INT_MAX = 2 ** 31 - 1
-K_MAX = 256              # B8 keeps each row's running list in shared memory
 _MARGIN = 64             # extra candidates taken by torch.topk in topk_ip
 
 
@@ -172,9 +173,9 @@ def topk_ip_fused(queries: torch.Tensor, bank: torch.Tensor, k: int
     """Fused GEMM + streaming top-k (B8), counterpart of the JAX
     ``topk_ip_pallas``: (scores (Q, k) f32, indices (Q, k) int32) in
     (score desc, index asc) order, with (NEG_INF, 2**31 - 1) fillers
-    past the bank's end. Raises ``ValueError`` for k outside 1..K_MAX."""
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"topk_ip_fused takes 1 <= k <= {K_MAX}, got {k}")
+    past the bank's end. Raises ``ValueError`` for k < 1."""
+    if k < 1:
+        raise ValueError(f"topk_ip_fused takes k >= 1, got {k}")
     if queries.device.type == "cpu":
         return reference_topk_ip_fused(queries, bank, k)
     out = _launch(queries, bank, k)

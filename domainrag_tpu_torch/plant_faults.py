@@ -1,5 +1,7 @@
-"""Plant faults in the fused top-k kernel (B8, ``csrc/topk.cu``) and check
-that the card tests and ``chip_smoke.py`` both catch each one.
+"""Plant faults in two hand-written kernels, the fused top-k (B8,
+``csrc/topk.cu``) and the int8 MMDiT attention (B7,
+``csrc/int8_attention.cu``), and check that the card tests and
+``chip_smoke.py`` both catch each one.
 
 Run on a machine with the card, from the repository root::
 
@@ -7,11 +9,11 @@ Run on a machine with the card, from the repository root::
 
 For each fault (all by default) the repository is copied into a new
 temporary directory (``tempfile.mkdtemp``, which honours ``TMPDIR``), one
-line of the copy's ``csrc/topk.cu`` is replaced, and the B8 card tests
-(``tests/test_torch_cuda.py -k "topk or first_stage"``) and the whole
-``chip_smoke.py`` run in the copy. A fault is caught when both exit
-non-zero. The temporary directory is deleted afterwards; the repository
-is not touched.
+line of the copy's kernel source is replaced, and the kernel's card tests
+(``tests/test_torch_cuda.py -k "topk or first_stage"`` for B8, ``-k i8``
+for B7) and the whole ``chip_smoke.py`` run in the copy. A fault is
+caught when both exit non-zero. The temporary directory is deleted
+afterwards; the repository is not touched.
 Exits 1 if any fault went uncaught.
 """
 
@@ -25,50 +27,67 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SRC = "domainrag_tpu_torch/csrc/topk.cu"
+B8 = ("domainrag_tpu_torch/csrc/topk.cu", "topk or first_stage")
+B7 = ("domainrag_tpu_torch/csrc/int8_attention.cu", "i8")
+# name: ((source, card tests' -k), line as it is, line with the fault)
 FAULTS = {
-    # the ragged last bank tile of each split is never scored
+    # B8: the ragged last bank tile of each split is never scored
     "ragged_tile_dropped": (
-        "const int ntiles = (n_end - nb + TN - 1) / TN;",
+        B8, "const int ntiles = (n_end - nb + TN - 1) / TN;",
         "const int ntiles = (n_end - nb) / TN;"),
-    # equal scores ordered by index descending
+    # B8: equal scores ordered by index descending
     "ties_index_descending": (
-        "return sa > sb || (sa == sb && ia < ib);",
+        B8, "return sa > sb || (sa == sb && ia < ib);",
         "return sa > sb || (sa == sb && ia > ib);"),
-    # both operands rounded to TF32 (10-bit mantissa) before the FMA
+    # B8: both operands rounded to TF32 (10-bit mantissa) before the FMA
     "tf32_operands": (
-        "acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);",
+        B8, "acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);",
         "acc[i][j] = fmaf(__uint_as_float((__float_as_uint(av[i]) + 0x1000u)"
         " & 0xffffe000u), __uint_as_float((__float_as_uint(bv[j]) + 0x1000u)"
         " & 0xffffe000u), acc[i][j]);"),
+    # B7: V8^T's keys permuted off by one pair within each 32-key group
+    "v8t_permutation_off_by_a_pair": (
+        B7, "return 16 * ((c >> 4) & 1) + 4 * ((c >> 1) & 3) + "
+            "2 * ((c >> 3) & 1) +",
+        "return 16 * ((c >> 4) & 1) + 4 * (((c >> 1) + 1) & 3) + "
+        "2 * ((c >> 3) & 1) +"),
+    # B7: the last ragged key tile (and the gap) left unmasked
+    "ragged_key_tile_unmasked": (
+        B7, "*nv = max(0, min(BN, n));", "*nv = BN;"),
+    # B7: sweep A's integer max taken per tile instead of per window
+    "sweep_a_max_per_tile": (
+        B7, "if (t == w0) {", "if (true) {"),
 }
 
 
 def run(name: str) -> bool:
-    old, new = FAULTS[name]
-    tmp = Path(tempfile.mkdtemp(prefix=f"b8_fault_{name}_"))
+    (src, tests_k), old, new = FAULTS[name]
+    tmp = Path(tempfile.mkdtemp(prefix=f"fault_{name}_"))
     copy = tmp / "repo"
     shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
         "build", "chiprun_out", ".git", "__pycache__", "local"))
     try:
-        text = (copy / SRC).read_text()
+        text = (copy / src).read_text()
         if text.count(old) != 1:
             raise RuntimeError(f"{name}: the line to replace is not unique")
-        (copy / SRC).write_text(text.replace(old, new))
+        (copy / src).write_text(text.replace(old, new))
         t0 = time.perf_counter()
         tests = subprocess.run(
             [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m",
              "cuda", "-p", "no:cacheprovider", "tests/test_torch_cuda.py",
-             "-k", "topk or first_stage"], cwd=copy, capture_output=True,
+             "-k", tests_k], cwd=copy, capture_output=True,
             text=True, timeout=900)
         smoke = subprocess.run([sys.executable, "chip_smoke.py"], cwd=copy,
                                capture_output=True, text=True, timeout=1500)
         summary = (tests.stdout.strip().splitlines() or [""])[-1]
         errors = [line for line in smoke.stderr.splitlines()
                   if "Error" in line][-1:]
+        # the last kernel check chip_smoke.py printed: the one that failed
+        checked = [line for line in smoke.stdout.splitlines()
+                   if line.startswith("kernel ")][-1:]
         caught = tests.returncode != 0 and smoke.returncode != 0
         print(f"fault {name}: card tests rc {tests.returncode} ({summary}); "
-              f"chip_smoke.py rc {smoke.returncode} {errors}; "
+              f"chip_smoke.py rc {smoke.returncode} {errors} {checked}; "
               f"{'caught' if caught else 'NOT CAUGHT'} "
               f"({time.perf_counter() - t0:.0f} s)", flush=True)
         return caught

@@ -454,7 +454,10 @@ def _i8_counts(wrapper):
 @pytest.mark.parametrize("pv", [False, True], ids=["qk", "qk_pv"])
 @pytest.mark.parametrize("mp", [False, True], ids=["onepass", "mp"])
 @pytest.mark.parametrize("batch,s_txt,s_img,heads", [
-    (1, 40, 88, 2), (2, 77, 300, 3)])
+    (1, 40, 88, 2), (2, 77, 300, 3),
+    # the 128-row tiles' ragged edges: the txt/img boundary inside a key
+    # tile, counts just under and over a multiple of 128, exact multiples
+    (1, 200, 300, 2), (2, 127, 129, 3), (1, 128, 256, 2), (2, 129, 383, 2)])
 def test_i8_double_kernel_matches_plain(dev, monkeypatch, int8_attn, pv, mp,
                                         batch, s_txt, s_img, heads):
     if mp:
@@ -479,7 +482,9 @@ def test_i8_double_kernel_matches_plain(dev, monkeypatch, int8_attn, pv, mp,
 
 @pytest.mark.parametrize("pv", [False, True], ids=["qk", "qk_pv"])
 @pytest.mark.parametrize("mp", [False, True], ids=["onepass", "mp"])
-@pytest.mark.parametrize("batch,s,heads", [(1, 96, 2), (2, 1500, 3)])
+@pytest.mark.parametrize("batch,s,heads", [
+    (1, 96, 2), (2, 1500, 3), (1, 127, 2), (2, 129, 3), (1, 256, 2),
+    (2, 1025, 2)])
 def test_i8_single_kernel_matches_plain(dev, monkeypatch, int8_attn, pv, mp,
                                         batch, s, heads):
     if mp:
@@ -566,6 +571,8 @@ def _fused_equal(q, bank, k):
     (33, 1000, 50, 1, True),      # d % 4 != 0: the scalar-load instance
     (5, 777, 128, 256, True), (1, 100000, 512, 100, False),
     (4, 50, 32, 100, False),      # k > N: (-FLT_MAX, 2^31 - 1) fillers
+    (33, 1000, 50, 300, True),    # k > 256: the lists in the scratch
+    (65, 4099, 96, 1000, True),
 ])
 def test_topk_fused_matches_plain(dev, nq, nb, d, k, ties):
     _fused_equal(*_int_bank(dev, nq + nb + d + k, nq, nb, d, ties), k)
@@ -584,9 +591,24 @@ def test_topk_fused_unaligned_and_strided(dev):
 
 
 def test_topk_fused_rejects_k_above_256(dev):
+    """k = 257, the first k past the shared-memory lists: one launch of
+    the kernel (its lists in the scratch), equal to the plain version."""
     q, bank = _int_bank(dev, 22, 2, 600, 32, False)
-    with pytest.raises(ValueError, match="k <= 256"):
-        tk.topk_ip_fused(q, bank, 257)
+    _fused_equal(q, bank, 257)
+
+
+@pytest.mark.parametrize("k", [500, 1000])
+@pytest.mark.parametrize("nb", [1500, 400])      # 400: k > N, fillers
+def test_topk_fused_wide_k_on_duplicated_bank(dev, nb, k):
+    """k = 500 and 1000 on a bank with a third of its rows duplicated:
+    one launch, B8's contract exactly (indices and scores equal to the
+    plain version, ties by index ascending), indices equal to
+    ``topk_ip``'s."""
+    q, bank = _int_bank(dev, 25, 6, nb, 64, True)
+    _fused_equal(q, bank, k)
+    m = min(k, nb)
+    assert torch.equal(tk.topk_ip_fused(q, bank, k)[1][:, :m],
+                       tk.topk_ip(q, bank, k)[1])
 
 
 def _excused(plain_scores, k, tol=1e-5):

@@ -784,9 +784,10 @@ def test_int8_wrappers_launch_or_raise_off_cpu(monkeypatch, int8_flags):
 
 
 def test_i8_launch_layout(monkeypatch):
-    """The B7 launch's padded row space: one pass puts the second stream
-    at the first 64-aligned row (no tile mixes two scales); multi-pass
-    keeps the joint sequence contiguous."""
+    """The B7 launch's padded row space (``_i8_plan``): one pass puts the
+    second stream at the first 128-row tile boundary (no tile mixes two
+    scales); the int8 P.V multi-pass keeps the joint sequence
+    contiguous."""
     seen = []
 
     def entry(*args):
@@ -802,7 +803,7 @@ def test_i8_launch_layout(monkeypatch):
     txt = torch.empty(1, 41, 3 * HEADS * HD, **meta)
     img = torch.empty(1, 100, 3 * HEADS * HD, **meta)
     tab = torch.zeros(141, HD // 2)
-    for mp, pv, b0, n_pad in ((False, False, 64, 192), (True, True, 41, 192)):
+    for mp, pv, b0, n_pad in ((False, False, 128, 256), (True, True, 41, 256)):
         tmma._launch_i8([txt, img], [w, w], tab, tab, HEADS, HD, mp, pv)
         args = seen[-1]
         assert args[3] == 41 and args[7] == 100

@@ -267,11 +267,13 @@ def test_ordered_topk_both_routes(monkeypatch, alphabet):
 
 
 def test_topk_fused_k_limit():
+    """k < 1 raises; any k >= 1 returns (Q, k), past the bank's end too,
+    as ``topk_ip_pallas`` does."""
     q, bank = torch.zeros(2, 8), torch.zeros(300, 8)
-    for k in (0, ttopk.K_MAX + 1):
-        with pytest.raises(ValueError, match="k <= 256"):
-            ttopk.topk_ip_fused(q, bank, k)
-    assert ttopk.topk_ip_fused(q, bank, ttopk.K_MAX)[1].shape == (2, 256)
+    with pytest.raises(ValueError, match="k >= 1"):
+        ttopk.topk_ip_fused(q, bank, 0)
+    for k in (256, 257, 500):
+        assert ttopk.topk_ip_fused(q, bank, k)[1].shape == (2, k)
 
 
 def test_launch_or_raise_off_cpu(monkeypatch):
