@@ -5,6 +5,9 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
+(``--parent DIR``, a checkout of the parent commit, adds the parent's bf16
+B6 timed beside this commit's in phase 6.)
+
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
@@ -31,16 +34,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one pass (joint, single) at 5337 tokens and multi-pass at 17625 and
    31866, each instance under its own bar (I8_BARS), timed beside SDPA,
    with its two prep kernels' (stats, quant) share of one traced call;
-6. B8, the fused GEMM + top-k, against its plain version: torch.equal on
+6. the generic flash kernels (B5 forward; B6 backward: one bf16 kernel,
+   the f32 dq and dk/dv kernels) against their plain versions: a small
+   causal + ``kv_valid`` case with ragged lengths in bf16 and f32, four
+   ragged bf16 backward cases (RAGGED_BWD), the trainer's attention shape
+   (2, 24, 4608, 128) in bf16 and f32 with each kernel's time beside the
+   plain version's, SDPA's (forward, and its autograd backward for the B6
+   rows) and the bound (B6 bf16: the least work, 10*B*H*S^2*D FLOP), and
+   B5 above the multi-pass ceiling at (1, 24, 50393, 128) bf16, compared
+   on two heads; with ``--parent`` the parent's bf16 B6 timed in turns
+   with this one (parent, change, change, parent);
+7. B8, the fused GEMM + top-k, against its plain version: torch.equal on
    integer-valued banks with a third of the rows duplicated (exact sums,
    exact ties) at the stage-2 shape (200 queries x 178287 x 512, k 100)
    and at ragged ones (7 x 333 x 64, 3 x 513 x 32, k 1, d 50 with k 256,
    k > N); on a random unit-norm bank at the stage-2 shape within 1e-5
    (indices equal except at near ties), timed beside the plain version
    and torch.topk(q @ bank.T), and at k 1 beside the matmul alone (the
-   GEMM's share); k 500 takes the exact wide route (topk_ip and the
-   fillers; no launch, one wide route counted), torch.equal too;
-7. stage 2 at full width: a random CLIP ViT-B/32 and ResNet-50 stem
+   GEMM's share); k 300, 500 and 1000 (the running lists in the
+   scratch, one launch each), torch.equal too;
+8. stage 2 at full width: a random CLIP ViT-B/32 and ResNet-50 stem
    (87.86 M f32 params) on the card, 512 synthetic corpus JPEGs through
    ``load_or_compute_source_features``, the bank filled with random unit
    rows to COCO train2017 + miniImageNet size (178287 x 512 f32, 365 MB),
@@ -53,17 +66,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and seconds per dataset-shot; which renderer drew the grids; then the
    same dataset-shot once more under torch.profiler for the device's busy
    time and idle share (``OUT/profile_retrieval.txt``);
-8. the stage-3 slice on a small input: a head_dim-128 toy bundle
+9. the stage-3 slice on a small input: a head_dim-128 toy bundle
    generates on the card (kernels) and on the CPU (plain versions) from
    the same weights and noise, and the images must agree;
-9. the stage-4 fill on a small input: a head_dim-128 toy Fill bundle with
+10. the stage-4 fill on a small input: a head_dim-128 toy Fill bundle with
    the one-pass ceiling lowered (so the toy runs the multi-pass kernel)
    and the VAE tiled, on the card and on the CPU, from the same weights
    and noise;
-10. the small int8 slices: both toy bundles quantized (every block
+11. the small int8 slices: both toy bundles quantized (every block
    linear), generate and the tiled multi-pass fill under W8A8 + int8 QK +
    int8 P.V, card against CPU, launch counts asserted;
-11. the stage-3 slice at full width: a random FLUX.1-dev bundle (MMDiT,
+12. the stage-3 slice at full width: a random FLUX.1-dev bundle (MMDiT,
    T5-XXL, CLIP-L, SigLIP so400m, Redux, VAE; ~46 GB) drawn on the card,
    and ``GenerateStage.generate_sample`` on a synthetic sample at
    1024x1024, cut to 4 denoise steps (stage default 50) and 2 ranks
@@ -71,20 +84,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    that the image was finite before quantisation, and that every
    one-pass kernel ran 19 or 38 times per step per rank chunk (the
    multi-pass one never);
-12. one full-width denoise step (batch 1, 1024 px) under
+13. one full-width denoise step (batch 1, 1024 px) under
     ``torch.profiler``, its device time grouped into the attention
     kernels, the GEMMs and the rest (full table in ``profile.txt`` under
     ``OUT``, the script's output directory);
-13. stage 3 under the CLI's ``--w8a8 --int8_qk``: the same bundle's MMDiT
+14. stage 3 under the CLI's ``--w8a8 --int8_qk``: the same bundle's MMDiT
     quantized (quantize_tree, 11.9 GB), the same sample; B4 314 and the
     one-pass B7 19 / 38 launches per step per rank chunk, the bf16 fused
     kernels never; seconds per step and the mean uint8 difference to the
     bf16 images (a report); then one traced step with int8 P.V added
     (``OUT/profile_int8.txt``);
-14. stage 4 at full width: the stage-3 bundle is freed and a random
+15. stage 4 at full width: the stage-3 bundle is freed and a random
    FLUX.1-Fill-dev bundle drawn (384 input channels), and
    ``compose.process_dataset`` runs a synthetic UODD 1-shot dataset (one
-   1024x1024 sample, two bboxes) whose two backgrounds are phase 11's
+   1024x1024 sample, two bboxes) whose two backgrounds are phase 12's
    PNGs. UODD's parameters lift it to 2048x2048 (17625 tokens, the
    multi-pass regime), strength 0.4, guidance 30, the VAE tiled (9 tiles
    per encode and decode). Cuts: 10 steps (stage default 50, so 4 denoise
@@ -92,20 +105,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1. It checks every artifact, finiteness, and that the multi-pass
    kernel ran 19 or 38 times per step per background and the one-pass
    one never;
-15. one full-width fill denoise step (batch 1, 2048 px, 384 channels)
+16. one full-width fill denoise step (batch 1, 2048 px, 384 channels)
     under ``torch.profiler`` (full table in ``OUT/profile_fill.txt``);
-16. stage 4 under ``--w8a8 --int8_qk``: the Fill MMDiT quantized, the
+17. stage 4 under ``--w8a8 --int8_qk``: the Fill MMDiT quantized, the
     same dataset through ``compose.process_dataset``; B4 314 and the
     multi-pass B7 19 / 38 per step per background, B3 never; then one
     traced fill step with int8 P.V (``OUT/profile_fill_int8.txt``);
-17. the Fill bundle is freed; the generic flash kernels (B5 forward, B6
-    dq and dk/dv) against their plain versions: a small causal +
-    ``kv_valid`` case with ragged lengths in bf16 and f32, the trainer's
-    attention shape (2, 24, 4608, 128) in bf16 and f32 with each kernel's
-    time beside the plain version's, SDPA's (forward, and its autograd
-    backward for the B6 rows) and the bound, and B5 above the multi-pass
-    ceiling at (1, 24, 50393, 128) bf16, compared on two heads;
-18. the serving path above the multi-pass ceiling: both attention
+18. the Fill bundle is freed; the serving path above the multi-pass
+    ceiling: both attention
     wrappers at 1241 + 49152 = 50393 joint tokens (a 4096x3072 image),
     where they take the unfused composition and so B5; launches counted
     on this run alone (B5 2, the fused kernels 0), heads 0-1 of each
@@ -121,9 +128,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (batch 2, 1024 px = 4096 image tokens, 512 T5 tokens), one checkpoint
     written at the end under ``OUT`` and restored (then deleted); finite
     losses, changed params and the launch counts per step (B1 4, B2 8,
-    B5 6, B6 6 + 6, B3 0), seconds per step, peak memory, checkpoint time;
+    B5 6, B6 6, B3 0), seconds per step, peak memory, checkpoint time;
 21. one traced full-width train step (``OUT/profile_train.txt``), grouped
-    into the fused forward, B5, B6, GEMMs, the optimizer and the rest;
+    into the fused forward, B5, B6 (with its dq_accum zeroing, scale and
+    cast), GEMMs, the optimizer and the rest;
 22. one full-width ``fit`` step on f32 batches (the dtype
     ``latent_batches_from_images`` yields): no fused kernel, B5 12 and B6
     6 + 6 launches, finite loss, changed params; the f32 kernel rows
@@ -171,6 +179,7 @@ PEAK_F32 = 67e12          # H100 SXM f32 FMA FLOP/s (no tensor cores)
 PEAK_INT8 = 1979e12       # H100 SXM dense int8 OP/s
 SOURCES = ("mmdit_attention", "flash_attention", "int8_gemm",
            "int8_attention", "topk")
+PARENT = None             # --parent DIR: a checkout of the parent commit
 
 
 def _ms(fn, reps: int, warmup: int = 2) -> float:
@@ -655,7 +664,7 @@ def _reset_counts(mma):
         wrapper.launches = wrapper.mp_launches = 0
         wrapper.i8_launches = wrapper.i8_mp_launches = 0
     f = attn.flash_attention
-    f.launches = f.dq_launches = f.dkv_launches = 0
+    f.launches = f.bwd_launches = f.dq_launches = f.dkv_launches = 0
     int8_gemm.w8a8_linear.launches = 0
     int8_gemm.w8a8_linear.launches_by_shape = {}
 
@@ -669,15 +678,19 @@ def _i8_counts(mma):
 
 
 def _flash_counts():
+    """(B5, B6 bf16, B6 f32 dq, B6 f32 dk/dv) launches."""
     from domainrag_tpu_torch.ops import attention as attn
     f = attn.flash_attention
-    return f.launches, f.dq_launches, f.dkv_launches
+    return f.launches, f.bwd_launches, f.dq_launches, f.dkv_launches
 
 
 def _flash_launches(rows, tag, counts):
-    """Writes a trainer run's B5 / B6 dq / B6 dkv counts into the rows at
-    the trainer's attention shape in ``tag``'s dtype, and no other row."""
-    for kind, n in zip(("fwd", "bwd_dq", "bwd_dkv"), counts):
+    """Writes a trainer run's B5 and B6 counts (``_flash_counts``) into the
+    rows at the trainer's attention shape in ``tag``'s dtype, and no other
+    row: bf16 has one B6 kernel, f32 a dq and a dk/dv kernel."""
+    kinds = ({"fwd": counts[0], "bwd": counts[1]} if tag == "bf16" else
+             {"fwd": counts[0], "bwd_dq": counts[2], "bwd_dkv": counts[3]})
+    for kind, n in kinds.items():
         rows[f"flash_{kind}_{tag}_b{TRAIN_B}_s{S_TRAIN}"]["launches"] = n
 
 
@@ -692,10 +705,11 @@ def _read_counts(mma, rows, regime, depth, passes):
     other = "multi-pass" if regime == "one-pass" else "one-pass"
     print(f"launches on the path: {regime} double/single {counts[regime]} "
           f"(expected {want}), {other} {counts[other]} (expected (0, 0)), "
-          f"generic flash fwd/dq/dkv {_flash_counts()} (expected (0, 0, 0)),"
+          f"generic flash B5/B6/B6 f32 dq/dkv {_flash_counts()} (expected "
+          f"(0, 0, 0, 0)),"
           f" int8 B4/B7 {_i8_counts(mma)} (expected all 0)")
     if counts[regime] != want or counts[other] != (0, 0) \
-            or _flash_counts() != (0, 0, 0) or any(_i8_counts(mma)):
+            or any(_flash_counts()) or any(_i8_counts(mma)):
         raise AssertionError("kernel launch counts differ from the path")
     prefix = "mmdit_mp_" if regime == "multi-pass" else "mmdit_"
     for name, row in rows.items():
@@ -1477,13 +1491,15 @@ def _check_grad(name, got, want, f32):
     return max_abs
 
 
-def _flash_bound(flop_per, shape, f32):
+def _flash_bound(flop_per, shape, f32, tensors=4):
     """The least time for ``flop_per``*B*H*Sq*Skv*D FLOP at the peak of
-    the dtype, or the bytes (each of q/k/v/o read or written once)."""
+    the dtype, or the bytes: each of ``tensors`` (B, H, S, D) tensors read
+    or written once (forward: q, k, v, o; backward 8: q, k, v, o, dO, dq,
+    dk, dv)."""
     b, h, s_q, s_kv, d = shape
     ops = flop_per * b * h * s_q * s_kv * d / (PEAK_F32 if f32 else
                                                PEAK_BF16) * 1e3
-    nbytes = 4 * b * h * max(s_q, s_kv) * d * (4 if f32 else 2) \
+    nbytes = tensors * b * h * max(s_q, s_kv) * d * (4 if f32 else 2) \
         / PEAK_BYTES * 1e3
     return {"bound_ms": max(ops, nbytes),
             "bound_by": "operations" if ops >= nbytes else "bytes"}
@@ -1501,12 +1517,80 @@ def _flash_row(name, replaces, max_abs, ms, plain_ms, library_ms, bound):
     return row
 
 
+# ragged bf16 backward cases (b, h, s_q, s_kv, causal, kv_valid): kv_valid
+# one past a 128-row kv tile, whole kv tiles past kv_valid, causal with
+# s_q > s_kv and s_q < s_kv (kv rows no q reaches)
+RAGGED_BWD = ((1, 2, 300, 400, False, 257), (1, 2, 200, 700, False, 130),
+              (1, 2, 520, 200, True, None), (1, 2, 200, 520, True, None))
+
+
+def _poison(like, n=8):
+    """Leave n freed blocks of ``like``'s size filled with NaN in the
+    caching allocator, so that an output a kernel fails to write does not
+    happen to hold zeros."""
+    import torch
+    junk = [torch.full_like(like, float("nan")) for _ in range(n)]
+    del junk
+
+
+def _parent_b6(buf, change, reps):
+    """The parent commit's bf16 B6 (its mma.sync dq and dk/dv kernels,
+    built from PARENT's csrc) on the same inputs as ``buf``, timed in turns
+    with this commit's ``change``: parent, change, change, parent."""
+    import ctypes
+    import torch
+    from domainrag_tpu_torch.ops import _build
+    src = Path(PARENT) / "domainrag_tpu_torch" / "csrc" / "flash_attention.cu"
+    lib_path = _build.BUILD / "parent" / "libflash_attention.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.FLAGS, "-o",
+                           str(lib_path), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the parent's source:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(str(lib_path)).flash_bwd
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i] + [p] * 9 + [i] * 6 + [ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    b, h, s_q, s_kv, d = buf.shape
+    lse = buf.lse[:, :s_q].contiguous()
+    delta = buf.delta[:, :s_q].contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (buf.q, buf.k, buf.v))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def parent():
+        for which in (0, 1):
+            rc = fn(0, buf.q.data_ptr(), buf.k.data_ptr(), buf.v.data_ptr(),
+                    buf.dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), which,
+                    b * h, s_q, s_kv, buf.kv_valid, int(buf.causal),
+                    1.0 / math.sqrt(d), stream)
+            if rc != 0:
+                raise RuntimeError(f"the parent's B6 failed: CUDA error {rc}")
+
+    parent()
+    change()
+    torch.cuda.synchronize()
+    agree = [((x.float() - y.float()).norm() / y.float().norm()).item()
+             for x, y in ((dq, buf.dq), (dk, buf.dk), (dv, buf.dv))]
+    t = [_ms(parent, reps), _ms(change, reps), _ms(change, reps),
+         _ms(parent, reps)]
+    print(f"B6 bf16 parent vs this commit (parent, change, change, parent): "
+          f"{t[0]:.3f} / {t[1]:.3f} / {t[2]:.3f} / {t[3]:.3f} ms; the "
+          f"parent's dq / dk / dv within {agree[0]:.2e} / {agree[1]:.2e} / "
+          f"{agree[2]:.2e} (relative norm) of this commit's")
+    del dq, dk, dv
+
+
 def phase_flash_kernels(dev):
     """B5 and B6 against their plain versions: at the trainer's attention
-    shape (2, 24, 4608, 128) in bf16 and f32 (forward, dq, dk/dv), B5
-    above _MAX_MULTIPASS at (1, 24, 50393, 128) bf16 (compared on two
-    heads with the blocked plain version), and a small causal + kv_valid
-    case with ragged lengths in both dtypes."""
+    shape (2, 24, 4608, 128) in bf16 and f32 (forward; B6: the one bf16
+    kernel, the f32 dq and dk/dv kernels), B5 above _MAX_MULTIPASS at (1,
+    24, 50393, 128) bf16 (compared on two heads with the blocked plain
+    version), a small causal + kv_valid case with ragged lengths in both
+    dtypes and the RAGGED_BWD bf16 backward cases. With ``--parent`` the
+    parent commit's bf16 B6 is timed beside this one."""
     import torch
     import torch.nn.functional as F
     from domainrag_tpu_torch.ops import attention as attn
@@ -1534,11 +1618,25 @@ def phase_flash_kernels(dev):
             _check(tag + " out", out, want)
         if (lse - want_lse).abs().max().item() > LSE_ATOL:
             raise AssertionError(f"{tag}: lse disagrees")
+        _poison(k)
         got = attn._kernel_backward(q, k, v, want, want_lse, do, True, 613)
         ref = attn.flash_backward_reference(q, k, v, want, want_lse, do,
                                             True, 613)
         for nm, a, b in zip(("dq", "dk", "dv"), got, ref):
             _check_grad(f"{tag} {nm}", a, b, f32)
+    for b_, h_, s_q, s_kv, causal, kv_valid in RAGGED_BWD:
+        q, k, v, do = qkvo((b_, h_, s_q, s_kv, 128), torch.bfloat16)
+        want, want_lse = attn.flash_forward_reference(q, k, v, causal,
+                                                      kv_valid)
+        _poison(k)
+        got = attn._kernel_backward(q, k, v, want, want_lse, do, causal,
+                                    kv_valid)
+        ref = attn.flash_backward_reference(q, k, v, want, want_lse, do,
+                                            causal, kv_valid)
+        tag = (f"flash bwd bf16 {s_q}x{s_kv} causal {causal} kv_valid "
+               f"{kv_valid}")
+        for nm, a, b in zip(("dq", "dk", "dv"), got, ref):
+            _check_grad(f"{tag} {nm}", a, b, False)
 
     for dtype, reps in ((torch.bfloat16, (20, 3, 20, 10)),
                         (torch.float32, (5, 3, 5, 3))):
@@ -1562,8 +1660,7 @@ def phase_flash_kernels(dev):
             _flash_bound(4, shape, f32))
         # backward from the plain forward's out/lse
         buf = attn.backward_buffers(q, k, v, want, want_lse, do, False)
-        attn.launch_backward(buf, 0)
-        attn.launch_backward(buf, 1)
+        attn.launch_backward(buf)
         ref = attn.flash_backward_reference(q, k, v, want, want_lse, do)
         torch.cuda.synchronize()
         unpad = [x.reshape(q.shape) for x in (buf.dq, buf.dk, buf.dv)]
@@ -1575,13 +1672,28 @@ def phase_flash_kernels(dev):
         sdpa = F.scaled_dot_product_attention(*leaves)
         library_ms = _ms(lambda: torch.autograd.grad(
             sdpa, leaves, do, retain_graph=True), reps[3])
-        for which, kname, flop, err in ((0, "dq", 6, errs[0]),
-                                        (1, "dkv", 8, max(errs[1:]))):
-            name = f"flash_bwd_{kname}_{tag}_b{TRAIN_B}_s{S_TRAIN}"
+        if f32:
+            # the TPU split: a dq kernel (6 units of B*H*S^2*D FLOP) and a
+            # dk/dv kernel (8)
+            for which, kname, flop, err in ((0, "dq", 6, errs[0]),
+                                            (1, "dkv", 8, max(errs[1:]))):
+                name = f"flash_bwd_{kname}_{tag}_b{TRAIN_B}_s{S_TRAIN}"
+                rows[name] = _flash_row(
+                    name,
+                    "ops/attention.py:" + ("296" if which == 0 else "336"),
+                    err, _ms(lambda: attn.launch_backward(buf, which),
+                             reps[3]),
+                    plain_ms, library_ms, _flash_bound(flop, shape, f32, 8))
+        else:
+            # one kernel for dq, dk and dv: the least work, 10 units, is
+            # the bound; ms includes the dq_accum zeroing, scale and cast
+            name = f"flash_bwd_{tag}_b{TRAIN_B}_s{S_TRAIN}"
             rows[name] = _flash_row(
-                name, "ops/attention.py:" + ("296" if which == 0 else "336"),
-                err, _ms(lambda: attn.launch_backward(buf, which), reps[3]),
-                plain_ms, library_ms, _flash_bound(flop, shape, f32))
+                name, "ops/attention.py:296,336", max(errs),
+                _ms(lambda: attn.launch_backward(buf), reps[3]), plain_ms,
+                library_ms, _flash_bound(10, shape, f32, 8))
+            if PARENT:
+                _parent_b6(buf, lambda: attn.launch_backward(buf), reps[3])
         del q, k, v, do, out, want, buf, ref, leaves, sdpa, unpad
         torch.cuda.empty_cache()
 
@@ -1654,9 +1766,9 @@ def phase_long_serving(dev, rows):
     counts = (d.launches + d.mp_launches, s.launches + s.mp_launches,
               *_flash_counts())
     print(f"launches on the path: {S_LONG} tokens, fused double/single "
-          f"{counts[:2]} (expected (0, 0)), generic flash fwd/dq/dkv "
-          f"{counts[2:]} (expected (2, 0, 0))")
-    if counts != (0, 0, 2, 0, 0):
+          f"{counts[:2]} (expected (0, 0)), generic flash B5/B6/B6 f32 "
+          f"dq/dkv {counts[2:]} (expected (2, 0, 0, 0))")
+    if counts != (0, 0, 2, 0, 0, 0):
         raise AssertionError("long serving path: launch counts differ")
     for tag, out, (q, k, v) in (
             ("double", out_d, mma.prenormed_double(
@@ -1717,9 +1829,9 @@ def phase_small_trainer(dev):
             for _ in range(steps)]
     # per step: each block's fused forward twice (forward and the remat
     # recompute), the unfused recompute's B5 and B6 once per block; f32
-    # runs B5 in each forward instead
-    want_counts = {torch.bfloat16: (2, 2, 2, 2, 2),
-                   torch.float32: (0, 0, 4, 2, 2)}
+    # runs B5 in each forward instead, and B6's dq and dk/dv kernels
+    want_counts = {torch.bfloat16: (2, 2, 2, 2, 0, 0),
+                   torch.float32: (0, 0, 4, 0, 2, 2)}
     for dtype in (torch.bfloat16, torch.float32):
         runs = []
         for where in (dev, cpu):
@@ -1761,7 +1873,8 @@ def phase_small_trainer(dev):
               f"{[round(x, 6) for x in l_cpu]} (max rel {loss_rel:.3e}), "
               f"first-step grads rel_norm {grad_rel:.3e}, param updates "
               f"rel_norm {upd_rel:.3e} max abs {upd_max:.3e} (lr "
-              f"{tcfg.learning_rate}); launches B1/B2/B5/B6dq/B6dkv {counts}"
+              f"{tcfg.learning_rate}); launches B1/B2/B5/B6/B6 f32 dq/dkv "
+              f"{counts}"
               f" (expected {want})")
         f32 = dtype == torch.float32
         lim = SMALL_TRAIN_F32 if f32 else SMALL_TRAIN_BF16
@@ -1867,10 +1980,10 @@ def phase_train(dev, rows):
     # per step: each fused block twice (forward, remat recompute), then one
     # unfused recompute per block in the backward: B5 once, B6 once
     want = tuple(TRAIN_STEPS * n for n in (2 * d, 2 * sg, 0, d + sg, d + sg,
-                                           d + sg))
+                                           0, 0))
     print(f"launches on the path: B1 {counts[0]}, B2 {counts[1]}, B3 "
-          f"{counts[2]}, B5 {counts[3]}, B6 dq {counts[4]}, B6 dkv "
-          f"{counts[5]} (expected {want})")
+          f"{counts[2]}, B5 {counts[3]}, B6 {counts[4]}, B6 f32 dq "
+          f"{counts[5]}, dkv {counts[6]} (expected {want})")
     if counts != want:
         raise AssertionError("trainer: kernel launch counts differ")
     _flash_launches(rows, "bf16", counts[3:])
@@ -1909,6 +2022,7 @@ def phase_profile_train(dev, cfg, params, batches):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from domainrag_tpu_torch.ops import attention as attn
     from domainrag_tpu_torch.train import flow_match
 
     step, params, opt = flow_match.make_train_step(
@@ -1951,7 +2065,7 @@ def phase_profile_train(dev, cfg, params, batches):
             groups["fused forward (B1/B2)"] += ms
         elif "fwd_bf16_kernel" in name or "fwd_simt_kernel" in name:
             groups["B5"] += ms
-        elif re.search(r"(dq|dkv)_(bf16|simt)_kernel", name):
+        elif re.search(r"bwd_bf16_kernel|(dq|dkv)_simt_kernel", name):
             groups["B6"] += ms
         elif re.search(r"gemm|nvjet|cutlass|xmma|cublas", name, re.I):
             groups["GEMM (cuBLAS)"] += ms
@@ -1959,6 +2073,11 @@ def phase_profile_train(dev, cfg, params, batches):
             groups["optimizer"] += ms
         else:
             groups["other"] += ms
+    # B6's dq_accum zeroing, scale and cast are generic elementwise
+    # kernels: their profiler range moves them from "other" to B6
+    accum = _range_device_ms(prof, attn.DQ_ACCUM_SPAN)
+    groups["B6"] += accum
+    groups["other"] -= accum
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "profile_train.txt").write_text("".join(
         f"{ms:10.3f} ms {n:6d}x  {name}\n" for ms, n, name in kernels))
@@ -1967,9 +2086,22 @@ def phase_profile_train(dev, cfg, params, batches):
           f"{total:.3f} ms (untraced wall {wall_ms:.3f} ms), "
           f"{sum(n for _, n, _ in kernels)} device events; "
           + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
-                      for k, v in groups.items()))
+                      for k, v in groups.items())
+          + f"; B6 includes its dq_accum ops, {accum:.3f} ms")
     for ms, n, name in kernels[:10]:
         print(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
+
+
+def _range_device_ms(prof, name):
+    """Device time (ms) of the kernels launched inside the host ranges
+    ``name`` (torch.profiler.record_function) of a trace."""
+    from torch.autograd import DeviceType
+    total = 0.0
+    for e in prof.events():
+        if e.name == name and e.device_type == DeviceType.CPU:
+            us = getattr(e, "device_time_total", None)
+            total += (e.cuda_time_total if us is None else us) / 1e3
+    return total
 
 
 def phase_train_f32(dev, cfg, params, batches, rows):
@@ -2001,10 +2133,11 @@ def phase_train_f32(dev, cfg, params, batches, rows):
               mma.mmdit_double_attention.mp_launches
               + mma.mmdit_single_attention.mp_launches, *_flash_counts())
     n = cfg.depth_double + cfg.depth_single
-    want = (0, 0, 0, 2 * n, n, n)
+    want = (0, 0, 0, 2 * n, 0, n, n)
     print(f"launches on the path (f32 trainer, one step): B1 {counts[0]}, "
-          f"B2 {counts[1]}, B3 {counts[2]}, B5 {counts[3]}, B6 dq "
-          f"{counts[4]}, B6 dkv {counts[5]} (expected {want})")
+          f"B2 {counts[1]}, B3 {counts[2]}, B5 {counts[3]}, B6 bf16 "
+          f"{counts[4]}, B6 dq {counts[5]}, B6 dkv {counts[6]} (expected "
+          f"{want})")
     if counts != want:
         raise AssertionError("f32 trainer: kernel launch counts differ")
     moved = (probe.detach() - before).abs().max().item()
@@ -2436,7 +2569,14 @@ def phase_retrieval(dev, rows):
 
 
 def main() -> int:
+    global PARENT
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of the parent commit: its bf16 B6 is "
+                         "built and timed beside this commit's")
+    PARENT = ap.parse_args().parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2454,6 +2594,7 @@ def main() -> int:
     rows.update(phase_mp_kernels(dev))
     rows.update(phase_int8_gemm(dev))
     rows.update(phase_int8_attention(dev))
+    rows.update(phase_flash_kernels(dev))
     rows.update(phase_topk_kernel(dev))
     phase_retrieval(dev, rows)
     phase_small_slice(dev)
@@ -2473,7 +2614,6 @@ def main() -> int:
     del bundle                 # the trainer needs the card to itself
     gc.collect()
     torch.cuda.empty_cache()
-    rows.update(phase_flash_kernels(dev))
     phase_long_serving(dev, rows)
     phase_small_trainer(dev)
     cfg, params, batches = phase_train(dev, rows)

@@ -8,13 +8,14 @@
 //      KV blocks above) - CUDA blocks cannot hold the whole KV, and a
 //      kernel that streams KV with an online softmax needs no second regime;
 //   B6 _flash_bwd_dq_kernel (:296) and _flash_bwd_dkv_kernel (:336),
-//      behind _flash_backward (:382): the same split - one block per
-//      (b*h, q tile) looping over KV tiles for dq, one per (b*h, kv tile)
-//      looping over q tiles for dk/dv. Nothing is reduced across blocks, so
-//      no atomics.
+//      behind _flash_backward (:382). In bf16 one kernel computes all three
+//      gradients (below); the f32 instance keeps the TPU split - one block
+//      per (b*h, q tile) looping over KV tiles for dq, one per (b*h, kv
+//      tile) looping over q tiles for dk/dv.
 //
 // Layout: q/k/v/out/dout (B*H, S, 128) contiguous, head_dim padded to 128
-// by the wrapper (ops/attention.py); lse and delta (B*H, Sq) f32.
+// by the wrapper (ops/attention.py); lse and delta (B*H, Sq) f32 (the bf16
+// backward: rows zero padded to a multiple of 64).
 //
 // Math (as the TPU kernels):
 //   forward  q arrives prescaled by log2(e)/sqrt(D) and rounded to its
@@ -24,24 +25,46 @@
 //            input dtype for P.V; out = o / max(l, 1e-30) and
 //            lse = m*ln2 + log(max(l, 1e-30)) (natural log).
 //   backward p = exp(s * (1/sqrt(D)) - lse) on an UNscaled q, in natural
-//            units (bwd_prob); ds = p (dp - delta) with dp = dO v^T and
+//            units (bwd_prob; the bf16 kernel as exp2(s * log2(e)/sqrt(D) -
+//            lse * log2(e))); ds = p (dp - delta) with dp = dO v^T and
 //            delta = rowsum(dO*O) (a PyTorch op, as in JAX); dq = ds k/sqrt(D),
 //            dk = ds^T q/sqrt(D), dv = p^T dO.
 //
 // Instances.
-//  * bf16: tensor cores through mma.sync m16n8k16 (bf16 in, f32
+//  * bf16 forward: tensor cores through mma.sync m16n8k16 (bf16 in, f32
 //    accumulate), tiles in shared memory by cp.async (double-buffered),
 //    XOR-swizzled 16-byte chunks for conflict-free ldmatrix - the design of
-//    flash_kernel in mmdit_attention.cu. Forward: 4 warps x two 16-row q
-//    tiles = 128 q rows per block, 64-row K/V tiles. dq: 4 warps x 16 q
-//    rows, 64-row K/V tiles. dk/dv: 4 warps x 16 kv rows, 64-row q tiles
-//    processed in two 32-column halves so that the dk and dv accumulators
-//    (128 f32 registers a thread) fit beside the score tiles. The TPU
-//    kernels take every backward product in f32; here s and dp are exact
-//    f32 sums of bf16 products, and P and dS are rounded to bf16 for the
-//    three products that consume them, with f32 accumulation (the
-//    FlashAttention-2 choice). Against the f32 plain version this stays
-//    within 1e-2 relative Frobenius norm (chip_smoke.py measures it).
+//    flash_kernel in mmdit_attention.cu: 4 warps x two 16-row q tiles = 128
+//    q rows per block, 64-row K/V tiles.
+//  * bf16 backward (FlashAttention-3's design for head_dim 128, on the
+//    primitives of hopper.cuh): one block per (b*h, 128 kv rows), causal
+//    blocks starting at the first q tile that reaches their rows. Warpgroup
+//    0 is the producer (setmaxnreg down to 24): one thread loads the
+//    block's K and V tiles once and a 2-stage ring of 64-row Q and dO tiles
+//    (TMA, 128-byte swizzle, zeros past each (b, h)'s rows) with their lse
+//    and delta rows (bulk copies), on mbarriers. Warpgroups 1 and 2 (240
+//    registers) own 64 kv rows each; per q tile each computes S^T = K Q^T
+//    and dP^T = V dO^T (wgmma m64n64k16, both operands from shared memory,
+//    K-major), P^T and dS^T in registers, dV += P^T dO and dK += dS^T Q
+//    (m64n128k16, A = P^T / dS^T from registers, B = dO / Q MN-major),
+//    accumulated in registers over all q tiles. dS^T also goes to shared
+//    memory; once both halves are there (named barrier), each warpgroup
+//    takes 64 of dQ's 128 lanes: dS K over the block's 128 kv rows
+//    (m64n64k16, A = dS MN-major, B = K MN-major), staged in shared memory
+//    and added into an f32 dq_accum by the TMA unit
+//    (cp.reduce.async.bulk.tensor .add; atomicAdd from registers, scalar or
+//    float2, was slower on the H100: PERF.md, b6_variants.py).
+//    The wrapper zeroes dq_accum, then scales it by 1/sqrt(D) and rounds it
+//    to bf16. S and dP are computed once (10 B*H*Sq*Skv*D FLOP, the least
+//    work) where the TPU split recomputes both (14); 128-row kv tiles make
+//    S_kv/128 adds per dq element (4.1 GB through L2 at the trainer's
+//    shape). dq's sum order across blocks varies from run to run (dk and
+//    dv are deterministic). Every product is bf16 in, f32 accumulate; P and
+//    dS are rounded to bf16 for the three products that consume them (the
+//    FlashAttention-2 choice), within 1e-2 relative Frobenius norm of the
+//    f32 plain version (chip_smoke.py measures it). Registers per consumer
+//    thread: dK 64 + dV 64, S^T 32 + dP^T 32 (then the bf16 A fragments
+//    16 + 16), dQ 32, no spills; shared memory 194 KB, one block per SM.
 //  * f32: no TF32 (the port turns it off), so f32 FMA on the CUDA cores:
 //    256 threads, 64x64 score tiles, each thread 4 rows x 4 columns of a
 //    score tile and 4 rows x 8 columns of a 128-wide accumulator, rows
@@ -53,12 +76,13 @@
 // Bounds on the card (the trainer's shape B = 2, H = 24, S = 4608, D = 128):
 //   forward 4*B*H*S^2*D = 5.22e11 FLOP: 0.528 ms at 989 TFLOP/s bf16,
 //   7.79 ms at 67 TFLOP/s f32 (FMA); bytes 4 x 56.6 MB bf16 = 0.07 ms.
-//   backward at least 10*B*H*S^2*D = 1.30e12 FLOP (dq and dk/dv together;
-//   these two kernels recompute s twice and do 14*B*H*S^2*D = 1.83e12):
-//   1.32 ms bf16 at the least count. Every call is compute-bound; the
-//   B*H*S^2 exponentials also load the special-function units.
+//   backward at least 10*B*H*S^2*D = 1.30e12 FLOP: 1.32 ms bf16 (the bf16
+//   kernel does exactly that; its bytes, 8 x 56.6 MB plus the f32 dq_accum
+//   written and read once, are ~0.2 ms); the f32 kernels recompute s and dp
+//   and do 14*B*H*S^2*D. Every call is compute-bound; the B*H*S^2
+//   exponentials also load the special-function units.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -654,261 +678,279 @@ __global__ void __launch_bounds__(ST)
 }
 
 // ---------------------------------------------------------------------------
-// B6, bf16: dq and dk/dv on the tensor cores
+// B6, bf16: dq, dk and dv in one kernel on wgmma, TMA and mbarriers
 // ---------------------------------------------------------------------------
 
-constexpr int BWD_SMEM = 6 * TILE * 2 + 4 * BQ * 4;   // 96 KB + lse/delta
+constexpr int BW_KV = 128;              // kv rows per block
+constexpr int BW_Q = 64;                // q rows per tile of the ring
+constexpr int BW_STAGES = 2;            // Q / dO / lse / delta ring depth
+constexpr int BW_THREADS = 384;         // producer + 2 consumer warpgroups
+constexpr int BAR_DS = 1;               // named barrier: both dS^T halves
+constexpr int BAR_DQ = 2;               // named barriers 2, 3: a dQ half staged
+constexpr float LOG2_E = 1.4426950408889634f;
+// shared memory in elements; every tile starts on a 1024-byte boundary
+// (the period of the 128-byte swizzle)
+constexpr int KV_ELEMS = BW_KV * D;     // a K or V tile: two boxes of 64 lanes
+constexpr int Q_ELEMS = BW_Q * D;       // a Q or dO tile: two boxes
+constexpr int DS_ELEMS = BW_KV * BW_Q;  // dS^T: 128 kv rows x 64 q
+constexpr int DQ_FLOATS = BW_Q * 64;    // a dQ half: two boxes of 64 x 32 f32
+constexpr int BW_SMEM = 1024 + 2 * (2 * KV_ELEMS + BW_STAGES * 2 * Q_ELEMS +
+                                    2 * DS_ELEMS) +
+                        BW_STAGES * 2 * BW_Q * 4 + 2 * DQ_FLOATS * 4;
 
-// dq: one block per (b*h, 64 q rows); 4 warps x 16 q rows; K/V tiles of
-// 64 rows double-buffered.
-__global__ void __launch_bounds__(THREADS)
-    dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dq,
-                   int s_q, int s_kv, int kv_valid, int causal, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sO = sQ + TILE;                  // dO
-  bf16* sK = sO + TILE;                  // 2 buffers
-  bf16* sV = sK + 2 * TILE;              // 2 buffers
+struct Bwd {
+  CUtensorMap tq, tdo, tk, tv;   // (bh, rows, 128) bf16, boxes of 64 lanes
+  CUtensorMap tdq;               // (bh, s_q, 128) f32 dq_accum, zeroed by
+                                 // the caller: boxes of 64 rows x 32 lanes
+  const float* lse;              // (bh, s_q_pad) natural log, zero padded
+  const float* delta;            // (bh, s_q_pad) rowsum(dO * O)
+  bf16* dk;                      // (bh, s_kv, 128)
+  bf16* dv;
+  int s_q, s_kv, kv_valid, causal, s_q_pad;
+  float scale;                   // 1/sqrt(D) of the unpadded head width
+};
 
-  const int q0 = blockIdx.x * BQ;
-  const long long bh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wrow = warp * 16;
-  const bf16* kbase = k + bh * s_kv * D;
-  const bf16* vbase = v + bh * s_kv * D;
-
-  int n_kv = (kv_valid + BN - 1) / BN;
-  if (causal) n_kv = min(n_kv, (min(q0 + BQ, s_q) - 1) / BN + 1);
-
-  load_tile<BQ>(sQ, q + bh * s_q * D, q0, s_q, tid);
-  load_tile<BQ>(sO, dout + bh * s_q * D, q0, s_q, tid);
-  load_tile<BN>(sK, kbase, 0, s_kv, tid);
-  load_tile<BN>(sV, vbase, 0, s_kv, tid);
-  cp_async_commit();
-
-  const int r0 = q0 + wrow + g, r1 = r0 + 8;
-  const float lse0 = r0 < s_q ? lse[bh * s_q + r0] : 0.f;
-  const float lse1 = r1 < s_q ? lse[bh * s_q + r1] : 0.f;
-  const float del0 = r0 < s_q ? delta[bh * s_q + r0] : 0.f;
-  const float del1 = r1 < s_q ? delta[bh * s_q + r1] : 0.f;
-
-  float acc[16][4];
-#pragma unroll
-  for (int t = 0; t < 16; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_kv) {
-      load_tile<BN>(sK + (buf ^ 1) * TILE, kbase, (j + 1) * BN, s_kv, tid);
-      load_tile<BN>(sV + (buf ^ 1) * TILE, vbase, (j + 1) * BN, s_kv, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* tk = sK + buf * TILE;
-    const bf16* tv = sV + buf * TILE;
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      uint32_t qa[4], da[4];
-      frag_a(qa, sQ, wrow, kk, lane);
-      frag_a(da, sO, wrow, kk, lane);
-#pragma unroll
-      for (int p = 0; p < BN / 16; ++p) {
-        uint32_t kb[4], vb[4];
-        frag_b(kb, tk, 16 * p, kk, lane);
-        mma_bf16(s[2 * p], qa, kb[0], kb[1]);
-        mma_bf16(s[2 * p + 1], qa, kb[2], kb[3]);
-        frag_b(vb, tv, 16 * p, kk, lane);
-        mma_bf16(dp[2 * p], da, vb[0], vb[1]);
-        mma_bf16(dp[2 * p + 1], da, vb[2], vb[3]);
-      }
-    }
-
-    const int kv0 = j * BN;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int col = kv0 + 8 * t + 2 * tig + (e & 1);
-        const float p = keep(row, col, kv_valid, causal)
-                            ? bwd_prob(s[t][e], scale, e < 2 ? lse0 : lse1)
-                            : 0.f;
-        s[t][e] = p * (dp[t][e] - (e < 2 ? del0 : del1));      // ds
-      }
-    }
-
-#pragma unroll
-    for (int jj = 0; jj < BN / 16; ++jj) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * jj], s[2 * jj + 1]);
-#pragma unroll
-      for (int t2 = 0; t2 < 8; ++t2) {
-        uint32_t kb[4];
-        frag_b_trans(kb, tk, 16 * jj, t2, lane);
-        mma_bf16(acc[2 * t2], a, kb[0], kb[1]);
-        mma_bf16(acc[2 * t2 + 1], a, kb[2], kb[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  c_to_tile(sO, acc, wrow, scale, scale, lane);
-  __syncthreads();
-  store_tile<BQ>(dq + bh * s_q * D, sO, q0, s_q, tid);
+// The K-major descriptor of k-step kk (16 lanes) of a tile of `rows` rows
+// held as two boxes of 64 lanes (128-byte rows), from row `row0`.
+__device__ __forceinline__ uint64_t kmajor(const bf16* tile, int rows,
+                                           int row0, int kk) {
+  return smem_desc(tile + (kk >> 2) * rows * 64 + row0 * 64, 16, 1024) +
+         2 * (kk & 3);
 }
 
-// dk/dv: one block per (b*h, 64 kv rows); 4 warps x 16 kv rows; q tiles
-// of 64 rows double-buffered, each taken in two halves of 32 columns.
-__global__ void __launch_bounds__(THREADS)
-    dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int s_q, int s_kv, int kv_valid,
-                    int causal, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + TILE;
-  bf16* sQ = sV + TILE;                  // 2 buffers
-  bf16* sO = sQ + 2 * TILE;              // 2 buffers (dO)
-  float* sL = reinterpret_cast<float*>(sO + 2 * TILE);   // 2 x 64 lse
-  float* sD = sL + 2 * BQ;                                // 2 x 64 delta
+// The MN-major descriptor of k-step kk (16 rows) of a tile of `rows` rows
+// held as 64-wide boxes along N (or M), the next box rows * 128 bytes on.
+__device__ __forceinline__ uint64_t mnmajor(const bf16* tile, int rows,
+                                            int kk) {
+  return smem_desc(tile + kk * 16 * 64, rows * 128, 1024);
+}
 
-  const int kv0 = blockIdx.x * BN;
-  const long long bh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wrow = warp * 16;
-  const bf16* qbase = q + bh * s_q * D;
-  const bf16* obase = dout + bh * s_q * D;
-  const float* lrow = lse + bh * s_q;
-  const float* drow = delta + bh * s_q;
-
-  const int n_q = (s_q + BQ - 1) / BQ;
-  const int i0 = causal ? kv0 / BQ : 0;
-
-  load_tile<BN>(sK, k + bh * s_kv * D, kv0, s_kv, tid);
-  load_tile<BN>(sV, v + bh * s_kv * D, kv0, s_kv, tid);
-  if (i0 < n_q) {
-    load_tile<BQ>(sQ, qbase, i0 * BQ, s_q, tid);
-    load_tile<BQ>(sO, obase, i0 * BQ, s_q, tid);
-    if (tid < BQ) {
-      const int r = i0 * BQ + tid;
-      sL[tid] = r < s_q ? lrow[r] : 0.f;
-      sD[tid] = r < s_q ? drow[r] : 0.f;
-    }
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
   }
-  cp_async_commit();
+}
 
-  float dk_acc[16][4], dv_acc[16][4];
-#pragma unroll
-  for (int t = 0; t < 16; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[t][e] = dv_acc[t][e] = 0.f;
-  const int kr0 = kv0 + wrow + g, kr1 = kr0 + 8;
+// One block per (b*h, 128 kv rows); warpgroup 0 loads, warpgroups 1 and 2
+// each own 64 of the kv rows (accumulator element 4j + e of a thread: kv
+// row 16 warp + g + 8 (e >> 1), column 8j + 2 tig + (e & 1)).
+__global__ void __launch_bounds__(BW_THREADS, 1)
+    bwd_bf16_kernel(const __grid_constant__ Bwd P) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[BW_STAGES], empty[BW_STAGES], kvbar;
+  bf16* sK = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  bf16* sV = sK + KV_ELEMS;
+  bf16* sQ = sV + KV_ELEMS;                  // BW_STAGES tiles
+  bf16* sO = sQ + BW_STAGES * Q_ELEMS;       // dO, BW_STAGES tiles
+  bf16* sS = sO + BW_STAGES * Q_ELEMS;       // dS^T, two buffers
+  float* sL = reinterpret_cast<float*>(sS + 2 * DS_ELEMS);  // lse per stage
+  float* sD = sL + BW_STAGES * BW_Q;                         // delta
+  float* sA = sD + BW_STAGES * BW_Q;         // dQ halves, one per consumer
 
-  for (int it = i0; it < n_q; ++it) {
-    const int buf = (it - i0) & 1;
-    if (it + 1 < n_q) {
-      const int nb = buf ^ 1, nq = (it + 1) * BQ;
-      load_tile<BQ>(sQ + nb * TILE, qbase, nq, s_q, tid);
-      load_tile<BQ>(sO + nb * TILE, obase, nq, s_q, tid);
-      if (tid < BQ) {
-        sL[nb * BQ + tid] = nq + tid < s_q ? lrow[nq + tid] : 0.f;
-        sD[nb * BQ + tid] = nq + tid < s_q ? drow[nq + tid] : 0.f;
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  const int kv0 = blockIdx.x * BW_KV;
+  const int bh = blockIdx.y;
+  const int n_q = (P.s_q + BW_Q - 1) / BW_Q;
+  // the first q tile that reaches this block's kv rows
+  const int it0 = P.causal ? kv0 / BW_Q : 0;
+  const int n_it = kv0 < P.kv_valid ? max(0, n_q - it0) : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);     // lane 0 of each consumer warp
     }
-    __syncthreads();
-    const bf16* tq = sQ + buf * TILE;
-    const bf16* to = sO + buf * TILE;
-    const float* tl = sL + buf * BQ;
-    const float* td = sD + buf * BQ;
-    const int q0 = it * BQ;
+    mbar_init(&kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = 32 * half;          // first q column of this half
-      float st[4][4], dpt[4][4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[t][e] = dpt[t][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        uint32_t ka[4], va[4];
-        frag_a(ka, sK, wrow, kk, lane);
-        frag_a(va, sV, wrow, kk, lane);
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          uint32_t qb[4], ob[4];
-          frag_b(qb, tq, c0 + 16 * p, kk, lane);
-          mma_bf16(st[2 * p], ka, qb[0], qb[1]);
-          mma_bf16(st[2 * p + 1], ka, qb[2], qb[3]);
-          frag_b(ob, to, c0 + 16 * p, kk, lane);
-          mma_bf16(dpt[2 * p], va, ob[0], ob[1]);
-          mma_bf16(dpt[2 * p + 1], va, ob[2], ob[3]);
-        }
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    // producer: one thread issues every load, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0 && n_it > 0) {
+      mbar_expect_tx(&kvbar, 2 * KV_ELEMS * 2);
+      for (int h = 0; h < 2; ++h) {
+        tma_3d(sK + h * BW_KV * 64, &P.tk, 64 * h, kv0, bh, &kvbar);
+        tma_3d(sV + h * BW_KV * 64, &P.tv, 64 * h, kv0, bh, &kvbar);
       }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % BW_STAGES;
+        if (it >= BW_STAGES) mbar_wait(&empty[s], (it / BW_STAGES - 1) & 1);
+        const int q0 = (it0 + it) * BW_Q;
+        mbar_expect_tx(&full[s], 2 * Q_ELEMS * 2 + 2 * BW_Q * 4);
+        for (int h = 0; h < 2; ++h) {
+          tma_3d(sQ + s * Q_ELEMS + h * BW_Q * 64, &P.tq, 64 * h, q0, bh,
+                 &full[s]);
+          tma_3d(sO + s * Q_ELEMS + h * BW_Q * 64, &P.tdo, 64 * h, q0, bh,
+                 &full[s]);
+        }
+        const long long row = (long long)bh * P.s_q_pad + q0;
+        bulk_g2s(sL + s * BW_Q, P.lse + row, BW_Q * 4, &full[s]);
+        bulk_g2s(sD + s * BW_Q, P.delta + row, BW_Q * 4, &full[s]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int cw = wg - 1;                    // consumer warpgroup 0 or 1
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tig = lane & 3;
+    const int rw = 64 * cw + 16 * warp + g;  // the thread's first kv row
+    const float scale_log2 = P.scale * LOG2_E;
+    const bool issuer = (threadIdx.x & 127) == 0;   // of the dQ adds
+    float* dq_half = sA + cw * DQ_FLOATS;
+
+    float dk[64], dv[64];
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    // accumulators are written by plain instructions only where no product
+    // is in flight; the fences keep the compiler from moving the writes
+    fence_regs(dk);
+    fence_regs(dv);
+    if (n_it > 0) mbar_wait(&kvbar, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % BW_STAGES;
+      const int q0 = (it0 + it) * BW_Q;
+      const bf16* tq = sQ + s * Q_ELEMS;
+      const bf16* to = sO + s * Q_ELEMS;
+      const float* tl = sL + s * BW_Q;
+      const float* td = sD + s * BW_Q;
+      bf16* ds_buf = sS + (it & 1) * DS_ELEMS;
+      mbar_wait(&full[s], (it / BW_STAGES) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 kv rows
+      float st[32], dpt[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_bf16_ss64<0, 0>(st, kmajor(sK, BW_KV, 64 * cw, kk),
+                              kmajor(tq, BW_Q, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_bf16_ss64<0, 0>(dpt, kmajor(sV, BW_KV, 64 * cw, kk),
+                              kmajor(to, BW_Q, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T = exp(s/sqrt(D) - lse), masked entries 0; dS^T = P^T (dP^T -
+      // delta), both per q column
+      const int kvw = kv0 + 64 * cw;
+      const bool masked = q0 + BW_Q > P.s_q || kvw + 64 > P.kv_valid ||
+                          (P.causal && kvw + 63 > q0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * tig;
+        const float2 lv = *reinterpret_cast<const float2*>(tl + c);
+        const float2 dl = *reinterpret_cast<const float2*>(td + c);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int kvr = e < 2 ? kr0 : kr1;
-          const int qc = c0 + 8 * t + 2 * tig + (e & 1);
-          const float p = (q0 + qc < s_q && keep(q0 + qc, kvr, kv_valid,
-                                                 causal))
-                              ? bwd_prob(st[t][e], scale, tl[qc]) : 0.f;
-          dpt[t][e] = p * (dpt[t][e] - td[qc]);                  // ds^T
-          st[t][e] = p;                                           // p^T
+          const int i = 4 * j + e;
+          const float l2 = (e & 1 ? lv.y : lv.x) * LOG2_E;
+          float p = exp2f(fmaf(st[i], scale_log2, -l2));
+          if (masked) {
+            const int qc = q0 + c + (e & 1);
+            const int kr = kv0 + rw + 8 * (e >> 1);
+            if (qc >= P.s_q || kr >= P.kv_valid || (P.causal && kr > qc))
+              p = 0.f;
+          }
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - (e & 1 ? dl.y : dl.x));
         }
       }
+      uint32_t pa[4][4], da[4][4];
+      pack_a(pa, st);
+      pack_a(da, dpt);
+      // dS^T into shared memory for dQ: row = kv (128-byte rows of 64 q,
+      // 16-byte chunk j of row r at j ^ (r & 7))
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        uint32_t pa[4], sa[4];
-        c_to_a(pa, st[2 * jj], st[2 * jj + 1]);
-        c_to_a(sa, dpt[2 * jj], dpt[2 * jj + 1]);
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int t2 = 0; t2 < 8; ++t2) {
-          uint32_t ob[4], qb[4];
-          frag_b_trans(ob, to, c0 + 16 * jj, t2, lane);
-          mma_bf16(dv_acc[2 * t2], pa, ob[0], ob[1]);
-          mma_bf16(dv_acc[2 * t2 + 1], pa, ob[2], ob[3]);
-          frag_b_trans(qb, tq, c0 + 16 * jj, t2, lane);
-          mma_bf16(dk_acc[2 * t2], sa, qb[0], qb[1]);
-          mma_bf16(dk_acc[2 * t2 + 1], sa, qb[2], qb[3]);
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = rw + 8 * hr;
+          *reinterpret_cast<uint32_t*>(ds_buf + r * 64 + ((j ^ (r & 7)) << 3) +
+                                       2 * tig) =
+              (j & 1) ? da[j >> 1][2 + hr] : da[j >> 1][hr];
         }
+      fence_proxy_async();
+
+      // dV += P^T dO, dK += dS^T Q (A from registers, B MN-major)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BW_Q / 16; ++kk)
+        wgmma_bf16_rs(dv, pa[kk], mnmajor(to, BW_Q, kk));
+#pragma unroll
+      for (int kk = 0; kk < BW_Q / 16; ++kk)
+        wgmma_bf16_rs(dk, da[kk], mnmajor(tq, BW_Q, kk));
+      wgmma_commit();
+
+      // dQ[:, 64 cw .. 64 cw + 63] = dS K over all 128 kv rows of the block,
+      // once both warpgroups' dS^T halves are in shared memory (and the
+      // last tile's dQ half has been read out of dq_half)
+      if (issuer) bulk_wait_read0();
+      bar_sync(BAR_DS, 256);
+      float dqa[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BW_KV / 16; ++kk)
+        wgmma_bf16_ss64<1, 1>(dqa, mnmajor(ds_buf, BW_KV, kk),
+                              mnmajor(sK + cw * BW_KV * 64, BW_KV, kk), kk);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dqa);
+      fence_regs(dk);
+      fence_regs(dv);
+      if (lane == 0) mbar_arrive(&empty[s]);
+
+      // stage this dQ half (128-byte swizzled rows of 32 f32: 16-byte
+      // chunk k of row r at k ^ (r & 7)), then one thread has the TMA unit
+      // add it into dq_accum (rows past s_q are not written; the sum order
+      // over blocks varies from run to run)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = 16 * warp + g + 8 * hr;
+          const int k = (2 * j + (tig >> 1)) & 7;
+          *reinterpret_cast<float2*>(dq_half + (j >> 2) * BW_Q * 32 +
+                                     r * 32 + ((k ^ (r & 7)) << 2) +
+                                     2 * (tig & 1)) =
+              make_float2(dqa[4 * j + 2 * hr], dqa[4 * j + 2 * hr + 1]);
+        }
+      fence_proxy_async();
+      bar_sync(BAR_DQ + cw, 128);
+      if (issuer) {
+        tma_add_3d(&P.tdq, dq_half, 64 * cw, q0, bh);
+        tma_add_3d(&P.tdq, dq_half + BW_Q * 32, 64 * cw + 32, q0, bh);
+        bulk_commit();
       }
     }
-    __syncthreads();
-  }
+    if (issuer) bulk_wait_read0();
 
-  const float dk_scale = scale;  // dk = ds^T q / sqrt(D)
-  cp_async_wait<0>();
-  __syncthreads();
-  c_to_tile(sQ, dk_acc, wrow, dk_scale, dk_scale, lane);
-  c_to_tile(sO, dv_acc, wrow, 1.f, 1.f, lane);
-  __syncthreads();
-  store_tile<BN>(dk + bh * s_kv * D, sQ, kv0, s_kv, tid);
-  store_tile<BN>(dv + bh * s_kv * D, sO, kv0, s_kv, tid);
+    // every kv row of the block is written, zeros where no q reached it
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int kr = kv0 + rw + 8 * hr;
+      if (kr >= P.s_kv) continue;
+      const long long off = ((long long)bh * P.s_kv + kr) * D + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<uint32_t*>(P.dk + off + 8 * j) =
+            pack_bf16(dk[4 * j + 2 * hr] * P.scale,
+                      dk[4 * j + 2 * hr + 1] * P.scale);
+        *reinterpret_cast<uint32_t*>(P.dv + off + 8 * j) =
+            pack_bf16(dv[4 * j + 2 * hr], dv[4 * j + 2 * hr + 1]);
+      }
+    }
+  }
 }
 
 template <typename K>
@@ -958,16 +1000,41 @@ int bwd_simt(int which, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// (bh, rows, 128) bf16 rows as a tensor map: boxes of `box` rows x 64
+// lanes (128 bytes), zeros past each (b, h)'s last row.
+bool map_rows(CUtensorMap* map, const void* base, int rows, int bh,
+              int box) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t boxes[3] = {64, (cuuint32_t)box, 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
+                  strides, boxes);
+}
+
+// (bh, rows, 128) f32 as a tensor map: boxes of 64 rows x 32 lanes (128
+// bytes); a reduce past each (b, h)'s last row writes nothing.
+bool map_rows_f32(CUtensorMap* map, void* base, int rows, int bh) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 4,
+                                 (cuuint64_t)rows * D * 4};
+  const cuuint32_t boxes[3] = {32, BW_Q, 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims,
+                  strides, boxes);
+}
+
 }  // namespace
 
-// dtype: 0 = bf16 (tensor cores), 1 = f32 (CUDA cores). q/k/v/out/dout/dq/
-// dk/dv: (bh, S, 128) contiguous; lse, delta: (bh, s_q) f32. kv positions
-// >= kv_valid (<= s_kv) are masked, and with `causal` kv positions > the
-// q position. Both entries return the CUDA error code of their launches
-// (0 = success); 9 (cudaErrorInvalidConfiguration) for a dtype they lack.
+// q/k/v/out/dout/dk/dv: (bh, S, 128) contiguous, head_dim padded to 128
+// by the wrapper. kv positions >= kv_valid (<= s_kv) are masked, and with
+// `causal` kv positions > the q position. Every entry returns the CUDA
+// error code of its launches (0 = success).
 
-// B5: out = softmax(q k^T) v with q prescaled by log2(e)/sqrt(D); lse in
-// natural log.
+// B5: out = softmax(q k^T) v with q prescaled by log2(e)/sqrt(D); lse
+// (bh, s_q) f32 in natural log. dtype: 0 = bf16 (tensor cores), 1 = f32
+// (CUDA cores); 9 (cudaErrorInvalidConfiguration) for another.
 extern "C" int flash_fwd(int dtype, const void* q, const void* k,
                          const void* v, void* out, void* lse, int bh, int s_q,
                          int s_kv, int kv_valid, int causal, void* stream) {
@@ -985,38 +1052,50 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
-// B6: which = 0 launches the dq kernel, 1 the dk/dv kernel; scale =
-// 1/sqrt(D) of the unpadded head width.
-extern "C" int flash_bwd(int dtype, const void* q, const void* k,
-                         const void* v, const void* dout, const void* lse,
-                         const void* delta, void* dq, void* dk, void* dv,
-                         int which, int bh, int s_q, int s_kv, int kv_valid,
-                         int causal, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return bwd_simt(which, q, k, v, dout, lse, delta, dq, dk, dv, bh, s_q,
-                    s_kv, kv_valid, causal, scale, st);
-  if (dtype != 0) return (int)cudaErrorInvalidConfiguration;
-  const bf16 *tq = static_cast<const bf16*>(q),
-             *tk = static_cast<const bf16*>(k),
-             *tv = static_cast<const bf16*>(v),
-             *to = static_cast<const bf16*>(dout);
-  const float *fl = static_cast<const float*>(lse),
-              *fd = static_cast<const float*>(delta);
-  cudaError_t err;
-  if (which == 0) {
-    err = allow_smem(dq_bf16_kernel, BWD_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    dq_bf16_kernel<<<dim3((s_q + BQ - 1) / BQ, bh), THREADS, BWD_SMEM, st>>>(
-        tq, tk, tv, to, fl, fd, static_cast<bf16*>(dq), s_q, s_kv, kv_valid,
-        causal, scale);
-  } else {
-    err = allow_smem(dkv_bf16_kernel, BWD_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    dkv_bf16_kernel<<<dim3((s_kv + BN - 1) / BN, bh), THREADS, BWD_SMEM,
-                      st>>>(tq, tk, tv, to, fl, fd, static_cast<bf16*>(dk),
-                            static_cast<bf16*>(dv), s_q, s_kv, kv_valid,
-                            causal, scale);
-  }
+// B6, bf16: dq, dk and dv in one launch. lse and delta: (bh, s_q_pad) f32,
+// s_q_pad = s_q rounded up to a multiple of 64, zero padded; dq_accum:
+// (bh, s_q, 128) f32, zeroed by the caller, receives sum_kv dS K (not yet
+// scaled by 1/sqrt(D), summed in an order that varies from run to run);
+// dk, dv: (bh, s_kv, 128) bf16. scale = 1/sqrt(D) of the unpadded width.
+extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, void* dq_accum, void* dk,
+                              void* dv, int bh, int s_q, int s_kv,
+                              int kv_valid, int causal, float scale,
+                              void* stream) {
+  Bwd P;
+  if (!(map_rows(&P.tq, q, s_q, bh, BW_Q) &&
+        map_rows(&P.tdo, dout, s_q, bh, BW_Q) &&
+        map_rows(&P.tk, k, s_kv, bh, BW_KV) &&
+        map_rows(&P.tv, v, s_kv, bh, BW_KV) &&
+        map_rows_f32(&P.tdq, dq_accum, s_q, bh)))
+    return (int)cudaErrorInvalidValue;
+  P.lse = static_cast<const float*>(lse);
+  P.delta = static_cast<const float*>(delta);
+  P.dk = static_cast<bf16*>(dk);
+  P.dv = static_cast<bf16*>(dv);
+  P.s_q = s_q;
+  P.s_kv = s_kv;
+  P.kv_valid = kv_valid;
+  P.causal = causal;
+  P.s_q_pad = (s_q + BW_Q - 1) / BW_Q * BW_Q;
+  P.scale = scale;
+  cudaError_t err = allow_smem(bwd_bf16_kernel, BW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  bwd_bf16_kernel<<<dim3((s_kv + BW_KV - 1) / BW_KV, bh), BW_THREADS, BW_SMEM,
+                    static_cast<cudaStream_t>(stream)>>>(P);
   return (int)cudaGetLastError();
+}
+
+// B6, f32: which = 0 launches the dq kernel, 1 the dk/dv kernel; lse and
+// delta (bh, s_q) f32; dq, dk, dv f32. scale = 1/sqrt(D) of the unpadded
+// head width.
+extern "C" int flash_bwd_f32(int which, const void* q, const void* k,
+                             const void* v, const void* dout, const void* lse,
+                             const void* delta, void* dq, void* dk, void* dv,
+                             int bh, int s_q, int s_kv, int kv_valid,
+                             int causal, float scale, void* stream) {
+  return bwd_simt(which, q, k, v, dout, lse, delta, dq, dk, dv, bh, s_q,
+                  s_kv, kv_valid, causal, scale,
+                  static_cast<cudaStream_t>(stream));
 }

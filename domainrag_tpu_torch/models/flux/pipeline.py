@@ -320,9 +320,12 @@ def generate(bundle: FluxBundle, prompt_embeds: torch.Tensor,
              num_steps: int = 50, guidance: float = 2.5,
              seed=0,
              scheduler_overrides: Optional[dict] = None,
-             mesh=None, pipe_axis: Optional[str] = None,
+             mesh=None, data_axis: str = "data",
+             pipe_axis: Optional[str] = None,
+             microbatches: Optional[int] = None,
              block_cache_interval: int = 1,
              velocity_cache_interval: int = 1,
+             velocity_cache_order: int = 1, *,
              noise: Optional[torch.Tensor] = None,
              timer: Optional[StepTimer] = None) -> np.ndarray:
     """Full text/Redux-to-image run. Returns (B, H, W, 3) uint8 when
@@ -333,12 +336,16 @@ def generate(bundle: FluxBundle, prompt_embeds: torch.Tensor,
     in place of the per-seed draw (how tests hand the JAX package's noise
     to the port). ``timer`` gets a ``step`` span per denoise step and a
     ``decode`` span. Images with a non-finite value before quantisation
-    are counted in ``generate.nonfinite_images``. Meshes, pipelining and
-    the cache accelerators are not part of this slice and raise when
-    asked for."""
-    if mesh is not None or pipe_axis is not None:
+    are counted in ``generate.nonfinite_images``. The parameters are the
+    JAX package's, in its order and with its defaults; ``noise`` and
+    ``timer`` are the port's own and keyword-only. Meshes, pipelining
+    (``microbatches``) and the cache accelerators (``velocity_cache_order``
+    too) are not part of this slice and raise when asked for;
+    ``data_axis`` is read only by the mesh path."""
+    if mesh is not None or pipe_axis is not None or microbatches is not None:
         raise NotImplementedError("meshes and pipelining are not ported")
-    if block_cache_interval != 1 or velocity_cache_interval != 1:
+    if block_cache_interval != 1 or velocity_cache_interval != 1 \
+            or velocity_cache_order != 1:
         raise NotImplementedError("the denoise caches are not ported")
     b = prompt_embeds.shape[0]
     if noise is None:
@@ -453,10 +460,14 @@ def fill_batch(bundle: FluxBundle, images: np.ndarray, masks: np.ndarray,
                num_steps: int = 50, guidance: float = 30.0,
                strength: float = 0.75,
                seeds: Sequence[int] = (0,),
-               mesh=None, pipe_axis: Optional[str] = None,
+               mesh=None, data_axis: str = "data",
+               pipe_axis: Optional[str] = None,
+               microbatches: Optional[int] = None,
                hires_threshold_px: int = 2048 * 2048,
                vae_tile: int = 96, vae_overlap: int = 16,
-               velocity_cache_interval=1,
+               velocity_cache_interval: int = 1,
+               velocity_cache_order: int = 1,
+               vcache_divergence_budget: float = 0.05, *,
                noise: Optional[torch.Tensor] = None,
                timer: Optional[StepTimer] = None) -> np.ndarray:
     """Batched Fill over same-shape samples: images (B, H, W, 3) uint8,
@@ -471,11 +482,15 @@ def fill_batch(bundle: FluxBundle, images: np.ndarray, masks: np.ndarray,
     (B, S_img, 4*latent_channels) in place of the per-seed draw, as in
     :func:`generate`; ``timer`` gets the spans of :func:`_fill_float`.
     Images with a non-finite value before quantisation are counted in
-    ``fill_batch.nonfinite_images``. Meshes, pipelining and the velocity
-    cache are not ported and raise when asked for."""
-    if mesh is not None or pipe_axis is not None:
+    ``fill_batch.nonfinite_images``. The parameters are the JAX package's,
+    in its order and with its defaults; ``noise`` and ``timer`` are the
+    port's own and keyword-only. Meshes, pipelining (``microbatches``) and
+    the velocity cache (``velocity_cache_order`` too) are not ported and
+    raise when asked for; ``data_axis`` and ``vcache_divergence_budget``
+    are read only by those paths."""
+    if mesh is not None or pipe_axis is not None or microbatches is not None:
         raise NotImplementedError("meshes and pipelining are not ported")
-    if velocity_cache_interval != 1:
+    if velocity_cache_interval != 1 or velocity_cache_order != 1:
         raise NotImplementedError("the velocity cache is not ported")
     dev, dt = bundle.device, bundle.compute_dtype
     b, h, w = images.shape[:3]

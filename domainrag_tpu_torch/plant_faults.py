@@ -1,6 +1,7 @@
-"""Plant faults in two hand-written kernels, the fused top-k (B8,
-``csrc/topk.cu``) and the int8 MMDiT attention (B7,
-``csrc/int8_attention.cu``), and check that the card tests and
+"""Plant faults in three hand-written kernels, the fused top-k (B8,
+``csrc/topk.cu``), the int8 MMDiT attention (B7,
+``csrc/int8_attention.cu``) and the bf16 flash backward (B6,
+``csrc/flash_attention.cu``), and check that the card tests and
 ``chip_smoke.py`` both catch each one.
 
 Run on a machine with the card, from the repository root::
@@ -11,7 +12,8 @@ For each fault (all by default) the repository is copied into a new
 temporary directory (``tempfile.mkdtemp``, which honours ``TMPDIR``), one
 line of the copy's kernel source is replaced, and the kernel's card tests
 (``tests/test_torch_cuda.py -k "topk or first_stage"`` for B8, ``-k i8``
-for B7) and the whole ``chip_smoke.py`` run in the copy. A fault is
+for B7, ``-k flash`` for B6) and the whole ``chip_smoke.py`` run in the
+copy. A fault is
 caught when both exit non-zero. The temporary directory is deleted
 afterwards; the repository is not touched.
 Exits 1 if any fault went uncaught.
@@ -29,6 +31,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 B8 = ("domainrag_tpu_torch/csrc/topk.cu", "topk or first_stage")
 B7 = ("domainrag_tpu_torch/csrc/int8_attention.cu", "i8")
+B6 = ("domainrag_tpu_torch/csrc/flash_attention.cu", "flash")
 # name: ((source, card tests' -k), line as it is, line with the fault)
 FAULTS = {
     # B8: the ragged last bank tile of each split is never scored
@@ -57,6 +60,17 @@ FAULTS = {
     # B7: sweep A's integer max taken per tile instead of per window
     "sweep_a_max_per_tile": (
         B7, "if (t == w0) {", "if (true) {"),
+    # B6: delta read from another q row of the tile (8 columns over)
+    "delta_wrong_q_row": (
+        B6, "const float2 dl = *reinterpret_cast<const float2*>(td + c);",
+        "const float2 dl = *reinterpret_cast<const float2*>(td + (c ^ 8));"),
+    # B6: the causal mask's comparison flipped at the diagonal
+    "causal_diagonal_masked": (
+        B6, "(P.causal && kr > qc)", "(P.causal && kr >= qc)"),
+    # B6: kv rows of blocks that no q reaches left unwritten, not zero
+    "unreached_kv_rows_unwritten": (
+        B6, "if (kr >= P.s_kv) continue;",
+        "if (kr >= P.s_kv || n_it == 0) continue;"),
 }
 
 
@@ -80,6 +94,10 @@ def run(name: str) -> bool:
         smoke = subprocess.run([sys.executable, "chip_smoke.py"], cwd=copy,
                                capture_output=True, text=True, timeout=1500)
         summary = (tests.stdout.strip().splitlines() or [""])[-1]
+        # the card test cases that failed, without the file and the reason
+        failed = [line.split("::", 1)[-1].split(" - ")[0]
+                  for line in tests.stdout.splitlines()
+                  if line.startswith("FAILED ")]
         errors = [line for line in smoke.stderr.splitlines()
                   if "Error" in line][-1:]
         # the last kernel check chip_smoke.py printed: the one that failed
@@ -89,7 +107,8 @@ def run(name: str) -> bool:
         print(f"fault {name}: card tests rc {tests.returncode} ({summary}); "
               f"chip_smoke.py rc {smoke.returncode} {errors} {checked}; "
               f"{'caught' if caught else 'NOT CAUGHT'} "
-              f"({time.perf_counter() - t0:.0f} s)", flush=True)
+              f"({time.perf_counter() - t0:.0f} s); failed card tests "
+              f"{failed}", flush=True)
         return caught
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

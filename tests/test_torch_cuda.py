@@ -213,8 +213,21 @@ FLASH_CASES = [            # (b, h, s_q, s_kv, d, causal, kv_valid)
     (1, 2, 300, 300, 128, True, None),      # causal, ragged
     (2, 2, 150, 333, 128, False, 77),       # kv_valid, s_q != s_kv
     (1, 2, 1000, 1000, 128, True, 613),     # causal + kv_valid, ragged
+    # the bf16 backward's 128-row kv tiles: kv_valid at a tile edge and one
+    # past it; kv tiles wholly masked (256 .. 639 beyond kv_valid 130);
+    # causal with s_q < s_kv (kv rows no q reaches) and s_q > s_kv; b*h >=
+    # 132 (a block on every SM); s_kv 4608, dq summed over 36 kv tiles
+    (1, 2, 300, 400, 128, False, 256),
+    (1, 2, 300, 400, 128, False, 257),
+    (1, 2, 200, 700, 128, False, 130),
+    (1, 2, 200, 520, 128, True, None),
+    (1, 2, 520, 200, 128, True, None),
+    (2, 70, 130, 130, 128, False, None),
+    (1, 2, 192, 4608, 128, False, None),
 ]
-FLASH_IDS = ["aligned", "ragged_d64", "causal", "kv_valid", "causal_kv"]
+FLASH_IDS = ["aligned", "ragged_d64", "causal", "kv_valid", "causal_kv",
+             "kv_valid_256", "kv_valid_257", "masked_kv_tiles",
+             "causal_sq_lt_skv", "causal_sq_gt_skv", "bh_140", "skv_4608"]
 
 
 def _qkv(dev, dtype, b, h, s_q, s_kv, d, seed=7):
@@ -273,15 +286,65 @@ def test_flash_backward_matches_plain(dev, dtype, b, h, s_q, s_kv, d, causal,
                                       kv_valid):
     q, k, v, dout = _qkv(dev, dtype, b, h, s_q, s_kv, d)
     out, lse = attn.flash_forward_reference(q, k, v, causal, kv_valid)
-    n = (attn.flash_attention.dq_launches, attn.flash_attention.dkv_launches)
+    n = _bwd_counts()
     got = attn._kernel_backward(q, k, v, out, lse, dout, causal, kv_valid)
     torch.cuda.synchronize()
-    assert (attn.flash_attention.dq_launches,
-            attn.flash_attention.dkv_launches) == (n[0] + 1, n[1] + 1)
+    # bf16: the one backward kernel; f32: the dq and the dk/dv kernels
+    want = (1, 0, 0) if dtype == torch.bfloat16 else (0, 1, 1)
+    assert tuple(a - b for a, b in zip(_bwd_counts(), n)) == want
     want = attn.flash_backward_reference(q, k, v, out, lse, dout, causal,
                                          kv_valid)
     for g_, w_ in zip(got, want):
         _check_grad(g_, w_, dtype)
+
+
+def _bwd_counts():
+    f = attn.flash_attention
+    return f.bwd_launches, f.dq_launches, f.dkv_launches
+
+
+def _poison(like, n=8):
+    """Leave n freed blocks of ``like``'s size filled with NaN in the
+    caching allocator, so that an output the kernel fails to write does
+    not happen to hold zeros."""
+    junk = [torch.full_like(like, float("nan")) for _ in range(n)]
+    del junk
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("s_q,s_kv,causal,kv_valid,zero_from", [
+    (200, 700, False, 130, 130),       # kv rows past kv_valid
+    (200, 520, True, None, 200),       # kv rows past the last q row
+], ids=["kv_valid", "causal"])
+def test_flash_backward_unreached_kv_rows_are_zero(dev, dtype, s_q, s_kv,
+                                                   causal, kv_valid,
+                                                   zero_from):
+    """dk and dv rows that no unmasked q reaches, whole 128-row kv tiles
+    among them, are written as exact zeros."""
+    q, k, v, dout = _qkv(dev, dtype, 1, 2, s_q, s_kv, 128, seed=12)
+    out, lse = attn.flash_forward_reference(q, k, v, causal, kv_valid)
+    _poison(k)
+    _, dk, dv = attn._kernel_backward(q, k, v, out, lse, dout, causal,
+                                      kv_valid)
+    torch.cuda.synchronize()
+    for g_ in (dk, dv):
+        tail = g_[:, :, zero_from:]
+        assert torch.equal(tail, torch.zeros_like(tail))
+        assert bool(torch.isfinite(g_).all())
+
+
+def test_flash_backward_repeatable(dev):
+    """Two runs of the same bf16 backward: dq (summed with atomics, in an
+    order that varies) within 1e-3 relative norm, dk and dv bit-equal."""
+    q, k, v, dout = _qkv(dev, torch.bfloat16, 2, 4, 640, 640, 128, seed=13)
+    out, lse = attn.flash_forward_reference(q, k, v)
+    first = attn._kernel_backward(q, k, v, out, lse, dout, False, None)
+    second = attn._kernel_backward(q, k, v, out, lse, dout, False, None)
+    torch.cuda.synchronize()
+    assert _rel(second[0], first[0]) < 1e-3
+    assert torch.equal(second[1], first[1])
+    assert torch.equal(second[2], first[2])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -306,7 +369,7 @@ def _counts():
     return (mma.mmdit_double_attention.launches,
             mma.mmdit_single_attention.launches,
             mma.mmdit_single_attention.mp_launches,
-            f.launches, f.dq_launches, f.dkv_launches)
+            f.launches, f.bwd_launches, f.dq_launches, f.dkv_launches)
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 128),
@@ -332,7 +395,9 @@ def test_unfused_streams_run_b5(dev, dtype, hd):
     torch.cuda.synchronize()
     after = _counts()
     assert after[:3] == before[:3]                       # no fused kernel
-    assert [a - b for a, b in zip(after[3:], before[3:])] == [1, 1, 1]
+    # B5 once; B6: the bf16 kernel, or the f32 dq and dk/dv kernels
+    want = [1, 0, 1, 1] if dtype == torch.float32 else [1, 1, 0, 0]
+    assert [a - b for a, b in zip(after[3:], before[3:])] == want
     xc = proj.cpu().requires_grad_()
     norm_c = {n: {"scale": w["scale"].cpu()} for n, w in norm.items()}
     ref = mma.mmdit_single_attention(xc, norm_c, cos.cpu(), sin.cpu(), heads,
