@@ -5,18 +5,26 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-(``--parent DIR``, a checkout of the parent commit, adds the parent's bf16
-B6 timed beside this commit's in phase 6.)
+(``--parent DIR``, a checkout of the parent commit, builds the parent's
+fused MMDiT kernels (B1-B3) and generic flash kernels (B5, B6) from its
+``csrc/`` and times each beside this commit's on the same inputs, in
+turns: parent, change, change, parent.)
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
 2. build every CUDA kernel of the stage-2, stage-3, stage-4, int8 serving
    and trainer paths from ``csrc/`` (one ``nvcc`` per source, started
-   together) and print the compiler's register report;
+   together) and print the compiler's register report; for each instance
+   of the shared bf16 forward (``csrc/flash_fwd.cuh``: B1-B3 and B5) its
+   registers and spills, and the count of HGMMA and HMMA instructions in
+   its SASS (``cuobjdump -sass``): it fails unless every instance holds
+   HGMMA and no HMMA (``mma.sync``);
 3. each one-pass kernel at its full-width main-path shape (B = 1, 24
    heads x 128, 1241 text + 4096 image tokens, single-block rows 21504
-   wide) against its plain PyTorch version, with its time, the plain
+   wide) against its plain PyTorch version, then both fused regimes at
+   the padded row space's edges (``EDGES``: text streams of 64, 127, 128
+   and 129 rows, batch 1 and 2), with the main-path shape's time, the plain
    version's, one PyTorch library call's (SDPA on pre-normed q/k/v, a
    yardstick only) and the least time the card could take
    (``bound_ms``);
@@ -26,15 +34,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    single variant at B = 4 x 31866, whose element offsets pass 2^31
    (compared on its last batch element), each against the multi-pass
    plain version;
-5. the int8 kernels against their plain versions: the W8A8 GEMM (B4)
-   with torch.equal at every (M, K, N) of the stage-3 and stage-4 int8
-   paths and at ragged shapes, each path shape timed beside the plain
-   version, torch._int_mm with the same epilogue and the bf16 matmul of
-   the same linear; the int8 attention (B7), int8 QK and int8 QK + P.V,
-   one pass (joint, single) at 5337 tokens and multi-pass at 17625 and
-   31866, each instance under its own bar (I8_BARS), timed beside SDPA,
-   with its two prep kernels' (stats, quant) share of one traced call;
-6. the generic flash kernels (B5 forward; B6 backward: one bf16 kernel,
+5. the generic flash kernels (B5 forward; B6 backward: one bf16 kernel,
    the f32 dq and dk/dv kernels) against their plain versions: a small
    causal + ``kv_valid`` case with ragged lengths in bf16 and f32, four
    ragged bf16 backward cases (RAGGED_BWD), the trainer's attention shape
@@ -42,8 +42,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    plain version's, SDPA's (forward, and its autograd backward for the B6
    rows) and the bound (B6 bf16: the least work, 10*B*H*S^2*D FLOP), and
    B5 above the multi-pass ceiling at (1, 24, 50393, 128) bf16, compared
-   on two heads; with ``--parent`` the parent's bf16 B6 timed in turns
-   with this one (parent, change, change, parent);
+   on two heads; they run right after the MMDiT kernels, so that a fault
+   in B5 or B6 fails the run within a few minutes;
+6. the int8 kernels against their plain versions: the W8A8 GEMM (B4)
+   with torch.equal at every (M, K, N) of the stage-3 and stage-4 int8
+   paths and at ragged shapes, each path shape timed beside the plain
+   version, torch._int_mm with the same epilogue and the bf16 matmul of
+   the same linear; the int8 attention (B7), int8 QK and int8 QK + P.V,
+   one pass (joint, single) at 5337 tokens and multi-pass at 17625 and
+   31866, each instance under its own bar (I8_BARS), timed beside SDPA,
+   with its two prep kernels' (stats, quant) share of one traced call;
 7. B8, the fused GEMM + top-k, against its plain version: torch.equal on
    integer-valued banks with a third of the rows duplicated (exact sums,
    exact ties) at the stage-2 shape (200 queries x 178287 x 512, k 100)
@@ -245,6 +253,64 @@ def phase_build():
                 if any(w in line for w in ("registers", "spill", "entry",
                                            "Performance Loss")):
                     print(f"  ptxas: {line.strip()[:160]}")
+    for path in paths:
+        if path.name.startswith(("libmmdit_attention", "libflash_attention")):
+            _forward_report(path)
+
+
+FORWARD = "fwd_kernel"    # the shared bf16 forward's instances (flash_fwd.cuh)
+
+
+def _forward_report(lib):
+    """Each instance of the shared forward in ``lib``: its registers and
+    spills (the ptxas log) and its HGMMA / HMMA counts (the SASS). Raises
+    unless every instance runs on wgmma (HGMMA) and none on mma.sync
+    (HMMA)."""
+    ptxas, name = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and FORWARD in name:
+            regs = re.search(r"Used (\d+) registers", line)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill"
+                              r" loads", line)
+            if regs:
+                ptxas.setdefault(name, {})["registers"] = int(regs.group(1))
+            if spill:
+                ptxas.setdefault(name, {})["spills"] = (int(spill.group(1)),
+                                                        int(spill.group(2)))
+    from domainrag_tpu_torch.ops import _build
+    cuobjdump = Path(_build._nvcc()).resolve().parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += "HGMMA" in line
+            counts[name][1] += bool(re.search(r"\bHMMA\b", line))
+    found = [n for n in counts if FORWARD in n]
+    if not found:
+        raise AssertionError(f"{lib.name}: no instance of the shared forward")
+    for n in found:
+        info = ptxas.get(n, {})
+        hgmma, hmma = counts[n]
+        print(f"forward {n}: {info.get('registers')} registers, spill "
+              f"stores/loads {info.get('spills')} bytes; SASS HGMMA {hgmma},"
+              f" HMMA {hmma}")
+        if hgmma == 0 or hmma:
+            raise AssertionError(f"{n}: expected wgmma (HGMMA) and no "
+                                 f"mma.sync (HMMA)")
+
+
+def _fused_fwd(kernel: str) -> bool:
+    """A profiled kernel of the fused bf16 MMDiT attention (B1-B3): the
+    shared forward's Fused instances or their prep."""
+    return ("fwd_kernel" in kernel and "Fused<" in kernel) \
+        or "norm_rope_kernel" in kernel
 
 
 def _rope_tables(dev, grid=SIZE // 16):
@@ -290,16 +356,17 @@ def _check(name, got, want, bar=(ATOL, RTOL, REL_NORM)):
 
 def _cat(x):
     import torch
-    return torch.cat(x, 1) if isinstance(x, tuple) else x
+    return torch.cat(tuple(x), 1) if isinstance(x, (tuple, list)) else x
 
 
 def _row(name, replaces, kernel, plain, prenormed, bound, reps,
-         compare=None, bar=(ATOL, RTOL, REL_NORM)):
+         compare=None, bar=(ATOL, RTOL, REL_NORM), parent=None):
     """One kernel's line: held against its plain version within ``bar``
     (on ``compare``'s pair when given, else on the whole outputs), then
     timed beside the plain version and SDPA on the pre-normed q/k/v
-    (B, H, S, D). ``reps``: (kernel, plain, plain warm-up, SDPA)
-    repetitions."""
+    (B, H, S, D); with ``parent`` (the parent commit's kernel on the same
+    inputs) that one timed in turns with this one. ``reps``: (kernel,
+    plain, plain warm-up, SDPA) repetitions."""
     import torch
     import torch.nn.functional as F
     got, want = compare() if compare else (_cat(kernel()), _cat(plain()))
@@ -316,6 +383,9 @@ def _row(name, replaces, kernel, plain, prenormed, bound, reps,
     row["library_ms"] = _ms(lambda: F.scaled_dot_product_attention(q, k, v),
                             reps[3])
     del q, k, v
+    if parent is not None:
+        _in_turns(name, parent, kernel, reps[0],
+                  [_rel_norm(_cat(parent()), _cat(kernel()))])
     print(f"kernel {name}: ms {row['ms']:.3f} plain_ms "
           f"{row['plain_ms']:.3f} library_ms {row['library_ms']:.3f} "
           f"bound_ms {row['bound_ms']:.3f} ({row['bound_by']})")
@@ -358,6 +428,11 @@ def phase_kernels(dev):
     proj = randn(1, s_tot, 7 * hd)
     tn, inorm, sn = norm(), norm(), norm()
     w = lambda n: (n["q"]["scale"], n["k"]["scale"])     # noqa: E731
+    parents = [None, None]
+    if PARENT:
+        parents = [_parent_fused([txt, img], [w(tn), w(inorm)], cos, sin,
+                                 False),
+                   _parent_fused([proj], [w(sn)], cos, sin, False)]
     cases = [
         ("mmdit_joint_attention", "ops/mmdit_attention.py:400",
          lambda: mma.mmdit_double_attention(
@@ -373,7 +448,62 @@ def phase_kernels(dev):
          lambda: mma.prenormed_single(proj, *w(sn), cos, sin, HEADS, HD)),
     ]
     bound = _bound(1, s_tot)
-    return {case[0]: _row(*case, bound, (20, 5, 2, 20)) for case in cases}
+    rows = {case[0]: _row(*case, bound, (20, 5, 2, 20), parent=par)
+            for case, par in zip(cases, parents)}
+    del txt, img, proj
+    _edge_checks(dev, randn, norm)
+    return rows
+
+
+# (batch, text rows, image rows) at the padded row space's edges: the text
+# stream under, at and over a 128-row tile boundary
+EDGES = ((2, 64, 192), (1, 127, 200), (2, 128, 128), (1, 129, 77))
+
+
+def _edge_checks(dev, randn, norm):
+    """The fused bf16 kernels (B1-B3) at EDGES, one pass and multi-pass
+    (the one-pass ceiling lowered), double and single block (a ragged
+    tail), against the plain versions: the gap and tail keys are a large
+    share of these keys, so a kernel that counts them fails the bar, where
+    at the main path's 1241 + 4096 tokens the 39 gap keys move the output
+    by less than it."""
+    import torch
+    from domainrag_tpu_torch.ops import attention as attn
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+    w = lambda n: (n["q"]["scale"], n["k"]["scale"])     # noqa: E731
+    onepass = mma._MAX_ONEPASS
+    try:
+        for mp in (False, True):
+            mma._MAX_ONEPASS = 64 if mp else onepass
+            for batch, s_txt, s_img in EDGES:
+                s_tot = s_txt + s_img
+                txt, img = randn(batch, s_txt, 3 * HEADS * HD), \
+                    randn(batch, s_img, 3 * HEADS * HD)
+                proj = randn(batch, s_tot, 7 * HEADS * HD)
+                ang = randn(s_tot, HD // 2).float() * 3.0
+                cos, sin = torch.cos(ang), torch.sin(ang)
+                tn, inorm, sn = norm(), norm(), norm()
+                got = (torch.cat(mma.mmdit_double_attention(
+                    txt, img, tn, inorm, cos, sin, HEADS, HD), 1),
+                    mma.mmdit_single_attention(proj, sn, cos, sin, HEADS, HD))
+                if mp:
+                    want = (torch.cat(mma.reference_mp_double(
+                        txt, img, *w(tn), *w(inorm), cos, sin, HEADS, HD), 1),
+                        mma.reference_mp_single(proj, *w(sn), cos, sin, HEADS,
+                                                HD))
+                else:
+                    with attn.dense_attention():
+                        want = (torch.cat(mma.reference_double(
+                            txt, img, *w(tn), *w(inorm), cos, sin, HEADS,
+                            HD), 1), mma.reference_single(
+                                proj, *w(sn), cos, sin, HEADS, HD))
+                regime = "mp" if mp else "one-pass"
+                _check(f"mmdit {regime} double {batch}x({s_txt}+{s_img})",
+                       got[0], want[0])
+                _check(f"mmdit {regime} single {batch}x{s_tot}", got[1],
+                       want[1])
+    finally:
+        mma._MAX_ONEPASS = onepass
 
 
 def phase_mp_kernels(dev):
@@ -436,7 +566,9 @@ def phase_mp_kernels(dev):
                     txt, img, tn, inorm, cos, sin, HEADS, HD),
                 lambda: mma.reference_mp_double(
                     txt, img, *w(tn), *w(inorm), cos, sin, HEADS, HD),
-                prenormed_double, _bound(1, s_tot), (10, 2, 1, 10))
+                prenormed_double, _bound(1, s_tot), (10, 2, 1, 10),
+                parent=_parent_fused([txt, img], [w(tn), w(inorm)], cos, sin,
+                                     True) if PARENT else None)
             del txt, img
         proj, sn = randn(batch, s_tot, 7 * hd), norm()
         name = "mmdit_mp_seq_attention" + suffix
@@ -460,7 +592,9 @@ def phase_mp_kernels(dev):
                                             HD),
             prenormed_single, _bound(batch, s_tot),
             (10, 1 if batch > 1 else 2, 1, 10),
-            compare=last_element if batch > 1 else None)
+            compare=last_element if batch > 1 else None,
+            parent=_parent_fused([proj], [w(sn)], cos, sin, True)
+            if PARENT else None)
         del proj
         torch.cuda.empty_cache()
     return rows
@@ -783,7 +917,7 @@ def phase_profile(bundle, size, out_name):
             groups["B4 W8A8 GEMM (csrc)"] += ms
         elif re.search(r"(attn|stats|quant)_kernel<", name):
             groups["B7 int8 attention (csrc)"] += ms
-        elif "flash_kernel" in name or "norm_rope_kernel" in name:
+        elif _fused_fwd(name):
             groups["attention (csrc)"] += ms
         elif re.search(r"gemm|nvjet|cutlass|xmma|cublas", name, re.I):
             groups["GEMM (cuBLAS)"] += ms
@@ -1533,54 +1667,153 @@ def _poison(like, n=8):
     del junk
 
 
-def _parent_b6(buf, change, reps):
-    """The parent commit's bf16 B6 (its mma.sync dq and dk/dv kernels,
-    built from PARENT's csrc) on the same inputs as ``buf``, timed in turns
-    with this commit's ``change``: parent, change, change, parent."""
+_PARENT_LIBS = {}
+
+
+def _parent_lib(name):
+    """The parent commit's ``csrc/<name>.cu`` (PARENT), built once into
+    ``build/parent``."""
+    import ctypes
+    from domainrag_tpu_torch.ops import _build
+    lib = _PARENT_LIBS.get(name)
+    if lib is None:
+        src = Path(PARENT) / "domainrag_tpu_torch" / "csrc" / f"{name}.cu"
+        path = _build.BUILD / "parent" / f"lib{name}.so"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_build._nvcc(), *_build.FLAGS, "-o",
+                               str(path), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the parent's {name}.cu:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        lib = _PARENT_LIBS[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def _in_turns(tag, parent, change, reps, agree):
+    """``parent`` and ``change`` timed in turns (parent, change, change,
+    parent); prints one line with the parent's outputs' relative norms
+    against this commit's (``agree``)."""
+    t = [_ms(parent, reps), _ms(change, reps), _ms(change, reps),
+         _ms(parent, reps)]
+    print(f"{tag} parent vs this commit (parent, change, change, parent): "
+          f"{t[0]:.3f} / {t[1]:.3f} / {t[2]:.3f} / {t[3]:.3f} ms; the "
+          f"parent's outputs within "
+          + " / ".join(f"{a:.2e}" for a in agree)
+          + " (relative norm) of this commit's")
+    return t
+
+
+def _rel_norm(x, y):
+    return ((x.float() - y.float()).norm() / y.float().norm()).item()
+
+
+def _parent_fused(streams, norms, cos, sin, multipass):
+    """The parent commit's fused bf16 MMDiT kernels (its mma.sync forward
+    and prep, unpadded (B, H, S, 128) scratch) on the same row sources:
+    returns a call that launches them and gives one output per stream."""
     import ctypes
     import torch
-    from domainrag_tpu_torch.ops import _build
-    src = Path(PARENT) / "domainrag_tpu_torch" / "csrc" / "flash_attention.cu"
-    lib_path = _build.BUILD / "parent" / "libflash_attention.so"
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.FLAGS, "-o",
-                           str(lib_path), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the parent's source:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    fn = ctypes.CDLL(str(lib_path)).flash_bwd
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+    lib = _parent_lib("mmdit_attention")
+    fn = lib.mmdit_attention_mp if multipass else lib.mmdit_attention
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [p, ll, ll, i, p, ll, ll, i] + [p] * 10 + [
+        i, i, ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    dev, b, lens, cos, sin, ws = mma._prepare(streams, norms, cos, sin,
+                                              HEADS, HD)
+    qs = torch.empty((b, HEADS, sum(lens), HD), dtype=torch.bfloat16,
+                     device=dev)
+    ks = torch.empty_like(qs)
+    outs = [torch.empty((b, n, HEADS * HD), dtype=torch.bfloat16,
+                        device=dev) for n in lens]
+
+    def run():
+        rc = fn(*mma._rows_args(streams, lens, ws), cos.data_ptr(),
+                sin.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+                outs[0].data_ptr(), outs[-1].data_ptr(), b, HEADS,
+                mma.LOG2_E / math.sqrt(HD),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's fused kernel failed: CUDA "
+                               f"error {rc}")
+        return outs
+    return run
+
+
+def _parent_b5(q, k, v):
+    """The parent commit's bf16 B5 (its mma.sync forward) on the same
+    (B, H, S, 128) inputs as ``attn._kernel_forward(q, k, v, False,
+    None)``: returns a call that launches it and gives (out, lse)."""
+    import ctypes
+    import torch
+    from domainrag_tpu_torch.ops import attention as attn
+    fn = _parent_lib("flash_attention").flash_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i] + [p] * 9 + [i] * 6 + [ctypes.c_float, p]
+    fn.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
+    fn.restype = ctypes.c_int
+    b, h, s_q, d = q.shape
+    s_kv = k.shape[2]
+    kp, vp = attn._rows(k), attn._rows(v)
+    out = torch.empty((b * h, s_q, HD), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)
+
+    def run():
+        qp = attn._rows(q * (attn.LOG2_E / math.sqrt(d)))
+        rc = fn(0, qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), b * h, s_q, s_kv, s_kv, 0,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's B5 failed: CUDA error {rc}")
+        return out.reshape(q.shape), lse.reshape(b, h, s_q)
+    return run
+
+
+def _parent_b5_turns(name, q, k, v, out, lse, reps):
+    """The parent's bf16 B5 on this row's inputs, timed in turns with this
+    commit's; ``out`` and ``lse`` are this commit's outputs."""
+    from domainrag_tpu_torch.ops import attention as attn
+    parent = _parent_b5(q, k, v)
+    p_out, p_lse = parent()
+    _in_turns(name, parent,
+              lambda: attn._kernel_forward(q, k, v, False, None), reps,
+              [_rel_norm(p_out, out), _rel_norm(p_lse, lse)])
+    del p_out, p_lse
+
+
+def _parent_b6(buf, change, reps):
+    """The parent commit's bf16 B6 (PARENT's csrc) on the same inputs as
+    ``buf``, timed in turns with this commit's ``change``."""
+    import ctypes
+    import torch
+    fn = _parent_lib("flash_attention").flash_bwd_bf16
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, p]
     fn.restype = ctypes.c_int
     b, h, s_q, s_kv, d = buf.shape
-    lse = buf.lse[:, :s_q].contiguous()
-    delta = buf.delta[:, :s_q].contiguous()
-    dq, dk, dv = (torch.empty_like(t) for t in (buf.q, buf.k, buf.v))
+    dq_accum = torch.empty_like(buf.dq_accum)
+    dk, dv = torch.empty_like(buf.dk), torch.empty_like(buf.dv)
     stream = torch.cuda.current_stream().cuda_stream
 
     def parent():
-        for which in (0, 1):
-            rc = fn(0, buf.q.data_ptr(), buf.k.data_ptr(), buf.v.data_ptr(),
-                    buf.dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), which,
-                    b * h, s_q, s_kv, buf.kv_valid, int(buf.causal),
-                    1.0 / math.sqrt(d), stream)
-            if rc != 0:
-                raise RuntimeError(f"the parent's B6 failed: CUDA error {rc}")
+        dq_accum.zero_()
+        rc = fn(buf.q.data_ptr(), buf.k.data_ptr(), buf.v.data_ptr(),
+                buf.dout.data_ptr(), buf.lse.data_ptr(), buf.delta.data_ptr(),
+                dq_accum.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h,
+                s_q, s_kv, buf.kv_valid, int(buf.causal), 1.0 / math.sqrt(d),
+                stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's B6 failed: CUDA error {rc}")
 
     parent()
     change()
     torch.cuda.synchronize()
-    agree = [((x.float() - y.float()).norm() / y.float().norm()).item()
-             for x, y in ((dq, buf.dq), (dk, buf.dk), (dv, buf.dv))]
-    t = [_ms(parent, reps), _ms(change, reps), _ms(change, reps),
-         _ms(parent, reps)]
-    print(f"B6 bf16 parent vs this commit (parent, change, change, parent): "
-          f"{t[0]:.3f} / {t[1]:.3f} / {t[2]:.3f} / {t[3]:.3f} ms; the "
-          f"parent's dq / dk / dv within {agree[0]:.2e} / {agree[1]:.2e} / "
-          f"{agree[2]:.2e} (relative norm) of this commit's")
-    del dq, dk, dv
+    dq = dq_accum.reshape(buf.dq.shape) / math.sqrt(d)
+    _in_turns("B6 bf16", parent, change, reps,
+              [_rel_norm(x, y) for x, y in ((dq, buf.dq), (dk, buf.dk),
+                                            (dv, buf.dv))])
+    del dq_accum, dk, dv
 
 
 def phase_flash_kernels(dev):
@@ -1658,6 +1891,8 @@ def phase_flash_kernels(dev):
             _ms(lambda: attn.flash_forward_reference(q, k, v), reps[1], 1),
             _ms(lambda: F.scaled_dot_product_attention(q, k, v), reps[2]),
             _flash_bound(4, shape, f32))
+        if PARENT and not f32:
+            _parent_b5_turns(name, q, k, v, out, lse, reps[0])
         # backward from the plain forward's out/lse
         buf = attn.backward_buffers(q, k, v, want, want_lse, do, False)
         attn.launch_backward(buf)
@@ -1708,7 +1943,7 @@ def phase_flash_kernels(dev):
                      want)
     if (lse[:, :2] - want_lse).abs().max().item() > LSE_ATOL:
         raise AssertionError("flash_fwd long: lse disagrees")
-    del out, want
+    del want
     name = f"flash_fwd_bf16_b1_s{S_LONG}"
     rows[name] = _flash_row(
         name, "ops/attention.py:43", max_abs,
@@ -1716,7 +1951,9 @@ def phase_flash_kernels(dev):
         _ms(lambda: attn.flash_forward_reference(q, k, v), 1, 0),
         _ms(lambda: F.scaled_dot_product_attention(q, k, v), 3),
         _flash_bound(4, shape, False))
-    del q, k, v
+    if PARENT:
+        _parent_b5_turns(name, q, k, v, out, lse, 3)
+    del q, k, v, out, lse
     torch.cuda.empty_cache()
     return rows
 
@@ -2061,9 +2298,9 @@ def phase_profile_train(dev, cfg, params, batches):
     groups = {"fused forward (B1/B2)": 0.0, "B5": 0.0, "B6": 0.0,
               "GEMM (cuBLAS)": 0.0, "optimizer": 0.0, "other": 0.0}
     for ms, _, name in kernels:
-        if "flash_kernel" in name or "norm_rope_kernel" in name:
+        if _fused_fwd(name):
             groups["fused forward (B1/B2)"] += ms
-        elif "fwd_bf16_kernel" in name or "fwd_simt_kernel" in name:
+        elif "FwdRows" in name or "fwd_simt_kernel" in name:
             groups["B5"] += ms
         elif re.search(r"bwd_bf16_kernel|(dq|dkv)_simt_kernel", name):
             groups["B6"] += ms
@@ -2574,8 +2811,9 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout of the parent commit: its bf16 B6 is "
-                         "built and timed beside this commit's")
+                    help="a checkout of the parent commit: its B1-B3, B5 "
+                         "and bf16 B6 are built and timed beside this "
+                         "commit's")
     PARENT = ap.parse_args().parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2592,9 +2830,9 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(dev)
     rows.update(phase_mp_kernels(dev))
+    rows.update(phase_flash_kernels(dev))
     rows.update(phase_int8_gemm(dev))
     rows.update(phase_int8_attention(dev))
-    rows.update(phase_flash_kernels(dev))
     rows.update(phase_topk_kernel(dev))
     phase_retrieval(dev, rows)
     phase_small_slice(dev)

@@ -20,9 +20,9 @@
 // Math (as the TPU kernels):
 //   forward  q arrives prescaled by log2(e)/sqrt(D) and rounded to its
 //            dtype; s = q k^T in f32; columns >= kv_valid, and with causal
-//            columns > row, are masked to -1e30 and their p set to 0
-//            explicitly (:89-93); exp2 online softmax, P rounded to the
-//            input dtype for P.V; out = o / max(l, 1e-30) and
+//            columns > row, are masked (-1e30 in f32, -inf in bf16) and
+//            their p set to 0 explicitly (:89-93); exp2 online softmax, P
+//            rounded to the input dtype for P.V; out = o / max(l, 1e-30) and
 //            lse = m*ln2 + log(max(l, 1e-30)) (natural log).
 //   backward p = exp(s * (1/sqrt(D)) - lse) on an UNscaled q, in natural
 //            units (bwd_prob; the bf16 kernel as exp2(s * log2(e)/sqrt(D) -
@@ -31,11 +31,15 @@
 //            dk = ds^T q/sqrt(D), dv = p^T dO.
 //
 // Instances.
-//  * bf16 forward: tensor cores through mma.sync m16n8k16 (bf16 in, f32
-//    accumulate), tiles in shared memory by cp.async (double-buffered),
-//    XOR-swizzled 16-byte chunks for conflict-free ldmatrix - the design of
-//    flash_kernel in mmdit_attention.cu: 4 warps x two 16-row q tiles = 128
-//    q rows per block, 64-row K/V tiles.
+//  * bf16 forward: the shared forward of flash_fwd.cuh (FlashAttention-3's
+//    design for head_dim 128: a producer warpgroup TMA-loading Q once and
+//    128-key K/V tiles into a 2-stage ring, two consumer warpgroups of 64 q
+//    rows each on wgmma, ping-ponging at the tensor cores; its header gives
+//    the design). FwdRows is its front-end: (bh, S, 128) rows through
+//    tensor maps (zeros past each (b, h)'s rows), the kv_valid and causal
+//    masks on the tiles that need them, causal blocks stopping at the last
+//    kv tile any of their rows reaches (and launched longest first), and
+//    the epilogue that writes out and lse.
 //  * bf16 backward (FlashAttention-3's design for head_dim 128, on the
 //    primitives of hopper.cuh): one block per (b*h, 128 kv rows), causal
 //    blocks starting at the first q tile that reaches their rows. Warpgroup
@@ -82,15 +86,13 @@
 //   and do 14*B*H*S^2*D. Every call is compute-bound; the B*H*S^2
 //   exponentials also load the special-function units.
 
-#include "hopper.cuh"
+#include "flash_fwd.cuh"
 
 namespace {
 
 constexpr int D = 128;                  // padded head_dim
-constexpr int THREADS = 128;            // mma kernels: 4 warps
-constexpr int BN = 64;                  // kv rows per tile
+constexpr int BN = 64;                  // kv rows per tile of the f32 kernels
 constexpr int BQ = 64;                  // q rows per tile of the backward
-constexpr int TILE = 64 * D;            // elements of a 64-row tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LN_2 = 0.6931471805599453f;
 
@@ -106,284 +108,49 @@ __device__ __forceinline__ bool keep(int row, int col, int kv_valid,
 }
 
 // ---------------------------------------------------------------------------
-// tiles (PTX helpers in common.cuh)
+// B5, bf16: the front-end of the shared forward (flash_fwd.cuh); grid
+// (ceil(s_q / 128), bh)
 // ---------------------------------------------------------------------------
 
-// Element offset of 16-byte chunk c (0..15) of row `row` in a swizzled
-// (rows, 128) bf16 tile: chunk c lives at c ^ (row & 7).
-__device__ __forceinline__ int swz(int row, int c) {
-  return row * D + ((c ^ (row & 7)) << 3);
-}
+struct FwdRows {
+  static constexpr bool SCALE_S = false;   // q arrives prescaled
+  CUtensorMap tq, tk, tv;    // (bh, S, 128) rows, boxes of 128 x 64 lanes
+  bf16* out;                 // (bh, s_q, 128)
+  float* lse;                // (bh, s_q), natural log
+  int s_q, kv_valid, causal;
+  float s_scale;             // unused
 
-// ROWS rows of 128 from `base` (row stride D) starting at row0; rows >=
-// limit are zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base,
-                                          int row0, int limit, int tid) {
-#pragma unroll
-  for (int i = 0; i < ROWS * 16 / THREADS; ++i) {
-    const int idx = tid + i * THREADS;
-    const int row = idx >> 4, c = idx & 15;
-    const bool ok = row0 + row < limit;
-    const bf16* src = ok ? base + (long long)(row0 + row) * D + c * 8 : base;
-    cp_async16(tile + swz(row, c), src, ok);
+  // causal blocks run last row block first: the longest go first
+  __device__ int q0() const {
+    return (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * fwd::BM;
   }
-}
-
-// A operand (16 rows x 16 k) from a swizzled row-major tile: rows m, cols k
-__device__ __forceinline__ void frag_a(uint32_t (&r)[4], const bf16* tile,
-                                       int row0, int kk, int lane) {
-  ldmatrix_x4(r, tile + swz(row0 + (lane & 15), 2 * kk + (lane >> 4)));
-}
-
-// B operands of two 8-column n tiles from a tile whose rows are n and
-// columns k: r[0..1] n rows row0..row0+7, r[2..3] rows row0+8..row0+15
-__device__ __forceinline__ void frag_b(uint32_t (&r)[4], const bf16* tile,
-                                       int row0, int kk, int lane) {
-  const int mi = lane >> 3;
-  ldmatrix_x4(r, tile + swz(row0 + ((mi >> 1) << 3) + (lane & 7),
-                            2 * kk + (mi & 1)));
-}
-
-// B operands of two 8-column n tiles (columns 16*t2 ..) from a tile whose
-// rows are k (row0 .. row0+15) and columns n
-__device__ __forceinline__ void frag_b_trans(uint32_t (&r)[4],
-                                             const bf16* tile, int row0,
-                                             int t2, int lane) {
-  const int mi = lane >> 3;
-  ldmatrix_x4_trans(r, tile + swz(row0 + ((mi & 1) << 3) + (lane & 7),
-                                  2 * t2 + (mi >> 1)));
-}
-
-// A operand of one 16-wide k step from C fragments c[2*jj], c[2*jj+1]
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Write a warp's 16 x 128 C fragment (rows row0 + g, row0 + g + 8) into a
-// swizzled bf16 tile, scaled by `mul`.
-__device__ __forceinline__ void c_to_tile(bf16* tile, const float (&c)[16][4],
-                                          int row0, float mul0, float mul1,
-                                          int lane) {
-  const int g = lane >> 2, tig = lane & 3;
-  const int r0 = row0 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    const int col = 8 * t + 2 * tig;
-    const int ch = col >> 3, e = col & 7;
-    *reinterpret_cast<uint32_t*>(tile + swz(r0, ch) + e) =
-        pack_bf16(c[t][0] * mul0, c[t][1] * mul0);
-    *reinterpret_cast<uint32_t*>(tile + swz(r1, ch) + e) =
-        pack_bf16(c[t][2] * mul1, c[t][3] * mul1);
+  // the kv tiles up to kv_valid; causal blocks stop at the last tile any
+  // of their rows reaches
+  __device__ int tiles(int q0_) const {
+    int n = (kv_valid + fwd::BN - 1) / fwd::BN;
+    if (causal) n = min(n, (min(q0_ + fwd::BM, s_q) - 1) / fwd::BN + 1);
+    return n;
   }
-}
-
-// ROWS rows of a swizzled tile to global rows row0.. (< limit), stride D
-template <int ROWS>
-__device__ __forceinline__ void store_tile(bf16* base, const bf16* tile,
-                                           int row0, int limit, int tid) {
-#pragma unroll
-  for (int i = 0; i < ROWS * 16 / THREADS; ++i) {
-    const int idx = tid + i * THREADS;
-    const int row = idx >> 4, c = idx & 15;
-    if (row0 + row >= limit) continue;
-    *reinterpret_cast<uint4*>(base + (long long)(row0 + row) * D + c * 8) =
-        *reinterpret_cast<const uint4*>(tile + swz(row, c));
+  __device__ int valid(int t) const {
+    return min(fwd::BN, kv_valid - t * fwd::BN);
   }
-}
-
-// ---------------------------------------------------------------------------
-// B5, bf16: streaming forward on the tensor cores
-// ---------------------------------------------------------------------------
-
-constexpr int MT = 2;                            // 16-row q tiles per warp
-constexpr int FWD_BM = 4 * 16 * MT;              // q rows per block (128)
-constexpr int FWD_SMEM = (FWD_BM * D + 4 * TILE) * 2;   // Q + 2K + 2V: 96 KB
-
-__global__ void __launch_bounds__(THREADS)
-    fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out,
-                    float* __restrict__ lse, int s_q, int s_kv, int kv_valid,
-                    int causal) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + FWD_BM * D;
-  bf16* sV = sK + 2 * TILE;
-
-  const int q0 = blockIdx.x * FWD_BM;
-  const long long bh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const bf16* qbase = q + bh * s_q * D;
-  const bf16* kbase = k + bh * s_kv * D;
-  const bf16* vbase = v + bh * s_kv * D;
-
-  int n_kv = (kv_valid + BN - 1) / BN;
-  if (causal) n_kv = min(n_kv, (min(q0 + FWD_BM, s_q) - 1) / BN + 1);
-
-  load_tile<FWD_BM>(sQ, qbase, q0, s_q, tid);
-  load_tile<BN>(sK, kbase, 0, kv_valid, tid);
-  load_tile<BN>(sV, vbase, 0, kv_valid, tid);
-  cp_async_commit();
-
-  float o[MT][16][4];
-  float m[MT][2], l[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int t = 0; t < 16; ++t)
-      o[mt][t][0] = o[mt][t][1] = o[mt][t][2] = o[mt][t][3] = 0.f;
-    m[mt][0] = m[mt][1] = NEG_INF;
-    l[mt][0] = l[mt][1] = 0.f;
+  __device__ void load_q(unsigned char* dst, int q0_, uint64_t* bar) const {
+    fwd::load_tile(dst, &tq, 0, q0_, blockIdx.y, bar);
   }
-  const int wrow = warp * 16 * MT;
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_kv) {
-      load_tile<BN>(sK + (buf ^ 1) * TILE, kbase, (j + 1) * BN, kv_valid,
-                    tid);
-      load_tile<BN>(sV + (buf ^ 1) * TILE, vbase, (j + 1) * BN, kv_valid,
-                    tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* tk = sK + buf * TILE;
-    const bf16* tv = sV + buf * TILE;
-
-    float s[MT][8][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-        s[mt][t][0] = s[mt][t][1] = s[mt][t][2] = s[mt][t][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      uint32_t qa[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) frag_a(qa[mt], sQ, wrow + 16 * mt, kk,
-                                             lane);
-#pragma unroll
-      for (int p = 0; p < BN / 16; ++p) {
-        uint32_t kb[4];
-        frag_b(kb, tk, 16 * p, kk, lane);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][2 * p], qa[mt], kb[0], kb[1]);
-          mma_bf16(s[mt][2 * p + 1], qa[mt], kb[2], kb[3]);
-        }
-      }
-    }
-
-    const int kv0 = j * BN;
-    const bool masked =
-        kv0 + BN > kv_valid || (causal && kv0 + BN - 1 > q0 + wrow);
-    if (masked) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int r0 = q0 + wrow + 16 * mt + g, r1 = r0 + 8;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int col = kv0 + 8 * t + 2 * tig;
-          if (!keep(r0, col, kv_valid, causal)) s[mt][t][0] = NEG_INF;
-          if (!keep(r0, col + 1, kv_valid, causal)) s[mt][t][1] = NEG_INF;
-          if (!keep(r1, col, kv_valid, causal)) s[mt][t][2] = NEG_INF;
-          if (!keep(r1, col + 1, kv_valid, causal)) s[mt][t][3] = NEG_INF;
-        }
-      }
-    }
-
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      float mx0 = m[mt][0], mx1 = m[mt][1];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        mx0 = fmaxf(mx0, fmaxf(s[mt][t][0], s[mt][t][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[mt][t][2], s[mt][t][3]));
-      }
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float corr0 = exp2f(m[mt][0] - mx0);
-      const float corr1 = exp2f(m[mt][1] - mx1);
-      m[mt][0] = mx0;
-      m[mt][1] = mx1;
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float mx = e < 2 ? mx0 : mx1;
-          // a masked column's p is 0 even where the whole row is masked
-          // so far (s == m == -1e30 would give exp2(0) = 1)
-          s[mt][t][e] = (masked && s[mt][t][e] == NEG_INF)
-                            ? 0.f : exp2f(s[mt][t][e] - mx);
-        }
-        ps0 += s[mt][t][0] + s[mt][t][1];
-        ps1 += s[mt][t][2] + s[mt][t][3];
-      }
-      l[mt][0] = l[mt][0] * corr0 + ps0;
-      l[mt][1] = l[mt][1] * corr1 + ps1;
-#pragma unroll
-      for (int t = 0; t < 16; ++t) {
-        o[mt][t][0] *= corr0;
-        o[mt][t][1] *= corr0;
-        o[mt][t][2] *= corr1;
-        o[mt][t][3] *= corr1;
-      }
-    }
-
-#pragma unroll
-    for (int jj = 0; jj < BN / 16; ++jj) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        c_to_a(a[mt], s[mt][2 * jj], s[mt][2 * jj + 1]);
-#pragma unroll
-      for (int t2 = 0; t2 < 8; ++t2) {
-        uint32_t vb[4];
-        frag_b_trans(vb, tv, 16 * jj, t2, lane);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(o[mt][2 * t2], a[mt], vb[0], vb[1]);
-          mma_bf16(o[mt][2 * t2 + 1], a[mt], vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();
+  __device__ void load_k(unsigned char* dst, int t, uint64_t* bar) const {
+    fwd::load_tile(dst, &tk, 0, t * fwd::BN, blockIdx.y, bar);
   }
-
-  float* lse_row = lse + bh * s_q;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    float l0 = l[mt][0], l1 = l[mt][1];
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-    l0 = fmaxf(l0, 1e-30f);
-    l1 = fmaxf(l1, 1e-30f);
-    const int r0 = q0 + wrow + 16 * mt + g, r1 = r0 + 8;
-    if (tig == 0) {
-      if (r0 < s_q) lse_row[r0] = m[mt][0] * LN_2 + logf(l0);
-      if (r1 < s_q) lse_row[r1] = m[mt][1] * LN_2 + logf(l1);
-    }
-    c_to_tile(sQ, o[mt], wrow + 16 * mt, 1.f / l0, 1.f / l1, lane);
+  __device__ void load_v(unsigned char* dst, int t, uint64_t* bar) const {
+    fwd::load_tile(dst, &tv, 0, t * fwd::BN, blockIdx.y, bar);
   }
-  __syncthreads();
-  store_tile<FWD_BM>(out + bh * s_q * D, sQ, q0, s_q, tid);
-}
+  __device__ void store(int r, int hr, const float (&o)[64], float l, float m,
+                        int tig) const {
+    if (r >= s_q) return;
+    const long long row = (long long)blockIdx.y * s_q + r;
+    fwd::store_row(out + row * D, o, hr, 1.f / l, tig);
+    if (tig == 0) lse[row] = m * LN_2 + logf(l);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // f32 instances: FMA on the CUDA cores
@@ -1000,19 +767,6 @@ int bwd_simt(int which, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// (bh, rows, 128) bf16 rows as a tensor map: boxes of `box` rows x 64
-// lanes (128 bytes), zeros past each (b, h)'s last row.
-bool map_rows(CUtensorMap* map, const void* base, int rows, int bh,
-              int box) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)rows * D * 2};
-  const cuuint32_t boxes[3] = {64, (cuuint32_t)box, 1};
-  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
-                  strides, boxes);
-}
-
 // (bh, rows, 128) f32 as a tensor map: boxes of 64 rows x 32 lanes (128
 // bytes); a reduce past each (b, h)'s last row writes nothing.
 bool map_rows_f32(CUtensorMap* map, void* base, int rows, int bh) {
@@ -1042,14 +796,18 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
   if (dtype == 1)
     return fwd_simt(q, k, v, out, lse, bh, s_q, s_kv, kv_valid, causal, st);
   if (dtype != 0) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = allow_smem(fwd_bf16_kernel, FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  fwd_bf16_kernel<<<dim3((s_q + FWD_BM - 1) / FWD_BM, bh), THREADS, FWD_SMEM,
-                    st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), s_q, s_kv, kv_valid, causal);
-  return (int)cudaGetLastError();
+  FwdRows fe;
+  if (!(map_rows(&fe.tq, q, s_q, bh, fwd::BM) &&
+        map_rows(&fe.tk, k, s_kv, bh, fwd::BN) &&
+        map_rows(&fe.tv, v, s_kv, bh, fwd::BN)))
+    return (int)cudaErrorInvalidValue;
+  fe.out = static_cast<bf16*>(out);
+  fe.lse = static_cast<float*>(lse);
+  fe.s_q = s_q;
+  fe.kv_valid = kv_valid;
+  fe.causal = causal;
+  fe.s_scale = 1.f;
+  return fwd::launch(fe, dim3((s_q + fwd::BM - 1) / fwd::BM, bh), st);
 }
 
 // B6, bf16: dq, dk and dv in one launch. lse and delta: (bh, s_q_pad) f32,

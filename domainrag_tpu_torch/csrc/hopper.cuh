@@ -1,9 +1,10 @@
 // Hopper (sm_90a) primitives shared by the package's CUDA sources:
 // mbarriers, TMA tensor and bulk copies, named barriers, the wgmma forms
-// and their shared-memory descriptors, and the host-side tensor-map
-// encoder. Included by int8_attention.cu (B7) and flash_attention.cu
-// (B6); ops/_build.py hashes every csrc/*.cuh with each source, so a
-// change here rebuilds both.
+// and their shared-memory descriptors, and the host-side tensor maps
+// (the encoder, (bh, rows, 128) rows, lanes read in place). Included by int8_attention.cu (B7) and, through flash_fwd.cuh,
+// by flash_attention.cu (B5, B6) and mmdit_attention.cu (B1-B3);
+// ops/_build.py hashes every csrc/*.cuh with each source, so a change
+// here rebuilds all of them.
 
 #pragma once
 
@@ -273,6 +274,43 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (+)= a * b, m64n128k16, bf16 in, f32 out; A and B from shared memory,
+// each K-major (TA / TB = 0) or MN-major (1), 128-byte swizzle;
+// accumulate == 0 overwrites d.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
 // d (+)= a * b, m64n64k16, bf16 in, f32 out; A and B from shared memory,
 // each K-major (TA / TB = 0) or MN-major (1), 128-byte swizzle;
 // accumulate == 0 overwrites d.
@@ -343,5 +381,29 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// (bh, rows, 128) bf16 rows as a tensor map: boxes of `box` rows x 64
+// lanes (128 bytes), zeros past each (b, h)'s last row.
+bool map_rows(CUtensorMap* map, const void* base, int rows, int bh,
+              int box) {
+  const cuuint64_t dims[3] = {128, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {128 * 2, (cuuint64_t)rows * 128 * 2};
+  const cuuint32_t boxes[3] = {64, (cuuint32_t)box, 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
+                  strides, boxes);
+}
+
+// `lanes` bf16 lanes of `rows` rows read in place, (batch, rows, lanes)
+// with row and batch strides in elements (multiples of 8): boxes of 128
+// rows x 64 lanes, zeros past the last row.
+bool map_lanes(CUtensorMap* map, const void* base, int lanes, int rows,
+               long long row_stride, long long batch_stride, int batch) {
+  const cuuint64_t dims[3] = {(cuuint64_t)lanes, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2,
+                                 (cuuint64_t)batch_stride * 2};
+  const cuuint32_t boxes[3] = {64, 128, 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
+                  strides, boxes);
+}
 
 }  // namespace

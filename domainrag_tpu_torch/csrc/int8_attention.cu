@@ -922,19 +922,6 @@ bool map_i8(CUtensorMap* map, const int8_t* base, long long inner,
                   box);
 }
 
-// One stream's bf16 V lanes in place, (batch, rows, H*128) with row and
-// batch strides in elements: boxes of 128 rows x 64 lanes.
-bool map_v16(CUtensorMap* map, const bf16* v, int heads, int rows,
-             long long row, long long batch_stride, int batch) {
-  const cuuint64_t dims[3] = {(cuuint64_t)heads * D, (cuuint64_t)rows,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)row * 2,
-                                 (cuuint64_t)batch_stride * 2};
-  const cuuint32_t box[3] = {64, BN, 1};
-  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, dims, strides,
-                  box);
-}
-
 template <bool PV>
 int launch(const Prep& P, int8_t* q8, float* qsc, int8_t* k8, int8_t* v8t,
            float* amax, bf16* out_a, bf16* out_b, int batch,
@@ -955,11 +942,11 @@ int launch(const Prep& P, int8_t* q8, float* qsc, int8_t* k8, int8_t* v8t,
     A.tva = A.tvb = A.tq;                   // not read
   } else {
     const Rows& R = P.src;
-    ok = ok && map_v16(&A.tva, R.a + 2 * P.heads * D, P.heads, R.s_a,
-                       R.a_row, R.a_batch, batch);
+    ok = ok && map_lanes(&A.tva, R.a + 2 * P.heads * D, P.heads * D,
+                         R.s_a, R.a_row, R.a_batch, batch);
     if (R.s_b > 0)
-      ok = ok && map_v16(&A.tvb, R.b + 2 * P.heads * D, P.heads, R.s_b,
-                         R.b_row, R.b_batch, batch);
+      ok = ok && map_lanes(&A.tvb, R.b + 2 * P.heads * D, P.heads * D,
+                           R.s_b, R.b_row, R.b_batch, batch);
     else
       A.tvb = A.tva;                        // not read
     A.tv8 = A.tq;                           // not read

@@ -237,7 +237,9 @@ def _kernel_forward(q, k, v, causal: bool, kv_valid: Optional[int]):
     kv_valid = s_kv if kv_valid is None else int(kv_valid)
     if not 0 < kv_valid <= s_kv:
         raise ValueError(f"kv_valid {kv_valid} outside (0, {s_kv}]")
-    qs = (q.float() * (LOG2_E / math.sqrt(d))).to(q.dtype)
+    # one pass: the product is taken in f32 and rounded once to q's dtype,
+    # bit for bit the JAX (q.astype(f32) * scale).astype(q.dtype)
+    qs = q * (LOG2_E / math.sqrt(d))
     qp, kp, vp = _rows(qs), _rows(k), _rows(v)
     out = torch.empty_like(qp)
     lse = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)

@@ -479,7 +479,7 @@ def _lib():
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for fn in (lib.mmdit_attention, lib.mmdit_attention_mp):
             fn.argtypes = [p, ll, ll, i, p, ll, ll, i, p, p, p, p, p, p, p,
-                           p, p, p, i, i, ctypes.c_float, p]
+                           p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -547,20 +547,29 @@ def _launch(streams: Sequence[torch.Tensor],
             head_dim: int, multipass: bool):
     """One or two row sources -> one (B, S_i, H*128) output per source.
     ``multipass`` launches the multi-pass entry (no q prescale; the
-    prescale multiplies the f32 scores) instead of the one-pass one."""
+    prescale multiplies the f32 scores) instead of the one-pass one. The
+    prepped q and k go to (B, H, n_pad, 128) scratch in the padded row
+    space of :func:`_i8_plan` (QK-only layout: stream b from the first
+    128-row boundary after stream a); V is read in place, from the lanes
+    at 2*H*128 of each stream's rows."""
     dev, b, lens, cos, sin, ws = _prepare(streams, norm_w, cos, sin, heads,
                                           head_dim)
-    qs = torch.empty((b, heads, sum(lens), head_dim), dtype=torch.bfloat16,
+    plan = _i8_plan(lens[0], lens[1] if len(streams) == 2 else 0, False,
+                    False)
+    qs = torch.empty((b, heads, plan.n_pad, head_dim), dtype=torch.bfloat16,
                      device=dev)
     ks = torch.empty_like(qs)
     outs = [torch.empty((b, n, heads * head_dim), dtype=torch.bfloat16,
                         device=dev) for n in lens]
+    v_off = 2 * heads * head_dim * streams[0].element_size()
+    rows = _rows_args(streams, lens, ws)
     lib = _lib()
     entry = lib.mmdit_attention_mp if multipass else lib.mmdit_attention
     rc = entry(
-        *_rows_args(streams, lens, ws),
-        cos.data_ptr(), sin.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-        outs[0].data_ptr(), outs[-1].data_ptr(), b, heads,
+        *rows[:8], streams[0].data_ptr() + v_off,
+        streams[-1].data_ptr() + v_off, *rows[8:], cos.data_ptr(),
+        sin.data_ptr(), qs.data_ptr(), ks.data_ptr(), outs[0].data_ptr(),
+        outs[-1].data_ptr(), b, heads, plan.b0, plan.n_pad,
         LOG2_E / math.sqrt(head_dim),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -590,8 +599,9 @@ _I8_TILE = 128          # q rows per block and keys per tile (int8 kernels)
 
 
 class I8Plan(NamedTuple):
-    """The padded row space of the int8 kernels' scratch: stream a at rows
-    [0, s_a), stream b at [b0, b0 + s_b), ``n_pad`` rows in all."""
+    """The padded row space of the fused kernels' scratch (int8, and bf16
+    in the QK-only layout): stream a at rows [0, s_a), stream b at [b0, b0
+    + s_b), ``n_pad`` rows in all."""
     b0: int
     n_pad: int
 
@@ -601,11 +611,12 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _i8_plan(s_a: int, s_b: int, multipass: bool, pv: bool) -> I8Plan:
-    """Where the int8 kernels put the two streams. A K/V tile of
-    ``_I8_TILE`` keys must not mix two streams' K or V scales (one pass),
-    and the QK-only instance reads each stream's bf16 V in place from a
-    tile boundary, so stream b starts at the first tile boundary after
-    stream a. The int8 P.V multi-pass keeps the joint sequence contiguous
+    """Where the fused kernels put the two streams. A K/V tile of
+    ``_I8_TILE`` keys must not mix two streams' K or V scales (int8 one
+    pass), and the int8 QK-only instance and the bf16 kernels (both
+    regimes: ``multipass=pv=False``) read each stream's bf16 V in place
+    from a tile boundary, so stream b starts at the first tile boundary
+    after stream a. The int8 P.V multi-pass keeps the joint sequence contiguous
     instead (one scale per (batch, head)), so that its max windows of
     ``_BKV_I8`` keys count from the first joint row, as the plain
     version's do. n_pad is a whole number of tiles (and of 128-row q

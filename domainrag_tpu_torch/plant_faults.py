@@ -1,7 +1,10 @@
-"""Plant faults in three hand-written kernels, the fused top-k (B8,
+"""Plant faults in the hand-written kernels, the fused top-k (B8,
 ``csrc/topk.cu``), the int8 MMDiT attention (B7,
-``csrc/int8_attention.cu``) and the bf16 flash backward (B6,
-``csrc/flash_attention.cu``), and check that the card tests and
+``csrc/int8_attention.cu``), the bf16 flash backward (B6,
+``csrc/flash_attention.cu``) and the front-ends of the shared bf16
+forward (``csrc/flash_fwd.cuh``): the fused MMDiT attention behind B1-B3
+(``csrc/mmdit_attention.cu``) and the generic forward B5
+(``csrc/flash_attention.cu``), and check that the card tests and
 ``chip_smoke.py`` both catch each one.
 
 Run on a machine with the card, from the repository root::
@@ -12,8 +15,8 @@ For each fault (all by default) the repository is copied into a new
 temporary directory (``tempfile.mkdtemp``, which honours ``TMPDIR``), one
 line of the copy's kernel source is replaced, and the kernel's card tests
 (``tests/test_torch_cuda.py -k "topk or first_stage"`` for B8, ``-k i8``
-for B7, ``-k flash`` for B6) and the whole ``chip_smoke.py`` run in the
-copy. A fault is
+for B7, ``-k flash`` for B6, ``-k "kernel or flash"`` for the forward)
+and the whole ``chip_smoke.py`` run in the copy. A fault is
 caught when both exit non-zero. The temporary directory is deleted
 afterwards; the repository is not touched.
 Exits 1 if any fault went uncaught.
@@ -32,6 +35,8 @@ ROOT = Path(__file__).resolve().parents[1]
 B8 = ("domainrag_tpu_torch/csrc/topk.cu", "topk or first_stage")
 B7 = ("domainrag_tpu_torch/csrc/int8_attention.cu", "i8")
 B6 = ("domainrag_tpu_torch/csrc/flash_attention.cu", "flash")
+FWD_MMDIT = ("domainrag_tpu_torch/csrc/mmdit_attention.cu", "kernel or flash")
+FWD_B5 = ("domainrag_tpu_torch/csrc/flash_attention.cu", "kernel or flash")
 # name: ((source, card tests' -k), line as it is, line with the fault)
 FAULTS = {
     # B8: the ragged last bank tile of each split is never scored
@@ -71,6 +76,19 @@ FAULTS = {
     "unreached_kv_rows_unwritten": (
         B6, "if (kr >= P.s_kv) continue;",
         "if (kr >= P.s_kv || n_it == 0) continue;"),
+    # B1-B3: the keys in the gap after stream a (zero rows) left unmasked
+    "gap_keys_unmasked": (
+        FWD_MMDIT, "const int n = key0 < b0 ? s_a - key0 : b0 + s_b - key0;",
+        "const int n = key0 < b0 ? b0 - key0 : b0 + s_b - key0;"),
+    # B5: causal blocks stop one kv tile short of the last they reach
+    "causal_stop_one_tile_short": (
+        FWD_B5, "if (causal) n = min(n, (min(q0_ + fwd::BM, s_q) - 1) / "
+                "fwd::BN + 1);",
+        "if (causal) n = min(n, (min(q0_ + fwd::BM, s_q) - 1) / fwd::BN);"),
+    # B5: lse written in the exp2 domain, without the ln2 factor
+    "lse_without_ln2": (
+        FWD_B5, "if (tig == 0) lse[row] = m * LN_2 + logf(l);",
+        "if (tig == 0) lse[row] = m + logf(l);"),
 }
 
 

@@ -58,8 +58,15 @@ def _check(got, want):
     assert rel_norm < REL_NORM, f"relative norm err {rel_norm}"
 
 
+# the padded row space (stream b from the first 128-row boundary after the
+# text stream): text streams of 127, 128 and 129 rows and the 1241-row one,
+# batch 2, image streams ragged and exact
+DOUBLE_EDGES = [(2, 127, 200, 2), (1, 128, 128, 3), (2, 129, 77, 2),
+                (2, 1241, 384, 2)]
+
+
 @pytest.mark.parametrize("batch,s_txt,s_img,heads", [
-    (1, 64, 192, 2), (2, 40, 88, 3), (1, 1241, 4096, 24)])
+    (1, 64, 192, 2), (2, 40, 88, 3), (1, 1241, 4096, 24)] + DOUBLE_EDGES)
 def test_double_kernel_matches_plain(dev, batch, s_txt, s_img, heads):
     w = 3 * heads * 128
     (txt, img), cos, sin, (tn, inorm) = _inputs(
@@ -77,8 +84,13 @@ def test_double_kernel_matches_plain(dev, batch, s_txt, s_img, heads):
     _check(got_i, want_i)
 
 
+# ragged tails and exact tiles of one stream (the one-row stream, last,
+# stays under the lowered multi-pass gate)
+SINGLE_EDGES = [(1, 127, 2), (2, 129, 2), (1, 256, 3), (2, 1, 2)]
+
+
 @pytest.mark.parametrize("batch,s,heads", [
-    (1, 96, 2), (2, 130, 3), (1, 5337, 24)])
+    (1, 96, 2), (2, 130, 3), (1, 5337, 24)] + SINGLE_EDGES)
 def test_single_kernel_matches_plain(dev, batch, s, heads):
     w = 7 * heads * 128                       # q/k/v + MLP lanes
     (proj,), cos, sin, (qn, _) = _inputs(dev, 1, [(batch, s, w)], s, heads)
@@ -115,7 +127,7 @@ def low_gate(monkeypatch):
 
 
 @pytest.mark.parametrize("batch,s_txt,s_img,heads", [
-    (2, 40, 88, 3), (2, 64, 192, 2), (1, 77, 300, 24)])
+    (2, 40, 88, 3), (2, 64, 192, 2), (1, 77, 300, 24)] + DOUBLE_EDGES)
 def test_mp_double_kernel_matches_plain(dev, low_gate, batch, s_txt, s_img,
                                         heads):
     w = 3 * heads * 128
@@ -136,7 +148,7 @@ def test_mp_double_kernel_matches_plain(dev, low_gate, batch, s_txt, s_img,
 
 
 @pytest.mark.parametrize("batch,s,heads", [
-    (2, 130, 3), (2, 333, 2), (1, 1000, 24)])
+    (2, 130, 3), (2, 333, 2), (1, 1000, 24)] + SINGLE_EDGES[:3])
 def test_mp_single_kernel_matches_plain(dev, low_gate, batch, s, heads):
     w = 7 * heads * 128                       # q/k/v + MLP lanes
     (proj,), cos, sin, (qn, _) = _inputs(dev, 4, [(batch, s, w)], s, heads)
@@ -149,6 +161,42 @@ def test_mp_single_kernel_matches_plain(dev, low_gate, batch, s, heads):
     want = mma.reference_mp_single(proj, qn["q"]["scale"], qn["k"]["scale"],
                                    cos, sin, heads, 128)
     _check(got, want)
+
+
+@pytest.mark.parametrize("onepass", [True, False], ids=["onepass", "mp"])
+def test_kernel_reads_rows_in_place_at_pitch_21504(dev, monkeypatch,
+                                                   onepass):
+    """The single block at FLUX width: 24 heads, rows of 7*24*128 = 21504
+    lanes (q/k/v + MLP), a row window of a larger batch-2 tensor (batch
+    stride > rows * pitch), V read in place at lane 6144; and the double
+    block's 9216-lane rows as windows too."""
+    if not onepass:
+        monkeypatch.setattr(mma, "_MAX_ONEPASS", 64)
+    heads = 24
+    (big, big_t, big_i), cos, sin, (qn, inorm) = _inputs(
+        dev, 16, [(2, 300, 7 * heads * 128), (2, 160, 3 * heads * 128),
+                  (2, 200, 3 * heads * 128)], 257, heads)
+    proj = big[:, 21:278]
+    got = mma.mmdit_single_attention(proj, qn, cos, sin, heads, 128)
+    txt, img = big_t[:, 3:132], big_i[:, 50:178]
+    got_d = mma.mmdit_double_attention(txt, img, qn, inorm, cos, sin, heads,
+                                       128)
+    torch.cuda.synchronize()
+    assert proj.stride(1) == 21504 and txt.stride(1) == 9216
+    w = (qn["q"]["scale"], qn["k"]["scale"])
+    wi = (inorm["q"]["scale"], inorm["k"]["scale"])
+    if onepass:
+        with attn.dense_attention():
+            want = mma.reference_single(proj, *w, cos, sin, heads, 128)
+            want_d = mma.reference_double(txt, img, *w, *wi, cos, sin, heads,
+                                          128)
+    else:
+        want = mma.reference_mp_single(proj, *w, cos, sin, heads, 128)
+        want_d = mma.reference_mp_double(txt, img, *w, *wi, cos, sin, heads,
+                                         128)
+    _check(got, want)
+    for g_, w_ in zip(got_d, want_d):
+        _check(g_, w_)
 
 
 def test_mp_kernel_reads_strided_rows_in_place(dev, low_gate):
@@ -262,10 +310,26 @@ def _check_out(got, want, dtype):
         _check_grad(got, want, dtype)
 
 
+# forward only, the bf16 forward's 128-row q blocks and 128-key tiles:
+# lengths under one tile (s_q 1 and 50, s_kv 37), causal with s_q > s_kv
+# inside one tile, kv_valid at a tile edge (whole tiles past it are never
+# visited), causal blocks of s_q != s_kv stopping at their last tile
+FWD_CASES = [
+    (1, 2, 50, 50, 128, False, None),
+    (1, 2, 100, 37, 128, True, None),
+    (2, 3, 1, 300, 64, False, None),
+    (1, 2, 300, 700, 128, False, 128),
+    (1, 2, 260, 1000, 128, True, 129),
+    (2, 2, 700, 300, 128, True, None),
+]
+FWD_IDS = ["s50", "causal_s100_skv37", "sq1", "kv_valid_128",
+           "causal_kv_valid_129", "causal_sq700_skv300"]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-@pytest.mark.parametrize("b,h,s_q,s_kv,d,causal,kv_valid", FLASH_CASES,
-                         ids=FLASH_IDS)
+@pytest.mark.parametrize("b,h,s_q,s_kv,d,causal,kv_valid",
+                         FLASH_CASES + FWD_CASES, ids=FLASH_IDS + FWD_IDS)
 def test_flash_forward_matches_plain(dev, dtype, b, h, s_q, s_kv, d, causal,
                                      kv_valid):
     q, k, v, _ = _qkv(dev, dtype, b, h, s_q, s_kv, d)
@@ -352,16 +416,29 @@ def test_flash_backward_repeatable(dev):
 def test_flash_autograd_card_vs_cpu(dev, dtype):
     """flash_attention's autograd on the card (B5 + B6) against the same
     Function on the CPU (the plain versions)."""
-    q, k, v, dout = _qkv(dev, dtype, 2, 2, 190, 190, 64, seed=8)
-    grads = []
-    for x in (q, k, v, dout), tuple(t.cpu() for t in (q, k, v, dout)):
-        leaves = [t.clone().requires_grad_() for t in x[:3]]
-        out = attn.flash_attention(*leaves, causal=True)
-        out.backward(x[3])
-        grads.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
-    _check_out(grads[0][0], grads[1][0], dtype)
-    for g_, w_ in zip(grads[0][1:], grads[1][1:]):
-        _check_grad(g_, w_, dtype)
+    # the B5 forward's out and lse are what B6 consumes: one launch of each
+    # per call, at head width 64 and 128, s_q == s_kv and s_q != s_kv
+    bwd = (1, 0, 0) if dtype == torch.bfloat16 else (0, 1, 1)
+    for b, h, s_q, s_kv, d, causal in ((2, 2, 190, 190, 64, True),
+                                       (1, 3, 300, 130, 128, True),
+                                       (2, 2, 129, 257, 128, False)):
+        q, k, v, dout = _qkv(dev, dtype, b, h, s_q, s_kv, d, seed=8)
+        grads = []
+        for x in (q, k, v, dout), tuple(t.cpu() for t in (q, k, v, dout)):
+            leaves = [t.clone().requires_grad_() for t in x[:3]]
+            n = attn.flash_attention.launches, _bwd_counts()
+            out = attn.flash_attention(*leaves, causal=causal)
+            out.backward(x[3])
+            if x[0].is_cuda:
+                torch.cuda.synchronize()
+                assert attn.flash_attention.launches == n[0] + 1
+                assert tuple(a - c for a, c in zip(_bwd_counts(), n[1])) \
+                    == bwd
+            grads.append([out.detach().cpu()] + [t.grad.cpu()
+                                                 for t in leaves])
+        _check_out(grads[0][0], grads[1][0], dtype)
+        for g_, w_ in zip(grads[0][1:], grads[1][1:]):
+            _check_grad(g_, w_, dtype)
 
 
 def _counts():
@@ -444,6 +521,7 @@ def test_fused_autograd_card_vs_cpu(dev, monkeypatch, onepass):
                   (1, 128, 7 * heads * 128)], 128, heads)
     results = []
     for where in (dev, torch.device("cpu")):
+        before = _counts(), mma.mmdit_double_attention.mp_launches
         leaves = [t.to(where).clone().requires_grad_()
                   for t in (txt, img, proj, tn["q"]["scale"], tn["k"]["scale"],
                             inorm["q"]["scale"], inorm["k"]["scale"])]
@@ -457,6 +535,18 @@ def test_fused_autograd_card_vs_cpu(dev, monkeypatch, onepass):
         loss = sum((o.float() * torch.cos(o.float())).sum()
                    for o in (ot, oi, op))
         loss.backward()
+        if where.type == "cuda":
+            # one fused forward per wrapper; the backward recomputes the
+            # unfused composition: the B5 forward twice, its out and lse
+            # consumed by the bf16 B6 twice
+            torch.cuda.synchronize()
+            after = _counts(), mma.mmdit_double_attention.mp_launches
+            fused = (after[0][0] - before[0][0],
+                     after[0][1] - before[0][1],
+                     after[0][2] - before[0][2], after[1] - before[1])
+            assert fused == ((1, 1, 0, 0) if onepass else (0, 0, 1, 1))
+            assert [a - c for a, c in zip(after[0][3:], before[0][3:])] \
+                == [2, 2, 0, 0]
         results.append([t.grad.float().cpu() for t in leaves])
     # bf16 forward and backward each within 1e-2 of their plain versions
     for g_, w_ in zip(*results):
