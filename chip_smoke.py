@@ -6,9 +6,10 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 (``--parent DIR``, a checkout of the parent commit, builds the parent's
-fused MMDiT kernels (B1-B3) and generic flash kernels (B5, B6) from its
-``csrc/`` and times each beside this commit's on the same inputs, in
-turns: parent, change, change, parent.)
+fused MMDiT kernels (B1-B3), generic flash kernels (B5, B6 in bf16 and
+f32) and fused top-k (B8) from its ``csrc/`` and times each beside this
+commit's on the same inputs, in turns: parent, change, change, parent;
+and the f32 train step with the parent's f32 B6 in its place.)
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -34,13 +35,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    single variant at B = 4 x 31866, whose element offsets pass 2^31
    (compared on its last batch element), each against the multi-pass
    plain version;
-5. the generic flash kernels (B5 forward; B6 backward: one bf16 kernel,
-   the f32 dq and dk/dv kernels) against their plain versions: a small
+5. the generic flash kernels (B5 forward; B6 backward: one kernel in
+   each dtype, the f32 one in 3xTF32) against their plain versions: a small
    causal + ``kv_valid`` case with ragged lengths in bf16 and f32, four
    ragged bf16 backward cases (RAGGED_BWD), the trainer's attention shape
    (2, 24, 4608, 128) in bf16 and f32 with each kernel's time beside the
    plain version's, SDPA's (forward, and its autograd backward for the B6
-   rows) and the bound (B6 bf16: the least work, 10*B*H*S^2*D FLOP), and
+   rows) and the bound (B6: the least work, 10*B*H*S^2*D FLOP, at the bf16
+   peak, and in f32 three TF32 products per f32 product at the TF32
+   peak), and
    B5 above the multi-pass ceiling at (1, 24, 50393, 128) bf16, compared
    on two heads; they run right after the MMDiT kernels, so that a fault
    in B5 or B6 fails the run within a few minutes;
@@ -54,13 +57,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with its two prep kernels' (stats, quant) share of one traced call;
 7. B8, the fused GEMM + top-k, against its plain version: torch.equal on
    integer-valued banks with a third of the rows duplicated (exact sums,
-   exact ties) at the stage-2 shape (200 queries x 178287 x 512, k 100)
-   and at ragged ones (7 x 333 x 64, 3 x 513 x 32, k 1, d 50 with k 256,
-   k > N); on a random unit-norm bank at the stage-2 shape within 1e-5
-   (indices equal except at near ties), timed beside the plain version
-   and torch.topk(q @ bank.T), and at k 1 beside the matmul alone (the
-   GEMM's share); k 300, 500 and 1000 (the running lists in the
-   scratch, one launch each), torch.equal too;
+   exact ties) at the stage-2 shape (200 queries x 178287 x 512, k 1,
+   100, 500 and 1000) and at ragged ones (7 x 333 x 64, 3 x 513 x 32, d
+   50 with k 256 and 300, k > N), and on an ascending and an all-equal
+   bank (every tile merges every buffer; every score ties) at k 100 and
+   1000, one launch each; on a random unit-norm bank at the stage-2 shape
+   within 1e-5 (indices equal except at near ties); timed at k 100, 500
+   and 1000 beside the plain version and torch.topk(q @ bank.T), at k 1000
+   with the merge pass's share of one traced call, and at k 1 beside the
+   matmul alone (the GEMM's share);
 8. stage 2 at full width: a random CLIP ViT-B/32 and ResNet-50 stem
    (87.86 M f32 params) on the card, 512 synthetic corpus JPEGs through
    ``load_or_compute_source_features``, the bank filled with random unit
@@ -142,8 +147,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     cast), GEMMs, the optimizer and the rest;
 22. one full-width ``fit`` step on f32 batches (the dtype
     ``latent_batches_from_images`` yields): no fused kernel, B5 12 and B6
-    6 + 6 launches, finite loss, changed params; the f32 kernel rows
-    take these counts;
+    6 launches, finite loss, changed params; the f32 kernel rows take
+    these counts; with ``--parent``, four steady f32 steps timed in
+    turns, the parent's f32 B6 in two;
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -161,6 +167,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -184,6 +191,7 @@ ATOL, RTOL, REL_NORM = 4e-3, 2e-2, 1e-2
 PEAK_BF16 = 989e12        # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bytes/s
 PEAK_F32 = 67e12          # H100 SXM f32 FMA FLOP/s (no tensor cores)
+PEAK_TF32 = 495e12        # H100 SXM dense TF32 FLOP/s (tensor cores)
 PEAK_INT8 = 1979e12       # H100 SXM dense int8 OP/s
 SOURCES = ("mmdit_attention", "flash_attention", "int8_gemm",
            "int8_attention", "topk")
@@ -360,21 +368,23 @@ def _cat(x):
 
 
 def _row(name, replaces, kernel, plain, prenormed, bound, reps,
-         compare=None, bar=(ATOL, RTOL, REL_NORM), parent=None):
+         compare=None, bar=(ATOL, RTOL, REL_NORM), source="mmdit_attention"):
     """One kernel's line: held against its plain version within ``bar``
     (on ``compare``'s pair when given, else on the whole outputs), then
     timed beside the plain version and SDPA on the pre-normed q/k/v
-    (B, H, S, D); with ``parent`` (the parent commit's kernel on the same
-    inputs) that one timed in turns with this one. ``reps``: (kernel,
-    plain, plain warm-up, SDPA) repetitions."""
+    (B, H, S, D); with ``--parent`` the same call on the parent commit's
+    bf16 kernel timed in turns with this one (not for the int8 kernels,
+    ``source`` "int8_attention", whose loader the swap does not reach).
+    ``reps``: (kernel, plain, plain warm-up, SDPA) repetitions."""
     import torch
     import torch.nn.functional as F
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
     got, want = compare() if compare else (_cat(kernel()), _cat(plain()))
     torch.cuda.synchronize()
     max_abs = _check(name, got, want, bar)
     del got, want
     row = {"name": name, "route": "cuda",
-           "source": "domainrag_tpu_torch/csrc/mmdit_attention.cu",
+           "source": f"domainrag_tpu_torch/csrc/{source}.cu",
            "replaces": f"domainrag_tpu/{replaces}",
            "launches": 0, "max_abs_err": max_abs,
            "ms": _ms(kernel, reps[0]),
@@ -383,7 +393,8 @@ def _row(name, replaces, kernel, plain, prenormed, bound, reps,
     row["library_ms"] = _ms(lambda: F.scaled_dot_product_attention(q, k, v),
                             reps[3])
     del q, k, v
-    if parent is not None:
+    if PARENT and source == "mmdit_attention":
+        parent = _parent_call(mma, source, kernel)
         _in_turns(name, parent, kernel, reps[0],
                   [_rel_norm(_cat(parent()), _cat(kernel()))])
     print(f"kernel {name}: ms {row['ms']:.3f} plain_ms "
@@ -428,11 +439,6 @@ def phase_kernels(dev):
     proj = randn(1, s_tot, 7 * hd)
     tn, inorm, sn = norm(), norm(), norm()
     w = lambda n: (n["q"]["scale"], n["k"]["scale"])     # noqa: E731
-    parents = [None, None]
-    if PARENT:
-        parents = [_parent_fused([txt, img], [w(tn), w(inorm)], cos, sin,
-                                 False),
-                   _parent_fused([proj], [w(sn)], cos, sin, False)]
     cases = [
         ("mmdit_joint_attention", "ops/mmdit_attention.py:400",
          lambda: mma.mmdit_double_attention(
@@ -448,8 +454,7 @@ def phase_kernels(dev):
          lambda: mma.prenormed_single(proj, *w(sn), cos, sin, HEADS, HD)),
     ]
     bound = _bound(1, s_tot)
-    rows = {case[0]: _row(*case, bound, (20, 5, 2, 20), parent=par)
-            for case, par in zip(cases, parents)}
+    rows = {case[0]: _row(*case, bound, (20, 5, 2, 20)) for case in cases}
     del txt, img, proj
     _edge_checks(dev, randn, norm)
     return rows
@@ -566,9 +571,7 @@ def phase_mp_kernels(dev):
                     txt, img, tn, inorm, cos, sin, HEADS, HD),
                 lambda: mma.reference_mp_double(
                     txt, img, *w(tn), *w(inorm), cos, sin, HEADS, HD),
-                prenormed_double, _bound(1, s_tot), (10, 2, 1, 10),
-                parent=_parent_fused([txt, img], [w(tn), w(inorm)], cos, sin,
-                                     True) if PARENT else None)
+                prenormed_double, _bound(1, s_tot), (10, 2, 1, 10))
             del txt, img
         proj, sn = randn(batch, s_tot, 7 * hd), norm()
         name = "mmdit_mp_seq_attention" + suffix
@@ -592,9 +595,7 @@ def phase_mp_kernels(dev):
                                             HD),
             prenormed_single, _bound(batch, s_tot),
             (10, 1 if batch > 1 else 2, 1, 10),
-            compare=last_element if batch > 1 else None,
-            parent=_parent_fused([proj], [w(sn)], cos, sin, True)
-            if PARENT else None)
+            compare=last_element if batch > 1 else None)
         del proj
         torch.cuda.empty_cache()
     return rows
@@ -798,7 +799,7 @@ def _reset_counts(mma):
         wrapper.launches = wrapper.mp_launches = 0
         wrapper.i8_launches = wrapper.i8_mp_launches = 0
     f = attn.flash_attention
-    f.launches = f.bwd_launches = f.dq_launches = f.dkv_launches = 0
+    f.launches = f.bwd_launches = f.bwd_f32_launches = 0
     int8_gemm.w8a8_linear.launches = 0
     int8_gemm.w8a8_linear.launches_by_shape = {}
 
@@ -812,18 +813,17 @@ def _i8_counts(mma):
 
 
 def _flash_counts():
-    """(B5, B6 bf16, B6 f32 dq, B6 f32 dk/dv) launches."""
+    """(B5, B6 bf16, B6 f32) launches."""
     from domainrag_tpu_torch.ops import attention as attn
     f = attn.flash_attention
-    return f.launches, f.bwd_launches, f.dq_launches, f.dkv_launches
+    return f.launches, f.bwd_launches, f.bwd_f32_launches
 
 
 def _flash_launches(rows, tag, counts):
     """Writes a trainer run's B5 and B6 counts (``_flash_counts``) into the
     rows at the trainer's attention shape in ``tag``'s dtype, and no other
-    row: bf16 has one B6 kernel, f32 a dq and a dk/dv kernel."""
-    kinds = ({"fwd": counts[0], "bwd": counts[1]} if tag == "bf16" else
-             {"fwd": counts[0], "bwd_dq": counts[2], "bwd_dkv": counts[3]})
+    row: one B6 kernel in each dtype."""
+    kinds = {"fwd": counts[0], "bwd": counts[1 if tag == "bf16" else 2]}
     for kind, n in kinds.items():
         rows[f"flash_{kind}_{tag}_b{TRAIN_B}_s{S_TRAIN}"]["launches"] = n
 
@@ -839,8 +839,8 @@ def _read_counts(mma, rows, regime, depth, passes):
     other = "multi-pass" if regime == "one-pass" else "one-pass"
     print(f"launches on the path: {regime} double/single {counts[regime]} "
           f"(expected {want}), {other} {counts[other]} (expected (0, 0)), "
-          f"generic flash B5/B6/B6 f32 dq/dkv {_flash_counts()} (expected "
-          f"(0, 0, 0, 0)),"
+          f"generic flash B5/B6/B6 f32 {_flash_counts()} (expected "
+          f"(0, 0, 0)),"
           f" int8 B4/B7 {_i8_counts(mma)} (expected all 0)")
     if counts[regime] != want or counts[other] != (0, 0) \
             or any(_flash_counts()) or any(_i8_counts(mma)):
@@ -1393,12 +1393,10 @@ def phase_int8_attention(dev):
                     try:
                         row = _row(*case, _i8_bound(1, s_tot, pv),
                                    (10, 1 if mp else 3, 1, 10),
-                                   bar=I8_BARS[var])
+                                   bar=I8_BARS[var], source="int8_attention")
                     except AssertionError as err:     # raised below
                         failed.append(str(err))
                         continue
-                    row["source"] = \
-                        "domainrag_tpu_torch/csrc/int8_attention.cu"
                     rows[case[0]] = row
                     _b7_prep_share(case[0], case[2])
         del txt, img, proj
@@ -1625,14 +1623,14 @@ def _check_grad(name, got, want, f32):
     return max_abs
 
 
-def _flash_bound(flop_per, shape, f32, tensors=4):
-    """The least time for ``flop_per``*B*H*Sq*Skv*D FLOP at the peak of
-    the dtype, or the bytes: each of ``tensors`` (B, H, S, D) tensors read
-    or written once (forward: q, k, v, o; backward 8: q, k, v, o, dO, dq,
-    dk, dv)."""
+def _flash_bound(flop_per, shape, f32, tensors=4, peak=None):
+    """The least time for ``flop_per``*B*H*Sq*Skv*D FLOP at ``peak`` (by
+    default the peak of the dtype: f32 FMA or bf16), or the bytes: each of
+    ``tensors`` (B, H, S, D) tensors read or written once (forward: q, k,
+    v, o; backward 8: q, k, v, o, dO, dq, dk, dv)."""
     b, h, s_q, s_kv, d = shape
-    ops = flop_per * b * h * s_q * s_kv * d / (PEAK_F32 if f32 else
-                                               PEAK_BF16) * 1e3
+    peak = peak or (PEAK_F32 if f32 else PEAK_BF16)
+    ops = flop_per * b * h * s_q * s_kv * d / peak * 1e3
     nbytes = tensors * b * h * max(s_q, s_kv) * d * (4 if f32 else 2) \
         / PEAK_BYTES * 1e3
     return {"bound_ms": max(ops, nbytes),
@@ -1708,65 +1706,26 @@ def _rel_norm(x, y):
     return ((x.float() - y.float()).norm() / y.float().norm()).item()
 
 
-def _parent_fused(streams, norms, cos, sin, multipass):
-    """The parent commit's fused bf16 MMDiT kernels (its mma.sync forward
-    and prep, unpadded (B, H, S, 128) scratch) on the same row sources:
-    returns a call that launches them and gives one output per stream."""
-    import ctypes
-    import torch
-    from domainrag_tpu_torch.ops import mmdit_attention as mma
-    lib = _parent_lib("mmdit_attention")
-    fn = lib.mmdit_attention_mp if multipass else lib.mmdit_attention
-    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [p, ll, ll, i, p, ll, ll, i] + [p] * 10 + [
-        i, i, ctypes.c_float, p]
-    fn.restype = ctypes.c_int
-    dev, b, lens, cos, sin, ws = mma._prepare(streams, norms, cos, sin,
-                                              HEADS, HD)
-    qs = torch.empty((b, HEADS, sum(lens), HD), dtype=torch.bfloat16,
-                     device=dev)
-    ks = torch.empty_like(qs)
-    outs = [torch.empty((b, n, HEADS * HD), dtype=torch.bfloat16,
-                        device=dev) for n in lens]
+def _parent_call(module, name, fn):
+    """A call of ``fn`` with the parent commit's ``csrc/<name>.cu`` library
+    in place of this commit's behind ``module``'s wrappers (its loader sets
+    the argument types): for a kernel whose C interface the parent
+    shares."""
+    from domainrag_tpu_torch.ops import _build
+    parent = _parent_lib(name)
 
     def run():
-        rc = fn(*mma._rows_args(streams, lens, ws), cos.data_ptr(),
-                sin.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-                outs[0].data_ptr(), outs[-1].data_ptr(), b, HEADS,
-                mma.LOG2_E / math.sqrt(HD),
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"the parent's fused kernel failed: CUDA "
-                               f"error {rc}")
-        return outs
-    return run
-
-
-def _parent_b5(q, k, v):
-    """The parent commit's bf16 B5 (its mma.sync forward) on the same
-    (B, H, S, 128) inputs as ``attn._kernel_forward(q, k, v, False,
-    None)``: returns a call that launches it and gives (out, lse)."""
-    import ctypes
-    import torch
-    from domainrag_tpu_torch.ops import attention as attn
-    fn = _parent_lib("flash_attention").flash_fwd
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
-    fn.restype = ctypes.c_int
-    b, h, s_q, d = q.shape
-    s_kv = k.shape[2]
-    kp, vp = attn._rows(k), attn._rows(v)
-    out = torch.empty((b * h, s_q, HD), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)
-
-    def run():
-        qp = attn._rows(q * (attn.LOG2_E / math.sqrt(d)))
-        rc = fn(0, qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), b * h, s_q, s_kv, s_kv, 0,
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"the parent's B5 failed: CUDA error {rc}")
-        return out.reshape(q.shape), lse.reshape(b, h, s_q)
+        own, own_lib = _build._LOADED.get(name), module._LIB
+        _build._LOADED[name], module._LIB = parent, None
+        try:
+            module._lib()
+            return fn()
+        finally:
+            module._LIB = own_lib
+            if own is None:
+                _build._LOADED.pop(name, None)
+            else:
+                _build._LOADED[name] = own
     return run
 
 
@@ -1774,56 +1733,81 @@ def _parent_b5_turns(name, q, k, v, out, lse, reps):
     """The parent's bf16 B5 on this row's inputs, timed in turns with this
     commit's; ``out`` and ``lse`` are this commit's outputs."""
     from domainrag_tpu_torch.ops import attention as attn
-    parent = _parent_b5(q, k, v)
+
+    def change():
+        return attn._kernel_forward(q, k, v, False, None)
+    parent = _parent_call(attn, "flash_attention", change)
     p_out, p_lse = parent()
-    _in_turns(name, parent,
-              lambda: attn._kernel_forward(q, k, v, False, None), reps,
+    _in_turns(name, parent, change, reps,
               [_rel_norm(p_out, out), _rel_norm(p_lse, lse)])
     del p_out, p_lse
 
 
-def _parent_b6(buf, change, reps):
-    """The parent commit's bf16 B6 (PARENT's csrc) on the same inputs as
-    ``buf``, timed in turns with this commit's ``change``."""
+def _parent_launch_backward_f32(change):
+    """``attn.launch_backward`` with the parent commit's f32 B6 (its dq and
+    dk/dv kernels, PARENT's csrc) for f32 buffers and ``change`` for the
+    others."""
     import ctypes
     import torch
-    fn = _parent_lib("flash_attention").flash_bwd_bf16
+    fn = _parent_lib("flash_attention").flash_bwd_f32
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, p]
+    fn.argtypes = [i] + [p] * 9 + [i] * 5 + [ctypes.c_float, p]
     fn.restype = ctypes.c_int
-    b, h, s_q, s_kv, d = buf.shape
-    dq_accum = torch.empty_like(buf.dq_accum)
-    dk, dv = torch.empty_like(buf.dk), torch.empty_like(buf.dv)
-    stream = torch.cuda.current_stream().cuda_stream
 
-    def parent():
-        dq_accum.zero_()
-        rc = fn(buf.q.data_ptr(), buf.k.data_ptr(), buf.v.data_ptr(),
-                buf.dout.data_ptr(), buf.lse.data_ptr(), buf.delta.data_ptr(),
-                dq_accum.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h,
-                s_q, s_kv, buf.kv_valid, int(buf.causal), 1.0 / math.sqrt(d),
-                stream)
-        if rc != 0:
-            raise RuntimeError(f"the parent's B6 failed: CUDA error {rc}")
+    def launch(buf):
+        if buf.q.dtype != torch.float32:
+            return change(buf)
+        b, h, s_q, s_kv, d = buf.shape
+        lse, delta = (x[:, :s_q].contiguous() for x in (buf.lse, buf.delta))
+        buf.dq = torch.empty_like(buf.q)
+        for which in (0, 1):
+            rc = fn(which, buf.q.data_ptr(), buf.k.data_ptr(),
+                    buf.v.data_ptr(), buf.dout.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), buf.dq.data_ptr(), buf.dk.data_ptr(),
+                    buf.dv.data_ptr(), b * h, s_q, s_kv, buf.kv_valid,
+                    int(buf.causal), 1.0 / math.sqrt(d),
+                    torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"the parent's f32 B6 failed: CUDA error "
+                                   f"{rc}")
+    return launch
 
+
+def _parent_b6(buf, change, reps):
+    """The parent commit's B6 (bf16: its one kernel, behind this commit's
+    wrapper; f32: its dq and dk/dv kernels on f32 FMA) on the same inputs
+    as ``buf``, into outputs of its own, timed in turns with this commit's
+    ``change``."""
+    import torch
+    from domainrag_tpu_torch.ops import attention as attn
+    mine = SimpleNamespace(**vars(buf))
+    mine.dk, mine.dv = torch.empty_like(buf.dk), torch.empty_like(buf.dv)
+    if buf.q.dtype == torch.float32:
+        launch = _parent_launch_backward_f32(attn.launch_backward)
+        parent = lambda: launch(mine)                        # noqa: E731
+    else:
+        parent = _parent_call(attn, "flash_attention",
+                              lambda: attn.launch_backward(mine))
     parent()
     change()
     torch.cuda.synchronize()
-    dq = dq_accum.reshape(buf.dq.shape) / math.sqrt(d)
-    _in_turns("B6 bf16", parent, change, reps,
-              [_rel_norm(x, y) for x, y in ((dq, buf.dq), (dk, buf.dk),
-                                            (dv, buf.dv))])
-    del dq_accum, dk, dv
+    _in_turns("B6 f32" if buf.q.dtype == torch.float32 else "B6 bf16",
+              parent, change, reps,
+              [_rel_norm(x, y) for x, y in ((mine.dq, buf.dq),
+                                            (mine.dk, buf.dk),
+                                            (mine.dv, buf.dv))])
+    del mine
 
 
 def phase_flash_kernels(dev):
     """B5 and B6 against their plain versions: at the trainer's attention
-    shape (2, 24, 4608, 128) in bf16 and f32 (forward; B6: the one bf16
-    kernel, the f32 dq and dk/dv kernels), B5 above _MAX_MULTIPASS at (1,
+    shape (2, 24, 4608, 128) in bf16 and f32 (forward; B6: one kernel in
+    each dtype), B5 above _MAX_MULTIPASS at (1,
     24, 50393, 128) bf16 (compared on two heads with the blocked plain
     version), a small causal + kv_valid case with ragged lengths in both
     dtypes and the RAGGED_BWD bf16 backward cases. With ``--parent`` the
-    parent commit's bf16 B6 is timed beside this one."""
+    parent commit's B6 (bf16, and its two f32 kernels) is timed beside
+    this one."""
     import torch
     import torch.nn.functional as F
     from domainrag_tpu_torch.ops import attention as attn
@@ -1907,28 +1891,22 @@ def phase_flash_kernels(dev):
         sdpa = F.scaled_dot_product_attention(*leaves)
         library_ms = _ms(lambda: torch.autograd.grad(
             sdpa, leaves, do, retain_graph=True), reps[3])
+        # one kernel for dq, dk and dv, the least work: 10 units. bf16: the
+        # bound at the bf16 peak, ms with the dq_accum zeroing, scale and
+        # cast. f32: every product as 3xTF32, so its route's bound is 30
+        # units at the TF32 peak (on f32 FMA it would be 10 at 67 TFLOP/s);
+        # ms with dq's zeroing
+        name = f"flash_bwd_{tag}_b{TRAIN_B}_s{S_TRAIN}"
+        rows[name] = _flash_row(
+            name, "ops/attention.py:296,336", max(errs),
+            _ms(lambda: attn.launch_backward(buf), reps[3]), plain_ms,
+            library_ms, _flash_bound(30, shape, f32, 8, PEAK_TF32) if f32
+            else _flash_bound(10, shape, f32, 8))
         if f32:
-            # the TPU split: a dq kernel (6 units of B*H*S^2*D FLOP) and a
-            # dk/dv kernel (8)
-            for which, kname, flop, err in ((0, "dq", 6, errs[0]),
-                                            (1, "dkv", 8, max(errs[1:]))):
-                name = f"flash_bwd_{kname}_{tag}_b{TRAIN_B}_s{S_TRAIN}"
-                rows[name] = _flash_row(
-                    name,
-                    "ops/attention.py:" + ("296" if which == 0 else "336"),
-                    err, _ms(lambda: attn.launch_backward(buf, which),
-                             reps[3]),
-                    plain_ms, library_ms, _flash_bound(flop, shape, f32, 8))
-        else:
-            # one kernel for dq, dk and dv: the least work, 10 units, is
-            # the bound; ms includes the dq_accum zeroing, scale and cast
-            name = f"flash_bwd_{tag}_b{TRAIN_B}_s{S_TRAIN}"
-            rows[name] = _flash_row(
-                name, "ops/attention.py:296,336", max(errs),
-                _ms(lambda: attn.launch_backward(buf), reps[3]), plain_ms,
-                library_ms, _flash_bound(10, shape, f32, 8))
-            if PARENT:
-                _parent_b6(buf, lambda: attn.launch_backward(buf), reps[3])
+            print(f"kernel {name}: bound on f32 FMA (the route not taken) "
+                  f"{_flash_bound(10, shape, f32, 8)['bound_ms']:.3f} ms")
+        if PARENT:
+            _parent_b6(buf, lambda: attn.launch_backward(buf), reps[3])
         del q, k, v, do, out, want, buf, ref, leaves, sdpa, unpad
         torch.cuda.empty_cache()
 
@@ -2004,8 +1982,8 @@ def phase_long_serving(dev, rows):
               *_flash_counts())
     print(f"launches on the path: {S_LONG} tokens, fused double/single "
           f"{counts[:2]} (expected (0, 0)), generic flash B5/B6/B6 f32 "
-          f"dq/dkv {counts[2:]} (expected (2, 0, 0, 0))")
-    if counts != (0, 0, 2, 0, 0, 0):
+          f"{counts[2:]} (expected (2, 0, 0))")
+    if counts != (0, 0, 2, 0, 0):
         raise AssertionError("long serving path: launch counts differ")
     for tag, out, (q, k, v) in (
             ("double", out_d, mma.prenormed_double(
@@ -2066,9 +2044,9 @@ def phase_small_trainer(dev):
             for _ in range(steps)]
     # per step: each block's fused forward twice (forward and the remat
     # recompute), the unfused recompute's B5 and B6 once per block; f32
-    # runs B5 in each forward instead, and B6's dq and dk/dv kernels
-    want_counts = {torch.bfloat16: (2, 2, 2, 2, 0, 0),
-                   torch.float32: (0, 0, 4, 0, 2, 2)}
+    # runs B5 in each forward instead, and the f32 B6
+    want_counts = {torch.bfloat16: (2, 2, 2, 2, 0),
+                   torch.float32: (0, 0, 4, 0, 2)}
     for dtype in (torch.bfloat16, torch.float32):
         runs = []
         for where in (dev, cpu):
@@ -2110,7 +2088,7 @@ def phase_small_trainer(dev):
               f"{[round(x, 6) for x in l_cpu]} (max rel {loss_rel:.3e}), "
               f"first-step grads rel_norm {grad_rel:.3e}, param updates "
               f"rel_norm {upd_rel:.3e} max abs {upd_max:.3e} (lr "
-              f"{tcfg.learning_rate}); launches B1/B2/B5/B6/B6 f32 dq/dkv "
+              f"{tcfg.learning_rate}); launches B1/B2/B5/B6/B6 f32 "
               f"{counts}"
               f" (expected {want})")
         f32 = dtype == torch.float32
@@ -2217,10 +2195,10 @@ def phase_train(dev, rows):
     # per step: each fused block twice (forward, remat recompute), then one
     # unfused recompute per block in the backward: B5 once, B6 once
     want = tuple(TRAIN_STEPS * n for n in (2 * d, 2 * sg, 0, d + sg, d + sg,
-                                           0, 0))
+                                           0))
     print(f"launches on the path: B1 {counts[0]}, B2 {counts[1]}, B3 "
-          f"{counts[2]}, B5 {counts[3]}, B6 {counts[4]}, B6 f32 dq "
-          f"{counts[5]}, dkv {counts[6]} (expected {want})")
+          f"{counts[2]}, B5 {counts[3]}, B6 {counts[4]}, B6 f32 "
+          f"{counts[5]} (expected {want})")
     if counts != want:
         raise AssertionError("trainer: kernel launch counts differ")
     _flash_launches(rows, "bf16", counts[3:])
@@ -2302,7 +2280,7 @@ def phase_profile_train(dev, cfg, params, batches):
             groups["fused forward (B1/B2)"] += ms
         elif "FwdRows" in name or "fwd_simt_kernel" in name:
             groups["B5"] += ms
-        elif re.search(r"bwd_bf16_kernel|(dq|dkv)_simt_kernel", name):
+        elif re.search(r"bwd_(bf16|f32)_kernel", name):
             groups["B6"] += ms
         elif re.search(r"gemm|nvjet|cutlass|xmma|cublas", name, re.I):
             groups["GEMM (cuBLAS)"] += ms
@@ -2346,8 +2324,11 @@ def phase_train_f32(dev, cfg, params, batches, rows):
     the dtype ``latent_batches_from_images`` yields: the fused kernels want
     bf16, so every block runs the unfused composition, B5 in its forward
     and in its remat recompute and B6 in its backward. The counts are set
-    to 0 just before and read just after; the f32 rows take them."""
+    to 0 just before and read just after; the f32 rows take them. With
+    ``--parent``, four steady steps follow, timed in turns with the
+    parent's f32 B6 in two."""
     import torch
+    from domainrag_tpu_torch.ops import attention as attn
     from domainrag_tpu_torch.ops import mmdit_attention as mma
     from domainrag_tpu_torch.train import flow_match, loop
 
@@ -2370,11 +2351,10 @@ def phase_train_f32(dev, cfg, params, batches, rows):
               mma.mmdit_double_attention.mp_launches
               + mma.mmdit_single_attention.mp_launches, *_flash_counts())
     n = cfg.depth_double + cfg.depth_single
-    want = (0, 0, 0, 2 * n, 0, n, n)
+    want = (0, 0, 0, 2 * n, 0, n)
     print(f"launches on the path (f32 trainer, one step): B1 {counts[0]}, "
           f"B2 {counts[1]}, B3 {counts[2]}, B5 {counts[3]}, B6 bf16 "
-          f"{counts[4]}, B6 dq {counts[5]}, B6 dkv {counts[6]} (expected "
-          f"{want})")
+          f"{counts[4]}, B6 f32 {counts[5]} (expected {want})")
     if counts != want:
         raise AssertionError("f32 trainer: kernel launch counts differ")
     moved = (probe.detach() - before).abs().max().item()
@@ -2385,6 +2365,35 @@ def phase_train_f32(dev, cfg, params, batches, rows):
           f"{moved:.3e} on one leaf), {secs:.3f} s for the step (the first, "
           f"with the optimizer's state allocated), max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not PARENT:
+        return
+    # steady f32 steps: this commit's B6 and the parent's two f32 kernels
+    # in its place, in turns
+    step, params, opt = flow_match.make_train_step(
+        cfg, flow_match.TrainConfig(remat=True), params)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    batch = next(f32)
+    step(params, opt, batch, g)                 # the moments are allocated
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt, batch, g)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    change = attn.launch_backward
+    parent = _parent_launch_backward_f32(change)
+    t = []
+    for launch in (parent, change, change, parent):
+        attn.launch_backward = launch
+        try:
+            t.append(timed())
+        finally:
+            attn.launch_backward = change
+    print(f"f32 train step parent vs this commit (parent, change, change, "
+          f"parent): {t[0]:.3f} / {t[1]:.3f} / {t[2]:.3f} / {t[3]:.3f} s")
 
 
 TOPK_Q, TOPK_N, TOPK_D, TOPK_K = 200, 118_287 + 60_000, 512, 100
@@ -2451,44 +2460,123 @@ def _topk_close(name, got, plain_k1, k):
     return max_abs
 
 
+def _ordered_banks(g, dev, nq, n, d):
+    """Two integer banks that strain B8's buffered selection, every sum
+    exact in f32: ascending (the queries one-hot on lane 0, the bank's lane
+    0 its row index and the other lanes random integers, so score = index
+    and every bank tile beats every row's threshold: each tile merges every
+    buffer) and all-equal (every score ties, so the first tile fills every
+    buffer and the index order alone decides)."""
+    import torch
+    one_hot = torch.zeros(nq, d, device=dev)
+    one_hot[:, 0] = 1
+    ramp = torch.randint(-8, 8, (n, d), generator=g, device=dev).float()
+    ramp[:, 0] = torch.arange(n, device=dev, dtype=torch.float32)
+    return ((one_hot, ramp),
+            (torch.ones(nq, d, device=dev), torch.ones(n, d, device=dev)))
+
+
+def _topk_parent(q, bank, k):
+    """The parent commit's B8 (PARENT's csrc) on the same inputs: returns a
+    call that launches it and gives (scores, indices)."""
+    import ctypes
+    import torch
+    lib = _parent_lib("topk")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.topk_ip_fused_splits.argtypes = [i, i, i]
+    lib.topk_ip_fused_splits.restype = ctypes.c_int
+    lib.topk_ip_fused.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.topk_ip_fused.restype = ctypes.c_int
+    nq, d = q.shape
+    n = bank.shape[0]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = lib.topk_ip_fused_splits(nq, n, sms)
+    part_s = torch.empty((nq, splits, k), device=q.device)
+    part_i = torch.empty((nq, splits, k), dtype=torch.int32, device=q.device)
+    out_s = torch.empty((nq, k), device=q.device)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=q.device)
+
+    def run():
+        rc = lib.topk_ip_fused(q.data_ptr(), bank.data_ptr(),
+                               part_s.data_ptr(), part_i.data_ptr(),
+                               out_s.data_ptr(), out_i.data_ptr(), nq, n, d,
+                               k, sms, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's B8 failed: CUDA error {rc}")
+        return out_s, out_i
+    return run
+
+
+def _topk_merge_share(q, bank, k):
+    """Device ms of B8's two passes (topk_partial, topk_merge) in one
+    traced call."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from domainrag_tpu_torch.ops import topk as tk
+    import torch
+    tk.topk_ip_fused(q, bank, k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tk.topk_ip_fused(q, bank, k)
+        torch.cuda.synchronize()
+    ms = {"topk_partial": 0.0, "topk_merge": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        for name in ms:
+            if name in e.key:
+                ms[name] += us / 1e3
+    return ms
+
+
 def phase_topk_kernel(dev):
     """B8 against its plain version: torch.equal on integer banks with
-    ties at the stage's shape (200 x 178287 x 512, k 100) and at ragged
-    ones (k = 1, k > N, N and d off the tiles), k = 300, 500 and 1000
-    (the running lists in the scratch; one launch each, timed), then a
-    random unit-norm bank at the stage's shape under TOPK_TOL; timed
-    beside the plain version and torch.topk(q @ bank.T) (TF32 off), a
-    yardstick only."""
+    ties at the stage's shape (200 x 178287 x 512, k 100, 500 and 1000)
+    and at ragged ones (k = 1, k > N, N and d off the tiles, k 256 and
+    300), on an ascending and an all-equal bank (_ordered_banks) at k 100
+    and 1000, then a random unit-norm bank at the stage's shape under
+    TOPK_TOL; timed at k 100, 500 and 1000 beside the plain version and
+    torch.topk(q @ bank.T) (TF32 off), a yardstick only, at k 1000 with
+    the merge pass's share of one traced call; with ``--parent`` the
+    parent commit's B8 in turns."""
     import torch
     from domainrag_tpu_torch.ops import topk as tk
 
     g = torch.Generator(device=dev)
     g.manual_seed(31)
-    for nq, n, d, k in ((TOPK_Q, TOPK_N, TOPK_D, TOPK_K), (7, 333, 64, 100),
-                        (3, 513, 32, 100), (TOPK_Q, TOPK_N, TOPK_D, 1),
-                        (33, 1000, 50, 256), (4, 50, 32, 100),
-                        (33, 1000, 50, 300), (4, 300, 32, 500),
-                        (TOPK_Q, TOPK_N, TOPK_D, 500),
-                        (TOPK_Q, TOPK_N, TOPK_D, 1000)):
-        q, bank = _int_bank(g, dev, nq, n, d)
+
+    def equal(tag, q, bank, k):
         before = tk.topk_ip_fused.launches
         got = tk.topk_ip_fused(q, bank, k)
         launches = tk.topk_ip_fused.launches - before
         want = tk.reference_topk_ip_fused(q, bank, k)
         torch.cuda.synchronize()
         same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        print(f"kernel topk_ip_fused {nq}x{n}x{d} k {k}, integer bank with "
-              f"ties: torch.equal to the plain version: {same}; launches "
+        nq, d = q.shape
+        print(f"kernel topk_ip_fused {nq}x{bank.shape[0]}x{d} k {k}, {tag}: "
+              f"torch.equal to the plain version: {same}; launches "
               f"{launches}")
         if not same or launches != 1:
             raise AssertionError("topk_ip_fused disagrees with its plain "
-                                 f"version at {nq}x{n}x{d} k {k}")
-        if k > 256 and n == TOPK_N:
-            ms = _ms(lambda: tk.topk_ip_fused(q, bank, k), 3, 1)
-            plain = _ms(lambda: tk.reference_topk_ip_fused(q, bank, k), 3, 1)
-            print(f"kernel topk_ip_fused {nq}x{n}x{d} k {k}: ms {ms:.4f} "
-                  f"plain_ms {plain:.4f}")
-    del q, bank, got, want
+                                 f"version at {nq}x{bank.shape[0]}x{d} k "
+                                 f"{k} ({tag})")
+
+    for nq, n, d, k in ((TOPK_Q, TOPK_N, TOPK_D, TOPK_K), (7, 333, 64, 100),
+                        (3, 513, 32, 100), (TOPK_Q, TOPK_N, TOPK_D, 1),
+                        (33, 1000, 50, 256), (4, 50, 32, 100),
+                        (33, 1000, 50, 300), (4, 300, 32, 500),
+                        (TOPK_Q, TOPK_N, TOPK_D, 500),
+                        (TOPK_Q, TOPK_N, TOPK_D, 1000)):
+        equal("integer bank with ties", *_int_bank(g, dev, nq, n, d), k)
+    for k in (TOPK_K, 1000):
+        for tag, (q, bank) in zip(("ascending bank", "all-equal bank"),
+                                  _ordered_banks(g, dev, TOPK_Q, TOPK_N,
+                                                 TOPK_D)):
+            equal(tag, q, bank, k)
+    del q, bank
     q = torch.nn.functional.normalize(
         torch.randn(TOPK_Q, TOPK_D, generator=g, device=dev), dim=1)
     bank = torch.nn.functional.normalize(
@@ -2496,27 +2584,48 @@ def phase_topk_kernel(dev):
     max_abs = _topk_close(
         "topk_ip_fused unit-norm bank", tk.topk_ip_fused(q, bank, TOPK_K),
         tk.reference_topk_ip_fused(q, bank, TOPK_K + 1), TOPK_K)
-    row = {"name": "topk_ip_fused", "route": "cuda",
-           "source": "domainrag_tpu_torch/csrc/topk.cu",
-           "replaces": "domainrag_tpu/ops/topk.py:183", "launches": 0,
-           "max_abs_err": max_abs,
-           "ms": _ms(lambda: tk.topk_ip_fused(q, bank, TOPK_K), 20),
-           "plain_ms": _ms(lambda: tk.reference_topk_ip_fused(
-               q, bank, TOPK_K), 5),
-           "library_ms": _ms(lambda: torch.topk(
-               torch.matmul(q, bank.T), TOPK_K, dim=1), 20),
-           **_topk_bound(TOPK_Q, TOPK_N, TOPK_D, TOPK_K)}
-    print(f"kernel topk_ip_fused {TOPK_Q}x{TOPK_N}x{TOPK_D} k {TOPK_K}: ms "
-          f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
-          f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
-          f"({row['bound_by']})")
+    rows = {}
+    for k in (TOPK_K, 500, 1000):
+        t = {"ms": _ms(lambda: tk.topk_ip_fused(q, bank, k), 20),
+             "plain_ms": _ms(lambda: tk.reference_topk_ip_fused(q, bank, k),
+                             5),
+             "library_ms": _ms(lambda: torch.topk(
+                 torch.matmul(q, bank.T), k, dim=1), 20),
+             **_topk_bound(TOPK_Q, TOPK_N, TOPK_D, k)}
+        print(f"kernel topk_ip_fused {TOPK_Q}x{TOPK_N}x{TOPK_D} k {k}: ms "
+              f"{t['ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms "
+              f"{t['library_ms']:.4f} bound_ms {t['bound_ms']:.4f} "
+              f"({t['bound_by']})")
+        if k == 1000:       # the merge pass's share where it is largest
+            print(f"kernel topk_ip_fused k {k}, one traced call: " + ", ".join(
+                f"{name} {ms:.4f} ms" if ms else f"{name} not measured (no "
+                "device time recorded)"
+                for name, ms in _topk_merge_share(q, bank, k).items()))
+        if PARENT:
+            parent = _topk_parent(q, bank, k)
+            p_out = parent()
+            out = tk.topk_ip_fused(q, bank, k)
+            torch.cuda.synchronize()
+            print(f"B8 k {k}: the parent's indices differ from this "
+                  f"commit's at a share "
+                  f"{(p_out[1] != out[1]).float().mean().item():.2e} of "
+                  "positions")
+            _in_turns(f"B8 k {k}", parent,
+                      lambda: tk.topk_ip_fused(q, bank, k), 10,
+                      [_rel_norm(p_out[0], out[0])])
+        if k == TOPK_K:
+            rows["topk_ip_fused"] = {
+                "name": "topk_ip_fused", "route": "cuda",
+                "source": "domainrag_tpu_torch/csrc/topk.cu",
+                "replaces": "domainrag_tpu/ops/topk.py:183", "launches": 0,
+                "max_abs_err": max_abs, **t}
     # where the time goes: k = 1 keeps the GEMM and drops almost every
-    # insertion into the running lists; the library's GEMM alone
+    # merge of the buffers into the lists; the library's GEMM alone
     print(f"kernel topk_ip_fused split: k 1 "
           f"{_ms(lambda: tk.topk_ip_fused(q, bank, 1), 20):.4f} ms; the "
           f"library's matmul alone "
           f"{_ms(lambda: torch.matmul(q, bank.T), 20):.4f} ms")
-    return {"topk_ip_fused": row}
+    return rows
 
 
 def _jpeg(rng, path, w, h):
@@ -2811,8 +2920,8 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout of the parent commit: its B1-B3, B5 "
-                         "and bf16 B6 are built and timed beside this "
+                    help="a checkout of the parent commit: its B1-B3, "
+                         "B5, B6 and B8 are built and timed beside this "
                          "commit's")
     PARENT = ap.parse_args().parent
     if not torch.cuda.is_available():

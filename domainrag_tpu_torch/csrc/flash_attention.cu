@@ -8,13 +8,12 @@
 //      KV blocks above) - CUDA blocks cannot hold the whole KV, and a
 //      kernel that streams KV with an online softmax needs no second regime;
 //   B6 _flash_bwd_dq_kernel (:296) and _flash_bwd_dkv_kernel (:336),
-//      behind _flash_backward (:382). In bf16 one kernel computes all three
-//      gradients (below); the f32 instance keeps the TPU split - one block
-//      per (b*h, q tile) looping over KV tiles for dq, one per (b*h, kv
-//      tile) looping over q tiles for dk/dv.
+//      behind _flash_backward (:382). In each dtype one kernel computes all
+//      three gradients (below), where the TPU splits dq from dk/dv and
+//      recomputes S and dP in each.
 //
 // Layout: q/k/v/out/dout (B*H, S, 128) contiguous, head_dim padded to 128
-// by the wrapper (ops/attention.py); lse and delta (B*H, Sq) f32 (the bf16
+// by the wrapper (ops/attention.py); lse and delta (B*H, Sq) f32 (the
 // backward: rows zero padded to a multiple of 64).
 //
 // Math (as the TPU kernels):
@@ -69,30 +68,59 @@
 //    f32 plain version (chip_smoke.py measures it). Registers per consumer
 //    thread: dK 64 + dV 64, S^T 32 + dP^T 32 (then the bf16 A fragments
 //    16 + 16), dQ 32, no spills; shared memory 194 KB, one block per SM.
-//  * f32: no TF32 (the port turns it off), so f32 FMA on the CUDA cores:
-//    256 threads, 64x64 score tiles, each thread 4 rows x 4 columns of a
-//    score tile and 4 rows x 8 columns of a 128-wide accumulator, rows
-//    ty + 16i and columns tx + 16j so that every shared-memory read is a
-//    broadcast or conflict-free (row pitch 129 / 65 floats).
+//  * f32 backward: the bf16 kernel's loop on the tensor cores, every f32
+//    product as 3xTF32 (x = hi + lo, hi = x rounded to TF32, lo = x - hi;
+//    a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, f32 accumulate: CUTLASS's
+//    OpMultiplyAddFastF32, about f32's error where one TF32 product keeps
+//    ~3 digits). wgmma takes tf32 only with both operands K-major, and
+//    three of the five products need an MN-major B, so the products are
+//    mma.sync m16n8k8 with fragments gathered from one f32 copy of each
+//    tile and split into hi/lo in registers. One block per (b*h, 128 kv
+//    rows): a producer warpgroup (setmaxnreg 24; one thread TMA-loads K and
+//    V once and a 2-stage ring of 32-row Q and dO tiles, 128-byte swizzle,
+//    zeros past each (b, h)'s rows, with their lse and delta rows by bulk
+//    copy) and two consumer warpgroups (240 registers) of 8 warps with 16
+//    kv rows each. Per q tile a warp computes S^T = K Q^T and dP^T = V dO^T
+//    (16 x 32), P^T and dS^T in registers, dV += P^T dO and dK += dS^T Q
+//    (16 x 128 each; the accumulators are A fragments as they stand once a
+//    fragment's k slots are taken in the order (2 tig, 2 tig + 1), and B
+//    is read in that order too; each q tile's products go into fresh
+//    accumulators added to dK, dV in f32, since the tensor core truncates
+//    its own sums and one chain over all q tiles drifts); dS^T goes
+//    to shared memory and, after a named barrier, each warp takes a 16 x
+//    32 piece of dQ = dS K / sqrt(D) over the block's 128 kv rows, staged
+//    in the TMA box layout and added into the f32 dq by the TMA unit
+//    (cp.reduce.async.bulk.tensor .add), so dq needs no pass after the
+//    kernel. Every fragment read from the swizzled tiles is free of bank
+//    conflicts. Shared memory 226 KB (K, V 128 KB; two Q/dO stages 64 KB;
+//    dS^T 16 KB; dQ staging 16 KB), one block per SM. dq's sum order
+//    across blocks varies from run to run; dk and dv are deterministic.
+//  * f32 forward: FMA on the CUDA cores (no TF32): 256 threads, 64x64
+//    score tiles, each thread 4 rows x 4 columns of a score tile and 4
+//    rows x 8 columns of a 128-wide accumulator, rows ty + 16i and columns
+//    tx + 16j so that every shared-memory read is a broadcast or
+//    conflict-free (row pitch 129 / 65 floats).
 //  Ragged tails (S not a multiple of the tile) are zero-filled on load,
 //  masked, and never stored. Element offsets are 64-bit.
 //
 // Bounds on the card (the trainer's shape B = 2, H = 24, S = 4608, D = 128):
 //   forward 4*B*H*S^2*D = 5.22e11 FLOP: 0.528 ms at 989 TFLOP/s bf16,
 //   7.79 ms at 67 TFLOP/s f32 (FMA); bytes 4 x 56.6 MB bf16 = 0.07 ms.
-//   backward at least 10*B*H*S^2*D = 1.30e12 FLOP: 1.32 ms bf16 (the bf16
-//   kernel does exactly that; its bytes, 8 x 56.6 MB plus the f32 dq_accum
-//   written and read once, are ~0.2 ms); the f32 kernels recompute s and dp
-//   and do 14*B*H*S^2*D. Every call is compute-bound; the B*H*S^2
-//   exponentials also load the special-function units.
+//   backward at least 10*B*H*S^2*D = 1.30e12 FLOP, which both backward
+//   kernels do: 1.32 ms bf16 (bytes, 8 x 56.6 MB plus the f32 dq_accum
+//   written and read once, ~0.2 ms); f32 as 3xTF32 3.91e12 TF32 FLOP at
+//   495 TFLOP/s = 7.9 ms (on f32 FMA it would be 19.5 ms at 67 TFLOP/s;
+//   bytes 8 x 113 MB = 0.27 ms). Every call is compute-bound; the B*H*S^2
+//   exponentials also load the special-function units, and the f32
+//   kernel's hi/lo splits (3 instructions per fragment element) compete
+//   with its mma.sync issue.
 
 #include "flash_fwd.cuh"
 
 namespace {
 
 constexpr int D = 128;                  // padded head_dim
-constexpr int BN = 64;                  // kv rows per tile of the f32 kernels
-constexpr int BQ = 64;                  // q rows per tile of the backward
+constexpr int BN = 64;                  // kv rows per tile of the f32 forward
 constexpr float NEG_INF = -1e30f;
 constexpr float LN_2 = 0.6931471805599453f;
 
@@ -153,10 +181,10 @@ struct FwdRows {
 };
 
 // ---------------------------------------------------------------------------
-// f32 instances: FMA on the CUDA cores
+// B5, f32: FMA on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int ST = 256;                 // threads of the f32 kernels
+constexpr int ST = 256;                 // threads of the f32 forward
 constexpr int LD = D + 1;               // row pitch of 128-wide f32 tiles
 constexpr int LDP = 64 + 1;             // row pitch of 64-wide f32 tiles
 constexpr int FT = 64 * LD;             // floats of a 64 x 128 tile
@@ -238,7 +266,6 @@ __device__ __forceinline__ void store_acc(float* base,
 }
 
 constexpr int SIMT_FWD_SMEM = (3 * FT + PT) * 4;      // Q, K, V, P
-constexpr int SIMT_BWD_SMEM = (4 * FT + 2 * PT + 128) * 4;
 
 __global__ void __launch_bounds__(ST)
     fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -313,135 +340,6 @@ __global__ void __launch_bounds__(ST)
     if (tx == 0 && row < s_q) lse[bh * s_q + row] = m[i] * LN_2 + logf(li);
   }
   store_acc(out + bh * s_q * D, o, q0, s_q, ty, tx, inv);
-}
-
-__global__ void __launch_bounds__(ST)
-    dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const float* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dq,
-                   int s_q, int s_kv, int kv_valid, int causal, float scale) {
-  extern __shared__ __align__(16) float fsm[];
-  float* sQ = fsm;
-  float* sO = sQ + FT;          // dO
-  float* sK = sO + FT;
-  float* sV = sK + FT;
-  float* sS = sV + FT;          // dS
-  const int q0 = blockIdx.x * BQ;
-  const long long bh = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const float* kbase = k + bh * s_kv * D;
-  const float* vbase = v + bh * s_kv * D;
-
-  int n_kv = (kv_valid + BN - 1) / BN;
-  if (causal) n_kv = min(n_kv, (min(q0 + BQ, s_q) - 1) / BN + 1);
-  load_f(sQ, q + bh * s_q * D, q0, s_q, tid);
-  load_f(sO, dout + bh * s_q * D, q0, s_q, tid);
-  float lse_r[4], del_r[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < s_q ? lse[bh * s_q + row] : 0.f;
-    del_r[i] = row < s_q ? delta[bh * s_q + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-  }
-  for (int j = 0; j < n_kv; ++j) {
-    const int kv0 = j * BN;
-    __syncthreads();
-    load_f(sK, kbase, kv0, s_kv, tid);
-    load_f(sV, vbase, kv0, s_kv, tid);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    mm_nt(s, sQ, sK, ty, tx);
-    mm_nt(dp, sO, sV, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int col = kv0 + tx + 16 * jj;
-        const float p = keep(row, col, kv_valid, causal)
-                            ? bwd_prob(s[i][jj], scale, lse_r[i]) : 0.f;
-        sS[(ty + 16 * i) * LDP + tx + 16 * jj] = p * (dp[i][jj] - del_r[i]);
-      }
-    }
-    __syncthreads();
-    mm_nn(acc, sS, sK, ty, tx);
-  }
-  const float mul[4] = {scale, scale, scale, scale};
-  store_acc(dq + bh * s_q * D, acc, q0, s_q, ty, tx, mul);
-}
-
-__global__ void __launch_bounds__(ST)
-    dkv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dk,
-                    float* __restrict__ dv, int s_q, int s_kv, int kv_valid,
-                    int causal, float scale) {
-  extern __shared__ __align__(16) float fsm[];
-  float* sK = fsm;
-  float* sV = sK + FT;
-  float* sQ = sV + FT;
-  float* sO = sQ + FT;          // dO
-  float* sP = sO + FT;          // P^T (kv rows x q columns)
-  float* sS = sP + PT;          // dS^T
-  float* sL = sS + PT;          // lse of the q tile
-  float* sD = sL + 64;          // delta of the q tile
-  const int kv0 = blockIdx.x * BN;
-  const long long bh = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const float* qbase = q + bh * s_q * D;
-  const float* obase = dout + bh * s_q * D;
-
-  load_f(sK, k + bh * s_kv * D, kv0, s_kv, tid);
-  load_f(sV, v + bh * s_kv * D, kv0, s_kv, tid);
-  float dk_acc[4][8], dv_acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  const int n_q = (s_q + BQ - 1) / BQ;
-  for (int it = causal ? kv0 / BQ : 0; it < n_q; ++it) {
-    const int q0 = it * BQ;
-    __syncthreads();
-    load_f(sQ, qbase, q0, s_q, tid);
-    load_f(sO, obase, q0, s_q, tid);
-    if (tid < 64) {
-      const bool in = q0 + tid < s_q;
-      sL[tid] = in ? lse[bh * s_q + q0 + tid] : 0.f;
-      sD[tid] = in ? delta[bh * s_q + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-    float st[4][4] = {}, dpt[4][4] = {};
-    mm_nt(st, sK, sQ, ty, tx);
-    mm_nt(dpt, sV, sO, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kvr = kv0 + ty + 16 * i;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int qc = tx + 16 * jj;
-        const float p = (q0 + qc < s_q && keep(q0 + qc, kvr, kv_valid,
-                                               causal))
-                            ? bwd_prob(st[i][jj], scale, sL[qc]) : 0.f;
-        sP[(ty + 16 * i) * LDP + qc] = p;
-        sS[(ty + 16 * i) * LDP + qc] = p * (dpt[i][jj] - sD[qc]);
-      }
-    }
-    __syncthreads();
-    mm_nn(dv_acc, sP, sO, ty, tx);
-    mm_nn(dk_acc, sS, sQ, ty, tx);
-  }
-  const float dk_scale = scale;  // dk = ds^T q / sqrt(D)
-  const float mk[4] = {dk_scale, dk_scale, dk_scale, dk_scale};
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_acc(dk + bh * s_kv * D, dk_acc, kv0, s_kv, ty, tx, mk);
-  store_acc(dv + bh * s_kv * D, dv_acc, kv0, s_kv, ty, tx, one);
 }
 
 // ---------------------------------------------------------------------------
@@ -720,6 +618,377 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// B6, f32: dq, dk and dv in one kernel on the tensor cores, as 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int FB_KV = 128;              // kv rows per block
+constexpr int FB_Q = 32;                // q rows per tile of the ring
+constexpr int FB_STAGES = 2;            // Q / dO / lse / delta ring depth
+constexpr int FB_THREADS = 384;         // producer + 2 consumer warpgroups
+constexpr int FB_BAR_DS = 1;            // named barrier: dS^T complete
+constexpr int FB_BAR_DQ = 2;            // named barrier: dQ staged
+// shared memory in floats: tiles of 128 lanes held as four TMA boxes of 32
+// lanes, each on a 1024-byte boundary (the period of the 128-byte swizzle)
+constexpr int FB_KV_FLOATS = FB_KV * D;     // a K or V tile, 64 KB
+constexpr int FB_Q_FLOATS = FB_Q * D;       // a Q, dO or dQ tile, 16 KB
+constexpr int FB_DS_FLOATS = FB_KV * FB_Q;  // dS^T: 128 kv rows x 32 q
+constexpr int FB_SMEM = 1024 + 4 * (2 * FB_KV_FLOATS +
+                                    FB_STAGES * 2 * FB_Q_FLOATS +
+                                    FB_DS_FLOATS + FB_Q_FLOATS +
+                                    FB_STAGES * 2 * FB_Q);
+
+struct BwdF32 {
+  CUtensorMap tq, tdo;           // (bh, s_q, 128) f32, boxes of 32 x 32
+  CUtensorMap tk, tv;            // (bh, s_kv, 128) f32, boxes of 128 x 32
+  CUtensorMap tdq;               // (bh, s_q, 128) f32 dq, zeroed by the
+                                 // caller: boxes of 32 x 32
+  const float* lse;              // (bh, s_q_pad) natural log, zero padded
+  const float* delta;            // (bh, s_q_pad) rowsum(dO * O)
+  float* dk;                     // (bh, s_kv, 128)
+  float* dv;
+  int s_q, s_kv, kv_valid, causal, s_q_pad;
+  float scale;                   // 1/sqrt(D) of the unpadded head width
+};
+
+// The float offset of element (r, c) of a tile of `rows` rows x 128 lanes
+// held as four boxes of 32 lanes: 128-byte rows, 16-byte chunk j of row r
+// at j ^ (r & 7), as TMA's 128-byte swizzle writes them.
+__device__ __forceinline__ int swz(int rows, int r, int c) {
+  return (c >> 5) * rows * 32 + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) +
+         (c & 3);
+}
+
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits, half away from
+// zero), lo = x - hi exactly; the tensor core reads lo's top 11 bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a * b, m16n8k8, tf32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in 3xTF32: a_lo b_hi + a_hi b_lo, then a_hi b_hi (a_lo b_lo,
+// 2^-22 of the product, is dropped)
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+template <int N>
+__device__ __forceinline__ void split_n(const float (&x)[N],
+                                        uint32_t (&hi)[N],
+                                        uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// The A fragment (16 x 8) at rows r0.., lanes c0.. of a swizzled tile
+// (rows along M, lanes along K).
+__device__ __forceinline__ void frag_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                       const float* t, int rows, int r0,
+                                       int c0, int g, int tig) {
+  const float x[4] = {t[swz(rows, r0 + g, c0 + tig)],
+                      t[swz(rows, r0 + g + 8, c0 + tig)],
+                      t[swz(rows, r0 + g, c0 + tig + 4)],
+                      t[swz(rows, r0 + g + 8, c0 + tig + 4)]};
+  split_n(x, hi, lo);
+}
+
+// The B fragment (8 x 8) with N along the tile's rows (n0..) and K along
+// its lanes (k0..).
+__device__ __forceinline__ void frag_b_nk(uint32_t (&hi)[2],
+                                          uint32_t (&lo)[2], const float* t,
+                                          int rows, int n0, int k0, int g,
+                                          int tig) {
+  const float x[2] = {t[swz(rows, n0 + g, k0 + tig)],
+                      t[swz(rows, n0 + g, k0 + tig + 4)]};
+  split_n(x, hi, lo);
+}
+
+// The B fragment (8 x 8) with K along the tile's rows (k0..) and N along
+// its lanes (n0..), in the k-slot order (2 tig, 2 tig + 1) of an A
+// fragment taken from accumulator registers: slot tig is row k0 + 2 tig,
+// slot tig + 4 row k0 + 2 tig + 1.
+__device__ __forceinline__ void frag_b_kn(uint32_t (&hi)[2],
+                                          uint32_t (&lo)[2], const float* t,
+                                          int rows, int k0, int n0, int g,
+                                          int tig) {
+  const float x[2] = {t[swz(rows, k0 + 2 * tig, n0 + g)],
+                      t[swz(rows, k0 + 2 * tig + 1, n0 + g)]};
+  split_n(x, hi, lo);
+}
+
+// acc[nb] += a b over a q tile: A (16 kv rows x 32 q) from accumulator
+// registers x (k slots (2 tig, 2 tig + 1) of each n8 block), B (32 q x
+// 128 lanes) from the tile t. Each n8 block's product goes into a fresh
+// accumulator, added to acc in f32; four blocks at a time, so that four
+// chains of dependent mma.sync are in flight.
+__device__ __forceinline__ void tile_products(float (&acc)[16][4],
+                                              const float (&x)[4][4],
+                                              const float* t, int g,
+                                              int tig) {
+  uint32_t ah[4][4], al[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float a[4] = {x[j][0], x[j][2], x[j][1], x[j][3]};
+    split_n(a, ah[j], al[j]);
+  }
+#pragma unroll
+  for (int n0 = 0; n0 < 16; n0 += 4) {
+    float part[4][4];
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[nb][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        uint32_t bh[2], bl[2];
+        frag_b_kn(bh, bl, t, FB_Q, 8 * j, 8 * (n0 + nb), g, tig);
+        mma3(part[nb], ah[j], al[j], bh, bl);
+      }
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + nb][e] += part[nb][e];
+  }
+}
+
+// One block per (b*h, 128 kv rows); warpgroup 0 loads, warpgroups 1 and 2
+// hold 8 warps of 16 kv rows each (accumulator element e of n8 block j of
+// a thread: kv row 16 warp + g + 8 (e >> 1), column 8j + 2 tig + (e & 1)).
+__global__ void __launch_bounds__(FB_THREADS, 1)
+    bwd_f32_kernel(const __grid_constant__ BwdF32 P) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[FB_STAGES], empty[FB_STAGES], kvbar;
+  float* sK = reinterpret_cast<float*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  float* sV = sK + FB_KV_FLOATS;
+  float* sQ = sV + FB_KV_FLOATS;             // FB_STAGES tiles
+  float* sO = sQ + FB_STAGES * FB_Q_FLOATS;  // dO, FB_STAGES tiles
+  float* sS = sO + FB_STAGES * FB_Q_FLOATS;  // dS^T, one box of 32 q lanes
+  float* sA = sS + FB_DS_FLOATS;             // dQ staged for the TMA add
+  float* sL = sA + FB_Q_FLOATS;              // lse per stage
+  float* sD = sL + FB_STAGES * FB_Q;         // delta per stage
+
+  const int kv0 = blockIdx.x * FB_KV;
+  const int bh = blockIdx.y;
+  const int n_q = (P.s_q + FB_Q - 1) / FB_Q;
+  // the first q tile that reaches this block's kv rows
+  const int it0 = P.causal ? kv0 / FB_Q : 0;
+  const int n_it = kv0 < P.kv_valid ? max(0, n_q - it0) : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FB_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);     // lane 0 of each consumer warp
+    }
+    mbar_init(&kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread issues every load, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0 && n_it > 0) {
+      mbar_expect_tx(&kvbar, 2 * FB_KV_FLOATS * 4);
+      for (int h = 0; h < 4; ++h) {
+        tma_3d(sK + h * FB_KV * 32, &P.tk, 32 * h, kv0, bh, &kvbar);
+        tma_3d(sV + h * FB_KV * 32, &P.tv, 32 * h, kv0, bh, &kvbar);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % FB_STAGES;
+        if (it >= FB_STAGES) mbar_wait(&empty[s], (it / FB_STAGES - 1) & 1);
+        const int q0 = (it0 + it) * FB_Q;
+        mbar_expect_tx(&full[s], 2 * FB_Q_FLOATS * 4 + 2 * FB_Q * 4);
+        for (int h = 0; h < 4; ++h) {
+          tma_3d(sQ + s * FB_Q_FLOATS + h * FB_Q * 32, &P.tq, 32 * h, q0, bh,
+                 &full[s]);
+          tma_3d(sO + s * FB_Q_FLOATS + h * FB_Q * 32, &P.tdo, 32 * h, q0,
+                 bh, &full[s]);
+        }
+        const long long row = (long long)bh * P.s_q_pad + q0;
+        bulk_g2s(sL + s * FB_Q, P.lse + row, FB_Q * 4, &full[s]);
+        bulk_g2s(sD + s * FB_Q, P.delta + row, FB_Q * 4, &full[s]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int warp = (threadIdx.x >> 5) - 4;  // consumer warp 0 .. 7
+    const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+    const int rw = 16 * warp;                 // the warp's first kv row
+    const int mq = warp & 1, nd = warp >> 1;  // its dQ rows 16 mq, lanes 32 nd
+    const bool issuer = threadIdx.x == 128;   // of the dQ adds
+
+    float dk[16][4], dv[16][4];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+    if (n_it > 0) mbar_wait(&kvbar, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % FB_STAGES;
+      const int q0 = (it0 + it) * FB_Q;
+      const float* tq = sQ + s * FB_Q_FLOATS;
+      const float* to = sO + s * FB_Q_FLOATS;
+      const float* tl = sL + s * FB_Q;
+      const float* td = sD + s * FB_Q;
+      mbar_wait(&full[s], (it / FB_STAGES) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 kv rows
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < D / 8; ++kk) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        frag_a(kh, kl, sK, FB_KV, rw, 8 * kk, g, tig);
+        frag_a(vh, vl, sV, FB_KV, rw, 8 * kk, g, tig);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bh_[2], bl_[2];
+          frag_b_nk(bh_, bl_, tq, FB_Q, 8 * j, 8 * kk, g, tig);
+          mma3(st[j], kh, kl, bh_, bl_);
+          frag_b_nk(bh_, bl_, to, FB_Q, 8 * j, 8 * kk, g, tig);
+          mma3(dpt[j], vh, vl, bh_, bl_);
+        }
+      }
+
+      // P^T = exp(s/sqrt(D) - lse), masked entries 0; dS^T = P^T (dP^T -
+      // delta), both per q column
+      const int kvw = kv0 + rw;
+      const bool masked = q0 + FB_Q > P.s_q || kvw + 16 > P.kv_valid ||
+                          (P.causal && kvw + 15 > q0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * tig + (e & 1);
+          float p = bwd_prob(st[j][e], P.scale, tl[c]);
+          if (masked) {
+            const int qc = q0 + c, kr = kvw + g + 8 * (e >> 1);
+            if (qc >= P.s_q || kr >= P.kv_valid || (P.causal && qc < kr))
+              p = 0.f;
+          }
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - td[c]);
+        }
+
+      // dS^T into shared memory for dQ (every warp read the last tile's
+      // before FB_BAR_DQ)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          *reinterpret_cast<float2*>(
+              sS + swz(FB_KV, rw + g + 8 * hr, 8 * j + 2 * tig)) =
+              make_float2(dpt[j][2 * hr], dpt[j][2 * hr + 1]);
+
+      // dV += P^T dO, then dK += dS^T Q: A from the registers above (k
+      // slots (2 tig, 2 tig + 1) of each n8 block), B from the stage's
+      // tiles. The tensor core truncates its f32 sums, so a tile's 12
+      // products go into fresh accumulators and dK, dV take them by a
+      // rounded add (one accumulator over all q tiles measured ~3e-5 in
+      // relative norm on the H100, over F32_REL)
+      tile_products(dv, st, to, g, tig);
+      tile_products(dk, dpt, tq, g, tig);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);   // Q, dO, lse, delta read
+
+      // the last dQ staging read by the TMA unit, dS^T complete
+      if (issuer) bulk_wait_read0();
+      bar_sync(FB_BAR_DS, 256);
+
+      // dQ = dS K / sqrt(D): the warp takes q rows 16 mq.. x lanes 32 nd..
+      // over the block's 128 kv rows (A = dS from dS^T, k slots (2 tig,
+      // 2 tig + 1))
+      // (even and odd kv steps in two accumulator sets: eight chains of
+      // dependent mma.sync in flight)
+      float dq[2][4][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dq[h][nb][e] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < FB_KV / 8; kk += 2)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 8 * (kk + h) + 2 * tig, c = 16 * mq + g;
+          const float a[4] = {sS[swz(FB_KV, r, c)], sS[swz(FB_KV, r, c + 8)],
+                              sS[swz(FB_KV, r + 1, c)],
+                              sS[swz(FB_KV, r + 1, c + 8)]};
+          uint32_t ah[4], al[4];
+          split_n(a, ah, al);
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            uint32_t bh_[2], bl_[2];
+            frag_b_kn(bh_, bl_, sK, FB_KV, 8 * (kk + h), 32 * nd + 8 * nb, g,
+                      tig);
+            mma3(dq[h][nb], ah, al, bh_, bl_);
+          }
+        }
+      // stage dQ in the tensor map's box layout; one thread has the TMA
+      // unit add it into dq (rows past s_q are not written; the sum order
+      // over blocks varies from run to run)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          *reinterpret_cast<float2*>(
+              sA + swz(FB_Q, 16 * mq + g + 8 * hr,
+                       32 * nd + 8 * nb + 2 * tig)) =
+              make_float2((dq[0][nb][2 * hr] + dq[1][nb][2 * hr]) * P.scale,
+                          (dq[0][nb][2 * hr + 1] + dq[1][nb][2 * hr + 1]) *
+                              P.scale);
+      fence_proxy_async();
+      bar_sync(FB_BAR_DQ, 256);
+      if (issuer) {
+        for (int h = 0; h < 4; ++h)
+          tma_add_3d(&P.tdq, sA + h * FB_Q * 32, 32 * h, q0, bh);
+        bulk_commit();
+      }
+    }
+    if (issuer) bulk_wait_read0();
+
+    // every kv row of the block is written, zeros where no q reached it
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int kr = kv0 + rw + g + 8 * hr;
+      if (kr < P.s_kv) {
+        const long long off = ((long long)bh * P.s_kv + kr) * D + 2 * tig;
+#pragma unroll
+        for (int nb = 0; nb < 16; ++nb) {
+          *reinterpret_cast<float2*>(P.dk + off + 8 * nb) = make_float2(
+              dk[nb][2 * hr] * P.scale, dk[nb][2 * hr + 1] * P.scale);
+          *reinterpret_cast<float2*>(P.dv + off + 8 * nb) =
+              make_float2(dv[nb][2 * hr], dv[nb][2 * hr + 1]);
+        }
+      }
+    }
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -739,42 +1008,16 @@ int fwd_simt(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-int bwd_simt(int which, const void* q, const void* k, const void* v,
-             const void* dout, const void* lse, const void* delta, void* dq,
-             void* dk, void* dv, int bh, int s_q, int s_kv, int kv_valid,
-             int causal, float scale, cudaStream_t st) {
-  const float *tq = static_cast<const float*>(q),
-              *tk = static_cast<const float*>(k),
-              *tv = static_cast<const float*>(v),
-              *to = static_cast<const float*>(dout),
-              *fl = static_cast<const float*>(lse),
-              *fd = static_cast<const float*>(delta);
-  cudaError_t err;
-  if (which == 0) {
-    err = allow_smem(dq_simt_kernel, SIMT_BWD_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    dq_simt_kernel<<<dim3((s_q + BQ - 1) / BQ, bh), ST, SIMT_BWD_SMEM,
-                     st>>>(tq, tk, tv, to, fl, fd, static_cast<float*>(dq),
-                           s_q, s_kv, kv_valid, causal, scale);
-  } else {
-    err = allow_smem(dkv_simt_kernel, SIMT_BWD_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    dkv_simt_kernel<<<dim3((s_kv + BN - 1) / BN, bh), ST, SIMT_BWD_SMEM,
-                      st>>>(tq, tk, tv, to, fl, fd, static_cast<float*>(dk),
-                            static_cast<float*>(dv), s_q, s_kv, kv_valid,
-                            causal, scale);
-  }
-  return (int)cudaGetLastError();
-}
-
-// (bh, rows, 128) f32 as a tensor map: boxes of 64 rows x 32 lanes (128
-// bytes); a reduce past each (b, h)'s last row writes nothing.
-bool map_rows_f32(CUtensorMap* map, void* base, int rows, int bh) {
+// (bh, rows, 128) f32 as a tensor map: boxes of `box` rows x 32 lanes (128
+// bytes); a load past each (b, h)'s last row reads zeros, a reduce there
+// writes nothing.
+bool map_rows_f32(CUtensorMap* map, const void* base, int rows, int bh,
+                  int box) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 4,
                                  (cuuint64_t)rows * D * 4};
-  const cuuint32_t boxes[3] = {32, BW_Q, 1};
+  const cuuint32_t boxes[3] = {32, (cuuint32_t)box, 1};
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims,
                   strides, boxes);
 }
@@ -826,7 +1069,7 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
         map_rows(&P.tdo, dout, s_q, bh, BW_Q) &&
         map_rows(&P.tk, k, s_kv, bh, BW_KV) &&
         map_rows(&P.tv, v, s_kv, bh, BW_KV) &&
-        map_rows_f32(&P.tdq, dq_accum, s_q, bh)))
+        map_rows_f32(&P.tdq, dq_accum, s_q, bh, BW_Q)))
     return (int)cudaErrorInvalidValue;
   P.lse = static_cast<const float*>(lse);
   P.delta = static_cast<const float*>(delta);
@@ -845,15 +1088,36 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// B6, f32: which = 0 launches the dq kernel, 1 the dk/dv kernel; lse and
-// delta (bh, s_q) f32; dq, dk, dv f32. scale = 1/sqrt(D) of the unpadded
-// head width.
-extern "C" int flash_bwd_f32(int which, const void* q, const void* k,
-                             const void* v, const void* dout, const void* lse,
+// B6, f32: dq, dk and dv in one launch, every product in 3xTF32. lse and
+// delta: (bh, s_q_pad) f32, s_q_pad = s_q rounded up to a multiple of 64,
+// zero padded; dq: (bh, s_q, 128) f32, zeroed by the caller, receives
+// sum_kv dS K / sqrt(D) (summed in an order that varies from run to run);
+// dk, dv: (bh, s_kv, 128) f32. scale = 1/sqrt(D) of the unpadded width.
+extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
                              const void* delta, void* dq, void* dk, void* dv,
                              int bh, int s_q, int s_kv, int kv_valid,
                              int causal, float scale, void* stream) {
-  return bwd_simt(which, q, k, v, dout, lse, delta, dq, dk, dv, bh, s_q,
-                  s_kv, kv_valid, causal, scale,
-                  static_cast<cudaStream_t>(stream));
+  BwdF32 P;
+  if (!(map_rows_f32(&P.tq, q, s_q, bh, FB_Q) &&
+        map_rows_f32(&P.tdo, dout, s_q, bh, FB_Q) &&
+        map_rows_f32(&P.tk, k, s_kv, bh, FB_KV) &&
+        map_rows_f32(&P.tv, v, s_kv, bh, FB_KV) &&
+        map_rows_f32(&P.tdq, dq, s_q, bh, FB_Q)))
+    return (int)cudaErrorInvalidValue;
+  P.lse = static_cast<const float*>(lse);
+  P.delta = static_cast<const float*>(delta);
+  P.dk = static_cast<float*>(dk);
+  P.dv = static_cast<float*>(dv);
+  P.s_q = s_q;
+  P.s_kv = s_kv;
+  P.kv_valid = kv_valid;
+  P.causal = causal;
+  P.s_q_pad = (s_q + BW_Q - 1) / BW_Q * BW_Q;
+  P.scale = scale;
+  cudaError_t err = allow_smem(bwd_f32_kernel, FB_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  bwd_f32_kernel<<<dim3((s_kv + FB_KV - 1) / FB_KV, bh), FB_THREADS, FB_SMEM,
+                   static_cast<cudaStream_t>(stream)>>>(P);
+  return (int)cudaGetLastError();
 }

@@ -5,311 +5,329 @@
 // CLIP queries (Q, d) against the corpus bank (N, d), both f32.
 //
 // Math: score[q][n] = sum_k query[q][k] * bank[n][k], a true f32 sum of
-// products (FFMA on the CUDA cores, k ascending; no TF32, which would break
-// the identical-indices-to-FAISS contract). Each query row keeps the k best
-// (score, index) pairs in the total order (score desc, index asc). A score
-// enters only when it is above -FLT_MAX (the Pallas kernel's masked value),
-// and a row with fewer than k entries is padded with (-FLT_MAX, 2^31 - 1),
-// as topk_ip_pallas returns for k > N. Any k >= 1 (topk_ip_pallas pads k to
-// a multiple of 128 and has no upper limit either).
+// products (FFMA on the CUDA cores, one sequential FMA chain per score, k
+// ascending; no TF32, which would break the identical-indices-to-FAISS
+// contract). Each query row keeps the k best (score, index) pairs in the
+// total order (score desc, index asc). A score enters only when it is above
+// -FLT_MAX (the Pallas kernel's masked value), and a row with fewer than k
+// entries is padded with (-FLT_MAX, 2^31 - 1), as topk_ip_pallas returns
+// for k > N. Any k >= 1 (topk_ip_pallas pads k to a multiple of 128 and
+// has no upper limit either).
 //
 // Bound on the card: 2*Q*N*d operations at the f32 FMA peak (67 TFLOP/s),
 // or the bytes (queries and bank read once, 8*Q*k written) at 3.35 TB/s.
 // At the stage-2 shape, 200 queries x 178,287 bank rows x 512, k = 100:
-// 36.5 GFLOP = 0.545 ms against 365 MB = 0.109 ms, so operation-bound.
+// 36.5 GFLOP = 0.545 ms of FFMA against 365 MB = 0.109 ms of bytes, so
+// operation-bound: the GEMM has to keep the FMA pipes issuing, and the
+// selection has to stay off the GEMM's path.
 //
-// Design (a simple kernel that is right first; the Pallas kernel's grid
-// carries the running top-k across bank tiles in VMEM, which a Hopper grid
-// cannot do across blocks, hence two passes):
-//  * Pass 1, topk_partial: the grid is (query tiles of 32 rows) x (bank
-//    splits), query tiles fastest so the blocks of one split run together
-//    and read its bank rows through L2 once. A block of 4 warps streams
-//    its split in 128-row bank tiles; each tile's 32 x 128 scores come from
-//    a register-tiled f32 GEMM (4 x 8 accumulators per thread) over d in
-//    chunks of 16, staged transposed in shared memory with the next chunk's
-//    global loads in flight while the current one is multiplied. The score
-//    tile then goes to shared memory (over the staging buffers) and each
-//    warp updates its 8 rows' running lists (shared memory, sorted): a
-//    candidate is inserted only if it beats the row's k-th entry (the
-//    Pallas kernel's threshold gate, :219-228), so after the first tiles
-//    almost every candidate is rejected by one compare. Insertions are one
-//    at a time by the warp (ballot for the position, shift, re-prune).
-//    Each (row, split) list is written to scratch. For k > K_MAX the lists
-//    (32 x k x 8 bytes per block) no longer fit beside the staging buffers,
-//    so the WIDE instance keeps each row's running list in its own (row,
-//    split) slot of that scratch, in global memory (L1-cached; only the
-//    owning warp touches it, and __syncwarp orders its lanes' accesses),
-//    with the same insertions: the same result, slower per insertion.
+// Design (the Pallas kernel's grid carries the running top-k across bank
+// tiles in VMEM, which a Hopper grid cannot do across blocks, hence two
+// passes):
+//  * Pass 1, topk_partial<TQ, WIDE>: the grid is (query tiles of TQ rows) x
+//    (bank splits), one block of 8 warps per SM, one wave. A block streams
+//    its split in 256-row bank tiles, each as 32-lane (128-byte) chunks of
+//    d: thread 0 has the TMA unit load each chunk of the bank tile and of
+//    the query tile (128-byte swizzle, zeros past d, N and Q) into a 3-stage
+//    ring on mbarriers. A warp's lanes are 4 query rows x 8 bank rows and
+//    a thread keeps TMq x TMn scores (4 x 8, 4 x 4, 2 x 4 for TQ = 32, 16,
+//    8): per 16-byte chunk of d it reads TMq query and TMn bank float4,
+//    each one 128-byte wavefront (the swizzle puts 8 rows' chunks on
+//    distinct banks), then 4 FMAs per score.
+//  * Selection (FAISS's WarpSelect/BlockSelect idea, Johnson, Douze and
+//    Jegou, arXiv:1702.08734): each row keeps its running list sorted in
+//    the total order (kp = k rounded up to a power of two, >= 32, padded
+//    with fillers) and its threshold, the list's k-th entry. After a bank
+//    tile, every score that beats its row's threshold is appended to the
+//    row's candidate buffer (a slot from a shared-memory atomic); nothing
+//    is shifted. A row whose buffer holds more than FLUSH_AT entries (so
+//    that the next tile could overflow it), and every row at the split's
+//    end, is merged by one warp: the buffer is bitonic-sorted in chunks of
+//    up to 256, each chunk merged into the list (the elementwise better of
+//    list[i] and chunk[kp - 1 - i] is the top kp as a bitonic sequence,
+//    which a bitonic merge sorts), and the threshold raised. Random data
+//    merges a few times per (row, split); an ascending bank, where every
+//    candidate beats the threshold, once per tile.
+//  * Lists and buffers live in shared memory up to kp = 1024 (TQ 32 rows
+//    for kp <= 128, 16 for 256, 8 above); above that (WIDE) each row's
+//    list lives in its own slot of the (Q, splits, kp) scratch in global
+//    memory (L1-cached; only the owning warp touches it) and the buffers
+//    stay in shared memory. Each (row, split) list's first k entries go to
+//    the scratch.
 //  * Pass 2, topk_merge: one warp per query row merges the sorted split
 //    lists by a tournament (warp argmax of the list heads, k times).
-//  * Ragged Q, N and d edges are masked in the kernel (zero-filled loads,
-//    columns past the split not entered); nothing is padded or copied.
-//    d % 4 == 0 with 16-byte aligned rows takes float4 loads, any other
-//    shape scalar loads (a slower, equally exact instance).
+//  * Ragged Q, N and d edges are zero-filled by the TMA unit and masked;
+//    the wrapper hands d % 4 == 0, 16-byte aligned rows (TMA's strides).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int TQ = 32;       // query rows per block
-constexpr int TN = 128;      // bank rows per tile
-constexpr int TK = 16;       // d per staged chunk
-constexpr int THREADS = 128;
-constexpr int LDA = TQ + 4;  // transposed query chunk [k][q]
-constexpr int LDB = TN + 4;  // transposed bank chunk [k][n]
-constexpr int LDS = TN + 4;  // score tile [q][n]
-constexpr int BUF = TK * LDA + TK * LDB;   // floats per staging buffer
-constexpr int K_MAX = 256;   // larger k: the lists live in the scratch
+constexpr int TN = 256;          // bank rows per tile
+constexpr int TK = 32;           // d per ring stage: one 128-byte TMA box
+constexpr int THREADS = 256;     // 8 warps
+constexpr int STAGES = 3;
+constexpr int BUF = 320;         // candidate slots per row
+constexpr int FLUSH_AT = BUF - TN;   // more entries: merged before the next
+                                     // tile can append TN more
+constexpr int CHUNK = 256;       // buffer entries sorted and merged at once
+constexpr int KP_SHARED = 1024;  // larger lists live in the scratch
 constexpr int MAX_SPLITS = 256;
-constexpr int BLOCKS_PER_SM = 3;   // (query tile, split) blocks in flight
 constexpr int LISTS_PER_LANE = MAX_SPLITS / 32;
 constexpr float NEG = -FLT_MAX;
 constexpr int IMAX = 0x7fffffff;
 constexpr unsigned FULL = 0xffffffffu;
 
-static_assert(TQ * LDS <= 2 * BUF, "the score tile lives over the buffers");
-
 __device__ __forceinline__ bool beats(float sa, int ia, float sb, int ib) {
   return sa > sb || (sa == sb && ia < ib);
 }
 
-// row[k .. k+3], zero past d or for a masked row.
-template <bool VEC>
-__device__ __forceinline__ float4 load4(const float* row, int k, int d,
-                                        bool ok) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (!ok) return v;
-  if (VEC) {
-    if (k < d) v = __ldg(reinterpret_cast<const float4*>(row + k));
-  } else {
-    if (k < d) v.x = __ldg(row + k);
-    if (k + 1 < d) v.y = __ldg(row + k + 1);
-    if (k + 2 < d) v.z = __ldg(row + k + 2);
-    if (k + 3 < d) v.w = __ldg(row + k + 3);
-  }
-  return v;
-}
-
-struct Stage {
-  float4 a;       // one float4 of the query chunk
-  float4 b[4];    // four float4 of the bank chunk
-};
-
-// Global loads of the chunk (bank rows n0.., dims k0..k0+TK) into regs.
-template <bool VEC>
-__device__ __forceinline__ void load_stage(Stage& st, const float* q,
-                                           const float* bank, int q0, int nq,
-                                           int n0, int n_end, int k0, int d,
-                                           int tid) {
-  const int m = tid >> 2, kq = (tid & 3) * 4;
-  st.a = load4<VEC>(q + (size_t)(q0 + m) * d, k0 + kq, d, q0 + m < nq);
+// acc[i][j] += a[i] . b[j] over four consecutive d: each score's FMA chain
+// stays in d order, and the M x N FMAs of each of its 4 steps are
+// independent of one another.
+template <int M, int N>
+__device__ __forceinline__ void fma_chunk(float (&acc)[M][N], float4 (&a)[M],
+                                          float4 (&b)[N]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = m + 32 * i;
-    st.b[i] = load4<VEC>(bank + (size_t)(n0 + n) * d, k0 + kq, d,
-                         n0 + n < n_end);
-  }
-}
-
-// Registers -> a staging buffer, transposed to [k][row].
-__device__ __forceinline__ void store_stage(const Stage& st, float* buf,
-                                            int tid) {
-  const int m = tid >> 2, kq = (tid & 3) * 4;
-  float* as = buf;
-  float* bs = buf + TK * LDA;
-  as[(kq + 0) * LDA + m] = st.a.x;
-  as[(kq + 1) * LDA + m] = st.a.y;
-  as[(kq + 2) * LDA + m] = st.a.z;
-  as[(kq + 3) * LDA + m] = st.a.w;
+  for (int i = 0; i < M; ++i)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = m + 32 * i;
-    bs[(kq + 0) * LDB + n] = st.b[i].x;
-    bs[(kq + 1) * LDB + n] = st.b[i].y;
-    bs[(kq + 2) * LDB + n] = st.b[i].z;
-    bs[(kq + 3) * LDB + n] = st.b[i].w;
+    for (int j = 0; j < N; ++j) acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+}
+
+// s/id[0 .. len) (len a power of two) sorted in the total order by one
+// warp; a power-of-two run starting at a multiple of `size` sorts
+// descending when i & size is 0 (and ascending otherwise).
+__device__ void warp_sort(float* s, int* id, int len, int lane) {
+  for (int size = 2; size <= len; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = lane; t < len / 2; t += 32) {
+        const int i = 2 * t - (t & (stride - 1)), j = i + stride;
+        const float a = s[i], b = s[j];
+        const int ia = id[i], ib = id[j];
+        if ((i & size) == 0 ? beats(b, ib, a, ia) : beats(a, ia, b, ib)) {
+          s[i] = b; s[j] = a; id[i] = ib; id[j] = ia;
+        }
+      }
+      __syncwarp();
+    }
+}
+
+// A bitonic s/id[0 .. len) sorted descending in the total order by one warp.
+__device__ void warp_merge(float* s, int* id, int len, int lane) {
+  for (int stride = len >> 1; stride > 0; stride >>= 1) {
+    for (int t = lane; t < len / 2; t += 32) {
+      const int i = 2 * t - (t & (stride - 1)), j = i + stride;
+      const float a = s[i], b = s[j];
+      const int ia = id[i], ib = id[j];
+      if (beats(b, ib, a, ia)) { s[i] = b; s[j] = a; id[i] = ib; id[j] = ia; }
+    }
+    __syncwarp();
   }
 }
 
-template <bool VEC, bool WIDE>
-__global__ void __launch_bounds__(THREADS, 4)
-topk_partial(const float* __restrict__ q, const float* __restrict__ bank,
+// Merges a row's buffer (n entries) into its sorted list (kp entries) and
+// sets the row's threshold to the list's k-th entry.
+__device__ void flush(float* ls, int* li, float* bs, int* bi, int n, int kp,
+                      int k, int lane, float* ts, int* ti) {
+  for (int base = 0; base < n; base += CHUNK) {
+    const int m = min(CHUNK, n - base);
+    int len = 32;
+    while (len < m) len <<= 1;
+    float* cs = bs + base;
+    int* ci = bi + base;
+    for (int x = m + lane; x < len; x += 32) { cs[x] = NEG; ci[x] = IMAX; }
+    __syncwarp();
+    warp_sort(cs, ci, len, lane);
+    // the better of list[i] and chunk[kp - 1 - i]: the top kp, bitonic
+    for (int i = lane; i < kp; i += 32) {
+      const int x = kp - 1 - i;
+      if (x < len && beats(cs[x], ci[x], ls[i], li[i])) {
+        ls[i] = cs[x];
+        li[i] = ci[x];
+      }
+    }
+    __syncwarp();
+    warp_merge(ls, li, kp, lane);
+  }
+  if (lane == 0) {
+    *ts = ls[k - 1];
+    *ti = li[k - 1];
+  }
+}
+
+// One block per (query tile, split). part_s/part_i: (nq, splits, kp).
+template <int TQ, bool WIDE>
+__global__ void __launch_bounds__(THREADS, 1)
+topk_partial(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap bmap,
              float* __restrict__ part_s, int* __restrict__ part_i, int nq,
-             int n, int d, int k, int splits, int split_rows) {
-  extern __shared__ float4 smem_raw[];
-  float* sm = reinterpret_cast<float*>(smem_raw);
-  float* ssm = sm;                              // score tile (over buffers)
-  const int lk = WIDE ? 0 : TQ * k;             // the lists in shared memory
-  float* lists_s = sm + 2 * BUF;
-  int* lists_i = reinterpret_cast<int*>(lists_s + lk);
-  int* counts = lists_i + lk;
+             int n, int d, int k, int kp, int splits, int split_rows) {
+  constexpr int WQ = TQ == 32 ? 2 : 1;    // warps along the query rows
+  constexpr int WN = 8 / WQ;              // and along the bank rows
+  constexpr int TMq = TQ / (4 * WQ);      // query rows per thread
+  constexpr int TMn = TN / (8 * WN);      // bank rows per thread
+  constexpr int STAGE = (TN + TQ) * TK;   // floats per ring stage
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  float* ring = reinterpret_cast<float*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  float* buf_s = ring + STAGES * STAGE;               // TQ x BUF
+  int* buf_i = reinterpret_cast<int*>(buf_s + TQ * BUF);
+  float* lst_s = reinterpret_cast<float*>(buf_i + TQ * BUF);  // TQ x kp
+  int* lst_i = reinterpret_cast<int*>(lst_s + (WIDE ? 0 : TQ * kp));
+  int* cnt = lst_i + (WIDE ? 0 : TQ * kp);
+  float* thr_s = reinterpret_cast<float*>(cnt + TQ);
+  int* thr_i = reinterpret_cast<int*>(thr_s + TQ);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 15, ty = tid >> 4;       // 16 x 8 thread grid
   const int q0 = blockIdx.x * TQ, split = blockIdx.y;
   const int nb = split * split_rows;
   const int n_end = min(n, nb + split_rows);
   const int ntiles = (n_end - nb + TN - 1) / TN;
   const int nchunks = (d + TK - 1) / TK;
+  const int steps = ntiles * nchunks;
+  const int wq = warp % WQ, wn = warp / WQ;
+  // the thread's query rows qr + 4 i and bank rows nr + 8 j of a tile
+  const int qr = 4 * TMq * wq + (lane >> 3), nr = 8 * TMn * wn + (lane & 7);
   // row r's running list and its slot of the scratch
-  auto slot = [&](int r) { return ((size_t)(q0 + r) * splits + split) * k; };
-  auto list_s = [&](int r) {
-    return WIDE ? part_s + slot(r) : lists_s + r * k;
-  };
-  auto list_i = [&](int r) {
-    return WIDE ? part_i + slot(r) : lists_i + r * k;
-  };
+  auto slot = [&](int r) { return ((size_t)(q0 + r) * splits + split) * kp; };
+  auto list_s = [&](int r) { return WIDE ? part_s + slot(r) : lst_s + r * kp; };
+  auto list_i = [&](int r) { return WIDE ? part_i + slot(r) : lst_i + r * kp; };
 
-  if (tid < TQ) counts[tid] = 0;
-  Stage st;
-  load_stage<VEC>(st, q, bank, q0, nq, nb, n_end, 0, d, tid);
-  store_stage(st, sm, tid);
+  auto issue = [&](int u) {   // step u: chunk u % nchunks of tile u / nchunks
+    const int s = u % STAGES;
+    float* dst = ring + s * STAGE;
+    const int c = u % nchunks, n0 = nb + (u / nchunks) * TN;
+    mbar_expect_tx(&full[s], STAGE * 4);
+    tma_2d(dst, &bmap, c * TK, n0, &full[s]);
+    tma_2d(dst + TN * TK, &qmap, c * TK, q0, &full[s]);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int u = 0; u < STAGES && u < steps; ++u) issue(u);
+  }
+  for (int r = warp; r < TQ; r += 8) {
+    if (lane == 0) { cnt[r] = 0; thr_s[r] = NEG; thr_i[r] = IMAX; }
+    if (q0 + r >= nq) continue;
+    float* ls = list_s(r);
+    int* li = list_i(r);
+    for (int x = lane; x < kp; x += 32) { ls[x] = NEG; li[x] = IMAX; }
+  }
   __syncthreads();
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int n0 = nb + t * TN;
-    float acc[4][8];
+  float acc[TMq][TMn];
+  for (int u = 0; u < steps; ++u) {
+    const int s = u % STAGES, c = u % nchunks;
+    if (c == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TMq; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    for (int c = 0; c < nchunks; ++c) {
-      const bool next_in_tile = c + 1 < nchunks;
-      if (next_in_tile)
-        load_stage<VEC>(st, q, bank, q0, nq, n0, n_end, (c + 1) * TK, d,
-                        tid);
-      else if (t + 1 < ntiles)
-        load_stage<VEC>(st, q, bank, q0, nq, n0 + TN, n_end, 0, d, tid);
-      const float* as = sm + (c & 1) * BUF;
-      const float* bs = as + TK * LDA;
-#pragma unroll
-      for (int kk = 0; kk < TK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(as + kk * LDA +
-                                                          ty * 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * LDB +
-                                                           tx * 4);
-        const float4 b1 = *reinterpret_cast<const float4*>(bs + kk * LDB +
-                                                           64 + tx * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      if (next_in_tile) store_stage(st, sm + ((c + 1) & 1) * BUF, tid);
-      __syncthreads();
+        for (int j = 0; j < TMn; ++j) acc[i][j] = 0.f;
     }
-
-    // scores -> shared memory
+    mbar_wait(&full[s], (u / STAGES) & 1);
+    const float* bsm = ring + s * STAGE;
+    const float* qsm = bsm + TN * TK;
+    // the swizzle's XOR is the same for every bank row of the thread
+    // (row & 7 = lane & 7) and takes two values over its query rows
+    const float* pa = qsm + qr * TK;
+    const float* pb = bsm + nr * TK;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float* row = ssm + (ty * 4 + i) * LDS;
-      *reinterpret_cast<float4*>(row + tx * 4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(row + 64 + tx * 4) =
-          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    for (int c4 = 0; c4 < TK / 4; ++c4) {
+      const int xa0 = (c4 ^ (qr & 7)) << 2, xa1 = (c4 ^ ((qr + 4) & 7)) << 2;
+      const int xb = (c4 ^ (nr & 7)) << 2;
+      float4 a[TMq], b[TMn];
+#pragma unroll
+      for (int i = 0; i < TMq; ++i)
+        a[i] = *reinterpret_cast<const float4*>(pa + 4 * i * TK +
+                                                (i & 1 ? xa1 : xa0));
+#pragma unroll
+      for (int j = 0; j < TMn; ++j)
+        b[j] = *reinterpret_cast<const float4*>(pb + 8 * j * TK + xb);
+      fma_chunk(acc, a, b);
     }
-    __syncthreads();
+    __syncthreads();                       // stage s read by every warp
+    if (tid == 0 && u + STAGES < steps) issue(u + STAGES);
+    if (c != nchunks - 1) continue;
 
-    // running top-k: warp w owns rows w, w + 4, ...
-    for (int r = warp; r < TQ; r += 4) {
+    // the tile's scores: append those that beat their row's threshold
+    const int n0 = nb + (u / nchunks) * TN;
+#pragma unroll
+    for (int i = 0; i < TMq; ++i) {
+      const int r = qr + 4 * i;
       if (q0 + r >= nq) break;
-      float* ls = list_s(r);
-      int* li = list_i(r);
-      int cnt = counts[r];
-      float ts = NEG;
-      int ti = IMAX;
-      if (cnt == k) { ts = ls[k - 1]; ti = li[k - 1]; }
-      float cs[4];
-      int ci[4];
-      unsigned pend = 0;
+      const float ts = thr_s[r];
+      const int ti = thr_i[r];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = lane + 32 * j;
-        cs[j] = ssm[r * LDS + col];
-        ci[j] = n0 + col;
-        if (n0 + col < n_end && cs[j] > NEG && beats(cs[j], ci[j], ts, ti))
-          pend |= 1u << j;
-      }
-      while (true) {
-        const unsigned who = __ballot_sync(FULL, pend != 0);
-        if (!who) break;
-        const int leader = __ffs(who) - 1;
-        const int bit = __ffs(pend) - 1;
-        float s = cs[0];
-        int id = ci[0];
-        if (bit == 1) { s = cs[1]; id = ci[1]; }
-        if (bit == 2) { s = cs[2]; id = ci[2]; }
-        if (bit == 3) { s = cs[3]; id = ci[3]; }
-        s = __shfl_sync(FULL, s, leader);
-        id = __shfl_sync(FULL, id, leader);
-        if (lane == leader) pend &= pend - 1;
-        // position = number of entries ordering before the candidate
-        int p = 0;
-        for (int base = 0; base < cnt; base += 32) {
-          const int j = base + lane;
-          const bool b = j < cnt && beats(ls[j], li[j], s, id);
-          p += __popc(__ballot_sync(FULL, b));
+      for (int j = 0; j < TMn; ++j) {
+        const int col = n0 + nr + 8 * j;
+        const float sc = acc[i][j];
+        if (col < n_end && sc > NEG && beats(sc, col, ts, ti)) {
+          const int at = atomicAdd(&cnt[r], 1);
+          buf_s[r * BUF + at] = sc;
+          buf_i[r * BUF + at] = col;
         }
-        // shift [p, last) one place right, highest chunk first
-        const int last = cnt < k ? cnt : k - 1;
-        for (int c = (last - p - 1) >> 5; c >= 0; --c) {
-          const int j = p + 32 * c + lane;
-          const bool ok = j < last;
-          float v = 0.f;
-          int vi = 0;
-          if (ok) { v = ls[j]; vi = li[j]; }
-          __syncwarp();
-          if (ok) { ls[j + 1] = v; li[j + 1] = vi; }
-          __syncwarp();
-        }
-        if (lane == 0) { ls[p] = s; li[p] = id; }
-        cnt = cnt < k ? cnt + 1 : k;
-        __syncwarp();
-        if (cnt == k) { ts = ls[k - 1]; ti = li[k - 1]; }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (((pend >> j) & 1u) && !beats(cs[j], ci[j], ts, ti))
-            pend &= ~(1u << j);
       }
-      if (lane == 0) counts[r] = cnt;
     }
     __syncthreads();
-    if (t + 1 < ntiles) {
-      store_stage(st, sm, tid);
-      __syncthreads();
+    // merge the buffers that could overflow on the next tile (all of them
+    // after the last tile); warp w owns rows w, w + 8, ...
+    const bool last = u + 1 == steps;
+    for (int r = warp; r < TQ && q0 + r < nq; r += 8) {
+      const int held = cnt[r];
+      if (held > (last ? 0 : FLUSH_AT)) {
+        flush(list_s(r), list_i(r), buf_s + r * BUF, buf_i + r * BUF, held,
+              kp, k, lane, &thr_s[r], &thr_i[r]);
+        __syncwarp();
+        if (lane == 0) cnt[r] = 0;
+      }
     }
+    __syncthreads();
   }
 
-  for (int r = warp; r < TQ; r += 4) {
-    if (q0 + r >= nq) break;
-    const int cnt = counts[r];
-    const float* ls = list_s(r);
-    const int* li = list_i(r);
-    const size_t out = slot(r);
-    for (int j = lane; j < k; j += 32) {   // in place when WIDE
-      part_s[out + j] = j < cnt ? ls[j] : NEG;
-      part_i[out + j] = j < cnt ? li[j] : IMAX;
+  if (!WIDE) {
+    for (int r = warp; r < TQ && q0 + r < nq; r += 8) {
+      const float* ls = list_s(r);
+      const int* li = list_i(r);
+      const size_t out = slot(r);
+      for (int j = lane; j < k; j += 32) {
+        part_s[out + j] = ls[j];
+        part_i[out + j] = li[j];
+      }
     }
   }
 }
 
-// One warp per query row: the k best of its sorted split lists.
+// One warp per query row: the k best of its sorted split lists (each kp
+// apart in the scratch).
 __global__ void __launch_bounds__(128)
 topk_merge(const float* __restrict__ part_s, const int* __restrict__ part_i,
            float* __restrict__ out_s, int* __restrict__ out_i, int nq,
-           int splits, int k) {
+           int splits, int k, int kp) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
   if (row >= nq) return;
-  const float* ps = part_s + (size_t)row * splits * k;
-  const int* pi = part_i + (size_t)row * splits * k;
+  const float* ps = part_s + (size_t)row * splits * kp;
+  const int* pi = part_i + (size_t)row * splits * kp;
   int pos[LISTS_PER_LANE];
   float hs[LISTS_PER_LANE];
   int hi[LISTS_PER_LANE];
@@ -319,7 +337,7 @@ topk_merge(const float* __restrict__ part_s, const int* __restrict__ part_i,
     pos[j] = 0;
     hs[j] = -INFINITY;
     hi[j] = IMAX;
-    if (l < splits) { hs[j] = ps[(size_t)l * k]; hi[j] = pi[(size_t)l * k]; }
+    if (l < splits) { hs[j] = ps[(size_t)l * kp]; hi[j] = pi[(size_t)l * kp]; }
   }
   for (int t = 0; t < k; ++t) {
     float bs = hs[0];
@@ -352,72 +370,109 @@ topk_merge(const float* __restrict__ part_s, const int* __restrict__ part_i,
         hs[j] = -INFINITY;
         hi[j] = IMAX;
         if (pos[j] < k) {
-          hs[j] = ps[(size_t)l * k + pos[j]];
-          hi[j] = pi[(size_t)l * k + pos[j]];
+          hs[j] = ps[(size_t)l * kp + pos[j]];
+          hi[j] = pi[(size_t)l * kp + pos[j]];
         }
       }
     }
   }
 }
 
-// (splits, rows per split) of the bank: enough (query tile, split) blocks
-// for ~3 per SM, each split a whole number of TN-row tiles.
-void split_plan(int nq, int n, int sm_count, int* splits, int* split_rows) {
-  const int q_tiles = (nq + TQ - 1) / TQ;
+// The list length (k rounded up to a power of two, at least 32) and the
+// query rows per block for k.
+void list_plan(int k, int* kp, int* tq) {
+  *kp = 32;
+  while (*kp < k) *kp <<= 1;
+  *tq = *kp <= 128 ? 32 : *kp <= 256 ? 16 : 8;
+}
+
+// (splits, rows per split) of the bank: one wave of (query tile, split)
+// blocks, one per SM, each split a whole number of TN-row tiles.
+void split_plan(int nq, int n, int tq, int sm_count, int* splits,
+                int* split_rows) {
+  const int q_tiles = (nq + tq - 1) / tq;
   const int tiles = (n + TN - 1) / TN;
-  const int want = (BLOCKS_PER_SM * sm_count + q_tiles - 1) / q_tiles;
-  const int s = std::max(1, std::min(std::min(MAX_SPLITS, tiles), want));
+  const int s = std::max(1, std::min(std::min(MAX_SPLITS, tiles),
+                                     sm_count / q_tiles));
   *split_rows = (tiles + s - 1) / s * TN;
   *splits = (n + *split_rows - 1) / *split_rows;
 }
 
-}  // namespace
-
-// The number of bank splits topk_ip_fused uses for these sizes: its
-// scratch holds (nq, splits, k) entries.
-extern "C" int topk_ip_fused_splits(int nq, int n, int sm_count) {
-  if (nq <= 0 || n <= 0 || sm_count <= 0) return 0;
-  int splits, split_rows;
-  split_plan(nq, n, sm_count, &splits, &split_rows);
-  return splits;
+// rows x d f32 (d % 4 == 0, 16-byte aligned) as a tensor map: boxes of
+// `box` rows x 32 lanes, 128-byte swizzle, zeros past d and rows.
+bool map_f32(CUtensorMap* map, const void* base, int d, int rows, int box) {
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 4};
+  const cuuint32_t boxes[2] = {(cuuint32_t)TK, (cuuint32_t)box};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims,
+                  strides, boxes);
 }
 
-// Both passes on `stream`. part_s/part_i: (Q, splits, k) scratch, splits
-// from topk_ip_fused_splits(nq, n, sm_count); out_s / out_i: (Q, k).
-// d % 4 == 0 with 16-byte aligned q and bank takes the float4 loads;
-// k > K_MAX the WIDE instance (running lists in part_s / part_i).
-// Returns the first CUDA error, 0 on success.
+template <int TQ, bool WIDE>
+cudaError_t launch_partial(const CUtensorMap& qm, const CUtensorMap& bm,
+                           float* part_s, int* part_i, int nq, int n, int d,
+                           int k, int kp, int splits, int split_rows,
+                           cudaStream_t st) {
+  const size_t smem = 1024 + (size_t)STAGES * (TN + TQ) * TK * 4 +
+                      (size_t)TQ * BUF * 8 + (WIDE ? 0 : (size_t)TQ * kp * 8) +
+                      (size_t)TQ * 12;
+  auto kern = topk_partial<TQ, WIDE>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3((nq + TQ - 1) / TQ, splits), THREADS, smem, st>>>(
+      qm, bm, part_s, part_i, nq, n, d, k, kp, splits, split_rows);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Scratch entries per query topk_ip_fused needs for these sizes: its
+// part_s / part_i hold (nq, splits, kp) entries, returned as splits * kp.
+extern "C" int topk_ip_fused_slots(int nq, int n, int k, int sm_count) {
+  if (nq <= 0 || n <= 0 || k <= 0 || sm_count <= 0) return 0;
+  int kp, tq, splits, split_rows;
+  list_plan(k, &kp, &tq);
+  split_plan(nq, n, tq, sm_count, &splits, &split_rows);
+  return splits * kp;
+}
+
+// Both passes on `stream`. q (nq, d) and bank (n, d): f32, contiguous,
+// d % 4 == 0, 16-byte aligned; part_s/part_i: topk_ip_fused_slots(...)
+// entries per query; out_s / out_i: (nq, k). Returns the first CUDA error,
+// 0 on success.
 extern "C" int topk_ip_fused(const void* q, const void* bank, void* part_s,
                              void* part_i, void* out_s, void* out_i, int nq,
                              int n, int d, int k, int sm_count, void* stream) {
-  if (nq <= 0 || n <= 0 || d <= 0 || k <= 0 || sm_count <= 0)
+  if (nq <= 0 || n <= 0 || d <= 0 || k <= 0 || sm_count <= 0 || d % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(bank) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  int splits, split_rows;
-  split_plan(nq, n, sm_count, &splits, &split_rows);
-  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(bank) % 16 == 0;
+  int kp, tq, splits, split_rows;
+  list_plan(k, &kp, &tq);
+  split_plan(nq, n, tq, sm_count, &splits, &split_rows);
+  CUtensorMap qm, bm;
+  if (!(map_f32(&qm, q, d, nq, tq) && map_f32(&bm, bank, d, n, TN)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide = k > K_MAX;
-  const size_t lists = wide ? 0 : (size_t)TQ * k;
-  const size_t smem = (size_t)2 * BUF * sizeof(float) +
-                      lists * (sizeof(float) + sizeof(int)) +
-                      TQ * sizeof(int);
-  auto kern = vec ? (wide ? topk_partial<true, true>
-                          : topk_partial<true, false>)
-                  : (wide ? topk_partial<false, true>
-                          : topk_partial<false, false>);
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  float* ps = static_cast<float*>(part_s);
+  int* pi = static_cast<int*>(part_i);
+  cudaError_t e;
+  if (kp > KP_SHARED)
+    e = launch_partial<8, true>(qm, bm, ps, pi, nq, n, d, k, kp, splits,
+                                split_rows, st);
+  else if (tq == 32)
+    e = launch_partial<32, false>(qm, bm, ps, pi, nq, n, d, k, kp, splits,
+                                  split_rows, st);
+  else if (tq == 16)
+    e = launch_partial<16, false>(qm, bm, ps, pi, nq, n, d, k, kp, splits,
+                                  split_rows, st);
+  else
+    e = launch_partial<8, false>(qm, bm, ps, pi, nq, n, d, k, kp, splits,
+                                 split_rows, st);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((nq + TQ - 1) / TQ, splits);
-  kern<<<grid, THREADS, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(bank),
-      static_cast<float*>(part_s), static_cast<int*>(part_i), nq, n, d, k,
-      splits, split_rows);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  topk_merge<<<(nq + 3) / 4, 128, 0, st>>>(
-      static_cast<const float*>(part_s), static_cast<const int*>(part_i),
-      static_cast<float*>(out_s), static_cast<int*>(out_i), nq, splits, k);
+  topk_merge<<<(nq + 3) / 4, 128, 0, st>>>(ps, pi, static_cast<float*>(out_s),
+                                           static_cast<int*>(out_i), nq,
+                                           splits, k, kp);
   return (int)cudaGetLastError();
 }

@@ -13,11 +13,12 @@ custom backward, as the JAX package's ``flash_attention`` (:455-493):
   ``_flash_bwd_dkv_kernel`` (:336) behind ``_flash_backward`` (:382), from
   the stored LSE and delta = rowsum(dO*O): p = exp(s/sqrt(D) - lse) in
   natural units on an unscaled q, ds = p*(dp - delta), dq = ds k/sqrt(D),
-  dk = ds^T q/sqrt(D), dv = p^T dO. In bf16 one kernel computes all three
-  and adds dq into an f32 accumulator across blocks (its sum order varies
-  from run to run); the wrapper zeroes the accumulator, then scales it by
-  1/sqrt(D) and rounds it to bf16. In f32 the TPU split stays: a dq kernel
-  and a dk/dv kernel.
+  dk = ds^T q/sqrt(D), dv = p^T dO. In each dtype one kernel computes all
+  three and adds dq into an f32 tensor across blocks (its sum order varies
+  from run to run), which the wrapper zeroes first. In bf16 that is an
+  accumulator the wrapper then scales by 1/sqrt(D) and rounds to bf16; in
+  f32 (every product as 3xTF32 on the tensor cores) the kernel scales, and
+  it is dq.
 
 On a CUDA tensor the wrappers launch the hand-written Hopper kernels of
 ``csrc/flash_attention.cu`` (its header states each kernel's bound and
@@ -27,7 +28,7 @@ work one (batch, head) and one block of q rows at a time so that a
 50k-token check fits in memory. Launches are counted on
 :func:`flash_attention`: ``.launches`` (forward, also through
 :func:`flash_attention_lse`), ``.bwd_launches`` (the bf16 backward's one
-kernel), ``.dq_launches`` and ``.dkv_launches`` (the f32 backward's two).
+kernel) and ``.bwd_f32_launches`` (the f32 backward's one).
 
 :func:`attention` is the dispatcher the unfused MMDiT composition calls
 (:592-620): a ``mask`` takes the dense masked path, a CPU tensor the dense
@@ -54,7 +55,7 @@ NEG_INF = -1e30
 LOG2_E = 1.4426950408889634
 LN_2 = 0.6931471805599453
 HEAD_DIM = 128          # the kernels' head width; narrower heads are padded
-BWD_Q_TILE = 64         # q rows per tile of the bf16 backward kernel
+BWD_Q_TILE = 64         # lse/delta rows are padded to a multiple of this
 DQ_ACCUM_SPAN = "flash_bwd_dq_accum"   # profiler range of its dq_accum ops
 _ROWS = 4096            # q rows per block of the plain versions
 
@@ -195,7 +196,7 @@ def _lib():
         f = ctypes.c_float
         lib.flash_fwd.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
         lib.flash_bwd_bf16.argtypes = [p] * 9 + [i] * 5 + [f, p]
-        lib.flash_bwd_f32.argtypes = [i] + [p] * 9 + [i] * 5 + [f, p]
+        lib.flash_bwd_f32.argtypes = [p] * 9 + [i] * 5 + [f, p]
         for fn in (lib.flash_fwd, lib.flash_bwd_bf16, lib.flash_bwd_f32):
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -257,72 +258,60 @@ def _kernel_forward(q, k, v, causal: bool, kv_valid: Optional[int]):
 
 def backward_buffers(q, k, v, out, lse, dout, causal: bool,
                      kv_valid: Optional[int] = None) -> SimpleNamespace:
-    """The B6 kernels' inputs (head width padded to 128, delta =
-    rowsum(dO*O) in f32, outside the kernels as in JAX; in bf16 the lse and
-    delta rows zero padded to a multiple of ``BWD_Q_TILE``) and the dk/dv
-    outputs, allocated; :func:`launch_backward` runs the kernels and sets
+    """The B6 kernel's inputs (head width padded to 128, delta =
+    rowsum(dO*O) in f32, outside the kernel as in JAX; the lse and delta
+    rows zero padded to a multiple of ``BWD_Q_TILE``) and the dk/dv
+    outputs, allocated; :func:`launch_backward` runs the kernel and sets
     ``dq``."""
     _check((q, k, v, out, dout), "flash backward")
     b, h, s_q, d = q.shape
     s_kv = k.shape[2]
     delta = (dout.float() * out.float()).sum(-1).reshape(b * h, s_q)
     lse = lse.float().reshape(b * h, s_q)
-    if q.dtype == torch.bfloat16:
-        pad = -s_q % BWD_Q_TILE
-        lse, delta = F.pad(lse, (0, pad)), F.pad(delta, (0, pad))
+    pad = -s_q % BWD_Q_TILE
+    lse, delta = F.pad(lse, (0, pad)), F.pad(delta, (0, pad))
     kp = _rows(k)
     qp = _rows(q)
     return SimpleNamespace(
         shape=(b, h, s_q, s_kv, d), causal=bool(causal),
         kv_valid=s_kv if kv_valid is None else int(kv_valid),
         q=qp, k=kp, v=_rows(v), dout=_rows(dout), lse=lse.contiguous(),
-        delta=delta.contiguous(),
-        dq=None if q.dtype == torch.bfloat16 else torch.empty_like(qp),
-        dk=torch.empty_like(kp), dv=torch.empty_like(kp))
+        delta=delta.contiguous(), dq=None, dk=torch.empty_like(kp),
+        dv=torch.empty_like(kp))
 
 
-def launch_backward(buf: SimpleNamespace, which: Optional[int] = None
-                    ) -> None:
-    """Run B6 on ``buf``. bf16: ``dq_accum`` zeroed, the one kernel (dq
-    into ``dq_accum``, dk, dv), then ``dq`` = bf16(dq_accum/sqrt(D)); the
-    two tensor ops run in a profiler range named ``DQ_ACCUM_SPAN``. f32:
-    the dq kernel (``which`` 0), the dk/dv kernel (1) or both (None)."""
+def launch_backward(buf: SimpleNamespace) -> None:
+    """Run B6, one kernel, on ``buf``. bf16: ``dq_accum`` zeroed, the
+    kernel (dq into ``dq_accum``, dk, dv), then ``dq`` =
+    bf16(dq_accum/sqrt(D)); the two tensor ops run in a profiler range
+    named ``DQ_ACCUM_SPAN``. f32: ``dq`` zeroed, then the kernel, which
+    adds dq/sqrt(D) into it and writes dk, dv."""
     b, h, s_q, s_kv, d = buf.shape
     scale = 1.0 / math.sqrt(d)
     lib = _lib()
     common = (buf.q.data_ptr(), buf.k.data_ptr(), buf.v.data_ptr(),
               buf.dout.data_ptr(), buf.lse.data_ptr(), buf.delta.data_ptr())
     if buf.q.dtype == torch.bfloat16:
-        if which is not None:
-            raise ValueError("the bf16 backward is one kernel: which must be"
-                             " None")
         with torch.profiler.record_function(DQ_ACCUM_SPAN):
-            buf.dq_accum = torch.zeros((b * h, s_q, HEAD_DIM),
-                                       dtype=torch.float32,
-                                       device=buf.q.device)
-        rc = lib.flash_bwd_bf16(
-            *common, buf.dq_accum.data_ptr(), buf.dk.data_ptr(),
-            buf.dv.data_ptr(), b * h, s_q, s_kv, buf.kv_valid,
-            int(buf.causal), scale, _stream(buf.q))
-        if rc != 0:
-            raise RuntimeError(f"flash backward kernel launch failed: CUDA "
-                               f"error {rc}")
+            buf.dq_accum = acc = torch.zeros(
+                (b * h, s_q, HEAD_DIM), dtype=torch.float32,
+                device=buf.q.device)
+        fn = lib.flash_bwd_bf16
+    else:
+        buf.dq = acc = torch.zeros_like(buf.q)
+        fn = lib.flash_bwd_f32
+    rc = fn(*common, acc.data_ptr(), buf.dk.data_ptr(), buf.dv.data_ptr(),
+            b * h, s_q, s_kv, buf.kv_valid, int(buf.causal), scale,
+            _stream(buf.q))
+    if rc != 0:
+        raise RuntimeError(f"flash backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    if buf.q.dtype == torch.bfloat16:
         flash_attention.bwd_launches += 1
         with torch.profiler.record_function(DQ_ACCUM_SPAN):
-            buf.dq = buf.dq_accum.mul_(scale).to(buf.q.dtype)
-        return
-    for w in (0, 1) if which is None else (which,):
-        rc = lib.flash_bwd_f32(
-            w, *common, buf.dq.data_ptr(), buf.dk.data_ptr(),
-            buf.dv.data_ptr(), b * h, s_q, s_kv, buf.kv_valid,
-            int(buf.causal), scale, _stream(buf.q))
-        if rc != 0:
-            raise RuntimeError(f"flash backward kernel launch failed "
-                               f"({'dkv' if w else 'dq'}): CUDA error {rc}")
-        if w:
-            flash_attention.dkv_launches += 1
-        else:
-            flash_attention.dq_launches += 1
+            buf.dq = acc.mul_(scale).to(buf.q.dtype)
+    else:
+        flash_attention.bwd_f32_launches += 1
 
 
 def _kernel_backward(q, k, v, out, lse, dout, causal: bool,
@@ -407,5 +396,4 @@ def attention(q, k, v, causal: bool = False, mask=None,
 
 flash_attention.launches = 0
 flash_attention.bwd_launches = 0
-flash_attention.dq_launches = 0
-flash_attention.dkv_launches = 0
+flash_attention.bwd_f32_launches = 0

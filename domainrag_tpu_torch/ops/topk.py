@@ -13,8 +13,9 @@
   it runs :func:`reference_topk_ip_fused`. Like the Pallas kernel it
   returns (Q, k) even when k exceeds the bank: the tail is
   ``(NEG_INF, 2**31 - 1)`` fillers. Any k >= 1, as the Pallas kernel
-  (which pads k to a multiple of 128): up to 256 the kernel keeps each
-  row's running list in shared memory, above it in the scratch.
+  (which pads k to a multiple of 128): up to 1024 the kernel keeps each
+  row's running list and candidate buffer in shared memory, above it the
+  list in the scratch.
 
 Exactness contract (identical top-100 indices to FAISS f32 IP): scores
 are true f32 sums of products, and the order is (score desc, index asc),
@@ -127,12 +128,23 @@ def _lib():
         from . import _build
         lib = _build.load("topk")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.topk_ip_fused_splits.argtypes = [i, i, i]
-        lib.topk_ip_fused_splits.restype = ctypes.c_int
+        lib.topk_ip_fused_slots.argtypes = [i, i, i, i]
+        lib.topk_ip_fused_slots.restype = ctypes.c_int
         lib.topk_ip_fused.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.topk_ip_fused.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _tma_rows(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernel's TMA unit reads it: contiguous rows whose width is
+    a multiple of 4 (zero lanes added, which add exact zeros to every
+    score) from a 16-byte aligned start."""
+    pad = -x.shape[1] % 4
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch(queries: torch.Tensor, bank: torch.Tensor, k: int):
@@ -150,18 +162,18 @@ def _launch(queries: torch.Tensor, bank: torch.Tensor, k: int):
         raise ValueError("B8 needs at least one query, bank row and dim")
     lib = _lib()
     dev = queries.device
-    queries, bank = queries.contiguous(), bank.contiguous()
+    queries, bank = _tma_rows(queries), _tma_rows(bank)
     # the kernel plans its bank splits; the scratch holds each split's list
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = lib.topk_ip_fused_splits(q, n, sms)
-    part_s = torch.empty((q, splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((q, splits, k), dtype=torch.int32, device=dev)
+    slots = lib.topk_ip_fused_slots(q, n, k, sms)
+    part_s = torch.empty((q, slots), dtype=torch.float32, device=dev)
+    part_i = torch.empty((q, slots), dtype=torch.int32, device=dev)
     out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     rc = lib.topk_ip_fused(
         queries.data_ptr(), bank.data_ptr(), part_s.data_ptr(),
-        part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), q, n, d, k,
-        sms, torch.cuda.current_stream(dev).cuda_stream)
+        part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), q, n,
+        queries.shape[1], k, sms, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"topk_ip_fused kernel launch failed (Q={q} N={n} "
                            f"d={d} k={k}): CUDA error {rc}")

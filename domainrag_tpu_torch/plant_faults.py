@@ -1,6 +1,6 @@
 """Plant faults in the hand-written kernels, the fused top-k (B8,
 ``csrc/topk.cu``), the int8 MMDiT attention (B7,
-``csrc/int8_attention.cu``), the bf16 flash backward (B6,
+``csrc/int8_attention.cu``), the bf16 and f32 flash backward (B6,
 ``csrc/flash_attention.cu``) and the front-ends of the shared bf16
 forward (``csrc/flash_fwd.cuh``): the fused MMDiT attention behind B1-B3
 (``csrc/mmdit_attention.cu``) and the generic forward B5
@@ -49,10 +49,18 @@ FAULTS = {
         "return sa > sb || (sa == sb && ia > ib);"),
     # B8: both operands rounded to TF32 (10-bit mantissa) before the FMA
     "tf32_operands": (
-        B8, "acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);",
-        "acc[i][j] = fmaf(__uint_as_float((__float_as_uint(av[i]) + 0x1000u)"
-        " & 0xffffe000u), __uint_as_float((__float_as_uint(bv[j]) + 0x1000u)"
-        " & 0xffffe000u), acc[i][j]);"),
+        B8, "                                          float4 (&b)[N]) {",
+        "                                          float4 (&b)[N]) {\n"
+        "  auto t = [](float x) { return __uint_as_float("
+        "(__float_as_uint(x) + 0x1000u) & 0xffffe000u); };\n"
+        "  for (float4& v : a) v = make_float4(t(v.x), t(v.y), t(v.z), "
+        "t(v.w));\n"
+        "  for (float4& v : b) v = make_float4(t(v.x), t(v.y), t(v.z), "
+        "t(v.w));"),
+    # B8: a buffer merged without its last slot (the last candidate
+    # appended before the merge is lost)
+    "flush_drops_last_slot": (
+        B8, "const int held = cnt[r];", "const int held = cnt[r] - 1;"),
     # B7: V8^T's keys permuted off by one pair within each 32-key group
     "v8t_permutation_off_by_a_pair": (
         B7, "return 16 * ((c >> 4) & 1) + 4 * ((c >> 1) & 3) + "
@@ -76,6 +84,12 @@ FAULTS = {
     "unreached_kv_rows_unwritten": (
         B6, "if (kr >= P.s_kv) continue;",
         "if (kr >= P.s_kv || n_it == 0) continue;"),
+    # B6 f32: the lo terms dropped, so every product is one TF32 product
+    "tf32_lo_dropped": (
+        B6, "lo = __float_as_uint(x - __uint_as_float(hi));", "lo = 0u;"),
+    # B6 f32: the causal mask's comparison flipped at the diagonal
+    "causal_diagonal_masked_f32": (
+        B6, "(P.causal && qc < kr)", "(P.causal && qc <= kr)"),
     # B1-B3: the keys in the gap after stream a (zero rows) left unmasked
     "gap_keys_unmasked": (
         FWD_MMDIT, "const int n = key0 < b0 ? s_a - key0 : b0 + s_b - key0;",

@@ -9,7 +9,11 @@ answers the call.
   zeros when the kernel starts, and the caller's stream; ``dq`` is then
   bf16(dq_accum / sqrt(D)); one count in ``flash_attention.bwd_launches``;
   a non-zero return code raises and counts nothing.
-- f32: ``flash_bwd_f32`` twice (dq, then dk/dv), one count each.
+- f32: one call of ``flash_bwd_f32`` with the same arguments, ``dq``
+  itself (f32, zeros when the kernel starts) in the accumulator's place,
+  so that ``dq`` is what the kernel wrote; one count in
+  ``flash_attention.bwd_f32_launches``; a non-zero return code raises and
+  counts nothing.
 """
 
 import ctypes
@@ -96,7 +100,7 @@ def test_bf16_backward_launch_contract(stub, monkeypatch):
     lib = stub(kernel)
     x = _inputs(torch.bfloat16, b, h, s_q, s_kv, d)
     before = attn.flash_attention.bwd_launches, \
-        attn.flash_attention.dq_launches, attn.flash_attention.dkv_launches
+        attn.flash_attention.bwd_f32_launches
     dq, dk, dv = attn._kernel_backward(*x, True, 80)
     assert len(lib.flash_bwd_bf16.calls) == 1
     assert lib.flash_bwd_f32.calls == []
@@ -116,9 +120,8 @@ def test_bf16_backward_launch_contract(stub, monkeypatch):
     assert torch.equal(dq, torch.full_like(dq, 1 / math.sqrt(d)))
     assert dk.shape == dv.shape == (b, h, s_kv, d)
     assert (attn.flash_attention.bwd_launches,
-            attn.flash_attention.dq_launches,
-            attn.flash_attention.dkv_launches) == (before[0] + 1,
-                                                   before[1], before[2])
+            attn.flash_attention.bwd_f32_launches) == (before[0] + 1,
+                                                       before[1])
 
 
 def test_bf16_backward_raises_on_error(stub):
@@ -132,24 +135,64 @@ def test_bf16_backward_raises_on_error(stub):
 
 
 def test_bf16_backward_is_one_kernel(stub):
-    stub(lambda *a: 0)
+    """``launch_backward`` takes no kernel selector: one bf16 call runs the
+    one kernel once and the f32 entry never."""
+    lib = stub(lambda *a: 0)
     buf = attn.backward_buffers(*_inputs(torch.bfloat16), False)
-    with pytest.raises(ValueError, match="one kernel"):
+    with pytest.raises(TypeError):
         attn.launch_backward(buf, 0)
-
-
-def test_f32_backward_launches_dq_then_dkv(stub):
-    lib = stub(lambda *a: 0, lambda *a: 0)
-    x = _inputs(torch.float32)
-    before = attn.flash_attention.bwd_launches, \
-        attn.flash_attention.dq_launches, attn.flash_attention.dkv_launches
-    attn._kernel_backward(*x, False, None)
-    assert [c[0] for c in lib.flash_bwd_f32.calls] == [0, 1]
     assert lib.flash_bwd_bf16.calls == []
-    buf_lse = lib.flash_bwd_f32.calls[0][5]
-    assert isinstance(buf_lse, int) and lib.flash_bwd_f32.calls[0][-1] \
-        == STREAM
+    attn.launch_backward(buf)
+    assert len(lib.flash_bwd_bf16.calls) == 1
+    assert lib.flash_bwd_f32.calls == []
+
+
+def test_f32_backward_launches_dq_then_dkv(stub, monkeypatch):
+    """dq, dk and dv come from one f32 launch: the kernel's dq argument is
+    ``dq`` itself, zeroed, and what the kernel adds into it is the
+    result (scaled in the kernel, nothing after it)."""
+    b, h, s_q, s_kv, d = 1, 2, 70, 90, 64
+    bufs = []
+    real = attn.backward_buffers
+    monkeypatch.setattr(attn, "backward_buffers",
+                        lambda *a: bufs.append(real(*a)) or bufs[-1])
+    seen = {}
+
+    def kernel(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, skv, kv_valid,
+               causal, scale, stream):
+        buf = bufs[-1]
+        assert (q, k, v, dout, lse, delta, dq, dk, dv) == tuple(
+            t.data_ptr() for t in (buf.q, buf.k, buf.v, buf.dout, buf.lse,
+                                   buf.delta, buf.dq, buf.dk, buf.dv))
+        n = bh * sq * attn.HEAD_DIM
+        assert buf.dq.shape == (bh, sq, attn.HEAD_DIM)
+        assert buf.dq.dtype == torch.float32
+        seen["zeros"] = bool((_floats(dq, n) == 0).all())
+        _floats(dq, n)[:] = 0.5               # the "kernel" adds dq
+        seen["args"] = (bh, sq, skv, kv_valid, causal, scale, stream)
+        return 0
+
+    lib = stub(lambda *a: 0, kernel)
+    x = _inputs(torch.float32, b, h, s_q, s_kv, d)
+    before = attn.flash_attention.bwd_launches, \
+        attn.flash_attention.bwd_f32_launches
+    dq, dk, dv = attn._kernel_backward(*x, False, None)
+    assert len(lib.flash_bwd_f32.calls) == 1
+    assert lib.flash_bwd_bf16.calls == []
+    p = ctypes.c_void_p
+    assert lib.flash_bwd_f32.argtypes[:9] == [p] * 9
+    assert lib.flash_bwd_f32.argtypes[-2:] == [ctypes.c_float, p]
+    assert seen["zeros"]
+    bh, sq, skv, kv_valid, causal, scale, stream = seen["args"]
+    assert (bh, sq, skv, kv_valid, causal, stream) == (b * h, s_q, s_kv,
+                                                       s_kv, 0, STREAM)
+    assert scale == pytest.approx(1 / math.sqrt(d))
+    buf = bufs[-1]
+    assert buf.lse.shape == buf.delta.shape == (b * h, 128)
+    assert torch.equal(buf.delta[:, s_q:], torch.zeros(b * h, 128 - s_q))
+    assert dq.dtype == torch.float32 and dq.shape == (b, h, s_q, d)
+    assert torch.equal(dq, torch.full_like(dq, 0.5))
+    assert dk.shape == dv.shape == (b, h, s_kv, d)
     assert (attn.flash_attention.bwd_launches,
-            attn.flash_attention.dq_launches,
-            attn.flash_attention.dkv_launches) == (before[0], before[1] + 1,
-                                                   before[2] + 1)
+            attn.flash_attention.bwd_f32_launches) == (before[0],
+                                                       before[1] + 1)

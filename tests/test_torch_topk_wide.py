@@ -1,7 +1,8 @@
 """B8 above k = 256: ``topk_ip_fused`` takes any k >= 1, as the JAX
-``topk_ip_pallas`` does (it pads k to a multiple of 128). Above 256 the
-kernel keeps its running lists in the scratch instead of shared memory;
-on the card that is still one launch of B8, never another route."""
+``topk_ip_pallas`` does (it pads k to a multiple of 128). Wider lists
+take blocks of fewer query rows (and above k 1024 the scratch instead of
+shared memory); on the card that is still one launch of B8, never another
+route."""
 
 import numpy as np
 import pytest
