@@ -7,9 +7,10 @@ Run from the repository root with no arguments::
 
 (``--parent DIR``, a checkout of the parent commit, builds the parent's
 fused MMDiT kernels (B1-B3), generic flash kernels (B5, B6 in bf16 and
-f32) and fused top-k (B8) from its ``csrc/`` and times each beside this
-commit's on the same inputs, in turns: parent, change, change, parent;
-and the f32 train step with the parent's f32 B6 in its place.)
+f32), W8A8 GEMM (B4) and fused top-k (B8) from its ``csrc/`` and times
+each beside this commit's on the same inputs, in turns: parent, change,
+change, parent; and the f32 train step with the parent's f32 B5 in its
+place.)
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -35,21 +36,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    single variant at B = 4 x 31866, whose element offsets pass 2^31
    (compared on its last batch element), each against the multi-pass
    plain version;
-5. the generic flash kernels (B5 forward; B6 backward: one kernel in
-   each dtype, the f32 one in 3xTF32) against their plain versions: a small
+5. the generic flash kernels (B5 forward, the f32 one as bf16 terms on
+   wgmma; B6 backward: one kernel in each dtype, the f32 one in 3xTF32)
+   against their plain versions: a small
    causal + ``kv_valid`` case with ragged lengths in bf16 and f32, four
    ragged bf16 backward cases (RAGGED_BWD), the trainer's attention shape
    (2, 24, 4608, 128) in bf16 and f32 with each kernel's time beside the
    plain version's, SDPA's (forward, and its autograd backward for the B6
-   rows) and the bound (B6: the least work, 10*B*H*S^2*D FLOP, at the bf16
-   peak, and in f32 three TF32 products per f32 product at the TF32
-   peak), and
+   rows) and the bound (B5 f32: six bf16 products per f32 product at the
+   bf16 peak; B6: the least work, 10*B*H*S^2*D FLOP, at the bf16 peak,
+   and in f32 three TF32 products per f32 product at the TF32 peak), and
    B5 above the multi-pass ceiling at (1, 24, 50393, 128) bf16, compared
    on two heads; they run right after the MMDiT kernels, so that a fault
    in B5 or B6 fails the run within a few minutes;
-6. the int8 kernels against their plain versions: the W8A8 GEMM (B4)
-   with torch.equal at every (M, K, N) of the stage-3 and stage-4 int8
-   paths and at ragged shapes, each path shape timed beside the plain
+6. the int8 kernels against their plain versions: the W8A8 GEMM (B4,
+   K-major int8 weights; wgmma, gemv and mma instances) with torch.equal
+   at every (M, K, N) of the stage-3 and stage-4 int8 paths and at ragged
+   shapes, no row past M written, each path shape timed beside the plain
    version, torch._int_mm with the same epilogue and the bf16 matmul of
    the same linear; the int8 attention (B7), int8 QK and int8 QK + P.V,
    one pass (joint, single) at 5337 tokens and multi-pass at 17625 and
@@ -149,7 +152,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``latent_batches_from_images`` yields): no fused kernel, B5 12 and B6
     6 launches, finite loss, changed params; the f32 kernel rows take
     these counts; with ``--parent``, four steady f32 steps timed in
-    turns, the parent's f32 B6 in two;
+    turns, the parent's f32 B5 in two;
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -262,24 +265,31 @@ def phase_build():
                                            "Performance Loss")):
                     print(f"  ptxas: {line.strip()[:160]}")
     for path in paths:
-        if path.name.startswith(("libmmdit_attention", "libflash_attention")):
-            _forward_report(path)
+        if path.name.startswith(("libmmdit_attention", "libflash_attention",
+                                 "libint8_gemm")):
+            _wgmma_report(path)
 
 
-FORWARD = "fwd_kernel"    # the shared bf16 forward's instances (flash_fwd.cuh)
+# kernels that must run on wgmma: name in the SASS -> (the wgmma opcode it
+# must hold, the mma.sync opcode it must not): the shared bf16 forward's
+# instances (flash_fwd.cuh: B1-B3, B5 bf16), B5 f32 and B4's wgmma instance
+WGMMA = {"fwd_kernel": ("HGMMA", "HMMA"), "fwd_f32_kernel": ("HGMMA", "HMMA"),
+         "w8a8_wgmma_kernel": ("IGMMA", "IMMA")}
 
 
-def _forward_report(lib):
-    """Each instance of the shared forward in ``lib``: its registers and
-    spills (the ptxas log) and its HGMMA / HMMA counts (the SASS). Raises
-    unless every instance runs on wgmma (HGMMA) and none on mma.sync
-    (HMMA)."""
+def _wgmma_report(lib):
+    """Each kernel of ``WGMMA`` in ``lib``: its registers and spills (the
+    ptxas log) and its wgmma / mma.sync instruction counts (the SASS).
+    Raises unless every such kernel runs on wgmma and none on mma.sync."""
+    def kind(name):
+        return next((k for k in WGMMA if re.search(rf"\d{k}", name)), None)
+
     ptxas, name = {}, None
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-        elif name and FORWARD in name:
+        elif name and kind(name):
             regs = re.search(r"Used (\d+) registers", line)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill"
                               r" loads", line)
@@ -297,21 +307,22 @@ def _forward_report(lib):
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             counts[name] = [0, 0]
-        elif name:
-            counts[name][0] += "HGMMA" in line
-            counts[name][1] += bool(re.search(r"\bHMMA\b", line))
-    found = [n for n in counts if FORWARD in n]
+        elif name and kind(name):
+            gmma, mma = WGMMA[kind(name)]
+            counts[name][0] += gmma in line
+            counts[name][1] += bool(re.search(rf"\b{mma}\b", line))
+    found = [n for n in counts if kind(n)]
     if not found:
-        raise AssertionError(f"{lib.name}: no instance of the shared forward")
+        raise AssertionError(f"{lib.name}: no kernel that must run on wgmma")
     for n in found:
         info = ptxas.get(n, {})
-        hgmma, hmma = counts[n]
-        print(f"forward {n}: {info.get('registers')} registers, spill "
-              f"stores/loads {info.get('spills')} bytes; SASS HGMMA {hgmma},"
-              f" HMMA {hmma}")
-        if hgmma == 0 or hmma:
-            raise AssertionError(f"{n}: expected wgmma (HGMMA) and no "
-                                 f"mma.sync (HMMA)")
+        gmma, mma = WGMMA[kind(n)]
+        print(f"wgmma kernel {n}: {info.get('registers')} registers, spill "
+              f"stores/loads {info.get('spills')} bytes; SASS {gmma} "
+              f"{counts[n][0]}, {mma} {counts[n][1]}")
+        if counts[n][0] == 0 or counts[n][1]:
+            raise AssertionError(f"{n}: expected wgmma ({gmma}) and no "
+                                 f"mma.sync ({mma})")
 
 
 def _fused_fwd(kernel: str) -> bool:
@@ -802,6 +813,7 @@ def _reset_counts(mma):
     f.launches = f.bwd_launches = f.bwd_f32_launches = 0
     int8_gemm.w8a8_linear.launches = 0
     int8_gemm.w8a8_linear.launches_by_shape = {}
+    int8_gemm.w8a8_linear.launches_by_instance = {}
 
 
 def _i8_counts(mma):
@@ -913,7 +925,7 @@ def phase_profile(bundle, size, out_name):
     groups = {"B4 W8A8 GEMM (csrc)": 0.0, "B7 int8 attention (csrc)": 0.0,
               "attention (csrc)": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
     for ms, _, name in kernels:
-        if "w8a8_kernel" in name:
+        if re.search(r"w8a8_(wgmma|gemv|mma)_kernel", name):
             groups["B4 W8A8 GEMM (csrc)"] += ms
         elif re.search(r"(attn|stats|quant)_kernel<", name):
             groups["B7 int8 attention (csrc)"] += ms
@@ -1146,6 +1158,11 @@ def _read_i8_counts(mma, rows, regime, cfg, passes, s_txt, s_img):
     want_shapes = {k: v * passes
                    for k, v in _w8a8_path_shapes(cfg, s_txt, s_img).items()}
     got_shapes = dict(int8_gemm.w8a8_linear.launches_by_shape)
+    want_insts = {}
+    for (m, k, n), c in want_shapes.items():
+        inst = int8_gemm.instance(m, k, n)
+        want_insts[inst] = want_insts.get(inst, 0) + c
+    got_insts = dict(int8_gemm.w8a8_linear.launches_by_instance)
     b7 = {"one-pass": (d.i8_launches, s.i8_launches),
           "multi-pass": (d.i8_mp_launches, s.i8_mp_launches)}
     other = "multi-pass" if regime == "one-pass" else "one-pass"
@@ -1154,10 +1171,12 @@ def _read_i8_counts(mma, rows, regime, cfg, passes, s_txt, s_img):
     print(f"launches on the path (int8): B4 {int8_gemm.w8a8_linear.launches} "
           f"(expected {sum(want_shapes.values())} = "
           f"{sum(want_shapes.values()) // passes} x {passes} passes, at "
-          f"{len(want_shapes)} shapes), B7 {regime} double/single "
+          f"{len(want_shapes)} shapes; by instance {got_insts}, expected "
+          f"{want_insts}), B7 {regime} double/single "
           f"{b7[regime]} (expected {want}), B7 {other} {b7[other]}, bf16 "
           f"B1/B2/B3 {bf16}, B5/B6 {_flash_counts()} (expected 0)")
-    if got_shapes != want_shapes or b7[regime] != want \
+    if got_shapes != want_shapes or got_insts != want_insts \
+            or b7[regime] != want \
             or b7[other] != (0, 0) or any(bf16) or any(_flash_counts()):
         raise AssertionError(f"int8 launch counts differ from the path: "
                              f"{sorted(got_shapes.items())}")
@@ -1182,12 +1201,15 @@ def _check_w8a8_wrapper(ig, x, wq, ws, b):
     """B4's wrapper ``w8a8_linear`` on the card (activation quant, leading
     dims flattened, the kernel) against the plain version fed the CPU's
     quantization of the same x: torch.equal, and exactly one launch
-    counted, at the flattened (M, K, N)."""
+    counted, at the flattened (M, K, N) and at its instance. ``wq`` is
+    K-major, (N, K)."""
     import torch
-    k, n = wq.shape
+    n, k = wq.shape
     m = x.numel() // k
+    inst = ig.instance(m, k, n)
     before = ig.w8a8_linear.launches
     before_shape = ig.w8a8_linear.launches_by_shape.get((m, k, n), 0)
+    before_inst = ig.w8a8_linear.launches_by_instance.get(inst, 0)
     got = ig.w8a8_linear(x, wq, ws, b)
     xq, xs = ig.quantize_rowwise(x.cpu().reshape(m, k))
     want = ig.w8a8_reference(xq.to(x.device), wq, xs.to(x.device), ws, b,
@@ -1198,20 +1220,78 @@ def _check_w8a8_wrapper(ig, x, wq, ws, b):
                              f"{x.dtype}")
     if ig.w8a8_linear.launches != before + 1 or \
             ig.w8a8_linear.launches_by_shape.get((m, k, n)) != \
-            before_shape + 1:
+            before_shape + 1 or \
+            ig.w8a8_linear.launches_by_instance.get(inst) != before_inst + 1:
         raise AssertionError(f"w8a8_linear did not count one launch at "
-                             f"{(m, k, n)}")
+                             f"{(m, k, n)} ({inst})")
+    return inst
+
+
+def _check_w8a8_rows(ig, g, dev, m, k, n, dtype):
+    """B4's kernel at (M, K, N), called straight into the head of a
+    NaN-filled buffer of ``dtype`` with 130 rows more: rows 0..M-1 equal
+    to the plain version, the rest untouched (no row past M is stored)."""
+    import torch
+    x = torch.randn((m, k), generator=g, device=dev) * 3
+    wq = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    ws = torch.rand(n, generator=g, device=dev) / 127
+    b = torch.randn(n, generator=g, device=dev).to(dtype)
+    xq, xs = ig.quantize_rowwise(x)
+    xs = xs.reshape(m).contiguous()
+    inst = ig.instance(m, k, n)
+    buf = torch.full((m + 130, n), float("nan"), dtype=dtype, device=dev)
+    rc = ig._lib().w8a8_gemm(
+        xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+        b.data_ptr(), buf.data_ptr(), m, n, k, int(dtype == torch.float32),
+        ig.INSTANCES.index(inst), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    want = ig.w8a8_reference(xq, wq, xs[:, None], ws, b, dtype)
+    if rc != 0 or not torch.equal(buf[:m], want) \
+            or not bool(torch.isnan(buf[m:]).all()):
+        raise AssertionError(f"B4 {inst} at {(m, k, n)} {dtype}: rows "
+                             f"0..{m - 1} differ from the plain version or "
+                             f"a row past them was written (rc {rc})")
+    print(f"kernel w8a8_gemm: {inst} at {(m, k, n)} {dtype} writes its {m} "
+          f"rows and none past them")
+
+
+def _parent_b4(xq, wkn, xs, ws, b, out_dtype):
+    """The parent commit's B4 (its csrc, its C interface: w_q (K, N), N
+    contiguous) on this row's inputs; ``wkn`` is the (K, N) copy."""
+    import ctypes
+    import torch
+    fn = _parent_lib("int8_gemm").w8a8_gemm
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 6 + [i] * 4 + [p]
+    fn.restype = ctypes.c_int
+    m, k = xq.shape
+    n = wkn.shape[1]
+
+    def run():
+        out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+        rc = fn(xq.data_ptr(), wkn.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+                b.data_ptr(), out.data_ptr(), m, n, k,
+                int(out_dtype == torch.float32),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's B4 failed: CUDA error {rc}")
+        return out
+    return run
 
 
 def phase_int8_gemm(dev):
-    """B4 through its wrapper ``w8a8_linear`` against its plain version with
-    torch.equal at every (M, K, N) of the stage-3 (1024 px) and stage-4
-    (2048 px, 384 input channels) paths, bf16 out with bias, and at ragged
-    shapes (M 640 / 17 / 1, K not a multiple of the 64-deep tile, N 64 and
-    70, f32 out, no bias, a batched (2, 320, K) input); each path shape's
-    kernel timed beside the plain version, torch._int_mm with the same
-    epilogue (a yardstick: M > 16 only) and the bf16 torch.matmul of the
-    same linear, with its bound."""
+    """B4 through its wrapper ``w8a8_linear`` (K-major weights) against its
+    plain version with torch.equal at every (M, K, N) of the stage-3 (1024
+    px) and stage-4 (2048 px, 384 input channels) paths, bf16 out with
+    bias, and at ragged shapes that reach all three instances (M 640 / 63
+    / 65 / 17 / 1, K % 16 != 0, N 64 and 70, f32 out, no bias, a batched
+    (2, 320, K) input); each instance called straight into a guarded
+    buffer, which must keep every row past M; each path shape's kernel
+    timed beside the plain version, torch._int_mm with the same epilogue
+    (a yardstick: M > 16 only) and the bf16 torch.matmul of the same
+    linear, with its bound, and with ``--parent`` in turns with the
+    parent's kernel on the (K, N) copy of the weight."""
     import torch
     from domainrag_tpu_torch.models.flux import model as fm
     from domainrag_tpu_torch.ops import int8_gemm as ig
@@ -1222,27 +1302,38 @@ def phase_int8_gemm(dev):
               ((17,), 1000, 64, torch.float32, False),
               ((1,), 384, 3072, torch.float32, True),
               ((33,), 100, 70, torch.bfloat16, True),
+              ((63,), 384, 64, torch.float32, True),
+              ((65,), 1000, 70, torch.bfloat16, True),
+              ((1000,), 384, 70, torch.float32, False),
               ((2, 320), 128, 3072, torch.bfloat16, True)]
+    insts = []
     for lead, k, n, dt, bias in ragged:
         x = torch.randn((*lead, k), generator=g, device=dev).to(dt)
-        wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+        wq = torch.randint(-127, 128, (n, k), generator=g, device=dev,
                            dtype=torch.int8)
         ws = torch.rand(n, generator=g, device=dev) / (127 * math.sqrt(k))
         b = torch.randn(n, generator=g, device=dev) if bias else None
-        _check_w8a8_wrapper(ig, x, wq, ws, b)
+        insts.append(_check_w8a8_wrapper(ig, x, wq, ws, b))
+    if set(insts) != set(ig.INSTANCES):
+        raise AssertionError(f"B4's ragged shapes reached {set(insts)}")
+    for m, k, n in ((65, 384, 64), (63, 384, 64), (65, 1000, 70)):
+        for dt in (torch.bfloat16, torch.float32):
+            _check_w8a8_rows(ig, g, dev, m, k, n, dt)
     print(f"kernel w8a8_gemm: w8a8_linear torch.equal to its plain version "
-          f"at ragged shapes {[(*r[0], r[1], r[2]) for r in ragged]}")
+          f"at ragged shapes "
+          f"{[(*r[0], r[1], r[2], i) for r, i in zip(ragged, insts)]}")
     rows = {}
     shapes = set(_w8a8_path_shapes(fm.FLUX_DEV, S_TXT, (SIZE // 16) ** 2))
     shapes |= set(_w8a8_path_shapes(fm.FLUX_FILL_DEV, S_TXT,
                                     (FILL_SIZE // 16) ** 2))
     for i, (m, k, n) in enumerate(sorted(shapes)):
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-        wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+        wq = torch.randint(-127, 128, (n, k), generator=g, device=dev,
                            dtype=torch.int8)
+        wkn = wq.t().contiguous()        # the (K, N) layout, for the yardsticks
         ws = torch.rand(n, generator=g, device=dev) / (127 * math.sqrt(k))
         b = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
-        _check_w8a8_wrapper(ig, x, wq, ws, b)
+        inst = _check_w8a8_wrapper(ig, x, wq, ws, b)
         xq, xs = ig.quantize_rowwise(x)
         name = _gemm_name((m, k, n))
         ops = 2.0 * m * k * n / PEAK_INT8 * 1e3
@@ -1254,7 +1345,7 @@ def phase_int8_gemm(dev):
                "replaces": "domainrag_tpu/ops/int8_gemm.py:117",
                "launches": 0, "max_abs_err": 0.0,
                "ms": _ms(lambda: ig._launch(xq, wq, xs, ws, b,
-                                            torch.bfloat16), 10),
+                                            torch.bfloat16)[0], 10),
                "plain_ms": _ms(lambda: ig.w8a8_reference(
                    xq, wq, xs, ws, b, torch.bfloat16),
                    1 if big else 3, 1),
@@ -1262,22 +1353,33 @@ def phase_int8_gemm(dev):
                "bound_by": "operations" if ops >= nbytes else "bytes"}
         if m > 16 and k % 8 == 0 and n % 8 == 0:
             row["library_ms"] = _ms(lambda: (
-                torch._int_mm(xq, wq).float() * xs * ws).to(
+                torch._int_mm(xq, wkn).float() * xs * ws).to(
                     torch.bfloat16) + b, 10)
         else:
             row["library_ms"] = None
-        wb = (wq.float() * ws).to(torch.bfloat16)
+        wb = (wkn.float() * ws).to(torch.bfloat16)
         bf16_ms = _ms(lambda: torch.matmul(x, wb) + b, 10)
         del wb
         rows[name] = row
         lib = "n/a" if row["library_ms"] is None \
             else f"{row['library_ms']:.4f}"
         gate = "Pallas" if ig.w8a8_eligible(m, k, n) else "XLA"
-        print(f"kernel {name}: torch.equal to plain; ms {row['ms']:.4f} "
-              f"plain_ms {row['plain_ms']:.3f} library_ms (_int_mm) "
-              f"{lib} bf16 matmul {bf16_ms:.4f} bound_ms "
+        print(f"kernel {name}: {inst}, torch.equal to plain; ms "
+              f"{row['ms']:.4f} plain_ms {row['plain_ms']:.3f} library_ms "
+              f"(_int_mm) {lib} bf16 matmul {bf16_ms:.4f} bound_ms "
               f"{row['bound_ms']:.4f} ({row['bound_by']}); the JAX gate "
               f"sends this shape to {gate}")
+        if PARENT:
+            parent = _parent_b4(xq, wkn, xs, ws, b, torch.bfloat16)
+            change = lambda: ig._launch(xq, wq, xs, ws, b,   # noqa: E731
+                                        torch.bfloat16)[0]
+            same = torch.equal(parent(), change())
+            _in_turns(f"B4 {name}", parent, change, 10,
+                      [_rel_norm(parent(), change())])
+            if not same:
+                raise AssertionError(f"{name}: the parent's B4 output "
+                                     f"differs from this commit's")
+        del wkn
         if i % 8 == 7:
             torch.cuda.empty_cache()
     return rows
@@ -1729,65 +1831,63 @@ def _parent_call(module, name, fn):
     return run
 
 
+def _parent_kernel_forward():
+    """``attn._kernel_forward`` run by the parent commit's B5 (its csrc, its
+    C interface: ``flash_fwd`` without the f32 term scratch; f32 on FFMA);
+    it counts no launch."""
+    import ctypes
+    import torch
+    from domainrag_tpu_torch.ops import attention as attn
+    fn = _parent_lib("flash_attention").flash_fwd
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
+    fn.restype = ctypes.c_int
+
+    def forward(q, k, v, causal, kv_valid):
+        b, h, s_q, d = q.shape
+        s_kv = k.shape[2]
+        kv_valid = s_kv if kv_valid is None else int(kv_valid)
+        qp = attn._rows(q * (attn.LOG2_E / math.sqrt(d)))
+        kp, vp = attn._rows(k), attn._rows(v)
+        out = torch.empty_like(qp)
+        lse = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)
+        rc = fn(attn._DTYPES[q.dtype], qp.data_ptr(), kp.data_ptr(),
+                vp.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), b * h, s_q, s_kv, kv_valid,
+                int(causal), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's B5 failed: CUDA error {rc}")
+        return (out.reshape(b, h, s_q, attn.HEAD_DIM)[..., :d],
+                lse.reshape(b, h, s_q))
+    return forward
+
+
 def _parent_b5_turns(name, q, k, v, out, lse, reps):
-    """The parent's bf16 B5 on this row's inputs, timed in turns with this
+    """The parent's B5 on this row's inputs, timed in turns with this
     commit's; ``out`` and ``lse`` are this commit's outputs."""
     from domainrag_tpu_torch.ops import attention as attn
 
     def change():
         return attn._kernel_forward(q, k, v, False, None)
-    parent = _parent_call(attn, "flash_attention", change)
+    fwd = _parent_kernel_forward()
+    parent = lambda: fwd(q, k, v, False, None)          # noqa: E731
     p_out, p_lse = parent()
     _in_turns(name, parent, change, reps,
               [_rel_norm(p_out, out), _rel_norm(p_lse, lse)])
     del p_out, p_lse
 
 
-def _parent_launch_backward_f32(change):
-    """``attn.launch_backward`` with the parent commit's f32 B6 (its dq and
-    dk/dv kernels, PARENT's csrc) for f32 buffers and ``change`` for the
-    others."""
-    import ctypes
-    import torch
-    fn = _parent_lib("flash_attention").flash_bwd_f32
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i] + [p] * 9 + [i] * 5 + [ctypes.c_float, p]
-    fn.restype = ctypes.c_int
-
-    def launch(buf):
-        if buf.q.dtype != torch.float32:
-            return change(buf)
-        b, h, s_q, s_kv, d = buf.shape
-        lse, delta = (x[:, :s_q].contiguous() for x in (buf.lse, buf.delta))
-        buf.dq = torch.empty_like(buf.q)
-        for which in (0, 1):
-            rc = fn(which, buf.q.data_ptr(), buf.k.data_ptr(),
-                    buf.v.data_ptr(), buf.dout.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), buf.dq.data_ptr(), buf.dk.data_ptr(),
-                    buf.dv.data_ptr(), b * h, s_q, s_kv, buf.kv_valid,
-                    int(buf.causal), 1.0 / math.sqrt(d),
-                    torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"the parent's f32 B6 failed: CUDA error "
-                                   f"{rc}")
-    return launch
-
-
 def _parent_b6(buf, change, reps):
-    """The parent commit's B6 (bf16: its one kernel, behind this commit's
-    wrapper; f32: its dq and dk/dv kernels on f32 FMA) on the same inputs
-    as ``buf``, into outputs of its own, timed in turns with this commit's
-    ``change``."""
+    """The parent commit's B6 (its one kernel in each dtype, behind this
+    commit's wrapper: the backward's C interface is unchanged) on the same
+    inputs as ``buf``, into outputs of its own, timed in turns with this
+    commit's ``change``."""
     import torch
     from domainrag_tpu_torch.ops import attention as attn
     mine = SimpleNamespace(**vars(buf))
     mine.dk, mine.dv = torch.empty_like(buf.dk), torch.empty_like(buf.dv)
-    if buf.q.dtype == torch.float32:
-        launch = _parent_launch_backward_f32(attn.launch_backward)
-        parent = lambda: launch(mine)                        # noqa: E731
-    else:
-        parent = _parent_call(attn, "flash_attention",
-                              lambda: attn.launch_backward(mine))
+    parent = _parent_call(attn, "flash_attention",
+                          lambda: attn.launch_backward(mine))
     parent()
     change()
     torch.cuda.synchronize()
@@ -1874,8 +1974,14 @@ def phase_flash_kernels(dev):
             _ms(lambda: attn._kernel_forward(q, k, v, False, None), reps[0]),
             _ms(lambda: attn.flash_forward_reference(q, k, v), reps[1], 1),
             _ms(lambda: F.scaled_dot_product_attention(q, k, v), reps[2]),
-            _flash_bound(4, shape, f32))
-        if PARENT and not f32:
+            # f32: six bf16 products per f32 product (its route) at the
+            # bf16 peak
+            _flash_bound(24, shape, f32, 4, PEAK_BF16) if f32
+            else _flash_bound(4, shape, f32))
+        if f32:
+            print(f"kernel {name}: bound on f32 FMA (the route not taken) "
+                  f"{_flash_bound(4, shape, f32)['bound_ms']:.3f} ms")
+        if PARENT:
             _parent_b5_turns(name, q, k, v, out, lse, reps[0])
         # backward from the plain forward's out/lse
         buf = attn.backward_buffers(q, k, v, want, want_lse, do, False)
@@ -2278,7 +2384,7 @@ def phase_profile_train(dev, cfg, params, batches):
     for ms, _, name in kernels:
         if _fused_fwd(name):
             groups["fused forward (B1/B2)"] += ms
-        elif "FwdRows" in name or "fwd_simt_kernel" in name:
+        elif re.search(r"FwdRows|fwd_f32_kernel|split_kernel", name):
             groups["B5"] += ms
         elif re.search(r"bwd_(bf16|f32)_kernel", name):
             groups["B6"] += ms
@@ -2326,7 +2432,7 @@ def phase_train_f32(dev, cfg, params, batches, rows):
     and in its remat recompute and B6 in its backward. The counts are set
     to 0 just before and read just after; the f32 rows take them. With
     ``--parent``, four steady steps follow, timed in turns with the
-    parent's f32 B6 in two."""
+    parent's f32 B5 in two."""
     import torch
     from domainrag_tpu_torch.ops import attention as attn
     from domainrag_tpu_torch.ops import mmdit_attention as mma
@@ -2367,8 +2473,8 @@ def phase_train_f32(dev, cfg, params, batches, rows):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if not PARENT:
         return
-    # steady f32 steps: this commit's B6 and the parent's two f32 kernels
-    # in its place, in turns
+    # steady f32 steps: this commit's B5 and the parent's f32 B5 (FFMA) in
+    # its place, in turns
     step, params, opt = flow_match.make_train_step(
         cfg, flow_match.TrainConfig(remat=True), params)
     g = torch.Generator(device=dev)
@@ -2383,15 +2489,19 @@ def phase_train_f32(dev, cfg, params, batches, rows):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    change = attn.launch_backward
-    parent = _parent_launch_backward_f32(change)
+    change = attn._kernel_forward
+    parent_f32 = _parent_kernel_forward()
+
+    def parent(q, k, v, causal, kv_valid):
+        fn = parent_f32 if q.dtype == torch.float32 else change
+        return fn(q, k, v, causal, kv_valid)
     t = []
-    for launch in (parent, change, change, parent):
-        attn.launch_backward = launch
+    for forward in (parent, change, change, parent):
+        attn._kernel_forward = forward
         try:
             t.append(timed())
         finally:
-            attn.launch_backward = change
+            attn._kernel_forward = change
     print(f"f32 train step parent vs this commit (parent, change, change, "
           f"parent): {t[0]:.3f} / {t[1]:.3f} / {t[2]:.3f} / {t[3]:.3f} s")
 
@@ -2477,34 +2587,11 @@ def _ordered_banks(g, dev, nq, n, d):
 
 
 def _topk_parent(q, bank, k):
-    """The parent commit's B8 (PARENT's csrc) on the same inputs: returns a
-    call that launches it and gives (scores, indices)."""
-    import ctypes
-    import torch
-    lib = _parent_lib("topk")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.topk_ip_fused_splits.argtypes = [i, i, i]
-    lib.topk_ip_fused_splits.restype = ctypes.c_int
-    lib.topk_ip_fused.argtypes = [p] * 6 + [i] * 5 + [p]
-    lib.topk_ip_fused.restype = ctypes.c_int
-    nq, d = q.shape
-    n = bank.shape[0]
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = lib.topk_ip_fused_splits(nq, n, sms)
-    part_s = torch.empty((nq, splits, k), device=q.device)
-    part_i = torch.empty((nq, splits, k), dtype=torch.int32, device=q.device)
-    out_s = torch.empty((nq, k), device=q.device)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=q.device)
-
-    def run():
-        rc = lib.topk_ip_fused(q.data_ptr(), bank.data_ptr(),
-                               part_s.data_ptr(), part_i.data_ptr(),
-                               out_s.data_ptr(), out_i.data_ptr(), nq, n, d,
-                               k, sms, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"the parent's B8 failed: CUDA error {rc}")
-        return out_s, out_i
-    return run
+    """The parent commit's B8 (PARENT's csrc, behind this commit's wrapper:
+    its C interface is unchanged) on the same inputs: returns a call that
+    launches it and gives (scores, indices)."""
+    from domainrag_tpu_torch.ops import topk as tk
+    return _parent_call(tk, "topk", lambda: tk._launch(q, bank, k))
 
 
 def _topk_merge_share(q, bank, k):
@@ -2920,8 +3007,8 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout of the parent commit: its B1-B3, "
-                         "B5, B6 and B8 are built and timed beside this "
+                    help="a checkout of the parent commit: its B1-B8 "
+                         "(B7 aside) are built and timed beside this "
                          "commit's")
     PARENT = ap.parse_args().parent
     if not torch.cuda.is_available():

@@ -8,7 +8,9 @@ trees of ``clip.init_vision`` and ``resnet_stem.init``) and returns the
 same tree of torch tensors: same keys, linear weights kept in their
 ``(in, out)`` layout (the vision tower's 2-D ``patch_w``, ``class_emb``,
 ``pos_emb``, ``proj`` and the batchnorm statistics go across as they
-are), and every 4-D conv kernel turned once from JAX's HWIO into torch's
+are), every quantized weight ``w_q`` turned once from the JAX package's
+``(in, out)`` into the port's K-major ``(out, in)`` (:mod:`models.quant`),
+and every 4-D conv kernel turned once from JAX's HWIO into torch's
 OIHW (the stem's ``conv1``). :func:`config` rebuilds a config dataclass of the
 port from the JAX package's by field name.
 """
@@ -24,16 +26,19 @@ import torch
 from .core import device as device_mod
 
 
-def _tensor(x, dev: torch.device) -> torch.Tensor:
+def _tensor(x, dev: torch.device, k_major: bool = False) -> torch.Tensor:
     arr = np.asarray(x)
     if arr.ndim == 4:                        # conv kernel: HWIO -> OIHW
         arr = arr.transpose(3, 2, 0, 1)
+    if k_major:                              # quantized (in, out) -> (out, in)
+        arr = arr.T
     return torch.from_numpy(np.array(arr, order="C")).to(dev)
 
 
 def _convert(tree: Any, dev: torch.device) -> Any:
     if isinstance(tree, dict):
-        return {k: _convert(v, dev) for k, v in tree.items()}
+        return {k: _tensor(v, dev, k_major=True) if k == "w_q"
+                else _convert(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_convert(v, dev) for v in tree)
     return _tensor(tree, dev)

@@ -95,17 +95,31 @@
 //    conflicts. Shared memory 226 KB (K, V 128 KB; two Q/dO stages 64 KB;
 //    dS^T 16 KB; dQ staging 16 KB), one block per SM. dq's sum order
 //    across blocks varies from run to run; dk and dv are deterministic.
-//  * f32 forward: FMA on the CUDA cores (no TF32): 256 threads, 64x64
-//    score tiles, each thread 4 rows x 4 columns of a score tile and 4
-//    rows x 8 columns of a 128-wide accumulator, rows ty + 16i and columns
-//    tx + 16j so that every shared-memory read is a broadcast or
-//    conflict-free (row pitch 129 / 65 floats).
+//  * f32 forward: both products on the tensor cores as bf16 terms. A split
+//    pass writes each f32 value of q, k and v as three bf16 planes, x = x0
+//    + x1 + x2 (+ under 2^-27 |x|), into a scratch the wrapper allocates;
+//    the kernel sums the six products whose term indices add to <= 2
+//    (x2 y0, x1 y1, x0 y2, x1 y0, x0 y1, then x0 y0: the smallest first),
+//    about f32's precision. The shared forward's structure: a producer
+//    warpgroup (setmaxnreg 24) TMA-loads Q's three planes once (96 KB)
+//    and each 64-key tile's K and V planes (48 KB each) on separate K and
+//    V mbarriers, so that K(t+1) loads under P.V(t) and V(t+1) under
+//    S(t+1) with one stage; two consumer warpgroups of 64 q rows: S = Q K^T
+//    by wgmma m64n64k16 from shared memory (both K-major), the exp2 online
+//    softmax in f32, P split into three bf16 A fragments in registers, P V
+//    by wgmma m64n128k16 (V MN-major). S and each tile's P V go into fresh
+//    accumulators (the tensor core truncates its own sums: one chain over
+//    all kv tiles drifts), and o = o * corr + (P V) in f32. Shared memory
+//    193 KB, one block per SM. (b5_f32_variants.py times it against two
+//    terms, three products, and against 3xTF32 on mma.sync.)
 //  Ragged tails (S not a multiple of the tile) are zero-filled on load,
 //  masked, and never stored. Element offsets are 64-bit.
 //
 // Bounds on the card (the trainer's shape B = 2, H = 24, S = 4608, D = 128):
-//   forward 4*B*H*S^2*D = 5.22e11 FLOP: 0.528 ms at 989 TFLOP/s bf16,
-//   7.79 ms at 67 TFLOP/s f32 (FMA); bytes 4 x 56.6 MB bf16 = 0.07 ms.
+//   forward 4*B*H*S^2*D = 5.22e11 FLOP: 0.528 ms at 989 TFLOP/s bf16; in
+//   f32 as six bf16 products 3.17 ms (7.79 ms at 67 TFLOP/s on f32 FMA);
+//   bytes 4 x 56.6 MB bf16 = 0.07 ms (f32: the split pass reads 3 x 113 MB
+//   and writes 3 x 170 MB, 0.25 ms).
 //   backward at least 10*B*H*S^2*D = 1.30e12 FLOP, which both backward
 //   kernels do: 1.32 ms bf16 (bytes, 8 x 56.6 MB plus the f32 dq_accum
 //   written and read once, ~0.2 ms); f32 as 3xTF32 3.91e12 TF32 FLOP at
@@ -120,19 +134,13 @@
 namespace {
 
 constexpr int D = 128;                  // padded head_dim
-constexpr int BN = 64;                  // kv rows per tile of the f32 forward
-constexpr float NEG_INF = -1e30f;
+constexpr float NEG_INF = -1e30f;       // the f32 forward's running max start
 constexpr float LN_2 = 0.6931471805599453f;
 
 // p of the backward: natural exp on the unscaled score (not the forward's
 // exp2 on a prescaled q)
 __device__ __forceinline__ float bwd_prob(float s, float scale, float lse) {
   return expf(s * scale - lse);
-}
-
-__device__ __forceinline__ bool keep(int row, int col, int kv_valid,
-                                     int causal) {
-  return col < kv_valid && (!causal || col <= row);
 }
 
 // ---------------------------------------------------------------------------
@@ -181,165 +189,273 @@ struct FwdRows {
 };
 
 // ---------------------------------------------------------------------------
-// B5, f32: FMA on the CUDA cores
+// B5, f32: bf16 terms on wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int ST = 256;                 // threads of the f32 forward
-constexpr int LD = D + 1;               // row pitch of 128-wide f32 tiles
-constexpr int LDP = 64 + 1;             // row pitch of 64-wide f32 tiles
-constexpr int FT = 64 * LD;             // floats of a 64 x 128 tile
-constexpr int PT = 64 * LDP;            // floats of a 64 x 64 tile
+constexpr int F32_TERMS = 3;              // bf16 terms per f32 value
+constexpr int F32_PLANES = 3;             // term planes the wrapper allocates
+constexpr int FF_BM = 128;                // q rows per block (2 x 64)
+constexpr int FF_BN = 64;                 // keys per K/V tile
+constexpr int FF_STAGES = F32_TERMS == 3 ? 1 : 2;   // K/V ring depth
+constexpr int FF_THREADS = 384;           // producer + 2 consumer warpgroups
+constexpr int FF_QBOX = FF_BM * 128;      // bytes of a Q box: 128 rows x 64 lanes
+constexpr int FF_KBOX = FF_BN * 128;      // bytes of a K or V box: 64 rows
+constexpr int FF_QPLANE = 2 * FF_QBOX;    // one term of the Q tile, 32 KB
+constexpr int FF_KPLANE = 2 * FF_KBOX;    // one term of a K or V tile, 16 KB
+constexpr int FF_STAGE = 2 * F32_TERMS * FF_KPLANE;  // K terms, then V terms
+constexpr int FF_SMEM = 1024 + F32_TERMS * FF_QPLANE + FF_STAGES * FF_STAGE;
+static_assert(F32_TERMS <= F32_PLANES, "more terms than planes");
 
-// 64 rows of 128 from global rows row0.. (rows >= limit zero) into a
-// tile of pitch LD
-__device__ __forceinline__ void load_f(float* dst, const float* base,
-                                       int row0, int limit, int tid) {
-  for (int idx = tid; idx < 64 * D; idx += ST) {
-    const int r = idx >> 7, c = idx & 127;
-    dst[r * LD + c] =
-        row0 + r < limit ? base[(long long)(row0 + r) * D + c] : 0.f;
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// x = x0 + x1 + x2 + r with x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x -
+// x0 - x1) (each difference exact in f32; |r| <= 2^-27 |x|): plane t of
+// `terms` (planes n elements apart) receives x_t, four values a thread.
+__global__ void split_kernel(const float4* __restrict__ x,
+                             uint2* __restrict__ terms, long long n4) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n4; i += (long long)gridDim.x * blockDim.x) {
+    float4 r = x[i];
+#pragma unroll
+    for (int t = 0; t < F32_PLANES; ++t) {
+      const __nv_bfloat162 a = __floats2bfloat162_rn(r.x, r.y);
+      const __nv_bfloat162 b = __floats2bfloat162_rn(r.z, r.w);
+      terms[t * n4 + i] = make_uint2(bf2_bits(a), bf2_bits(b));
+      r.x -= __low2float(a);
+      r.y -= __high2float(a);
+      r.z -= __low2float(b);
+      r.w -= __high2float(b);
+    }
   }
 }
 
-// acc[i][j] += sum_d A[ty + 16i][d] * B[tx + 16j][d]  (A, B pitch LD)
-__device__ __forceinline__ void mm_nt(float (&acc)[4][4], const float* A,
-                                      const float* B, int ty, int tx) {
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
+struct FwdF32 {
+  CUtensorMap tq;      // Q terms (F32_PLANES * bh, s_q, 128) bf16, plane t
+                       // of head b at z = t * bh + b: boxes of 128 rows
+  CUtensorMap tk, tv;  // K, V terms (F32_PLANES * bh, s_kv, 128): 64 rows
+  float* out;          // (bh, s_q, 128)
+  float* lse;          // (bh, s_q), natural log
+  int bh, s_q, kv_valid, causal;
+};
+
+// The K-major descriptor of k-step kk (16 lanes) of a term plane held as
+// two boxes of `rows` rows x 64 lanes (128-byte rows), from row row0.
+__device__ __forceinline__ uint64_t plane_kdesc(const unsigned char* plane,
+                                                int rows, int row0, int kk) {
+  return smem_desc(plane + (kk >> 2) * rows * 128 + row0 * 128, 16, 1024) +
+         2 * (kk & 3);
+}
+
+// Two probabilities (x the lower key) split into F32_TERMS bf16 pairs, as
+// the A fragment packs them.
+__device__ __forceinline__ void split_pair(float x, float y,
+                                           uint32_t (&t)[F32_TERMS]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = A[(ty + 16 * i) * LD + d];
-      b[i] = B[(tx + 16 * i) * LD + d];
+  for (int i = 0; i < F32_TERMS; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    t[i] = bf2_bits(h);
+    x -= __low2float(h);
+    y -= __high2float(h);
+  }
+}
+
+// One block per (b*h, 128 q rows); grid (ceil(s_q / 128), bh). Warpgroup 0
+// loads, warpgroups 1 and 2 own 64 q rows each (accumulator element 4j + e:
+// row 16 warp + g + 8 (e >> 1), column 8j + 2 tig + (e & 1)).
+__global__ void __launch_bounds__(FF_THREADS, 1)
+    fwd_f32_kernel(const __grid_constant__ FwdF32 P) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_k[FF_STAGES], full_v[FF_STAGES],
+      empty_k[FF_STAGES], empty_v[FF_STAGES], qbar;
+  // tiles on 1024-byte boundaries: the period of the 128-byte swizzle
+  unsigned char* sQ =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = sQ + F32_TERMS * FF_QPLANE;   // stage s: K, then V
+  const int bh = blockIdx.y;
+  // causal blocks run last row block first: the longest go first
+  const int q0 =
+      (P.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * FF_BM;
+  // the kv tiles up to kv_valid; causal blocks stop at the last tile any
+  // of their rows reaches
+  int steps = (P.kv_valid + FF_BN - 1) / FF_BN;
+  if (P.causal) steps = min(steps, (min(q0 + FF_BM, P.s_q) - 1) / FF_BN + 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FF_STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 8);     // lane 0 of each consumer warp
+      mbar_init(&empty_v[s], 8);
+    }
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    // producer: one thread issues every load, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0 && steps > 0) {
+      mbar_expect_tx(&qbar, F32_TERMS * FF_QPLANE);
+      for (int t = 0; t < F32_TERMS; ++t)
+        for (int h = 0; h < 2; ++h)
+          tma_3d(sQ + t * FF_QPLANE + h * FF_QBOX, &P.tq, 64 * h, q0,
+                 t * P.bh + bh, &qbar);
+      for (int st = 0; st < steps; ++st) {
+        const int s = st % FF_STAGES, round = st / FF_STAGES;
+        unsigned char* sK = ring + s * FF_STAGE;
+        unsigned char* sV = sK + F32_TERMS * FF_KPLANE;
+        if (st >= FF_STAGES) mbar_wait(&empty_k[s], (round - 1) & 1);
+        mbar_expect_tx(&full_k[s], F32_TERMS * FF_KPLANE);
+        for (int t = 0; t < F32_TERMS; ++t)
+          for (int h = 0; h < 2; ++h)
+            tma_3d(sK + t * FF_KPLANE + h * FF_KBOX, &P.tk, 64 * h,
+                   st * FF_BN, t * P.bh + bh, &full_k[s]);
+        if (st >= FF_STAGES) mbar_wait(&empty_v[s], (round - 1) & 1);
+        mbar_expect_tx(&full_v[s], F32_TERMS * FF_KPLANE);
+        for (int t = 0; t < F32_TERMS; ++t)
+          for (int h = 0; h < 2; ++h)
+            tma_3d(sV + t * FF_KPLANE + h * FF_KBOX, &P.tv, 64 * h,
+                   st * FF_BN, t * P.bh + bh, &full_v[s]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1;                    // consumer warpgroup 0 or 1
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int row0 = q0 + 64 * cw;            // the warpgroup's first row
+  const int row[2] = {row0 + 16 * warp + g, row0 + 16 * warp + g + 8};
+  const float minus_inf = __int_as_float(0xff800000);
+
+  float o[64], ot[64], s[FF_BN / 2];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = ot[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < FF_BN / 2; ++i) s[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  fence_regs(ot);
+  fence_regs(s);
+
+  if (steps > 0) mbar_wait(&qbar, 0);
+  for (int st = 0; st < steps; ++st) {
+    const int stage = st % FF_STAGES, ph = (st / FF_STAGES) & 1;
+    const unsigned char* sK = ring + stage * FF_STAGE;
+    const unsigned char* sV = sK + F32_TERMS * FF_KPLANE;
+
+    // S = Q K^T as the products of the term pairs (i, j), i + j <
+    // F32_TERMS, the smallest first, into a fresh accumulator (the tensor
+    // core truncates its own sums, so no chain runs across tiles)
+    mbar_wait(&full_k[stage], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int sum = F32_TERMS - 1; sum >= 0; --sum)
+#pragma unroll
+      for (int i = sum; i >= 0; --i)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_bf16_ss64<0, 0>(
+              s, plane_kdesc(sQ + i * FF_QPLANE, FF_BM, 64 * cw, kk),
+              plane_kdesc(sK + (sum - i) * FF_KPLANE, FF_BN, 0, kk),
+              sum != F32_TERMS - 1 || i != sum || kk != 0);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(&empty_k[stage]);
+
+    // masks (keys from kv_valid on, and with causal keys past the row),
+    // then the exp2 online softmax; a masked key's p is 0
+    const int key0 = st * FF_BN;
+    const int nv = min(FF_BN, P.kv_valid - key0);
+    const bool masked = nv < FF_BN || (P.causal && key0 + FF_BN - 1 > row0);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < FF_BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, c = 8 * j + 2 * tig + (e & 1);
+        if (masked && (c >= nv || (P.causal && key0 + c > row[e >> 1])))
+          s[i] = minus_inf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[i]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1)
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], off));
+      corr[hr] = exp2f(m[hr] - mx[hr]);
+      m[hr] = mx[hr];
+      l[hr] *= corr[hr];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][c] += sum_k P[ty + 16i][k] * B[k][tx + 16c]  (P pitch LDP, B LD)
-__device__ __forceinline__ void mm_nn(float (&acc)[4][8], const float* P,
-                                      const float* B, int ty, int tx) {
-#pragma unroll 4
-  for (int kx = 0; kx < 64; ++kx) {
-    float a[4], b[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = P[(ty + 16 * i) * LDP + kx];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) b[c] = B[kx * LD + tx + 16 * c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
-  }
-}
-
-// sum over the 16 lanes that share a row (one half-warp)
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ void store_acc(float* base,
-                                          const float (&acc)[4][8],
-                                          int row0, int limit, int ty, int tx,
-                                          const float (&mul)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= limit) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      base[(long long)r * D + tx + 16 * c] = acc[i][c] * mul[i];
-  }
-}
-
-constexpr int SIMT_FWD_SMEM = (3 * FT + PT) * 4;      // Q, K, V, P
-
-__global__ void __launch_bounds__(ST)
-    fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ out,
-                    float* __restrict__ lse, int s_q, int s_kv, int kv_valid,
-                    int causal) {
-  extern __shared__ __align__(16) float fsm[];
-  float* sQ = fsm;
-  float* sK = sQ + FT;
-  float* sV = sK + FT;
-  float* sP = sV + FT;
-  const int q0 = blockIdx.x * 64;
-  const long long bh = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const float* kbase = k + bh * s_kv * D;
-  const float* vbase = v + bh * s_kv * D;
-
-  int n_kv = (kv_valid + BN - 1) / BN;
-  if (causal) n_kv = min(n_kv, (min(q0 + 64, s_q) - 1) / BN + 1);
-  load_f(sQ, q + bh * s_q * D, q0, s_q, tid);
-
-  float o[4][8], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
-  }
-  for (int j = 0; j < n_kv; ++j) {
-    const int kv0 = j * BN;
-    __syncthreads();
-    load_f(sK, kbase, kv0, kv_valid, tid);
-    load_f(sV, vbase, kv0, kv_valid, tid);
-    __syncthreads();
-    float s[4][4] = {};
-    mm_nt(s, sQ, sK, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      bool ok[4];
-      float mx = m[i];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        ok[jj] = keep(row, kv0 + tx + 16 * jj, kv_valid, causal);
-        if (!ok[jj]) s[i][jj] = NEG_INF;
-        mx = fmaxf(mx, s[i][jj]);
-      }
-      mx = row_max(mx);
-      const float corr = exp2f(m[i] - mx);
-      m[i] = mx;
-      float ps = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = ok[jj] ? exp2f(s[i][jj] - mx) : 0.f;
-        ps += p;
-        sP[(ty + 16 * i) * LDP + tx + 16 * jj] = p;
-      }
-      l[i] = l[i] * corr + ps;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) o[i][c] *= corr;
+    for (int i = 0; i < FF_BN / 2; ++i) {
+      const float p = s[i] == minus_inf ? 0.f : exp2f(s[i] - m[(i >> 1) & 1]);
+      s[i] = p;
+      l[(i >> 1) & 1] += p;
     }
-    __syncthreads();
-    mm_nn(o, sP, sV, ty, tx);
-  }
-  float inv[4];
+    // P's terms as A fragments (register r of k-step kk: keys 8 kk + 2 r,
+    // + 1 of the thread's columns)
+    uint32_t a[F32_TERMS][FF_BN / 16][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float li = fmaxf(row_sum(l[i]), 1e-30f);
-    inv[i] = 1.f / li;
-    const int row = q0 + ty + 16 * i;
-    if (tx == 0 && row < s_q) lse[bh * s_q + row] = m[i] * LN_2 + logf(li);
+    for (int kk = 0; kk < FF_BN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        uint32_t t[F32_TERMS];
+        split_pair(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], t);
+#pragma unroll
+        for (int i = 0; i < F32_TERMS; ++i) a[i][kk][r] = t[i];
+      }
+    fence_regs(s);
+
+    // this tile's P V over the same term pairs into a fresh accumulator,
+    // folded into o in f32: o = o * corr + (P V)
+    mbar_wait(&full_v[stage], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int sum = F32_TERMS - 1; sum >= 0; --sum)
+#pragma unroll
+      for (int i = sum; i >= 0; --i) {
+        const uint64_t dv =
+            smem_desc(sV + (sum - i) * FF_KPLANE, FF_KBOX, 1024);
+#pragma unroll
+        for (int kk = 0; kk < FF_BN / 16; ++kk)
+          wgmma_bf16_rs(ot, a[i][kk], dv + (uint64_t)(kk * 16 * 128 >> 4),
+                        sum != F32_TERMS - 1 || i != sum || kk != 0);
+      }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(ot);
+    if (lane == 0) mbar_arrive(&empty_v[stage]);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[4 * j + e] = fmaf(o[4 * j + e], corr[e >> 1], ot[4 * j + e]);
   }
-  store_acc(out + bh * s_q * D, o, q0, s_q, ty, tx, inv);
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float lt = l[hr];
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1)
+      lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    lt = fmaxf(lt, 1e-30f);
+    const int r = row[hr];
+    if (r >= P.s_q) continue;
+    const long long at = (long long)bh * P.s_q + r;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(P.out + at * D + 8 * j + 2 * tig) =
+          make_float2(__fdiv_rn(o[4 * j + 2 * hr], lt),
+                      __fdiv_rn(o[4 * j + 2 * hr + 1], lt));
+    if (tig == 0) P.lse[at] = m[hr] * LN_2 + logf(lt);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -996,18 +1112,6 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
-int fwd_simt(const void* q, const void* k, const void* v, void* out,
-             void* lse, int bh, int s_q, int s_kv, int kv_valid, int causal,
-             cudaStream_t st) {
-  cudaError_t err = allow_smem(fwd_simt_kernel, SIMT_FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  fwd_simt_kernel<<<dim3((s_q + 63) / 64, bh), ST, SIMT_FWD_SMEM, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), s_q, s_kv, kv_valid, causal);
-  return (int)cudaGetLastError();
-}
-
 // (bh, rows, 128) f32 as a tensor map: boxes of `box` rows x 32 lanes (128
 // bytes); a load past each (b, h)'s last row reads zeros, a reduce there
 // writes nothing.
@@ -1022,6 +1126,41 @@ bool map_rows_f32(CUtensorMap* map, const void* base, int rows, int bh,
                   strides, boxes);
 }
 
+// B5 f32: the split pass over q, k and v into `terms`, then the kernel.
+int fwd_f32(const void* q, const void* k, const void* v, void* out,
+            void* lse, int bh, int s_q, int s_kv, int kv_valid, int causal,
+            void* terms, cudaStream_t st) {
+  const long long nq = (long long)bh * s_q * D, nk = (long long)bh * s_kv * D;
+  bf16* tq = static_cast<bf16*>(terms);
+  bf16* tk = tq + F32_PLANES * nq;
+  bf16* tv = tk + F32_PLANES * nk;
+  const void* src[3] = {q, k, v};
+  bf16* dst[3] = {tq, tk, tv};
+  for (int i = 0; i < 3; ++i) {
+    const long long n4 = (i == 0 ? nq : nk) / 4;
+    const int blocks = (int)((n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096);
+    split_kernel<<<blocks, 256, 0, st>>>(static_cast<const float4*>(src[i]),
+                                         reinterpret_cast<uint2*>(dst[i]),
+                                         n4);
+  }
+  FwdF32 P;
+  if (!(map_rows(&P.tq, tq, s_q, F32_PLANES * bh, FF_BM) &&
+        map_rows(&P.tk, tk, s_kv, F32_PLANES * bh, FF_BN) &&
+        map_rows(&P.tv, tv, s_kv, F32_PLANES * bh, FF_BN)))
+    return (int)cudaErrorInvalidValue;
+  P.out = static_cast<float*>(out);
+  P.lse = static_cast<float*>(lse);
+  P.bh = bh;
+  P.s_q = s_q;
+  P.kv_valid = kv_valid;
+  P.causal = causal;
+  cudaError_t err = allow_smem(fwd_f32_kernel, FF_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  fwd_f32_kernel<<<dim3((s_q + FF_BM - 1) / FF_BM, bh), FF_THREADS, FF_SMEM,
+                   st>>>(P);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q/k/v/out/dout/dk/dv: (bh, S, 128) contiguous, head_dim padded to 128
@@ -1030,14 +1169,18 @@ bool map_rows_f32(CUtensorMap* map, const void* base, int rows, int bh,
 // error code of its launches (0 = success).
 
 // B5: out = softmax(q k^T) v with q prescaled by log2(e)/sqrt(D); lse
-// (bh, s_q) f32 in natural log. dtype: 0 = bf16 (tensor cores), 1 = f32
-// (CUDA cores); 9 (cudaErrorInvalidConfiguration) for another.
+// (bh, s_q) f32 in natural log. dtype: 0 = bf16, 1 = f32 (bf16 terms),
+// both on the tensor cores; 9 (cudaErrorInvalidConfiguration) for another.
+// terms (f32 only, else null): bf16 scratch of 3 * bh * 128 * (s_q + 2 *
+// s_kv) elements, for the term planes of q, k and v.
 extern "C" int flash_fwd(int dtype, const void* q, const void* k,
                          const void* v, void* out, void* lse, int bh, int s_q,
-                         int s_kv, int kv_valid, int causal, void* stream) {
+                         int s_kv, int kv_valid, int causal, void* terms,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return fwd_simt(q, k, v, out, lse, bh, s_q, s_kv, kv_valid, causal, st);
+    return fwd_f32(q, k, v, out, lse, bh, s_q, s_kv, kv_valid, causal, terms,
+                   st);
   if (dtype != 0) return (int)cudaErrorInvalidConfiguration;
   FwdRows fe;
   if (!(map_rows(&fe.tq, q, s_q, bh, fwd::BM) &&

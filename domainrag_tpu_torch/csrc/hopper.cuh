@@ -1,8 +1,10 @@
 // Hopper (sm_90a) primitives shared by the package's CUDA sources:
-// mbarriers, TMA tensor and bulk copies, named barriers, the wgmma forms
-// and their shared-memory descriptors, and the host-side tensor maps
-// (the encoder, (bh, rows, 128) rows, lanes read in place). Included by int8_attention.cu (B7) and, through flash_fwd.cuh,
-// by flash_attention.cu (B5, B6) and mmdit_attention.cu (B1-B3);
+// mbarriers, TMA tensor and bulk copies and stores, named barriers, the
+// wgmma forms and their shared-memory descriptors, and the host-side
+// tensor maps (the encoder, (bh, rows, 128) rows, lanes read in place).
+// Included by int8_gemm.cu (B4), int8_attention.cu (B7) and, through
+// flash_fwd.cuh, by flash_attention.cu (B5, B6) and mmdit_attention.cu
+// (B1-B3);
 // ops/_build.py hashes every csrc/*.cuh with each source, so a change
 // here rebuilds all of them.
 
@@ -90,6 +92,19 @@ __device__ __forceinline__ void tma_add_3d(const CUtensorMap* map,
       : "memory");
 }
 
+// Stores one box of shared memory into a tensor map's global memory
+// (elements past the extent are not written), tracked by the issuing
+// thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -134,6 +149,11 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Waits until at most one committed group is still in flight.
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Pins the accumulator registers after a wait (or before an issue): no
@@ -237,12 +257,14 @@ __device__ __forceinline__ void wgmma_s8_rs(int (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d += a * b, m64n128k16, bf16 in, f32 out; A from registers (per warp
+// d (+)= a * b, m64n128k16, bf16 in, f32 out; A from registers (per warp
 // the m16n8k16 A fragment of its 16 rows), B from shared memory MN-major
-// (N contiguous, 128-byte swizzle: imm-trans-b = 1).
+// (N contiguous, 128-byte swizzle: imm-trans-b = 1); accumulate == 0
+// overwrites d.
 __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
                                               const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                              uint64_t db,
+                                              int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -271,7 +293,7 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // d (+)= a * b, m64n128k16, bf16 in, f32 out; A and B from shared memory,

@@ -121,15 +121,15 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
 
     - dense ``{"w"}``: a plain GEMM, which the JAX package left to XLA, so
       here ``torch.matmul`` (f32 accumulation inside);
-    - quantized ``{"w_q", "w_s"}``, weight-only int8:
-      ``(x @ w_q.to(x.dtype)) * w_s.to(x.dtype)``, XLA in the JAX package
-      and ``torch.matmul`` here;
+    - quantized ``{"w_q", "w_s"}`` (``w_q`` K-major, (out, in)),
+      weight-only int8: ``(x @ w_q.to(x.dtype).T) * w_s.to(x.dtype)``,
+      XLA in the JAX package and ``torch.matmul`` here;
     - quantized under :func:`set_int8_activations`, W8A8:
       :func:`ops.int8_gemm.w8a8_linear` (bias added in its epilogue)."""
     if "w_q" in p:
         if _INT8_ACTIVATIONS:
             return w8a8_linear(x, p["w_q"], p["w_s"], p.get("b"))
-        y = torch.matmul(x, p["w_q"].to(x.dtype)) * p["w_s"].to(x.dtype)
+        y = torch.matmul(x, p["w_q"].to(x.dtype).t()) * p["w_s"].to(x.dtype)
     else:
         y = torch.matmul(x, p["w"].to(x.dtype))
     if "b" in p:

@@ -2,11 +2,14 @@
 ``domainrag_tpu/models/quant.py``).
 
 Per-output-channel symmetric int8 for every large linear weight:
-``w ~ w_q * diag(w_s)`` with ``w_s = max|w_col| / 127``. Quantized leaves
-keep the JAX package's keys ``{"w_q", "w_s"[, "b"]}`` and the ``(in,
-out)`` layout, so a tree quantized by the JAX package and carried across
-by :func:`domainrag_tpu_torch.bridge.params` is the same tree this module
-makes. :func:`models.common.linear` runs such leaves: weight-only int8 by
+``w ~ diag(w_s) w_q`` with ``w_s = max|w_col| / 127``. Quantized leaves
+keep the JAX package's keys ``{"w_q", "w_s"[, "b"]}``, but ``w_q`` is
+K-major, ``(out, in)``: the transpose of the JAX package's ``(in, out)``
+``w_q``, because the B4 kernel's ``wgmma`` reads 8-bit operands only
+K-major. :func:`domainrag_tpu_torch.bridge.params` transposes a
+JAX-quantized ``w_q`` as it carries it across, so that tree is the same
+tree this module makes, and no second copy of the weight is kept.
+:func:`models.common.linear` runs such leaves: weight-only int8 by
 default, W8A8 (the B4 kernel on the card) under
 ``common.set_int8_activations(True)``.
 """
@@ -21,14 +24,14 @@ from ..ops.int8_gemm import div127
 
 
 def quantize_linear(p: dict) -> dict:
-    """{"w": (in, out) [, "b"]} -> {"w_q": int8, "w_s": f32 (out,)
-    [, "b"]}, computed in f32 on the weight's own device from whatever
-    dtype it is stored in; the bias tensor is reused as is."""
+    """{"w": (in, out) [, "b"]} -> {"w_q": int8 (out, in), "w_s": f32
+    (out,) [, "b"]}, computed in f32 on the weight's own device from
+    whatever dtype it is stored in; the bias tensor is reused as is."""
     w = p["w"].float()
     scale = div127(w.abs().amax(dim=0))
     scale = torch.where(scale == 0.0, torch.ones_like(scale), scale)
     w_q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
-    out = {"w_q": w_q, "w_s": scale}
+    out = {"w_q": w_q.t().contiguous(), "w_s": scale}
     if "b" in p:
         out["b"] = p["b"]
     return out

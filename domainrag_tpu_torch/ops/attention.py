@@ -8,7 +8,10 @@ custom backward, as the JAX package's ``flash_attention`` (:455-493):
   log2(e)/sqrt(D) in f32 and rounded back to its dtype before the kernel
   (:199-200); the softmax is exp2; the LSE is m*ln2 + log(l) (:107, :137).
   An optional causal mask and a runtime ``kv_valid`` bound mask kv
-  positions; masked probabilities are zeroed explicitly (:89-93).
+  positions; masked probabilities are zeroed explicitly (:89-93). In f32
+  the kernel runs its products on the tensor cores as bf16 terms, in a
+  bf16 scratch of ``F32_TERM_PLANES`` planes of q, k and v that the
+  wrapper allocates for the call.
 - backward, B6: the TPU ``_flash_bwd_dq_kernel`` (:296) and
   ``_flash_bwd_dkv_kernel`` (:336) behind ``_flash_backward`` (:382), from
   the stored LSE and delta = rowsum(dO*O): p = exp(s/sqrt(D) - lse) in
@@ -56,6 +59,7 @@ LOG2_E = 1.4426950408889634
 LN_2 = 0.6931471805599453
 HEAD_DIM = 128          # the kernels' head width; narrower heads are padded
 BWD_Q_TILE = 64         # lse/delta rows are padded to a multiple of this
+F32_TERM_PLANES = 3     # bf16 planes per f32 tensor of the f32 forward
 DQ_ACCUM_SPAN = "flash_bwd_dq_accum"   # profiler range of its dq_accum ops
 _ROWS = 4096            # q rows per block of the plain versions
 
@@ -194,7 +198,7 @@ def _lib():
         lib = _build.load("flash_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         f = ctypes.c_float
-        lib.flash_fwd.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
+        lib.flash_fwd.argtypes = [i] + [p] * 5 + [i] * 5 + [p, p]
         lib.flash_bwd_bf16.argtypes = [p] * 9 + [i] * 5 + [f, p]
         lib.flash_bwd_f32.argtypes = [p] * 9 + [i] * 5 + [f, p]
         for fn in (lib.flash_fwd, lib.flash_bwd_bf16, lib.flash_bwd_f32):
@@ -244,9 +248,15 @@ def _kernel_forward(q, k, v, causal: bool, kv_valid: Optional[int]):
     qp, kp, vp = _rows(qs), _rows(k), _rows(v)
     out = torch.empty_like(qp)
     lse = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)
+    # f32: the kernel's scratch for the three bf16 term planes of q, k, v
+    terms = (torch.empty(F32_TERM_PLANES * b * h * HEAD_DIM
+                         * (s_q + 2 * s_kv), dtype=torch.bfloat16,
+                         device=q.device)
+             if q.dtype == torch.float32 else None)
     rc = _lib().flash_fwd(_DTYPES[q.dtype], qp.data_ptr(), kp.data_ptr(),
                           vp.data_ptr(), out.data_ptr(), lse.data_ptr(),
                           b * h, s_q, s_kv, kv_valid, int(causal),
+                          None if terms is None else terms.data_ptr(),
                           _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash forward kernel launch failed: CUDA error "

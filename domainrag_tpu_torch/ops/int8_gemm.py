@@ -14,13 +14,20 @@ XLA outside Pallas in the JAX package. :func:`w8a8_linear` runs the plain
 version :func:`w8a8_reference` on a CPU tensor and the hand-written
 Hopper kernel of ``csrc/int8_gemm.cu`` (B4) on a CUDA tensor, for every
 shape: the M = 1 modulation and embedder linears, K = 64 (``img_in``)
-and N = 64 (``final_proj``) included. The JAX gate ``w8a8_eligible``
+and N = 64 (``final_proj``) included. The weights are K-major, ``w_q``
+(N, K) with K contiguous (:mod:`models.quant`): the transpose of the JAX
+package's (K, N), because ``wgmma`` reads 8-bit operands only K-major.
+:func:`instance` picks the kernel's instance from the shape:
+``wgmma`` (M >= 64), ``gemv`` (M < 64) or, for K % 16 != 0 or rows off a
+16-byte boundary (which TMA and the vector loads cannot describe),
+``mma``. The JAX gate ``w8a8_eligible``
 (M >= 512, K and N tileable) exists because the TPU kernel takes whole
 tiles only, with its XLA formulation, bitwise identical, covering the
 rest; on the card no plain version carries any part of the path, so the
 kernel masks ragged edges instead. The gate is kept for parity (and
 ``chip_smoke.py`` reports which shapes it would have sent to XLA). Launches are counted in ``w8a8_linear.launches``, and
-per (M, K, N) in ``w8a8_linear.launches_by_shape``.
+per (M, K, N) in ``w8a8_linear.launches_by_shape`` and per instance in
+``w8a8_linear.launches_by_instance``.
 """
 
 from __future__ import annotations
@@ -51,10 +58,11 @@ def quantize_rowwise(x: torch.Tensor):
 def w8a8_reference(xq: torch.Tensor, w_q: torch.Tensor, xs: torch.Tensor,
                    w_s: torch.Tensor, bias: Optional[torch.Tensor],
                    out_dtype: torch.dtype) -> torch.Tensor:
-    """Plain version of B4: the integer dot in float64, which is exact on
-    either device (|acc| <= K * 127^2 < 2^53; torch has no general int32
-    matmul on the card), then ``acc.float() * xs * w_s``, cast, ``+ b``."""
-    acc = torch.matmul(xq.double(), w_q.double())
+    """Plain version of B4 on K-major weights (``w_q`` (N, K)): the integer
+    dot in float64, which is exact on either device (|acc| <= K * 127^2 <
+    2^53; torch has no general int32 matmul on the card), then
+    ``acc.float() * xs * w_s``, cast, ``+ b``."""
+    acc = torch.matmul(xq.double(), w_q.double().t())
     y = (acc.float() * xs.float() * w_s.float()).to(out_dtype)
     if bias is not None:
         y = y + bias.to(out_dtype)
@@ -76,6 +84,20 @@ def w8a8_eligible(m: int, k: int, n: int) -> bool:
             and _pick(n, (1024, 512, 256, 128)) is not None)
 
 
+INSTANCES = ("wgmma", "gemv", "mma")     # the C entry's instance codes
+GEMV_MAX_M = 63                          # M up to this takes the gemv
+
+
+def instance(m: int, k: int, n: int, aligned: bool = True) -> str:
+    """The B4 instance of an (M, K, N) launch: ``mma`` where TMA and the
+    vector loads cannot describe the rows (K % 16 != 0, or ``aligned``
+    false: a base off a 16-byte boundary), else ``gemv`` for M <=
+    ``GEMV_MAX_M`` and ``wgmma`` above."""
+    if k % 16 or not aligned:
+        return "mma"
+    return "gemv" if m <= GEMV_MAX_M else "wgmma"
+
+
 _LIB = None
 
 
@@ -85,7 +107,7 @@ def _lib():
         from . import _build
         lib = _build.load("int8_gemm")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.w8a8_gemm.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.w8a8_gemm.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.w8a8_gemm.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -98,47 +120,51 @@ def _launch(xq, w_q, xs, w_s, bias, out_dtype):
     if out_dtype not in _OUT_KINDS:
         raise ValueError(f"B4 writes bf16 or f32, not {out_dtype}")
     m, k = xq.shape
-    if w_q.dtype != torch.int8 or w_q.dim() != 2 or w_q.shape[0] != k:
-        raise ValueError(f"w_q must be ({k}, N) int8, got "
+    if w_q.dtype != torch.int8 or w_q.dim() != 2 or w_q.shape[1] != k:
+        raise ValueError(f"w_q must be (N, {k}) int8 (K-major), got "
                          f"{tuple(w_q.shape)} {w_q.dtype}")
-    n = w_q.shape[1]
+    n = w_q.shape[0]
     dev = xq.device
-    w_q = w_q.contiguous()
+    xq, w_q = xq.contiguous(), w_q.contiguous()
+    inst = instance(m, k, n, xq.data_ptr() % 16 == 0
+                    and w_q.data_ptr() % 16 == 0)
     xs = xs.reshape(m).float().contiguous()
     w_s = w_s.reshape(n).to(device=dev, dtype=torch.float32).contiguous()
     b = None if bias is None else bias.reshape(n).to(
         device=dev, dtype=out_dtype).contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     rc = _lib().w8a8_gemm(
-        xq.contiguous().data_ptr(), w_q.data_ptr(), xs.data_ptr(),
-        w_s.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
-        m, n, k, _OUT_KINDS[out_dtype],
+        xq.data_ptr(), w_q.data_ptr(), xs.data_ptr(), w_s.data_ptr(),
+        None if b is None else b.data_ptr(), out.data_ptr(), m, n, k,
+        _OUT_KINDS[out_dtype], INSTANCES.index(inst),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"w8a8_gemm kernel launch failed (M={m} K={k} "
-                           f"N={n}): CUDA error {rc}")
-    return out
+                           f"N={n}, {inst}): CUDA error {rc}")
+    return out, inst
 
 
 def w8a8_linear(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """W8A8 linear: per-token activation quant (torch ops), then the exact
     int8 product with the rescale and bias epilogue. ``x``: (..., K)
-    float; ``w_q``: (K, N) int8; ``w_s``: (N,) f32. Returns (..., N) in
-    x's dtype."""
-    k, n = w_q.shape
+    float; ``w_q``: (N, K) int8, K-major; ``w_s``: (N,) f32. Returns
+    (..., N) in x's dtype."""
+    n, k = w_q.shape
     lead = x.shape[:-1]
     xq, xs = quantize_rowwise(x.reshape(-1, k))
     if x.device.type == "cpu":
         y = w8a8_reference(xq, w_q, xs, w_s, bias, x.dtype)
     else:
-        y = _launch(xq, w_q, xs, w_s, bias, x.dtype)
+        y, inst = _launch(xq, w_q, xs, w_s, bias, x.dtype)
         w8a8_linear.launches += 1
         shape = (xq.shape[0], k, n)
-        by_shape = w8a8_linear.launches_by_shape
-        by_shape[shape] = by_shape.get(shape, 0) + 1
+        for counts, key in ((w8a8_linear.launches_by_shape, shape),
+                            (w8a8_linear.launches_by_instance, inst)):
+            counts[key] = counts.get(key, 0) + 1
     return y.reshape(*lead, n)
 
 
 w8a8_linear.launches = 0
 w8a8_linear.launches_by_shape = {}     # (M, K, N) -> launches
+w8a8_linear.launches_by_instance = {}  # "wgmma" / "gemv" / "mma" -> launches

@@ -1,7 +1,8 @@
 """Plant faults in the hand-written kernels, the fused top-k (B8,
 ``csrc/topk.cu``), the int8 MMDiT attention (B7,
-``csrc/int8_attention.cu``), the bf16 and f32 flash backward (B6,
-``csrc/flash_attention.cu``) and the front-ends of the shared bf16
+``csrc/int8_attention.cu``), the W8A8 GEMM (B4, ``csrc/int8_gemm.cu``),
+the bf16 and f32 flash backward (B6) and the f32 flash forward (B5 f32,
+both ``csrc/flash_attention.cu``) and the front-ends of the shared bf16
 forward (``csrc/flash_fwd.cuh``): the fused MMDiT attention behind B1-B3
 (``csrc/mmdit_attention.cu``) and the generic forward B5
 (``csrc/flash_attention.cu``), and check that the card tests and
@@ -15,7 +16,8 @@ For each fault (all by default) the repository is copied into a new
 temporary directory (``tempfile.mkdtemp``, which honours ``TMPDIR``), one
 line of the copy's kernel source is replaced, and the kernel's card tests
 (``tests/test_torch_cuda.py -k "topk or first_stage"`` for B8, ``-k i8``
-for B7, ``-k flash`` for B6, ``-k "kernel or flash"`` for the forward)
+for B7, ``-k w8a8`` for B4, ``-k flash`` for B6 and B5 f32, ``-k "kernel
+or flash"`` for the bf16 forward)
 and the whole ``chip_smoke.py`` run in the copy. A fault is
 caught when both exit non-zero. The temporary directory is deleted
 afterwards; the repository is not touched.
@@ -37,6 +39,7 @@ B7 = ("domainrag_tpu_torch/csrc/int8_attention.cu", "i8")
 B6 = ("domainrag_tpu_torch/csrc/flash_attention.cu", "flash")
 FWD_MMDIT = ("domainrag_tpu_torch/csrc/mmdit_attention.cu", "kernel or flash")
 FWD_B5 = ("domainrag_tpu_torch/csrc/flash_attention.cu", "kernel or flash")
+B4 = ("domainrag_tpu_torch/csrc/int8_gemm.cu", "w8a8")
 # name: ((source, card tests' -k), line as it is, line with the fault)
 FAULTS = {
     # B8: the ragged last bank tile of each split is never scored
@@ -103,6 +106,30 @@ FAULTS = {
     "lse_without_ln2": (
         FWD_B5, "if (tig == 0) lse[row] = m * LN_2 + logf(l);",
         "if (tig == 0) lse[row] = m + logf(l);"),
+    # B5 f32: the products with k's second term (q0 k1, q1 k1) take its
+    # third instead, which drops them
+    "f32_k1_products_dropped": (
+        B6, "plane_kdesc(sK + (sum - i) * FF_KPLANE, FF_BN, 0, kk),",
+        "plane_kdesc(sK + (sum - i == 1 ? 2 : sum - i) * FF_KPLANE, FF_BN,"
+        " 0, kk),"),
+    # B5 f32: the causal mask's comparison flipped at the diagonal
+    "causal_diagonal_masked_f32_fwd": (
+        B6, "if (masked && (c >= nv || (P.causal && key0 + c > row[e >> 1])))",
+        "if (masked && (c >= nv || (P.causal && key0 + c >= row[e >> 1])))"),
+    # B4: the epilogue's two rounded multiplies made one (x_s * w_s first,
+    # the reassociation a fused multiply-add contraction also makes)
+    "epilogue_scales_premultiplied": (
+        B4, "return __fmul_rn(__fmul_rn(__int2float_rn(acc), sx), sw);",
+        "return __fmul_rn(__int2float_rn(acc), __fmul_rn(sx, sw));"),
+    # B4: the wgmma instance skips the last K tile
+    "last_k_tile_skipped": (
+        B4, "const int kt_n = (P.k + WG_BK - 1) / WG_BK;",
+        "const int kt_n = (P.k + WG_BK - 1) / WG_BK - 1;"),
+    # B4: the bf16 output's tensor map reaches 64 rows past M, so the
+    # wgmma instance's TMA store writes rows past M
+    "ragged_m_rows_stored": (
+        B4, "const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)m};",
+        "const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)(m + 64)};"),
 }
 
 
@@ -139,8 +166,8 @@ def run(name: str) -> bool:
         print(f"fault {name}: card tests rc {tests.returncode} ({summary}); "
               f"chip_smoke.py rc {smoke.returncode} {errors} {checked}; "
               f"{'caught' if caught else 'NOT CAUGHT'} "
-              f"({time.perf_counter() - t0:.0f} s); failed card tests "
-              f"{failed}", flush=True)
+              f"({time.perf_counter() - t0:.0f} s); {len(failed)} failed "
+              f"card tests, the first {failed[:4]}", flush=True)
         return caught
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -247,10 +247,11 @@ def test_mp_kernel_rounds_like_the_multipass_plain(dev, monkeypatch):
 # - bf16 gradients: 1e-2 in relative Frobenius norm and every element within
 #   2e-2 * max|ref| (P and dS are rounded to bf16 for the tensor-core
 #   products, where the plain version keeps every product in f32);
-# - f32: the forward on f32 FMA (no TF32), the backward in 3xTF32, whose
-#   products keep about f32's precision, so summation order and
-#   exp2f/expf differ (the FMA kernels measured 1.3e-6 in relative norm on
-#   the H100): F32_REL in relative norm and per element F32_REL * max|ref|;
+# - f32: the forward as three bf16 terms (six products), the backward in
+#   3xTF32, whose products keep about f32's precision, so summation order
+#   and exp2f/expf differ (measured 7.1e-7 forward, ~3e-6 backward in
+#   relative norm on the H100): F32_REL in relative norm and per element
+#   F32_REL * max|ref|;
 # - lse (f32 in both instances): LSE_ATOL absolute.
 GRAD_REL, GRAD_ELEM = 1e-2, 2e-2
 F32_REL = 1e-5
@@ -325,6 +326,34 @@ FWD_CASES = [
 ]
 FWD_IDS = ["s50", "causal_s100_skv37", "sq1", "kv_valid_128",
            "causal_kv_valid_129", "causal_sq700_skv300"]
+
+
+# the f32 forward's 128-row q blocks and 64-key tiles: causal at a ragged
+# length, kv_valid at a tile edge and one past it, causal + kv_valid, causal
+# with s_q < s_kv, the trainer's length with D = 64 padded
+F32_FWD_CASES = [
+    (1, 2, 129, 129, 128, True, None),
+    (1, 2, 200, 300, 128, False, 64),
+    (1, 2, 200, 300, 128, False, 65),
+    (2, 3, 190, 190, 128, True, 100),
+    (1, 2, 70, 1000, 128, True, None),
+    (1, 2, 4608, 4608, 64, False, None),
+]
+F32_FWD_IDS = ["causal_s129", "kv_valid_64", "kv_valid_65",
+               "causal_kv_valid_100", "causal_sq70_skv1000", "s4608_d64"]
+
+
+@pytest.mark.parametrize("b,h,s_q,s_kv,d,causal,kv_valid", F32_FWD_CASES,
+                         ids=F32_FWD_IDS)
+def test_flash_f32_forward_tiles(dev, b, h, s_q, s_kv, d, causal, kv_valid):
+    """B5 f32 (bf16 terms on wgmma) at its own tile edges, under F32_REL."""
+    q, k, v, _ = _qkv(dev, torch.float32, b, h, s_q, s_kv, d, seed=3)
+    _poison(q)
+    out, lse = attn._kernel_forward(q, k, v, causal, kv_valid)
+    torch.cuda.synchronize()
+    want, want_lse = attn.flash_forward_reference(q, k, v, causal, kv_valid)
+    _check_grad(out, want, torch.float32)
+    assert (lse - want_lse).abs().max().item() < LSE_ATOL
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -579,26 +608,71 @@ def test_fused_autograd_card_vs_cpu(dev, monkeypatch, onepass):
 from domainrag_tpu_torch.ops import int8_gemm as ig    # noqa: E402
 
 
-@pytest.mark.parametrize("m", [1, 17, 640])
-@pytest.mark.parametrize("k,n", [(64, 3072), (384, 64), (12288, 3072),
-                                 (1000, 70)])
+# (K, N) of every quantized linear of the stage-3 and stage-4 int8 paths,
+# then two ragged ones (K % 16 != 0: the mma instance; N = 64)
+W8A8_KN = [(64, 3072), (256, 3072), (384, 3072), (768, 3072), (3072, 64),
+           (3072, 3072), (3072, 6144), (3072, 9216), (3072, 12288),
+           (3072, 18432), (3072, 21504), (4096, 3072), (12288, 3072),
+           (15360, 3072), (1000, 70), (384, 64)]
+
+
+# M: the gemv (1, 17, 63), the wgmma instance's first rows (64, 65), one
+# 128-row tile past a multiple (640) and the stage-3 joint length (5337)
+@pytest.mark.parametrize("m", [1, 17, 63, 64, 65, 640, 5337])
+@pytest.mark.parametrize("k,n", W8A8_KN)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_w8a8_kernel_equals_plain(dev, m, k, n, dtype):
     g = torch.Generator(device=dev)
     g.manual_seed(m + k + n)
     x = (torch.randn((m, k), generator=g, device=dev) * 3).to(dtype)
-    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
-                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                       dtype=torch.int8)                    # K-major
     ws = torch.rand(n, generator=g, device=dev) / 127
     b = torch.randn(n, generator=g, device=dev) if m != 17 else None
+    inst = ig.instance(m, k, n)
     before = ig.w8a8_linear.launches
+    before_inst = ig.w8a8_linear.launches_by_instance.get(inst, 0)
+    _poison(torch.empty((m, n), dtype=dtype, device=dev))
     got = ig.w8a8_linear(x, wq, ws, b)
     torch.cuda.synchronize()
     assert ig.w8a8_linear.launches == before + 1
+    assert ig.w8a8_linear.launches_by_instance[inst] == before_inst + 1
     xq, xs = ig.quantize_rowwise(x)
     want = ig.w8a8_reference(xq, wq, xs, ws, b, dtype)
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+# ragged M (and N) at each instance: wgmma (65 and 130 rows; bf16 with N
+# % 8 == 0 takes its staged TMA store), gemv (63), mma (65, K % 16 != 0)
+@pytest.mark.parametrize("m,k,n", [(65, 384, 64), (130, 3072, 300),
+                                   (63, 384, 64), (65, 1000, 70)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_w8a8_kernel_stores_only_its_rows(dev, m, k, n, dtype):
+    """The kernel writes rows 0..M-1 of its output and nothing past them:
+    called straight into the head of a NaN-filled buffer with 130 more
+    rows, which must stay NaN."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(m * n)
+    x = torch.randn((m, k), generator=g, device=dev) * 3
+    wq = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    ws = torch.rand(n, generator=g, device=dev) / 127
+    b = torch.randn(n, generator=g, device=dev).to(dtype)
+    xq, xs = ig.quantize_rowwise(x)
+    xs = xs.reshape(m).contiguous()
+    inst = ig.instance(m, k, n)
+    buf = torch.full((m + 130, n), float("nan"), dtype=dtype, device=dev)
+    rc = ig._lib().w8a8_gemm(
+        xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+        b.data_ptr(), buf.data_ptr(), m, n, k, int(dtype == torch.float32),
+        ig.INSTANCES.index(inst), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want = ig.w8a8_reference(xq, wq, xs[:, None], ws, b, dtype)
+    assert torch.equal(buf[:m], want), inst
+    assert bool(torch.isnan(buf[m:]).all()), f"{inst} wrote past row {m}"
 
 
 @pytest.fixture

@@ -102,7 +102,9 @@ def test_quantize_linear_bitwise(shape, zero_col):
     got = tquant.quantize_linear({"w": torch.from_numpy(w),
                                   "b": torch.from_numpy(b)})
     assert got["w_q"].dtype == torch.int8 and got["w_s"].dtype == torch.float32
-    np.testing.assert_array_equal(got["w_q"].numpy(), np.asarray(want["w_q"]))
+    # the port's w_q is K-major, (out, in): the JAX (in, out) one transposed
+    np.testing.assert_array_equal(got["w_q"].numpy(),
+                                  np.asarray(want["w_q"]).T)
     np.testing.assert_array_equal(got["w_s"].numpy(), np.asarray(want["w_s"]))
     np.testing.assert_array_equal(got["b"].numpy(), b)
 
@@ -221,8 +223,8 @@ def test_w8a8_reference_is_exact_past_f32():
     products would not (|acc| > 2^24)."""
     k = 2048
     xq = torch.full((1, k), 127, dtype=torch.int8)
-    w_q = torch.full((k, 2), 127, dtype=torch.int8)
-    w_q[0, 1] = 126
+    w_q = torch.full((2, k), 127, dtype=torch.int8)     # K-major (N, K)
+    w_q[1, 0] = 126
     y = tgemm.w8a8_reference(xq, w_q, torch.ones(1, 1), torch.ones(2), None,
                              torch.float32)
     exact = [k * 127 * 127, (k - 1) * 127 * 127 + 127 * 126]
@@ -750,7 +752,7 @@ def test_int8_wrappers_launch_or_raise_off_cpu(monkeypatch, int8_flags):
     monkeypatch.setattr(tmma, "_lib_i8", no_kernel("B7"))
     monkeypatch.setattr(tmma, "_lib", no_kernel("bf16 attention"))
     meta = dict(device="meta", dtype=torch.bfloat16)
-    w = {"w_q": torch.empty(64, 32, device="meta", dtype=torch.int8),
+    w = {"w_q": torch.empty(32, 64, device="meta", dtype=torch.int8),
          "w_s": torch.empty(32, device="meta")}
     tcommon.set_int8_activations(True)
     try:
