@@ -69,12 +69,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 1000 beside the plain version and torch.topk(q @ bank.T), at k 1000
    with the merge pass's share of one traced call, and at k 1 beside the
    matmul alone (the GEMM's share);
-8. stage 2 at full width: a random CLIP ViT-B/32 and ResNet-50 stem
+8. stage 1 at big-lama width: ``BIG_LAMA`` (18 FFC blocks, ngf 64) drawn
+   on the card, ``lama.apply`` on one 256x256 image on the card and on
+   the CPU from the same weights within ``LAMA_BAR`` (1e-4 max abs on
+   the [0, 1] output; both against an f64 run on the card, beside a TF32
+   run, for the error's source), then ``inpaint.process_dataset`` on a
+   synthetic DIOR 10-shot COCO dataset (200 images at 800x800, 20
+   classes, 1-3 boxes each): the file tree, the manifest (all done) and
+   ``category_mapping.json``, seconds per image and the load / mask /
+   lama / save spans;
+9. stage 2 at full width: a random CLIP ViT-B/32 and ResNet-50 stem
    (87.86 M f32 params) on the card, 512 synthetic corpus JPEGs through
    ``load_or_compute_source_features``, the bank filled with random unit
    rows to COCO train2017 + miniImageNet size (178287 x 512 f32, 365 MB),
-   and ``run_retrieval`` on a synthetic DIOR 10-shot directory (200
-   queries, 20 classes) with the default config (top-100, re-rank 100,
+   and ``run_retrieval`` on stage 1's DIOR 10-shot output (its 200
+   inpainted queries and their ``category_mapping.json``, 20 classes)
+   with the default config (top-100, re-rank 100,
    grids on): every artifact and JSON schema checked, no B8 launch on the
    default route, then ``first_stage_topk(use_pallas=True)`` on the same
    query features: one B8 launch, agreeing with the default route;
@@ -82,17 +92,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and seconds per dataset-shot; which renderer drew the grids; then the
    same dataset-shot once more under torch.profiler for the device's busy
    time and idle share (``OUT/profile_retrieval.txt``);
-9. the stage-3 slice on a small input: a head_dim-128 toy bundle
+10. the stage-3 slice on a small input: a head_dim-128 toy bundle
    generates on the card (kernels) and on the CPU (plain versions) from
    the same weights and noise, and the images must agree;
-10. the stage-4 fill on a small input: a head_dim-128 toy Fill bundle with
+11. the stage-4 fill on a small input: a head_dim-128 toy Fill bundle with
    the one-pass ceiling lowered (so the toy runs the multi-pass kernel)
    and the VAE tiled, on the card and on the CPU, from the same weights
    and noise;
-11. the small int8 slices: both toy bundles quantized (every block
+12. the small int8 slices: both toy bundles quantized (every block
    linear), generate and the tiled multi-pass fill under W8A8 + int8 QK +
    int8 P.V, card against CPU, launch counts asserted;
-12. the stage-3 slice at full width: a random FLUX.1-dev bundle (MMDiT,
+13. the stage-3 slice at full width: a random FLUX.1-dev bundle (MMDiT,
    T5-XXL, CLIP-L, SigLIP so400m, Redux, VAE; ~46 GB) drawn on the card,
    and ``GenerateStage.generate_sample`` on a synthetic sample at
    1024x1024, cut to 4 denoise steps (stage default 50) and 2 ranks
@@ -100,20 +110,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    that the image was finite before quantisation, and that every
    one-pass kernel ran 19 or 38 times per step per rank chunk (the
    multi-pass one never);
-13. one full-width denoise step (batch 1, 1024 px) under
+14. stage 3's dataset sweep on the same bundle: ``process_dataset`` over
+    stage 1's output with stage 2's ``all_shots_retrieval_results.json``
+    as the refs, worker 0 of 100 (two samples), the same cuts; the run
+    tree (``batch_params.txt`` header and totals, the manifest with both
+    done, each sample's artifact set), the one-pass launch counts, and
+    the first sample's rank PNGs byte-equal to a direct
+    ``generate_sample`` on the same refs; seconds per sample with the
+    writer thread beside the direct call's prior + denoise + save;
+15. one full-width denoise step (batch 1, 1024 px) under
     ``torch.profiler``, its device time grouped into the attention
     kernels, the GEMMs and the rest (full table in ``profile.txt`` under
     ``OUT``, the script's output directory);
-14. stage 3 under the CLI's ``--w8a8 --int8_qk``: the same bundle's MMDiT
+16. stage 3 under the CLI's ``--w8a8 --int8_qk``: the same bundle's MMDiT
     quantized (quantize_tree, 11.9 GB), the same sample; B4 314 and the
     one-pass B7 19 / 38 launches per step per rank chunk, the bf16 fused
     kernels never; seconds per step and the mean uint8 difference to the
     bf16 images (a report); then one traced step with int8 P.V added
     (``OUT/profile_int8.txt``);
-15. stage 4 at full width: the stage-3 bundle is freed and a random
+17. stage 4 at full width: the stage-3 bundle is freed and a random
    FLUX.1-Fill-dev bundle drawn (384 input channels), and
    ``compose.process_dataset`` runs a synthetic UODD 1-shot dataset (one
-   1024x1024 sample, two bboxes) whose two backgrounds are phase 12's
+   1024x1024 sample, two bboxes) whose two backgrounds are phase 13's
    PNGs. UODD's parameters lift it to 2048x2048 (17625 tokens, the
    multi-pass regime), strength 0.4, guidance 30, the VAE tiled (9 tiles
    per encode and decode). Cuts: 10 steps (stage default 50, so 4 denoise
@@ -121,34 +139,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1. It checks every artifact, finiteness, and that the multi-pass
    kernel ran 19 or 38 times per step per background and the one-pass
    one never;
-16. one full-width fill denoise step (batch 1, 2048 px, 384 channels)
+18. one full-width fill denoise step (batch 1, 2048 px, 384 channels)
     under ``torch.profiler`` (full table in ``OUT/profile_fill.txt``);
-17. stage 4 under ``--w8a8 --int8_qk``: the Fill MMDiT quantized, the
+19. stage 4 under ``--w8a8 --int8_qk``: the Fill MMDiT quantized, the
     same dataset through ``compose.process_dataset``; B4 314 and the
     multi-pass B7 19 / 38 per step per background, B3 never; then one
     traced fill step with int8 P.V (``OUT/profile_fill_int8.txt``);
-18. the Fill bundle is freed; the serving path above the multi-pass
+20. the Fill bundle is freed; the serving path above the multi-pass
     ceiling: both attention
     wrappers at 1241 + 49152 = 50393 joint tokens (a 4096x3072 image),
     where they take the unfused composition and so B5; launches counted
     on this run alone (B5 2, the fused kernels 0), heads 0-1 of each
     output against the plain B5 forward;
-19. a small trainer card vs CPU: a head_dim-128 toy MMDiT (hidden 256,
+21. a small trainer card vs CPU: a head_dim-128 toy MMDiT (hidden 256,
     one double and one single block) at 128 px, three ``train_step``s
     from the same weights, batches, t and eps, with bf16 and with f32
     batches, losses, first-step gradients and updates within stated
     limits, launch counts asserted;
-20. the trainer at FLUX.1-dev width cut in depth to 2 double + 4 single
+22. the trainer at FLUX.1-dev width cut in depth to 2 double + 4 single
     blocks (default 19 + 38; 1.31 B f32 params drawn on the card):
     ``train.loop.fit`` with remat for 4 steps on synthetic bf16 batches
     (batch 2, 1024 px = 4096 image tokens, 512 T5 tokens), one checkpoint
     written at the end under ``OUT`` and restored (then deleted); finite
     losses, changed params and the launch counts per step (B1 4, B2 8,
     B5 6, B6 6, B3 0), seconds per step, peak memory, checkpoint time;
-21. one traced full-width train step (``OUT/profile_train.txt``), grouped
+23. one traced full-width train step (``OUT/profile_train.txt``), grouped
     into the fused forward, B5, B6 (with its dq_accum zeroing, scale and
     cast), GEMMs, the optimizer and the rest;
-22. one full-width ``fit`` step on f32 batches (the dtype
+24. one full-width ``fit`` step on f32 batches (the dtype
     ``latent_batches_from_images`` yields): no fused kernel, B5 12 and B6
     6 launches, finite loss, changed params; the f32 kernel rows take
     these counts; with ``--parent``, four steady f32 steps timed in
@@ -199,6 +217,7 @@ PEAK_INT8 = 1979e12       # H100 SXM dense int8 OP/s
 SOURCES = ("mmdit_attention", "flash_attention", "int8_gemm",
            "int8_attention", "topk")
 PARENT = None             # --parent DIR: a checkout of the parent commit
+CARD = None               # the card's name and power limit (nvidia-smi)
 
 
 def _ms(fn, reps: int, warmup: int = 2) -> float:
@@ -801,6 +820,105 @@ def _run_slice(bundle, sample, rows, out_name, int8):
           f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return paths, mean["step"]
+
+
+BATCH_WORKERS = 100       # worker 0's round-robin share: 2 of 200 samples
+
+
+def phase_generate_batch(bundle, sample):
+    """Stage 3's dataset sweep on the full-width bundle: ``process_dataset``
+    over stage 1's DIOR 10-shot output with stage 2's
+    ``all_shots_retrieval_results.json`` as the refs, worker 0 of
+    BATCH_WORKERS (two samples), the slice's cuts (RANKS ranks, STEPS
+    steps, one rank at a time). It checks the run tree
+    (``batch_params.txt`` header and totals, the worker's manifest with
+    both done, each sample's artifact set), that the one-pass kernels ran
+    19 / 38 times per step per rank chunk of each sample, and that the
+    first sample's rank PNGs are byte-equal to a direct
+    ``generate_sample`` on the same refs; seconds per sample with the
+    writer thread beside the direct call's prior + denoise + save."""
+    import shutil
+    import torch
+    from domainrag_tpu_torch.core.log import StepTimer
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+    from domainrag_tpu_torch.stages import generate as gen
+
+    _, _, cfg = sample
+    with open(STAGE_ROOT / "retrieval_results"
+              / "all_shots_retrieval_results.json") as f:
+        rr = json.load(f)
+    lama_dir = str(STAGE_ROOT / "lamainpaint")
+    out = OUT / "stage3_batch"
+    shutil.rmtree(out, ignore_errors=True)
+    stage = gen.GenerateStage(bundle, cfg)
+    timer = StepTimer(sync=torch.cuda.synchronize)
+    _reset_counts(mma)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counters = gen.process_dataset(stage, "DIOR", SHOTS, rr, lama_dir,
+                                   str(out), run_name="run", worker_id=0,
+                                   num_workers=BATCH_WORKERS, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    chunks = math.ceil(RANKS / MAX_RANK_BATCH)
+    _read_counts(mma, {}, "one-pass", bundle.flux_cfg, 2 * STEPS * chunks)
+    if counters != {"processed": 2, "failed": 0, "skipped": 0,
+                    "fallback": 0}:
+        raise AssertionError(f"stage 3 batch counters {counters}")
+    samples = ["00000", f"{BATCH_WORKERS:05d}"]
+    base = out / "result" / f"DIOR_{SHOTS}shot_retrieval" / "run"
+    if sorted(p.name for p in base.iterdir()) != sorted(
+            ["batch_params.txt", "manifest.worker0.json"] + samples):
+        raise AssertionError(f"stage 3 run tree: {sorted(base.iterdir())}")
+    text = (base / "batch_params.txt").read_text()
+    for line in ("dataset: DIOR", f"num_inference_steps: {STEPS}",
+                 "num_samples: 2", f"images_per_sample: up to {RANKS}",
+                 f"image_size: {SIZE}x{SIZE}", "[worker0]",
+                 "succeeded_samples: 2", "failed_samples: 0",
+                 f"total_generated_images: {2 * RANKS}",
+                 f"  - {SIZE}x{SIZE}: {2 * RANKS} images", "completed: "):
+        if line not in text:
+            raise AssertionError(f"batch_params.txt lacks {line!r}")
+    with open(base / "manifest.worker0.json") as f:
+        records = json.load(f)["samples"]
+    if {k: r["status"] for k, r in records.items()} != dict.fromkeys(
+            samples, "done"):
+        raise AssertionError(f"stage 3 manifest {records}")
+    for sid in samples:
+        refs = gen.top_ranked_refs(rr, "DIOR", SHOTS, sid, RANKS)
+        names = sorted(p.name for p in (base / sid).iterdir())
+        want = sorted(
+            [f"generated_image_rank{r}.png" for r in range(1, RANKS + 1)]
+            + [f"ref_inputrank{r}.jpg" for r in range(1, RANKS + 1)]
+            + [f"ref_inforank{r['rank']}_sim{r['similarity']:.4f}.txt"
+               for r in refs] + ["params.txt", "target_input.png"])
+        if names != want:
+            raise AssertionError(f"stage 3 sample {sid}: {names}")
+
+    refs = gen.top_ranked_refs(rr, "DIOR", SHOTS, samples[0], RANKS)
+    direct = StepTimer(sync=torch.cuda.synchronize)
+    paths = stage.generate_sample(
+        samples[0], str(Path(lama_dir) / "DIOR" / f"{SHOTS}_shot"
+                        / f"{samples[0]}.jpg"),
+        refs, str(OUT / "stage3_direct"), timer=direct)
+    for p in paths:
+        a = Path(p).read_bytes()
+        b = (base / samples[0] / Path(p).name).read_bytes()
+        if a != b:
+            raise AssertionError(f"stage 3: {Path(p).name} of the dataset "
+                                 "sweep differs from generate_sample's")
+    direct_s = sum(direct.totals[k] for k in ("prior", "denoise", "save"))
+    print(f"stage 3 dataset sweep (DIOR {SHOTS}-shot refs from stage 2, "
+          f"worker 0 of {BATCH_WORKERS}: 2 samples x {RANKS} ranks, {STEPS} "
+          f"steps, {SIZE} px): process_dataset {wall:.3f} s = "
+          f"{wall / 2:.3f} s per sample with the writer thread; direct "
+          f"generate_sample prior + denoise + save {direct_s:.3f} s (save "
+          f"{direct.totals['save']:.3f} s); spans "
+          f"{ {k: round(v, 3) for k, v in timer.totals.items()} }; rank "
+          f"PNGs byte-equal to the direct call's ({CARD})")
+    shutil.rmtree(out)
+    shutil.rmtree(OUT / "stage3_direct")
+    shutil.rmtree(STAGE_ROOT)        # stages 1 and 2's trees: checked
 
 
 def _reset_counts(mma):
@@ -2715,6 +2833,194 @@ def phase_topk_kernel(dev):
     return rows
 
 
+STAGE_ROOT = OUT / "stages"   # stages 1 -> 2 -> 3 share this tree
+LAMA_SIZE = 256           # the card-vs-CPU check of lama.apply
+# lama.apply card vs CPU in f32 (TF32 off; cuFFT against pocketfft, cuDNN
+# against oneDNN convolutions): max abs error on the [0, 1] output
+LAMA_BAR = 1e-4
+
+
+def _lama_bound_ms(cfg, h, w, n_params):
+    """The least time of one ``lama.apply`` at (h, w) in f32: every conv
+    multiply-add (2 FLOP) and the FFTs' 5 N log2 N per transform at the
+    f32 FMA peak, or its weights and input/output bytes once (the convs
+    dominate by far). Returns (bound ms, GFLOP)."""
+    def split(c, r):
+        return c - int(c * r), int(c * r)
+
+    def ffc(c_in, c_out, k, r_in, r_out, px):
+        (il, ig), (ol, og) = split(c_in, r_in), split(c_out, r_out)
+        macs = k * k * px * (il * ol + il * og + ig * ol)
+        fft = 0.0
+        if ig and og:
+            mid = og // 2
+            half = px // 2 + px ** 0.5             # rfft2 output bins
+            macs += px * (ig * mid + mid * og) + half * 4 * mid * mid
+            fft = 2 * 5 * px * math.log2(px) * mid / 2
+        return 2 * macs + fft
+
+    px = h * w
+    flop = ffc(cfg.in_channels, cfg.ngf, 7, 0, 0, px)
+    for i in range(cfg.n_downsampling):
+        px //= 4
+        flop += ffc(cfg.ngf * 2 ** i, cfg.ngf * 2 ** (i + 1), 3, 0,
+                    cfg.global_ratio if i == cfg.n_downsampling - 1
+                    else 0, px)
+    feat = cfg.bottleneck
+    flop += 2 * cfg.n_blocks * ffc(feat, feat, 3, cfg.global_ratio,
+                                   cfg.global_ratio, px)
+    for i in range(cfg.n_downsampling):       # transposed: per input pixel
+        c_in = cfg.ngf * 2 ** (cfg.n_downsampling - i)
+        flop += 2 * 9 * c_in * (c_in // 2) * px
+        px *= 4
+    flop += 2 * 49 * cfg.ngf * cfg.out_channels * px
+    nbytes = 4.0 * (n_params + h * w * (4 + 3))
+    return max(flop / PEAK_F32, nbytes / PEAK_BYTES) * 1e3, flop / 1e9
+
+
+def _lama_dataset(rng, ds_dir):
+    """A DIOR 10-shot COCO dataset: 20 classes x 10 images at 800x800,
+    1-3 boxes each, the first box of an image in its class (the category
+    stage 1's sidecar records). Returns {sample_id: class}."""
+    from domainrag_tpu_torch.core.coco import write_coco
+    (ds_dir / "train").mkdir(parents=True)
+    images, anns, mapping = [], [], {}
+    for c, cls in enumerate(DIOR_CLASSES):
+        for s in range(SHOTS):
+            i = c * SHOTS + s
+            sid = f"{i:05d}"
+            mapping[sid] = cls
+            images.append({"id": i + 1, "file_name": f"{sid}.jpg",
+                           "width": 800, "height": 800})
+            _jpeg(rng, ds_dir / "train" / f"{sid}.jpg", 800, 800)
+            for b in range(int(rng.integers(1, 4))):
+                w, h = (int(v) for v in rng.integers(40, 240, 2))
+                x, y = (int(v) for v in rng.integers(0, 800 - 40, 2))
+                anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                             "category_id": c + 1 if b == 0 else
+                             int(rng.integers(1, 21)),
+                             "bbox": [x, y, w, h]})
+    write_coco(str(ds_dir / "annotations" / f"{SHOTS}_shot.json"), images,
+               anns, [{"id": c + 1, "name": n}
+                      for c, n in enumerate(DIOR_CLASSES)])
+    return mapping
+
+
+def phase_inpaint(dev):
+    """Stage 1 at big-lama width: ``BIG_LAMA`` (18 FFC blocks, ngf 64)
+    drawn on the card; ``lama.apply`` on one 256x256 image on the card and
+    on the CPU from the same weights, within LAMA_BAR (both also against
+    an f64 run on the card, beside a TF32 run); then ``process_dataset``
+    on a synthetic DIOR 10-shot dataset (200 images at 800x800, 20
+    classes, 1-3 boxes each) into ``STAGE_ROOT/lamainpaint``: the file
+    tree, the manifest (all done) and ``category_mapping.json`` checked,
+    seconds per image and the load / mask / lama / save spans. Returns
+    ({sample_id: inpainted path}, {sample_id: class}) for stage 2."""
+    import shutil
+    import torch
+    from PIL import Image
+    from domainrag_tpu_torch.core import device as device_mod
+    from domainrag_tpu_torch.core.log import StepTimer
+    from domainrag_tpu_torch.models import lama
+    from domainrag_tpu_torch.models.common import Init
+    from domainrag_tpu_torch.stages import inpaint
+
+    shutil.rmtree(STAGE_ROOT, ignore_errors=True)
+    cfg = lama.BIG_LAMA
+    params = lama.init(Init(device_mod.generator(0, dev), dev), cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    cpu_params = _tree(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(11)
+    img = torch.from_numpy(rng.random((1, LAMA_SIZE, LAMA_SIZE, 3),
+                                      np.float32))
+    mask = torch.zeros((1, LAMA_SIZE, LAMA_SIZE, 1))
+    mask[:, 40:120, 64:200] = 1.0
+    mask[:, 180:230, 20:90] = 1.0
+    img_d, mask_d = img.to(dev), mask.to(dev)
+    with torch.inference_mode():
+        card = lama.apply(params, img_d, mask_d, cfg).cpu()
+        t0 = time.perf_counter()
+        want = lama.apply(cpu_params, img, mask, cfg)
+        cpu_s = time.perf_counter() - t0
+        err = (card - want).abs().max().item()
+        # where the error comes from: both f32 runs against an f64 run on
+        # the card, and a TF32 run (which the bar must catch)
+        f64 = lama.apply(_tree(lambda t: t.double(), params),
+                         img_d.double(), mask_d.double(), cfg).cpu()
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = lama.apply(params, img_d, mask_d, cfg).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        vs64 = [(x.double() - f64).abs().max().item()
+                for x in (card, want, tf32)]
+        ms256 = _ms(lambda: lama.apply(params, img_d, mask_d, cfg), 5)
+        big = torch.rand((1, 800, 800, 3), device=dev)
+        big_mask = torch.zeros((1, 800, 800, 1), device=dev)
+        big_mask[:, 100:400, 200:500] = 1.0
+        ms800 = _ms(lambda: lama.apply(params, big, big_mask, cfg), 5)
+    bound800, gflop800 = _lama_bound_ms(cfg, 800, 800, n_params)
+    bound256, _ = _lama_bound_ms(cfg, LAMA_SIZE, LAMA_SIZE, n_params)
+    print(f"stage 1 model: BIG_LAMA ({cfg.n_blocks} FFC blocks, ngf "
+          f"{cfg.ngf}), {n_params / 1e6:.2f} M f32 params; lama.apply "
+          f"{LAMA_SIZE}x{LAMA_SIZE} card vs CPU max abs {err:.3e} (bar "
+          f"{LAMA_BAR:.0e}; CPU {cpu_s:.2f} s); against f64 on the card: "
+          f"card f32 {vs64[0]:.3e}, CPU f32 {vs64[1]:.3e}, card TF32 "
+          f"{vs64[2]:.3e}; card {ms256:.3f} ms at {LAMA_SIZE} px (bound "
+          f"{bound256:.3f}), {ms800:.3f} ms at 800 px (bound "
+          f"{bound800:.3f}: {gflop800:.1f} GFLOP at the f32 FMA peak) "
+          f"({CARD})")
+    if not (torch.isfinite(card).all() and err <= LAMA_BAR):
+        raise AssertionError(f"stage 1: lama.apply card vs CPU {err:.3e}")
+    del cpu_params, big, big_mask, img_d, mask_d
+
+    t0 = time.perf_counter()
+    datasets = STAGE_ROOT / "datasets"
+    mapping = _lama_dataset(rng, datasets / "DIOR")
+    print(f"stage 1 data: DIOR {SHOTS}-shot, {len(mapping)} JPEGs 800x800 "
+          f"in {time.perf_counter() - t0:.1f} s")
+    runner = inpaint.LamaRunner(params, cfg, device=dev)
+    timer = StepTimer(sync=torch.cuda.synchronize)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = inpaint.process_dataset("DIOR", SHOTS, runner, str(datasets),
+                                  str(STAGE_ROOT), timer=timer)
+    stage_s = time.perf_counter() - t0
+    n = len(mapping)
+    if out != {"processed": n, "skipped": 0, "failed": 0}:
+        raise AssertionError(f"stage 1 counters {out}")
+    shot_dir = STAGE_ROOT / "lamainpaint" / "DIOR" / f"{SHOTS}_shot"
+    names = sorted(p.name for p in shot_dir.iterdir())
+    if names != sorted([f"{sid}.jpg" for sid in mapping]
+                       + ["category_mapping.json", "manifest.json"]):
+        raise AssertionError(f"stage 1 file tree: {names[:5]} ...")
+    with open(shot_dir / "category_mapping.json") as f:
+        if json.load(f) != mapping:
+            raise AssertionError("stage 1 category_mapping.json")
+    with open(shot_dir / "manifest.json") as f:
+        records = json.load(f)["samples"]
+    if sorted(records, key=int) != [str(i + 1) for i in range(n)] or any(
+            r["status"] != "done" for r in records.values()):
+        raise AssertionError("stage 1 manifest: not all done")
+    queries = {sid: str(shot_dir / f"{sid}.jpg") for sid in sorted(mapping)}
+    for sid in list(queries)[:3]:
+        with Image.open(queries[sid]) as im:
+            if im.size != (800, 800) or im.mode != "RGB":
+                raise AssertionError(f"stage 1 output {im.size} {im.mode}")
+    spans = {k: round(v, 3) for k, v in timer.totals.items()}
+    print(f"stage 1 (DIOR {SHOTS}-shot, {n} images 800x800, BIG_LAMA f32 on "
+          f"the card): process_dataset {stage_s:.3f} s = "
+          f"{stage_s / n:.4f} s per image; spans {spans} s = "
+          f"{ {k: round(v / n, 4) for k, v in timer.totals.items()} } s per "
+          f"image; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({CARD})")
+    shutil.rmtree(datasets)          # stage 2 reads only the output
+    del runner, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return queries, mapping
+
+
 def _jpeg(rng, path, w, h):
     """A smooth random image (blurred low-resolution noise), JPEG."""
     from PIL import Image
@@ -2842,17 +3148,19 @@ def _profile_retrieval(bank, clip_enc, stem_p, root, results, dev):
         print(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
 
 
-def phase_retrieval(dev, rows):
+def phase_retrieval(dev, rows, stage1):
     """Stage 2 at full width: a random CLIP ViT-B/32 (224 px, patch 32,
     12 x 768, 12 heads, proj 512) and ResNet-50 stem drawn on the card;
     512 corpus JPEGs (640x480) through the feature cache, the bank filled
     to COCO train2017 + miniImageNet size with random unit rows whose
-    paths cycle over the JPEGs; ``run_retrieval`` on a DIOR 10-shot
-    directory (200 queries at 800x800, 20 classes) with the default
+    paths cycle over the JPEGs; ``run_retrieval`` on stage 1's DIOR
+    10-shot output (``stage1``: its 200 inpainted 800x800 queries and
+    ``category_mapping.json``, 20 classes) with the default
     RetrievalConfig (top-100, re-rank 100, grids on). Then
     ``first_stage_topk(use_pallas=True)`` (B8, one launch) against the
-    default route on the same query features."""
-    import shutil
+    default route on the same query features. The corpus, the queries
+    and ``all_shots_retrieval_results.json`` stay for the stage-3 batch
+    phase."""
     import torch
     from domainrag_tpu_torch.core import device as device_mod
     from domainrag_tpu_torch.core.config import RetrievalConfig
@@ -2862,30 +3170,23 @@ def phase_retrieval(dev, rows):
     from domainrag_tpu_torch.ops import topk as tk
     from domainrag_tpu_torch.stages import encoders, retrieve
 
-    root = OUT / "retrieval"
-    shutil.rmtree(root, ignore_errors=True)
+    root = STAGE_ROOT
     corpus_dir = root / "coco" / "train2017"
-    shot_dir = root / "lamainpaint" / "DIOR" / f"{SHOTS}_shot"
     corpus_dir.mkdir(parents=True)
-    shot_dir.mkdir(parents=True)
     rng = np.random.default_rng(5)
     t0 = time.perf_counter()
     corpus = []
     for i in range(CORPUS_IMAGES):
         corpus.append(str(corpus_dir / f"{i:012d}.jpg"))
         _jpeg(rng, corpus[-1], 640, 480)
-    mapping, queries = {}, {}
-    for c, cls in enumerate(DIOR_CLASSES):
-        for s in range(SHOTS):
-            sid = f"{c * SHOTS + s:05d}"
-            mapping[sid] = cls
-            queries[sid] = str(shot_dir / f"{sid}.jpg")
-            _jpeg(rng, queries[sid], 800, 800)
-    with open(shot_dir / "category_mapping.json", "w") as f:
-        json.dump(mapping, f)
-    print(f"retrieval data: {CORPUS_IMAGES} corpus JPEGs 640x480, "
-          f"{len(queries)} DIOR queries 800x800 in "
-          f"{time.perf_counter() - t0:.1f} s")
+    queries, mapping = stage1
+    with open(Path(next(iter(queries.values()))).parent
+              / "category_mapping.json") as f:
+        if json.load(f) != mapping:
+            raise AssertionError("stage 2: the sidecar is not stage 1's")
+    print(f"retrieval data: {CORPUS_IMAGES} corpus JPEGs 640x480 in "
+          f"{time.perf_counter() - t0:.1f} s; {len(queries)} DIOR queries "
+          f"800x800 from stage 1 ({CARD})")
 
     ini = Init(device_mod.generator(0, dev), dev)
     vit_b32 = clip.ClipVisionConfig()      # the defaults are ViT-B/32's
@@ -2991,18 +3292,17 @@ def phase_retrieval(dev, rows):
           f"{TOPK_N - CORPUS_IMAGES} bank rows random unit vectors; random "
           f"weights; one dataset-shot (DIOR {SHOTS}-shot)")
     _profile_retrieval(bank, clip_enc, stem_p, root, results, dev)
-    for pattern in ("*_visual.jpg", "*_*_retrieval_results.json"):
+    for pattern in ("*_visual.jpg", f"DIOR_{SHOTS}_shot_*_*_retrieval_"
+                                    "results.json"):
         for path in sorted(Path(results).glob(pattern))[2:]:
             path.unlink()        # checked; keeps OUT small
-    shutil.rmtree(root / "coco")
-    shutil.rmtree(root / "lamainpaint")
     del bank, clip_p, stem_p, clip_enc, style_enc, qt, plain
     gc.collect()
     torch.cuda.empty_cache()
 
 
 def main() -> int:
-    global PARENT
+    global PARENT, CARD
     import argparse
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3020,7 +3320,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     dev = device_mod.resolve("cuda")
     t0 = time.perf_counter()
     phase_build()
@@ -3030,11 +3331,13 @@ def main() -> int:
     rows.update(phase_int8_gemm(dev))
     rows.update(phase_int8_attention(dev))
     rows.update(phase_topk_kernel(dev))
-    phase_retrieval(dev, rows)
+    stage1 = phase_inpaint(dev)
+    phase_retrieval(dev, rows, stage1)
     phase_small_slice(dev)
     phase_small_fill(dev)
     phase_small_int8(dev)
     bundle, sample, backgrounds, bf16_step = phase_slice(dev, rows)
+    phase_generate_batch(bundle, sample)
     phase_profile(bundle, SIZE, "profile.txt")
     phase_slice_int8(bundle, sample, rows, backgrounds, bf16_step)
     phase_profile_int8(bundle, SIZE, "profile_int8.txt", rows, 3)

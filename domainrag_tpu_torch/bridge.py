@@ -3,16 +3,22 @@
 :func:`params` takes a parameter tree as nested dicts and lists of numpy
 arrays (``jax.tree.map(np.asarray, params)`` of any ``init`` that
 ``tiny_bundle`` builds: ``flux.init``, ``vae.init``, ``t5.init``,
-``clip.init_text``, ``siglip.init``, ``redux.init``; and the retrieval
-trees of ``clip.init_vision`` and ``resnet_stem.init``) and returns the
+``clip.init_text``, ``siglip.init``, ``redux.init``; the retrieval
+trees of ``clip.init_vision`` and ``resnet_stem.init``; and
+``lama.init``) and returns the
 same tree of torch tensors: same keys, linear weights kept in their
 ``(in, out)`` layout (the vision tower's 2-D ``patch_w``, ``class_emb``,
 ``pos_emb``, ``proj`` and the batchnorm statistics go across as they
 are), every quantized weight ``w_q`` turned once from the JAX package's
 ``(in, out)`` into the port's K-major ``(out, in)`` (:mod:`models.quant`),
 and every 4-D conv kernel turned once from JAX's HWIO into torch's
-OIHW (the stem's ``conv1``). :func:`config` rebuilds a config dataclass of the
-port from the JAX package's by field name.
+OIHW (the stem's ``conv1``, the VAE's and LaMa's convs). That holds for
+the transposed convs too: the LaMa tree's ``up[i]["conv"]["w"]``, HWIO
+(kh, kw, c_in, c_out) for ``lax.conv_transpose``, comes out (c_out, c_in,
+kh, kw), unflipped, which is the layout
+:func:`models.common.conv2d_transpose` takes (``lama.init`` draws it so).
+:func:`config` rebuilds a config dataclass of the port from the JAX
+package's by field name.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Stage-2, stage-3 and stage-4 configuration (own copy of
-``domainrag_tpu/core/config.py:17-240, 271-275``).
+"""Stage-1 to stage-4 configuration (own copy of
+``domainrag_tpu/core/config.py:17-72, 99-240, 271-275``).
 
 The port's ``generate`` and ``fill_batch`` accept the cache intervals
 only at their exact default of 1; the fields stay so that a config asking
@@ -9,7 +9,7 @@ for a cache raises instead of being ignored.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 
 @dataclass(frozen=True)
@@ -46,6 +46,29 @@ DATASET_PARAMS: Dict[str, DatasetParams] = {
     "NWPU_VHR-10": DatasetParams(strength=0.8, guidance_scale=30.0),
     "Camouflage": DatasetParams(strength=0.6, guidance_scale=30.0),
     "coco": DatasetParams(strength=0.8, guidance_scale=30.0),
+}
+
+
+# Per-dataset category lists (batch_generate_flux_kshot.py:738-764); the
+# legacy stage-3 mode reads them.
+DATASET_CATEGORIES: Dict[str, List[str]] = {
+    "fish": ["fish"],
+    "dior": [
+        "Expressway-Service-area", "airplane", "airport", "baseballfield",
+        "basketballcourt", "bridge", "chimney", "dam", "golffield",
+        "groundtrackfield", "harbor", "overpass", "ship", "stadium",
+        "storagetank", "tenniscourt", "trainstation", "vehicle", "windmill",
+    ],
+    "artaxor": ["Araneae"],
+    "uodd": ["seacucumber", "scallop", "seaurchin"],
+    "neu-det": ["crazing", "inclusion", "patches", "pitted_surface",
+                "rolled-in_scale", "scratches"],
+    "clipart1k": ["aeroplane", "bicycle", "bird", "boat", "bottle", "bus",
+                  "car", "cat", "chair", "cow", "diningtable", "dog", "horse",
+                  "motorbike", "person", "pottedplant", "sheep", "sofa",
+                  "train", "tvmonitor"],
+    "nwpu_vhr_10": ["NWPU_VHR_10"],
+    "coco": ["coco"],
 }
 
 

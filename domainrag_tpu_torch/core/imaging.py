@@ -1,6 +1,6 @@
 """Host-side image loading, the retrieval and SigLIP preprocessing, the
-compose stage's keep-mask and resolution policy (own copy of
-``domainrag_tpu/core/imaging.py:16-93, 124-215``).
+inpaint stage's removal mask, the compose stage's keep-mask and resolution
+policy (own copy of ``domainrag_tpu/core/imaging.py:16-215``).
 
 The JAX package resizes for CLIP and the style path through a native
 resampler proven byte-equal to PIL, with PIL as its fallback; the port
@@ -71,7 +71,28 @@ def siglip_preprocess(image: Image.Image, size: int = 384) -> np.ndarray:
     return (arr - SIGLIP_MEAN) / SIGLIP_STD
 
 
+# PIL ImageDraw.rectangle([x0, y0, x1, y1]) fills pixels x0..x1 and
+# y0..y1 INCLUSIVE; the masks below reproduce that exactly.
 Bbox = Tuple[float, float, float, float]  # x, y, w, h
+
+
+def inpaint_mask_from_bboxes(width: int, height: int,
+                             bboxes: Sequence[Bbox]) -> np.ndarray:
+    """Union-of-bboxes removal mask: 255 inside bboxes (inpaint there),
+    0 elsewhere. Parity with ``create_mask_from_multiple_bboxes``
+    (lama_inpaint/lama_inpaint.py:52-71)."""
+    mask = np.zeros((height, width), dtype=np.uint8)
+    for x, y, w, h in bboxes:
+        x0 = max(0, x)
+        y0 = max(0, y)
+        x1 = min(width, x0 + w)   # ref clamps right/bottom to W/H
+        y1 = min(height, y0 + h)
+        if x1 > x0 and y1 > y0:
+            # PIL inclusive fill of [x0, x1] x [y0, y1]
+            xi0, yi0 = int(x0), int(y0)
+            xi1, yi1 = min(int(x1), width - 1), min(int(y1), height - 1)
+            mask[yi0:yi1 + 1, xi0:xi1 + 1] = 255
+    return mask
 
 
 def outpaint_keep_mask(width: int, height: int,

@@ -45,3 +45,14 @@ class StepTimer:
             dt = time.perf_counter() - start
             self.totals[name] = self.totals.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1
+
+    def summary(self) -> Dict[str, dict]:
+        """``{name: {total_s, count, mean_s}}`` over the spans so far."""
+        return {
+            name: {
+                "total_s": self.totals[name],
+                "count": self.counts[name],
+                "mean_s": self.totals[name] / max(self.counts[name], 1),
+            }
+            for name in self.totals
+        }

@@ -174,20 +174,76 @@ def _same_pads(size: int, k: int, stride: int):
 
 def conv2d(p: Params, x: torch.Tensor, stride: int = 1,
            padding="SAME") -> torch.Tensor:
-    """NHWC conv with an (out, in, kh, kw) weight. ``padding`` is "SAME"
-    or explicit ((top, bottom), (left, right)). The NCHW view of NHWC data
-    is channels-last, so cuDNN runs it without a copy."""
+    """NHWC conv with an (out, in, kh, kw) weight. ``padding`` is "SAME",
+    "VALID" or explicit ((top, bottom), (left, right)). The NCHW view of
+    NHWC data is channels-last, so cuDNN runs it without a copy."""
     w = p["w"].to(x.dtype)
     kh, kw = w.shape[2], w.shape[3]
     if padding == "SAME":
         padding = (_same_pads(x.shape[1], kh, stride),
                    _same_pads(x.shape[2], kw, stride))
+    elif padding == "VALID":
+        padding = ((0, 0), (0, 0))
     (t, b), (l, r) = padding
     xn = x.permute(0, 3, 1, 2)
     if t == b and l == r:
         y = F.conv2d(xn, w, stride=stride, padding=(t, l))
     else:
         y = F.conv2d(F.pad(xn, (l, r, t, b)), w, stride=stride)
+    y = y.permute(0, 2, 3, 1)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def _transpose_pads(k: int, stride: int, padding: str):
+    """``lax.conv_transpose``'s (before, after) padding of the
+    stride-dilated input for a string ``padding``."""
+    if padding == "SAME":
+        pad_len = k + stride - 2
+        before = k - 1 if stride > k - 1 else -(-pad_len // 2)
+    elif padding == "VALID":
+        pad_len = k + stride - 2 + max(k - stride, 0)
+        before = k - 1
+    else:
+        raise ValueError(f"padding must be SAME or VALID, not {padding!r}")
+    return before, pad_len - before
+
+
+def conv2d_transpose(p: Params, x: torch.Tensor, stride: int = 2,
+                     padding="SAME") -> torch.Tensor:
+    """NHWC transposed conv with the semantics of the JAX package's
+    ``conv2d_transpose`` (``lax.conv_transpose`` with its default
+    ``transpose_kernel=False``): the input dilated by ``stride``, padded
+    (before, after) per spatial axis (for "SAME" at kernel 3 and stride 2
+    that is (2, 1)), then correlated with the kernel AS GIVEN, unflipped.
+    The weight is the bridge's OIHW of the JAX HWIO kernel, (out, in, kh,
+    kw), as :func:`conv2d` takes it.
+
+    Computed as ``F.conv_transpose2d``, which flips its kernel and reads
+    it as (in, out, kh, kw): it gets ``w`` with its first two axes swapped
+    and both spatial axes flipped, which undoes the flip. Its symmetric
+    ``padding = k - 1 - before`` pads ``before`` on both sides of the
+    dilated input; an ``after`` below ``before`` is cropped from the end
+    of the output, and one above it is ``output_padding``.
+    ``padding`` is "SAME", "VALID" or explicit ((top, bottom), (left,
+    right)) pads of the dilated input."""
+    w = p["w"].to(x.dtype)
+    kh, kw = w.shape[2], w.shape[3]
+    if isinstance(padding, str):
+        padding = (_transpose_pads(kh, stride, padding),
+                   _transpose_pads(kw, stride, padding))
+    sym, extra = [], []
+    for k, (before, after) in zip((kh, kw), padding):
+        if not 0 <= before <= k - 1 or after - before >= stride:
+            raise ValueError(f"unsupported transpose padding {padding}")
+        sym.append(k - 1 - before)
+        extra.append(after - before)
+    y = F.conv_transpose2d(
+        x.permute(0, 3, 1, 2), w.transpose(0, 1).flip(2, 3), stride=stride,
+        padding=tuple(sym), output_padding=tuple(max(e, 0) for e in extra))
+    crop_h, crop_w = (min(e, 0) for e in extra)
+    y = y[:, :, :y.shape[2] + crop_h or None, :y.shape[3] + crop_w or None]
     y = y.permute(0, 2, 3, 1)
     if "b" in p:
         y = y + p["b"].to(x.dtype)

@@ -4,15 +4,15 @@
 diffusers ``FlowMatchEulerDiscreteScheduler`` as ``FluxPipeline`` drives
 it: base sigma grid ``linspace(1, 1/steps, steps)`` plus a terminal 0,
 flux-dev dynamic shifting (``mu`` from the image token count), Euler
-update ``x += (sigma_next - sigma) * v`` in f32, and the fill's forward
-noising ``scale_noise``.
+update ``x += (sigma_next - sigma) * v`` in f32, the fill's forward
+noising ``scale_noise``, and :func:`denoise`, the plain Euler loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -43,6 +43,16 @@ class FlowSchedule:
     @property
     def num_steps(self) -> int:
         return len(self.sigmas) - 1
+
+    @property
+    def timesteps(self) -> np.ndarray:
+        """Model conditioning values: sigma (the embedder multiplies by
+        1000)."""
+        return self.sigmas[:-1]
+
+    @property
+    def start_sigma(self) -> float:
+        return float(self.sigmas[0])
 
 
 def make_schedule(num_steps: int,
@@ -82,3 +92,16 @@ def euler_step(x: torch.Tensor, velocity: torch.Tensor,
     ``sigma``/``sigma_next`` are f32 scalar tensors, so the step size is
     an f32 difference as in the JAX loop."""
     return (x.float() + (sigma_next - sigma) * velocity.float()).to(x.dtype)
+
+
+def denoise(model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+            latents: torch.Tensor, schedule: FlowSchedule) -> torch.Tensor:
+    """The full Euler loop: ``model_fn(latents, sigma)`` returns the
+    velocity, and each step is :func:`euler_step` from ``sigmas[i]`` to
+    ``sigmas[i + 1]`` (f32 scalar tensors on the latents' device)."""
+    sigmas = torch.as_tensor(schedule.sigmas, dtype=torch.float32,
+                             device=latents.device)
+    x = latents
+    for i in range(schedule.num_steps):
+        x = euler_step(x, model_fn(x, sigmas[i]), sigmas[i], sigmas[i + 1])
+    return x

@@ -38,8 +38,9 @@ kernel) and ``.bwd_f32_launches`` (the f32 backward's one).
 :func:`attention_reference`, a CUDA tensor the kernels. Inside
 :func:`dense_attention` (or with ``force_reference``) every tensor takes
 the dense path: the plain versions of the fused MMDiT kernels use it.
-The tensor- and sequence-parallel contexts of the JAX module belong to
-scale-out and are not ported.
+The tensor- and sequence-parallel contexts of the JAX module
+(:func:`tp_attention`, :func:`sp_attention`) belong to scale-out (ROADMAP
+A6) and raise ``NotImplementedError`` until it lands.
 """
 
 from __future__ import annotations
@@ -402,6 +403,26 @@ def attention(q, k, v, causal: bool = False, mask=None,
     if force_reference or forced_dense() or q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal)
     return flash_attention(q, k, v, causal=causal)
+
+
+@contextlib.contextmanager
+def tp_attention(mesh, axis: str = "model"):
+    """Head-sharded attention over ``axis`` of ``mesh`` (JAX :527): not
+    ported until scale-out."""
+    raise NotImplementedError(
+        "tensor-parallel attention is not ported yet (ROADMAP A6, "
+        "scale-out)")
+    yield  # pragma: no cover
+
+
+@contextlib.contextmanager
+def sp_attention(mesh, axis: str = "data"):
+    """Sequence-sharded ring attention over ``axis`` of ``mesh`` (JAX
+    :541): not ported until scale-out."""
+    raise NotImplementedError(
+        "sequence-parallel attention is not ported yet (ROADMAP A6, "
+        "scale-out)")
+    yield  # pragma: no cover
 
 
 flash_attention.launches = 0

@@ -46,7 +46,8 @@ logger = get_logger("domainrag_tpu_torch.retrieve")
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "a bank sharded over a mesh is not ported yet (ROADMAP A13)")
+            "a bank sharded over a mesh is not ported yet (ROADMAP A6, "
+            "scale-out)")
 
 
 # ---------------------------------------------------------------------------

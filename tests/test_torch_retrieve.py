@@ -320,12 +320,12 @@ def test_first_stage_matches_jax_on_cpu():
 def test_meshes_raise():
     feats = {"coco": np.eye(4, 8, dtype=np.float32)}
     paths = {"coco": [f"{i}.jpg" for i in range(4)]}
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A6"):
         tret.EmbeddingBank.from_sources(feats, paths, mesh=object(),
                                         device="cpu")
     bank = tret.EmbeddingBank.from_sources(feats, paths, device="cpu")
     bank.mesh = object()
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="A6"):
         tret.first_stage_topk(np.eye(2, 8, dtype=np.float32), bank, 2)
 
 

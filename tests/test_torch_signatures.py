@@ -104,3 +104,52 @@ def test_unported_values_raise(bundle, name, kwargs):
                                       num_steps=1, **kwargs)
     with pytest.raises(NotImplementedError):
         call()
+
+
+# ---------------------------------------------------------------------------
+# the stage entry points of stages 1 and 3
+# ---------------------------------------------------------------------------
+
+def _stage_funcs():
+    from domainrag_tpu.stages import generate as jgen
+    from domainrag_tpu.stages import inpaint as jinp
+    from domainrag_tpu_torch.stages import generate as tgen
+    from domainrag_tpu_torch.stages import inpaint as tinp
+    return {
+        "generate_sample": (jgen.GenerateStage.generate_sample,
+                            tgen.GenerateStage.generate_sample, []),
+        "generate.process_dataset": (jgen.process_dataset,
+                                     tgen.process_dataset, ["timer"]),
+        "generate.process_dataset_legacy": (jgen.process_dataset_legacy,
+                                            tgen.process_dataset_legacy, []),
+        "inpaint.process_dataset": (jinp.process_dataset,
+                                    tinp.process_dataset, []),
+        "inpaint.run_inpaint": (jinp.run_inpaint, tinp.run_inpaint, []),
+        "LamaRunner.__init__": (jinp.LamaRunner.__init__,
+                                tinp.LamaRunner.__init__, ["device"]),
+    }
+
+
+STAGE_FUNCS = sorted(_stage_funcs())
+
+
+@pytest.mark.parametrize("name", STAGE_FUNCS)
+def test_stage_parameters_match_jax(name):
+    """The JAX names in the JAX order with the JAX defaults (the runner's
+    compute dtype is each framework's float32), then only the port's own
+    keyword-only parameters."""
+    import jax.numpy as jnp
+    jax_fn, port_fn, extra = _stage_funcs()[name]
+    jax_params = _params(jax_fn)
+    port = _params(port_fn)
+    assert [p.name for p in port[:len(jax_params)]] == \
+        [p.name for p in jax_params]
+    as_jax = {torch.float32: jnp.float32}
+    assert [as_jax.get(p.default, p.default)
+            for p in port[:len(jax_params)]] == \
+        [p.default for p in jax_params]
+    assert all(p.kind is p.POSITIONAL_OR_KEYWORD
+               for p in port[:len(jax_params)])
+    rest = port[len(jax_params):]
+    assert [p.name for p in rest] == extra
+    assert all(p.kind is p.KEYWORD_ONLY for p in rest)
