@@ -151,22 +151,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
     where they take the unfused composition and so B5; launches counted
     on this run alone (B5 2, the fused kernels 0), heads 0-1 of each
     output against the plain B5 forward;
-21. a small trainer card vs CPU: a head_dim-128 toy MMDiT (hidden 256,
+21. the CLI from a checkpoint tree on disk, at full width and depth
+    (``phase_cli``): random weights drawn on the card by the port's inits,
+    each subtree from its own seed, written in the published layouts as
+    safetensors (written here, the format's inverse) under ``OUT``:
+    ``flux-dev/`` and ``flux-fill/`` (bf16, through
+    ``export_flux_to_diffusers``), ``vae/``, ``t5/`` (T5-XXL, bf16),
+    ``clip-text/``, ``siglip/``, ``redux/``, ``clip-vision/``,
+    ``resnet-stem/`` and ``lama/`` (big-lama, ordered leaves), about 37 GB
+    written (the Fill MMDiT links the dev MMDiT's block shards: the run's
+    disk writes stay under 45 GiB), 61 GB as the loader reads it;
+    then ``cli.main(["pipeline", "--checkpoints", ...])`` in this process
+    on a synthetic UODD 1-shot sample (phase 17's) and CLI_CORPUS corpus
+    JPEGs, CLI_STEPS steps: before the stages run, every converted leaf
+    equals the drawn one (drawn again from its generator state;
+    ``torch.equal``, bf16 -> bf16, bf16 -> f32 for T5, f32 -> f32) and the
+    two bundles hold the same tower tensors; after, every stage's
+    artifacts, the four ``stage/*`` timings, and B1/B2 19 / 38 launches
+    per step per rank, B3 19 / 38 per denoise step per background and no
+    other kernel; then ``generate --w8a8 --int8_qk`` from the same tree
+    (B4 314 per forward, one-pass B7 19 / 38, no bf16 fused kernel); load
+    seconds per subtree, peak host RSS, card memory and seconds per stage
+    and per image, beside the card's name and power limit; the tree is
+    deleted, pass or fail;
+22. a small trainer card vs CPU: a head_dim-128 toy MMDiT (hidden 256,
     one double and one single block) at 128 px, three ``train_step``s
     from the same weights, batches, t and eps, with bf16 and with f32
     batches, losses, first-step gradients and updates within stated
     limits, launch counts asserted;
-22. the trainer at FLUX.1-dev width cut in depth to 2 double + 4 single
+23. the trainer at FLUX.1-dev width cut in depth to 2 double + 4 single
     blocks (default 19 + 38; 1.31 B f32 params drawn on the card):
     ``train.loop.fit`` with remat for 4 steps on synthetic bf16 batches
     (batch 2, 1024 px = 4096 image tokens, 512 T5 tokens), one checkpoint
     written at the end under ``OUT`` and restored (then deleted); finite
     losses, changed params and the launch counts per step (B1 4, B2 8,
     B5 6, B6 6, B3 0), seconds per step, peak memory, checkpoint time;
-23. one traced full-width train step (``OUT/profile_train.txt``), grouped
+24. one traced full-width train step (``OUT/profile_train.txt``), grouped
     into the fused forward, B5, B6 (with its dq_accum zeroing, scale and
     cast), GEMMs, the optimizer and the rest;
-24. one full-width ``fit`` step on f32 batches (the dtype
+25. one full-width ``fit`` step on f32 batches (the dtype
     ``latent_batches_from_images`` yields): no fused kernel, B5 12 and B6
     6 launches, finite loss, changed params; the f32 kernel rows take
     these counts; with ``--parent``, four steady f32 steps timed in
@@ -1078,8 +1101,6 @@ def phase_compose(dev, rows, backgrounds):
     (the stage-3 PNGs), as the pipeline chains the stages."""
     import shutil
     import torch
-    from PIL import Image
-    from domainrag_tpu_torch.core.coco import write_coco
     from domainrag_tpu_torch.core.config import ComposeConfig
     from domainrag_tpu_torch.models.flux import pipeline as fp
 
@@ -1102,7 +1123,17 @@ def phase_compose(dev, rows, backgrounds):
 
     root = OUT / "compose"
     shutil.rmtree(root, ignore_errors=True)
-    ds = root / "datasets" / dataset
+    _uodd_dataset(root / "datasets" / dataset, sample, shot)
+    paths, step = _run_compose(bundle, root, backgrounds, rows, "output",
+                               int8=False)
+    return bundle, root, paths, step
+
+
+def _uodd_dataset(ds, sample, shot):
+    """A synthetic UODD k-shot set: one 1024x1024 image (a smooth gradient
+    with noise) with two boxes."""
+    from PIL import Image
+    from domainrag_tpu_torch.core.coco import write_coco
     (ds / "train").mkdir(parents=True)
     rng = np.random.default_rng(3)
     yy, xx = np.mgrid[0:SIZE, 0:SIZE]
@@ -1120,9 +1151,6 @@ def phase_compose(dev, rows, backgrounds):
                              "bbox": [620, 540, 96, 120]}],
                categories=[{"id": 1, "name": "scallop"},
                            {"id": 2, "name": "seaurchin"}])
-    paths, step = _run_compose(bundle, root, backgrounds, rows, "output",
-                               int8=False)
-    return bundle, root, paths, step
 
 
 def _run_compose(bundle, root, backgrounds, rows, out_name, int8):
@@ -2223,6 +2251,629 @@ def phase_long_serving(dev, rows):
     rows[f"flash_fwd_bf16_b1_s{S_LONG}"]["launches"] = counts[2]
     del txt, img, proj, out_d, out_s
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the CLI from a checkpoint tree on disk (stages 1 -> 4 from safetensors)
+# ---------------------------------------------------------------------------
+
+CLI_STEPS = 10            # cut: stage default 50 (stage 4: x 0.4 = 4 steps)
+CLI_RANKS = 5             # the stage default: 5 ranks, 5 backgrounds
+CLI_CORPUS = 32           # cut: a few dozen corpus JPEGs
+SHARD_BYTES = 5 << 30     # checkpoint shard size, as HF shards its files
+_ST_DTYPES = {"float32": "F32", "bfloat16": "BF16"}
+
+
+def _write_safetensors(path, tensors):
+    """The safetensors format, written here (the format's inverse of
+    ``models.convert``'s reader): an 8-byte little-endian header length,
+    the JSON header (dtype, shape, data offsets), then each tensor's
+    bytes."""
+    import struct
+    import torch
+    header, offset = {}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": _ST_DTYPES[str(t.dtype).split(".")[1]],
+                       "shape": list(t.shape),
+                       "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().reshape(-1).view(
+                torch.uint8).cpu().numpy().data)
+
+
+def _write_sharded(directory, tensors, prefix="model"):
+    """``tensors`` in files of about SHARD_BYTES, in key order. Returns
+    the file paths."""
+    directory.mkdir(parents=True, exist_ok=True)
+    shards, cur, size = [], {}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        if cur and size + n > SHARD_BYTES:
+            shards.append(cur)
+            cur, size = {}, 0
+        cur[key] = t
+        size += n
+    if cur:
+        shards.append(cur)
+    paths = []
+    for i, shard in enumerate(shards):
+        path = directory / f"{prefix}-{i:05d}-of-{len(shards):05d}" \
+                           f".safetensors"
+        _write_safetensors(path, shard)
+        paths.append(path)
+    return paths
+
+
+def _recording_init():
+    """The port's ``Init`` that also keeps, for each tensor it draws
+    (keyed by data pointer), how to draw it again: the generator's state
+    before the draw, the shape, the scale and the dtype."""
+    from domainrag_tpu_torch.models.common import Init
+
+    @dataclasses.dataclass
+    class RecordingInit(Init):
+        recipes: dict = dataclasses.field(default_factory=dict)
+
+        def normal(self, shape, std):
+            state = self.generator.get_state()
+            t = super().normal(shape, std)
+            self.recipes[t.data_ptr()] = (state, tuple(shape), std,
+                                          self.dtype)
+            return t
+
+    return RecordingInit
+
+
+def _draw(init_fn, seed, dev, dtype):
+    """A tree drawn by a port ``init`` on the card, and its recipe tree:
+    each leaf's draw (``_recording_init``), or a CPU copy of the leaves
+    not drawn at random (biases, norm scales, batchnorm statistics)."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    ini = _recording_init()(g, dev, dtype)
+    tree = init_fn(ini)
+    recipes = _tree(lambda t: ini.recipes.get(t.data_ptr(),
+                                              t.detach().cpu().clone()),
+                    tree)
+    return tree, recipes
+
+
+def _redraw(recipe, dev):
+    import torch
+    if isinstance(recipe, torch.Tensor):
+        return recipe.to(dev)
+    state, shape, std, dtype = recipe
+    g = torch.Generator(device=dev)
+    g.set_state(state)
+    x = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
+    return x.mul_(std).to(dtype)
+
+
+def _flat_paths(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _flat_paths(v, path + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _flat_paths(v, path + (i,))]
+    return [(path, tree)]
+
+
+def _check_loaded(name, loaded, recipes, dev, dtype=None):
+    """Every converted leaf equals the drawn one, drawn again from its
+    recipe, in ``dtype`` (None: the drawn dtype; bf16 -> f32 is exact),
+    and the two trees have the same paths. Returns the leaf count."""
+    import torch
+    got, want = dict(_flat_paths(loaded)), dict(_flat_paths(recipes))
+    if sorted(got, key=str) != sorted(want, key=str):
+        raise AssertionError(f"{name}: converted tree paths differ: "
+                             f"{sorted(set(got) ^ set(want), key=str)[:5]}")
+    for path, leaf in got.items():
+        expect = _redraw(want[path], dev)
+        expect = expect.to(dtype or expect.dtype)
+        if leaf.dtype != expect.dtype or not torch.equal(leaf, expect):
+            raise AssertionError(f"{name} {path}: converted {leaf.dtype} "
+                                 f"differs from the drawn {expect.dtype}")
+        del expect
+    return len(got)
+
+
+def _hf_lin(sd, prefix, p):
+    sd[f"{prefix}.weight"] = p["w"].t()
+    if "b" in p:
+        sd[f"{prefix}.bias"] = p["b"]
+
+
+def _hf_ln(sd, prefix, p):
+    sd[f"{prefix}.weight"] = p["scale"]
+    sd[f"{prefix}.bias"] = p["bias"]
+
+
+def _hf_layers(sd, prefix, blocks):
+    """CLIP / SigLIP encoder layers in the transformers layout."""
+    for i, b in enumerate(blocks):
+        pre = f"{prefix}.encoder.layers.{i}"
+        _hf_ln(sd, f"{pre}.layer_norm1", b["ln1"])
+        for k, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                        ("o", "out_proj")):
+            _hf_lin(sd, f"{pre}.self_attn.{name}", b["attn"][k])
+        _hf_ln(sd, f"{pre}.layer_norm2", b["ln2"])
+        _hf_lin(sd, f"{pre}.mlp.fc1", b["fc1"])
+        _hf_lin(sd, f"{pre}.mlp.fc2", b["fc2"])
+
+
+def _hf_patch(patch_w, patch):
+    """(P*P*3, hidden) channel-last patch weight -> the conv's (hidden, 3,
+    P, P)."""
+    return patch_w.reshape(patch, patch, 3, -1).permute(3, 2, 0, 1)
+
+
+def _hf_clip_text(p, cfg):
+    sd = {"text_model.embeddings.token_embedding.weight": p["tok_emb"],
+          "text_model.embeddings.position_embedding.weight": p["pos_emb"],
+          "text_projection.weight": p["proj"].t()}
+    _hf_ln(sd, "text_model.final_layer_norm", p["ln_final"])
+    _hf_layers(sd, "text_model", p["blocks"])
+    return sd
+
+
+def _hf_clip_vision(p, cfg):
+    v = "vision_model"
+    sd = {f"{v}.embeddings.patch_embedding.weight":
+          _hf_patch(p["patch_w"], cfg.patch_size),
+          f"{v}.embeddings.class_embedding": p["class_emb"],
+          f"{v}.embeddings.position_embedding.weight": p["pos_emb"],
+          "visual_projection.weight": p["proj"].t()}
+    _hf_ln(sd, f"{v}.pre_layrnorm", p["ln_pre"])
+    _hf_ln(sd, f"{v}.post_layernorm", p["ln_post"])
+    _hf_layers(sd, v, p["blocks"])
+    return sd
+
+
+def _hf_siglip(p, cfg):
+    v = "vision_model"
+    sd = {f"{v}.embeddings.patch_embedding.weight":
+          _hf_patch(p["patch_w"], cfg.patch_size),
+          f"{v}.embeddings.patch_embedding.bias": p["patch_b"],
+          f"{v}.embeddings.position_embedding.weight": p["pos_emb"]}
+    _hf_ln(sd, f"{v}.post_layernorm", p["post_ln"])
+    _hf_layers(sd, v, p["blocks"])
+    return sd
+
+
+def _hf_t5(p, cfg):
+    """T5 encoder in the transformers layout, bf16 as published."""
+    import torch
+    sd = {"shared.weight": p["embed"],
+          "encoder.final_layer_norm.weight": p["final_norm"]["scale"]}
+    for i, b in enumerate(p["blocks"]):
+        pre = f"encoder.block.{i}.layer"
+        for k in ("q", "k", "v", "o"):
+            sd[f"{pre}.0.SelfAttention.{k}.weight"] = b["attn"][k]["w"].t()
+        if "rel_bias" in b["attn"]:
+            sd[f"{pre}.0.SelfAttention.relative_attention_bias.weight"] = \
+                b["attn"]["rel_bias"]
+        sd[f"{pre}.0.layer_norm.weight"] = b["ln_attn"]["scale"]
+        sd[f"{pre}.1.layer_norm.weight"] = b["ln_ff"]["scale"]
+        for k in ("wi_0", "wi_1", "wo"):
+            sd[f"{pre}.1.DenseReluDense.{k}.weight"] = b[k]["w"].t()
+    return {k: v.to(torch.bfloat16) for k, v in sd.items()}
+
+
+def _hf_redux(p, cfg):
+    sd = {}
+    _hf_lin(sd, "redux_up", p["up"])
+    _hf_lin(sd, "redux_down", p["down"])
+    return sd
+
+
+def _hf_stem(p, cfg):
+    bn = p["bn1"]
+    return {"conv1.weight": p["conv1"]["w"], "bn1.weight": bn["scale"],
+            "bn1.bias": bn["bias"], "bn1.running_mean": bn["mean"],
+            "bn1.running_var": bn["var"]}
+
+
+def _hf_lama(p, cfg):
+    """big-lama's leaves in module order, keys that sort in that order."""
+    from domainrag_tpu_torch.models.convert import lama_leaf_order
+    return {f"{i:04d}.param": leaf
+            for i, (_, leaf) in enumerate(lama_leaf_order(p))}
+
+
+def _towers():
+    """(subdir, init, config, dtype drawn in, layout writer) of every
+    checkpoint subtree but the MMDiTs, at full width."""
+    import torch
+    from domainrag_tpu_torch.models import clip, lama, redux, resnet_stem
+    from domainrag_tpu_torch.models import siglip, t5
+    from domainrag_tpu_torch.models.export_diffusers import \
+        export_vae_to_diffusers
+    from domainrag_tpu_torch.models.flux import vae
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        ("vae", lambda i: vae.init(vae.FLUX_VAE, i), None, f32,
+         lambda p, c: export_vae_to_diffusers(p)),
+        ("t5", lambda i: t5.init(t5.T5_XXL, i), None, bf16, _hf_t5),
+        ("clip-text", lambda i: clip.init_text(clip.CLIP_L_TEXT, i), None,
+         f32, _hf_clip_text),
+        ("siglip", lambda i: siglip.init(siglip.SIGLIP_SO400M, i),
+         siglip.SIGLIP_SO400M, f32, _hf_siglip),
+        ("redux", lambda i: redux.init(redux.REDUX_DEV, i), None, f32,
+         _hf_redux),
+        ("clip-vision", lambda i: clip.init_vision(clip.ClipVisionConfig(),
+                                                   i),
+         clip.ClipVisionConfig(), f32, _hf_clip_vision),
+        ("resnet-stem", lambda i: resnet_stem.init(i), None, f32, _hf_stem),
+        ("lama", lambda i: lama.init(i, lama.BIG_LAMA), None, f32, _hf_lama),
+    ]
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def _write_checkpoints(ckpt, dev):
+    """The checkpoint tree ``models.convert`` reads, of random full-width
+    weights drawn on the card by the port's inits, each subtree from its
+    own seed and written in its published layout: the towers, then the
+    FLUX.1-dev and FLUX.1-Fill-dev MMDiTs in bf16 through
+    ``export_flux_to_diffusers``. The Fill MMDiT writes its own embedders
+    and final layer and links the dev MMDiT's block shards (full width
+    and depth still; its blocks then equal the dev blocks), which keeps
+    the tree at ~37 GB and the run's disk writes under 45 GiB. Returns the
+    recipe tree and the bytes of each subtree."""
+    import gc
+    import shutil
+    import torch
+    from domainrag_tpu_torch.models.export_diffusers import \
+        export_flux_to_diffusers
+    from domainrag_tpu_torch.models.flux import model as fm
+
+    recipes, seconds = {}, {}
+    for seed, (sub, init, cfg, dtype, layout) in enumerate(_towers(), 10):
+        tree, recipes[sub] = _draw(init, seed, dev, dtype)
+        t0 = time.perf_counter()
+        _write_sharded(ckpt / sub, layout(tree, cfg))
+        seconds[sub] = time.perf_counter() - t0
+        del tree
+    block_files = None
+    for seed, (sub, cfg) in enumerate((("flux-dev", fm.FLUX_DEV),
+                                       ("flux-fill", fm.FLUX_FILL_DEV)), 20):
+        tree, recipes[sub] = _draw(lambda i: fm.init(cfg, i), seed, dev,
+                                   torch.bfloat16)
+        sd = export_flux_to_diffusers(tree, cfg)
+        blocks = {k: v for k, v in sd.items() if k.startswith(
+            ("transformer_blocks.", "single_transformer_blocks."))}
+        t0 = time.perf_counter()
+        _write_sharded(ckpt / sub, {k: v for k, v in sd.items()
+                                    if k not in blocks}, "embedders")
+        if block_files is None:
+            block_files = _write_sharded(ckpt / sub, blocks, "blocks")
+        else:
+            for path in block_files:
+                (ckpt / sub / path.name).symlink_to(path)
+            for part in ("double", "single"):
+                recipes[sub][part] = recipes["flux-dev"][part]
+        seconds[sub] = time.perf_counter() - t0
+        del tree, sd, blocks
+        gc.collect()
+        torch.cuda.empty_cache()
+    read = {sub: _dir_bytes(ckpt / sub) for sub in recipes}
+    written = sum(read.values()) - sum(p.stat().st_size for p in block_files)
+    print(f"[{CARD}] checkpoint tree written: {written / 1e9:.2f} GB in "
+          f"{sum(seconds.values()):.1f} s of writes "
+          f"({written / sum(seconds.values()) / 1e9:.2f} GB/s), "
+          f"{sum(read.values()) / 1e9:.2f} GB as the loader reads it (the "
+          f"Fill MMDiT links the dev block shards); per subtree GB read / "
+          f"s written: { {k: (round(read[k] / 1e9, 3), round(seconds[k], 1)) for k in read} }"
+          f"; free disk left {shutil.disk_usage(ckpt).free / 1e9:.2f} GB")
+    return recipes, read
+
+
+class _PeakRss:
+    """The process's resident set, sampled every 20 ms in a thread while
+    it is open: its peak."""
+
+    def __enter__(self):
+        import threading
+        self.peak = self.start = _rss()
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._done.wait(0.02):
+            self.peak = max(self.peak, _rss())
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, _rss())
+
+
+def _rss():
+    import os
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _check_runner(runner, recipes, dev):
+    """The converted trees equal the drawn ones; the two bundles hold the
+    same tower tensors."""
+    import torch
+    fb, fill = runner.flux_bundle, runner.fill_bundle
+    n = _check_loaded("flux-dev", fb.flux_params, recipes["flux-dev"], dev)
+    n += _check_loaded("flux-fill", fill.flux_params, recipes["flux-fill"],
+                       dev)
+    for sub, attr in (("vae", "vae_params"), ("t5", "t5_params"),
+                      ("clip-text", "clip_text_params"),
+                      ("siglip", "siglip_params"),
+                      ("redux", "redux_params")):
+        n += _check_loaded(sub, getattr(fb, attr), recipes[sub], dev,
+                           torch.float32)
+        a, b = _flat_paths(getattr(fb, attr)), _flat_paths(getattr(fill, attr))
+        if len(a) != len(b) or any(x is not y for (_, x), (_, y) in zip(a, b)):
+            raise AssertionError(f"{attr}: the bundles do not share it")
+    for sub, tree in (("clip-vision", runner.clip_encoder._params),
+                      ("resnet-stem", runner.style_encoder._params),
+                      ("lama", runner.lama_runner.params)):
+        n += _check_loaded(sub, tree, recipes[sub], dev, torch.float32)
+    return n
+
+
+def _hooked_build(cli, stats, check=None):
+    """``cli._build_runner`` that also times the load, samples the host's
+    RSS and reads the card's memory, and runs ``check`` on the runner
+    before the stages do."""
+    import resource
+    import torch
+    real = cli._build_runner
+
+    def build(args):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _PeakRss() as rss:
+            runner = real(args)
+            torch.cuda.synchronize()
+        stats.update(
+            load_s=time.perf_counter() - t0, rss_before=rss.start,
+            rss_peak=rss.peak, device=torch.cuda.memory_allocated(),
+            device_peak=torch.cuda.max_memory_allocated(),
+            maxrss=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            spans={k: v for k, v in runner.timer.totals.items()},
+            timer=runner.timer)
+        if check is not None:
+            t0 = time.perf_counter()
+            stats["checked"] = check(runner)
+            stats["check_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        return runner
+
+    return build
+
+
+def _run_cli(cli, argv, stats, check=None):
+    """``cli.main(argv)`` in this process with the hooked runner build;
+    returns the printed summary."""
+    import io
+    buf = io.StringIO()
+    real = cli._build_runner
+    cli._build_runner = _hooked_build(cli, stats, check)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        cli._build_runner = real
+    print(buf.getvalue().strip()[-1500:])
+    if rc != 0:
+        raise AssertionError(f"CLI {argv[0]} exited with {rc}")
+    return json.loads(buf.getvalue())
+
+
+def _check_cli_tree(out, dataset, shot, sample, ranks):
+    """Every stage's artifacts: stage 1's background and category map,
+    stage 2's all-shots JSON, stage 3's rank PNGs at SIZE and the
+    manifest, stage 4's hires and final PNGs, result JSON and the
+    collected finals."""
+    from PIL import Image
+    from domainrag_tpu_torch.core.manifest import Manifest
+    lam = out / "lamainpaint" / dataset / f"{shot}_shot"
+    if not (lam / f"{sample}.jpg").exists() \
+            or not (lam / "category_mapping.json").exists():
+        raise AssertionError("stage 1 artifacts missing")
+    with open(out / "retrieval_results" /
+              "all_shots_retrieval_results.json") as f:
+        rr = json.load(f)
+    (entry,) = [e for entries in rr[dataset][f"{shot}_shot"].values()
+                for e in entries]
+    if entry["sample_id"] != sample or len(entry["similar_images"]) < ranks:
+        raise AssertionError(f"stage 2 JSON: {entry['sample_id']}, "
+                             f"{len(entry['similar_images'])} refs")
+    (run,) = (out / "result" / f"{dataset}_{shot}shot_retrieval").iterdir()
+    if Manifest(str(run / "manifest.json")).entry(sample).get("status") \
+            != "done":
+        raise AssertionError("stage 3 manifest: sample not done")
+    for r in range(1, ranks + 1):
+        arr = np.asarray(Image.open(run / sample /
+                                    f"generated_image_rank{r}.png"))
+        if arr.shape != (SIZE, SIZE, 3):
+            raise AssertionError(f"stage 3 rank {r}: {arr.shape}")
+    op = out / "outpaint_hires" / "process_0" / dataset / f"{shot}_shot"
+    if Manifest(str(op / "manifest.json")).entry(sample).get("status") \
+            != "done" or not (op / f"outpaint_results_{shot}shot.json") \
+            .exists():
+        raise AssertionError("stage 4 manifest or result JSON")
+    for r in range(1, ranks + 1):
+        for part, size in (("hires_result", FILL_SIZE),
+                           ("final_result", SIZE)):
+            arr = np.asarray(Image.open(op / sample /
+                                        f"{sample}_{part}_rank{r}.png"))
+            if arr.shape[:2] != (size, size):
+                raise AssertionError(f"stage 4 {part} {r}: {arr.shape}")
+    finals = list((out / "final_results" / "process_0" / f"{shot}_shot"
+                   / dataset).glob("*_final_result*.png"))
+    if len(finals) != ranks:
+        raise AssertionError(f"{len(finals)} collected finals")
+    return run
+
+
+def phase_cli(dev):
+    """The CLI from a checkpoint tree on disk, at full width and depth: the
+    tree written (``_write_checkpoints``), then
+    ``cli.main(["pipeline", "--checkpoints", ...])`` in this process over a
+    synthetic UODD 1-shot set and a corpus of CLI_CORPUS JPEGs, the loaded
+    trees held to the drawn ones before the stages run, the launch counts
+    read just after; then ``generate --w8a8 --int8_qk`` from the same
+    tree. The tree is deleted when the phase ends, pass or fail."""
+    import gc
+    import shutil
+    import torch
+    from domainrag_tpu_torch.cli import main as cli
+    from domainrag_tpu_torch.core.config import DATASET_PARAMS
+    from domainrag_tpu_torch.models import common
+    from domainrag_tpu_torch.models.flux import model as fm
+    from domainrag_tpu_torch.models.flux import pipeline as fp
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+    from domainrag_tpu_torch.ops import topk as tk
+
+    dataset, shot, sample = "UODD", 1, "uodd_0"
+    strength = DATASET_PARAMS[dataset].strength
+    passes3 = CLI_STEPS * CLI_RANKS                  # max_rank_batch 1
+    passes4 = int(CLI_STEPS * strength) * CLI_RANKS
+    root = OUT / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    print(f"[{CARD}] CLI phase: free disk under {OUT}: "
+          f"{shutil.disk_usage(root).free / 1e9:.2f} GB; cuts: {CLI_STEPS} "
+          f"steps (default 50; stage 4 x strength {strength} = "
+          f"{int(CLI_STEPS * strength)} denoise steps), {CLI_CORPUS} corpus "
+          f"JPEGs; {CLI_RANKS} ranks and backgrounds, full width and depth")
+    try:
+        ckpt = root / "checkpoints"
+        recipes, sizes = _write_checkpoints(ckpt, dev)
+        _uodd_dataset(root / "datasets" / dataset, sample, shot)
+        corpus = root / "coco"
+        corpus.mkdir()
+        rng = np.random.default_rng(9)
+        for i in range(CLI_CORPUS):
+            _jpeg(rng, corpus / f"{i:012d}.jpg", 640, 480)
+        common_args = ["--checkpoints", str(ckpt), "--datasets", dataset,
+                       "--shots", str(shot), "--datasets_dir",
+                       str(root / "datasets"), "--corpus",
+                       f"coco={corpus}", "--steps", str(CLI_STEPS),
+                       "--size", str(SIZE), "--max_rank_batch", "1"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"card before the load: {torch.cuda.memory_allocated() / 1e9:.2f}"
+              f" GB allocated")
+
+        # --- pipeline: stages 1 -> 4 ---------------------------------------
+        stats = {}
+        _reset_counts(mma)
+        tk.topk_ip_fused.launches = 0
+        fp.generate.nonfinite_images = fp.fill_batch.nonfinite_images = 0
+        out = root / "output"
+        summary = _run_cli(cli, ["pipeline"] + common_args
+                           + ["--output_dir", str(out)], stats,
+                           check=lambda r: _check_runner(r, recipes, dev))
+        torch.cuda.synchronize()
+        run_peak = torch.cuda.max_memory_allocated()
+        d, s = mma.mmdit_double_attention, mma.mmdit_single_attention
+        counts = {"one-pass": (d.launches, s.launches),
+                  "multi-pass": (d.mp_launches, s.mp_launches)}
+        want = {"one-pass": (fm.FLUX_DEV.depth_double * passes3,
+                             fm.FLUX_DEV.depth_single * passes3),
+                "multi-pass": (fm.FLUX_DEV.depth_double * passes4,
+                               fm.FLUX_DEV.depth_single * passes4)}
+        depth = f"{fm.FLUX_DEV.depth_double} / {fm.FLUX_DEV.depth_single}"
+        print(f"launches on the CLI path: B1/B2 {counts['one-pass']} "
+              f"(expected {want['one-pass']} = {depth} x {passes3} "
+              f"forwards), B3 double/single {counts['multi-pass']} (expected"
+              f" {want['multi-pass']} = {depth} x {passes4}), B5/B6 "
+              f"{_flash_counts()}, B4/B7 {_i8_counts(mma)}, B8 "
+              f"{tk.topk_ip_fused.launches} (expected all 0)")
+        if counts != want or any(_flash_counts()) or any(_i8_counts(mma)) \
+                or tk.topk_ip_fused.launches:
+            raise AssertionError("CLI path: kernel launch counts differ")
+        if fp.generate.nonfinite_images or fp.fill_batch.nonfinite_images:
+            raise AssertionError("CLI path: images not finite")
+        _check_cli_tree(out, dataset, shot, sample, CLI_RANKS)
+        timings = summary["timings"]
+        stages = {k: round(v["total_s"], 3) for k, v in timings.items()
+                  if k.startswith("stage/")}
+        if set(stages) != {"stage/inpaint", "stage/retrieve",
+                           "stage/generate", "stage/compose"}:
+            raise AssertionError(f"summary timings: {sorted(timings)}")
+        total = sum(sizes.values())
+        spans = stats["spans"]
+        print(f"[{CARD}] CLI pipeline from {total / 1e9:.2f} GB of "
+              f"safetensors: {stats['checked']} converted leaves equal the "
+              f"drawn weights ({stats['check_s']:.1f} s to check), the "
+              f"bundles share the VAE/T5/CLIP/SigLIP/Redux tensors; load "
+              f"{stats['load_s']:.1f} s ({total / stats['load_s'] / 1e9:.2f}"
+              f" GB/s), per subtree s (GB/s): "
+              f"{ {k[5:]: (round(v, 2), round(sizes[k[5:]] / v / 1e9, 2)) for k, v in spans.items()} }; "
+              f"host RSS {stats['rss_before'] / 1e9:.2f} GB before the load,"
+              f" peak {stats['rss_peak'] / 1e9:.2f} GB during it (getrusage "
+              f"maxrss of the process so far {stats['maxrss'] / 1e9:.2f} GB);"
+              f" card after the load {stats['device'] / 1e9:.2f} GB "
+              f"allocated (peak {stats['device_peak'] / 1e9:.2f} GB), peak "
+              f"during the stages {run_peak / 1e9:.2f} GB; stage seconds "
+              f"{stages}; stage 3 {stages['stage/generate'] / CLI_RANKS:.3f}"
+              f" s per image ({CLI_STEPS} steps, {SIZE} px), stage 4 "
+              f"{stages['stage/compose'] / CLI_RANKS:.3f} s per image "
+              f"({int(CLI_STEPS * strength)} denoise steps, {FILL_SIZE} px)")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --- generate --w8a8 --int8_qk --------------------------------------
+        out8 = root / "output_int8"
+        for sub in ("lamainpaint", "retrieval_results"):
+            shutil.copytree(out / sub, out8 / sub)
+        shutil.rmtree(out)
+        stats8 = {}
+        _reset_counts(mma)
+        fp.generate.nonfinite_images = 0
+        try:
+            summary8 = _run_cli(cli, ["generate"] + common_args
+                                + ["--output_dir", str(out8), "--w8a8",
+                                   "--int8_qk"], stats8)
+        finally:
+            common.set_int8_activations(False)
+            mma.set_int8_qk(False)
+        _read_i8_counts(mma, {}, "one-pass", fm.FLUX_DEV, passes3, S_TXT,
+                        (SIZE // 16) ** 2)
+        if summary8 != {f"{dataset}/{shot}": {
+                "processed": 1, "failed": 0, "skipped": 0, "fallback": 0}} \
+                or fp.generate.nonfinite_images:
+            raise AssertionError(f"CLI generate --w8a8: {summary8}")
+        (run,) = (out8 / "result" / f"{dataset}_{shot}shot_retrieval") \
+            .iterdir()
+        if len(list((run / sample).glob("generated_image_rank*.png"))) \
+                != CLI_RANKS:
+            raise AssertionError("CLI generate --w8a8: rank PNGs")
+        gen = stats8["timer"].totals["stage/generate"]
+        print(f"[{CARD}] CLI generate --w8a8 --int8_qk: load + quantize "
+              f"{stats8['load_s']:.1f} s, card after it "
+              f"{stats8['device'] / 1e9:.2f} GB (peak "
+              f"{stats8['device_peak'] / 1e9:.2f} GB), host RSS peak "
+              f"{stats8['rss_peak'] / 1e9:.2f} GB; stage 3 {gen:.3f} s, "
+              f"{gen / CLI_RANKS:.3f} s per image ({CLI_STEPS} steps, "
+              f"{SIZE} px)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def _train_cfg_small():
@@ -3352,6 +4003,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_long_serving(dev, rows)
+    phase_cli(dev)
     phase_small_trainer(dev)
     cfg, params, batches = phase_train(dev, rows)
     phase_profile_train(dev, cfg, params, batches)

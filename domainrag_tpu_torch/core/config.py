@@ -1,15 +1,17 @@
-"""Stage-1 to stage-4 configuration (own copy of
-``domainrag_tpu/core/config.py:17-72, 99-240, 271-275``).
+"""Pipeline configuration (own copy of ``domainrag_tpu/core/config.py``).
 
-The port's ``generate`` and ``fill_batch`` accept the cache intervals
-only at their exact default of 1; the fields stay so that a config asking
-for a cache raises instead of being ignored.
+The port's ``generate`` and ``fill_batch`` accept the cache intervals and
+orders only at their exact default of 1 (the denoise caches are ROADMAP
+A5); the fields stay so that a config asking for a cache raises instead
+of being ignored. :class:`MeshConfig` is carried for the CLI, but a
+parallel degree above 1 raises at the orchestrator (ROADMAP A6).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -70,6 +72,24 @@ DATASET_CATEGORIES: Dict[str, List[str]] = {
     "nwpu_vhr_10": ["NWPU_VHR_10"],
     "coco": ["coco"],
 }
+
+
+# Shot configurations (retrieval/...py:47, domainrag.sh:4,
+# outpainting_updown_sampling_redux.py:1898).
+DEFAULT_SHOTS: Tuple[int, ...] = (1, 5, 10)
+NWPU_SHOTS: Tuple[int, ...] = (3, 5, 10, 20)
+CAMOUFLAGE_SHOTS: Tuple[int, ...] = (1, 2, 3, 5)
+
+
+def get_shots_for_dataset(dataset: str) -> Tuple[int, ...]:
+    """Per-dataset shot sweeps (retrieval/...py:47, domainrag.sh:4,
+    outpainting_updown_sampling_redux.py:1898)."""
+    d = dataset.lower()
+    if "nwpu" in d:
+        return NWPU_SHOTS
+    if "camouflage" in d:
+        return CAMOUFLAGE_SHOTS
+    return DEFAULT_SHOTS
 
 
 def get_dataset_params(dataset: str,
@@ -134,11 +154,13 @@ class FluxSamplingConfig:
     height: int = 1024
     width: int = 1024
     seed: int = 0
+    strength: float = 1.0            # 1.0 = full denoise (t2i); <1 = fill
     use_dynamic_shifting: bool = True
     base_shift: float = 0.5
     max_shift: float = 1.15
     block_cache_interval: object = 1
     velocity_cache_interval: object = 1
+    velocity_cache_order: int = 1
 
 
 @dataclass(frozen=True)
@@ -185,6 +207,40 @@ class ComposeConfig:
     hires_threshold_px: int = 2048 * 2048
     # the velocity cache is not ported: only 1 is accepted
     velocity_cache_interval: object = 1
+    velocity_cache_order: int = 1
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout. data = sample-parallel, model = tensor-parallel,
+    pipe = depth-sharded pipeline serving; the port serves one card, so
+    both degrees must stay 1 until ROADMAP A6."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel_size: int = 1     # TP degree for the Flux MMDiT
+    pipe_axis: str = "pipe"
+    pipeline_parallel_size: int = 1  # PP stages; >1 replaces DP in generate
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """End-to-end pipeline configuration (replaces domainrag.sh)."""
+
+    datasets: Tuple[str, ...] = ("NEU-DET",)
+    shots: Tuple[int, ...] = DEFAULT_SHOTS
+    datasets_dir: str = "./datasets"
+    output_dir: str = "./output"
+    process_id: str = "0"
+    # this worker handles samples with index % num_workers == worker_id
+    # (deterministic round-robin over the sorted sample list; one process
+    # per card, as the reference's one-shell-job-per-GPU)
+    worker_id: int = 0
+    num_workers: int = 1
+    retrieval: RetrievalConfig = field(default_factory=RetrievalConfig)
+    generate: GenerateConfig = field(default_factory=GenerateConfig)
+    compose: ComposeConfig = field(default_factory=ComposeConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 def worker_slice(items, worker_id: int, num_workers: int):
@@ -192,3 +248,7 @@ def worker_slice(items, worker_id: int, num_workers: int):
     if num_workers <= 1:
         return list(items)
     return [x for i, x in enumerate(items) if i % num_workers == worker_id]
+
+
+def asdict(cfg) -> dict:
+    return dataclasses.asdict(cfg)

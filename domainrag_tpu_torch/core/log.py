@@ -1,10 +1,13 @@
-"""The framework logger and named wall-clock spans (own copy of
-``domainrag_tpu/core/log.py``'s ``get_logger`` and ``StepTimer``)."""
+"""The framework logger, named wall-clock spans and the optional trace
+of a run (own copy of ``domainrag_tpu/core/log.py``; :func:`maybe_trace`
+is a ``torch.profiler`` trace where the JAX package takes a
+``jax.profiler`` one)."""
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from typing import Callable, Dict, Iterator, Optional
 
@@ -56,3 +59,22 @@ class StepTimer:
             }
             for name in self.totals
         }
+
+
+@contextlib.contextmanager
+def maybe_trace(trace_dir: Optional[str]) -> Iterator[None]:
+    """A ``torch.profiler`` trace (host and, where a card is visible, CUDA
+    activity) of the body, written as a Chrome trace
+    ``trace_dir/trace.json``; does nothing when ``trace_dir`` is None."""
+    if trace_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

@@ -2,7 +2,8 @@
 tower (Flux's pooled text vector). Port of ``domainrag_tpu/models/clip.py``
 (``ClipVisionConfig :27``, ``init_vision``/``_patchify``/``apply_vision``/
 ``encode_image :85-145``, ``ClipTextConfig :42``,
-``init_text``/``apply_text :152-188``).
+``init_text``/``apply_text :152-188``, and the transformers converters
+``convert_hf_clip_vision``/``convert_hf_clip_text :215-260``).
 
 Both towers are the pre-LN transformer with quick-gelu over the dense
 ``common.mha`` (the JAX package has no Pallas kernel here). The image
@@ -20,7 +21,9 @@ import dataclasses
 
 import torch
 
-from .common import (Init, Params, causal_mask, layernorm, layernorm_init,
+from ..core import device as device_mod
+from .common import (Init, Params, RenamedKeys, causal_mask, ckpt_linear,
+                     ckpt_tensor, layernorm, layernorm_init,
                      linear, linear_init, mha, mha_init, quick_gelu)
 
 
@@ -152,3 +155,77 @@ def apply_text(params: Params, token_ids: torch.Tensor, cfg: ClipTextConfig):
                            dim=1)
     pooled = x[torch.arange(b, device=x.device), eos_pos]
     return x, pooled
+
+
+# ---------------------------------------------------------------------------
+# HF weight conversion (transformers state dict -> param tree, f32)
+# ---------------------------------------------------------------------------
+
+def _convert_block(sd, prefix: str, dev: torch.device) -> Params:
+    def ln(name):
+        return {"scale": ckpt_tensor(sd[f"{prefix}.{name}.weight"], dev),
+                "bias": ckpt_tensor(sd[f"{prefix}.{name}.bias"], dev)}
+
+    attn = {k: ckpt_linear(sd, f"{prefix}.self_attn.{name}", dev)
+            for k, name in (("q", "q_proj"), ("k", "k_proj"),
+                            ("v", "v_proj"), ("o", "out_proj"))}
+    return {"ln1": ln("layer_norm1"), "attn": attn, "ln2": ln("layer_norm2"),
+            "fc1": ckpt_linear(sd, f"{prefix}.mlp.fc1", dev),
+            "fc2": ckpt_linear(sd, f"{prefix}.mlp.fc2", dev)}
+
+
+def _blocks(sd, dev: torch.device) -> list:
+    blocks, i = [], 0
+    while f"encoder.layers.{i}.layer_norm1.weight" in sd:
+        blocks.append(_convert_block(sd, f"encoder.layers.{i}", dev))
+        i += 1
+    return blocks
+
+
+def convert_hf_clip_vision(state_dict, cfg: ClipVisionConfig, *,
+                           device=None) -> Params:
+    """Convert a transformers ``CLIPVisionModelWithProjection`` (or the
+    vision half of ``CLIPModel``) state dict; tensors land on ``device``
+    (the card unless ``device="cpu"``) in f32."""
+    dev = device_mod.resolve(device)
+    sd = RenamedKeys(state_dict, "vision_model.")
+    conv_w = ckpt_tensor(sd["embeddings.patch_embedding.weight"], dev)
+    patch_w = conv_w.permute(2, 3, 1, 0).reshape(-1, conv_w.shape[0])
+    return {
+        "patch_w": patch_w.contiguous(),
+        "class_emb": ckpt_tensor(sd["embeddings.class_embedding"], dev),
+        "pos_emb": ckpt_tensor(sd["embeddings.position_embedding.weight"],
+                               dev),
+        "ln_pre": {"scale": ckpt_tensor(sd["pre_layrnorm.weight"], dev),
+                   "bias": ckpt_tensor(sd["pre_layrnorm.bias"], dev)},
+        "ln_post": {"scale": ckpt_tensor(sd["post_layernorm.weight"], dev),
+                    "bias": ckpt_tensor(sd["post_layernorm.bias"], dev)},
+        "proj": ckpt_tensor(sd["visual_projection.weight"], dev).t()
+        .contiguous(),
+        "blocks": _blocks(sd, dev),
+    }
+
+
+def convert_hf_clip_text(state_dict, cfg: ClipTextConfig, *,
+                         device=None) -> Params:
+    """Convert a transformers ``CLIPTextModel(WithProjection)`` (or the
+    text half of ``CLIPModel``) state dict; without a
+    ``text_projection`` the projection is the identity."""
+    dev = device_mod.resolve(device)
+    sd = RenamedKeys(state_dict, "text_model.")
+    params: Params = {
+        "tok_emb": ckpt_tensor(sd["embeddings.token_embedding.weight"], dev),
+        "pos_emb": ckpt_tensor(sd["embeddings.position_embedding.weight"],
+                               dev),
+        "ln_final": {"scale": ckpt_tensor(sd["final_layer_norm.weight"],
+                                          dev),
+                     "bias": ckpt_tensor(sd["final_layer_norm.bias"], dev)},
+    }
+    if "text_projection.weight" in sd:
+        params["proj"] = ckpt_tensor(sd["text_projection.weight"],
+                                     dev).t().contiguous()
+    else:
+        params["proj"] = torch.eye(cfg.hidden, cfg.projection_dim,
+                                   device=dev)
+    params["blocks"] = _blocks(sd, dev)
+    return params

@@ -15,12 +15,55 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.int8_gemm import w8a8_linear
 
 Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# checkpoint tensors (the converters of models/*.py and models/convert.py)
+# ---------------------------------------------------------------------------
+
+def ckpt_tensor(x, device: torch.device, dtype: torch.dtype = torch.float32
+                ) -> torch.Tensor:
+    """A checkpoint tensor (torch, e.g. a view of a mapped safetensors
+    file, or numpy) on ``device`` in ``dtype``: moved at its own width
+    first and cast there, so the host holds no widened copy."""
+    # always a copy: the source may be a read-only file mapping
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device, copy=True).to(dtype)
+    return torch.from_numpy(np.array(x)).to(device).to(dtype)
+
+
+class RenamedKeys:
+    """A state dict seen under its keys with ``prefix`` removed, read on
+    demand (a lazy checkpoint stays lazy); where two keys collide, the
+    later one wins, as in a dict built from the stripped keys."""
+
+    def __init__(self, state_dict, prefix: str):
+        self._sd = state_dict
+        self._keys = {k.removeprefix(prefix): k for k in state_dict.keys()}
+
+    def __contains__(self, key) -> bool:
+        return key in self._keys
+
+    def __getitem__(self, key):
+        return self._sd[self._keys[key]]
+
+
+def ckpt_linear(sd, prefix: str, device: torch.device,
+                dtype: torch.dtype = torch.float32) -> Params:
+    """torch ``Linear`` ``{prefix}.weight`` (out, in) [+ ``.bias``] ->
+    ``{"w": (in, out)[, "b"]}``."""
+    p = {"w": ckpt_tensor(sd[f"{prefix}.weight"], device, dtype).t()
+         .contiguous()}
+    if f"{prefix}.bias" in sd:
+        p["b"] = ckpt_tensor(sd[f"{prefix}.bias"], device, dtype)
+    return p
 
 
 # ---------------------------------------------------------------------------

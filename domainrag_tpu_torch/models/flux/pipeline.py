@@ -68,6 +68,11 @@ class FluxBundle:
     clip_max_len: int = 77
     compute_dtype: torch.dtype = torch.bfloat16
     device: torch.device = torch.device("cuda")
+    # per-prompt (t5_embeds (1, S, D), clip_pooled (1, P)) cache filled by
+    # :func:`precompute_prompts`; once every prompt a run uses is cached,
+    # the T5 / CLIP-text params may be released
+    # (:func:`release_text_encoders`)
+    prompt_cache: Optional[dict] = None
 
     @property
     def latent_factor(self) -> int:
@@ -163,7 +168,21 @@ def full_bundle(seed: int = 0, device=None, fill: bool = False
 
 def encode_prompt(bundle: FluxBundle, prompts: Sequence[str]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(T5 embeds (N, S, D_t5), CLIP pooled (N, D_clip)) per prompt, f32."""
+    """(T5 embeds (N, S, D_t5), CLIP pooled (N, D_clip)) per prompt, f32.
+
+    Consults ``bundle.prompt_cache`` first: when every prompt is cached
+    the text towers never run (and may have been released —
+    :func:`release_text_encoders`)."""
+    cache = bundle.prompt_cache
+    if cache is not None and all(p in cache for p in prompts):
+        return (torch.cat([cache[p][0] for p in prompts]),
+                torch.cat([cache[p][1] for p in prompts]))
+    if bundle.t5_params is None:
+        missing = [p for p in prompts
+                   if cache is None or p not in cache]
+        raise ValueError(
+            f"text encoders released but prompts not in the cache: "
+            f"{missing!r} — precompute_prompts() them first")
     t5_ids = text_util.batch_tokenize(bundle.t5_tokenizer, prompts,
                                       bundle.t5_max_len)
     clip_ids = text_util.batch_tokenize(bundle.clip_tokenizer, prompts,
@@ -175,6 +194,28 @@ def encode_prompt(bundle: FluxBundle, prompts: Sequence[str]
                                     torch.as_tensor(clip_ids, device=dev),
                                     bundle.clip_text_cfg)
     return t5_out, pooled
+
+
+@torch.inference_mode()
+def precompute_prompts(bundle: FluxBundle,
+                       prompts: Sequence[str]) -> None:
+    """Fill ``bundle.prompt_cache`` for ``prompts`` (each encoded once).
+    After this, :func:`release_text_encoders` can drop the T5/CLIP-text
+    params and every prior/denoise call that sticks to these prompts works
+    unchanged."""
+    if bundle.prompt_cache is None:
+        bundle.prompt_cache = {}
+    for p in prompts:
+        if p not in bundle.prompt_cache:
+            bundle.prompt_cache[p] = encode_prompt(bundle, [p])
+
+
+def release_text_encoders(bundle: FluxBundle) -> None:
+    """Drop the T5 + CLIP-text params (device memory frees once no other
+    reference holds them). Prompt encoding afterwards requires a
+    :func:`precompute_prompts` cache hit."""
+    bundle.t5_params = None
+    bundle.clip_text_params = None
 
 
 def _image_tokens(bundle: FluxBundle, images: np.ndarray) -> torch.Tensor:
@@ -346,7 +387,8 @@ def generate(bundle: FluxBundle, prompt_embeds: torch.Tensor,
         raise NotImplementedError("meshes and pipelining are not ported")
     if block_cache_interval != 1 or velocity_cache_interval != 1 \
             or velocity_cache_order != 1:
-        raise NotImplementedError("the denoise caches are not ported")
+        raise NotImplementedError(
+            "the denoise caches are not ported yet (ROADMAP A5)")
     b = prompt_embeds.shape[0]
     if noise is None:
         seeds = list(seed) if isinstance(seed, (list, tuple)) else [seed] * b
@@ -491,7 +533,8 @@ def fill_batch(bundle: FluxBundle, images: np.ndarray, masks: np.ndarray,
     if mesh is not None or pipe_axis is not None or microbatches is not None:
         raise NotImplementedError("meshes and pipelining are not ported")
     if velocity_cache_interval != 1 or velocity_cache_order != 1:
-        raise NotImplementedError("the velocity cache is not ported")
+        raise NotImplementedError(
+            "the velocity cache is not ported yet (ROADMAP A5)")
     dev, dt = bundle.device, bundle.compute_dtype
     b, h, w = images.shape[:3]
     lf = bundle.latent_factor

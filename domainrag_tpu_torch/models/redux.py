@@ -6,6 +6,7 @@ diffusers ``FluxPriorReduxPipeline`` semantics: per image, text embeds
 (512 T5 tokens) and Redux image tokens (729) are concatenated to 1241
 tokens, scaled by ``prompt_embeds_scale[i]`` (pooled by
 ``pooled_prompt_embeds_scale[i]``) and summed over the images.
+``convert_hf_redux`` reads diffusers' ``ReduxImageEncoder`` weights.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import Init, Params, linear, linear_init
+from ..core import device as device_mod
+from .common import Init, Params, ckpt_linear, linear, linear_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,3 +80,11 @@ def combine_prior_pairs(text_embeds: torch.Tensor,
     embeds = embeds * scales[:, :, None, None]
     pooled = pooled_embeds * pscales[:, :, None]
     return embeds.sum(1), pooled.sum(1)
+
+
+def convert_hf_redux(state_dict, *, device=None) -> Params:
+    """diffusers ``ReduxImageEncoder`` state dict (redux_up/redux_down) ->
+    param tree, f32 on ``device`` (the card unless ``device="cpu"``)."""
+    dev = device_mod.resolve(device)
+    return {"up": ckpt_linear(state_dict, "redux_up", dev),
+            "down": ckpt_linear(state_dict, "redux_down", dev)}

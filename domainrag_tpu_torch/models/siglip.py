@@ -2,7 +2,8 @@
 ``domainrag_tpu/models/siglip.py``).
 
 Patch tokens of SigLIP-so400m/384 (27x27 = 729 tokens, width 1152),
-``last_hidden_state`` only (post layernorm, no pooling head).
+``last_hidden_state`` only (post layernorm, no pooling head), and the
+transformers converter ``convert_hf_siglip``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,9 @@ import dataclasses
 
 import torch
 
-from .common import (Init, Params, gelu_tanh, layernorm, layernorm_init,
+from ..core import device as device_mod
+from .common import (Init, Params, RenamedKeys, ckpt_linear, ckpt_tensor,
+                     gelu_tanh, layernorm, layernorm_init,
                      linear, linear_init, mha, mha_init)
 
 
@@ -83,3 +86,40 @@ def apply(params: Params, images: torch.Tensor,
         h = layernorm(block["ln2"], x, cfg.layer_norm_eps)
         x = x + linear(block["fc2"], gelu_tanh(linear(block["fc1"], h)))
     return layernorm(params["post_ln"], x, cfg.layer_norm_eps)
+
+
+def convert_hf_siglip(state_dict, cfg: SiglipVisionConfig, *,
+                      device=None) -> Params:
+    """transformers ``SiglipVisionModel`` state dict -> param tree, f32 on
+    ``device`` (the card unless ``device="cpu"``)."""
+    dev = device_mod.resolve(device)
+    sd = RenamedKeys(state_dict, "vision_model.")
+
+    def ln(key):
+        return {"scale": ckpt_tensor(sd[f"{key}.weight"], dev),
+                "bias": ckpt_tensor(sd[f"{key}.bias"], dev)}
+
+    conv_w = ckpt_tensor(sd["embeddings.patch_embedding.weight"], dev)
+    params: Params = {
+        "patch_w": conv_w.permute(2, 3, 1, 0).reshape(-1, conv_w.shape[0])
+        .contiguous(),
+        "patch_b": ckpt_tensor(sd["embeddings.patch_embedding.bias"], dev),
+        "pos_emb": ckpt_tensor(sd["embeddings.position_embedding.weight"],
+                               dev),
+        "post_ln": ln("post_layernorm"),
+        "blocks": [],
+    }
+    i = 0
+    while f"encoder.layers.{i}.layer_norm1.weight" in sd:
+        pre = f"encoder.layers.{i}"
+        params["blocks"].append({
+            "ln1": ln(f"{pre}.layer_norm1"),
+            "attn": {k: ckpt_linear(sd, f"{pre}.self_attn.{name}", dev)
+                     for k, name in (("q", "q_proj"), ("k", "k_proj"),
+                                     ("v", "v_proj"), ("o", "out_proj"))},
+            "ln2": ln(f"{pre}.layer_norm2"),
+            "fc1": ckpt_linear(sd, f"{pre}.mlp.fc1", dev),
+            "fc2": ckpt_linear(sd, f"{pre}.mlp.fc2", dev),
+        })
+        i += 1
+    return params

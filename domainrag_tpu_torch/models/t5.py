@@ -1,5 +1,6 @@
 """T5 v1.1 encoder — Flux's T5-XXL text encoder (port of
-``domainrag_tpu/models/t5.py:41-139``).
+``domainrag_tpu/models/t5.py:41-180``, with the transformers converter
+``convert_hf_t5``).
 
 RMSNorm (no mean subtraction), relative position bias computed from
 block 0's table and shared by all layers, UNSCALED attention logits (T5
@@ -14,8 +15,9 @@ import math
 
 import torch
 
-from .common import (Init, Params, linear, linear_init, rmsnorm,
-                     rmsnorm_init)
+from ..core import device as device_mod
+from .common import (Init, Params, RenamedKeys, ckpt_linear, ckpt_tensor,
+                     linear, linear_init, rmsnorm, rmsnorm_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,3 +119,39 @@ def apply(params: Params, token_ids: torch.Tensor, cfg: T5Config = T5_XXL
             * linear(block["wi_1"], h)
         x = x + linear(block["wo"], gated)
     return rmsnorm(params["final_norm"], x, cfg.layer_norm_eps)
+
+
+def convert_hf_t5(state_dict, cfg: T5Config, *, device=None) -> Params:
+    """transformers ``T5EncoderModel`` state dict -> param tree, f32 on
+    ``device`` (the card unless ``device="cpu"``); a bf16 checkpoint
+    crosses at bf16 and widens on the device, exactly."""
+    dev = device_mod.resolve(device)
+    sd = RenamedKeys(state_dict, "encoder.")
+
+    def scale(key):
+        return {"scale": ckpt_tensor(sd[key], dev)}
+
+    params: Params = {
+        "embed": ckpt_tensor(state_dict["shared.weight"], dev),
+        "final_norm": scale("final_layer_norm.weight"),
+        "blocks": [],
+    }
+    i = 0
+    while f"block.{i}.layer.0.SelfAttention.q.weight" in sd:
+        pre = f"block.{i}"
+        attn = {k: ckpt_linear(sd, f"{pre}.layer.0.SelfAttention.{k}", dev)
+                for k in ("q", "k", "v", "o")}
+        rb = f"{pre}.layer.0.SelfAttention.relative_attention_bias.weight"
+        if rb in sd:
+            attn["rel_bias"] = ckpt_tensor(sd[rb], dev)
+        ff = f"{pre}.layer.1.DenseReluDense"
+        params["blocks"].append({
+            "ln_attn": scale(f"{pre}.layer.0.layer_norm.weight"),
+            "attn": attn,
+            "ln_ff": scale(f"{pre}.layer.1.layer_norm.weight"),
+            "wi_0": ckpt_linear(sd, f"{ff}.wi_0", dev),
+            "wi_1": ckpt_linear(sd, f"{ff}.wi_1", dev),
+            "wo": ckpt_linear(sd, f"{ff}.wo", dev),
+        })
+        i += 1
+    return params

@@ -224,6 +224,7 @@ class ComposeStage:
                 strength=params.strength, seeds=sds,
                 hires_threshold_px=self.cfg.hires_threshold_px,
                 velocity_cache_interval=self.cfg.velocity_cache_interval,
+                velocity_cache_order=self.cfg.velocity_cache_order,
                 timer=timer)
 
         mb = self.cfg.max_rank_batch

@@ -107,7 +107,8 @@ def test_unported_values_raise(bundle, name, kwargs):
 
 
 # ---------------------------------------------------------------------------
-# the stage entry points of stages 1 and 3
+# the stage entry points of stages 1 and 3, the checkpoint loaders, the
+# orchestrator and the export
 # ---------------------------------------------------------------------------
 
 def _stage_funcs():
@@ -127,7 +128,60 @@ def _stage_funcs():
         "inpaint.run_inpaint": (jinp.run_inpaint, tinp.run_inpaint, []),
         "LamaRunner.__init__": (jinp.LamaRunner.__init__,
                                 tinp.LamaRunner.__init__, ["device"]),
+        **_entry_funcs(),
     }
+
+
+def _entry_funcs():
+    """The checkpoint loaders, the orchestrator and the export."""
+    from domainrag_tpu.models import clip as jclip
+    from domainrag_tpu.models import convert as jconv
+    from domainrag_tpu.models import redux as jredux
+    from domainrag_tpu.models import siglip as jsiglip
+    from domainrag_tpu.models import t5 as jt5
+    from domainrag_tpu.pipeline import export as jexp
+    from domainrag_tpu.pipeline import orchestrator as jorch
+    from domainrag_tpu_torch.models import clip as tclip
+    from domainrag_tpu_torch.models import convert as tconv
+    from domainrag_tpu_torch.models import redux as tredux
+    from domainrag_tpu_torch.models import siglip as tsiglip
+    from domainrag_tpu_torch.models import t5 as tt5
+    from domainrag_tpu_torch.pipeline import export as texp
+    from domainrag_tpu_torch.pipeline import orchestrator as torch_orch
+    out = {
+        "load_flux_bundle": (jconv.load_flux_bundle, tconv.load_flux_bundle,
+                             ["device"]),
+        "build_runner_from_checkpoints": (
+            jconv.build_runner_from_checkpoints,
+            tconv.build_runner_from_checkpoints, ["device"]),
+        "load_safetensors_dir": (jconv.load_safetensors_dir,
+                                 tconv.load_safetensors_dir, []),
+        "convert_flux_transformer": (jconv.convert_flux_transformer,
+                                     tconv.convert_flux_transformer,
+                                     ["device", "dtype"]),
+        "convert_flux_vae": (jconv.convert_flux_vae, tconv.convert_flux_vae,
+                             ["device"]),
+        "convert_lama": (jconv.convert_lama, tconv.convert_lama, ["device"]),
+        "convert_hf_clip_vision": (jclip.convert_hf_clip_vision,
+                                   tclip.convert_hf_clip_vision, ["device"]),
+        "convert_hf_clip_text": (jclip.convert_hf_clip_text,
+                                 tclip.convert_hf_clip_text, ["device"]),
+        "convert_hf_t5": (jt5.convert_hf_t5, tt5.convert_hf_t5, ["device"]),
+        "convert_hf_siglip": (jsiglip.convert_hf_siglip,
+                              tsiglip.convert_hf_siglip, ["device"]),
+        "convert_hf_redux": (jredux.convert_hf_redux,
+                             tredux.convert_hf_redux, ["device"]),
+        "build_tiny_runner": (jorch.build_tiny_runner,
+                              torch_orch.build_tiny_runner, ["device"]),
+        "export_synthetic_coco": (jexp.export_synthetic_coco,
+                                  texp.export_synthetic_coco, []),
+    }
+    for name in ("run_inpaint", "run_retrieve", "run_generate",
+                 "run_generate_legacy", "run_compose", "run"):
+        out[f"PipelineRunner.{name}"] = (
+            getattr(jorch.PipelineRunner, name),
+            getattr(torch_orch.PipelineRunner, name), [])
+    return out
 
 
 STAGE_FUNCS = sorted(_stage_funcs())
@@ -135,16 +189,16 @@ STAGE_FUNCS = sorted(_stage_funcs())
 
 @pytest.mark.parametrize("name", STAGE_FUNCS)
 def test_stage_parameters_match_jax(name):
-    """The JAX names in the JAX order with the JAX defaults (the runner's
-    compute dtype is each framework's float32), then only the port's own
-    keyword-only parameters."""
+    """The JAX names in the JAX order with the JAX defaults (a compute
+    dtype is each framework's float32 / bfloat16), then only the port's
+    own keyword-only parameters."""
     import jax.numpy as jnp
     jax_fn, port_fn, extra = _stage_funcs()[name]
     jax_params = _params(jax_fn)
     port = _params(port_fn)
     assert [p.name for p in port[:len(jax_params)]] == \
         [p.name for p in jax_params]
-    as_jax = {torch.float32: jnp.float32}
+    as_jax = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
     assert [as_jax.get(p.default, p.default)
             for p in port[:len(jax_params)]] == \
         [p.default for p in jax_params]
