@@ -91,14 +91,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    encode rates, first-stage ms by both routes, re-rank seconds per query
    and seconds per dataset-shot; which renderer drew the grids; then the
    same dataset-shot once more under torch.profiler for the device's busy
-   time and idle share (``OUT/profile_retrieval.txt``);
+   time and idle share (``OUT/profile_retrieval.txt``). The native library
+   (``native/``, g++ into ``build/``) must build and serve every CLIP and
+   style resize of the run (``imaging.resize_counts``: no PIL), and the
+   host top-k ``topk_ip_native`` must agree with ``topk_ip`` on the bank
+   at k 100, its host seconds printed;
 10. the stage-3 slice on a small input: a head_dim-128 toy bundle
    generates on the card (kernels) and on the CPU (plain versions) from
    the same weights and noise, and the images must agree;
 11. the stage-4 fill on a small input: a head_dim-128 toy Fill bundle with
    the one-pass ceiling lowered (so the toy runs the multi-pass kernel)
    and the VAE tiled, on the card and on the CPU, from the same weights
-   and noise;
+   and noise; then the denoise caches on the same toy bundles, card
+   against CPU within phase 10's bar: generate under the velocity cache
+   at interval 2 (order 1 and 0) and the block cache at interval 2, and
+   the tiled fill with an anchor tuple, each with the fused launches of
+   the forwards the cache leaves;
 12. the small int8 slices: both toy bundles quantized (every block
    linear), generate and the tiled multi-pass fill under W8A8 + int8 QK +
    int8 P.V, card against CPU, launch counts asserted;
@@ -109,7 +117,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (default 5), denoised one rank at a time. It checks the written PNGs,
    that the image was finite before quantisation, and that every
    one-pass kernel ran 19 or 38 times per step per rank chunk (the
-   multi-pass one never);
+   multi-pass one never); the step's MFU (``eval.flops``);
 14. stage 3's dataset sweep on the same bundle: ``process_dataset`` over
     stage 1's output with stage 2's ``all_shots_retrieval_results.json``
     as the refs, worker 0 of 100 (two samples), the same cuts; the run
@@ -121,13 +129,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
 15. one full-width denoise step (batch 1, 1024 px) under
     ``torch.profiler``, its device time grouped into the attention
     kernels, the GEMMs and the rest (full table in ``profile.txt`` under
-    ``OUT``, the script's output directory);
+    ``OUT``, the script's output directory), with its MFU; then the same
+    sample under each denoise cache (velocity 2, block 2, velocity
+    "auto" and "sched:2", the last two calibrated once first), each with
+    its launch counts (2 forwards per rank chunk at interval 2), seconds
+    per step and per image, peak memory and the relative L2 to the dense
+    images, and a CLIP-FID (``eval.fid``, random ViT-B/32) between the
+    dense and the velocity-2 PNGs, which must be finite;
 16. stage 3 under the CLI's ``--w8a8 --int8_qk``: the same bundle's MMDiT
     quantized (quantize_tree, 11.9 GB), the same sample; B4 314 and the
     one-pass B7 19 / 38 launches per step per rank chunk, the bf16 fused
     kernels never; seconds per step and the mean uint8 difference to the
-    bf16 images (a report); then one traced step with int8 P.V added
-    (``OUT/profile_int8.txt``);
+    bf16 images (a report); one rank under the velocity cache at interval
+    2 (B4 314 per model call, never per step); then one traced step with
+    int8 P.V added (``OUT/profile_int8.txt``);
 17. stage 4 at full width: the stage-3 bundle is freed and a random
    FLUX.1-Fill-dev bundle drawn (384 input channels), and
    ``compose.process_dataset`` runs a synthetic UODD 1-shot dataset (one
@@ -140,7 +155,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel ran 19 or 38 times per step per background and the one-pass
    one never;
 18. one full-width fill denoise step (batch 1, 2048 px, 384 channels)
-    under ``torch.profiler`` (full table in ``OUT/profile_fill.txt``);
+    under ``torch.profiler`` (full table in ``OUT/profile_fill.txt``),
+    with its MFU; then the same dataset under the velocity cache at
+    interval 2 (2 multi-pass forwards per background) and "auto"
+    (calibrated on the fill core once first), launch counts asserted;
 19. stage 4 under ``--w8a8 --int8_qk``: the Fill MMDiT quantized, the
     same dataset through ``compose.process_dataset``; B4 314 and the
     multi-pass B7 19 / 38 per step per background, B3 never; then one
@@ -205,7 +223,9 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -756,6 +776,111 @@ def phase_small_fill(dev):
         raise AssertionError("small fill: card and CPU images disagree")
 
 
+def _model_calls(form, n_steps):
+    """MMDiT forwards of an ``n_steps`` denoise under a resolved cache
+    form: every step (1), the anchors of an interval (ceil(n / k)), or of
+    an anchor tuple. A block-cache interval k refreshes ceil(n / k) times,
+    and only a refresh runs the blocks' attention."""
+    if isinstance(form, tuple):
+        return len(form)
+    return math.ceil(n_steps / form) if form > 1 else n_steps
+
+
+def phase_small_caches(dev):
+    """The denoise caches on small inputs, card against CPU: the
+    head_dim-128 toy bundles of phases 10 and 11 generate under the
+    velocity cache at interval 2 (order 1 and 0) and the block cache at
+    interval 2, and fill with an anchor tuple (the one-pass ceiling
+    lowered and the VAE tiled, as phase 11), from the same weights and
+    noise; phase 10's bar. The card's fused-kernel launches are the
+    forwards the cache leaves (the block cache's cached steps launch
+    none)."""
+    import torch
+    from domainrag_tpu_torch.models.flux import pipeline as fp
+    from domainrag_tpu_torch.models.flux import scheduler as sched
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+
+    def launches():
+        d = mma.mmdit_double_attention
+        return d.launches + d.mp_launches
+
+    cpu = _small_bundle(dev)
+    card = _to_card(cpu, dev)
+    uniq = np.random.default_rng(1).uniform(
+        -1, 1, (3, 28, 28, 3)).astype(np.float32)
+    pairs = np.asarray([[0, 2], [1, 2]])
+    size, steps = 64, 4
+    seq = (size // cpu.latent_factor) ** 2
+    noise = torch.randn((2, seq, cpu.vae_cfg.latent_channels * 4),
+                        generator=torch.Generator().manual_seed(3))
+    cases = (("velocity 2, order 1", dict(vcache_interval=2), 2),
+             ("velocity 2, order 0", dict(vcache_interval=2,
+                                          vcache_order=0), 2),
+             ("block 2", dict(cache_interval=2), 2))
+    for name, kw, calls in cases:
+        images = []
+        for bundle in (card, cpu):
+            e, p = fp.redux_prior_pairs_indexed(bundle, uniq, pairs, "",
+                                                [0.8, 1.0], [1.0, 1.0])
+            before = launches()
+            with torch.inference_mode():
+                images.append(fp._generate_float(
+                    bundle, e, p, size, size, steps, 2.5, noise, **kw
+                ).float().cpu())
+            if bundle is card:
+                n = launches() - before
+        _small_verdict(f"small generate, {name}", images, size, steps, n,
+                       calls * card.flux_cfg.depth_double)
+
+    cpu = _small_bundle(dev, fill=True)
+    card = _to_card(cpu, dev)
+    rng = np.random.default_rng(2)
+    steps, strength, anchors = 6, 1.0, (0, 1, 4)
+    image = fp.from_uint8(rng.integers(0, 255, (1, size, size, 3), np.uint8))
+    mask = np.ones((1, size, size), np.float32)
+    mask[:, 16:40, 8:30] = 0.0
+    px = rng.uniform(-1, 1, (1, 1, 28, 28, 3)).astype(np.float32)
+    noise = torch.randn((1, seq, cpu.vae_cfg.latent_channels * 4),
+                        generator=torch.Generator().manual_seed(4))
+    sigmas = torch.as_tensor(sched.make_schedule(
+        steps, image_seq_len=seq, strength=strength).sigmas)
+    gate = mma._MAX_ONEPASS
+    mma._MAX_ONEPASS = 64
+    try:
+        images = []
+        for bundle in (card, cpu):
+            e, p = fp.redux_prior_pairs(bundle, px, "", [1.0], [1.0])
+            dt, d = bundle.compute_dtype, bundle.device
+            before = launches()
+            with torch.inference_mode():
+                images.append(fp._fill_float(
+                    bundle, torch.as_tensor(image, device=d).to(dt),
+                    torch.as_tensor(mask, device=d).to(dt),
+                    noise.to(device=d, dtype=dt), e, p, sigmas.to(d), 30.0,
+                    hires=True, vae_tile=12, vae_overlap=4,
+                    vcache_interval=anchors).float().cpu())
+            if bundle is card:
+                n = launches() - before
+    finally:
+        mma._MAX_ONEPASS = gate
+    _small_verdict(f"small fill, anchors {anchors}", images, size, steps, n,
+                   len(anchors) * card.flux_cfg.depth_double)
+
+
+def _small_verdict(what, images, size, steps, launches, want):
+    import torch
+    diff = (images[0] - images[1]).abs()
+    print(f"{what} ({size} px, {steps} steps, head_dim 128): card vs CPU "
+          f"image max abs diff {diff.max().item():.3e} mean "
+          f"{diff.mean().item():.3e}; double-block launches on the card "
+          f"{launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{what}: launch counts differ")
+    if not (bool(torch.isfinite(images[0]).all())
+            and diff.mean().item() < 7e-3 and diff.max().item() < 5e-2):
+        raise AssertionError(f"{what}: card and CPU images disagree")
+
+
 def phase_slice(dev, rows):
     import torch
     from PIL import Image
@@ -794,14 +919,18 @@ def phase_slice(dev, rows):
                                     width=SIZE, seed=0),
         redux=ReduxConfig(), top_ranks=RANKS, max_rank_batch=MAX_RANK_BATCH)
     sample = (target, refs, cfg)
-    paths, step = _run_slice(bundle, sample, rows, "sample0", int8=False)
+    paths, step, _ = _run_slice(bundle, sample, rows, "sample0", int8=False)
+    print(f"stage 3 MFU: {_mfu(bundle.flux_cfg, (SIZE // 16) ** 2, step):.4f}"
+          f" of the dense bf16 peak at {step:.3f} s per step "
+          f"(eval.flops, {CARD})")
     return bundle, sample, paths, step
 
 
-def _run_slice(bundle, sample, rows, out_name, int8):
+def _run_slice(bundle, sample, rows, out_name, int8, calls=STEPS):
     """``GenerateStage.generate_sample`` on the synthetic sample, with the
     launch counts of the path read just after (bf16: B1/B2; int8: B4 and
-    the one-pass B7). Returns the PNG paths and seconds per step."""
+    the one-pass B7): ``calls`` MMDiT forwards per rank chunk. Returns the
+    PNG paths, seconds per step and the timer."""
     import torch
     from PIL import Image
     from domainrag_tpu_torch.core.log import StepTimer
@@ -817,15 +946,15 @@ def _run_slice(bundle, sample, rows, out_name, int8):
     paths = GenerateStage(bundle, cfg).generate_sample(
         "sample0", target, refs, str(OUT / out_name), timer=timer)
     torch.cuda.synchronize()
-    chunks = math.ceil(RANKS / MAX_RANK_BATCH)
+    chunks = math.ceil(len(refs) / MAX_RANK_BATCH)
     if int8:
         _read_i8_counts(mma, rows, "one-pass", bundle.flux_cfg,
-                        STEPS * chunks, S_TXT, (SIZE // 16) ** 2)
+                        calls * chunks, S_TXT, (SIZE // 16) ** 2)
     else:
-        _read_counts(mma, rows, "one-pass", bundle.flux_cfg, STEPS * chunks)
+        _read_counts(mma, rows, "one-pass", bundle.flux_cfg, calls * chunks)
 
-    if len(paths) != RANKS:
-        raise AssertionError(f"{len(paths)} images for {RANKS} ranks")
+    if len(paths) != len(refs):
+        raise AssertionError(f"{len(paths)} images for {len(refs)} ranks")
     for p in paths:
         arr = np.asarray(Image.open(p))
         if arr.dtype != np.uint8 or arr.shape != (SIZE, SIZE, 3):
@@ -842,7 +971,118 @@ def _run_slice(bundle, sample, rows, out_name, int8):
           f"{ {k: round(v, 3) for k, v in timer.totals.items()} }, "
           f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return paths, mean["step"]
+    return paths, mean["step"], timer
+
+
+def _mfu(cfg, s_img, seconds, batch=1):
+    """Model FLOP utilization of one MMDiT forward of ``seconds`` at the
+    card's dense bf16 peak (``eval.flops``; S_TXT text tokens)."""
+    from domainrag_tpu_torch.eval import flops
+    return flops.mfu(flops.flux_forward_flops(cfg, s_img, S_TXT,
+                                              batch).total, seconds)
+
+
+def _rel_l2(paths, ref_paths):
+    """Mean over the images of ||a - b|| / ||b||, on the PNGs' values."""
+    from PIL import Image
+    rels = []
+    for a, b in zip(paths, ref_paths):
+        x = np.asarray(Image.open(a), np.float64)
+        y = np.asarray(Image.open(b), np.float64)
+        rels.append(np.linalg.norm(x - y) / (np.linalg.norm(y) or 1.0))
+    return float(np.mean(rels))
+
+
+SLICE_CACHES = (("velocity 2", dict(velocity_cache_interval=2)),
+                ("block 2", dict(block_cache_interval=2)),
+                ("velocity auto", dict(velocity_cache_interval="auto")),
+                ("velocity sched:2", dict(velocity_cache_interval="sched:2")))
+
+
+def _resolved(table, bundle, tag):
+    """The calibration ``table`` (a pipeline dict) holds for ``bundle``
+    under the key tag ``tag``."""
+    from domainrag_tpu_torch.models.flux import pipeline as fp
+    token = fp._params_token(bundle)
+    (value,) = [v for k, v in table.items() if k[0] is token and tag in k]
+    return value
+
+
+def phase_slice_caches(bundle, sample, dense_paths, dense_step):
+    """Stage 3 at full width under each denoise cache (SLICE_CACHES):
+    the same sample through ``generate_sample``. "auto" and "sched:2"
+    calibrate in a first call (its ``calibrate`` seconds); every mode's
+    counted run asserts the one-pass launches of the forwards it leaves
+    (interval 2 at 4 steps: 2 per rank chunk, B1 38 and B2 76 per chunk;
+    the block cache's refreshes at steps 0 and 2 the same). Seconds per
+    step and per image beside the dense run, peak memory, and the
+    relative L2 of the images to the dense ones (a report: random
+    weights). Returns the velocity-2 PNGs."""
+    import torch
+    from domainrag_tpu_torch.core.log import StepTimer
+    from domainrag_tpu_torch.models.flux import pipeline as fp
+    from domainrag_tpu_torch.stages.generate import GenerateStage
+
+    target, refs, cfg = sample
+    keep = None
+    for name, kw in SLICE_CACHES:
+        s_cfg = dataclasses.replace(cfg, sampling=dataclasses.replace(
+            cfg.sampling, **kw))
+        tag = name.replace(" ", "_").replace(":", "")
+        form = next(iter(kw.values()))
+        calib = ""
+        if isinstance(form, str):
+            timer = StepTimer(sync=torch.cuda.synchronize)
+            GenerateStage(bundle, s_cfg).generate_sample(
+                "sample0", target, refs, str(OUT / f"calib_{tag}"),
+                timer=timer)
+            shutil.rmtree(OUT / f"calib_{tag}")
+            form = (_resolved(fp._BLOCK_CACHE_CALIBRATIONS, bundle,
+                              "velocity") if form == "auto" else
+                    _resolved(fp._VCACHE_SCHEDULES, bundle,
+                              "velocity-sched"))
+            calib = (f"calibration {timer.totals['calibrate']:.3f} s once "
+                     f"-> {form}; ")
+        paths, step, timer = _run_slice(
+            bundle, (target, refs, s_cfg), {}, f"sample0_{tag}", int8=False,
+            calls=_model_calls(form, STEPS))
+        per_image = timer.totals["denoise"] / len(paths)
+        print(f"stage 3 cache {name}: {calib}{step:.3f} s per denoise step "
+              f"averaged (dense {dense_step:.3f}), {per_image:.3f} s per "
+              f"image (denoise + decode), max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; image "
+              f"rel L2 to the dense images {_rel_l2(paths, dense_paths):.4f}"
+              f" (a report: random weights; {CARD})")
+        if name == "velocity 2":
+            keep = paths
+        else:
+            shutil.rmtree(OUT / f"sample0_{tag}")
+    return keep
+
+
+def phase_fid(dense_paths, cached_paths, dev):
+    """A CLIP-FID (``eval.fid.fid_from_paths``) on a random ViT-B/32 on
+    the card between the dense stage-3 PNGs and the velocity-cached ones
+    of the same sample: finite, printed, not judged."""
+    import torch
+    from domainrag_tpu_torch.core import device as device_mod
+    from domainrag_tpu_torch.eval import fid
+    from domainrag_tpu_torch.models import clip
+    from domainrag_tpu_torch.models.common import Init
+    from domainrag_tpu_torch.stages import encoders
+    vit = clip.ClipVisionConfig()
+    enc = encoders.ClipImageEncoder(
+        clip.init_vision(vit, Init(device_mod.generator(3, dev), dev)), vit,
+        device=dev)
+    t0 = time.perf_counter()
+    value = fid.fid_from_paths(dense_paths, cached_paths, enc)
+    print(f"CLIP-FID (random ViT-B/32 on the card) dense vs velocity-2 "
+          f"stage-3 images ({len(dense_paths)} each): {value:.4f} in "
+          f"{time.perf_counter() - t0:.3f} s ({CARD})")
+    if not math.isfinite(value):
+        raise AssertionError("CLIP-FID is not finite")
+    del enc
+    torch.cuda.empty_cache()
 
 
 BATCH_WORKERS = 100       # worker 0's round-robin share: 2 of 200 samples
@@ -1091,6 +1331,10 @@ def phase_profile(bundle, size, out_name):
           f" device events; "
           + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
                       for k, v in groups.items()))
+    print(f"profile MFU (eval.flops, dense bf16 peak): "
+          f"{_mfu(cfg, grid * grid, wall_ms / 1e3):.4f} on the untraced wall "
+          f"time, {_mfu(cfg, grid * grid, total / 1e3):.4f} on the traced "
+          f"device time ({CARD})")
     for ms, n, name in kernels[:8]:
         print(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
 
@@ -1124,9 +1368,50 @@ def phase_compose(dev, rows, backgrounds):
     root = OUT / "compose"
     shutil.rmtree(root, ignore_errors=True)
     _uodd_dataset(root / "datasets" / dataset, sample, shot)
-    paths, step = _run_compose(bundle, root, backgrounds, rows, "output",
-                               int8=False)
+    paths, step, _ = _run_compose(bundle, root, backgrounds, rows, "output",
+                                  int8=False)
+    print(f"stage 4 MFU: "
+          f"{_mfu(bundle.flux_cfg, (FILL_SIZE // 16) ** 2, step):.4f} of "
+          f"the dense bf16 peak at {step:.3f} s per step (eval.flops, "
+          f"{CARD})")
     return bundle, root, paths, step
+
+
+def phase_compose_caches(bundle, root, backgrounds, dense_paths,
+                         dense_step):
+    """Stage 4 at full width under the velocity cache: interval 2 (the
+    4 trimmed denoise steps take 2 multi-pass forwards per background,
+    B3 38 / 76) and "auto", calibrated on the fill core in a first call
+    (its seconds), then counted at the interval it chose. Seconds per
+    step and per background beside the dense run, and the relative L2
+    of the hires images to the dense ones (a report)."""
+    import torch
+    from domainrag_tpu_torch.core.config import ComposeConfig
+    from domainrag_tpu_torch.models.flux import pipeline as fp
+    n_steps = int(FILL_STEPS * ComposeConfig().dataset_params["UODD"].strength)
+    for name, vci in (("velocity 2", 2), ("velocity auto", "auto")):
+        tag = name.replace(" ", "_")
+        calib, form = "", vci
+        if vci == "auto":
+            _, _, timer = _run_compose(bundle, root, backgrounds, {},
+                                       f"calib_{tag}", int8=False, vci=vci,
+                                       calls=0)
+            shutil.rmtree(root / f"calib_{tag}")
+            form = _resolved(fp._FILL_VCACHE_CALIBRATIONS, bundle,
+                             "fill-auto")
+            calib = (f"calibration {timer.totals['calibrate']:.3f} s once "
+                     f"-> {form}; ")
+        paths, step, timer = _run_compose(
+            bundle, root, backgrounds, {}, f"output_{tag}", int8=False,
+            vci=vci, calls=_model_calls(form, n_steps))
+        print(f"stage 4 cache {name}: {calib}{step:.3f} s per denoise step "
+              f"averaged (dense {dense_step:.3f}), "
+              f"{timer.totals['fill'] / len(paths):.3f} s per background "
+              f"(encode + denoise + decode), max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; hires "
+              f"image rel L2 to the dense images "
+              f"{_rel_l2(paths, dense_paths):.4f} (a report; {CARD})")
+        shutil.rmtree(root / f"output_{tag}")
 
 
 def _uodd_dataset(ds, sample, shot):
@@ -1153,11 +1438,15 @@ def _uodd_dataset(ds, sample, shot):
                            {"id": 2, "name": "seaurchin"}])
 
 
-def _run_compose(bundle, root, backgrounds, rows, out_name, int8):
+def _run_compose(bundle, root, backgrounds, rows, out_name, int8, vci=1,
+                 calls=None):
     """``compose.process_dataset`` over the synthetic UODD sample under
-    ``root`` into ``root / out_name``, with the launch counts of the path
-    read just after (bf16: B3; int8: B4 and the multi-pass B7). Returns
-    the hires PNG paths and seconds per step."""
+    ``root`` into ``root / out_name`` with the velocity cache ``vci``,
+    with the launch counts of the path read just after (bf16: B3; int8:
+    B4 and the multi-pass B7): ``calls`` MMDiT forwards per background
+    chunk (None: every denoise step; 0: not read, for a run that
+    calibrates). Returns the hires PNG paths, seconds per step and the
+    timer."""
     import shutil
     import torch
     from PIL import Image
@@ -1169,8 +1458,10 @@ def _run_compose(bundle, root, backgrounds, rows, out_name, int8):
     from domainrag_tpu_torch.stages import compose
 
     dataset, shot, sample = "UODD", 1, "uodd_0"
-    cfg = ComposeConfig(num_steps=FILL_STEPS, max_rank_batch=MAX_RANK_BATCH)
+    cfg = ComposeConfig(num_steps=FILL_STEPS, max_rank_batch=MAX_RANK_BATCH,
+                        velocity_cache_interval=vci)
     n_steps = int(FILL_STEPS * cfg.dataset_params[dataset].strength)
+    calls = n_steps if calls is None else calls
     output = root / out_name
     bg_dir = (output / "result" / f"{dataset}_{shot}shot_retrieval"
               / "results_0" / sample)
@@ -1190,11 +1481,11 @@ def _run_compose(bundle, root, backgrounds, rows, out_name, int8):
     entry = Manifest(str(op / "manifest.json")).entry(sample)
     if entry.get("status") != "done":
         raise AssertionError(f"compose failed on {sample}: {entry}")
-    passes = n_steps * math.ceil(len(backgrounds) / MAX_RANK_BATCH)
+    passes = calls * math.ceil(len(backgrounds) / MAX_RANK_BATCH)
     if int8:
         _read_i8_counts(mma, rows, "multi-pass", bundle.flux_cfg, passes,
                         S_TXT, (FILL_SIZE // 16) ** 2)
-    else:
+    elif calls:
         _read_counts(mma, rows, "multi-pass", bundle.flux_cfg, passes)
 
     (record,) = result["samples"]
@@ -1235,7 +1526,8 @@ def _run_compose(bundle, root, backgrounds, rows, out_name, int8):
           f"{ {k: round(v, 3) for k, v in timer.totals.items()} }, "
           f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return [out["outpainted_image_path"] for out in outs], mean["step"]
+    return ([out["outpainted_image_path"] for out in outs], mean["step"],
+            timer)
 
 
 # ---------------------------------------------------------------------------
@@ -1787,8 +2079,19 @@ def phase_slice_int8(bundle, sample, rows, bf16_paths, bf16_step):
           f"{quant.quantized_bytes(bundle.flux_params) / 1e9:.2f} GB, bundle "
           f"{_weight_bytes(bundle) / 1e9:.2f} GB on the card")
     with _int8_modes(w8a8=True, qk=True, pv=False):
-        paths, step = _run_slice(bundle, sample, rows, "sample0_int8",
-                                 int8=True)
+        paths, step, _ = _run_slice(bundle, sample, rows, "sample0_int8",
+                                    int8=True)
+        # one rank under the velocity cache at interval 2: B4 runs per
+        # model call (314 each), not per step
+        target, refs, cfg = sample
+        vc_cfg = dataclasses.replace(cfg, sampling=dataclasses.replace(
+            cfg.sampling, velocity_cache_interval=2))
+        _, vc_step, _ = _run_slice(
+            bundle, (target, refs[:1], vc_cfg), {}, "sample0_int8_vc2",
+            int8=True, calls=_model_calls(2, STEPS))
+    print(f"stage 3 int8 velocity cache 2 (one rank): {vc_step:.3f} s per "
+          f"denoise step averaged ({CARD})")
+    shutil.rmtree(OUT / "sample0_int8_vc2")
     print(f"stage 3 int8: {step:.3f} s per denoise step (bf16 {bf16_step:.3f}"
           f" s); mean abs uint8 difference to the bf16 images of the same "
           f"seed {_uint8_diff(paths, bf16_paths):.3f} (a report: random "
@@ -1811,8 +2114,8 @@ def phase_compose_int8(bundle, root, backgrounds, rows, bf16_paths,
           f"{time.perf_counter() - t0:.1f} s: "
           f"{quant.quantized_bytes(bundle.flux_params) / 1e9:.2f} GB")
     with _int8_modes(w8a8=True, qk=True, pv=False):
-        paths, step = _run_compose(bundle, root, backgrounds, rows,
-                                   "output_int8", int8=True)
+        paths, step, _ = _run_compose(bundle, root, backgrounds, rows,
+                                      "output_int8", int8=True)
     print(f"stage 4 int8: {step:.3f} s per denoise step (bf16 "
           f"{bf16_step:.3f} s); mean abs uint8 difference of the hires "
           f"images to bf16's {_uint8_diff(paths, bf16_paths):.3f} (a report:"
@@ -3799,6 +4102,24 @@ def _profile_retrieval(bank, clip_enc, stem_p, root, results, dev):
         print(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
 
 
+def _native_topk(qfeats, bank, plain):
+    """The host top-k (``native.topk_ip_native``, C++ on every core) on
+    the stage-2 bank at k TOPK_K against ``topk_ip``'s k + 1 best on the
+    card (``plain``), and its host seconds."""
+    import torch
+    from domainrag_tpu_torch.native import build as native
+    host = bank.features.cpu().numpy()
+    t0 = time.perf_counter()
+    scores, idx = native.topk_ip_native(qfeats, host, TOPK_K)
+    host_s = time.perf_counter() - t0
+    dev = plain[0].device
+    _topk_close("topk_ip_native (host) vs topk_ip", (
+        torch.from_numpy(scores).to(dev),
+        torch.from_numpy(idx).to(dev, plain[1].dtype)), plain, TOPK_K)
+    print(f"host top-k (native, {TOPK_Q} x {TOPK_N} x {TOPK_D}, k {TOPK_K}, "
+          f"{len(os.sched_getaffinity(0))} cores): {host_s:.3f} s ({CARD})")
+
+
 def phase_retrieval(dev, rows, stage1):
     """Stage 2 at full width: a random CLIP ViT-B/32 (224 px, patch 32,
     12 x 768, 12 heads, proj 512) and ResNet-50 stem drawn on the card;
@@ -3814,9 +4135,11 @@ def phase_retrieval(dev, rows, stage1):
     phase."""
     import torch
     from domainrag_tpu_torch.core import device as device_mod
+    from domainrag_tpu_torch.core import imaging
     from domainrag_tpu_torch.core.config import RetrievalConfig
     from domainrag_tpu_torch.core.log import StepTimer
     from domainrag_tpu_torch.models import clip, resnet_stem
+    from domainrag_tpu_torch.native import build as native
     from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.ops import topk as tk
     from domainrag_tpu_torch.stages import encoders, retrieve
@@ -3893,11 +4216,18 @@ def phase_retrieval(dev, rows, stage1):
     timer = StepTimer(sync=torch.cuda.synchronize)
     torch.cuda.reset_peak_memory_stats()
     tk.topk_ip_fused.launches = 0
+    served = dict(imaging.resize_counts)
     t0 = time.perf_counter()
     out = retrieve.run_retrieval(["DIOR"], [SHOTS], bank, clip_enc,
                                  style_enc, str(root / "lamainpaint"),
                                  results, RetrievalConfig(), timer=timer)
     stage_s = time.perf_counter() - t0
+    served = {k: imaging.resize_counts[k] - v for k, v in served.items()}
+    print(f"stage 2 resizes (CLIP and style preprocess): {served} "
+          f"(native library {native.library_path().name})")
+    if served["pil"] or not served["native"]:
+        raise AssertionError("stage 2's resizes were not served by the "
+                             "native resampler")
     default_launches = tk.topk_ip_fused.launches
     if default_launches != 0:
         raise AssertionError("the default first stage launched B8")
@@ -3920,6 +4250,7 @@ def phase_retrieval(dev, rows, stage1):
                 got, plain, TOPK_K)
     default_ms = _ms(lambda: tk.topk_ip(qt, bank.features, TOPK_K), 10)
     fused_ms = _ms(lambda: tk.topk_ip_fused(qt, bank.features, TOPK_K), 10)
+    _native_topk(qfeats, bank, plain)
     n_q = len(queries)
     tot = timer.totals
     print(f"stage 2 (DIOR {SHOTS}-shot, {n_q} queries, bank {TOPK_N} x 512 f32 "
@@ -3986,10 +4317,14 @@ def main() -> int:
     phase_retrieval(dev, rows, stage1)
     phase_small_slice(dev)
     phase_small_fill(dev)
+    phase_small_caches(dev)
     phase_small_int8(dev)
     bundle, sample, backgrounds, bf16_step = phase_slice(dev, rows)
     phase_generate_batch(bundle, sample)
     phase_profile(bundle, SIZE, "profile.txt")
+    cached = phase_slice_caches(bundle, sample, backgrounds, bf16_step)
+    phase_fid(backgrounds, cached, dev)
+    shutil.rmtree(Path(cached[0]).parent)
     phase_slice_int8(bundle, sample, rows, backgrounds, bf16_step)
     phase_profile_int8(bundle, SIZE, "profile_int8.txt", rows, 3)
     del bundle                 # two ~46 GB bundles do not fit 80 GB
@@ -3997,6 +4332,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     bundle, root, hires, fill_step = phase_compose(dev, rows, backgrounds)
     phase_profile(bundle, FILL_SIZE, "profile_fill.txt")
+    phase_compose_caches(bundle, root, backgrounds, hires, fill_step)
     phase_compose_int8(bundle, root, backgrounds, rows, hires, fill_step)
     phase_profile_int8(bundle, FILL_SIZE, "profile_fill_int8.txt", rows, 4)
     del bundle                 # the trainer needs the card to itself

@@ -15,8 +15,7 @@ Subcommands mirror the reference scripts' flags where sensible:
 which raises without a card; ``cpu`` runs the plain versions). One
 process serves one card; several cards run as independent workers
 (``--worker_id`` / ``--num_workers``). Coordinated multi-process runs and
-tensor / pipeline parallelism are ROADMAP A6 and raise; the denoise
-caches are ROADMAP A5 and raise where the denoise starts.
+tensor / pipeline parallelism are ROADMAP A6 and raise.
 """
 
 from __future__ import annotations
@@ -240,14 +239,25 @@ def _add_common(p: argparse.ArgumentParser):
                    help="write a torch.profiler Chrome trace of the run here")
     p.add_argument("--block_cache_interval", default=1,
                    type=lambda v: v if v == "auto" else int(v),
-                   help="block-residual caching (not ported yet, ROADMAP "
-                        "A5: values other than 1 raise at the denoise)")
+                   help="block-residual caching: the blocks run every N "
+                        "denoise steps and replay their residuals in "
+                        "between (outputs change); 1 = exact. The cache "
+                        "holds one residual per block per sample (1.87 GB "
+                        "per 1024 px sample in bf16). 'auto' calibrates "
+                        "the largest interval within a divergence budget "
+                        "at first use")
     p.add_argument("--velocity_cache_interval", default=1,
                    type=_parse_vcache_interval,
-                   help="velocity-extrapolation caching: N, 'auto', "
-                        "'sched:K' or a comma list of anchor steps (not "
-                        "ported yet, ROADMAP A5: values other than 1 "
-                        "raise at the denoise)")
+                   help="velocity-extrapolation caching: the MMDiT runs "
+                        "every N-th denoise step, the others integrate a "
+                        "velocity extrapolated from the last two computed "
+                        "ones (outputs change); 1 = exact. Exclusive with "
+                        "--block_cache_interval. 'auto' calibrates the "
+                        "largest interval within a divergence budget; "
+                        "'sched:K' keeps uniform-K's model-call count and "
+                        "ships the DP-placed or the uniform anchors, "
+                        "whichever decodes closer to the exact image; a "
+                        "comma list '0,2,5,...' gives the anchor steps")
     p.add_argument("--velocity_cache_order", type=int, default=1,
                    choices=(0, 1),
                    help="velocity cache extrapolation order: 1 = linear "

@@ -1,10 +1,9 @@
 """Pipeline configuration (own copy of ``domainrag_tpu/core/config.py``).
 
-The port's ``generate`` and ``fill_batch`` accept the cache intervals and
-orders only at their exact default of 1 (the denoise caches are ROADMAP
-A5); the fields stay so that a config asking for a cache raises instead
-of being ignored. :class:`MeshConfig` is carried for the CLI, but a
-parallel degree above 1 raises at the orchestrator (ROADMAP A6).
+The cache fields reach the port's ``generate`` and ``fill_batch``,
+which take every form the JAX package takes (an int, an anchor tuple,
+``"auto"``, ``"sched:K"``). :class:`MeshConfig` is carried for the CLI,
+but a parallel degree above 1 raises at the orchestrator (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -158,8 +157,14 @@ class FluxSamplingConfig:
     use_dynamic_shifting: bool = True
     base_shift: float = 0.5
     max_shift: float = 1.15
+    # int interval, or "auto" (the largest interval within a divergence
+    # budget, calibrated at first use)
     block_cache_interval: object = 1
+    # velocity-extrapolation caching: the MMDiT runs every N-th step, the
+    # others integrate an extrapolated velocity (outputs change). An int,
+    # an anchor tuple, "auto" or "sched:K"; exclusive with the block cache
     velocity_cache_interval: object = 1
+    # 1 = linear extrapolation in sigma, 0 = hold the last velocity
     velocity_cache_order: int = 1
 
 
@@ -205,7 +210,10 @@ class ComposeConfig:
     # upscale / 2800 px cap regime
     # (outpainting_updown_sampling_redux.py:72-82,104-108). 0 disables.
     hires_threshold_px: int = 2048 * 2048
-    # the velocity cache is not ported: only 1 is accepted
+    # velocity-extrapolation caching on the fill denoise: an int, an anchor
+    # tuple over the strength-trimmed steps, "auto" or "sched:K" (these two
+    # calibrate on the fill core per model, resolution, steps, strength and
+    # guidance: pipeline.calibrate_fill_vcache)
     velocity_cache_interval: object = 1
     velocity_cache_order: int = 1
 

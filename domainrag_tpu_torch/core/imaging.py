@@ -2,12 +2,15 @@
 inpaint stage's removal mask, the compose stage's keep-mask and resolution
 policy (own copy of ``domainrag_tpu/core/imaging.py:16-215``).
 
-The JAX package resizes for CLIP and the style path through a native
-resampler proven byte-equal to PIL, with PIL as its fallback; the port
-resizes with PIL itself, so both give the same bytes."""
+The CLIP and style-path resizes go through the native resampler
+(``native/imageproc.cpp``, threaded C++ byte-equal to PIL) when its
+library loads, and through PIL only when no library can be built, as in
+the JAX package; the bytes are the same either way.
+``resize_counts`` counts which one served."""
 
 from __future__ import annotations
 
+import threading
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -20,6 +23,32 @@ CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
 # SigLIP (FLUX.1-Redux image encoder) preprocessing constants.
 SIGLIP_MEAN = np.array([0.5, 0.5, 0.5], dtype=np.float32)
 SIGLIP_STD = np.array([0.5, 0.5, 0.5], dtype=np.float32)
+
+
+# resizes served by the native resampler and by PIL, since import (the
+# encoders resize on their prefetch threads too)
+resize_counts = {"native": 0, "pil": 0}
+_counts_lock = threading.Lock()
+
+
+def _resize_rgb(image: Image.Image, size_wh, method) -> np.ndarray:
+    """Resize an RGB PIL image to ``size_wh`` (w, h) -> uint8 HWC: the
+    native resampler for bicubic and bilinear when its library loads,
+    else PIL."""
+    from ..native import build as native
+    served = "pil"
+    if method in (Image.BICUBIC, Image.BILINEAR) \
+            and native.load_native() is not None:
+        served = "native"
+        out = native.resize_native(
+            np.asarray(image), size_wh[1], size_wh[0],
+            native.FILTER_BICUBIC if method == Image.BICUBIC
+            else native.FILTER_BILINEAR)
+    else:
+        out = np.asarray(image.resize(size_wh, method))
+    with _counts_lock:
+        resize_counts[served] += 1
+    return out
 
 
 def ensure_rgb(image: Image.Image) -> Image.Image:
@@ -46,7 +75,7 @@ def clip_preprocess(image: Image.Image, size: int = 224) -> np.ndarray:
         new_w, new_h = size, max(size, int(round(size * h / w)))
     else:
         new_w, new_h = max(size, int(round(size * w / h))), size
-    resized = np.asarray(image.resize((new_w, new_h), Image.BICUBIC))
+    resized = _resize_rgb(image, (new_w, new_h), Image.BICUBIC)
     # CenterCrop(size): torchvision uses round() on the half-offsets.
     left = int(round((new_w - size) / 2.0))
     top = int(round((new_h - size) / 2.0))
@@ -59,7 +88,7 @@ def style_preprocess(image: Image.Image, size: int = 256) -> np.ndarray:
     scale to [0,1] — deliberately NO ImageNet normalization, matching the
     reference exactly (retrieval/...py:188-190 does only
     ``cv2.resize(256,256)`` + ``/255.0``). Returns HWC float32."""
-    arr = np.asarray(ensure_rgb(image).resize((size, size), Image.BILINEAR))
+    arr = _resize_rgb(ensure_rgb(image), (size, size), Image.BILINEAR)
     return arr.astype(np.float32) / 255.0
 
 

@@ -28,6 +28,15 @@ Params = Dict[str, Any]
 # checkpoint tensors (the converters of models/*.py and models/convert.py)
 # ---------------------------------------------------------------------------
 
+def leaves(tree) -> list:
+    """The tensors of a param tree, in the tree's order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in leaves(v)]
+    return [tree]
+
+
 def ckpt_tensor(x, device: torch.device, dtype: torch.dtype = torch.float32
                 ) -> torch.Tensor:
     """A checkpoint tensor (torch, e.g. a view of a mapped safetensors

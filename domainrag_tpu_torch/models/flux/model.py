@@ -1,5 +1,5 @@
 """Flux MMDiT — the rectified-flow transformer of FLUX.1-dev (port of
-``domainrag_tpu/models/flux/model.py:39-337, 431-448``).
+``domainrag_tpu/models/flux/model.py:39-448``).
 
 Hidden 3072 = 24 heads x 128, 19 double-stream + 38 single-stream
 blocks, 3-axis RoPE with axes_dim (16, 56, 56), AdaLN modulation from a
@@ -222,20 +222,10 @@ def init(cfg: FluxConfig, ini: Init) -> Params:
     return params
 
 
-def apply(params: Params, img_tokens: torch.Tensor,
-          txt_tokens: torch.Tensor, pooled: torch.Tensor,
-          timestep: torch.Tensor, img_ids: torch.Tensor,
-          txt_ids: torch.Tensor, cfg: FluxConfig,
-          guidance: Optional[torch.Tensor] = None,
-          remat: bool = False) -> torch.Tensor:
-    """One velocity prediction.
-
-    img_tokens (B, S_img, in_channels) packed latents; txt_tokens
-    (B, S_txt, text_dim); pooled (B, pooled_dim); timestep (B,) sigma in
-    [0,1]; guidance (B,); img_ids/txt_ids (S, 3) RoPE position ids.
-    ``remat=True`` checkpoints every block (its activations are recomputed
-    in the backward pass), as training the 12B model needs.
-    Returns (B, S_img, out_channels) in img_tokens' dtype."""
+def _embed(params: Params, img_tokens, txt_tokens, pooled, timestep,
+           img_ids, txt_ids, cfg: FluxConfig, guidance):
+    """The input projections, the conditioning vector and the RoPE tables
+    -> (img, txt, vec, cos, sin), in img_tokens' dtype."""
     dtype = img_tokens.dtype
     img = linear(params["img_in"], img_tokens)
     txt = linear(params["txt_in"], txt_tokens.to(dtype))
@@ -252,6 +242,32 @@ def apply(params: Params, img_tokens: torch.Tensor,
 
     ids = torch.cat([txt_ids, img_ids], dim=0)
     cos, sin = rope_cos_sin(ids, cfg.axes_dim, cfg.theta)
+    return img, txt, vec, cos, sin
+
+
+def _final(params: Params, img, vec):
+    shift, scale = linear(params["final_mod"], F.silu(vec)).chunk(2, dim=-1)
+    img = _modulate(_ln_no_affine(img), shift, scale)
+    return linear(params["final_proj"], img)
+
+
+def apply(params: Params, img_tokens: torch.Tensor,
+          txt_tokens: torch.Tensor, pooled: torch.Tensor,
+          timestep: torch.Tensor, img_ids: torch.Tensor,
+          txt_ids: torch.Tensor, cfg: FluxConfig,
+          guidance: Optional[torch.Tensor] = None,
+          remat: bool = False) -> torch.Tensor:
+    """One velocity prediction.
+
+    img_tokens (B, S_img, in_channels) packed latents; txt_tokens
+    (B, S_txt, text_dim); pooled (B, pooled_dim); timestep (B,) sigma in
+    [0,1]; guidance (B,); img_ids/txt_ids (S, 3) RoPE position ids.
+    ``remat=True`` checkpoints every block (its activations are recomputed
+    in the backward pass), as training the 12B model needs.
+    Returns (B, S_img, out_channels) in img_tokens' dtype."""
+    img, txt, vec, cos, sin = _embed(params, img_tokens, txt_tokens, pooled,
+                                     timestep, img_ids, txt_ids, cfg,
+                                     guidance)
 
     def run(block_fn, *args):
         if remat:
@@ -263,11 +279,65 @@ def apply(params: Params, img_tokens: torch.Tensor,
     x = torch.cat([txt, img], dim=1)
     for block in params["single"]:
         x = run(_single_block, block, x, vec, cos, sin)
-    img = x[:, txt.shape[1]:]
+    return _final(params, x[:, txt.shape[1]:], vec)
 
-    shift, scale = linear(params["final_mod"], F.silu(vec)).chunk(2, dim=-1)
-    img = _modulate(_ln_no_affine(img), shift, scale)
-    return linear(params["final_proj"], img)
+
+# ---------------------------------------------------------------------------
+# block-residual caching (port of ``model.py:340-425``; "Cache Me if You
+# Can", arXiv:2312.03209): a refresh step runs every block and records its
+# residual (out - in); a cached step replays the residuals. The embedders
+# and the final layer always run (they carry the timestep). Refreshing at
+# every step is exactly :func:`apply`.
+# ---------------------------------------------------------------------------
+
+def init_block_cache(cfg: FluxConfig, batch: int, s_img: int, s_txt: int,
+                     dtype=torch.bfloat16, *, device=None) -> dict:
+    """Zeroed residual cache: per double block an (img, txt) pair, per
+    single block the joint stream's residual, in ``dtype`` on ``device``
+    (the CPU when None)."""
+    def z(s):
+        return torch.zeros((batch, s, cfg.hidden), dtype=dtype,
+                           device=device)
+    return {"double": [(z(s_img), z(s_txt))
+                       for _ in range(cfg.depth_double)],
+            "single": [z(s_txt + s_img) for _ in range(cfg.depth_single)]}
+
+
+def apply_with_cache(params: Params, img_tokens: torch.Tensor,
+                     txt_tokens: torch.Tensor, pooled: torch.Tensor,
+                     timestep: torch.Tensor, img_ids: torch.Tensor,
+                     txt_ids: torch.Tensor, cfg: FluxConfig, cache: dict,
+                     refresh: bool,
+                     guidance: Optional[torch.Tensor] = None):
+    """:func:`apply` with block-residual caching -> (velocity, new_cache).
+
+    ``refresh=True`` runs every block and records each residual, cast to
+    the cache's dtype; ``refresh=False`` replays ``cache`` (``x + c``, the
+    residual cast to the stream's dtype) and launches no block."""
+    img, txt, vec, cos, sin = _embed(params, img_tokens, txt_tokens, pooled,
+                                     timestep, img_ids, txt_ids, cfg,
+                                     guidance)
+    new_cache = {"double": [], "single": []}
+    for block, (c_img, c_txt) in zip(params["double"], cache["double"]):
+        if refresh:
+            i2, t2 = _double_block(block, img, txt, vec, cos, sin, cfg)
+            c_img, c_txt = (i2 - img).to(c_img.dtype), (t2 - txt).to(
+                c_txt.dtype)
+            img, txt = i2, t2
+        else:
+            img, txt = img + c_img.to(img.dtype), txt + c_txt.to(txt.dtype)
+        new_cache["double"].append((c_img, c_txt))
+
+    x = torch.cat([txt, img], dim=1)
+    for block, c_x in zip(params["single"], cache["single"]):
+        if refresh:
+            x2 = _single_block(block, x, vec, cos, sin, cfg)
+            c_x = (x2 - x).to(c_x.dtype)
+            x = x2
+        else:
+            x = x + c_x.to(x.dtype)
+        new_cache["single"].append(c_x)
+    return _final(params, x[:, txt.shape[1]:], vec), new_cache
 
 
 # ---------------------------------------------------------------------------

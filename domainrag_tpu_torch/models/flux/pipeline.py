@@ -1,6 +1,6 @@
 """Flux text/Redux-conditioned generation and Flux-Fill — the serving
-paths of stages 3 and 4 (port of ``domainrag_tpu/models/flux/pipeline.py:
-40-252, 304-310, 440-477, 1000-1272, 1475-1649``).
+paths of stages 3 and 4 (port of ``domainrag_tpu/models/flux/pipeline.py``
+but for its meshes and pipelining).
 
 First-party equivalent of diffusers' ``FluxPriorReduxPipeline`` +
 ``FluxPipeline`` as the reference drives them for background generation
@@ -20,13 +20,22 @@ the VAE decode runs in f32. The int8 serving modes need no argument
 here: a bundle whose MMDiT was quantized by ``models.quant.quantize_tree``
 runs weight-only int8, W8A8 under ``common.set_int8_activations(True)``
 and int8 attention under ``ops.mmdit_attention.set_int8_qk`` /
-``set_int8_pv``. Out of these slices: velocity and block caches, meshes
-and pipelining; ``generate`` and ``fill_batch`` take those arguments only
-at their defaults and raise otherwise.
+``set_int8_pv``.
+
+The denoise caches: the velocity cache (:func:`_vcache_denoise`; an
+interval, an anchor tuple, ``"auto"`` or ``"sched:K"``) on both paths,
+and the block-residual cache (``model.apply_with_cache``) on
+``generate``, with their one-time calibrations. The JAX static unroll and
+tail mask of the cached loop is a plain loop over each group's steps
+here. The calibrations' probe latents come from the port's per-seed
+draw (:func:`_noise`), not ``jax.random``. Meshes and pipelining are
+ROADMAP A6: ``generate`` and ``fill_batch`` take those arguments only at
+their defaults and raise otherwise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
@@ -35,12 +44,12 @@ import torch
 
 from ...core import device as device_mod
 from ...core import text as text_util
-from ...core.log import StepTimer
+from ...core.log import StepTimer, get_logger
 from .. import clip as clip_mod
 from .. import redux as redux_mod
 from .. import siglip as siglip_mod
 from .. import t5 as t5_mod
-from ..common import Init
+from ..common import Init, leaves
 from . import model as flux_mod
 from . import scheduler as sched_mod
 from . import vae as vae_mod
@@ -304,30 +313,164 @@ def _noise(bundle: FluxBundle, seeds: Sequence[int], seq: int, c: int
         for s in seeds])
 
 
-def _denoise(bundle: FluxBundle, x: torch.Tensor, prompt_embeds, pooled,
-             sigmas: torch.Tensor, guidance: float, grid_h: int,
-             grid_w: int, timer: StepTimer,
-             cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The Euler loop over the MMDiT in ``compute_dtype``, one ``step``
-    span per step. ``cond`` (the fill's conditioning tokens) joins the
-    latents' channels at every call."""
+def _model_inputs(bundle: FluxBundle, prompt_embeds, pooled,
+                  grid_h: int, grid_w: int):
+    """(embeds, pooled) in ``compute_dtype`` and the RoPE ids, on the
+    bundle's device."""
     dev, dt = bundle.device, bundle.compute_dtype
     embeds = prompt_embeds.to(device=dev, dtype=dt)
-    pooled_c = pooled.to(device=dev, dtype=dt)
     img_ids = torch.as_tensor(flux_mod.make_image_ids(grid_h, grid_w),
                               device=dev)
     txt_ids = torch.as_tensor(flux_mod.make_text_ids(embeds.shape[1]),
                               device=dev)
-    b = x.shape[0]
-    guid = torch.full((b,), float(guidance), dtype=torch.float32, device=dev)
+    return embeds, pooled.to(device=dev, dtype=dt), img_ids, txt_ids
+
+
+def _guidance(bundle: FluxBundle, guidance: float, b: int) -> torch.Tensor:
+    return torch.full((b,), float(guidance), dtype=torch.float32,
+                      device=bundle.device)
+
+
+def _model_fn(bundle: FluxBundle, prompt_embeds, pooled, guidance: float,
+              grid_h: int, grid_w: int,
+              cond: Optional[torch.Tensor] = None):
+    """``model_fn(x, sigma)`` -> velocity: the MMDiT in ``compute_dtype``
+    on the prompt's conditioning (the JAX ``_dense_model_fn``). ``cond``
+    (the fill's conditioning tokens) joins the latents' channels at every
+    call."""
+    embeds, pooled_c, img_ids, txt_ids = _model_inputs(
+        bundle, prompt_embeds, pooled, grid_h, grid_w)
+
+    def model_fn(x, sigma):
+        b = x.shape[0]
+        inp = x if cond is None else torch.cat([x, cond], dim=-1)
+        return flux_mod.apply(
+            bundle.flux_params, inp, embeds, pooled_c, sigma.expand(b),
+            img_ids, txt_ids, bundle.flux_cfg,
+            guidance=_guidance(bundle, guidance, b))
+
+    return model_fn
+
+
+def _euler_denoise(model_fn, latents, sigmas, *, timer: StepTimer):
+    """The dense Euler loop, one ``step`` span per step."""
+    x = latents
     for i in range(sigmas.shape[0] - 1):
-        sigma, sigma_next = sigmas[i], sigmas[i + 1]
         with timer.span("step"):
-            inp = x if cond is None else torch.cat([x, cond], dim=-1)
-            v = flux_mod.apply(bundle.flux_params, inp, embeds, pooled_c,
-                               sigma.expand(b), img_ids, txt_ids,
-                               bundle.flux_cfg, guidance=guid)
-            x = sched_mod.euler_step(x, v, sigma, sigma_next)
+            x = sched_mod.euler_step(x, model_fn(x, sigmas[i]), sigmas[i],
+                                     sigmas[i + 1])
+    return x
+
+
+def _vcache_denoise(model_fn, latents, sigmas, interval: int,
+                    order: int = 1, anchors=None, *,
+                    timer: Optional[StepTimer] = None):
+    """Velocity-extrapolation cached Euler denoise (VDE family,
+    ``PAPERS.md``): the network runs only at the anchor steps (every
+    ``interval``-th, or the explicit ``anchors``, which must start at 0);
+    the other steps of a group integrate a velocity extrapolated from the
+    group's computed velocity and the previous group's (``order=1``:
+    linear in sigma; ``order=0``: hold). The first group has no previous
+    sample and holds (zero slope). Each Euler step is one ``step`` span of
+    ``timer``; a group's model call falls in its first step's span."""
+    timer = timer or StepTimer()
+    n = int(sigmas.shape[0]) - 1
+    if anchors is None:
+        anchors = tuple(range(0, n, int(interval)))
+    else:
+        anchors = tuple(sorted({int(a) for a in anchors}))
+        if not anchors or anchors[0] != 0 or anchors[-1] >= n:
+            raise ValueError(
+                f"velocity-cache anchors must start at step 0 and stay "
+                f"below the last step index {n}: got {anchors}")
+    bounds = anchors + (n,)
+    x = latents
+    v_prev = torch.zeros(latents.shape, dtype=torch.float32,
+                         device=latents.device)
+    s_prev = sigmas[0].float()
+    for i0, i_end in zip(bounds, bounds[1:]):
+        s0 = sigmas[i0]
+        slope = None
+        for i in range(i0, i_end):
+            with timer.span("step"):
+                if i == i0:
+                    v0 = model_fn(x, s0).float()
+                    if order >= 1:
+                        # a multiply by the f32 reciprocal (not a division),
+                        # and a zero slope where the anchors coincide
+                        d = s0 - s_prev
+                        recip = torch.where(d == 0.0, torch.zeros_like(d),
+                                            1.0 / torch.where(
+                                                d == 0.0,
+                                                torch.ones_like(d), d))
+                        slope = (v0 - v_prev) * recip
+                s_i = sigmas[i]
+                v = v0 if slope is None else v0 + (s_i - s0) * slope
+                x = sched_mod.euler_step(x, v, s_i, sigmas[i + 1])
+        v_prev, s_prev = v0, s0
+    return x
+
+
+def _pick_denoise(model_fn, latents, sigmas, vcache_interval,
+                  vcache_order: int, *, timer: Optional[StepTimer] = None):
+    """``vcache_interval``: 1 = dense Euler; int N > 1 = uniform velocity
+    cache; tuple = explicit (possibly non-uniform) anchor schedule."""
+    timer = timer or StepTimer()
+    if isinstance(vcache_interval, tuple):
+        return _vcache_denoise(model_fn, latents, sigmas, interval=0,
+                               order=vcache_order, anchors=vcache_interval,
+                               timer=timer)
+    if vcache_interval <= 1:
+        return _euler_denoise(model_fn, latents, sigmas, timer=timer)
+    return _vcache_denoise(model_fn, latents, sigmas,
+                           interval=vcache_interval, order=vcache_order,
+                           timer=timer)
+
+
+def _vc_active(vcache_interval) -> bool:
+    """True when the velocity cache is on, for int / tuple / 'auto' /
+    'sched:K' forms alike (before or after resolution)."""
+    if isinstance(vcache_interval, tuple):
+        return len(vcache_interval) > 0
+    if isinstance(vcache_interval, str):
+        return True                     # "auto" / "sched:K" may resolve >1
+    return vcache_interval > 1
+
+
+def _denoise_latents(bundle: FluxBundle, latents: torch.Tensor,
+                     prompt_embeds, pooled, sigmas: torch.Tensor,
+                     guidance: float, grid_h: int, grid_w: int,
+                     cache_interval: int = 1, vcache_interval=1,
+                     vcache_order: int = 1, *,
+                     cond: Optional[torch.Tensor] = None,
+                     timer: Optional[StepTimer] = None) -> torch.Tensor:
+    """The denoise without the VAE decode, one ``step`` span per Euler
+    step: the dense or velocity-cached loop (:func:`_pick_denoise`), or,
+    with ``cache_interval`` > 1, the block-residual cache — every block
+    runs at the steps ``i % cache_interval == 0`` and replays its residual
+    at the others (the JAX ``_generate_core_cached`` loop). Also the
+    calibrations' probe."""
+    timer = timer or StepTimer()
+    if cache_interval <= 1:
+        model_fn = _model_fn(bundle, prompt_embeds, pooled, guidance,
+                             grid_h, grid_w, cond)
+        return _pick_denoise(model_fn, latents, sigmas, vcache_interval,
+                             vcache_order, timer=timer)
+    embeds, pooled_c, img_ids, txt_ids = _model_inputs(
+        bundle, prompt_embeds, pooled, grid_h, grid_w)
+    b = latents.shape[0]
+    guid = _guidance(bundle, guidance, b)
+    cache = flux_mod.init_block_cache(bundle.flux_cfg, b, latents.shape[1],
+                                      embeds.shape[1], dtype=latents.dtype,
+                                      device=bundle.device)
+    x = latents
+    for i in range(sigmas.shape[0] - 1):
+        with timer.span("step"):
+            v, cache = flux_mod.apply_with_cache(
+                bundle.flux_params, x, embeds, pooled_c, sigmas[i].expand(b),
+                img_ids, txt_ids, bundle.flux_cfg, cache,
+                refresh=i % cache_interval == 0, guidance=guid)
+            x = sched_mod.euler_step(x, v, sigmas[i], sigmas[i + 1])
     return x
 
 
@@ -335,8 +478,11 @@ def _generate_float(bundle: FluxBundle, prompt_embeds: torch.Tensor,
                     pooled: torch.Tensor, height: int, width: int,
                     num_steps: int, guidance: float, noise: torch.Tensor,
                     scheduler_overrides: Optional[dict] = None,
-                    timer: Optional[StepTimer] = None) -> torch.Tensor:
-    """The denoise + decode core -> (B, H, W, 3) f32 in [-1, 1]. Each
+                    timer: Optional[StepTimer] = None, *,
+                    cache_interval: int = 1, vcache_interval=1,
+                    vcache_order: int = 1) -> torch.Tensor:
+    """The denoise + decode core (the JAX ``_generate_core`` and
+    ``_generate_core_cached``) -> (B, H, W, 3) f32 in [-1, 1]. Each
     denoise step is a ``step`` span of ``timer``, the decode a ``decode``
     span."""
     timer = timer or StepTimer()
@@ -347,12 +493,360 @@ def _generate_float(bundle: FluxBundle, prompt_embeds: torch.Tensor,
         num_steps, image_seq_len=grid_h * grid_w,
         **(scheduler_overrides or {}))
     sigmas = torch.as_tensor(schedule.sigmas, dtype=torch.float32, device=dev)
-    x = _denoise(bundle, noise.to(device=dev, dtype=bundle.compute_dtype),
-                 prompt_embeds, pooled, sigmas, guidance, grid_h, grid_w,
-                 timer)
+    x = _denoise_latents(
+        bundle, noise.to(device=dev, dtype=bundle.compute_dtype),
+        prompt_embeds, pooled, sigmas, guidance, grid_h, grid_w,
+        cache_interval, vcache_interval, vcache_order, timer=timer)
     with timer.span("decode"):
         return _decode_tokens(bundle.vae_params, x, grid_h, grid_w,
                               bundle.vae_cfg)
+
+
+def _device_memory_bytes(device: torch.device) -> Optional[int]:
+    """The card's memory, the block cache's budget; None on the CPU."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+def _check_block_cache_hbm(bundle: FluxBundle, batch: int, s_img: int,
+                           s_txt: int, mesh, data_axis: str) -> None:
+    """Block caching holds one residual per block per sample in the
+    latents' dtype (57 x 5337 x 3072 bf16 = 1.87 GB per sample for the
+    12B at 1024 px), times the serving batch. Warn when that and the
+    MMDiT's weights exceed the card's memory, before the allocation
+    fails. ``mesh`` and ``data_axis`` are the JAX parameters; one card
+    serves the whole batch."""
+    budget = _device_memory_bytes(bundle.device)
+    if budget is None:
+        return
+    cfg = bundle.flux_cfg
+    itemsize = torch.empty((), dtype=bundle.compute_dtype).element_size()
+    cache_bytes = ((cfg.depth_double + cfg.depth_single) * batch
+                   * (s_img + s_txt) * cfg.hidden * itemsize)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in leaves(bundle.flux_params)
+                      if isinstance(t, torch.Tensor))
+    if cache_bytes + param_bytes > budget:
+        get_logger("domainrag_tpu_torch.flux").warning(
+            "block_cache_interval>1: estimated device memory %.1f GB "
+            "(residual cache %.1f GB for batch %d + weights %.1f GB) "
+            "exceeds the card's %.1f GB — expect an out-of-memory error; "
+            "reduce the rank batch or disable block caching",
+            (cache_bytes + param_bytes) / 1e9, cache_bytes / 1e9, batch,
+            param_bytes / 1e9, budget / 1e9)
+
+
+# ---------------------------------------------------------------------------
+# cache calibrations (one-time per model, resolution and steps; cached
+# process-wide, keyed by :func:`_params_token`)
+# ---------------------------------------------------------------------------
+
+_BLOCK_CACHE_CALIBRATIONS: dict = {}
+_VCACHE_SCHEDULES: dict = {}
+_FILL_VCACHE_CALIBRATIONS: dict = {}
+
+
+def _params_token(bundle: FluxBundle):
+    """Identity token of ``bundle.flux_params``, new whenever any leaf
+    tensor is swapped (a weakref per leaf: ``quantize_tree`` keeps some
+    tensors, so one leaf is not enough). The calibration caches key on
+    the token, which they hold, so a later model whose params reuse an
+    ``id`` cannot inherit an old calibration."""
+    import weakref
+    tensors = leaves(bundle.flux_params)
+    entry = getattr(bundle, "_calib_token", None)
+    if entry is not None and len(entry[0]) == len(tensors) and \
+            all(r() is t for r, t in zip(entry[0], tensors)):
+        return entry[1]
+    token = object()
+    bundle._calib_token = ([weakref.ref(t) for t in tensors], token)
+    return token
+
+
+def _probe_inputs(bundle: FluxBundle, prompt_embeds, pooled, height: int,
+                  width: int, num_steps: int, seed: int, probe_noise):
+    """A calibration's single-sample probe: (latents (1, S, C) in
+    ``compute_dtype``, embeds, pooled, sigmas, grid_h, grid_w). The latents
+    are ``probe_noise`` when given, else the per-seed draw of :func:`_noise`
+    (the JAX package draws ``jax.random.normal(PRNGKey(seed))``)."""
+    dev, dt = bundle.device, bundle.compute_dtype
+    lf = bundle.latent_factor
+    grid_h, grid_w = height // lf, width // lf
+    schedule = sched_mod.make_schedule(num_steps,
+                                       image_seq_len=grid_h * grid_w)
+    if probe_noise is None:
+        probe_noise = _noise(bundle, [seed], grid_h * grid_w,
+                             bundle.vae_cfg.latent_channels * 4)
+    latents = probe_noise.to(device=dev, dtype=torch.float32).to(dt)
+    e = prompt_embeds[:1].to(device=dev, dtype=dt)
+    p = pooled[:1].to(device=dev, dtype=dt)
+    sig = torch.as_tensor(schedule.sigmas, dtype=torch.float32, device=dev)
+    return latents, e, p, sig, grid_h, grid_w
+
+
+def _check_budget_space(budget_space: str) -> None:
+    if budget_space not in ("image", "latent"):
+        raise ValueError(f"budget_space must be 'image' or 'latent': "
+                         f"{budget_space!r}")
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.float().cpu().numpy()
+
+
+@torch.inference_mode()
+def calibrate_block_cache_interval(bundle: FluxBundle,
+                                   prompt_embeds: torch.Tensor,
+                                   pooled: torch.Tensor,
+                                   height: int, width: int,
+                                   num_steps: int, guidance: float,
+                                   seed: int = 0,
+                                   divergence_budget: float = 0.05,
+                                   candidates=(4, 3, 2),
+                                   mode: str = "residual",
+                                   budget_space: str = "image", *,
+                                   probe_noise: Optional[torch.Tensor] = None
+                                   ) -> int:
+    """The largest cache interval whose relative L2 divergence from the
+    exact denoise stays within ``divergence_budget``, 1 when none does.
+    ``mode``: "residual" calibrates the block-residual cache, "velocity"
+    the velocity cache. ``budget_space``: "image" compares the
+    VAE-decoded probe images, "latent" the final latents; the log records
+    both curves. One exact and up to ``len(candidates)`` cached denoises
+    of one sample at the call's own config. ``probe_noise`` (1, S, C):
+    the probe's latents in place of the per-seed draw."""
+    if mode not in ("residual", "velocity"):
+        raise ValueError(f"mode must be 'residual' or 'velocity': {mode!r}")
+    _check_budget_space(budget_space)
+    latents, e, p, sig, grid_h, grid_w = _probe_inputs(
+        bundle, prompt_embeds, pooled, height, width, num_steps, seed,
+        probe_noise)
+
+    def probe(interval: int):
+        kw = ({"cache_interval": interval} if mode == "residual"
+              else {"vcache_interval": interval})
+        lat = _denoise_latents(bundle, latents, e, p, sig, guidance, grid_h,
+                               grid_w, **kw)
+        img = _decode_tokens(bundle.vae_params, lat, grid_h, grid_w,
+                             bundle.vae_cfg)
+        return _host(lat), _host(img)
+
+    exact_lat, exact_img = probe(1)
+    norms = {"latent": float(np.linalg.norm(exact_lat)) or 1.0,
+             "image": float(np.linalg.norm(exact_img)) or 1.0}
+    curve: dict = {}
+    chosen = 1
+    for interval in sorted(candidates, reverse=True):
+        lat, img = probe(int(interval))
+        rel = {"latent": float(np.linalg.norm(lat - exact_lat))
+               / norms["latent"],
+               "image": float(np.linalg.norm(img - exact_img))
+               / norms["image"]}
+        curve[int(interval)] = rel
+        if rel[budget_space] <= divergence_budget and chosen == 1:
+            chosen = int(interval)
+    get_logger("domainrag_tpu_torch.flux").info(
+        "%s-cache calibration @%dx%d/%d steps: divergence %s, budget "
+        "%.3f on %s -> interval %d", mode, width, height, num_steps,
+        {k: {s: round(v2, 4) for s, v2 in v.items()}
+         for k, v in sorted(curve.items())},
+        divergence_budget, budget_space, chosen)
+    return chosen
+
+
+def _record_velocities(bundle: FluxBundle, latents, prompt_embeds, pooled,
+                       sigmas, guidance: float, grid_h: int, grid_w: int, *,
+                       cond: Optional[torch.Tensor] = None):
+    """Dense Euler denoise that returns (final latents, per-step
+    velocities (n, *latents.shape) f32): the probe that
+    :func:`plan_vcache_anchors` and the schedule selection read."""
+    model_fn = _model_fn(bundle, prompt_embeds, pooled, guidance, grid_h,
+                         grid_w, cond)
+    x, vs = latents, []
+    for i in range(sigmas.shape[0] - 1):
+        v = model_fn(x, sigmas[i]).float()
+        x = sched_mod.euler_step(x, v, sigmas[i], sigmas[i + 1])
+        vs.append(v)
+    return x, torch.stack(vs)
+
+
+def plan_vcache_anchors(velocities: np.ndarray, sigmas: np.ndarray,
+                        n_anchors: int, order: int = 1) -> tuple:
+    """Optimal anchor placement for the velocity cache under the
+    frozen-field surrogate, as an exact dynamic program (own copy of the
+    JAX package's numpy planner).
+
+    The recorded dense velocities ``v_i`` stand for the field along the
+    trajectory; the cached integrator's final-state error is then
+    sum_i ds_i (v_used_i - v_i), and the DP over consecutive anchor pairs
+    minimizes the additive relaxation sum_i ds_i^2 ||v_used_i - v_i||^2
+    exactly (the order-1 slope couples each group to the previous anchor).
+    Every inner product reduces to the velocities' Gram matrix.
+
+    Returns a strictly increasing tuple starting at 0 with ``n_anchors``
+    entries (the model-call count)."""
+    v = np.asarray(velocities, np.float64)
+    n = v.shape[0]
+    if not 1 <= n_anchors <= n:
+        raise ValueError(f"n_anchors must be in [1, {n}]: {n_anchors}")
+    v = v.reshape(n, -1)
+    s = np.asarray(sigmas, np.float64)[:n]
+    w = np.square(np.diff(np.asarray(sigmas, np.float64)[:n + 1]))
+    gram = v @ v.T
+
+    # the prefix sums over steps i >= a of w_i ||v_used_i - v_i||^2 with
+    # anchor a and previous anchor p (p == a: the first group's hold)
+    def _cum(p, a):
+        idx = np.arange(a, n)
+        if order >= 1 and p != a:
+            t = (s[idx] - s[a]) / (s[a] - s[p])
+        else:
+            t = np.zeros(len(idx))
+        al = 1.0 + t
+        e2 = (al * al * gram[a, a] + t * t * gram[p, p]
+              + gram[idx, idx] - 2.0 * al * t * gram[a, p]
+              - 2.0 * al * gram[a, idx] + 2.0 * t * gram[p, idx])
+        c = np.zeros(n + 1 - a)
+        np.cumsum(np.maximum(e2, 0.0) * w[idx], out=c[1:])
+        return c
+
+    cums: dict = {}
+
+    def cost(p, a, b):                      # group [a, b) under (p, a)
+        c = cums.get((p, a))
+        if c is None:
+            c = cums[(p, a)] = _cum(p, a)
+        return c[b - a]
+
+    # f[(p, a)]: the best cost of the steps before a, with the last two
+    # anchors (p, a)
+    inf = float("inf")
+    f = {(0, 0): 0.0}
+    parent: dict = {}
+    for g in range(1, n_anchors):
+        nxt: dict = {}
+        for (p, a), val in f.items():
+            for b_ in range(a + 1, n - (n_anchors - g) + 1):
+                cand = val + cost(p, a, b_)
+                if cand < nxt.get((a, b_), inf):
+                    nxt[(a, b_)] = cand
+                    parent[(g, a, b_)] = p
+        f = nxt
+    best, best_pa = inf, None
+    for (p, a), val in f.items():
+        total = val + cost(p, a, n)
+        if total < best:
+            best, best_pa = total, (p, a)
+    anchors = []
+    p, a = best_pa
+    for g in range(n_anchors - 1, 0, -1):
+        anchors.append(a)
+        p, a = parent[(g, p, a)], p
+    anchors.append(0)
+    return tuple(sorted(anchors))
+
+
+def select_vcache_anchors(vs, sigmas, n_anchors: int, interval: int,
+                          probe_fn, decode_fn, exact_final,
+                          log_tag: str = "") -> tuple:
+    """The ``sched:K`` schedule by image-space divergence: the latent-DP
+    optimum (:func:`plan_vcache_anchors`) against the uniform-``interval``
+    schedule at the same model-call count, each scored by one real cached
+    probe (``probe_fn(anchors)`` -> final latent tokens) decoded by
+    ``decode_fn`` against the dense probe's ``exact_final``; the smaller
+    image relative L2 wins (uniform as its explicit tuple). No probe runs
+    when the two schedules coincide."""
+    n = len(np.asarray(sigmas)) - 1
+    dp = plan_vcache_anchors(np.asarray(vs, np.float32),
+                             np.asarray(sigmas), n_anchors)
+    uniform = tuple(range(0, n, int(interval)))
+    if dp == uniform:
+        return dp
+    exact_img = decode_fn(exact_final)
+    norm = float(np.linalg.norm(exact_img)) or 1.0
+    scores = {}
+    for name, anchors in (("dp", dp), ("uniform", uniform)):
+        img = decode_fn(probe_fn(anchors))
+        scores[name] = float(np.linalg.norm(img - exact_img)) / norm
+    winner = min(scores, key=scores.get)
+    get_logger("domainrag_tpu_torch.flux").info(
+        "%svelocity-cache schedule selection (%d anchors): image rel-L2 "
+        "dp=%.4f uniform=%.4f -> %s %s", log_tag, n_anchors,
+        scores["dp"], scores["uniform"], winner,
+        dp if winner == "dp" else uniform)
+    return dp if winner == "dp" else uniform
+
+
+@torch.inference_mode()
+def calibrate_vcache_schedule(bundle: FluxBundle,
+                              prompt_embeds: torch.Tensor,
+                              pooled: torch.Tensor, height: int, width: int,
+                              num_steps: int, guidance: float,
+                              n_anchors: int, interval: int,
+                              seed: int = 0, *,
+                              probe_noise: Optional[torch.Tensor] = None
+                              ) -> tuple:
+    """One recorded dense probe at the call's own config, then
+    :func:`select_vcache_anchors` (latent-DP optimum against
+    uniform-``interval``, each scored by one cached denoise decoded
+    through the VAE): one exact and two cached denoises. ``probe_noise``
+    as in :func:`calibrate_block_cache_interval`."""
+    latents, e, p, sig, grid_h, grid_w = _probe_inputs(
+        bundle, prompt_embeds, pooled, height, width, num_steps, seed,
+        probe_noise)
+
+    def decode(tokens):
+        return _host(_decode_tokens(bundle.vae_params, tokens, grid_h,
+                                    grid_w, bundle.vae_cfg))
+
+    def probe(anchors):
+        return _denoise_latents(bundle, latents, e, p, sig, guidance, grid_h,
+                                grid_w, vcache_interval=anchors)
+
+    exact, vs = _record_velocities(bundle, latents, e, p, sig, guidance,
+                                   grid_h, grid_w)
+    return select_vcache_anchors(
+        _host(vs), sig.cpu().numpy(), n_anchors, interval, probe, decode,
+        exact, log_tag=f"@{width}x{height}/{num_steps} steps ")
+
+
+def _resolve_block_cache_interval(bundle: FluxBundle, block_cache_interval,
+                                  prompt_embeds, pooled, height: int,
+                                  width: int, num_steps: int,
+                                  guidance: float, mode: str = "residual"):
+    """An interval form -> int (or an anchor tuple, velocity only):
+    ``"auto"`` and ``"sched:K"`` calibrate once per (model, resolution,
+    steps, guidance) and are cached process-wide."""
+    v = block_cache_interval
+    if isinstance(v, (list, tuple)):
+        if mode != "velocity":
+            raise ValueError("anchor-schedule form is velocity-cache "
+                             "only; block_cache_interval takes an int")
+        return tuple(int(a) for a in v)
+    if isinstance(v, str) and v.startswith("sched:"):
+        if mode != "velocity":
+            raise ValueError("'sched:K' is velocity-cache only")
+        k = int(v.split(":", 1)[1])
+        if k <= 1:
+            return 1
+        n_anchors = -(-num_steps // k)      # uniform-k model-call parity
+        key = (_params_token(bundle), height, width, num_steps,
+               float(guidance), "velocity-sched", n_anchors)
+        if key not in _VCACHE_SCHEDULES:
+            _VCACHE_SCHEDULES[key] = calibrate_vcache_schedule(
+                bundle, prompt_embeds, pooled, height, width, num_steps,
+                guidance, n_anchors, k)
+        return _VCACHE_SCHEDULES[key]
+    if v != "auto":
+        return int(v)
+    key = (_params_token(bundle), height, width, num_steps,
+           float(guidance), mode)
+    if key not in _BLOCK_CACHE_CALIBRATIONS:
+        _BLOCK_CACHE_CALIBRATIONS[key] = calibrate_block_cache_interval(
+            bundle, prompt_embeds, pooled, height, width, num_steps,
+            guidance, mode=mode)
+    return _BLOCK_CACHE_CALIBRATIONS[key]
 
 
 @torch.inference_mode()
@@ -373,33 +867,64 @@ def generate(bundle: FluxBundle, prompt_embeds: torch.Tensor,
     ``prompt_embeds`` is batched (B > 1), else (H, W, 3).
 
     Defaults mirror the background-gen stage (guidance 2.5, 50 steps,
-    fixed seed). ``noise``: (B, S_img, 4*latent_channels) initial latents
-    in place of the per-seed draw (how tests hand the JAX package's noise
-    to the port). ``timer`` gets a ``step`` span per denoise step and a
+    fixed seed). ``block_cache_interval`` > 1 turns on block-residual
+    caching (the blocks run every N-th step and replay their residuals in
+    between; outputs change). ``velocity_cache_interval`` turns on the
+    velocity-extrapolation cache instead (the network runs every N-th
+    step, the others integrate an extrapolated velocity, order
+    ``velocity_cache_order``): an int N, an anchor tuple, ``"auto"`` (the
+    largest interval within the divergence budget) or ``"sched:K"``
+    (DP-planned anchors at uniform-K model-call parity). The two caches
+    are mutually exclusive; ``"auto"`` and ``"sched:K"`` calibrate once
+    (a ``calibrate`` span of ``timer``).
+
+    ``noise``: (B, S_img, 4*latent_channels) initial latents in place of
+    the per-seed draw (how tests hand the JAX package's noise to the
+    port). ``timer`` gets a ``step`` span per denoise step and a
     ``decode`` span. Images with a non-finite value before quantisation
     are counted in ``generate.nonfinite_images``. The parameters are the
     JAX package's, in its order and with its defaults; ``noise`` and
-    ``timer`` are the port's own and keyword-only. Meshes, pipelining
-    (``microbatches``) and the cache accelerators (``velocity_cache_order``
-    too) are not part of this slice and raise when asked for;
-    ``data_axis`` is read only by the mesh path."""
+    ``timer`` are the port's own and keyword-only. Meshes and pipelining
+    (``microbatches``) are ROADMAP A6 and raise; ``data_axis`` is read
+    only by the mesh path."""
     if mesh is not None or pipe_axis is not None or microbatches is not None:
-        raise NotImplementedError("meshes and pipelining are not ported")
-    if block_cache_interval != 1 or velocity_cache_interval != 1 \
-            or velocity_cache_order != 1:
         raise NotImplementedError(
-            "the denoise caches are not ported yet (ROADMAP A5)")
+            "meshes and pipelining are not ported (ROADMAP A6)")
+    timer = timer or StepTimer()
     b = prompt_embeds.shape[0]
+    lf = bundle.latent_factor
+    grid_h, grid_w = height // lf, width // lf
     if noise is None:
         seeds = list(seed) if isinstance(seed, (list, tuple)) else [seed] * b
         if len(seeds) != b:
             raise ValueError(f"{len(seeds)} seeds for a batch of {b}")
-        lf = bundle.latent_factor
-        noise = _noise(bundle, seeds, (height // lf) * (width // lf),
+        noise = _noise(bundle, seeds, grid_h * grid_w,
                        bundle.vae_cfg.latent_channels * 4)
-    img = _generate_float(bundle, prompt_embeds, pooled, height, width,
-                          num_steps, guidance, noise, scheduler_overrides,
-                          timer).float().cpu().numpy()
+    dev, dt = bundle.device, bundle.compute_dtype
+    embeds = prompt_embeds.to(device=dev, dtype=dt)
+    pooled_c = pooled.to(device=dev, dtype=dt)
+
+    calibrating = isinstance(block_cache_interval, str) or isinstance(
+        velocity_cache_interval, str)
+    with timer.span("calibrate") if calibrating else contextlib.nullcontext():
+        block_cache_interval = _resolve_block_cache_interval(
+            bundle, block_cache_interval, embeds, pooled_c, height, width,
+            num_steps, guidance)
+        velocity_cache_interval = _resolve_block_cache_interval(
+            bundle, velocity_cache_interval, embeds, pooled_c, height,
+            width, num_steps, guidance, mode="velocity")
+    if block_cache_interval > 1 and _vc_active(velocity_cache_interval):
+        raise ValueError(
+            "block_cache_interval and velocity_cache_interval are "
+            "mutually exclusive accelerators — pick one")
+    if block_cache_interval > 1:
+        _check_block_cache_hbm(bundle, b, grid_h * grid_w,
+                               prompt_embeds.shape[-2], mesh, data_axis)
+    img = _generate_float(
+        bundle, embeds, pooled_c, height, width, num_steps, guidance, noise,
+        scheduler_overrides, timer, cache_interval=block_cache_interval,
+        vcache_interval=velocity_cache_interval,
+        vcache_order=velocity_cache_order).float().cpu().numpy()
     generate.nonfinite_images += int((~np.isfinite(img)).any(
         axis=(1, 2, 3)).sum())
     out = to_uint8(img)
@@ -463,24 +988,152 @@ def _fill_float(bundle: FluxBundle, image: torch.Tensor, mask: torch.Tensor,
                 noise: torch.Tensor, prompt_embeds, pooled,
                 sigmas: torch.Tensor, guidance: float, hires: bool,
                 vae_tile: int = 96, vae_overlap: int = 16,
-                timer: Optional[StepTimer] = None) -> torch.Tensor:
+                timer: Optional[StepTimer] = None, *,
+                vcache_interval=1, vcache_order: int = 1) -> torch.Tensor:
     """The fill core -> (B, H, W, 3) f32 in [-1, 1]. ``image`` (B, H, W, 3)
     in [-1, 1], ``mask`` (B, H, W) 0/1 (1 = repaint) and ``noise``
     (B, S_img, 4*latent_channels), all in ``compute_dtype`` on the
     bundle's device; ``sigmas`` the strength-trimmed schedule. ``hires``
-    runs the VAE encode and decode tiled. Spans: ``encode`` per encode,
-    ``step`` per denoise step, ``decode``."""
+    runs the VAE encode and decode tiled. ``vcache_interval`` /
+    ``vcache_order``: the velocity cache, as :func:`_pick_denoise` takes
+    it. Spans: ``encode`` per encode, ``step`` per denoise step,
+    ``decode``."""
     timer = timer or StepTimer()
     lf = bundle.latent_factor
     grid_h, grid_w = image.shape[1] // lf, image.shape[2] // lf
     latents, cond = _fill_conditioning(
         bundle.vae_params, image, mask, noise, sigmas[0], bundle.vae_cfg,
         hires, vae_tile, vae_overlap, timer)
-    x = _denoise(bundle, latents, prompt_embeds, pooled, sigmas, guidance,
-                 grid_h, grid_w, timer, cond=cond)
+    x = _denoise_latents(bundle, latents, prompt_embeds, pooled, sigmas,
+                         guidance, grid_h, grid_w,
+                         vcache_interval=vcache_interval,
+                         vcache_order=vcache_order, cond=cond, timer=timer)
     with timer.span("decode"):
         return _decode_tokens(bundle.vae_params, x, grid_h, grid_w,
                               bundle.vae_cfg, hires, vae_tile, vae_overlap)
+
+
+def _fill_probe_core(bundle: FluxBundle, image, mask, noise, prompt_embeds,
+                     pooled, sigmas, guidance: float, grid_h: int,
+                     grid_w: int, tiled_vae: bool = False,
+                     vae_tile: int = 96, vae_overlap: int = 16,
+                     vcache_interval=1, vcache_order: int = 1,
+                     record: bool = False):
+    """The calibration probe on the fill core: the conditioning and the
+    strength-trimmed denoise of :func:`_fill_float`, returning the final
+    latent tokens (no decode); ``record=True`` runs the dense loop and
+    also returns the per-step velocities (:func:`_record_velocities`)."""
+    latents, cond = _fill_conditioning(
+        bundle.vae_params, image, mask, noise, sigmas[0], bundle.vae_cfg,
+        tiled_vae, vae_tile, vae_overlap, StepTimer())
+    if record:
+        return _record_velocities(bundle, latents, prompt_embeds, pooled,
+                                  sigmas, guidance, grid_h, grid_w,
+                                  cond=cond)
+    return _denoise_latents(bundle, latents, prompt_embeds, pooled, sigmas,
+                            guidance, grid_h, grid_w,
+                            vcache_interval=vcache_interval,
+                            vcache_order=vcache_order, cond=cond)
+
+
+@torch.inference_mode()
+def calibrate_fill_vcache(bundle: FluxBundle, image, mask, noise,
+                          prompt_embeds, pooled, sigmas, guidance: float,
+                          grid_h: int, grid_w: int, *, form: str,
+                          tiled_vae: bool = False, vae_tile: int = 96,
+                          vae_overlap: int = 16,
+                          divergence_budget: float = 0.05,
+                          candidates=(4, 3, 2),
+                          budget_space: str = "image"):
+    """Velocity-cache calibration on the fill regime, probing one sample
+    of the actual call (its image, mask, noise, prompt and
+    strength-trimmed ``sigmas``, all on the bundle's device):
+
+    - ``form="auto"``: one dense probe and up to ``len(candidates)``
+      cached fill denoises; the largest uniform interval whose relative L2
+      divergence (on the decoded images by default, ``budget_space``)
+      stays within ``divergence_budget``, 1 when none does;
+    - ``form="sched:K"``: one dense probe recording velocities, then
+      :func:`select_vcache_anchors` over the trimmed step count; the
+      winning anchor tuple."""
+    _check_budget_space(budget_space)
+    n_steps = int(sigmas.shape[0]) - 1
+    kw = dict(tiled_vae=tiled_vae, vae_tile=vae_tile,
+              vae_overlap=vae_overlap)
+    args = (bundle, image, mask, noise, prompt_embeds, pooled, sigmas,
+            guidance, grid_h, grid_w)
+
+    def decode(tokens):
+        return _host(_decode_tokens(bundle.vae_params, tokens, grid_h,
+                                    grid_w, bundle.vae_cfg, tiled_vae,
+                                    vae_tile, vae_overlap))
+
+    exact, vs = _fill_probe_core(*args, record=True, **kw)
+    if form.startswith("sched:"):
+        k = int(form.split(":", 1)[1])
+        if k <= 1:
+            return 1
+        n_anchors = -(-n_steps // k)
+        if n_anchors >= n_steps:
+            return 1
+        return select_vcache_anchors(
+            _host(vs), sigmas.cpu().numpy(), n_anchors, k,
+            lambda anchors: _fill_probe_core(*args, vcache_interval=anchors,
+                                             **kw),
+            decode, exact,
+            log_tag=f"fill @{grid_w}x{grid_h} grid/{n_steps} trimmed "
+                    f"steps ")
+    exact_img = decode(exact)
+    exact_lat = _host(exact)
+    norms = {"latent": float(np.linalg.norm(exact_lat)) or 1.0,
+             "image": float(np.linalg.norm(exact_img)) or 1.0}
+    curve: dict = {}
+    chosen = 1
+    for interval in sorted(candidates, reverse=True):
+        if interval >= n_steps:
+            continue
+        cached = _fill_probe_core(*args, vcache_interval=int(interval), **kw)
+        rel = {"latent": float(np.linalg.norm(_host(cached) - exact_lat))
+               / norms["latent"],
+               "image": float(np.linalg.norm(decode(cached) - exact_img))
+               / norms["image"]}
+        curve[int(interval)] = rel
+        if rel[budget_space] <= divergence_budget and chosen == 1:
+            chosen = int(interval)
+    get_logger("domainrag_tpu_torch.flux").info(
+        "fill velocity-cache calibration @%dx%d grid/%d trimmed steps: "
+        "divergence %s, budget %.3f on %s -> interval %d", grid_w,
+        grid_h, n_steps,
+        {k_: {s: round(v2, 4) for s, v2 in v_.items()}
+         for k_, v_ in sorted(curve.items())},
+        divergence_budget, budget_space, chosen)
+    return chosen
+
+
+def _resolve_fill_vcache(bundle: FluxBundle, form: str, image, mask, noise,
+                         prompt_embeds, pooled, sigmas, guidance, grid_h,
+                         grid_w, tiled_vae, vae_tile, vae_overlap, height,
+                         width, num_steps, strength,
+                         divergence_budget: float):
+    """``"auto"`` / ``"sched:K"`` for :func:`fill_batch`: one
+    :func:`calibrate_fill_vcache` of the call's first sample, cached
+    process-wide per (model, resolution, steps, strength, guidance, form,
+    budget); strength is in the key because it trims the sigmas the
+    anchors index."""
+    if form != "auto" and not form.startswith("sched:"):
+        raise ValueError(
+            f"velocity_cache_interval string form must be 'auto' or "
+            f"'sched:K': {form!r}")
+    key = (_params_token(bundle), height, width, num_steps,
+           round(float(strength), 6), round(float(guidance), 6),
+           "fill-" + form, round(float(divergence_budget), 6))
+    if key not in _FILL_VCACHE_CALIBRATIONS:
+        _FILL_VCACHE_CALIBRATIONS[key] = calibrate_fill_vcache(
+            bundle, image, mask, noise, prompt_embeds, pooled, sigmas,
+            guidance, grid_h, grid_w, form=form, tiled_vae=tiled_vae,
+            vae_tile=vae_tile, vae_overlap=vae_overlap,
+            divergence_budget=divergence_budget)
+    return _FILL_VCACHE_CALIBRATIONS[key]
 
 
 def fill(bundle: FluxBundle, image: np.ndarray, mask: np.ndarray,
@@ -520,38 +1173,57 @@ def fill_batch(bundle: FluxBundle, images: np.ndarray, masks: np.ndarray,
     latents noised to the first kept sigma. At ``hires_threshold_px``
     pixels and above (the reference's >= 2048 px upscale / <= 2800 px
     cap, outpainting_updown_sampling_redux.py:72-82,104-108) the VAE runs
-    tiled (``vae_tile``/``vae_overlap`` latent cells). ``noise``:
-    (B, S_img, 4*latent_channels) in place of the per-seed draw, as in
-    :func:`generate`; ``timer`` gets the spans of :func:`_fill_float`.
-    Images with a non-finite value before quantisation are counted in
-    ``fill_batch.nonfinite_images``. The parameters are the JAX package's,
-    in its order and with its defaults; ``noise`` and ``timer`` are the
-    port's own and keyword-only. Meshes, pipelining (``microbatches``) and
-    the velocity cache (``velocity_cache_order`` too) are not ported and
-    raise when asked for; ``data_axis`` and ``vcache_divergence_budget``
-    are read only by those paths."""
+    tiled (``vae_tile``/``vae_overlap`` latent cells).
+    ``velocity_cache_interval`` turns on the velocity cache (order
+    ``velocity_cache_order``): an int N, an anchor tuple or list over this
+    call's strength-trimmed step indices, ``"auto"`` (the largest uniform
+    interval within ``vcache_divergence_budget``) or ``"sched:K"``; the
+    last two calibrate once on the fill core against the call's first
+    sample (:func:`calibrate_fill_vcache`, a ``calibrate`` span of
+    ``timer``). ``noise``: (B, S_img, 4*latent_channels) in place of the
+    per-seed draw, as in :func:`generate`; ``timer`` gets the spans of
+    :func:`_fill_float`. Images with a non-finite value before
+    quantisation are counted in ``fill_batch.nonfinite_images``. The
+    parameters are the JAX package's, in its order and with its
+    defaults; ``noise`` and ``timer`` are the port's own and
+    keyword-only. Meshes and pipelining (``microbatches``) are ROADMAP A6
+    and raise; ``data_axis`` is read only by the mesh path."""
     if mesh is not None or pipe_axis is not None or microbatches is not None:
-        raise NotImplementedError("meshes and pipelining are not ported")
-    if velocity_cache_interval != 1 or velocity_cache_order != 1:
         raise NotImplementedError(
-            "the velocity cache is not ported yet (ROADMAP A5)")
+            "meshes and pipelining are not ported (ROADMAP A6)")
+    vci = velocity_cache_interval
+    vci = (tuple(int(a) for a in vci) if isinstance(vci, (list, tuple))
+           else vci if isinstance(vci, str) else int(vci))
+    timer = timer or StepTimer()
     dev, dt = bundle.device, bundle.compute_dtype
     b, h, w = images.shape[:3]
     lf = bundle.latent_factor
-    seq = (h // lf) * (w // lf)
+    grid_h, grid_w = h // lf, w // lf
+    seq = grid_h * grid_w
     hires = hires_threshold_px > 0 and h * w >= hires_threshold_px
     schedule = sched_mod.make_schedule(num_steps, image_seq_len=seq,
                                        strength=strength)
+    sigmas = torch.as_tensor(schedule.sigmas, dtype=torch.float32,
+                             device=dev)
     img = torch.as_tensor(from_uint8(np.asarray(images)), device=dev).to(dt)
     m = torch.as_tensor((np.asarray(masks, np.float32) / 255.0) > 0.5,
                         device=dev).to(dt)
     if noise is None:
         noise = _noise(bundle, seeds, seq, bundle.vae_cfg.latent_channels * 4)
+    noise = noise.to(device=dev, dtype=dt)
+    embeds = prompt_embeds.to(device=dev, dtype=dt)
+    pooled_c = pooled.to(device=dev, dtype=dt)
+    if isinstance(vci, str):
+        with timer.span("calibrate"):
+            vci = _resolve_fill_vcache(
+                bundle, vci, img[:1], m[:1], noise[:1], embeds[:1],
+                pooled_c[:1], sigmas, guidance, grid_h, grid_w, hires,
+                vae_tile, vae_overlap, h, w, num_steps, strength,
+                vcache_divergence_budget)
     out = _fill_float(
-        bundle, img, m, noise.to(device=dev, dtype=dt), prompt_embeds,
-        pooled, torch.as_tensor(schedule.sigmas, dtype=torch.float32,
-                                device=dev),
-        guidance, hires, vae_tile, vae_overlap, timer).float().cpu().numpy()
+        bundle, img, m, noise, embeds, pooled_c, sigmas, guidance, hires,
+        vae_tile, vae_overlap, timer, vcache_interval=vci,
+        vcache_order=velocity_cache_order).float().cpu().numpy()
     fill_batch.nonfinite_images += int((~np.isfinite(out)).any(
         axis=(1, 2, 3)).sum())
     return to_uint8(out)

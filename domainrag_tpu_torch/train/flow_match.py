@@ -27,6 +27,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from ..models.common import leaves
 from ..models.flux import model as flux_mod
 
 
@@ -41,15 +42,6 @@ class TrainConfig:
     guidance_value: float = 1.0     # distillation-style fixed guidance
     t_mean: float = 0.0             # logit-normal t distribution
     t_std: float = 1.0
-
-
-def leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a param tree, in the tree's order."""
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in leaves(v)]
-    return [tree]
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float

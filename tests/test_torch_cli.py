@@ -15,9 +15,8 @@ Limits, each with its reason:
   (``tests/test_torch_orchestrator.py`` compares them on bridged
   weights);
 - scale-out flags (ROADMAP A6) raise ``NotImplementedError`` before any
-  model is built; cache values (ROADMAP A5) reach the denoise, whose
-  ``NotImplementedError`` the stage records against the sample, as it
-  records any sample's failure.
+  model is built; the cache values reach ``generate`` and the sample is
+  processed.
 """
 
 import argparse
@@ -178,7 +177,7 @@ def test_no_weights_exits_as_jax(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# A5 / A6 and the device
+# the caches, A6 and the device
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("flags", [["--distributed"],
@@ -207,9 +206,24 @@ def test_device_defaults_to_the_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags", [["--velocity_cache_interval", "2"],
                                    ["--block_cache_interval", "3"],
                                    ["--velocity_cache_order", "0"]])
-def test_cache_values_reach_the_denoise(tmp_path, flags, capsys):
-    """The stage records the denoise's A5 ``NotImplementedError`` against
-    the sample (as it records any failure) and goes on."""
+def test_cache_values_reach_the_denoise(tmp_path, flags, capsys,
+                                        monkeypatch):
+    """The cache flags reach ``generate`` with the flag's value (a spy on
+    the stage's call), and the sample is processed."""
+    from domainrag_tpu_torch.models.flux import pipeline as tfp
+    from domainrag_tpu_torch.stages import generate as tgen
+    seen = []
+    real = tfp.generate
+
+    def spy(*a, **kw):
+        seen.append({k: kw[k] for k in ("block_cache_interval",
+                                        "velocity_cache_interval",
+                                        "velocity_cache_order")})
+        return real(*a, **kw)
+
+    # generate counts non-finite images on the module's ``generate``
+    spy.nonfinite_images = 0
+    monkeypatch.setattr(tgen.flux_pipeline, "generate", spy)
     shot = tmp_path / "o" / "lamainpaint" / DS / "1_shot"
     shot.mkdir(parents=True)
     Image.fromarray(np.zeros((24, 24, 3), np.uint8)).save(
@@ -220,14 +234,16 @@ def test_cache_values_reach_the_denoise(tmp_path, flags, capsys):
     assert cli.main(["generate", "--tiny-models", "--device", "cpu",
                      "--datasets", DS, "--shots", "1", "--output_dir",
                      str(tmp_path / "o"), "--corpus", f"coco={corpus}",
-                     "--size", "32", "--steps", "1"] + flags) == 0
+                     "--size", "32", "--steps", "2"] + flags) == 0
     summary = json.loads(capsys.readouterr().out)
-    assert summary == {f"{DS}/1": {"processed": 0, "failed": 1,
+    assert summary == {f"{DS}/1": {"processed": 1, "failed": 0,
                                    "skipped": 0, "fallback": 1}}
-    (failed,) = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path / "o")
-                 for f in fs if f == "generation_failed.txt"]
-    with open(failed) as f:
-        assert "ROADMAP A5" in f.read()
+    want = {"block_cache_interval": 1, "velocity_cache_interval": 1,
+            "velocity_cache_order": 1}
+    want[flags[0].lstrip("-")] = int(flags[1])
+    assert seen and all(call == want for call in seen)
+    assert not [f for _, _, fs in os.walk(tmp_path / "o") for f in fs
+                if f == "generation_failed.txt"]
 
 
 # ---------------------------------------------------------------------------

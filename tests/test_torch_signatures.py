@@ -3,8 +3,8 @@ parameters (``domainrag_tpu/models/flux/pipeline.py``): the same names in
 the same order with the same defaults, up to the JAX function's last
 parameter, so that a call written for the JAX package binds the same
 values in the port. The port's own ``noise`` and ``timer`` come after, and
-only by keyword. Values the port cannot honour yet raise
-``NotImplementedError``."""
+only by keyword. Values the port cannot honour yet (meshes and
+pipelining, ROADMAP A6) raise ``NotImplementedError``."""
 
 import inspect
 
@@ -91,19 +91,28 @@ def test_fill_batch_jax_order_positional_call(bundle):
                          ids=["microbatches", "velocity_cache_order"])
 @pytest.mark.parametrize("name", FUNCS)
 def test_unported_values_raise(bundle, name, kwargs):
+    """``microbatches`` (pipelining, ROADMAP A6) raises. Every
+    ``velocity_cache_order`` is ported now and is read as the JAX package
+    reads it: any order >= 1 extrapolates linearly, so order 2 under an
+    interval-2 cache gives order 1's image."""
     if name == "generate":
         b = bundle[0]
         e, p = _cond(b)
-        call = lambda: tfp.generate(b, e, p, height=SIZE, width=SIZE,  # noqa
-                                    num_steps=1, **kwargs)
+        call = lambda **kw: tfp.generate(b, e, p, height=SIZE,  # noqa
+                                         width=SIZE, num_steps=3, **kw)
     else:
         b = bundle[1]
         e, p = _cond(b)
         images, masks = _fill_images()
-        call = lambda: tfp.fill_batch(b, images, masks, e, p,  # noqa: E731
-                                      num_steps=1, **kwargs)
-    with pytest.raises(NotImplementedError):
-        call()
+        call = lambda **kw: tfp.fill_batch(  # noqa: E731
+            b, images, masks, e, p, num_steps=3, strength=1.0, **kw)
+    if "microbatches" in kwargs:
+        with pytest.raises(NotImplementedError, match="A6"):
+            call(**kwargs)
+        return
+    np.testing.assert_array_equal(
+        call(velocity_cache_interval=2, **kwargs),
+        call(velocity_cache_interval=2, velocity_cache_order=1))
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +213,76 @@ def test_stage_parameters_match_jax(name):
         [p.default for p in jax_params]
     assert all(p.kind is p.POSITIONAL_OR_KEYWORD
                for p in port[:len(jax_params)])
+    rest = port[len(jax_params):]
+    assert [p.name for p in rest] == extra
+    assert all(p.kind is p.KEYWORD_ONLY for p in rest)
+
+
+# ---------------------------------------------------------------------------
+# the denoise caches, their calibrations, eval/ and native/
+# ---------------------------------------------------------------------------
+
+def _cache_eval_funcs():
+    from domainrag_tpu.eval import fid as jfid
+    from domainrag_tpu.eval import flops as jflops
+    from domainrag_tpu.models.flux import model as jflux
+    from domainrag_tpu.native import build as jnative
+    from domainrag_tpu_torch.eval import fid as tfid
+    from domainrag_tpu_torch.eval import flops as tflops
+    from domainrag_tpu_torch.models.flux import model as tflux
+    from domainrag_tpu_torch.native import build as tnative
+    out = {
+        "init_block_cache": (jflux.init_block_cache, tflux.init_block_cache,
+                             ["device"]),
+        "apply_with_cache": (jflux.apply_with_cache, tflux.apply_with_cache,
+                             []),
+        "calibrate_block_cache_interval": (
+            jfp.calibrate_block_cache_interval,
+            tfp.calibrate_block_cache_interval, ["probe_noise"]),
+        "calibrate_vcache_schedule": (jfp.calibrate_vcache_schedule,
+                                      tfp.calibrate_vcache_schedule,
+                                      ["probe_noise"]),
+        "calibrate_fill_vcache": (jfp.calibrate_fill_vcache,
+                                  tfp.calibrate_fill_vcache, []),
+    }
+    for name in ("plan_vcache_anchors", "select_vcache_anchors"):
+        out[name] = (getattr(jfp, name), getattr(tfp, name), [])
+    for mod, jm, tm in (("flops", jflops, tflops), ("fid", jfid, tfid),
+                        ("native", jnative, tnative)):
+        names = {"flops": ("flux_forward_flops", "mfu"),
+                 "fid": ("compute_stats", "frechet_distance",
+                         "fid_from_features", "fid_from_paths"),
+                 "native": ("load_native", "native_available",
+                            "topk_ip_native", "resize_native",
+                            "resize_batch_native")}[mod]
+        for name in names:
+            out[f"{mod}.{name}"] = (getattr(jm, name), getattr(tm, name), [])
+    return out
+
+
+CACHE_EVAL_FUNCS = sorted(_cache_eval_funcs())
+
+
+@pytest.mark.parametrize("name", CACHE_EVAL_FUNCS)
+def test_cache_and_eval_parameters_match_jax(name):
+    """The new public functions take the JAX names in the JAX order, of
+    the same kinds, with the JAX defaults (a dtype is each framework's
+    bfloat16; ``mfu``'s default peak is the card's, not a TPU's), then
+    only the port's own keyword-only parameters."""
+    import jax.numpy as jnp
+    jax_fn, port_fn, extra = _cache_eval_funcs()[name]
+    jax_params = _params(jax_fn)
+    port = _params(port_fn)
+    head = port[:len(jax_params)]
+    assert [(p.name, p.kind) for p in head] == \
+        [(p.name, p.kind) for p in jax_params]
+    as_jax = {torch.bfloat16: jnp.bfloat16}
+    defaults = [as_jax.get(p.default, p.default) for p in head]
+    want = [p.default for p in jax_params]
+    if name == "flops.mfu":
+        assert defaults[-1] == 989.0
+        defaults, want = defaults[:-1], want[:-1]
+    assert defaults == want
     rest = port[len(jax_params):]
     assert [p.name for p in rest] == extra
     assert all(p.kind is p.KEYWORD_ONLY for p in rest)
