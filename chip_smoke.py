@@ -125,7 +125,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
     done, each sample's artifact set), the one-pass launch counts, and
     the first sample's rank PNGs byte-equal to a direct
     ``generate_sample`` on the same refs; seconds per sample with the
-    writer thread beside the direct call's prior + denoise + save;
+    writer thread beside the direct call's prior + denoise + save; then,
+    in a one-rank NCCL group (NCCL refuses two ranks on one card), the
+    same sweep over ``create_mesh()`` (``generate_samples_dp``) and
+    without a mesh, the ranks batched alike: the same files, the rank
+    PNGs byte-equal;
+    the scale-out phase: the per-rank bodies of a 4-card mesh at full
+    width, in turn on the one card (TP and the bank shards in threads
+    whose collectives meet at a barrier, ``_ThreadMesh``): the SP ring of
+    the 2800 px fill (31866 tokens as 4 blocks of 7967, the last
+    ``kv_valid`` 7965) folded through ``ring_attention.ring_step``
+    against the dense plain version, B5 16 launches and B3 none, then
+    ``ring_attention`` over the group's mesh; sharded B8 (4 shards of
+    44572 rows of the 200 x 178287 x 512 bank, k 100) through
+    ``sharded_topk``, torch.equal to ``topk_ip`` on the whole bank, B8 4
+    launches; one double and one single block at 5337 tokens
+    tensor-parallel at n = 2 and 4, bf16 and W8A8, against the unsharded
+    blocks (``TP_BAR``); the MMDiT's blocks as 4 pipeline chunks (5
+    doubles with 1 zero block, 10 singles with 2) in ring order and
+    ``pipelined_apply`` over the one-rank pipe mesh, torch.equal to
+    ``apply``; each per-rank time beside the card's name and limit;
 15. one full-width denoise step (batch 1, 1024 px) under
     ``torch.profiler``, its device time grouped into the attention
     kernels, the GEMMs and the rest (full table in ``profile.txt`` under
@@ -1181,6 +1200,7 @@ def phase_generate_batch(bundle, sample):
           f"PNGs byte-equal to the direct call's ({CARD})")
     shutil.rmtree(out)
     shutil.rmtree(OUT / "stage3_direct")
+    _stage3_mesh(bundle, cfg, rr, lama_dir)
     shutil.rmtree(STAGE_ROOT)        # stages 1 and 2's trees: checked
 
 
@@ -3787,6 +3807,531 @@ def phase_topk_kernel(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# scale-out (parallel/, ops/ring_attention.py): one NCCL rank on the card,
+# and the per-rank bodies at the per-rank shapes of a 4-card mesh
+# ---------------------------------------------------------------------------
+
+SP_TOKENS = 31866         # the 2800 px fill's joint sequence
+MESH_RANKS = 4            # the per-rank shapes of a 4-card mesh
+# TP against the unsharded block: in bf16 each rank's row-sharded partial
+# is rounded to bf16 before the sum (as an all-reduce of bf16 tensors
+# sums): n roundings of up to 2^-8 of a partial (partials up to ~4 in
+# magnitude: up to ~6e-2 at n = 4 on an element near 0), one or two bf16
+# ulps (2^-7 relative) elsewhere, and the whole within 1e-2 in relative
+# norm, which a rank that drops a head or adds the bias twice misses by
+# far (measured at the tiny width on the CPU: 2.1e-3 to 4.0e-3).
+TP_BAR = (6.4e-2, 3.2e-2, 1e-2)
+
+
+def _init_group():
+    """A one-process NCCL group (``tcp://localhost``, a free port): one
+    rank per card, since NCCL refuses several ranks on one card. The group
+    answers all_reduce, all_gather, broadcast and barrier on card tensors;
+    a failed start raises."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mesh_mod.initialize_distributed(f"tcp://localhost:{port}", 1, 0,
+                                    device="cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"the card's group is {dist.get_backend()}")
+    x = torch.arange(4.0, device="cuda")
+    dist.all_reduce(x)
+    parts = [torch.empty_like(x)]
+    dist.all_gather(parts, x)
+    dist.broadcast(x, 0)
+    dist.barrier()
+    if not torch.equal(parts[0], torch.arange(4.0, device="cuda")):
+        raise AssertionError("the NCCL group's all_gather disagrees")
+    print(f"scale-out: NCCL group of world size 1 at localhost:{port} "
+          "(all_reduce, all_gather, broadcast, barrier on card tensors)")
+
+
+class _ThreadMesh:
+    """One axis of ``n`` ranks as ``n`` threads on the one card, with the
+    collectives of ``parallel.mesh.Mesh`` that the per-rank bodies call:
+    every rank deposits its tensor at a barrier and the sum (in rank
+    order, in the tensor's dtype, as a ring all-reduce sums), max or
+    concatenation is computed from all of them. One thread runs at a time
+    (a lock handed over at each collective), so the kernels' launch
+    counts add as in ``n`` processes."""
+
+    def __init__(self, axis, n):
+        import threading
+        self.shape = {axis: n}
+        self._n = n
+        self._barrier = threading.Barrier(n, timeout=600)
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._slots = [None] * n
+
+    def index(self, axis):
+        return self._local.rank
+
+    def _exchange(self, x):
+        self._slots[self._local.rank] = x
+        self._lock.release()
+        self._barrier.wait()
+        self._lock.acquire()
+        parts = list(self._slots)
+        self._lock.release()
+        self._barrier.wait()      # nobody deposits again before all read
+        self._lock.acquire()
+        return parts
+
+    def all_reduce(self, x, axis, op="sum"):
+        import torch
+        parts = self._exchange(x)
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part if op == "sum" else torch.maximum(out, part)
+        return out
+
+    def all_gather(self, x, axis, dim=0):
+        import torch
+        return torch.cat(self._exchange(x), dim=dim)
+
+    def run(self, fn):
+        """fn(rank) on every rank; their results in rank order."""
+        import threading
+        import torch
+        results, errors = [None] * self._n, []
+        device = torch.cuda.current_device()
+
+        def body(rank):
+            with self._lock:
+                self._local.rank = rank
+                try:
+                    # the card's context current on this thread before a
+                    # kernel library's own runtime launches from it
+                    torch.cuda.set_device(device)
+                    torch.cuda.synchronize(device)
+                    with torch.inference_mode():
+                        results[rank] = fn(rank)
+                except BaseException as e:     # noqa: BLE001
+                    errors.append(e)
+                    self._barrier.abort()
+        threads = [threading.Thread(target=body, args=(r,))
+                   for r in range(self._n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return results
+
+
+class _RankAlone:
+    """What one rank of an ``axis`` of ``n`` ranks sees of the mesh, with
+    collectives that return their input: times rank ``rank``'s own body
+    (its kernels and the torch ops around them) with no other rank, no
+    thread hand-over and no transfer in it."""
+
+    def __init__(self, axis, n, rank):
+        self.shape = {axis: n}
+        self._rank = rank
+
+    def index(self, axis):
+        return self._rank
+
+    def all_reduce(self, x, axis, op="sum"):
+        return x
+
+    def all_gather(self, x, axis, dim=0):
+        return x
+
+
+def _stage3_mesh(bundle, cfg, rr, lama_dir):
+    """Stage 3's ``process_dataset`` over a one-rank mesh of the NCCL group
+    (``generate_samples_dp``: a sample's ranks in one denoise) and without
+    one, the ranks batched as the mesh batches them: the same file names
+    and byte-equal rank PNGs."""
+    import torch
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod
+    from domainrag_tpu_torch.stages import generate as gen
+
+    stage = gen.GenerateStage(bundle, dataclasses.replace(
+        cfg, max_rank_batch=None))
+    runs = {}
+    for tag, kw in (("one", {}), ("mesh", {"mesh": mesh_mod.create_mesh()})):
+        out = OUT / f"stage3_{tag}"
+        shutil.rmtree(out, ignore_errors=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counters = gen.process_dataset(stage, "DIOR", SHOTS, rr, lama_dir,
+                                       str(out), run_name="run", worker_id=0,
+                                       num_workers=BATCH_WORKERS, **kw)
+        torch.cuda.synchronize()
+        if counters != {"processed": 2, "failed": 0, "skipped": 0,
+                        "fallback": 0}:
+            raise AssertionError(f"stage 3 {tag} counters {counters}")
+        base = out / "result" / f"DIOR_{SHOTS}shot_retrieval" / "run"
+        runs[tag] = (base, time.perf_counter() - t0, sorted(
+            p.relative_to(base) for p in base.rglob("*") if p.is_file()))
+    (one, one_s, one_files), (mesh, mesh_s, mesh_files) = (runs["one"],
+                                                           runs["mesh"])
+    if mesh_files != one_files:
+        raise AssertionError(f"stage 3 over a mesh wrote {mesh_files}, "
+                             f"without one {one_files}")
+    pngs = [p for p in one_files if p.name.startswith("generated_image")]
+    for rel in pngs:
+        if (one / rel).read_bytes() != (mesh / rel).read_bytes():
+            raise AssertionError(f"stage 3 over a mesh: {rel} differs")
+    print(f"scale-out stage 3: process_dataset(mesh=create_mesh()) on the "
+          f"NCCL group, 2 samples x {RANKS} ranks x {STEPS} steps at {SIZE} "
+          f"px: {len(mesh_files)} files as without a mesh, {len(pngs)} rank "
+          f"PNGs byte-equal; {mesh_s:.3f} s against {one_s:.3f} s ({CARD})")
+    shutil.rmtree(OUT / "stage3_one")
+    shutil.rmtree(OUT / "stage3_mesh")
+
+
+def _scale_out_ring(dev, rows):
+    """The SP ring of the 2800 px fill on a 4-card mesh, every rank's body
+    in turn: the joint sequence padded to 4 blocks, each rank's query
+    block folded with the 4 K/V blocks in ring order through
+    ``ring_attention.ring_step`` (B5 with the block's ``kv_valid``, then
+    ``_merge_partials``), held against the plain dense attention; B5
+    launches 16 times and B3 never. Then ``ring_attention`` itself over
+    the group's one-rank mesh (one block: one B5 launch)."""
+    import torch
+    import torch.nn.functional as F
+    from domainrag_tpu_torch.ops import attention as attn
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+    from domainrag_tpu_torch.ops import ring_attention as ring
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(41)
+    n = MESH_RANKS
+    s_pad = -(-SP_TOKENS // n) * n
+    block = s_pad // n
+    q, k, v = (torch.randn((1, HEADS, SP_TOKENS, HD), generator=g,
+                           device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    qb, kb, vb = ([y[:, :, i * block:(i + 1) * block].contiguous()
+                   for i in range(n)]
+                  for y in (F.pad(x, (0, 0, 0, s_pad - SP_TOKENS))
+                            for x in (q, k, v)))
+    kv_valid = [min(max(SP_TOKENS - i * block, 0), block) for i in range(n)]
+    _reset_counts(mma)
+    outs = []
+    for rank in range(n):
+        out = torch.zeros(qb[rank].shape, dtype=torch.float32, device=dev)
+        lse = torch.full(qb[rank].shape[:-1] + (1,), ring.NEG_INF,
+                         dtype=torch.float32, device=dev)
+        for step in range(n):
+            owner = (rank + step) % n
+            out, lse = ring.ring_step(qb[rank], kb[owner], vb[owner], out,
+                                      lse, kv_valid[owner])
+        outs.append(out.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    launches = attn.flash_attention.launches
+    mp = (mma.mmdit_double_attention.mp_launches
+          + mma.mmdit_single_attention.mp_launches)
+    if launches != n * n or mp:
+        raise AssertionError(f"the ring launched B5 {launches} times "
+                             f"(want {n * n}) and B3 {mp} times (want 0)")
+    got = torch.cat(outs, dim=2)[:, :, :SP_TOKENS]
+    want, _ = attn.flash_forward_reference(q, k, v)
+    _check(f"ring of {n} B5 blocks, {SP_TOKENS} tokens", got, want)
+    del got, want, outs
+
+    last = n - 1
+    blk = (qb[0], kb[last], vb[last])
+    o, lse = attn.flash_attention_lse(*blk, kv_valid=kv_valid[last])
+    ro, rlse = attn.flash_forward_reference(*blk, False, kv_valid[last])
+    torch.cuda.synchronize()
+    name = f"flash_fwd_bf16_ring_block_s{block}_kv{kv_valid[last]}"
+    max_abs = _check(name, o, ro)
+    if (lse[..., 0] - rlse).abs().max().item() > LSE_ATOL:
+        raise AssertionError(f"{name}: lse disagrees")
+    kvv = kv_valid[last]
+    rows[name] = _flash_row(
+        name, "ops/attention.py:110", max_abs,
+        _ms(lambda: attn.flash_attention_lse(*blk, kv_valid=kvv), 20),
+        _ms(lambda: attn.flash_forward_reference(*blk, False, kvv), 2, 1),
+        _ms(lambda: F.scaled_dot_product_attention(
+            blk[0], blk[1][:, :, :kvv], blk[2][:, :, :kvv]), 20),
+        _flash_bound(4, (1, HEADS, block, kvv, HD), False))
+    rows[name]["launches"] = launches
+    zero = torch.zeros(qb[0].shape, dtype=torch.float32, device=dev)
+    step_ms = _ms(lambda: ring.ring_step(*blk, zero, zero[..., :1],
+                                         kvv), 20)
+    print(f"scale-out SP ring: B5 launches {launches}, B3 {mp}; per rank "
+          f"{n} B5 blocks of {block} q x {block} "
+          f"keys (the last kv_valid {kvv}), {rows[name]['ms']:.3f} ms per "
+          f"block, {step_ms:.3f} ms per ring step with the merge, ~"
+          f"{n * step_ms:.3f} ms per rank and layer (every rank holds "
+          f"K/V whole: the blocks are local slices, no transfer) ({CARD})")
+    del qb, kb, vb, blk, o, ro
+
+    short = (1, HEADS, S_TXT + (SIZE // 16) ** 2, HD)
+    q, k, v = (torch.randn(short, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = attn.flash_attention.launches
+    got = ring.ring_attention_padded(q, k, v, mesh_mod.create_mesh())
+    if attn.flash_attention.launches - before != 1:
+        raise AssertionError("ring_attention over one rank is one B5 call")
+    _check(f"ring_attention on the group's mesh, {short[2]} tokens", got,
+           attn.flash_forward_reference(q, k, v)[0])
+    del q, k, v, got
+    torch.cuda.empty_cache()
+
+
+def _scale_out_topk(dev, rows):
+    """Stage 2's bank over 4 ranks: each rank's shard (44,572 rows, the
+    last with 1 pad row) searched by B8 in ``sharded_topk``, the
+    candidates gathered and merged: the indices and scores
+    ``torch.equal`` to ``topk_ip`` on the whole bank (integer rows with
+    ties); B8 launches 4 times."""
+    import torch
+    from domainrag_tpu_torch.ops import topk as tk
+    from domainrag_tpu_torch.parallel import collectives
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(43)
+    q, bank = _int_bank(g, dev, TOPK_Q, TOPK_N, TOPK_D)
+    tm = _ThreadMesh("data", MESH_RANKS)
+    padded, n_valid = collectives.pad_bank_for_mesh(bank.cpu().numpy(), tm)
+    shards = {}
+
+    def rank(r):
+        shards[r] = collectives.shard_bank(padded, tm, device=dev)
+        return collectives.sharded_topk(q, shards[r], TOPK_K, tm, n_valid,
+                                        use_pallas=True)
+
+    tk.topk_ip_fused.launches = 0
+    got = tm.run(rank)
+    launches = tk.topk_ip_fused.launches
+    want = tk.topk_ip(q, bank, TOPK_K)
+    torch.cuda.synchronize()
+    if launches != MESH_RANKS or not all(
+            torch.equal(s, want[0]) and torch.equal(i, want[1])
+            for s, i in got):
+        raise AssertionError(f"sharded B8: {launches} launches, indices "
+                             "or scores not those of topk_ip")
+    shard = shards[0]
+    n_rows = shard.shape[0]
+    name = f"topk_ip_fused_shard_{n_rows}"
+    rows[name] = {
+        "name": name, "route": "cuda",
+        "source": "domainrag_tpu_torch/csrc/topk.cu",
+        "replaces": "domainrag_tpu/ops/topk.py:183", "launches": launches,
+        "max_abs_err": (tk.topk_ip_fused(q, shard, TOPK_K)[0]
+                        - tk.reference_topk_ip_fused(q, shard, TOPK_K)[0]
+                        ).abs().max().item(),
+        "ms": _ms(lambda: tk.topk_ip_fused(q, shard, TOPK_K), 20),
+        "plain_ms": _ms(lambda: tk.reference_topk_ip_fused(q, shard,
+                                                           TOPK_K), 5),
+        "library_ms": _ms(lambda: torch.topk(torch.matmul(q, shard.T),
+                                             TOPK_K, dim=1), 20),
+        **_topk_bound(TOPK_Q, n_rows, TOPK_D, TOPK_K)}
+    merge_ms = _ms(lambda: tm.run(lambda r: collectives.sharded_topk(
+        q, shards[r], TOPK_K, tm, n_valid, use_pallas=True)), 5)
+    print(f"scale-out sharded B8: {TOPK_Q} x {TOPK_N} x {TOPK_D} at k "
+          f"{TOPK_K} over {MESH_RANKS} shards of {n_rows} rows "
+          f"({padded.shape[0] - TOPK_N} pad row): B8 launches {launches}, "
+          f"{rows[name]['ms']:.4f} ms per shard (bound "
+          f"{rows[name]['bound_ms']:.4f}), the 4 ranks' searches and merges "
+          f"in turn {merge_ms:.4f} ms; indices and scores torch.equal to "
+          f"topk_ip on the whole bank ({CARD})")
+    del q, bank, shards, got, want
+    torch.cuda.empty_cache()
+
+
+def _scale_out_tp(dev):
+    """One full-width double block and one single block at 5337 tokens,
+    tensor-parallel at n = 2 and 4: every rank's share of the weights
+    (``sharding.shard_params``) run in its thread under ``tp_attention``,
+    the row-sharded partials summed as the all-reduce sums them; held
+    against the unsharded blocks on the same (unfused, B5) attention
+    route, in bf16 and under W8A8 (the row's amax all-reduced, f32
+    partials). Each rank's body is then timed alone (``_RankAlone``:
+    the all-reduces it would wait for are not in the time)."""
+    import torch
+    from domainrag_tpu_torch.core import device as device_mod
+    from domainrag_tpu_torch.models import common, quant
+    from domainrag_tpu_torch.models.common import Init
+    from domainrag_tpu_torch.models.flux import model as fm
+    from domainrag_tpu_torch.ops import attention as attn
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod
+    from domainrag_tpu_torch.parallel import sharding
+
+    cfg = fm.FLUX_DEV
+    ini = Init(device_mod.generator(47, dev), dev, torch.bfloat16)
+    full = {"double": [fm._double_block_init(ini, cfg)],
+            "single": [fm._single_block_init(ini, cfg)]}
+    g = torch.Generator(device=dev)
+    g.manual_seed(47)
+    s_img = (SIZE // 16) ** 2
+    img, txt = (torch.randn((1, s, cfg.hidden), generator=g, device=dev,
+                            dtype=torch.bfloat16) for s in (s_img, S_TXT))
+    vec = torch.randn((1, cfg.hidden), generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    cos, sin = _rope_tables(dev)
+    x = torch.cat([txt, img], dim=1)
+
+    def blocks(p):
+        d = fm._double_block(p["double"][0], img, txt, vec, cos, sin, cfg)
+        return torch.cat(d[::-1], dim=1), fm._single_block(
+            p["single"][0], x, vec, cos, sin, cfg)
+
+    one = mesh_mod.create_mesh()
+    for mode in ("bf16", "w8a8"):
+        params = full if mode == "bf16" else quant.quantize_tree(full)
+        common.set_int8_activations(mode == "w8a8")
+        try:
+            with torch.inference_mode(), attn.tp_attention(one):
+                ref = blocks(params)
+                ref_ms = [_ms(lambda: fm._double_block(
+                    params["double"][0], img, txt, vec, cos, sin, cfg), 5),
+                    _ms(lambda: fm._single_block(params["single"][0], x, vec,
+                                                 cos, sin, cfg), 5)]
+            for n in (2, MESH_RANKS):
+                tm = _ThreadMesh("model", n)
+                local = tm.run(lambda r: sharding.shard_params(params, tm))
+
+                def rank(r, which=None, mesh=tm):
+                    with attn.tp_attention(mesh, "model"):
+                        if which == "double":
+                            return fm._double_block(
+                                local[r]["double"][0], img, txt, vec, cos,
+                                sin, cfg)
+                        if which == "single":
+                            return fm._single_block(
+                                local[r]["single"][0], x, vec, cos, sin, cfg)
+                        return blocks(local[r])
+
+                got = tm.run(rank)
+                torch.cuda.synchronize()
+                for r in range(1, n):
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(got[r], got[0])):
+                        raise AssertionError(f"TP n={n}: rank {r}'s output "
+                                             "differs from rank 0's")
+                for what, a, b in zip(("double", "single"), got[0], ref):
+                    _check(f"TP n={n} {mode} {what} block, {x.shape[1]} "
+                           "tokens, against the unsharded block", a, b,
+                           TP_BAR)
+                with torch.inference_mode():
+                    ms = {w: [_ms(lambda: rank(r, w, _RankAlone("model", n,
+                                                                r)), 5)
+                              for r in range(n)]
+                          for w in ("double", "single")}
+                h = cfg.heads // n
+                print(f"scale-out TP n={n} {mode}: one rank alone ({h} "
+                      f"heads, MLP hidden {cfg.mlp_hidden // n}; the "
+                      f"all-reduces not in it), slowest of the {n} ranks: "
+                      f"double block {max(ms['double']):.3f} ms, single "
+                      f"block {max(ms['single']):.3f} ms (all ranks: "
+                      + ", ".join(f"{a:.3f}/{b:.3f}" for a, b in
+                                  zip(ms["double"], ms["single"]))
+                      + f"); unsharded (unfused, B5) {ref_ms[0]:.3f} / "
+                      f"{ref_ms[1]:.3f} ms ({CARD})")
+                del local, got
+        finally:
+            common.set_int8_activations(False)
+        del params, ref
+        torch.cuda.empty_cache()
+
+
+def _scale_out_pp(bundle, dev):
+    """The full-width MMDiT's blocks as 4 pipeline stages (19 doubles + 1
+    zero block = 4 x 5, 38 singles + 2 zero blocks = 4 x 10): the chunks
+    run in ring order at 5337 tokens between the embedders and the final
+    layer, ``torch.equal`` to ``apply``; then ``pipelined_apply`` over the
+    group's one-rank pipe mesh (S = 1), also equal."""
+    import torch
+    from domainrag_tpu_torch.models.flux import model as fm
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod
+    from domainrag_tpu_torch.parallel import pipeline_parallel as pp
+
+    cfg = bundle.flux_cfg
+    params = bundle.flux_params
+    g = torch.Generator(device=dev)
+    g.manual_seed(53)
+    grid = SIZE // 16
+    img = torch.randn((1, grid * grid, cfg.in_channels), generator=g,
+                      device=dev, dtype=torch.bfloat16)
+    txt = torch.randn((1, S_TXT, cfg.text_dim), generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    pooled = torch.randn((1, cfg.pooled_dim), generator=g, device=dev,
+                         dtype=torch.bfloat16)
+    t = torch.full((1,), 0.5, device=dev)
+    guid = torch.full((1,), 3.5, device=dev)
+    iid = torch.as_tensor(fm.make_image_ids(grid, grid), device=dev)
+    tid = torch.as_tensor(fm.make_text_ids(S_TXT), device=dev)
+    args = (img, txt, pooled, t, iid, tid)
+    with torch.inference_mode():
+        ref = fm.apply(params, *args, cfg, guidance=guid)
+        st = pp.prepare_stages(params, MESH_RANKS)
+        d, gs = st.per_stage_double, st.per_stage_single
+        want = (-(-cfg.depth_double // MESH_RANKS),
+                -(-cfg.depth_single // MESH_RANKS))
+        if (d, gs) != want or len(st.doubles) != MESH_RANKS * d:
+            raise AssertionError(f"{MESH_RANKS} stages of {d} doubles, {gs} "
+                                 f"singles (want {want})")
+        img_e, txt_e, vec, cos, sin = fm._embed(params, *args, cfg, guid)
+        chunks_d = [st.doubles[s * d:(s + 1) * d] for s in range(MESH_RANKS)]
+        chunks_s = [st.singles[s * gs:(s + 1) * gs]
+                    for s in range(MESH_RANKS)]
+        h = torch.cat([txt_e, img_e], dim=1)
+        for chunk in chunks_d:
+            h = pp.run_doubles(chunk, h, vec, cos, sin, S_TXT, cfg)
+        for chunk in chunks_s:
+            h = pp.run_singles(chunk, h, vec, cos, sin, cfg)
+        out = fm._final(params, h[:, S_TXT:], vec)
+        pipe = mesh_mod.Mesh(np.arange(1), ("pipe",))
+        one = pp.pipelined_apply(params, pp.prepare_stages(params, 1, pipe),
+                                 *args, cfg, pipe, guidance=guid)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and torch.equal(one, ref)):
+            raise AssertionError("the pipeline's chunks (or pipelined_apply "
+                                 "on one rank) differ from apply")
+        h0 = torch.cat([txt_e, img_e], dim=1)
+        ms_d = _ms(lambda: pp.run_doubles(chunks_d[0], h0, vec, cos, sin,
+                                          S_TXT, cfg), 5)
+        ms_s = _ms(lambda: pp.run_singles(chunks_s[0], h0, vec, cos, sin,
+                                          cfg), 5)
+        ms_zero = [_ms(lambda: pp.run_doubles(chunks_d[-1][-1:], h0, vec,
+                                              cos, sin, S_TXT, cfg), 5),
+                   _ms(lambda: pp.run_singles(chunks_s[-1][-1:], h0, vec,
+                                              cos, sin, cfg), 5)]
+    print(f"scale-out PP S={MESH_RANKS}: chunks of {d} doubles (the last "
+          f"with {MESH_RANKS * d - cfg.depth_double} zero block) and {gs} "
+          f"singles (the last with {MESH_RANKS * gs - cfg.depth_single}), "
+          f"{S_TXT} "
+          f"+ {grid * grid} tokens: torch.equal to apply, and "
+          f"pipelined_apply over one rank too; a double chunk "
+          f"{ms_d:.3f} ms, a single chunk {ms_s:.3f} ms per stage and "
+          f"forward; a zero block costs {ms_zero[0]:.3f} / {ms_zero[1]:.3f} "
+          f"ms ({CARD})")
+    del ref, out, one, st, chunks_d, chunks_s
+    torch.cuda.empty_cache()
+
+
+def phase_scale_out(bundle, dev, rows):
+    """The scale-out phase on the one card: ``create_mesh`` over the NCCL
+    group, then the per-rank bodies of a 4-card mesh at their full-width
+    shapes (the SP ring, sharded B8, TP halves, PP chunks)."""
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod
+    t0 = time.perf_counter()
+    mesh = mesh_mod.create_mesh()
+    if mesh.shape != {"data": 1, "model": 1}:
+        raise AssertionError(f"the group's mesh is {mesh.shape}")
+    _scale_out_ring(dev, rows)
+    _scale_out_topk(dev, rows)
+    _scale_out_tp(dev)
+    _scale_out_pp(bundle, dev)
+    print(f"scale-out phase: {time.perf_counter() - t0:.1f} s ({CARD})")
+
+
 STAGE_ROOT = OUT / "stages"   # stages 1 -> 2 -> 3 share this tree
 LAMA_SIZE = 256           # the card-vs-CPU check of lama.apply
 # lama.apply card vs CPU in f32 (TF32 off; cuFFT against pocketfft, cuDNN
@@ -4320,7 +4865,9 @@ def main() -> int:
     phase_small_caches(dev)
     phase_small_int8(dev)
     bundle, sample, backgrounds, bf16_step = phase_slice(dev, rows)
+    _init_group()
     phase_generate_batch(bundle, sample)
+    phase_scale_out(bundle, dev, rows)
     phase_profile(bundle, SIZE, "profile.txt")
     cached = phase_slice_caches(bundle, sample, backgrounds, bf16_step)
     phase_fid(backgrounds, cached, dev)
@@ -4344,6 +4891,8 @@ def main() -> int:
     cfg, params, batches = phase_train(dev, rows)
     phase_profile_train(dev, cfg, params, batches)
     phase_train_f32(dev, cfg, params, batches, rows)
+    import torch.distributed as dist
+    dist.destroy_process_group()
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())},

@@ -13,9 +13,12 @@ Subcommands mirror the reference scripts' flags where sensible:
 ``--checkpoints DIR`` loads real weights from safetensors
 (models/convert.py). Models run on ``--device`` (``cuda`` by default,
 which raises without a card; ``cpu`` runs the plain versions). One
-process serves one card; several cards run as independent workers
-(``--worker_id`` / ``--num_workers``). Coordinated multi-process runs and
-tensor / pipeline parallelism are ROADMAP A6 and raise.
+process serves one card. Several cards run as one mesh when launched
+together (``torchrun --nproc_per_node G -m domainrag_tpu_torch.cli.main
+...``, ``--model_parallel`` / ``--pipeline_parallel`` shaping it: NCCL
+on cards, gloo with ``--device cpu``; rank 0 writes), or as workers over
+disjoint sample slices (``--worker_id`` / ``--num_workers``, or
+``--distributed`` under one group).
 """
 
 from __future__ import annotations
@@ -160,19 +163,8 @@ def _pretrained_specs(args):
     return specs
 
 
-def _no_scale_out(cfg: PipelineConfig) -> None:
-    for flag, degree in (("--model_parallel", cfg.mesh.model_parallel_size),
-                         ("--pipeline_parallel",
-                          cfg.mesh.pipeline_parallel_size)):
-        if degree > 1:
-            raise NotImplementedError(
-                f"{flag} {degree}: tensor and pipeline parallelism are not "
-                f"ported yet (ROADMAP A6, scale-out)")
-
-
 def _build_runner(args):
     cfg = _build_cfg(args)
-    _no_scale_out(cfg)
     corpus = _corpus_sources(args.corpus)
     want_int8 = args.int8 or getattr(args, "w8a8", False)
     if getattr(args, "w8a8", False):
@@ -267,21 +259,26 @@ def _add_common(p: argparse.ArgumentParser):
                         "background fills (compose) in chunks of N "
                         "(default: no chunking)")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="TP degree for the Flux MMDiT (not ported yet, "
-                        "ROADMAP A6: above 1 raises)")
+                   help="model axis of the processes' (data, model) mesh "
+                        "(torchrun, one process per card): the data axis "
+                        "gets the rest")
     p.add_argument("--pipeline_parallel", type=int, default=1,
-                   help="PP stages for generate serving (not ported yet, "
-                        "ROADMAP A6: above 1 raises)")
+                   help="PP stages for generate and compose serving "
+                        "(parallel/pipeline_parallel.py), one process "
+                        "per stage; >1 replaces data parallelism")
     p.add_argument("--worker_id", type=int, default=0,
                    help="independent workers: this worker's index")
     p.add_argument("--num_workers", type=int, default=1,
                    help="independent workers: total workers (one process "
                         "per card; worker 0 merges the partials)")
     p.add_argument("--distributed", action="store_true",
-                   help="coordinate workers through a process group (not "
-                        "ported yet, ROADMAP A6: raises)")
+                   help="coordinate workers through a torch.distributed "
+                        "group: each process is one worker over a disjoint "
+                        "sample slice, stage barriers and worker-0 merges "
+                        "run automatically")
     p.add_argument("--coordinator", default=None,
-                   help="--distributed: host:port of process 0")
+                   help="--distributed: host:port of process 0 (omit to "
+                        "read torchrun's environment)")
     p.add_argument("--num_processes", type=int, default=None,
                    help="--distributed: total process count")
     p.add_argument("--process_index", type=int, default=None,
@@ -337,11 +334,18 @@ def main(argv=None) -> int:
                            default="inpaint,retrieve,generate,compose")
     args = parser.parse_args(argv)
 
+    from ..parallel import multihost
+    from ..parallel.mesh import initialize_distributed
+    # torchrun's environment (or --coordinator) starts the group; without
+    # either this process runs alone on one card
+    initialize_distributed(args.coordinator if args.distributed else None,
+                           args.num_processes, args.process_index,
+                           device=args.device)
     if args.distributed:
-        raise NotImplementedError(
-            "--distributed: coordinated multi-process runs are not ported "
-            "yet (ROADMAP A6, scale-out); run one process per card with "
-            "--worker_id/--num_workers")
+        args.worker_id = multihost.process_index()
+        args.num_workers = multihost.process_count()
+        logger.info("distributed: worker %d/%d", args.worker_id,
+                    args.num_workers)
 
     if args.auto_shots and len(args.datasets) == 1:
         args.shots = list(get_shots_for_dataset(args.datasets[0]))

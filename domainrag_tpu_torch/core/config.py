@@ -2,8 +2,8 @@
 
 The cache fields reach the port's ``generate`` and ``fill_batch``,
 which take every form the JAX package takes (an int, an anchor tuple,
-``"auto"``, ``"sched:K"``). :class:`MeshConfig` is carried for the CLI,
-but a parallel degree above 1 raises at the orchestrator (ROADMAP A6).
+``"auto"``, ``"sched:K"``). :class:`MeshConfig` shapes the orchestrator's
+meshes over the processes launched together (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -221,8 +221,8 @@ class ComposeConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device mesh layout. data = sample-parallel, model = tensor-parallel,
-    pipe = depth-sharded pipeline serving; the port serves one card, so
-    both degrees must stay 1 until ROADMAP A6."""
+    pipe = depth-sharded pipeline serving; one process per card, so the
+    degrees are over the processes launched together."""
 
     data_axis: str = "data"
     model_axis: str = "model"

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -184,6 +184,37 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x, p["w_q"].to(x.dtype).t()) * p["w_s"].to(x.dtype)
     else:
         y = torch.matmul(x, p["w"].to(x.dtype))
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def linear_widths(p: Params) -> Tuple[int, int]:
+    """(in, out) features of a linear's params, dense or K-major int8."""
+    if "w_q" in p:
+        return p["w_q"].shape[1], p["w_q"].shape[0]
+    return p["w"].shape[0], p["w"].shape[1]
+
+
+def linear_row_sharded(p: Params, x: torch.Tensor, mesh,
+                       axis: str) -> torch.Tensor:
+    """:func:`linear` of a row-sharded layer under tensor parallelism:
+    ``x`` holds this rank's share of the contraction dim and ``p`` the
+    matching rows of ``w`` (columns of the K-major ``w_q``) and the whole
+    bias. The ranks' partial products are summed over ``axis`` of
+    ``mesh``, then the bias is added once. Under W8A8 the activations
+    quantize with the amax of the whole row (an all-reduce of the max, as
+    GSPMD reduces the JAX ``quantize_rowwise``), B4 writes each rank's
+    partial in f32, and the partials are summed before the rounding to
+    x's dtype."""
+    if "w_q" in p and _INT8_ACTIVATIONS:
+        y = w8a8_linear(x, p["w_q"], p["w_s"],
+                        row_max=lambda a: mesh.all_reduce(a, axis, "max"),
+                        out_dtype=torch.float32)
+        y = mesh.all_reduce(y, axis).to(x.dtype)
+    else:
+        y = mesh.all_reduce(linear({k: v for k, v in p.items() if k != "b"},
+                                   x), axis)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

@@ -20,10 +20,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ...ops.attention import tp_context
 from ...ops.mmdit_attention import (mmdit_double_attention,
                                     mmdit_single_attention)
 from ..common import (Init, Params, gelu_tanh, linear, linear_init,
-                      rmsnorm_init)
+                      linear_row_sharded, linear_widths, rmsnorm_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,7 +161,24 @@ def _modulate(x, shift, scale):
     return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
+def _row_linear(p: Params, x, sharded: bool):
+    """A row-sharded layer (attention output, MLP down): the sum of the
+    ranks' partial products under tensor parallelism."""
+    if not sharded:
+        return linear(p, x)
+    ctx = tp_context()
+    if ctx is None:
+        raise ValueError("tensor-parallel block weights "
+                         "(parallel.sharding.shard_params) run inside "
+                         "ops.attention.tp_attention of their mesh")
+    return linear_row_sharded(p, x, *ctx)
+
+
 def _double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
+    # a tensor-parallel rank's weights hold its heads and its slice of the
+    # MLP hidden (parallel.sharding): the local widths come from them
+    heads = linear_widths(p["img_qkv"])[1] // (3 * cfg.head_dim)
+    sharded = linear_widths(p["img_mlp1"])[1] != cfg.mlp_hidden
     vec_act = F.silu(vec)
     (i_shift1, i_scale1, i_gate1, i_shift2, i_scale2,
      i_gate2) = linear(p["img_mod"], vec_act).chunk(6, dim=-1)
@@ -173,30 +191,37 @@ def _double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
     # outputs: head split, qk-RMSNorm, RoPE and softmax in one op
     txt_attn, img_attn = mmdit_double_attention(
         linear(p["txt_qkv"], txt_in), linear(p["img_qkv"], img_in),
-        p["txt_qknorm"], p["img_qknorm"], cos, sin, cfg.heads, cfg.head_dim)
+        p["txt_qknorm"], p["img_qknorm"], cos, sin, heads, cfg.head_dim)
 
-    img = img + i_gate1[:, None, :] * linear(p["img_proj"], img_attn)
-    txt = txt + t_gate1[:, None, :] * linear(p["txt_proj"], txt_attn)
+    img = img + i_gate1[:, None, :] * _row_linear(p["img_proj"], img_attn,
+                                                   sharded)
+    txt = txt + t_gate1[:, None, :] * _row_linear(p["txt_proj"], txt_attn,
+                                                   sharded)
 
     img_h = _modulate(_ln_no_affine(img), i_shift2, i_scale2)
-    img = img + i_gate2[:, None, :] * linear(
-        p["img_mlp2"], gelu_tanh(linear(p["img_mlp1"], img_h)))
+    img = img + i_gate2[:, None, :] * _row_linear(
+        p["img_mlp2"], gelu_tanh(linear(p["img_mlp1"], img_h)), sharded)
     txt_h = _modulate(_ln_no_affine(txt), t_shift2, t_scale2)
-    txt = txt + t_gate2[:, None, :] * linear(
-        p["txt_mlp2"], gelu_tanh(linear(p["txt_mlp1"], txt_h)))
+    txt = txt + t_gate2[:, None, :] * _row_linear(
+        p["txt_mlp2"], gelu_tanh(linear(p["txt_mlp1"], txt_h)), sharded)
     return img, txt
 
 
 def _single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig):
+    # linear1 is [q k v | mlp] and linear2's input [attn | mlp], so their
+    # widths give this rank's attention width (parallel.sharding)
+    w1, w2 = linear_widths(p["linear1"])[1], linear_widths(p["linear2"])[0]
+    h_local = (w1 - w2) // 2
+    sharded = w2 != cfg.hidden + cfg.mlp_hidden
     shift, scale, gate = linear(p["mod"], F.silu(vec)).chunk(3, dim=-1)
     x_in = _modulate(_ln_no_affine(x), shift, scale)
     proj = linear(p["linear1"], x_in)
     # the attention reads q/k/v in place from proj's first 3h lanes
-    out = mmdit_single_attention(proj, p["qknorm"], cos, sin, cfg.heads,
-                                 cfg.head_dim)
-    combined = torch.cat([out, gelu_tanh(proj[..., 3 * cfg.hidden:])],
-                         dim=-1)
-    return x + gate[:, None, :] * linear(p["linear2"], combined)
+    out = mmdit_single_attention(proj, p["qknorm"], cos, sin,
+                                 h_local // cfg.head_dim, cfg.head_dim)
+    combined = torch.cat([out, gelu_tanh(proj[..., 3 * h_local:])], dim=-1)
+    return x + gate[:, None, :] * _row_linear(p["linear2"], combined,
+                                              sharded)
 
 
 # ---------------------------------------------------------------------------

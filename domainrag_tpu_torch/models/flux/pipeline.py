@@ -1,6 +1,5 @@
 """Flux text/Redux-conditioned generation and Flux-Fill — the serving
-paths of stages 3 and 4 (port of ``domainrag_tpu/models/flux/pipeline.py``
-but for its meshes and pipelining).
+paths of stages 3 and 4 (port of ``domainrag_tpu/models/flux/pipeline.py``).
 
 First-party equivalent of diffusers' ``FluxPriorReduxPipeline`` +
 ``FluxPipeline`` as the reference drives them for background generation
@@ -28,9 +27,13 @@ and the block-residual cache (``model.apply_with_cache``) on
 ``generate``, with their one-time calibrations. The JAX static unroll and
 tail mask of the cached loop is a plain loop over each group's steps
 here. The calibrations' probe latents come from the port's per-seed
-draw (:func:`_noise`), not ``jax.random``. Meshes and pipelining are
-ROADMAP A6: ``generate`` and ``fill_batch`` take those arguments only at
-their defaults and raise otherwise.
+draw (:func:`_noise`), not ``jax.random``.
+
+Scale-out (``parallel/``): ``generate`` and ``fill_batch`` take the JAX
+package's ``mesh`` / ``data_axis`` / ``pipe_axis`` / ``microbatches``
+(data parallel, sequence parallel in the hires fill, pipelined depth),
+and a bundle from ``parallel.deploy.shard_bundle`` runs tensor-parallel.
+Every rank of the mesh makes the same call and returns the whole result.
 """
 
 from __future__ import annotations
@@ -77,6 +80,10 @@ class FluxBundle:
     clip_max_len: int = 77
     compute_dtype: torch.dtype = torch.bfloat16
     device: torch.device = torch.device("cuda")
+    # set by parallel.deploy.shard_bundle: the MMDiT holds this rank's
+    # tensor-parallel share over this mesh's axis (ops.attention.tp_attention)
+    tp_mesh: Optional[object] = None
+    tp_axis: str = "model"
     # per-prompt (t5_embeds (1, S, D), clip_pooled (1, P)) cache filled by
     # :func:`precompute_prompts`; once every prompt a run uses is cached,
     # the T5 / CLIP-text params may be released
@@ -333,17 +340,26 @@ def _guidance(bundle: FluxBundle, guidance: float, b: int) -> torch.Tensor:
 
 def _model_fn(bundle: FluxBundle, prompt_embeds, pooled, guidance: float,
               grid_h: int, grid_w: int,
-              cond: Optional[torch.Tensor] = None):
+              cond: Optional[torch.Tensor] = None, *, pipe=None):
     """``model_fn(x, sigma)`` -> velocity: the MMDiT in ``compute_dtype``
     on the prompt's conditioning (the JAX ``_dense_model_fn``). ``cond``
     (the fill's conditioning tokens) joins the latents' channels at every
-    call."""
+    call. ``pipe`` (:func:`_pipe`): the blocks pipelined over a mesh
+    axis instead (the JAX ``_pp_model_fn``)."""
     embeds, pooled_c, img_ids, txt_ids = _model_inputs(
         bundle, prompt_embeds, pooled, grid_h, grid_w)
 
     def model_fn(x, sigma):
         b = x.shape[0]
         inp = x if cond is None else torch.cat([x, cond], dim=-1)
+        if pipe is not None:
+            from ...parallel import pipeline_parallel as pp
+            stages, mesh, axis, microbatches = pipe
+            return pp.pipelined_apply(
+                bundle.flux_params, stages, inp, embeds, pooled_c,
+                sigma.expand(b), img_ids, txt_ids, bundle.flux_cfg, mesh,
+                axis, guidance=_guidance(bundle, guidance, b),
+                microbatches=microbatches)
         return flux_mod.apply(
             bundle.flux_params, inp, embeds, pooled_c, sigma.expand(b),
             img_ids, txt_ids, bundle.flux_cfg,
@@ -443,17 +459,18 @@ def _denoise_latents(bundle: FluxBundle, latents: torch.Tensor,
                      cache_interval: int = 1, vcache_interval=1,
                      vcache_order: int = 1, *,
                      cond: Optional[torch.Tensor] = None,
-                     timer: Optional[StepTimer] = None) -> torch.Tensor:
+                     timer: Optional[StepTimer] = None,
+                     pipe=None) -> torch.Tensor:
     """The denoise without the VAE decode, one ``step`` span per Euler
     step: the dense or velocity-cached loop (:func:`_pick_denoise`), or,
     with ``cache_interval`` > 1, the block-residual cache — every block
     runs at the steps ``i % cache_interval == 0`` and replays its residual
     at the others (the JAX ``_generate_core_cached`` loop). Also the
-    calibrations' probe."""
+    calibrations' probe. ``pipe``: the pipelined model (:func:`_pipe`)."""
     timer = timer or StepTimer()
     if cache_interval <= 1:
         model_fn = _model_fn(bundle, prompt_embeds, pooled, guidance,
-                             grid_h, grid_w, cond)
+                             grid_h, grid_w, cond, pipe=pipe)
         return _pick_denoise(model_fn, latents, sigmas, vcache_interval,
                              vcache_order, timer=timer)
     embeds, pooled_c, img_ids, txt_ids = _model_inputs(
@@ -480,11 +497,11 @@ def _generate_float(bundle: FluxBundle, prompt_embeds: torch.Tensor,
                     scheduler_overrides: Optional[dict] = None,
                     timer: Optional[StepTimer] = None, *,
                     cache_interval: int = 1, vcache_interval=1,
-                    vcache_order: int = 1) -> torch.Tensor:
-    """The denoise + decode core (the JAX ``_generate_core`` and
-    ``_generate_core_cached``) -> (B, H, W, 3) f32 in [-1, 1]. Each
-    denoise step is a ``step`` span of ``timer``, the decode a ``decode``
-    span."""
+                    vcache_order: int = 1, pipe=None) -> torch.Tensor:
+    """The denoise + decode core (the JAX ``_generate_core``,
+    ``_generate_core_cached`` and, with ``pipe``, ``_generate_core_pp``)
+    -> (B, H, W, 3) f32 in [-1, 1]. Each denoise step is a ``step`` span
+    of ``timer``, the decode a ``decode`` span."""
     timer = timer or StepTimer()
     dev = bundle.device
     lf = bundle.latent_factor
@@ -496,7 +513,8 @@ def _generate_float(bundle: FluxBundle, prompt_embeds: torch.Tensor,
     x = _denoise_latents(
         bundle, noise.to(device=dev, dtype=bundle.compute_dtype),
         prompt_embeds, pooled, sigmas, guidance, grid_h, grid_w,
-        cache_interval, vcache_interval, vcache_order, timer=timer)
+        cache_interval, vcache_interval, vcache_order, timer=timer,
+        pipe=pipe)
     with timer.span("decode"):
         return _decode_tokens(bundle.vae_params, x, grid_h, grid_w,
                               bundle.vae_cfg)
@@ -849,6 +867,82 @@ def _resolve_block_cache_interval(bundle: FluxBundle, block_cache_interval,
     return _BLOCK_CACHE_CALIBRATIONS[key]
 
 
+# ---------------------------------------------------------------------------
+# scale-out over a parallel.mesh.Mesh (one process per card, every rank
+# running the same call on the same inputs; parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+def _tp_context(bundle: FluxBundle):
+    """Inside: a tensor-parallel bundle's blocks run their rank's heads and
+    sum their row-sharded layers over ``tp_axis``
+    (``ops.attention.tp_attention``). The JAX package also turns its
+    Pallas W8A8 GEMM off here, for want of a GSPMD rule; B4 keeps running
+    on each rank's shard (``models.common.linear_row_sharded``)."""
+    if bundle.tp_mesh is None:
+        return contextlib.nullcontext()
+    from ...ops import attention as attn_mod
+    return attn_mod.tp_attention(bundle.tp_mesh, bundle.tp_axis)
+
+
+def _dp(mesh, data_axis: str) -> bool:
+    return mesh is not None and mesh.shape.get(data_axis, 1) > 1
+
+
+def _dp_split(mesh, data_axis: str, *xs):
+    """This rank's rows of each batch (the JAX ``_dp_wrap``'s ``P(data)``
+    split): padded with row 0 to a multiple of the data axis first, as the
+    JAX package pads (:1100-1117, :1600-1606)."""
+    d, i = mesh.shape[data_axis], mesh.index(data_axis)
+    n = xs[0].shape[0]
+    per = -(-n // d)
+    out = []
+    for x in xs:
+        if per * d != n:
+            x = torch.cat([x] + [x[:1]] * (per * d - n), dim=0)
+        out.append(x[i * per:(i + 1) * per])
+    return out
+
+
+def _dp_gather(mesh, data_axis: str, x: torch.Tensor,
+               n_real: int) -> torch.Tensor:
+    """Every rank's rows, in order, without the padding."""
+    return mesh.all_gather(x, data_axis, dim=0)[:n_real]
+
+
+def _pipeline_stages(bundle: FluxBundle, n_stages: int, mesh=None,
+                     axis: str = "pipe"):
+    """This rank's pipeline stages (``parallel.pipeline_parallel``),
+    cached on the bundle and keyed by :func:`_params_token`: swapping
+    ``bundle.flux_params`` (quantizing after a first serve) builds them
+    anew from the new params."""
+    from ...parallel import pipeline_parallel as pp
+    token = _params_token(bundle)
+    key = (n_stages, id(mesh), axis)
+    entry = getattr(bundle, "_pp_stages", None)
+    if entry is not None and entry[0] is token and entry[1] == key:
+        return entry[2]
+    stages = pp.prepare_stages(bundle.flux_params, n_stages, mesh=mesh,
+                               axis=axis)
+    bundle._pp_stages = (token, key, stages)
+    return stages
+
+
+def _pipe(bundle: FluxBundle, mesh, pipe_axis: str, microbatches: int):
+    """The pipelined model's (stages, mesh, axis, microbatches), after the
+    JAX package's checks (:1068-1080, :1562-1573)."""
+    if mesh is None or mesh.shape.get(pipe_axis, 1) <= 1:
+        raise ValueError("pipe_axis requires a mesh with that axis")
+    if bundle.tp_mesh is not None:
+        raise ValueError(
+            "pipe_axis (pipeline parallelism) does not compose with a "
+            "TP-sharded bundle: the PP path serves unsharded per-stage "
+            "block params and would silently ignore tp_mesh. Serve "
+            "with EITHER model_parallel (TP) or pipeline_parallel.")
+    stages = _pipeline_stages(bundle, mesh.shape[pipe_axis], mesh=mesh,
+                              axis=pipe_axis)
+    return stages, mesh, pipe_axis, microbatches
+
+
 @torch.inference_mode()
 def generate(bundle: FluxBundle, prompt_embeds: torch.Tensor,
              pooled: torch.Tensor, height: int, width: int,
@@ -884,12 +978,15 @@ def generate(bundle: FluxBundle, prompt_embeds: torch.Tensor,
     ``decode`` span. Images with a non-finite value before quantisation
     are counted in ``generate.nonfinite_images``. The parameters are the
     JAX package's, in its order and with its defaults; ``noise`` and
-    ``timer`` are the port's own and keyword-only. Meshes and pipelining
-    (``microbatches``) are ROADMAP A6 and raise; ``data_axis`` is read
-    only by the mesh path."""
-    if mesh is not None or pipe_axis is not None or microbatches is not None:
-        raise NotImplementedError(
-            "meshes and pipelining are not ported (ROADMAP A6)")
+    ``timer`` are the port's own and keyword-only.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; every rank makes the same call):
+    the batch is split over ``data_axis`` (padded with row 0) and every
+    rank returns the whole batch. ``pipe_axis``: the name of a mesh axis
+    to pipeline the transformer depth over (``parallel.pipeline_parallel``;
+    ``microbatches`` defaults to the batch size); not with a block cache
+    or a tensor-parallel bundle. A bundle from ``parallel.deploy.
+    shard_bundle`` runs tensor-parallel over its ``tp_mesh``."""
     timer = timer or StepTimer()
     b = prompt_embeds.shape[0]
     lf = bundle.latent_factor
@@ -906,25 +1003,43 @@ def generate(bundle: FluxBundle, prompt_embeds: torch.Tensor,
 
     calibrating = isinstance(block_cache_interval, str) or isinstance(
         velocity_cache_interval, str)
-    with timer.span("calibrate") if calibrating else contextlib.nullcontext():
-        block_cache_interval = _resolve_block_cache_interval(
-            bundle, block_cache_interval, embeds, pooled_c, height, width,
-            num_steps, guidance)
-        velocity_cache_interval = _resolve_block_cache_interval(
-            bundle, velocity_cache_interval, embeds, pooled_c, height,
-            width, num_steps, guidance, mode="velocity")
-    if block_cache_interval > 1 and _vc_active(velocity_cache_interval):
-        raise ValueError(
-            "block_cache_interval and velocity_cache_interval are "
-            "mutually exclusive accelerators — pick one")
-    if block_cache_interval > 1:
-        _check_block_cache_hbm(bundle, b, grid_h * grid_w,
-                               prompt_embeds.shape[-2], mesh, data_axis)
-    img = _generate_float(
-        bundle, embeds, pooled_c, height, width, num_steps, guidance, noise,
-        scheduler_overrides, timer, cache_interval=block_cache_interval,
-        vcache_interval=velocity_cache_interval,
-        vcache_order=velocity_cache_order).float().cpu().numpy()
+    with _tp_context(bundle):
+        with timer.span("calibrate") if calibrating else \
+                contextlib.nullcontext():
+            block_cache_interval = _resolve_block_cache_interval(
+                bundle, block_cache_interval, embeds, pooled_c, height,
+                width, num_steps, guidance)
+            velocity_cache_interval = _resolve_block_cache_interval(
+                bundle, velocity_cache_interval, embeds, pooled_c, height,
+                width, num_steps, guidance, mode="velocity")
+        if block_cache_interval > 1 and _vc_active(velocity_cache_interval):
+            raise ValueError(
+                "block_cache_interval and velocity_cache_interval are "
+                "mutually exclusive accelerators — pick one")
+        pipe = None
+        if pipe_axis is not None:
+            if mesh is None or mesh.shape.get(pipe_axis, 1) <= 1:
+                raise ValueError("pipe_axis requires a mesh with that axis")
+            if block_cache_interval > 1:
+                raise ValueError("block_cache_interval is not implemented "
+                                 "on the pipelined (pipe_axis) path")
+            pipe = _pipe(bundle, mesh, pipe_axis, microbatches or b)
+        dp = pipe is None and _dp(mesh, data_axis)
+        if dp:
+            embeds, pooled_c, noise = _dp_split(
+                mesh, data_axis, embeds, pooled_c, noise.to(dev))
+        if block_cache_interval > 1:
+            _check_block_cache_hbm(bundle, embeds.shape[0], grid_h * grid_w,
+                                   prompt_embeds.shape[-2], mesh, data_axis)
+        img = _generate_float(
+            bundle, embeds, pooled_c, height, width, num_steps, guidance,
+            noise, scheduler_overrides, timer,
+            cache_interval=block_cache_interval,
+            vcache_interval=velocity_cache_interval,
+            vcache_order=velocity_cache_order, pipe=pipe)
+    if dp:
+        img = _dp_gather(mesh, data_axis, img, b)
+    img = img.float().cpu().numpy()
     generate.nonfinite_images += int((~np.isfinite(img)).any(
         axis=(1, 2, 3)).sum())
     out = to_uint8(img)
@@ -989,15 +1104,17 @@ def _fill_float(bundle: FluxBundle, image: torch.Tensor, mask: torch.Tensor,
                 sigmas: torch.Tensor, guidance: float, hires: bool,
                 vae_tile: int = 96, vae_overlap: int = 16,
                 timer: Optional[StepTimer] = None, *,
-                vcache_interval=1, vcache_order: int = 1) -> torch.Tensor:
+                vcache_interval=1, vcache_order: int = 1,
+                pipe=None) -> torch.Tensor:
     """The fill core -> (B, H, W, 3) f32 in [-1, 1]. ``image`` (B, H, W, 3)
     in [-1, 1], ``mask`` (B, H, W) 0/1 (1 = repaint) and ``noise``
     (B, S_img, 4*latent_channels), all in ``compute_dtype`` on the
     bundle's device; ``sigmas`` the strength-trimmed schedule. ``hires``
     runs the VAE encode and decode tiled. ``vcache_interval`` /
     ``vcache_order``: the velocity cache, as :func:`_pick_denoise` takes
-    it. Spans: ``encode`` per encode, ``step`` per denoise step,
-    ``decode``."""
+    it; ``pipe`` the pipelined model (:func:`_pipe`, the JAX
+    ``_fill_core_pp``). Spans: ``encode`` per encode, ``step`` per denoise
+    step, ``decode``."""
     timer = timer or StepTimer()
     lf = bundle.latent_factor
     grid_h, grid_w = image.shape[1] // lf, image.shape[2] // lf
@@ -1007,7 +1124,8 @@ def _fill_float(bundle: FluxBundle, image: torch.Tensor, mask: torch.Tensor,
     x = _denoise_latents(bundle, latents, prompt_embeds, pooled, sigmas,
                          guidance, grid_h, grid_w,
                          vcache_interval=vcache_interval,
-                         vcache_order=vcache_order, cond=cond, timer=timer)
+                         vcache_order=vcache_order, cond=cond, timer=timer,
+                         pipe=pipe)
     with timer.span("decode"):
         return _decode_tokens(bundle.vae_params, x, grid_h, grid_w,
                               bundle.vae_cfg, hires, vae_tile, vae_overlap)
@@ -1186,11 +1304,15 @@ def fill_batch(bundle: FluxBundle, images: np.ndarray, masks: np.ndarray,
     quantisation are counted in ``fill_batch.nonfinite_images``. The
     parameters are the JAX package's, in its order and with its
     defaults; ``noise`` and ``timer`` are the port's own and
-    keyword-only. Meshes and pipelining (``microbatches``) are ROADMAP A6
-    and raise; ``data_axis`` is read only by the mesh path."""
-    if mesh is not None or pipe_axis is not None or microbatches is not None:
-        raise NotImplementedError(
-            "meshes and pipelining are not ported (ROADMAP A6)")
+    keyword-only.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; every rank makes the same call):
+    the batch splits over ``data_axis`` (padded with row 0), or, in the
+    hires regime, attention rings the joint sequence over it
+    (``ops.attention.sp_attention``: sequence parallel) and the batch
+    stays whole; every rank returns the whole batch. ``pipe_axis``: the
+    transformer depth pipelined over that mesh axis, as in
+    :func:`generate`. A ``shard_bundle`` bundle runs tensor-parallel."""
     vci = velocity_cache_interval
     vci = (tuple(int(a) for a in vci) if isinstance(vci, (list, tuple))
            else vci if isinstance(vci, str) else int(vci))
@@ -1213,17 +1335,33 @@ def fill_batch(bundle: FluxBundle, images: np.ndarray, masks: np.ndarray,
     noise = noise.to(device=dev, dtype=dt)
     embeds = prompt_embeds.to(device=dev, dtype=dt)
     pooled_c = pooled.to(device=dev, dtype=dt)
-    if isinstance(vci, str):
-        with timer.span("calibrate"):
-            vci = _resolve_fill_vcache(
-                bundle, vci, img[:1], m[:1], noise[:1], embeds[:1],
-                pooled_c[:1], sigmas, guidance, grid_h, grid_w, hires,
-                vae_tile, vae_overlap, h, w, num_steps, strength,
-                vcache_divergence_budget)
-    out = _fill_float(
-        bundle, img, m, noise, embeds, pooled_c, sigmas, guidance, hires,
-        vae_tile, vae_overlap, timer, vcache_interval=vci,
-        vcache_order=velocity_cache_order).float().cpu().numpy()
+    with _tp_context(bundle):
+        if isinstance(vci, str):
+            with timer.span("calibrate"):
+                vci = _resolve_fill_vcache(
+                    bundle, vci, img[:1], m[:1], noise[:1], embeds[:1],
+                    pooled_c[:1], sigmas, guidance, grid_h, grid_w, hires,
+                    vae_tile, vae_overlap, h, w, num_steps, strength,
+                    vcache_divergence_budget)
+        pipe = (None if pipe_axis is None else
+                _pipe(bundle, mesh, pipe_axis, microbatches or b))
+        sp = pipe is None and hires and _dp(mesh, data_axis)
+        dp = pipe is None and not hires and _dp(mesh, data_axis)
+        if dp:
+            img, m, noise, embeds, pooled_c = _dp_split(
+                mesh, data_axis, img, m, noise, embeds, pooled_c)
+        sp_ctx = contextlib.nullcontext()
+        if sp:
+            from ...ops import attention as attn_mod
+            sp_ctx = attn_mod.sp_attention(mesh, data_axis)
+        with sp_ctx:
+            out = _fill_float(
+                bundle, img, m, noise, embeds, pooled_c, sigmas, guidance,
+                hires, vae_tile, vae_overlap, timer, vcache_interval=vci,
+                vcache_order=velocity_cache_order, pipe=pipe)
+    if dp:
+        out = _dp_gather(mesh, data_axis, out, b)
+    out = out.float().cpu().numpy()
     fill_batch.nonfinite_images += int((~np.isfinite(out)).any(
         axis=(1, 2, 3)).sum())
     return to_uint8(out)

@@ -38,9 +38,9 @@ kernel) and ``.bwd_f32_launches`` (the f32 backward's one).
 :func:`attention_reference`, a CUDA tensor the kernels. Inside
 :func:`dense_attention` (or with ``force_reference``) every tensor takes
 the dense path: the plain versions of the fused MMDiT kernels use it.
-The tensor- and sequence-parallel contexts of the JAX module
-(:func:`tp_attention`, :func:`sp_attention`) belong to scale-out (ROADMAP
-A6) and raise ``NotImplementedError`` until it lands.
+Inside the tensor- and sequence-parallel contexts (:func:`tp_attention`,
+:func:`sp_attention`) it computes the rank's heads, or rings the K/V
+blocks over the mesh (``ops.ring_attention``).
 """
 
 from __future__ import annotations
@@ -389,9 +389,10 @@ def flash_attention_lse(q, k, v, kv_valid: Optional[int] = None):
 
 def attention(q, k, v, causal: bool = False, mask=None,
               force_reference: bool = False) -> torch.Tensor:
-    """Dispatch (:592-620): a ``mask`` takes the dense masked path; a CPU
-    tensor, :func:`dense_attention` or ``force_reference`` the dense
-    reference; a CUDA tensor the flash kernels (B5 forward, B6
+    """Dispatch (:592-620): a ``mask`` takes the dense masked path; inside
+    :func:`sp_attention` the ring, inside :func:`tp_attention` the rank's
+    heads; a CPU tensor, :func:`dense_attention` or ``force_reference`` the
+    dense reference; a CUDA tensor the flash kernels (B5 forward, B6
     backward). ``force_reference`` is kept for the JAX signature: it does
     for one call what :func:`dense_attention` does for a block of code."""
     if mask is not None:
@@ -400,29 +401,97 @@ def attention(q, k, v, causal: bool = False, mask=None,
         logits = logits.masked_fill(~mask, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
         return torch.matmul(probs.float(), v.float()).to(q.dtype)
+    if sp_context() is not None:
+        out = _sp_sharded(q, k, v, causal)
+        if out is not None:
+            return out
+    if tp_context() is not None:
+        out = _tp_sharded(q, k, v, causal)
+        if out is not None:
+            return out
     if force_reference or forced_dense() or q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal)
     return flash_attention(q, k, v, causal=causal)
 
 
+# ---------------------------------------------------------------------------
+# tensor- and sequence-parallel contexts (JAX :521-590). Under a mesh each
+# process holds its own share: a tensor-parallel bundle's blocks hold their
+# rank's heads (``parallel.sharding.shard_params``), so attention is local
+# and B5 runs on the rank's H/n heads; a sequence-parallel call rings the
+# K/V blocks over the axis (``ops.ring_attention``). Inside either context
+# the fused MMDiT wrappers decline (as the JAX ``_fused_ok`` does) and the
+# unfused composition calls :func:`attention`.
+# ---------------------------------------------------------------------------
+
+_TP_CONTEXT = threading.local()
+_SP_CONTEXT = threading.local()
+
+
 @contextlib.contextmanager
 def tp_attention(mesh, axis: str = "model"):
-    """Head-sharded attention over ``axis`` of ``mesh`` (JAX :527): not
-    ported until scale-out."""
-    raise NotImplementedError(
-        "tensor-parallel attention is not ported yet (ROADMAP A6, "
-        "scale-out)")
-    yield  # pragma: no cover
+    """Within this context, attention is tensor-parallel over ``axis`` of
+    ``mesh``: each rank computes its own heads (the model's row-sharded
+    layers sum the ranks' partial products over ``axis``)."""
+    prev = getattr(_TP_CONTEXT, "value", None)
+    _TP_CONTEXT.value = (mesh, axis)
+    try:
+        yield
+    finally:
+        _TP_CONTEXT.value = prev
 
 
 @contextlib.contextmanager
 def sp_attention(mesh, axis: str = "data"):
-    """Sequence-sharded ring attention over ``axis`` of ``mesh`` (JAX
-    :541): not ported until scale-out."""
-    raise NotImplementedError(
-        "sequence-parallel attention is not ported yet (ROADMAP A6, "
-        "scale-out)")
-    yield  # pragma: no cover
+    """Within this context, :func:`attention` runs sequence-sharded over
+    ``axis`` through the ring (``ops.ring_attention``), the >= 2048 px fill
+    regime (~31k joint tokens at the 2800 px cap). Composes with
+    :func:`tp_attention`: each rank's heads are its own already, and the
+    ring runs over them."""
+    prev = getattr(_SP_CONTEXT, "value", None)
+    _SP_CONTEXT.value = (mesh, axis)
+    try:
+        yield
+    finally:
+        _SP_CONTEXT.value = prev
+
+
+def tp_context():
+    """(mesh, axis) of the enclosing :func:`tp_attention`, or None."""
+    return getattr(_TP_CONTEXT, "value", None)
+
+
+def sp_context():
+    """(mesh, axis) of the enclosing :func:`sp_attention`, or None."""
+    return getattr(_SP_CONTEXT, "value", None)
+
+
+def _sp_sharded(q, k, v, causal: bool):
+    """The ring over the SP axis (JAX :556-569); None where it does not
+    apply (causal, or an axis of one rank)."""
+    if causal:
+        return None        # the ring's fold is non-causal (MMDiT is not)
+    mesh, axis = sp_context()
+    if mesh.shape[axis] <= 1:
+        return None
+    from .ring_attention import ring_attention_padded
+    return ring_attention_padded(q, k, v, mesh, axis=axis)
+
+
+def _tp_sharded(q, k, v, causal: bool):
+    """Attention over this rank's heads (JAX :572-590). The JAX package
+    splits the heads here with ``shard_map``; in the port the rank's
+    tensors hold only its heads already (or all of them, where the heads
+    do not divide over the axis and ``shard_params`` kept the attention
+    whole: the JAX fallback of :576-577), so this is the local call: B5 on
+    the card, the dense reference on the CPU. None on an axis of one
+    rank."""
+    mesh, axis = tp_context()
+    if mesh.shape[axis] <= 1:
+        return None
+    if forced_dense() or q.device.type == "cpu":
+        return attention_reference(q, k, v, causal=causal)
+    return flash_attention(q, k, v, causal=causal)
 
 
 flash_attention.launches = 0

@@ -27,12 +27,17 @@ rest; on the card no plain version carries any part of the path, so the
 kernel masks ragged edges instead. The gate is kept for parity (and
 ``chip_smoke.py`` reports which shapes it would have sent to XLA). Launches are counted in ``w8a8_linear.launches``, and
 per (M, K, N) in ``w8a8_linear.launches_by_shape`` and per instance in
-``w8a8_linear.launches_by_instance``.
+``w8a8_linear.launches_by_instance``. The JAX toggles
+(:func:`set_w8a8_pallas`, :func:`disable_pallas_w8a8`) are kept for
+parity: a CPU tensor takes the plain version either way, and on the card
+B4 is the only route, so a call there with a toggle off raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -46,13 +51,48 @@ def div127(x: torch.Tensor) -> torch.Tensor:
     return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
 
 
+def _quantize(xf: torch.Tensor, amax: torch.Tensor):
+    s = div127(amax).clamp_min(1e-12)
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
 def quantize_rowwise(x: torch.Tensor):
     """Per-token symmetric int8: (M, K) float -> int8 (M, K), f32 (M, 1)
     (f32 amax / 127 floored at 1e-12, round half to even, clip)."""
     xf = x.float()
-    s = div127(xf.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-12)
-    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
-    return q, s
+    return _quantize(xf, xf.abs().amax(dim=-1, keepdim=True))
+
+
+# The JAX package turns its Pallas GEMM off (the XLA formulation runs) by
+# a process-wide flag and, under a TP-sharded bundle, by a thread-local
+# context, because pallas_call has no GSPMD partitioning rule (its
+# pipeline.py:254-264). The port keeps the same toggles, but no reason to
+# leave the kernel exists here: its tensor parallelism runs B4 on each
+# rank's own shard (``models.common.linear_row_sharded``). So off, a CPU
+# tensor takes the plain version as it always does, and a card tensor
+# raises instead of giving way to it.
+_PALLAS_ENABLED = True
+_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def disable_pallas_w8a8():
+    prev = getattr(_TLS, "disable", False)
+    _TLS.disable = True
+    try:
+        yield
+    finally:
+        _TLS.disable = prev
+
+
+def set_w8a8_pallas(enabled: bool) -> None:
+    global _PALLAS_ENABLED
+    _PALLAS_ENABLED = bool(enabled)
+
+
+def w8a8_pallas_enabled() -> bool:
+    return _PALLAS_ENABLED
 
 
 def w8a8_reference(xq: torch.Tensor, w_q: torch.Tensor, xs: torch.Tensor,
@@ -145,18 +185,32 @@ def _launch(xq, w_q, xs, w_s, bias, out_dtype):
 
 
 def w8a8_linear(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None, *, row_max=None,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """W8A8 linear: per-token activation quant (torch ops), then the exact
     int8 product with the rescale and bias epilogue. ``x``: (..., K)
     float; ``w_q``: (N, K) int8, K-major; ``w_s``: (N,) f32. Returns
-    (..., N) in x's dtype."""
+    (..., N) in ``out_dtype`` (default x's). ``row_max`` maps each row's
+    local amax (M, 1) to the one to quantize with (a row-sharded layer's
+    all-reduce of the max over the whole row)."""
     n, k = w_q.shape
     lead = x.shape[:-1]
-    xq, xs = quantize_rowwise(x.reshape(-1, k))
-    if x.device.type == "cpu":
-        y = w8a8_reference(xq, w_q, xs, w_s, bias, x.dtype)
+    out_dtype = out_dtype or x.dtype
+    x2 = x.reshape(-1, k)
+    if row_max is None:
+        xq, xs = quantize_rowwise(x2)
     else:
-        y, inst = _launch(xq, w_q, xs, w_s, bias, x.dtype)
+        xf = x2.float()
+        xq, xs = _quantize(xf, row_max(xf.abs().amax(dim=-1, keepdim=True)))
+    if x.device.type == "cpu":
+        y = w8a8_reference(xq, w_q, xs, w_s, bias, out_dtype)
+    elif not _PALLAS_ENABLED or getattr(_TLS, "disable", False):
+        raise RuntimeError(
+            "the W8A8 kernel is turned off (set_w8a8_pallas(False) or "
+            "disable_pallas_w8a8()), but on the card B4 is the only route "
+            "of w8a8_linear")
+    else:
+        y, inst = _launch(xq, w_q, xs, w_s, bias, out_dtype)
         w8a8_linear.launches += 1
         shape = (xq.shape[0], k, n)
         for counts, key in ((w8a8_linear.launches_by_shape, shape),

@@ -31,7 +31,9 @@ Two regimes, split on the joint length S as in the JAX package:
 
 The fused kernels take what the JAX package's ``_fused_ok`` (:1161-1179)
 lets through: bf16 streams with head_dim 128 and a joint length up to
-``_MAX_MULTIPASS``, outside :func:`ops.attention.dense_attention`. Every
+``_MAX_MULTIPASS``, outside :func:`ops.attention.dense_attention` and the
+tensor- and sequence-parallel contexts (``tp_attention``,
+``sp_attention``). Every
 other call (f32, another head width, a longer sequence) runs the unfused
 composition :func:`reference_double` / :func:`reference_single`, whose
 attention is :func:`ops.attention.attention`: on the card the generic
@@ -76,7 +78,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from .attention import attention, forced_dense
+from .attention import attention, forced_dense, sp_context, tp_context
 from .int8_gemm import div127
 
 LOG2_E = 1.4426950408889634
@@ -459,9 +461,11 @@ def _multipass(s_total: int) -> bool:
 
 def _fused_ok(head_dim: int, dtype: torch.dtype, s_total: int) -> bool:
     """The JAX ``_fused_ok`` gate: bf16, head_dim 128, at most
-    ``_MAX_MULTIPASS`` joint tokens, and not inside ``dense_attention``."""
+    ``_MAX_MULTIPASS`` joint tokens, and not inside ``dense_attention``,
+    ``tp_attention`` or ``sp_attention``."""
     return (head_dim == HEAD_DIM and dtype == torch.bfloat16
-            and s_total <= _MAX_MULTIPASS and not forced_dense())
+            and s_total <= _MAX_MULTIPASS and not forced_dense()
+            and tp_context() is None and sp_context() is None)
 
 
 # ---------------------------------------------------------------------------

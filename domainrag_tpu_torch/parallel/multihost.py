@@ -1,18 +1,19 @@
-"""Multi-process coordination, host half (port of
+"""Multi-process coordination (port of
 ``domainrag_tpu/parallel/multihost.py``).
 
 The port serves one card per process. Several cards run as independent
 processes (``--worker_id W --num_workers N``, one per card, as the
-reference's ``CUDA_VISIBLE_DEVICES=N nohup python ...`` scripts run):
-each takes a disjoint round-robin sample slice
-(``core.config.worker_slice``), writes its stage artifacts worker-suffixed
-(retrieval partials, per-worker manifests), and worker 0 merges the
-partials into the single-file contracts the next stage reads.
+reference's ``CUDA_VISIBLE_DEVICES=N nohup python ...`` scripts run, or
+``--distributed`` under one ``torch.distributed`` group): each takes a
+disjoint round-robin sample slice (``core.config.worker_slice``), writes
+its stage artifacts worker-suffixed (retrieval partials, per-worker
+manifests), and worker 0 merges the partials into the single-file
+contracts the next stage reads.
 
-Coordinated processes (``torch.distributed``: barriers, a broadcast run
-timestamp) are scale-out, ROADMAP A6: without a process group this module
-reports one process, :func:`barrier` does nothing, and asking for a group
-raises ``NotImplementedError``.
+Under a group (``parallel.mesh.initialize_distributed``), the process
+index and count are the group's rank and size, :func:`barrier` fences
+every process and :func:`shared_timestamp` is rank 0's clock on every
+rank; without one, one process: index 0 of 1, and both are local.
 """
 
 from __future__ import annotations
@@ -24,48 +25,46 @@ import re
 import time
 from typing import Dict, List, Optional
 
+import torch.distributed as dist
+
 from ..core.log import get_logger
 
 logger = get_logger("domainrag_tpu_torch.multihost")
 
 
-def _no_group() -> NotImplementedError:
-    return NotImplementedError(
-        "coordinated multi-process runs (torch.distributed) are not ported "
-        "yet (ROADMAP A6, scale-out); run one process per card with "
-        "--worker_id/--num_workers")
-
-
 def is_distributed() -> bool:
-    """False without a process group; a ``torch.distributed`` group raises
-    (coordinated runs are ROADMAP A6)."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        raise _no_group()
-    return False
+    """True under a ``torch.distributed`` group of more than one process."""
+    return dist.is_available() and dist.is_initialized() and \
+        dist.get_world_size() > 1
 
 
 def process_index() -> int:
-    is_distributed()
-    return 0
+    return dist.get_rank() if is_distributed() else 0
 
 
 def process_count() -> int:
-    is_distributed()
-    return 1
+    return dist.get_world_size() if is_distributed() else 1
 
 
 def barrier(name: str) -> None:
-    """Fence all processes at a stage boundary: without a process group
-    there is nothing to fence."""
-    is_distributed()
+    """Fence all processes at a stage boundary (nothing to fence without a
+    group). Replaces the reference's queue-join synchronization
+    (outpainting_updown_sampling_redux.py:1666-1713)."""
+    if not is_distributed():
+        return
+    logger.debug("barrier %s", name)
+    dist.barrier()
 
 
 def shared_timestamp() -> str:
-    """A run timestamp (``results_*_{timestamp}`` run directories); with
-    one process, the local clock's."""
-    is_distributed()
-    return time.strftime("%Y%m%d_%H%M%S")
+    """A run timestamp identical on every process (rank 0's clock,
+    broadcast): run directories like ``results_*_{timestamp}`` must agree
+    across processes or each worker writes into its own tree."""
+    if not is_distributed():
+        return time.strftime("%Y%m%d_%H%M%S")
+    t = [int(time.time())]
+    dist.broadcast_object_list(t, src=0)
+    return time.strftime("%Y%m%d_%H%M%S", time.localtime(int(t[0])))
 
 
 # ---------------------------------------------------------------------------

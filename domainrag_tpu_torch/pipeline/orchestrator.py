@@ -8,10 +8,15 @@ the previous stage's on-disk artifacts (the L4 contract is preserved so
 stages stay independently re-runnable) and reporting into per-stage
 manifests.
 
-The port serves one card per process: ``_data_mesh`` is None, and a
-tensor- or pipeline-parallel degree above 1 raises (ROADMAP A6). Several
-cards run as independent workers (``cfg.worker_id`` / ``num_workers``);
-worker 0 merges the retrieval partials and generate manifests.
+The port serves one card per process. The processes launched together
+(``torchrun --nproc_per_node G``) form one mesh (``parallel/mesh.py``):
+every rank runs the same DAG over the same samples, the bank shards over
+the data axis, stage 3 batches (sample, rank) rows over it (or pipelines
+the depth over a ``pipe`` axis), stage 4's hires fills ring their
+attention over it, and rank 0 alone writes, with a barrier after each
+stage. Several cards also run as workers over disjoint sample slices
+(``cfg.worker_id`` / ``num_workers``, or ``--distributed``), each on one
+card; worker 0 merges the retrieval partials and generate manifests.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import json
 import os
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
+
 from ..core import device as device_mod
 from ..core.config import PipelineConfig
 from ..core.log import StepTimer, get_logger
@@ -31,6 +38,7 @@ from ..models import resnet_stem
 from ..models.common import Init
 from ..models.flux import pipeline as flux_pipeline
 from ..parallel import multihost
+from ..parallel.mesh import Mesh, create_mesh
 from ..stages import compose as compose_stage
 from ..stages import generate as generate_stage
 from ..stages import inpaint as inpaint_stage
@@ -40,12 +48,6 @@ from ..stages.encoders import ClipImageEncoder, StyleEncoder
 logger = get_logger("domainrag_tpu_torch.pipeline")
 
 STAGES = ("inpaint", "retrieve", "generate", "compose")
-
-
-def _no_parallel(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A6, scale-out); the port "
-        f"serves one card per process")
 
 
 @dataclasses.dataclass
@@ -77,30 +79,81 @@ class PipelineRunner:
     def retrieval_dir(self) -> str:
         return os.path.join(self.cfg.output_dir, "retrieval_results")
 
+    def _workers(self) -> bool:
+        """Processes as workers over disjoint sample slices (each on one
+        card), not one mesh."""
+        return self.cfg.num_workers > 1
+
+    def _group(self) -> bool:
+        """Several processes in one group running the same program: a
+        mesh over every rank (JAX's one process over ``jax.devices()``)."""
+        return multihost.is_distributed() and not self._workers()
+
+    def _mesh(self, key, build):
+        cache = self.__dict__.setdefault("_meshes", {})
+        if key not in cache:        # new_group is collective: build once
+            cache[key] = build()
+        return cache[key]
+
+    def _writer(self) -> bool:
+        return not self._group() or multihost.process_index() == 0
+
+    def _stage_done(self, name: str) -> None:
+        """Under a mesh, the other ranks read what rank 0 wrote."""
+        if self._group():
+            multihost.barrier(f"{name}-done")
+
     def run_inpaint(self, resume: bool = False):
         with self.timer.span("stage/inpaint"):
-            return inpaint_stage.run_inpaint(
-                self.cfg.datasets, self.cfg.shots, self.lama_runner,
-                self.cfg.datasets_dir, self.cfg.output_dir, resume=resume,
-                worker_id=self.cfg.worker_id,
-                num_workers=self.cfg.num_workers)
+            out = {}
+            if self._writer():      # not sharded: one rank runs and writes
+                out = inpaint_stage.run_inpaint(
+                    self.cfg.datasets, self.cfg.shots, self.lama_runner,
+                    self.cfg.datasets_dir, self.cfg.output_dir,
+                    resume=resume, worker_id=self.cfg.worker_id,
+                    num_workers=self.cfg.num_workers)
+            self._stage_done("inpaint")
+            return out
 
     def _data_mesh(self):
-        """None: one card per process (the JAX package's data mesh over
-        the visible devices is ROADMAP A6); a tensor-parallel degree above
-        1 raises."""
-        if self.cfg.mesh.model_parallel_size > 1:
-            raise _no_parallel("tensor-parallel serving (model_parallel)")
-        return None
+        """A (data, model) mesh over every rank of the group when several
+        processes run as one (sharded retrieval + DP generation), else
+        None. A worker of ``--distributed`` holds one card, so its data
+        mesh is None (JAX's multihost mesh over ``local_devices()``); a
+        parallel degree above 1 there would need several cards per worker,
+        which comes with the last slice of the port (ROADMAP A7)."""
+        if self._workers() and multihost.is_distributed() and (
+                self.cfg.mesh.model_parallel_size > 1
+                or self.cfg.mesh.pipeline_parallel_size > 1):
+            raise NotImplementedError(
+                "a mesh of several cards per --distributed worker comes "
+                "with the last slice of the port (ROADMAP A7); each worker "
+                "serves one card")
+        if not self._group():
+            return None
+        return self._mesh("data", lambda: create_mesh(
+            model_parallel=self.cfg.mesh.model_parallel_size))
 
     def _pipe_mesh(self):
-        """None; a pipeline-parallel degree above 1 raises (ROADMAP A6)."""
-        if self.cfg.mesh.pipeline_parallel_size > 1:
-            raise _no_parallel("pipeline-parallel serving "
-                               "(pipeline_parallel)")
-        return None
+        """Pipe mesh for depth-sharded PP serving when configured
+        (mesh.pipeline_parallel_size > 1), else None: one stage per
+        process of the group."""
+        pp = self.cfg.mesh.pipeline_parallel_size
+        if pp <= 1:
+            return None
+        n = multihost.process_count() if self._group() else 1
+        if n < pp:              # a device is a process here: one per card
+            raise ValueError(f"pipeline_parallel_size={pp} needs {pp} "
+                             f"devices, found {n}")
+        if n > pp:
+            raise ValueError(f"pipeline_parallel_size={pp} on {n} "
+                             "processes: launch one process per stage")
+        return self._mesh("pipe", lambda: Mesh(np.arange(pp),
+                                               (self.cfg.mesh.pipe_axis,)))
 
     def _build_bank(self, mesh=None) -> retrieve_stage.EmbeddingBank:
+        if mesh is not None and not mesh.is_writer():
+            mesh.barrier()          # rank 0 encodes and caches the corpus
         feats, paths = {}, {}
         for source, spec in self.pretrained_features.items():
             f, kept = retrieve_stage.load_pretrained_features(*spec)
@@ -110,8 +163,11 @@ class PipelineRunner:
                 continue
             f, kept = retrieve_stage.load_or_compute_source_features(
                 self.retrieval_dir, source, image_paths, self.clip_encoder,
-                force_recompute=self.force_recompute)
+                force_recompute=self.force_recompute and (
+                    mesh is None or mesh.is_writer()))
             feats[source], paths[source] = f, kept
+        if mesh is not None and mesh.is_writer():
+            mesh.barrier()
         return retrieve_stage.EmbeddingBank.from_sources(
             feats, paths, mesh=mesh, device=self.clip_encoder.device)
 
@@ -124,11 +180,22 @@ class PipelineRunner:
                 self.retrieval_dir, self.cfg.retrieval,
                 worker_id=self.cfg.worker_id,
                 num_workers=self.cfg.num_workers)
-            if self.cfg.num_workers > 1 and self.cfg.worker_id == 0:
-                # independent workers: no barrier exists; worker 0 merges
-                # whatever partials are present (the launcher sequences
-                # the workers)
-                multihost.merge_worker_retrieval_results(self.retrieval_dir)
+            if self._workers():
+                # fence the workers, then worker 0 merges the partials
+                # into the all-shots contract the next stage reads
+                multihost.barrier("retrieve-done")
+                if multihost.is_distributed():
+                    if multihost.process_index() == 0:
+                        multihost.merge_worker_retrieval_results(
+                            self.retrieval_dir)
+                    multihost.barrier("retrieve-merged")
+                elif self.cfg.worker_id == 0:
+                    # independent workers: no barrier exists; worker 0
+                    # merges whatever partials are present (the launcher
+                    # sequences the workers)
+                    multihost.merge_worker_retrieval_results(
+                        self.retrieval_dir)
+            self._stage_done("retrieve")
             return out
 
     def run_generate(self, resume: bool = False,
@@ -147,11 +214,13 @@ class PipelineRunner:
             src: os.path.commonpath(paths) if len(paths) > 1
             else os.path.dirname(paths[0])
             for src, paths in self.corpus_sources.items() if paths}
+        # PP (depth-sharded serving) when configured, else DP sample
+        # batching over the group's mesh
         pipe_mesh = self._pipe_mesh()
-        mesh = self._data_mesh()
-        # several workers: the timestamped run dir must agree across them
+        mesh = None if pipe_mesh is not None else self._data_mesh()
+        # several workers or ranks: the timestamped run dir must agree
         run_name = None
-        if self.cfg.num_workers > 1:
+        if self._workers() or self._group():
             run_name = generate_stage.results_dir_name(
                 self.cfg.generate, multihost.shared_timestamp())
         out = {}
@@ -169,7 +238,9 @@ class PipelineRunner:
                         pipe_axis=self.cfg.mesh.pipe_axis,
                         reference_artifacts=reference_artifacts,
                         corpus_roots=corpus_roots)
-            if run_name is not None and self.cfg.worker_id == 0:
+            if self._workers() and multihost.is_distributed():
+                multihost.barrier("generate-done")
+            if self._workers() and self.cfg.worker_id == 0:
                 for dataset in self.cfg.datasets:
                     for shot in self.cfg.shots:
                         base = os.path.join(
@@ -180,6 +251,9 @@ class PipelineRunner:
                         if parts:
                             multihost.merge_worker_manifests(
                                 parts, os.path.join(base, "manifest.json"))
+            if self._workers() and multihost.is_distributed():
+                multihost.barrier("generate-merged")
+            self._stage_done("generate")
         return out
 
     def run_generate_legacy(self, resume: bool = False,
@@ -192,20 +266,23 @@ class PipelineRunner:
                                              self.cfg.generate)
         out = {}
         with self.timer.span("stage/generate-legacy"):
-            for dataset in self.cfg.datasets:
-                out[dataset] = generate_stage.process_dataset_legacy(
-                    stage, dataset,
-                    inpainted_dir or self.lamainpaint_dir,
-                    retrieval_results_dir or self.retrieval_dir,
-                    os.path.join(self.cfg.output_dir, "result"),
-                    resume=resume)
+            if self._writer():      # not sharded: one rank runs and writes
+                for dataset in self.cfg.datasets:
+                    out[dataset] = generate_stage.process_dataset_legacy(
+                        stage, dataset,
+                        inpainted_dir or self.lamainpaint_dir,
+                        retrieval_results_dir or self.retrieval_dir,
+                        os.path.join(self.cfg.output_dir, "result"),
+                        resume=resume)
+            self._stage_done("generate-legacy")
         return out
 
     def run_compose(self, resume: bool = False, failed_only: bool = False):
         pipe_mesh = self._pipe_mesh()
         stage = compose_stage.ComposeStage(
             self.fill_bundle, self.cfg.compose,
-            process_id=self.cfg.process_id, mesh=self._data_mesh(),
+            process_id=self.cfg.process_id,
+            mesh=None if pipe_mesh is not None else self._data_mesh(),
             pipe_mesh=pipe_mesh, pipe_axis=self.cfg.mesh.pipe_axis)
         out = {}
         with self.timer.span("stage/compose"):
@@ -217,6 +294,7 @@ class PipelineRunner:
                         failed_only=failed_only,
                         worker_id=self.cfg.worker_id,
                         num_workers=self.cfg.num_workers)
+            self._stage_done("compose")
         return out
 
     def run(self, stages: Sequence[str] = STAGES, resume: bool = False,

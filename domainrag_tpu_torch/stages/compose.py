@@ -19,7 +19,9 @@ Mirrors ``outpainting_updown_sampling_redux.py:872-1361`` per sample:
 The on-disk contract (file names, JSON keys) is the JAX package's. The
 models load once per process; the <= 5 backgrounds of a sample share one
 batched prior and fill, or chunks of ``max_rank_batch``; resume is
-manifest-driven. Meshes are not ported: ``mesh``/``pipe_mesh`` raise.
+manifest-driven. With ``mesh`` (hires fills ring their attention over its
+data axis) or ``pipe_mesh`` (the fill's depth pipelined), every rank runs
+the sweep and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -116,13 +118,15 @@ class ComposeStage:
     cfg: ComposeConfig
     process_id: str = "0"
     seed: Optional[int] = None   # None -> random per image (ref :1230)
-    mesh: Optional[object] = None        # not ported: must be None
-    pipe_mesh: Optional[object] = None   # not ported: must be None
+    mesh: Optional[object] = None  # hires: ring attention over its data axis
+    pipe_mesh: Optional[object] = None  # PP: depth-sharded fill serving
     pipe_axis: str = "pipe"
 
-    def __post_init__(self):
-        if self.mesh is not None or self.pipe_mesh is not None:
-            raise NotImplementedError("meshes and pipelining are not ported")
+    def writes(self) -> bool:
+        """True where this process writes artifacts: without a mesh, or on
+        its rank 0 (every rank of a mesh runs the same sweep)."""
+        return all(m is None or m.is_writer()
+                   for m in (self.mesh, self.pipe_mesh))
 
     def dataset_params(self, dataset: str) -> DatasetParams:
         for key, value in self.cfg.dataset_params.items():
@@ -140,7 +144,9 @@ class ComposeStage:
                        timer: Optional[StepTimer] = None) -> dict:
         """One sample; returns the log record feeding the result JSON."""
         timer = timer or StepTimer()
-        os.makedirs(outpaint_dir, exist_ok=True)
+        write = self.writes()
+        if write:
+            os.makedirs(outpaint_dir, exist_ok=True)
         params = self.dataset_params(dataset)
         lf = self.bundle.latent_factor
 
@@ -212,6 +218,9 @@ class ComposeStage:
 
         seeds = [self.seed if self.seed is not None
                  else random.randint(0, 2**32 - 1) for _ in bg_paths]
+        for m in (self.mesh, self.pipe_mesh):
+            if m is not None and self.seed is None:
+                seeds = m.broadcast_object(seeds)    # rank 0's draws
 
         def fill(emb, pool, sds, nb):
             return flux_pipeline.fill_batch(
@@ -225,11 +234,15 @@ class ComposeStage:
                 hires_threshold_px=self.cfg.hires_threshold_px,
                 velocity_cache_interval=self.cfg.velocity_cache_interval,
                 velocity_cache_order=self.cfg.velocity_cache_order,
+                mesh=self.pipe_mesh if self.pipe_mesh is not None
+                else self.mesh,
+                pipe_axis=self.pipe_axis if self.pipe_mesh is not None
+                else None,
                 timer=timer)
 
         mb = self.cfg.max_rank_batch
         with timer.span("fill"):
-            if mb and n_bg > mb:
+            if mb and self.pipe_mesh is None and n_bg > mb:
                 # fill in chunks of max_rank_batch backgrounds, as the
                 # generate stage chunks its ranks
                 results = np.concatenate([
@@ -249,19 +262,21 @@ class ComposeStage:
             with timer.span("save"):
                 mask_path = os.path.join(
                     outpaint_dir, f"{sample_id}_mask{suffix}.png")
-                Image.fromarray(keep_mask).save(mask_path)
                 bg_copy = os.path.join(
                     outpaint_dir, f"{sample_id}_bg{suffix}_original.png")
-                bg_image.save(bg_copy)
                 hires_path = os.path.join(
                     outpaint_dir, f"{sample_id}_hires_result{suffix}.png")
-                hires = Image.fromarray(result)
-                hires.save(hires_path)
-                final = hires.resize(original_image.size, Image.BICUBIC) \
-                    if hires.size != original_image.size else hires
                 final_path = os.path.join(
                     outpaint_dir, f"{sample_id}_final_result{suffix}.png")
-                final.save(final_path)
+                if write:
+                    Image.fromarray(keep_mask).save(mask_path)
+                    bg_image.save(bg_copy)
+                    hires = Image.fromarray(result)
+                    hires.save(hires_path)
+                    final = hires.resize(original_image.size,
+                                         Image.BICUBIC) \
+                        if hires.size != original_image.size else hires
+                    final.save(final_path)
 
                 params_record = {
                     "categories": list(categories),
@@ -295,8 +310,9 @@ class ComposeStage:
                 }
                 params_path = os.path.join(
                     outpaint_dir, f"{sample_id}_params{suffix}.json")
-                with open(params_path, "w") as f:
-                    json.dump(params_record, f, indent=2)
+                if write:
+                    with open(params_path, "w") as f:
+                        json.dump(params_record, f, indent=2)
 
             log["outpainted_images"].append({
                 "original_bg_path": bg_path,
@@ -366,6 +382,11 @@ def process_dataset(stage: ComposeStage, dataset: str, shot: int,
                                  f"{shot}_shot")
     manifest = Manifest(os.path.join(outpaint_root, "manifest.json"),
                         process_id=stage.process_id)
+    write = stage.writes()
+    for m in (stage.mesh, stage.pipe_mesh):
+        if m is not None:       # every rank read the manifest before
+            m.barrier()         # rank 0 writes it
+    mark = manifest.mark if write else (lambda *a, **kw: None)
 
     sample_map = {}
     for image_id in coco.image_ids():
@@ -430,15 +451,14 @@ def process_dataset(stage: ComposeStage, dataset: str, shot: int,
             sample_id = loaded.item[0]
             logger.error("failed to load sample %s: %s", sample_id,
                          loaded.__cause__)
-            manifest.mark(sample_id, STATUS_FAILED,
-                          error=f"load failed: {loaded.__cause__}")
+            mark(sample_id, STATUS_FAILED,
+                 error=f"load failed: {loaded.__cause__}")
             reporter.update(ok=False, detail=sample_id)
             continue
         sample_id, image_id, bg_paths, original, bboxes, categories = loaded
         if not bg_paths:
             logger.warning("no generated backgrounds for %s", sample_id)
-            manifest.mark(sample_id, STATUS_FAILED,
-                          error="no generated backgrounds")
+            mark(sample_id, STATUS_FAILED, error="no generated backgrounds")
             reporter.update(ok=False, detail=sample_id)
             continue
         start = time.perf_counter()
@@ -449,22 +469,23 @@ def process_dataset(stage: ComposeStage, dataset: str, shot: int,
                 os.path.join(outpaint_root, sample_id),
                 image_id=image_id, timer=timer)
             logs.append(log)
-            manifest.mark(sample_id, STATUS_DONE,
-                          elapsed_s=time.perf_counter() - start)
+            mark(sample_id, STATUS_DONE,
+                 elapsed_s=time.perf_counter() - start)
             reporter.update(ok=True, detail=sample_id)
         except Exception as e:
             logger.exception("compose failed for %s", sample_id)
-            manifest.mark(sample_id, STATUS_FAILED, error=str(e),
-                          elapsed_s=time.perf_counter() - start)
+            mark(sample_id, STATUS_FAILED, error=str(e),
+                 elapsed_s=time.perf_counter() - start)
             reporter.update(ok=False, detail=sample_id)
 
     result = formatted_result_json(dataset, logs, shot, stage.process_id)
-    os.makedirs(outpaint_root, exist_ok=True)
-    out_json = os.path.join(outpaint_root,
-                            f"outpaint_results_{shot}shot.json")
-    with open(out_json, "w") as f:
-        json.dump(result, f, indent=2)
-    collect_final_results(output_dir, stage.process_id, shot)
+    if write:
+        os.makedirs(outpaint_root, exist_ok=True)
+        out_json = os.path.join(outpaint_root,
+                                f"outpaint_results_{shot}shot.json")
+        with open(out_json, "w") as f:
+            json.dump(result, f, indent=2)
+        collect_final_results(output_dir, stage.process_id, shot)
     return result
 
 

@@ -18,8 +18,11 @@ and ``params.txt``.
 :func:`process_dataset` runs the single-device pipelined loop: the next
 sample's SigLIP inputs are decoded in a prefetch thread and the previous
 sample's PNG writes run on one writer thread while the card denoises.
-Meshes (data-parallel samples, pipelined depth) belong to scale-out
-(ROADMAP A6) and raise ``NotImplementedError``.
+With ``mesh`` (every rank of a ``parallel.mesh.Mesh`` running the same
+sweep) the (sample, rank) rows of groups of samples denoise data-parallel
+(:func:`generate_samples_dp`); with ``pipe_mesh`` each sample's denoise
+pipelines the transformer depth. Under either, rank 0 alone writes, and
+the tree is the one a single-device run writes.
 """
 
 from __future__ import annotations
@@ -46,9 +49,10 @@ from ..models.flux import pipeline as flux_pipeline
 logger = get_logger("domainrag_tpu_torch.generate")
 
 
-def _no_mesh(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A6, scale-out)")
+def _writes(*meshes) -> bool:
+    """True where this process writes the run's artifacts: always without
+    a mesh, on the mesh's rank 0 with one."""
+    return all(m is None or m.is_writer() for m in meshes)
 
 
 def top_ranked_refs(retrieval_results: dict, dataset: str, shot: int,
@@ -145,12 +149,15 @@ class GenerateStage:
         precomputed :meth:`_prior_inputs`. ``writer``: an executor; the
         PNG/provenance writes of the decoded host arrays are submitted
         there and a Future of the written paths is returned instead.
-        ``pipe_mesh`` (pipelined depth) raises until scale-out."""
-        if pipe_mesh is not None:
-            raise _no_mesh("a pipelined transformer (pipe_mesh)")
+        ``pipe_mesh``: the transformer depth pipelined over its
+        ``pipe_axis`` (``parallel.pipeline_parallel``); every rank of it
+        makes this call and only rank 0 writes (the others return the
+        paths rank 0 writes)."""
         timer = timer or StepTimer()
         s = self.cfg.sampling
-        os.makedirs(sample_dir, exist_ok=True)
+        write = _writes(pipe_mesh)
+        if write:
+            os.makedirs(sample_dir, exist_ok=True)
         with timer.span("prior"):
             embeds, pooleds = self._priors_for_sample(refs, target_path,
                                                       prior_inputs)
@@ -167,12 +174,14 @@ class GenerateStage:
                 velocity_cache_interval=getattr(
                     s, "velocity_cache_interval", 1),
                 velocity_cache_order=getattr(s, "velocity_cache_order", 1),
+                mesh=pipe_mesh,
+                pipe_axis=pipe_axis if pipe_mesh is not None else None,
                 timer=timer)
             return out[None] if out.ndim == 3 else out
 
         mb = self.cfg.max_rank_batch
         with timer.span("denoise"):
-            if mb and len(refs) > mb:
+            if mb and pipe_mesh is None and len(refs) > mb:
                 images = np.concatenate([
                     run(embeds[i:i + mb], pooleds[i:i + mb],
                         min(mb, len(refs) - i))
@@ -181,6 +190,8 @@ class GenerateStage:
                 images = run(embeds, pooleds, len(refs))
 
         def save():
+            if not write:
+                return [_rank_image_path(sample_dir, ref) for ref in refs]
             out_paths = [_write_rank_artifacts(sample_dir, ref, target_path,
                                                img)
                          for ref, img in zip(refs, images)]
@@ -193,13 +204,18 @@ class GenerateStage:
             return save()
 
 
+def _rank_image_path(sample_dir: str, ref: dict) -> str:
+    return os.path.join(sample_dir,
+                        f"generated_image_rank{ref.get('rank', 1)}.png")
+
+
 def _write_rank_artifacts(sample_dir: str, ref: dict, target_path: str,
                           img: np.ndarray) -> str:
     """One rank's image + provenance."""
     from PIL import Image
     os.makedirs(sample_dir, exist_ok=True)
     rank = ref.get("rank", 1)
-    out = os.path.join(sample_dir, f"generated_image_rank{rank}.png")
+    out = _rank_image_path(sample_dir, ref)
     Image.fromarray(img).save(out)
     sim = ref.get("similarity")
     sim_str = f"_sim{sim:.4f}" if sim is not None else ""
@@ -240,9 +256,72 @@ def _write_sample_provenance(sample_dir: str, target_path: str,
 def generate_samples_dp(stage: GenerateStage, items: List[dict], mesh,
                         timer: Optional[StepTimer] = None
                         ) -> Dict[str, List[str]]:
-    """Data-parallel (sample, rank) rows over a mesh's data axis: not
-    ported until scale-out."""
-    raise _no_mesh("data-parallel generation over a mesh")
+    """Data-parallel batch across SAMPLES and ranks: every (sample, rank)
+    pair is one row of a batch split over the mesh's data axis (one
+    denoise for the whole group instead of a process per card). Every
+    rank of the mesh makes this call; rank 0 writes.
+
+    items: [{sample_id, target_path, refs, sample_dir}]. Returns
+    {sample_id: [image paths]}."""
+    timer = timer or StepTimer()
+    s = stage.cfg.sampling
+    r = stage.cfg.redux
+    size = stage.bundle.siglip_cfg.image_size
+
+    pairs = [(item, ref) for item in items for ref in item["refs"]]
+    if not pairs:
+        return {}
+
+    with timer.span("prior"):
+        # unique-image prior: each path's tower forward runs once even
+        # though a sample's target appears in every one of its ranks
+        path_to_idx: Dict[str, int] = {}
+        unique_imgs: List[np.ndarray] = []
+
+        def idx_of(path: str) -> int:
+            if path not in path_to_idx:
+                path_to_idx[path] = len(unique_imgs)
+                unique_imgs.append(imaging.siglip_preprocess(
+                    imaging.load_rgb(path), size))
+            return path_to_idx[path]
+
+        pair_idx = np.asarray([[idx_of(ref["image_path"]),
+                                idx_of(item["target_path"])]
+                               for item, ref in pairs])
+        embeds, pooleds = flux_pipeline.redux_prior_pairs_indexed(
+            stage.bundle, np.stack(unique_imgs), pair_idx, r.prompt,
+            prompt_embeds_scale=[r.ref_image_scale, r.target_image_scale],
+            pooled_prompt_embeds_scale=[r.ref_text_scale,
+                                        r.target_text_scale])
+    with timer.span("denoise"):
+        images = flux_pipeline.generate(
+            stage.bundle, embeds, pooleds, height=s.height, width=s.width,
+            num_steps=s.num_steps, guidance=s.guidance_scale,
+            seed=[s.seed] * len(pairs), mesh=mesh,
+            scheduler_overrides={
+                "use_dynamic_shifting": s.use_dynamic_shifting,
+                "base_shift": s.base_shift, "max_shift": s.max_shift},
+            block_cache_interval=getattr(s, "block_cache_interval", 1),
+            velocity_cache_interval=getattr(
+                s, "velocity_cache_interval", 1),
+            velocity_cache_order=getattr(s, "velocity_cache_order", 1),
+            timer=timer)
+    if images.ndim == 3:
+        images = images[None]
+
+    out: Dict[str, List[str]] = {}
+    write = _writes(mesh)
+    with timer.span("save"):
+        for (item, ref), img in zip(pairs, images):
+            path = (_write_rank_artifacts(item["sample_dir"], ref,
+                                          item["target_path"], img)
+                    if write else _rank_image_path(item["sample_dir"], ref))
+            out.setdefault(item["sample_id"], []).append(path)
+        if write:
+            for item in items:
+                _write_sample_provenance(item["sample_dir"],
+                                         item["target_path"], stage.cfg)
+    return out
 
 
 def results_dir_name(cfg: GenerateConfig, timestamp: str) -> str:
@@ -314,13 +393,19 @@ def process_dataset(stage: GenerateStage, dataset: str, shot: int,
     failed, skipped, fallback} (+ the migration tallies).
 
     ``reference_artifacts``: read the retrieval JSON through the tolerant
-    reader of :mod:`stages.migrate`. ``mesh``, ``dp_samples`` and
-    ``pipe_mesh`` raise until scale-out. ``timer`` (the port's own) gets
-    every sample's spans."""
-    if mesh is not None or dp_samples:
-        raise _no_mesh("data-parallel generation over a mesh")
-    if pipe_mesh is not None:
-        raise _no_mesh("a pipelined transformer (pipe_mesh)")
+    reader of :mod:`stages.migrate`. ``timer`` (the port's own) gets
+    every sample's spans.
+
+    With ``mesh``, samples are processed in data-parallel groups of
+    ``dp_samples`` (default: enough samples to fill the data axis with
+    (sample, rank) rows) through :func:`generate_samples_dp`. With
+    ``pipe_mesh`` (not with ``mesh``), each sample's batched-rank denoise
+    pipelines the transformer depth over the pipe axis instead. Every
+    rank of the mesh runs the sweep; rank 0 alone writes the tree."""
+    if mesh is not None and pipe_mesh is not None:
+        raise ValueError("mesh and pipe_mesh are mutually exclusive: data "
+                         "parallelism or a pipelined transformer")
+    write = _writes(mesh, pipe_mesh)
     shot_dir = os.path.join(lamainpaint_dir, dataset, f"{shot}_shot")
     if not os.path.isdir(shot_dir):
         logger.error("missing shot dir %s", shot_dir)
@@ -335,14 +420,19 @@ def process_dataset(stage: GenerateStage, dataset: str, shot: int,
         run_name = results_dir_name(stage.cfg,
                                     time.strftime("%Y%m%d_%H%M%S"))
     base_dir = os.path.join(result_root, run_name)
-    os.makedirs(base_dir, exist_ok=True)
     # a manifest per worker under sharding (each is rewritten whole)
     mname = "manifest.json" if num_workers <= 1 \
         else f"manifest.worker{worker_id}.json"
     manifest = Manifest(os.path.join(base_dir, mname))
-    if worker_id == 0:
-        write_batch_params_header(base_dir, dataset, stage.cfg,
-                                  len(samples))
+    for m in (mesh, pipe_mesh):
+        if m is not None:       # every rank read the manifest before
+            m.barrier()         # rank 0 writes into the run dir
+    if write:
+        os.makedirs(base_dir, exist_ok=True)
+        if worker_id == 0:
+            write_batch_params_header(base_dir, dataset, stage.cfg,
+                                      len(samples))
+    mark = manifest.mark if write else (lambda *a, **kw: None)
 
     counters = {"processed": 0, "failed": 0, "skipped": 0, "fallback": 0}
     total_images = 0
@@ -375,8 +465,7 @@ def process_dataset(stage: GenerateStage, dataset: str, shot: int,
                 logger.warning("no retrieval refs and no corpus fallback "
                                "for %s", sample_id)
                 counters["failed"] += 1
-                manifest.mark(sample_id, STATUS_FAILED,
-                              error="no retrieval refs")
+                mark(sample_id, STATUS_FAILED, error="no retrieval refs")
                 reporter.update(ok=False, detail=sample_id)
                 continue
             refs = random_fallback_refs(
@@ -398,20 +487,41 @@ def process_dataset(stage: GenerateStage, dataset: str, shot: int,
         counters["processed"] += 1
         total_images += len(paths)
         image_sizes[size_key] = image_sizes.get(size_key, 0) + len(paths)
-        manifest.mark(item["sample_id"], STATUS_DONE,
-                      outputs={"images": paths}, elapsed_s=elapsed)
+        mark(item["sample_id"], STATUS_DONE, outputs={"images": paths},
+             elapsed_s=elapsed)
         reporter.update(ok=True, detail=item["sample_id"])
 
     def _mark_failed(item, e):
         logger.error("generation failed for %s", item["sample_id"],
                      exc_info=e)
-        os.makedirs(item["sample_dir"], exist_ok=True)
-        with open(os.path.join(item["sample_dir"],
-                               "generation_failed.txt"), "w") as f:
-            f.write(str(e))
+        if write:
+            os.makedirs(item["sample_dir"], exist_ok=True)
+            with open(os.path.join(item["sample_dir"],
+                                   "generation_failed.txt"), "w") as f:
+                f.write(str(e))
         counters["failed"] += 1
-        manifest.mark(item["sample_id"], STATUS_FAILED, error=str(e))
+        mark(item["sample_id"], STATUS_FAILED, error=str(e))
         reporter.update(ok=False, detail=item["sample_id"])
+
+    if mesh is not None:
+        # data-parallel groups: a failure inside the group's collectives
+        # is every rank's, so it ends the run rather than desynchronizing
+        if dp_samples <= 0:
+            dp_samples = max(1, mesh.shape.get("data", 1)
+                             // max(stage.cfg.top_ranks, 1))
+        for i in range(0, len(items), dp_samples):
+            if should_stop():
+                logger.warning("graceful stop requested during generate")
+                break
+            group = items[i:i + dp_samples]
+            start = time.perf_counter()
+            paths = generate_samples_dp(stage, group, mesh, timer=timer)
+            elapsed = (time.perf_counter() - start) / len(group)
+            for item in group:
+                _mark_done(item, paths.get(item["sample_id"], []), elapsed)
+        return _finish(base_dir, dataset, shot, counters, total_images,
+                       image_sizes, mig_stats, worker_id, num_workers,
+                       write)
 
     # The pipelined single-device loop: the prior/denoise/decode work
     # serializes on the card, so the overlap to win is host work on both
@@ -452,8 +562,9 @@ def process_dataset(stage: GenerateStage, dataset: str, shot: int,
             try:
                 fut = stage.generate_sample(
                     item["sample_id"], item["target_path"], item["refs"],
-                    item["sample_dir"], timer=timer,
-                    prior_inputs=prior_inputs, writer=writer)
+                    item["sample_dir"], timer=timer, pipe_mesh=pipe_mesh,
+                    pipe_axis=pipe_axis, prior_inputs=prior_inputs,
+                    writer=writer)
             except Exception as e:
                 _mark_failed(item, e)
                 continue
@@ -465,15 +576,24 @@ def process_dataset(stage: GenerateStage, dataset: str, shot: int,
         for entry in pending:
             _resolve(entry)
         writer.shutdown(wait=True)
+    return _finish(base_dir, dataset, shot, counters, total_images,
+                   image_sizes, mig_stats, worker_id, num_workers, write)
+
+
+def _finish(base_dir, dataset, shot, counters, total_images, image_sizes,
+            mig_stats, worker_id, num_workers, write) -> Dict[str, int]:
+    """The sweep's migration tallies and the totals block of
+    ``batch_params.txt`` (where this process writes)."""
     if mig_stats is not None:
         logger.warning("%s %d_shot %s", dataset, shot, mig_stats.summary())
         counters["fuzzy_hits"] = mig_stats.fuzzy
         counters["migration_missed"] = mig_stats.missed
         counters["repaired_paths"] = mig_stats.repaired_paths
-    append_batch_params_totals(base_dir, counters, total_images,
-                               image_sizes,
-                               worker_tag=(f"worker{worker_id}"
-                                           if num_workers > 1 else None))
+    if write:
+        append_batch_params_totals(base_dir, counters, total_images,
+                                   image_sizes,
+                                   worker_tag=(f"worker{worker_id}"
+                                               if num_workers > 1 else None))
     logger.info("%s %d_shot generate: %s", dataset, shot, counters)
     return counters
 

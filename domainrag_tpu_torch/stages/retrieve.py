@@ -15,8 +15,10 @@ Mirrors ``retrieval/clip100_resnet_style_all_shots.py``:
    ``.npy`` + paths-JSON feature caches in its file names
    (ref :614-649,794-822).
 
-File names and JSON schemas are the JAX stage's. A bank sharded over a
-mesh is not ported yet: ``mesh=`` raises ``NotImplementedError``.
+File names and JSON schemas are the JAX stage's. With a mesh whose
+``mesh_axis`` has several ranks, each rank holds its shard of the bank's
+rows and the first stage is ``parallel.collectives.sharded_topk`` (B8 or
+``topk_ip`` per shard, then an exact merge of the gathered candidates).
 ``run_retrieval(timer=)`` takes a ``core.log.StepTimer``: spans ``encode``
 (the queries' CLIP features), ``search`` (the first stage), ``rerank``
 (one per query) and ``write`` (its JSON and grid).
@@ -41,13 +43,6 @@ from ..ops import topk as topk_ops
 from .encoders import ClipImageEncoder, StyleEncoder
 
 logger = get_logger("domainrag_tpu_torch.retrieve")
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a bank sharded over a mesh is not ported yet (ROADMAP A6, "
-            "scale-out)")
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +70,6 @@ class EmbeddingBank:
                      paths_by_source: Dict[str, List[str]],
                      mesh=None, mesh_axis: str = "data",
                      device=None) -> "EmbeddingBank":
-        _no_mesh(mesh)
         feats, paths, sources = [], [], []
         for name, f in features_by_source.items():
             if f is None or len(f) == 0:
@@ -85,9 +79,16 @@ class EmbeddingBank:
             sources.extend([name] * len(paths_by_source[name]))
         if not feats:
             raise ValueError("no corpus features available")
-        full = torch.from_numpy(np.concatenate(feats, axis=0))
-        return cls(features=full.to(device_mod.resolve(device)),
-                   paths=paths, sources=sources)
+        full = np.concatenate(feats, axis=0)
+        if mesh is not None and mesh.shape.get(mesh_axis, 1) > 1:
+            from ..parallel.collectives import pad_bank_for_mesh, shard_bank
+            padded, _ = pad_bank_for_mesh(full, mesh, mesh_axis)
+            return cls(features=shard_bank(padded, mesh, mesh_axis,
+                                           device=device),
+                       paths=paths, sources=sources, mesh=mesh,
+                       mesh_axis=mesh_axis)
+        return cls(features=torch.from_numpy(full).to(
+            device_mod.resolve(device)), paths=paths, sources=sources)
 
 
 def load_pretrained_features(features_path: str, paths_path: str
@@ -210,15 +211,22 @@ def first_stage_topk(query_features: np.ndarray, bank: EmbeddingBank,
     (ref :436-447). ``use_pallas``: the fused kernel, B8
     (:func:`ops.topk.topk_ip_fused`), for a bank off the CPU (the JAX
     package gates on its backend, the port on the bank's device); else
-    :func:`ops.topk.topk_ip`. Both give the same indices."""
-    _no_mesh(bank.mesh)
+    :func:`ops.topk.topk_ip`. Both give the same indices. A bank sharded
+    over a mesh (``bank.mesh``) searches its shards and merges them
+    (``parallel.collectives.sharded_topk``), in the same order."""
     k = min(top_k, bank.size)
     feats = bank.features
     queries = torch.from_numpy(
         np.array(query_features, np.float32)).to(feats.device)
-    fn = topk_ops.topk_ip_fused if (
-        use_pallas and feats.device.type != "cpu") else topk_ops.topk_ip
-    scores, idx = fn(queries, feats, k)
+    if bank.mesh is not None:
+        from ..parallel.collectives import sharded_topk
+        scores, idx = sharded_topk(queries, feats, k, bank.mesh,
+                                   n_valid=bank.size, axis=bank.mesh_axis,
+                                   use_pallas=use_pallas)
+    else:
+        fn = topk_ops.topk_ip_fused if (
+            use_pallas and feats.device.type != "cpu") else topk_ops.topk_ip
+        scores, idx = fn(queries, feats, k)
     scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
     return [
         [{"similarity": float(scores[qi, j]),
@@ -283,7 +291,11 @@ def retrieve_dataset_shot(
         lamainpaint_dir, dataset, shot)
     if not sample_to_image:
         return {}
-    os.makedirs(results_dir, exist_ok=True)
+    # a bank sharded over a mesh: every rank runs this, rank 0 writes (and
+    # only it reads the feature cache it may be writing)
+    write = bank.mesh is None or bank.mesh.is_writer()
+    if write:
+        os.makedirs(results_dir, exist_ok=True)
 
     wtag = f".worker{worker_id}" if num_workers > 1 else ""
     # query-side feature cache (ref :794-822 file names)
@@ -299,8 +311,8 @@ def retrieve_dataset_shot(
         return {}
     query_paths = [sample_to_image[s] for s in sample_ids]
     features = None
-    if not force_recompute_inpainted and os.path.exists(feat_file) \
-            and os.path.exists(paths_file):
+    if write and not force_recompute_inpainted \
+            and os.path.exists(feat_file) and os.path.exists(paths_file):
         cached = np.load(feat_file)
         with open(paths_file) as f:
             cached_paths = json.load(f)
@@ -313,9 +325,10 @@ def retrieve_dataset_shot(
             sample_ids = [s for s, p in zip(sample_ids, query_paths)
                           if p in set(kept)]
             query_paths = kept
-        np.save(feat_file, features)
-        with open(paths_file, "w") as f:
-            json.dump(query_paths, f)
+        if write:
+            np.save(feat_file, features)
+            with open(paths_file, "w") as f:
+                json.dump(query_paths, f)
 
     # one batched first-stage search for every query of the dataset-shot
     with timer.span("search"):
@@ -333,9 +346,10 @@ def retrieve_dataset_shot(
             f"{dataset}_{shot}_shot_{category}_{sample_id}"
             "_retrieval_results.json")
         with timer.span("write"):
-            with open(per_sample_file, "w", encoding="utf-8") as f:
-                json.dump(final, f, indent=2, ensure_ascii=False)
-            if cfg.visualize:
+            if write:
+                with open(per_sample_file, "w", encoding="utf-8") as f:
+                    json.dump(final, f, indent=2, ensure_ascii=False)
+            if write and cfg.visualize:
                 from .visualize import visualize_results
                 visualize_results(
                     image_path, [r["image_path"] for r in final[:10]],
@@ -349,10 +363,12 @@ def retrieve_dataset_shot(
             "similar_images": final,
         })
 
-    out_file = os.path.join(
-        results_dir, f"{dataset}_{shot}_shot_retrieval_results{wtag}.json")
-    with open(out_file, "w", encoding="utf-8") as f:
-        json.dump(all_results, f, indent=2, ensure_ascii=False)
+    if write:
+        out_file = os.path.join(
+            results_dir,
+            f"{dataset}_{shot}_shot_retrieval_results{wtag}.json")
+        with open(out_file, "w", encoding="utf-8") as f:
+            json.dump(all_results, f, indent=2, ensure_ascii=False)
     logger.info("%s %d_shot: %d categories retrieved", dataset, shot,
                 len(all_results))
     return all_results
@@ -379,7 +395,8 @@ def run_retrieval(datasets: Sequence[str], shots: Sequence[int],
                 worker_id=worker_id, num_workers=num_workers, timer=timer)
             if results:
                 all_shots[dataset][f"{shot}_shot"] = results
-    if any(all_shots.values()):
+    if any(all_shots.values()) and (bank.mesh is None
+                                    or bank.mesh.is_writer()):
         name = "all_shots_retrieval_results.json" if num_workers <= 1 \
             else f"all_shots_retrieval_results.worker{worker_id}.json"
         out = os.path.join(results_dir, name)

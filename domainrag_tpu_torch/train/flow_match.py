@@ -17,7 +17,7 @@ whose update is optax's (eps outside the sqrt of the bias-corrected
 second moment, decoupled decay of every leaf). Params are updated in
 place: the tree handed to :func:`make_train_step` is the tree that
 trains. Single device: meshes, tensor parallelism and FSDP over more than
-one device belong to scale-out and raise.
+one device come with the last slice of the port (ROADMAP A7) and raise.
 """
 
 from __future__ import annotations
@@ -142,8 +142,9 @@ def make_train_step(flux_cfg: flux_mod.FluxConfig, train_cfg: TrainConfig,
     (step_fn, params, opt_state); ``step_fn(params, opt_state, batch,
     generator, t=None, eps=None) -> (params, opt_state, loss)``."""
     if mesh is not None or model_parallel > 1:
-        raise NotImplementedError("meshes and tensor parallelism need "
-                                  "scale-out (not ported)")
+        raise NotImplementedError("training over a mesh (FSDP / TP) comes "
+                                  "with the last slice of the port "
+                                  "(ROADMAP A7)")
     for p in leaves(params):
         if not p.is_floating_point():
             raise ValueError(f"non-float param leaf {p.dtype}")

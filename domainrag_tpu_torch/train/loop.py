@@ -106,8 +106,9 @@ def fit(params, flux_cfg: flux_mod.FluxConfig,
             "zero gradient. Disable it before fit().")
     train_cfg = train_cfg or flow_match.TrainConfig()
     if mesh is not None or model_parallel > 1:
-        raise NotImplementedError("meshes and tensor parallelism need "
-                                  "scale-out (not ported)")
+        raise NotImplementedError("training over a mesh (FSDP / TP) comes "
+                                  "with the last slice of the port "
+                                  "(ROADMAP A7)")
     step_fn, params, opt_state = flow_match.make_train_step(
         flux_cfg, train_cfg, params)
     dev = flow_match.leaves(params)[0].device

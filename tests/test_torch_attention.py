@@ -27,6 +27,10 @@ import torch
 from domainrag_tpu.ops import attention as jattn
 from domainrag_tpu_torch.ops import attention as tattn
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 
 def _qkv(seed, b, h, sq, skv, d):
     rng = np.random.default_rng(seed)

@@ -30,6 +30,10 @@ from domainrag_tpu_torch.models.flux import model as tflux
 from domainrag_tpu_torch.models.flux import pipeline as tfp
 from test_torch_fill import port_bundle
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 SIZE = 32
 STEPS = 4
 SEEDS = [0, 1]

@@ -14,9 +14,9 @@ Limits, each with its reason:
   random draw, so the images are not compared here
   (``tests/test_torch_orchestrator.py`` compares them on bridged
   weights);
-- scale-out flags (ROADMAP A6) raise ``NotImplementedError`` before any
-  model is built; the cache values reach ``generate`` and the sample is
-  processed.
+- scale-out flags in one process reach the runner's config as the JAX
+  CLI's do (``--distributed`` without a group: worker 0 of 1); the cache
+  values reach ``generate`` and the sample is processed.
 """
 
 import argparse
@@ -34,6 +34,10 @@ from domainrag_tpu.core.coco import write_coco
 from domainrag_tpu.core.config import asdict as jasdict
 from domainrag_tpu_torch.cli import main as cli
 from domainrag_tpu_torch.core.config import asdict
+
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
 
 DS = "NEU-DET"
 
@@ -184,15 +188,30 @@ def test_no_weights_exits_as_jax(tmp_path):
                                    ["--model_parallel", "2"],
                                    ["--pipeline_parallel", "4"]])
 def test_scale_out_flags_raise(tmp_path, flags, monkeypatch):
+    """In one process the scale-out flags build the runner with the JAX
+    CLI's config: ``--distributed`` without a group is worker 0 of 1 (the
+    JAX ``initialize_distributed`` falls back to one process), and the
+    parallel degrees reach ``cfg.mesh`` (the mesh itself is built per
+    stage, over the processes launched together)."""
     built = []
+
+    class Built(Exception):
+        pass
+
+    def stub(cfg, *a, **k):
+        built.append(cfg)
+        raise Built
+
     monkeypatch.setattr("domainrag_tpu_torch.pipeline.orchestrator."
-                        "build_tiny_runner",
-                        lambda *a, **k: built.append(a))
-    argv = ["pipeline", "--tiny-models", "--device", "cpu",
-            "--output_dir", str(tmp_path)] + flags
-    with pytest.raises(NotImplementedError, match="A6"):
-        cli.main(argv)
-    assert built == []
+                        "build_tiny_runner", stub)
+    argv = ["pipeline", "--tiny-models", "--output_dir", str(tmp_path)] + \
+        flags
+    with pytest.raises(Built):
+        cli.main(argv + ["--device", "cpu"])
+    args = parse(argv, jcli)
+    if args.distributed:
+        args.worker_id, args.num_workers = 0, 1
+    assert asdict(built[0]) == jasdict(jcli._build_cfg(args))
 
 
 def test_device_defaults_to_the_card(tmp_path, monkeypatch):

@@ -43,6 +43,10 @@ from domainrag_tpu_torch.models.flux import pipeline as tfp
 from domainrag_tpu_torch.stages import compose as tcompose
 from test_torch_fill import port_bundle
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 DATASET = "UODD"
 SHOT = 1
 
@@ -404,9 +408,16 @@ def test_rank_suffix_and_background_discovery(tmp_path):
 
 
 def test_meshes_raise(bundle):
+    """The stage takes the JAX stage's fields with JAX's defaults, meshes
+    included; with a mesh it writes on the mesh's rank 0 (here the one
+    process of a one-rank mesh)."""
+    from domainrag_tpu_torch.parallel import mesh as tmesh
     cfg = ComposeConfig()
-    with pytest.raises(NotImplementedError):
-        tcompose.ComposeStage(bundle, cfg, mesh=object())
-    with pytest.raises(NotImplementedError):
-        tcompose.ComposeStage(bundle, cfg, pipe_mesh=object())
-    assert dataclasses.is_dataclass(tcompose.ComposeStage(bundle, cfg))
+    names = [(f.name, f.default) for f in dataclasses.fields(
+        tcompose.ComposeStage)]
+    assert names == [(f.name, f.default) for f in dataclasses.fields(
+        jcompose.ComposeStage)]
+    one = tmesh.create_mesh()
+    pipe = tmesh.Mesh(np.arange(1), ("pipe",))
+    for kw in ({}, {"mesh": one}, {"pipe_mesh": pipe}):
+        assert tcompose.ComposeStage(bundle, cfg, **kw).writes()

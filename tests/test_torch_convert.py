@@ -51,6 +51,10 @@ from domainrag_tpu_torch.models import t5 as tt5
 from domainrag_tpu_torch.models.flux import model as tflux
 from domainrag_tpu_torch.models.flux import vae as tvae
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 CPU = dict(device="cpu")
 

@@ -31,6 +31,10 @@ from domainrag_tpu_torch.eval import flops as tflops
 from domainrag_tpu_torch.models.flux import model as tflux
 from domainrag_tpu_torch.native import build as tnative
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 CFGS = {"dev": (jflux.FLUX_DEV, tflux.FLUX_DEV),
         "fill": (jflux.FLUX_FILL_DEV, tflux.FLUX_FILL_DEV),
         "tiny": (jflux.TINY_FLUX, tflux.TINY_FLUX)}

@@ -22,6 +22,10 @@ import torch
 from domainrag_tpu_torch.ops import _build
 from domainrag_tpu_torch.ops import attention as attn
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 STREAM = 0x7F00DEADBEEF       # a stream handle above 2^32
 
 

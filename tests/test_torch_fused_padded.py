@@ -36,6 +36,10 @@ import torch
 from domainrag_tpu.ops import mmdit_attention as jmma
 from domainrag_tpu_torch.ops import mmdit_attention as tmma
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 HEADS, HD = 2, 128
 TILE = 128
 PRESCALE = tmma.LOG2_E / math.sqrt(HD)

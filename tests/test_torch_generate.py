@@ -39,6 +39,10 @@ from domainrag_tpu_torch.ops import attention as tattn
 from domainrag_tpu_torch.ops import mmdit_attention as tmma
 from domainrag_tpu_torch.stages import generate as tgen
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "domainrag_tpu_torch"
 HEIGHT = WIDTH = 32
@@ -154,14 +158,20 @@ def test_generate_uint8_matches_jax(bundles, priors):
     dict(block_cache_interval=2), dict(velocity_cache_interval=2)],
     ids=["mesh", "pipe_axis", "block_cache", "velocity_cache"])
 def test_generate_rejects_unported_modes(bundles, priors, kwargs):
-    """Meshes and pipelining (ROADMAP A6) raise; the caches, ported now,
-    run and give JAX's images (uint8 within 1 level) from JAX's noise."""
+    """A mesh argument that is not a mesh, and a pipe axis without a mesh,
+    raise the JAX package's errors (type and text; the mesh path is
+    ``tests/test_torch_scaleout_serve.py``'s); the caches run and give
+    JAX's images (uint8 within 1 level) from JAX's noise."""
     jb, tb = bundles
     (je, jp), (te, tp) = priors
     if "mesh" in kwargs or "pipe_axis" in kwargs:
-        with pytest.raises(NotImplementedError, match="A6"):
+        with pytest.raises(Exception) as want:
+            jfp.generate(jb, je, jp, height=HEIGHT, width=WIDTH, num_steps=1,
+                         **kwargs)
+        with pytest.raises(type(want.value)) as got:
             tfp.generate(tb, te, tp, height=HEIGHT, width=WIDTH,
                          num_steps=1, **kwargs)
+        assert str(got.value) == str(want.value)
         return
     kw = dict(height=HEIGHT, width=WIDTH, num_steps=STEPS, seed=SEEDS,
               **kwargs)
@@ -274,6 +284,16 @@ def test_import_check_covers_the_trainer():
              if p.is_relative_to(PORT)}
     assert {"ops/attention.py", "train/flow_match.py", "train/loop.py",
             "train/checkpoint.py", "train/__init__.py"} <= names
+
+
+def test_import_check_covers_scale_out():
+    """The import check above walks ``parallel/`` and the ring too."""
+    names = {str(p.relative_to(PORT)) for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"parallel/mesh.py", "parallel/multihost.py",
+            "parallel/sharding.py", "parallel/collectives.py",
+            "parallel/deploy.py", "parallel/pipeline_parallel.py",
+            "ops/ring_attention.py"} <= names
 
 
 def test_import_check_covers_the_int8_modes():

@@ -41,6 +41,10 @@ from domainrag_tpu_torch.stages import migrate as tmig
 
 from test_torch_generate import _port_bundle
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 SIZE, STEPS = 32, 2
 DS, SHOT = "NEU-DET", 1
 
@@ -315,19 +319,47 @@ def test_prior_for_pair_matches_jax(tmp_path, stages):
     np.testing.assert_array_equal(tp, jp)
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(dp_samples=2),
-                                    dict(pipe_mesh=object())],
+@pytest.mark.parametrize("kwargs", [dict(mesh=True), dict(dp_samples=2),
+                                    dict(pipe_mesh=True)],
                          ids=["mesh", "dp_samples", "pipe_mesh"])
-def test_meshes_raise(tmp_path, stages, kwargs):
-    lama, rr, _ = make_dataset(tmp_path, n_samples=1)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgen.process_dataset(stages[1], DS, SHOT, rr, lama,
-                             str(tmp_path / "out"), **kwargs)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgen.generate_samples_dp(stages[1], [], object())
-    with pytest.raises(NotImplementedError, match="A6"):
-        stages[1].generate_sample("s", "t.jpg", [], str(tmp_path / "s"),
-                                  pipe_mesh=object())
+def test_meshes_raise(tmp_path, stages, jax_noise, kwargs):
+    """A one-device mesh (one process, a one-rank mesh), ``dp_samples``
+    without a mesh and a pipe mesh of one device give JAX's sweep: the
+    same counters and files (a pipe axis of one device fails each sample
+    with JAX's ``ValueError``, recorded in ``generation_failed.txt``), the
+    images within one level; ``generate_samples_dp`` of no items is
+    empty."""
+    from jax.sharding import Mesh as JMesh
+
+    from domainrag_tpu.parallel import mesh as jmesh
+    from domainrag_tpu_torch.parallel import mesh as tmesh
+    lama, rr, _ = make_dataset(tmp_path, n_samples=2)
+    meshes = {"mesh": (jmesh.create_mesh(devices=jax.devices()[:1]),
+                       tmesh.create_mesh()),
+              "pipe_mesh": (JMesh(np.array(jax.devices()[:1]), ("pipe",)),
+                            tmesh.Mesh(np.arange(1), ("pipe",)))}
+    runs = []
+    for side, (stage, mod) in enumerate(zip(stages, (jgen, tgen))):
+        kw = {k: meshes[k][side] if k in meshes else v
+              for k, v in kwargs.items()}
+        out = str(tmp_path / f"out{side}")
+        runs.append((mod.process_dataset(stage, DS, SHOT, rr, lama, out,
+                                         run_name="run", **kw), out))
+        assert mod.generate_samples_dp(stage, [], kw.get("mesh")) == {}
+    (want, jout), (got, tout) = runs
+    assert got == want
+    files = [sorted(os.path.relpath(os.path.join(d, f), root)
+                    for d, _, fs in os.walk(root) for f in fs)
+             for root in (jout, tout)]
+    assert files[1] == files[0]
+    for rel in files[0]:
+        a, b = (os.path.join(r, rel) for r in (jout, tout))
+        if rel.endswith(".png"):
+            diff = np.abs(np.asarray(Image.open(a), int)
+                          - np.asarray(Image.open(b), int))
+            assert diff.max() <= 1
+        elif rel.endswith("generation_failed.txt"):
+            assert open(a).read() == open(b).read()
 
 
 # ---------------------------------------------------------------------------

@@ -23,23 +23,13 @@ inputs (on the CPU, where the port runs its plain versions).
   Each output also differs from the exact composition by more than
   MIN_I8_GAP in relative norm, so the flag is shown to reach the plain
   version.
-- ``flux.apply`` on a head_dim-128 bf16 toy, quantized, under W8A8 + int8
-  QK (+ P.V), against JAX ``flux.apply`` with its fused wrappers in
-  interpret mode.
-- Stage level: the tiny f32 bundle quantized by JAX (``min_size=1024``),
-  bridged, under W8A8: ``generate`` and ``fill_batch`` agree with JAX's on
-  the same noise within 4 uint8 levels and 0.3 on average (W8A8 turns
-  last-bit f32 differences into whole quantisation steps; see
-  ``_uint8_close``). The prompts are tokenized without Python's salted
-  ``hash()`` (``_Crc32Tokenizer``), so these inputs are the same in every
-  process.
+
+The MMDiT and the stages under the int8 modes are in
+``test_torch_int8_stage.py`` (``flux.apply`` and ``generate``) and
+``test_torch_int8_fill.py`` (``fill_batch`` and the planted quantizers).
 """
 
-import dataclasses
-import functools
-import itertools
 import types
-import zlib
 
 import jax
 import jax.numpy as jnp
@@ -47,20 +37,21 @@ import numpy as np
 import pytest
 import torch
 
-from domainrag_tpu.core import text as jtext
 from domainrag_tpu.models import common as jcommon
 from domainrag_tpu.models import quant as jquant
 from domainrag_tpu.models.flux import model as jflux
-from domainrag_tpu.models.flux import pipeline as jfp
 from domainrag_tpu.ops import int8_gemm as jgemm
 from domainrag_tpu.ops import mmdit_attention as jmma
 from domainrag_tpu_torch import bridge
 from domainrag_tpu_torch.models import common as tcommon
 from domainrag_tpu_torch.models import quant as tquant
 from domainrag_tpu_torch.models.flux import model as tflux
-from domainrag_tpu_torch.models.flux import pipeline as tfp
 from domainrag_tpu_torch.ops import int8_gemm as tgemm
 from domainrag_tpu_torch.ops import mmdit_attention as tmma
+
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
 
 HEADS, HD = 2, 128
 # Measured over the 24 attention cases below: the port's plain versions
@@ -479,260 +470,6 @@ def test_i8_wrappers_route_like_jax(int8_flags, monkeypatch):
         _t(txt), _t(img), *(torch.from_numpy(w) for w in (wqt, wkt, wqi, wki)),
         _t(cos), _t(sin), HEADS, HD)
     assert all(torch.equal(a, b) for a, b in zip(f32, exact))
-
-
-# ---------------------------------------------------------------------------
-# the MMDiT and the stages under the int8 modes
-# ---------------------------------------------------------------------------
-
-HD128 = dataclasses.replace(jflux.TINY_FLUX, hidden=256, heads=2,
-                            head_dim=128, depth_double=1, depth_single=1,
-                            axes_dim=(16, 56, 56))
-
-
-@pytest.mark.parametrize("pv", [False, True], ids=["w8a8_qk", "w8a8_qk_pv"])
-def test_flux_apply_int8_matches_jax(monkeypatch, int8_flags, w8a8_on, pv):
-    """bf16 head_dim-128 toy MMDiT quantized by JAX (min_size 1024 quantizes
-    every block linear), W8A8 + int8 QK (+ P.V): the JAX model reaches its
-    Pallas int8 kernels in interpret mode through its fused wrappers,
-    replaced here by interpret partials. Limit: 3e-2 in relative norm (bf16
-    through 2 blocks, with the int8 attention's rare +-1)."""
-    for name in ("mmdit_double_attention", "mmdit_single_attention"):
-        monkeypatch.setattr(jflux, name, functools.partial(
-            getattr(jmma, name), interpret=True))
-    int8_flags(True, pv)
-    params = jflux.init(jax.random.PRNGKey(6), HD128)
-    params = jax.tree.map(lambda x: x.astype(jnp.bfloat16), params)
-    jq = jquant.quantize_tree(params, min_size=1024)
-    n_q = sum(1 for p, _ in jax.tree_util.tree_flatten_with_path(jq)[0]
-              if p[-1].key == "w_q")
-    assert n_q >= 10 + 9 + 3
-    rng = np.random.default_rng(6)
-    gh, gw, s_txt = 6, 8, 16
-    img = rng.standard_normal((1, gh * gw, HD128.in_channels))
-    txt = rng.standard_normal((1, s_txt, HD128.text_dim))
-    pooled = rng.standard_normal((1, HD128.pooled_dim))
-    t, guid = np.asarray([0.7], np.float32), np.asarray([2.5], np.float32)
-    img_ids, txt_ids = jflux.make_image_ids(gh, gw), jflux.make_text_ids(s_txt)
-    want = jflux.apply(jq, jnp.asarray(img, jnp.bfloat16),
-                       jnp.asarray(txt, jnp.bfloat16),
-                       jnp.asarray(pooled, jnp.bfloat16), jnp.asarray(t),
-                       jnp.asarray(img_ids), jnp.asarray(txt_ids), HD128,
-                       guidance=jnp.asarray(guid))
-    tq = _bridge_bf16(jq)
-    before = tmma.mmdit_double_attention.i8_launches
-    got = tflux.apply(tq, _t(img, torch.bfloat16), _t(txt, torch.bfloat16),
-                      _t(pooled, torch.bfloat16), _t(t),
-                      torch.from_numpy(img_ids), torch.from_numpy(txt_ids),
-                      bridge.config(HD128, tflux.FluxConfig),
-                      guidance=_t(guid))
-    assert tmma.mmdit_double_attention.i8_launches == before
-    assert got.dtype == torch.bfloat16
-    assert _rel(got, want) < 3e-2, _rel(got, want)
-
-
-SIZE, STEPS, SEEDS = 32, 3, [0, 1]
-
-
-def _bridge_bf16(tree):
-    """bridge.params for a tree with bf16 leaves (numpy has no bf16 that
-    torch reads): carried as f32, cast back."""
-    f32 = jax.tree.map(lambda x: np.asarray(x.astype(jnp.float32))
-                       if x.dtype == jnp.bfloat16 else np.asarray(x), tree)
-    return jax.tree.map(lambda t, x: t.to(torch.bfloat16)
-                        if x.dtype == jnp.bfloat16 else t,
-                        bridge.params(f32, device="cpu"), tree)
-
-
-@dataclasses.dataclass
-class _Crc32Tokenizer(jtext.StubTokenizer):
-    """The stub tokenizer with ``zlib.crc32`` for the word hash. Python's
-    ``hash()`` of a str is salted per process (PYTHONHASHSEED), so with
-    the stub a word's token id, the prior and the stage-level W8A8 gap
-    below changed from run to run."""
-
-    def __call__(self, text: str, max_len: int) -> np.ndarray:
-        ids = [] if self.bos_id is None else [self.bos_id]
-        ids += [zlib.crc32(w.encode()) % (self.vocab_size - 3) + 1
-                for w in text.lower().split()]
-        ids = (ids + [self.eos_id])[:max_len]
-        return np.asarray(ids + [self.pad_id] * (max_len - len(ids)),
-                          np.int32)
-
-
-@pytest.fixture(scope="module")
-def tiny_w8a8():
-    """JAX tiny bundles (generate and fill) with their MMDiT quantized by
-    JAX and salt-free tokenizers, and the same as port bundles on the
-    CPU."""
-    out = {}
-    for fill in (False, True):
-        jb = jfp.tiny_bundle(jax.random.PRNGKey(0), fill=fill)
-        jb = dataclasses.replace(
-            jb, flux_params=jquant.quantize_tree(jb.flux_params,
-                                                 min_size=1024),
-            clip_tokenizer=_Crc32Tokenizer(
-                **dataclasses.asdict(jb.clip_tokenizer)),
-            t5_tokenizer=_Crc32Tokenizer(
-                **dataclasses.asdict(jb.t5_tokenizer)))
-        cfgs = tfp.tiny_configs(fill)
-        trees = {name: bridge.params(jax.tree.map(np.asarray,
-                                                  getattr(jb, name)),
-                                     device="cpu")
-                 for name in ("flux_params", "vae_params", "t5_params",
-                              "clip_text_params", "siglip_params",
-                              "redux_params")}
-        tb = tfp.FluxBundle(**trees, **cfgs, **tfp.tiny_tokenizers(cfgs),
-                            compute_dtype=torch.float32,
-                            device=torch.device("cpu"))
-        out[fill] = (jb, tb)
-    return out
-
-
-def _noise(jb, seeds, size=SIZE):
-    seq = (size // jb.latent_factor) ** 2
-    c = jb.vae_cfg.latent_channels * 4
-    return jnp.stack([jax.random.normal(jax.random.PRNGKey(s), (seq, c),
-                                        jnp.float32) for s in seeds])
-
-
-def _uint8_gap(got, want):
-    assert got.dtype == np.uint8 and got.shape == want.shape
-    return np.abs(got.astype(int) - want.astype(int))
-
-
-def _uint8_close(got, want):
-    """Within 4 uint8 levels, 0.3 on average. Each linear is bitwise equal
-    to JAX's, but its input differs from JAX's in the last f32 bit
-    (summation order in attention and norms), and an activation on a
-    rounding edge of x / x_s quantizes to the neighbouring integer: a step
-    of rowmax|x| / 127 on one input, which the denoise steps carry on.
-    Measured on the CPU at torch thread counts 1, 2, 4, 6 and 8 (the same
-    readings at each): generate max 2, mean 0.155."""
-    d = _uint8_gap(got, want)
-    assert d.max() <= 4 and d.mean() < 0.3, (d.max(), d.mean())
-
-
-def test_generate_w8a8_matches_jax(tiny_w8a8, w8a8_on):
-    jb, tb = tiny_w8a8[False]
-    assert any(p[-1].key == "w_q" for p, _ in
-               jax.tree_util.tree_flatten_with_path(tb.flux_params)[0])
-    pimgs = np.random.default_rng(3).uniform(
-        -1, 1, (2, 2, jb.siglip_cfg.image_size, jb.siglip_cfg.image_size,
-                3)).astype(np.float32)
-    je, jp = jfp.redux_prior_pairs(jb, pimgs, "", [0.8, 1.0], [1.0, 1.0])
-    want = jfp.generate(jb, je, jp, height=SIZE, width=SIZE,
-                        num_steps=STEPS, seed=SEEDS)
-    got = tfp.generate(tb, _t(je), _t(jp), height=SIZE, width=SIZE,
-                       num_steps=STEPS, seed=SEEDS,
-                       noise=_t(_noise(jb, SEEDS)))
-    _uint8_close(got, want)
-
-
-FILL_PROMPTS = ("bg sea sky road field forest desert snow city harbor "
-                "airport river farm beach lake bridge street grass sand "
-                "rock cloud night indoor water mountain").split()
-
-
-@pytest.fixture(scope="module")
-def fill_w8a8_cases(tiny_w8a8):
-    """Per prompt of FILL_PROMPTS the fill's inputs and JAX's W8A8 output,
-    computed once for the tests below."""
-    jb, _ = tiny_w8a8[True]
-    kw = dict(num_steps=4, guidance=30.0, strength=0.6, seeds=SEEDS)
-    cases = []
-    jcommon.set_int8_activations(True)
-    try:
-        for prompt in FILL_PROMPTS:
-            rng = np.random.default_rng(5)
-            images = rng.integers(0, 255, (2, SIZE, SIZE, 3), dtype=np.uint8)
-            masks = np.full((2, SIZE, SIZE), 255, np.uint8)
-            masks[:, 8:16, 8:20] = 0
-            size = jb.siglip_cfg.image_size
-            px = rng.standard_normal((2, 1, size, size, 3)).astype(np.float32)
-            je, jp = jfp.redux_prior_pairs(jb, px, prompt, [1.0], [1.0])
-            want = jfp.fill_batch(jb, images, masks, je, jp, **kw)
-            cases.append((images, masks, je, jp, want))
-    finally:
-        jcommon.set_int8_activations(False)
-    return kw, _noise(jb, SEEDS), cases
-
-
-def _fill_gaps(tb, fill_w8a8_cases):
-    """uint8 gaps of the port's fill against JAX's, one row per prompt."""
-    kw, noise, cases = fill_w8a8_cases
-    return np.stack([_uint8_gap(tfp.fill_batch(
-        tb, images, masks, _t(je), _t(jp), noise=_t(noise), **kw),
-        want).ravel() for images, masks, je, jp, want in cases])
-
-
-def _fill_close(gaps):
-    """Within 4 uint8 levels on each prompt, 0.3 on average over all."""
-    worst = gaps.max(axis=1)
-    assert worst.max() <= 4, dict(zip(FILL_PROMPTS, worst))
-    assert gaps.mean() < 0.3, gaps.mean()
-
-
-def test_fill_w8a8_matches_jax(tiny_w8a8, fill_w8a8_cases, w8a8_on):
-    """The fill under W8A8 over 25 one-word prompts (``_fill_close``). How
-    many activations sit on a rounding edge (see ``_uint8_close``) depends
-    on the prompt, so one prompt's mean says little: measured at torch
-    thread counts 1, 2, 4, 6 and 8 (the same readings at each), each
-    prompt's max 0-4 and mean 0-0.433 (17 of 25 under 0.3), the mean over
-    all 0.232. Unquantized the gap is max 1, mean <= 3e-4; weight-only int8
-    gives 0. ``test_w8a8_limits_catch_quantizer_faults`` holds the limit
-    against planted faults."""
-    _fill_close(_fill_gaps(tiny_w8a8[True][1], fill_w8a8_cases))
-
-
-def _planted_quantizer(plant):
-    """``quantize_rowwise`` with one fault: its scale or its rounding."""
-    def scale(a):
-        if plant == "recip127":
-            return a * (1.0 / 127.0)          # 1 ulp off for some amax
-        return a / 128.0 if plant == "div128" else tgemm.div127(a)
-
-    def rnd(y):
-        if plant == "floor":
-            return torch.floor(y)
-        if plant == "half_away":
-            return torch.sign(y) * torch.floor(y.abs() + 0.5)
-        return torch.round(y)
-
-    def quantize(x):
-        xf = x.float()
-        s = scale(xf.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-12)
-        return torch.clamp(rnd(xf / s), -127, 127).to(torch.int8), s
-    return quantize
-
-
-def _w8a8_linears_differing():
-    """How many of test_w8a8_linear_bitwise's 12 cases differ from JAX."""
-    differ = 0
-    for (x_shape, n), with_bias, dtype in itertools.product(
-            W8A8_SHAPES, (False, True), ("bfloat16", "float32")):
-        *_, got, want = _w8a8_linear_case(x_shape, n, with_bias, dtype)
-        differ += not np.array_equal(got.float().numpy(), want)
-    return differ
-
-
-@pytest.mark.parametrize("plant", ["floor", "div128", "recip127",
-                                   "half_away"])
-def test_w8a8_limits_catch_quantizer_faults(monkeypatch, tiny_w8a8,
-                                            fill_w8a8_cases, w8a8_on, plant):
-    """A quantizer that floors (fill mean over all 1.734) or divides amax
-    by 128 (1.042) fails the fill's limit. One that is 1 ulp off in the
-    scale (0.216) or rounds halves away from zero (0.249) stays inside it,
-    below what the stage-level gap can resolve, and fails the bitwise
-    linear tests instead."""
-    monkeypatch.setattr(tgemm, "quantize_rowwise", _planted_quantizer(plant))
-    gaps = _fill_gaps(tiny_w8a8[True][1], fill_w8a8_cases)
-    if plant in ("floor", "div128"):
-        with pytest.raises(AssertionError):
-            _fill_close(gaps)
-    else:
-        _fill_close(gaps)
-        assert _w8a8_linears_differing() > 0
 
 
 # ---------------------------------------------------------------------------

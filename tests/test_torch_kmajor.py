@@ -40,6 +40,10 @@ from domainrag_tpu_torch.models import quant as tquant
 from domainrag_tpu_torch.models.flux import model as tflux
 from domainrag_tpu_torch.ops import int8_gemm as tgemm
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 
 def _flat(tree):
     return dict(jax.tree_util.tree_flatten_with_path(tree)[0])

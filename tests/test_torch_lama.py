@@ -37,6 +37,10 @@ from domainrag_tpu_torch.models import lama as tlama
 from domainrag_tpu_torch.models.common import Init
 from domainrag_tpu_torch.stages import inpaint as tinpaint
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

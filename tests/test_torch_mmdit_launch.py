@@ -26,6 +26,10 @@ import torch
 from domainrag_tpu_torch.ops import _build
 from domainrag_tpu_torch.ops import mmdit_attention as mma
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 STREAM = 0x7F00DEADBEEF       # a stream handle above 2^32
 HEADS, HD = 2, 128
 BF16_ONE = 0x3F80             # bf16 bits of 1.0

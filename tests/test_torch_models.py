@@ -34,6 +34,10 @@ from domainrag_tpu_torch.models.flux import model as tflux
 from domainrag_tpu_torch.models.flux import scheduler as tsched
 from domainrag_tpu_torch.models.flux import vae as tvae
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)

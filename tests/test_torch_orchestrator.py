@@ -54,6 +54,10 @@ from domainrag_tpu_torch.stages import encoders as tenc
 from domainrag_tpu_torch.stages import inpaint as tinpaint
 from test_torch_fill import port_bundle
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 DS = "NEU-DET"
 
 
@@ -124,23 +128,65 @@ def test_tiny_runner_defaults_to_the_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize("mesh", [dict(model_parallel_size=2),
                                   dict(pipeline_parallel_size=2)])
 def test_parallel_degrees_raise(tmp_path, mesh):
+    """One process is one device. A model-parallel degree shapes the mesh
+    of the processes launched together, so alone the stages run as JAX's
+    do on its devices (the same results, or the same error); a
+    pipeline-parallel degree above the device count raises JAX's
+    ``_pipe_mesh`` error (JAX's own devices number 8 here)."""
     cfg = tconfig.PipelineConfig(
         datasets=("X",), shots=(1,), datasets_dir=str(tmp_path),
         output_dir=str(tmp_path / "out"), mesh=tconfig.MeshConfig(**mesh))
+    jcfg = jconfig.PipelineConfig(
+        datasets=("X",), shots=(1,), datasets_dir=str(tmp_path),
+        output_dir=str(tmp_path / "jout"), mesh=jconfig.MeshConfig(**mesh))
     runner = build_tiny_runner(cfg, device="cpu")
+    jrunner = jorch.build_tiny_runner(jcfg)
     for stage in ("generate", "compose"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            runner.run(stages=(stage,))
+        if "pipeline_parallel_size" in mesh:
+            with pytest.raises(ValueError) as got:
+                runner.run(stages=(stage,))
+            assert str(got.value) == ("pipeline_parallel_size=2 needs 2 "
+                                      "devices, found 1")
+            continue
+        outcome = []
+        for r in (jrunner, runner):
+            try:
+                res = r.run(stages=(stage,))
+                outcome.append(res[stage])
+            except Exception as e:     # the same error on both sides
+                outcome.append((type(e).__name__, str(e).replace(
+                    str(tmp_path / "jout"), str(tmp_path / "out"))))
+        assert outcome[1] == outcome[0]
 
 
 def test_process_group_raises(monkeypatch):
+    """Without a group: one process (index 0 of 1, nothing to fence, the
+    local clock). Under a group of three: its rank and size, a barrier
+    through it and rank 0's time stamp (broadcast)."""
     assert (tmh.is_distributed(), tmh.process_index(),
             tmh.process_count()) == (False, 0, 1)
     tmh.barrier("nothing to fence")
     assert re.fullmatch(r"\d{8}_\d{6}", tmh.shared_timestamp())
+    calls = []
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tmh.is_distributed()
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 3)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 1)
+    monkeypatch.setattr(torch.distributed, "barrier",
+                        lambda: calls.append("barrier"))
+
+    def broadcast(objs, src):
+        calls.append(("broadcast", src))
+        objs[0] = 0                        # rank 0's clock: the epoch
+
+    monkeypatch.setattr(torch.distributed, "broadcast_object_list",
+                        broadcast)
+    assert (tmh.is_distributed(), tmh.process_index(),
+            tmh.process_count()) == (True, 1, 3)
+    tmh.barrier("stage")
+    import time
+    assert tmh.shared_timestamp() == time.strftime("%Y%m%d_%H%M%S",
+                                                   time.localtime(0))
+    assert calls == ["barrier", ("broadcast", 0)]
 
 
 # ---------------------------------------------------------------------------

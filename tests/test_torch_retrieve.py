@@ -39,6 +39,10 @@ from domainrag_tpu_torch.ops import topk as ttopk
 from domainrag_tpu_torch.stages import encoders as tenc
 from domainrag_tpu_torch.stages import retrieve as tret
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "faiss_topk_fixture.npz")
@@ -318,15 +322,26 @@ def test_first_stage_matches_jax_on_cpu():
 
 
 def test_meshes_raise():
+    """A bank built with a one-rank mesh stays whole, as the JAX bank does
+    on a one-device axis; a bank searched through a mesh
+    (``sharded_topk`` over one shard) gives the unsharded results, ties
+    included, and JAX's. Sharded banks over several ranks are
+    ``tests/test_torch_scaleout_ops.py``'s."""
+    from domainrag_tpu.parallel import mesh as jmesh
+    from domainrag_tpu_torch.parallel import mesh as tmesh
     feats = {"coco": np.eye(4, 8, dtype=np.float32)}
     paths = {"coco": [f"{i}.jpg" for i in range(4)]}
-    with pytest.raises(NotImplementedError, match="A6"):
-        tret.EmbeddingBank.from_sources(feats, paths, mesh=object(),
-                                        device="cpu")
-    bank = tret.EmbeddingBank.from_sources(feats, paths, device="cpu")
-    bank.mesh = object()
-    with pytest.raises(NotImplementedError, match="A6"):
-        tret.first_stage_topk(np.eye(2, 8, dtype=np.float32), bank, 2)
+    jbank = jret.EmbeddingBank.from_sources(
+        feats, paths, mesh=jmesh.create_mesh(devices=jax.devices()[:1]))
+    bank = tret.EmbeddingBank.from_sources(feats, paths,
+                                           mesh=tmesh.create_mesh(),
+                                           device="cpu")
+    assert bank.mesh is None and jbank.mesh is None
+    queries = np.eye(2, 8, dtype=np.float32)
+    want = jret.first_stage_topk(queries, jbank, 2)
+    plain = tret.first_stage_topk(queries, bank, 2)
+    bank.mesh = tmesh.create_mesh()
+    assert tret.first_stage_topk(queries, bank, 2) == plain == want
 
 
 # ---------------------------------------------------------------------------

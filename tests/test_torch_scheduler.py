@@ -7,10 +7,13 @@
 - ``StepTimer.summary()`` (``domainrag_tpu/core/log.py:56``): the same
   keys, counts and structure for the same spans;
 - ``tp_attention`` / ``sp_attention`` (``domainrag_tpu/ops/attention.py:
-  527, 541``): context managers of the port that raise
-  ``NotImplementedError`` naming scale-out until it is ported.
+  527, 541``): the port's context managers take the JAX arguments and, on
+  an axis of one rank, leave ``attention`` JAX's dense attention (within
+  2e-5, as ``tests/test_tp_attention.py``); the multi-rank paths are
+  ``tests/test_torch_scaleout_ops.py``'s.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +24,10 @@ from domainrag_tpu.models.flux import scheduler as jsch
 from domainrag_tpu_torch.core import log as tlog
 from domainrag_tpu_torch.models.flux import scheduler as tsch
 from domainrag_tpu_torch.ops import attention as tattn
+
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
 
 SCHEDULES = [
     dict(num_steps=50, image_seq_len=4096),
@@ -128,10 +135,22 @@ def test_step_timer_summary_keeps_sync():
 @pytest.mark.parametrize("name,axis", [("tp_attention", "model"),
                                        ("sp_attention", "data")])
 def test_parallel_attention_contexts_raise(name, axis):
-    ctx = getattr(tattn, name)
-    with pytest.raises(NotImplementedError, match="A6"):
-        with ctx(object()):
-            pass
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        with ctx(object(), axis=axis):
-            pass
+    """Each context, by position and by keyword, on one-rank and
+    one-device meshes: the port's attention inside it is JAX's inside its
+    own, and the context is gone after."""
+    from domainrag_tpu.ops import attention as jattn
+    from domainrag_tpu.parallel import mesh as jmesh
+    from domainrag_tpu_torch.parallel import mesh as tmesh
+    q = np.random.default_rng(0).standard_normal((1, 2, 16, 8)).astype(
+        np.float32)
+    jmesh1 = jmesh.create_mesh(devices=jax.devices()[:1])
+    for kw in ({}, {"axis": axis}):
+        with getattr(jattn, name)(jmesh1, **kw):
+            want = np.asarray(jattn.attention(jnp.asarray(q), jnp.asarray(q),
+                                              jnp.asarray(q)))
+        with getattr(tattn, name)(tmesh.create_mesh(), **kw):
+            assert (tattn.tp_context() if name == "tp_attention"
+                    else tattn.sp_context())[1] == axis
+            got = tattn.attention(*(torch.from_numpy(q),) * 3)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+        assert tattn.tp_context() is None and tattn.sp_context() is None

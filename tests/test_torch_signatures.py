@@ -3,8 +3,9 @@ parameters (``domainrag_tpu/models/flux/pipeline.py``): the same names in
 the same order with the same defaults, up to the JAX function's last
 parameter, so that a call written for the JAX package binds the same
 values in the port. The port's own ``noise`` and ``timer`` come after, and
-only by keyword. Values the port cannot honour yet (meshes and
-pipelining, ROADMAP A6) raise ``NotImplementedError``."""
+only by keyword. The scale-out functions (``parallel/``,
+``ops/ring_attention.py``, the contexts and W8A8 toggles, the stage's
+``generate_samples_dp``) take the JAX parameters too."""
 
 import inspect
 
@@ -14,6 +15,10 @@ import torch
 
 from domainrag_tpu.models.flux import pipeline as jfp
 from domainrag_tpu_torch.models.flux import pipeline as tfp
+
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
 
 FUNCS = ["generate", "fill_batch"]
 SIZE = 32
@@ -91,10 +96,11 @@ def test_fill_batch_jax_order_positional_call(bundle):
                          ids=["microbatches", "velocity_cache_order"])
 @pytest.mark.parametrize("name", FUNCS)
 def test_unported_values_raise(bundle, name, kwargs):
-    """``microbatches`` (pipelining, ROADMAP A6) raises. Every
-    ``velocity_cache_order`` is ported now and is read as the JAX package
-    reads it: any order >= 1 extrapolates linearly, so order 2 under an
-    interval-2 cache gives order 1's image."""
+    """``microbatches`` without a pipe axis is not read, as in the JAX
+    package: the image is the one without it. Every
+    ``velocity_cache_order`` is read as the JAX package reads it: any
+    order >= 1 extrapolates linearly, so order 2 under an interval-2 cache
+    gives order 1's image."""
     if name == "generate":
         b = bundle[0]
         e, p = _cond(b)
@@ -107,8 +113,7 @@ def test_unported_values_raise(bundle, name, kwargs):
         call = lambda **kw: tfp.fill_batch(  # noqa: E731
             b, images, masks, e, p, num_steps=3, strength=1.0, **kw)
     if "microbatches" in kwargs:
-        with pytest.raises(NotImplementedError, match="A6"):
-            call(**kwargs)
+        np.testing.assert_array_equal(call(**kwargs), call())
         return
     np.testing.assert_array_equal(
         call(velocity_cache_interval=2, **kwargs),
@@ -286,3 +291,103 @@ def test_cache_and_eval_parameters_match_jax(name):
     rest = port[len(jax_params):]
     assert [p.name for p in rest] == extra
     assert all(p.kind is p.KEYWORD_ONLY for p in rest)
+
+
+# ---------------------------------------------------------------------------
+# scale-out
+# ---------------------------------------------------------------------------
+
+def _scale_out_funcs():
+    from domainrag_tpu.ops import attention as jattn
+    from domainrag_tpu.ops import int8_gemm as jgemm
+    from domainrag_tpu.ops import ring_attention as jring
+    from domainrag_tpu.parallel import collectives as jcoll
+    from domainrag_tpu.parallel import deploy as jdeploy
+    from domainrag_tpu.parallel import mesh as jmesh
+    from domainrag_tpu.parallel import multihost as jmh
+    from domainrag_tpu.parallel import pipeline_parallel as jpp
+    from domainrag_tpu.parallel import sharding as jsharding
+    from domainrag_tpu.stages import generate as jgen
+    from domainrag_tpu_torch.ops import attention as tattn
+    from domainrag_tpu_torch.ops import int8_gemm as tgemm
+    from domainrag_tpu_torch.ops import ring_attention as tring
+    from domainrag_tpu_torch.parallel import collectives as tcoll
+    from domainrag_tpu_torch.parallel import deploy as tdeploy
+    from domainrag_tpu_torch.parallel import mesh as tmesh
+    from domainrag_tpu_torch.parallel import multihost as tmh
+    from domainrag_tpu_torch.parallel import pipeline_parallel as tpp
+    from domainrag_tpu_torch.parallel import sharding as tsharding
+    from domainrag_tpu_torch.stages import generate as tgen
+    names = {
+        "mesh": (jmesh, tmesh, ("initialize_distributed", "create_mesh",
+                                "replicated", "data_sharded")),
+        "sharding": (jsharding, tsharding, ("flux_param_specs",
+                                            "shard_params",
+                                            "validate_divisibility")),
+        "collectives": (jcoll, tcoll, ("pad_bank_for_mesh", "sharded_topk",
+                                       "shard_bank")),
+        "deploy": (jdeploy, tdeploy, ("shard_bundle",)),
+        "ring": (jring, tring, ("ring_attention", "ring_attention_padded")),
+        "pp": (jpp, tpp, ("prepare_stages", "pipelined_apply")),
+        "multihost": (jmh, tmh, ("is_distributed", "process_index",
+                                 "process_count", "barrier",
+                                 "shared_timestamp")),
+        "attention": (jattn, tattn, ("tp_attention", "sp_attention")),
+        "int8_gemm": (jgemm, tgemm, ("set_w8a8_pallas",
+                                     "disable_pallas_w8a8",
+                                     "w8a8_pallas_enabled")),
+        "generate": (jgen, tgen, ("generate_samples_dp",)),
+    }
+    extra = {"mesh.initialize_distributed": ["device"],
+             "collectives.shard_bank": ["device"]}
+    return {f"{mod}.{n}": (getattr(jm, n), getattr(tm, n),
+                           extra.get(f"{mod}.{n}", []))
+            for mod, (jm, tm, ns) in names.items() for n in ns}
+
+
+SCALE_OUT_FUNCS = sorted(_scale_out_funcs())
+
+
+@pytest.mark.parametrize("name", SCALE_OUT_FUNCS)
+def test_scale_out_parameters_match_jax(name):
+    """The JAX names in the JAX order, of the same kinds, with the JAX
+    defaults, then only the port's own keyword-only parameters."""
+    jax_fn, port_fn, extra = _scale_out_funcs()[name]
+    jax_params = _params(jax_fn)
+    port = _params(port_fn)
+    head = port[:len(jax_params)]
+    assert [(p.name, p.kind, p.default) for p in head] == \
+        [(p.name, p.kind, p.default) for p in jax_params]
+    rest = port[len(jax_params):]
+    assert [p.name for p in rest] == extra
+    assert all(p.kind is p.KEYWORD_ONLY for p in rest)
+
+
+def test_w8a8_toggles_route_like_jax():
+    """The JAX toggles keep their state as the JAX ones do. Off, a CPU
+    tensor still takes the plain version (bitwise the same numbers, as
+    always on the CPU), and a tensor off the CPU (here ``meta``, standing
+    in for the card) raises instead of leaving B4 for the plain version."""
+    from domainrag_tpu_torch.ops import int8_gemm as tgemm
+    assert tgemm.w8a8_pallas_enabled()
+    x = torch.randn(4, 32, generator=torch.Generator().manual_seed(0))
+    w_q = torch.randint(-127, 128, (16, 32), dtype=torch.int8,
+                        generator=torch.Generator().manual_seed(1))
+    w_s = torch.rand(16, generator=torch.Generator().manual_seed(2))
+    want = tgemm.w8a8_linear(x, w_q, w_s)
+    xm, w_qm, w_sm = (t.to("meta") for t in (x, w_q, w_s))
+    launches = tgemm.w8a8_linear.launches
+    with tgemm.disable_pallas_w8a8():
+        assert torch.equal(tgemm.w8a8_linear(x, w_q, w_s), want)
+        with pytest.raises(RuntimeError, match="only route"):
+            tgemm.w8a8_linear(xm, w_qm, w_sm)
+    assert tgemm.w8a8_pallas_enabled()
+    tgemm.set_w8a8_pallas(False)
+    try:
+        assert not tgemm.w8a8_pallas_enabled()
+        assert torch.equal(tgemm.w8a8_linear(x, w_q, w_s), want)
+        with pytest.raises(RuntimeError, match="only route"):
+            tgemm.w8a8_linear(xm, w_qm, w_sm)
+    finally:
+        tgemm.set_w8a8_pallas(True)
+    assert tgemm.w8a8_linear.launches == launches

@@ -11,6 +11,10 @@ import torch
 from domainrag_tpu.ops import topk as jtopk
 from domainrag_tpu_torch.ops import topk as ttopk
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 
 def test_wide_k_goes_to_b8_off_cpu(monkeypatch):
     """With B8's loader failing, k = 257, 500 and 1000 on a tensor off the

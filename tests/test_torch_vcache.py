@@ -14,11 +14,13 @@
   VAE) fill; the calibrations choose JAX's interval or anchors, with the
   budgets set away from the divergence curve, whose values agree within
   1e-4 (the log's rounding).
+
+The calibrations of ``generate`` are in ``test_torch_vcache_calib.py``,
+``fill_batch`` in ``test_torch_vcache_fill.py``; both take this file's
+helpers.
 """
 
 import ast
-import gc
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,10 @@ from domainrag_tpu.models.flux import scheduler as jsched
 from domainrag_tpu_torch.models.flux import pipeline as tfp
 from test_torch_fill import port_bundle
 
+# tiny shapes: one intra-op thread is fastest, and the test workers share
+# the cores
+torch.set_num_threads(1)
+
 SIZE = 32
 STEPS = 4
 SEEDS = [0, 1]
@@ -40,12 +46,6 @@ SEEDS = [0, 1]
 def gen():
     jb = jfp.tiny_bundle(jax.random.PRNGKey(0))
     return jb, port_bundle(jb, fill=False)
-
-
-@pytest.fixture(scope="module")
-def fills():
-    jb = jfp.tiny_bundle(jax.random.PRNGKey(3), fill=True)
-    return jb, port_bundle(jb)
 
 
 @pytest.fixture(scope="module")
@@ -295,186 +295,3 @@ def _budgets(curve, space):
     mids = [(a + b) / 2 for a, b in zip(vals, vals[1:])
             if b - a > 1e-3]
     return [0.0, vals[0] * 0.5] + mids + [vals[-1] * 2.0, 1e9]
-
-
-@pytest.mark.parametrize("mode", ["velocity", "residual"])
-@pytest.mark.parametrize("space", ["image", "latent"])
-def test_calibrated_interval_matches_jax(gen, prior, caplog, mode, space):
-    jb, tb = gen
-    je, jp = prior
-    probe = jax.random.normal(jax.random.PRNGKey(0),
-                              (1, (SIZE // jb.latent_factor) ** 2,
-                               jb.vae_cfg.latent_channels * 4), jnp.float32)
-    caplog.set_level(logging.INFO)
-    args = (SIZE, SIZE, STEPS, 2.5)   # the generate tests' shapes
-    jfp.calibrate_block_cache_interval(jb, je, jp, *args, mode=mode,
-                                       budget_space=space)
-    want_curve = _curve(caplog, "domainrag_tpu.flux")
-    tfp.calibrate_block_cache_interval(tb, _t(je), _t(jp), *args, mode=mode,
-                                       budget_space=space,
-                                       probe_noise=_t(probe))
-    got_curve = _curve(caplog, "domainrag_tpu_torch.flux")
-    assert got_curve.keys() == want_curve.keys() == {2, 3, 4}
-    for k in want_curve:
-        for s in ("latent", "image"):
-            assert abs(got_curve[k][s] - want_curve[k][s]) <= 1e-4 + 1e-9
-    for budget in _budgets(want_curve, space):
-        kw = dict(mode=mode, budget_space=space, divergence_budget=budget)
-        assert tfp.calibrate_block_cache_interval(
-            tb, _t(je), _t(jp), *args, probe_noise=_t(probe), **kw) == \
-            jfp.calibrate_block_cache_interval(jb, je, jp, *args, **kw), \
-            budget
-
-
-def test_calibration_never_shared_across_bundles(prior):
-    """Two bundles made one after the other get their own calibration
-    entries even when the first was collected (the cache key holds a
-    weakref-guarded token, not an ``id``); swapping a live bundle's
-    params makes a new token."""
-    te, tp = _t(prior[0]), _t(prior[1])
-
-    def one(seed):
-        b = tfp.tiny_bundle(seed, device="cpu")
-        tfp.generate(b, te, tp, height=16, width=16, num_steps=4,
-                     seed=[0, 1], velocity_cache_interval="sched:2")
-        tok = tfp._params_token(b)
-        del b
-        gc.collect()
-        return tok
-
-    before = len(tfp._VCACHE_SCHEDULES)
-    assert one(11) is not one(12)
-    assert len(tfp._VCACHE_SCHEDULES) == before + 2
-    b = tfp.tiny_bundle(13, device="cpu")
-    t0 = tfp._params_token(b)
-    assert tfp._params_token(b) is t0
-    b.flux_params = {k: v for k, v in b.flux_params.items()}
-    assert tfp._params_token(b) is t0          # the same tensors
-    b.flux_params["img_in"] = {k: v + 0 for k, v in
-                               b.flux_params["img_in"].items()}
-    assert tfp._params_token(b) is not t0
-
-
-def test_cache_value_errors_match_jax(gen, prior):
-    jb, tb = gen
-    je, jp = prior
-    base = dict(height=16, width=16, num_steps=4, seed=SEEDS)
-    for kw in (dict(block_cache_interval=2, velocity_cache_interval=2),
-               dict(block_cache_interval=2, velocity_cache_interval=(0, 2)),
-               dict(block_cache_interval=(0, 2)),
-               dict(block_cache_interval="sched:2")):
-        with pytest.raises(ValueError) as want:
-            jfp.generate(jb, je, jp, **base, **kw)
-        with pytest.raises(ValueError) as got:
-            tfp.generate(tb, _t(je), _t(jp), **base, **kw)
-        assert str(got.value) == str(want.value), kw
-
-
-# ---------------------------------------------------------------------------
-# fill_batch
-# ---------------------------------------------------------------------------
-
-def _fill_inputs(jb, seed=0, n=2):
-    rng = np.random.default_rng(seed)
-    images = rng.integers(0, 255, (n, SIZE, SIZE, 3), dtype=np.uint8)
-    masks = np.full((n, SIZE, SIZE), 255, np.uint8)
-    masks[:, :SIZE // 2, :SIZE // 2] = 0
-    size = jb.siglip_cfg.image_size
-    e, p = jfp.redux_prior_pairs(
-        jb, rng.standard_normal((n, 1, size, size, 3)).astype(np.float32),
-        "bg", [1.0], [1.0])
-    return images, masks, e, p
-
-
-FILL_FORMS = {"int2": dict(velocity_cache_interval=2),
-              "tuple": dict(velocity_cache_interval=(0, 2, 3)),
-              "auto": dict(velocity_cache_interval="auto"),
-              "auto_loose": dict(velocity_cache_interval="auto",
-                                 vcache_divergence_budget=1e9),
-              "sched2": dict(velocity_cache_interval="sched:2"),
-              "sched2_hires": dict(velocity_cache_interval="sched:2",
-                                   hires_threshold_px=1, vae_tile=6,
-                                   vae_overlap=2),
-              "int2_hires_order0": dict(velocity_cache_interval=2,
-                                        velocity_cache_order=0,
-                                        hires_threshold_px=1, vae_tile=6,
-                                        vae_overlap=2)}
-
-
-@pytest.mark.parametrize("name", sorted(FILL_FORMS))
-def test_fill_vcache_matches_jax(fills, name):
-    jb, tb = fills
-    images, masks, je, jp = _fill_inputs(jb)
-    kw = dict(num_steps=6, guidance=30.0, strength=0.85, seeds=SEEDS,
-              **FILL_FORMS[name])
-    want = jfp.fill_batch(jb, images, masks, je, jp, **kw)
-    got = tfp.fill_batch(tb, images, masks, _t(je), _t(jp),
-                         noise=_t(_jax_noise(jb, SEEDS)), **kw)
-    assert got.shape == want.shape and got.dtype == np.uint8
-    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
-
-
-def test_fill_calibrations_match_jax(fills, caplog):
-    """The fill calibration's result on the same sample: ``sched:2``'s
-    anchors, and ``auto``'s curve (within 1e-4) and interval at budgets
-    away from the curve."""
-    jb, tb = fills
-    images, masks, je, jp = _fill_inputs(jb, seed=1)
-    n, lf = 6, jb.latent_factor      # test_fill_vcache_matches_jax's
-    sig = jsched.make_schedule(n, image_seq_len=(SIZE // lf) ** 2,
-                               strength=0.85).sigmas
-    noise = _jax_noise(jb, [5])
-    img = jfp.from_uint8(images[:1])
-    m = ((masks[:1].astype(np.float32) / 255.0) > 0.5).astype(np.float32)
-    jargs = (jb, jnp.asarray(img), jnp.asarray(m), noise, je[:1], jp[:1],
-             jnp.asarray(sig), 30.0, SIZE // lf, SIZE // lf)
-    targs = (tb, _t(img), _t(m), _t(noise), _t(je[:1]), _t(jp[:1]),
-             _t(sig), 30.0, SIZE // lf, SIZE // lf)
-    assert tfp.calibrate_fill_vcache(*targs, form="sched:2") == \
-        jfp.calibrate_fill_vcache(*jargs, form="sched:2")
-    caplog.set_level(logging.INFO)
-    jfp.calibrate_fill_vcache(*jargs, form="auto")
-    want_curve = _curve(caplog, "domainrag_tpu.flux")
-    tfp.calibrate_fill_vcache(*targs, form="auto")
-    got_curve = _curve(caplog, "domainrag_tpu_torch.flux")
-    assert got_curve.keys() == want_curve.keys() == {2, 3, 4}
-    for k in want_curve:
-        for s in ("latent", "image"):
-            assert abs(got_curve[k][s] - want_curve[k][s]) <= 1e-4 + 1e-9
-    for budget in _budgets(want_curve, "image"):
-        assert tfp.calibrate_fill_vcache(
-            *targs, form="auto", divergence_budget=budget) == \
-            jfp.calibrate_fill_vcache(*jargs, form="auto",
-                                      divergence_budget=budget), budget
-
-
-def test_fill_calibration_cached_and_strength_keyed(fills, monkeypatch):
-    jb, tb = fills
-    images, masks, je, jp = _fill_inputs(jb, seed=2)
-    calls = []
-    real = tfp.calibrate_fill_vcache
-
-    def counting(*a, **k):
-        calls.append(k.get("form"))
-        return real(*a, **k)
-
-    monkeypatch.setattr(tfp, "calibrate_fill_vcache", counting)
-    kw = dict(num_steps=5, guidance=30.0, seeds=SEEDS,
-              velocity_cache_interval="sched:2")
-    for strength in (0.9, 0.9, 0.7):
-        tfp.fill_batch(tb, images, masks, _t(je), _t(jp), strength=strength,
-                       **kw)
-    assert calls == ["sched:2", "sched:2"]
-
-
-def test_fill_unknown_string_matches_jax(fills):
-    jb, tb = fills
-    images, masks, je, jp = _fill_inputs(jb)
-    with pytest.raises(ValueError) as want:
-        jfp.fill_batch(jb, images, masks, je, jp, num_steps=4,
-                       velocity_cache_interval="fast")
-    with pytest.raises(ValueError) as got:
-        tfp.fill_batch(tb, images, masks, _t(je), _t(jp), num_steps=4,
-                       velocity_cache_interval="fast")
-    assert str(got.value) == str(want.value)
-    assert "'auto' or 'sched:K'" in str(got.value)
