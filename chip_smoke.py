@@ -231,6 +231,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     6 launches, finite loss, changed params; the f32 kernel rows take
     these counts; with ``--parent``, four steady f32 steps timed in
     turns, the parent's f32 B5 in two;
+26. training over a mesh (``phase_train_mesh``): ``fit(mesh=
+    create_mesh(), fsdp=True)`` on the one-rank NCCL group against the
+    one-card step from the same params, batches and seed, run twice (2
+    steps: the first loss torch.equal; then within the one-card runs'
+    own spread, B6's dq sum order varying from run to run); a TP train step at 2 ranks in
+    threads (full width cut to 1 + 1 blocks; the gathered gradients
+    against the unsharded step's on the same kernels), then rank 0 of 4
+    (6 of 24 heads) alone at the trainer's cut, forward + backward ms
+    and B5 12 / B6 6 launches, with B5 and B6 rows at its shape; an
+    FSDP rank of 4 alone (its params, gradients and AdamW bytes against
+    the whole, and its step's time); the ring's gradient at the
+    trainer's 4608 tokens over 4 ranks: B6 with the LSE's gradient
+    against its plain version on a 1152-key block and a ragged one
+    (rows with kernel, plain and SDPA-backward times), every rank's fold
+    differentiated in turn (B5 16, B6 16) and gathered against autograd
+    of f32 dense attention; ``ops/image.py`` on the card against the
+    CPU;
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -1212,6 +1229,7 @@ def _reset_counts(mma):
         wrapper.i8_launches = wrapper.i8_mp_launches = 0
     f = attn.flash_attention
     f.launches = f.bwd_launches = f.bwd_f32_launches = 0
+    f.bwd_launches_by_shape = {}
     int8_gemm.w8a8_linear.launches = 0
     int8_gemm.w8a8_linear.launches_by_shape = {}
     int8_gemm.w8a8_linear.launches_by_instance = {}
@@ -3896,8 +3914,12 @@ class _ThreadMesh:
         import torch
         return torch.cat(self._exchange(x), dim=dim)
 
-    def run(self, fn):
-        """fn(rank) on every rank; their results in rank order."""
+    def run(self, fn, grad=False):
+        """fn(rank) on every rank; their results in rank order. With
+        ``grad`` each rank may differentiate: its backward runs on its own
+        thread (``set_multithreading_enabled(False)``), since one device
+        thread serving every rank's graph would wait in one rank's
+        collective for the others."""
         import threading
         import torch
         results, errors = [None] * self._n, []
@@ -3911,7 +3933,9 @@ class _ThreadMesh:
                     # kernel library's own runtime launches from it
                     torch.cuda.set_device(device)
                     torch.cuda.synchronize(device)
-                    with torch.inference_mode():
+                    mode = (torch.autograd.set_multithreading_enabled(False)
+                            if grad else torch.inference_mode())
+                    with mode:
                         results[rank] = fn(rank)
                 except BaseException as e:     # noqa: BLE001
                     errors.append(e)
@@ -3945,6 +3969,23 @@ class _RankAlone:
 
     def all_gather(self, x, axis, dim=0):
         return x
+
+    def reduce_scatter(self, x, axis, dim=0):
+        piece = x.shape[dim] // self.shape[axis]
+        return x.narrow(dim, self._rank * piece, piece).contiguous()
+
+
+class _RingAlone(_RankAlone):
+    """Rank ``rank`` of a ring axis of ``n`` alone: the gather puts its
+    block in its place among zeros, the sums return their input. The
+    ranks' outputs and gradients, each computed so, add up to the ring's
+    over ``n`` ranks."""
+
+    def all_gather(self, x, axis, dim=0):
+        import torch
+        parts = [torch.zeros_like(x)] * self.shape[axis]
+        parts[self._rank] = x
+        return torch.cat(parts, dim=dim)
 
 
 def _stage3_mesh(bundle, cfg, rr, lama_dir):
@@ -4330,6 +4371,445 @@ def phase_scale_out(bundle, dev, rows):
     _scale_out_tp(dev)
     _scale_out_pp(bundle, dev)
     print(f"scale-out phase: {time.perf_counter() - t0:.1f} s ({CARD})")
+
+
+# ---------------------------------------------------------------------------
+# training over a mesh: fit on the one-rank NCCL mesh, a TP rank, an FSDP
+# rank, the ring's gradient; ops/image.py
+# ---------------------------------------------------------------------------
+
+TP_CHECK_DEPTH = (1, 1)   # cut of the threaded TP check (2 ranks in turn)
+RING_RAGGED = 4500        # a ragged joint sequence: last block kv 1044
+# the sharded step's gradients, gathered, against the unsharded step's on
+# the same kernels (both unfused: B5/B6 f32, on f32 batches, so that only
+# the order of the partial sums differs): GRAD_REL over the whole tree
+# and TP_GRAD_LEAF per leaf, which a rank that drops its share of a leaf
+# (a missing all-reduce: half of it at n = 2) misses by far. (bf16
+# batches round each rank's partial to bf16 first: 6.4e-3 over the tree
+# and 1.1e-2 on a qk-norm scale in a CPU rehearsal at a tiny width, too
+# near a bar to hold a run to.)
+TP_GRAD_LEAF = 5e-2
+
+
+def _by_path(tree):
+    from domainrag_tpu_torch.parallel import sharding
+    out = {}
+    sharding._map_with_path(lambda names, x: out.setdefault(names, x), tree)
+    return out
+
+
+class _FsdpAlone(_RankAlone):
+    """Rank 0 of a data axis of ``n`` for FSDP's step: the gathers return
+    ``n`` copies of its shard (the whole leaf's shape), the sums their
+    input."""
+
+    def __init__(self, axis, n, rank):
+        super().__init__(axis, n, rank)
+        self.shape = {axis: n, "model": 1}
+
+    def all_gather(self, x, axis, dim=0):
+        import torch
+        return torch.cat([x] * self.shape[axis], dim=dim)
+
+
+def _mesh_fit(dev, rows):
+    """``fit(mesh=create_mesh(), fsdp=True)`` on the one-rank NCCL mesh,
+    with a checkpoint, against the one-card step (``make_train_step``),
+    run twice, from the same params, batches and seed, 2 steps. B6 adds
+    dq over the kv blocks by TMA reduce-add, whose order varies from run
+    to run, so the one-card step does not repeat itself bit for bit after
+    its first backward. So the first loss (a forward) must be torch.equal,
+    and the update (params after less params before) of fit must lie as
+    near the first one-card run's as the second one-card run's does: its
+    distance, relative to the first run's update, at most twice the two
+    one-card runs' (plus 1e-6). A fit that does not update reads 1, one
+    that steps the wrong way 2. The second loss within 1e-3 relative.
+    The checkpoint must restore fit's final tree, torch.equal."""
+    import shutil
+    import torch
+    from domainrag_tpu_torch.core import device as device_mod
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod
+    from domainrag_tpu_torch.train import checkpoint as ckpt
+    from domainrag_tpu_torch.train import flow_match, loop
+    cfg, params, batches = _full_train_setup(dev)
+    it = batches()
+    data = [next(it) for _ in range(2)]
+    tcfg = flow_match.TrainConfig(remat=True)
+    start = [p.detach().clone() for p in flow_match.leaves(params)]
+    runs = []
+    for _ in range(2):
+        step, tree, opt = flow_match.make_train_step(
+            cfg, tcfg, _tree(lambda t: t.detach().clone(), params))
+        g = device_mod.generator(0, dev)
+        runs.append(([step(tree, opt, b, g)[2].item() for b in data],
+                     flow_match.leaves(tree)))
+        del opt
+    root = OUT / "mesh_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, losses = loop.fit(params, cfg, iter(data), 2, tcfg,
+                             mesh=mesh_mod.create_mesh(), fsdp=True,
+                             checkpoint_dir=str(root), seed=0, log_every=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+
+    def update_apart(a, b):
+        """||(a - p0) - (b - p0)|| / ||b - p0|| over the tree."""
+        num = den = 0.0
+        for x, y, p0 in zip(a, b, start):
+            num += (x.detach() - y.detach()).float().square().sum().item()
+            den += (y.detach() - p0).float().square().sum().item()
+        return (num / den) ** 0.5
+
+    (want, one), (again, two) = runs
+    spread = update_apart(two, one)
+    dist = update_apart(flow_match.leaves(final), one)
+    noop = update_apart(start, one)
+    restored = ckpt.restore_checkpoint(str(root))["params"]
+    same = all(torch.equal(x, y.detach().cpu()) for x, y in zip(
+        flow_match.leaves(restored), flow_match.leaves(final)))
+    del restored
+    shutil.rmtree(root)
+    bar = 2 * spread + 1e-6
+    print(f"[{CARD}] fit over the one-rank NCCL mesh (fsdp=True) vs the "
+          f"one-card step (two runs), 2 steps from the same params, batches "
+          f"and seed: losses {losses} vs {want} and {again}; update "
+          f"distance to the first one-card run's {dist:.3e} (relative), "
+          f"second one-card run's {spread:.3e}, bar {bar:.3e}; an update "
+          f"of nothing reads {noop:.3e}; checkpoint restores fit's tree: "
+          f"{same}; {secs:.3f} s for fit's 2 steps and its checkpoint (the "
+          "first step allocates the optimizer's state)")
+    if losses[0] != want[0] or abs(losses[1] - want[1]) > 1e-3 * abs(
+            want[1]) or not dist <= bar:
+        raise AssertionError("fit over the one-rank mesh differs from the "
+                             "one-card step")
+    if not same:
+        raise AssertionError("fit over the one-rank mesh: its checkpoint "
+                             "does not restore its final tree")
+
+
+def _tp_loss_grads(tree, batch, cfg, tcfg, t, eps, mesh):
+    """The flow-matching loss of ``tree`` under ``tp_attention(mesh)`` and
+    its gradients (the unfused composition: B5 forward, B6 backward)."""
+    import torch
+    from domainrag_tpu_torch.ops.attention import tp_attention
+    from domainrag_tpu_torch.train import flow_match
+    leaves = flow_match.leaves(tree)
+    for p in leaves:
+        p.requires_grad_(True)
+    with tp_attention(mesh):
+        loss = flow_match.flow_match_loss(tree, batch, None, cfg, tcfg, t=t,
+                                          eps=eps)
+        grads = torch.autograd.grad(loss, leaves)
+    it = iter(grads)
+    from domainrag_tpu_torch.parallel import sharding
+    return loss.detach(), sharding._map_with_path(lambda _, x: next(it),
+                                                  tree)
+
+
+def _mesh_tp(dev, rows):
+    """A TP rank's train step. Correctness: at 2 ranks (threads, the
+    collectives of ``_ThreadMesh``) at full width cut to 1 + 1 blocks,
+    the gathered gradients against the unsharded step's on the same
+    kernels. Timing: rank 0 of 4 (6 of 24 heads) alone at the trainer's
+    cut, forward + backward with remat, and its exact B5/B6 counts."""
+    import torch
+    from domainrag_tpu_torch.models.common import Init
+    from domainrag_tpu_torch.models.flux import model as fm
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+    from domainrag_tpu_torch.parallel import sharding
+    from domainrag_tpu_torch.train import flow_match
+    tcfg = flow_match.TrainConfig(remat=True)
+    cfg = dataclasses.replace(fm.FLUX_DEV, depth_double=TP_CHECK_DEPTH[0],
+                              depth_single=TP_CHECK_DEPTH[1])
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    params = fm.init(cfg, Init(g, dev, torch.float32))
+    _, _, batches = _full_train_setup(dev)
+    batch = next(batches())
+    f32 = {k: v.float() if k in ("x0", "txt", "pooled") else v
+           for k, v in batch.items()}
+    t = torch.sigmoid(torch.randn((TRAIN_B,), generator=g, device=dev))
+    eps = torch.randn(batch["x0"].shape, generator=g, device=dev)
+    loss1, want = _tp_loss_grads(params, f32, cfg, tcfg, t, eps,
+                                 _RankAlone("model", 1, 0))
+    want = _by_path(want)
+    tm = _ThreadMesh("model", 2)
+
+    def body(rank):
+        local = sharding.shard_params(params, tm)
+        loss, grads = _tp_loss_grads(local, f32, cfg, tcfg, t, eps, tm)
+        return loss, sharding.unshard_params(grads, params, tm)
+
+    results = tm.run(body, grad=True)
+    got = _by_path(results[0][1])
+    num = sum((got[k].float() - w.float()).square().sum() for k, w in
+              want.items())
+    den = sum(w.float().square().sum() for w in want.values())
+    whole = (num / den).sqrt().item()
+    worst = max((((got[k].float() - w.float()).norm()
+                  / w.float().norm().clamp_min(1e-30)).item(), k)
+                for k, w in want.items())
+    print(f"[{CARD}] TP train step, 2 ranks in threads at full width cut "
+          f"to {TP_CHECK_DEPTH} blocks, f32 batch {TRAIN_B} x "
+          f"{S_TRAIN} tokens: losses {results[0][0].item():.6f} / "
+          f"{results[1][0].item():.6f} vs unsharded {loss1.item():.6f}; "
+          f"gathered gradients rel_norm {whole:.3e} (tol {GRAD_REL}), "
+          f"worst leaf {worst[0]:.3e} at {'/'.join(worst[1])} (tol "
+          f"{TP_GRAD_LEAF})")
+    if not (whole < GRAD_REL and worst[0] < TP_GRAD_LEAF) or abs(
+            results[0][0].item() - loss1.item()) > 1e-2 * abs(loss1.item()):
+        raise AssertionError("TP train step: the sharded gradients differ")
+    del params, want, got, results
+    torch.cuda.empty_cache()
+    # rank 0 of 4 alone at the trainer's cut
+    cfg, params, _ = _full_train_setup(dev)
+    alone = _RankAlone("model", MESH_RANKS, 0)
+    local = sharding.shard_params(params, alone)
+    heads = local["double"][0]["img_qkv"]["w"].shape[1] // (3 * HD)
+
+    def fwd_bwd():
+        return _tp_loss_grads(local, batch, cfg, tcfg, t, eps, alone)
+
+    _reset_counts(mma)
+    fwd_bwd()
+    torch.cuda.synchronize()
+    counts = _flash_counts() + (mma.mmdit_double_attention.launches
+                                + mma.mmdit_single_attention.launches,)
+    n = cfg.depth_double + cfg.depth_single
+    want_counts = (2 * n, n, 0, 0)
+    ms = _ms(fwd_bwd, 10, 2)
+    print(f"[{CARD}] TP rank 0 of {MESH_RANKS} ({heads} of {HEADS} heads) "
+          f"alone, trainer cut {TRAIN_DEPTH}, bf16 batch {TRAIN_B} x "
+          f"{S_TRAIN} tokens, remat: forward + backward {ms:.1f} ms; "
+          f"launches B5 {counts[0]}, B6 {counts[1]}, B6 f32 {counts[2]}, "
+          f"fused {counts[3]} (expected {want_counts})")
+    if counts != want_counts:
+        raise AssertionError("TP rank: launch counts differ")
+    _flash_tp_rows(dev, rows, heads, counts)
+    del params, local
+    torch.cuda.empty_cache()
+
+
+def _flash_tp_rows(dev, rows, heads, counts):
+    """B5 and B6 at a TP rank's attention shape (2, 6, 4608, 128) bf16:
+    against the plain versions, with the kernel, plain and SDPA times."""
+    import torch
+    import torch.nn.functional as F
+    from domainrag_tpu_torch.ops import attention as attn
+    g = torch.Generator(device=dev)
+    g.manual_seed(32)
+    shape = (TRAIN_B, heads, S_TRAIN, S_TRAIN, HD)
+    q, k, v, do = (torch.randn((TRAIN_B, heads, S_TRAIN, HD), generator=g,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = attn._kernel_forward(q, k, v, False, None)
+    want, want_lse = attn.flash_forward_reference(q, k, v)
+    name = f"flash_fwd_bf16_tp_rank_h{heads}_s{S_TRAIN}"
+    rows[name] = _flash_row(
+        name, "ops/attention.py:110", _check(name, out, want),
+        _ms(lambda: attn._kernel_forward(q, k, v, False, None), 20),
+        _ms(lambda: attn.flash_forward_reference(q, k, v), 3, 1),
+        _ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+        _flash_bound(4, shape, False))
+    rows[name]["launches"] = counts[0]
+    buf = attn.backward_buffers(q, k, v, want, want_lse, do, False)
+    attn.launch_backward(buf)
+    ref = attn.flash_backward_reference(q, k, v, want, want_lse, do)
+    name = f"flash_bwd_bf16_tp_rank_h{heads}_s{S_TRAIN}"
+    errs = [_check_grad(f"{name} d{nm}", a.reshape(
+        q.shape[:3] + (-1,))[..., :HD], b, False)
+        for nm, a, b in zip("qkv", (buf.dq, buf.dk, buf.dv), ref)]
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    sdpa = F.scaled_dot_product_attention(*leaves)
+    rows[name] = _flash_row(
+        name, "ops/attention.py:296,336", max(errs),
+        _ms(lambda: attn.launch_backward(buf), 10),
+        _ms(lambda: attn.flash_backward_reference(q, k, v, want, want_lse,
+                                                  do), 3, 1),
+        _ms(lambda: torch.autograd.grad(sdpa, leaves, do,
+                                        retain_graph=True), 10),
+        _flash_bound(10, shape, False, 8))
+    rows[name]["launches"] = counts[1]
+
+
+def _mesh_fsdp(dev, rows):
+    """Rank 0 of an FSDP data axis of 4 at the trainer's cut, alone (the
+    gathers stand in): the bytes of its params, gradients and AdamW state
+    against the whole tree's, and its step's time."""
+    import torch
+    from domainrag_tpu_torch.train import flow_match
+    cfg, params, batches = _full_train_setup(dev)
+    whole = sum(t.numel() * t.element_size()
+                for t in flow_match.leaves(params))
+    b0 = next(batches())
+    batch = {k: torch.cat([v] * MESH_RANKS) if v.dim() > 2 or k == "pooled"
+             else v for k, v in b0.items()}
+    mesh = _FsdpAlone("data", MESH_RANKS, 0)
+    step, local, opt, _ = flow_match.make_sharded_train_step(
+        mesh, cfg, flow_match.TrainConfig(remat=True), params, fsdp=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(33)
+    step(local, opt, batch, g)                   # the moments are allocated
+    ms = _ms(lambda: step(local, opt, batch, g), 2, 0)
+    mine = sum(t.numel() * t.element_size()
+               for t in flow_match.leaves(local))
+    state = sum(v.numel() * v.element_size() for st in opt.state.values()
+                for v in st.values() if torch.is_tensor(v) and v.dim())
+    print(f"[{CARD}] FSDP rank 0 of {MESH_RANKS} alone (stand-in gathers), "
+          f"trainer cut {TRAIN_DEPTH}, bf16 batch {TRAIN_B} of "
+          f"{TRAIN_B * MESH_RANKS}: params {mine / 1e9:.3f} GB of "
+          f"{whole / 1e9:.3f} GB ({mine / whole:.3f}), grads "
+          f"{mine / 1e9:.3f} GB, AdamW state {state / 1e9:.3f} GB of "
+          f"{2 * whole / 1e9:.3f} GB; step {ms:.1f} ms")
+    if not (mine < whole and state <= 2 * mine + 1e6):
+        raise AssertionError("FSDP rank: its share is not a share")
+    del params, local, opt
+    torch.cuda.empty_cache()
+
+
+def _mesh_ring(dev, rows):
+    """The ring's gradient at the trainer's sequence over 4 ranks: B6 with
+    the LSE's gradient against its plain version on one block (2 x 24 x
+    1152 x 1152 x 128 bf16) and a ragged one; then ``ring_attention``
+    differentiated by autograd (``_Ring``'s backward on autograd's device
+    thread) on each of 4 ranks in turn, summed, on the whole and on a
+    ragged sequence, and on the one-rank mesh of the NCCL group, against
+    f32 dense attention and its autograd, with exact B5/B6 counts."""
+    import torch
+    import torch.nn.functional as F
+    from domainrag_tpu_torch.ops import attention as attn
+    from domainrag_tpu_torch.ops import ring_attention as ring
+    g = torch.Generator(device=dev)
+    g.manual_seed(34)
+    n, blk = MESH_RANKS, S_TRAIN // MESH_RANKS
+    q, k, v, do = (torch.randn((TRAIN_B, HEADS, S_TRAIN, HD), generator=g,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    shape = (TRAIN_B, HEADS, blk, blk, HD)
+    for kv_valid in (blk, RING_RAGGED - (n - 1) * blk):
+        qb, kb, vb, dob = (x[:, :, :blk].contiguous() for x in (q, k, v, do))
+        out, lse = attn._kernel_forward(qb, kb, vb, False, kv_valid)
+        dlse = torch.randn(lse.shape, generator=g, device=dev)
+        args = (qb, kb, vb, out, lse, dob, False, kv_valid, dlse)
+        _poison(kb)
+        got = attn._kernel_backward(*args)
+        want = attn.flash_backward_reference(*args)
+        name = f"flash_bwd_bf16_ring_block_s{blk}_kv{kv_valid}"
+        errs = [_check_grad(f"{name} d{nm}", a, b, False)
+                for nm, a, b in zip("qkv", got, want)]
+        leaves = [x.detach().requires_grad_() for x in (qb, kb, vb)]
+        sdpa = F.scaled_dot_product_attention(*leaves)
+        rows[name] = _flash_row(
+            name, "ops/attention.py:296,336", max(errs),
+            _ms(lambda: attn._kernel_backward(*args), 20),
+            _ms(lambda: attn.flash_backward_reference(*args), 3, 1),
+            _ms(lambda: torch.autograd.grad(sdpa, leaves, dob,
+                                            retain_graph=True), 20),
+            _flash_bound(10, shape[:3] + (kv_valid, HD), False, 8))
+    # the entry point, differentiated: every rank of 4 in turn (a mesh
+    # stand-in of its index: their outputs and gradients add up to the
+    # ring's), on the whole sequence and on a ragged one, then the
+    # one-rank mesh of the NCCL group; B6 counted per (Sq, Skv, kv_valid)
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod
+    _reset_counts(mma)
+    rels, ragged = [], RING_RAGGED - (n - 1) * blk
+    for s_valid in (S_TRAIN, RING_RAGGED):
+        xs = [x[:, :, :s_valid] for x in (q, k, v, do)]
+        got = [0.0] * 4
+        for i in range(n):
+            leaves = [x.detach().requires_grad_() for x in xs[:3]]
+            # zero-padded to S_TRAIN: the last block holds `ragged` keys
+            out = ring.ring_attention(
+                *(F.pad(x, (0, 0, 0, S_TRAIN - s_valid)) for x in leaves),
+                _RingAlone("data", n, i), seq_valid=s_valid)[:, :, :s_valid]
+            part = (out,) + torch.autograd.grad(out, leaves, xs[3])
+            got = [a + b.float() for a, b in zip(got, part)]
+            del out, part, leaves
+        rels.append(_ring_rels(got, xs, attn))
+        del got
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = ring.ring_attention(*leaves, mesh_mod.create_mesh())
+    got = (out,) + torch.autograd.grad(out, leaves, do)
+    rels.append(_ring_rels(got, (q, k, v, do), attn))
+    del out, got, leaves
+    torch.cuda.synchronize()
+    counts = _flash_counts()
+    by_shape = dict(attn.flash_attention.bwd_launches_by_shape)
+    # per rank of n: B5 n in the forward and n in the backward's recompute,
+    # B6 n; the ragged sequence's block n - 1 holds `ragged` keys
+    want_shape = {(blk, blk, blk): n * n + n * (n - 1),
+                  (blk, blk, ragged): n, (S_TRAIN, S_TRAIN, S_TRAIN): 1}
+    want = (2 * 2 * n * n + 2, 2 * n * n + 1)
+    for kv in (blk, ragged):
+        rows[f"flash_bwd_bf16_ring_block_s{blk}_kv{kv}"]["launches"] = \
+            by_shape.get((blk, blk, kv), 0)
+    worst = max(max(r) for r in rels)
+    print(f"[{CARD}] ring gradient through ring_attention: {n} ranks in "
+          f"turn over {TRAIN_B} x {HEADS} x {S_TRAIN} x {HD} bf16, {n} "
+          f"ranks over the ragged {RING_RAGGED}, the one-rank NCCL mesh: "
+          f"out/dq/dk/dv rel_norm "
+          + "; ".join(", ".join(f"{x:.3e}" for x in r) for r in rels)
+          + f" (tol {GRAD_REL}) against autograd of f32 dense attention; "
+          f"B5 {counts[0]}, B6 {counts[1]} (expected {want}); B6 by (Sq, "
+          f"Skv, kv_valid) {by_shape} (expected {want_shape})")
+    if worst >= GRAD_REL or counts[:2] != want or by_shape != want_shape:
+        raise AssertionError("the ring's gradient differs")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+
+def _ring_rels(got, xs, attn):
+    """The relative norm distance of the ring's (out, dq, dk, dv) to f32
+    dense attention's and its autograd on the same q, k, v, dout."""
+    import torch
+    leaves = [x.detach().float().requires_grad_() for x in xs[:3]]
+    dense = attn.attention_reference(*leaves)
+    want = (dense.detach(),) + torch.autograd.grad(dense, leaves,
+                                                   xs[3].float())
+    return [((a.float() - b).norm() / b.norm()).item()
+            for a, b in zip(got, want)]
+
+
+def _mesh_image(dev, rows):
+    """``ops/image.py`` on the card against the CPU: the masks equal, the
+    resizes within 1e-5 (f32)."""
+    import torch
+    from domainrag_tpu_torch.ops import image
+    g = torch.Generator().manual_seed(35)
+    boxes = torch.tensor([[10, 20, 300, 400], [-5, -5, 64, 64],
+                          [900, 700, 300, 300], [0, 0, 0, 5]],
+                         dtype=torch.float32)
+    for n_valid in (None, 2):
+        cpu = image.boxes_mask(800, 1024, boxes, n_valid, 255.0)
+        card = image.boxes_mask(800, 1024, boxes.to(dev), n_valid, 255.0)
+        if not torch.equal(card.cpu(), cpu):
+            raise AssertionError("boxes_mask: card and CPU differ")
+    img = torch.rand((2, 256, 384, 3), generator=g)
+    worst = 0.0
+    for fn in (image.resize_bicubic, image.resize_bilinear):
+        for hw in ((512, 768), (97, 131)):
+            err = (fn(img.to(dev), *hw).cpu() - fn(img, *hw)).abs().max()
+            worst = max(worst, err.item())
+    print(f"[{CARD}] ops/image.py: boxes_mask equal on card and CPU; "
+          f"resizes (bicubic, bilinear; up and down) max_abs {worst:.2e} "
+          "(tol 1e-5)")
+    if worst > 1e-5:
+        raise AssertionError("ops/image.py resizes: card and CPU differ")
+
+
+def phase_train_mesh(dev, rows):
+    """Training over a mesh on the one card (the phase after the
+    trainer's, with the card to itself): fit on the one-rank NCCL mesh,
+    a TP rank, an FSDP rank, the ring's gradient, and ``ops/image.py``."""
+    t0 = time.perf_counter()
+    for part in (_mesh_fit, _mesh_tp, _mesh_fsdp, _mesh_ring, _mesh_image):
+        t1 = time.perf_counter()
+        part(dev, rows)
+        print(f"train-mesh {part.__name__}: {time.perf_counter() - t1:.1f} s")
+    print(f"[{CARD}] train-mesh phase: {time.perf_counter() - t0:.1f} s")
 
 
 STAGE_ROOT = OUT / "stages"   # stages 1 -> 2 -> 3 share this tree
@@ -4891,6 +5371,10 @@ def main() -> int:
     cfg, params, batches = phase_train(dev, rows)
     phase_profile_train(dev, cfg, params, batches)
     phase_train_f32(dev, cfg, params, batches, rows)
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_mesh(dev, rows)
     import torch.distributed as dist
     dist.destroy_process_group()
     print(f"chip_smoke: all phases passed in "

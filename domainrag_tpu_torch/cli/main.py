@@ -18,7 +18,9 @@ together (``torchrun --nproc_per_node G -m domainrag_tpu_torch.cli.main
 ...``, ``--model_parallel`` / ``--pipeline_parallel`` shaping it: NCCL
 on cards, gloo with ``--device cpu``; rank 0 writes), or as workers over
 disjoint sample slices (``--worker_id`` / ``--num_workers``, or
-``--distributed`` under one group).
+``--distributed`` under one group, where a worker is a host: the
+processes torchrun starts there form its mesh, and ``--model_parallel``
+/ ``--pipeline_parallel`` apply inside it).
 """
 
 from __future__ import annotations
@@ -273,9 +275,10 @@ def _add_common(p: argparse.ArgumentParser):
                         "per card; worker 0 merges the partials)")
     p.add_argument("--distributed", action="store_true",
                    help="coordinate workers through a torch.distributed "
-                        "group: each process is one worker over a disjoint "
-                        "sample slice, stage barriers and worker-0 merges "
-                        "run automatically")
+                        "group: each host (torchrun's LOCAL_WORLD_SIZE "
+                        "processes) is one worker over a disjoint sample "
+                        "slice and its processes one mesh; stage barriers "
+                        "and worker-0 merges run automatically")
     p.add_argument("--coordinator", default=None,
                    help="--distributed: host:port of process 0 (omit to "
                         "read torchrun's environment)")
@@ -342,10 +345,12 @@ def main(argv=None) -> int:
                            args.num_processes, args.process_index,
                            device=args.device)
     if args.distributed:
-        args.worker_id = multihost.process_index()
-        args.num_workers = multihost.process_count()
-        logger.info("distributed: worker %d/%d", args.worker_id,
-                    args.num_workers)
+        # a worker is a host: its processes (LOCAL_WORLD_SIZE) are its mesh
+        args.worker_id = multihost.worker_index()
+        args.num_workers = multihost.worker_count()
+        logger.info("distributed: worker %d/%d of %d process(es)",
+                    args.worker_id, args.num_workers,
+                    multihost.local_size())
 
     if args.auto_shots and len(args.datasets) == 1:
         args.shots = list(get_shots_for_dataset(args.datasets[0]))

@@ -206,18 +206,31 @@ def linear_row_sharded(p: Params, x: torch.Tensor, mesh,
     quantize with the amax of the whole row (an all-reduce of the max, as
     GSPMD reduces the JAX ``quantize_rowwise``), B4 writes each rank's
     partial in f32, and the partials are summed before the rounding to
-    x's dtype."""
+    x's dtype. The sum is ``parallel.mesh.reduce_from``, whose gradient
+    passes to every rank's partial unchanged, so the layer trains."""
+    from ..parallel.mesh import reduce_from
     if "w_q" in p and _INT8_ACTIVATIONS:
         y = w8a8_linear(x, p["w_q"], p["w_s"],
                         row_max=lambda a: mesh.all_reduce(a, axis, "max"),
                         out_dtype=torch.float32)
-        y = mesh.all_reduce(y, axis).to(x.dtype)
+        y = reduce_from(mesh, y, axis).to(x.dtype)
     else:
-        y = mesh.all_reduce(linear({k: v for k, v in p.items() if k != "b"},
-                                   x), axis)
+        y = reduce_from(mesh, linear({k: v for k, v in p.items()
+                                      if k != "b"}, x), axis)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def linear_col_sharded(p: Params, x: torch.Tensor, mesh,
+                       axis: str) -> torch.Tensor:
+    """:func:`linear` of a column-sharded layer under tensor parallelism:
+    ``x`` is whole on every rank and ``p`` holds this rank's output
+    columns. ``x`` enters through ``parallel.mesh.copy_to``, which sums
+    its gradient over ``axis``: each rank's holds only the part that
+    flows back from its own columns."""
+    from ..parallel.mesh import copy_to
+    return linear(p, copy_to(mesh, x, axis))
 
 
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5

@@ -20,11 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ...ops.attention import tp_context
+from ...ops.attention import entered, saved_contexts, tp_context
 from ...ops.mmdit_attention import (mmdit_double_attention,
                                     mmdit_single_attention)
-from ..common import (Init, Params, gelu_tanh, linear, linear_init,
-                      linear_row_sharded, linear_widths, rmsnorm_init)
+from ..common import (Init, Params, gelu_tanh, linear, linear_col_sharded,
+                      linear_init, linear_row_sharded, linear_widths,
+                      rmsnorm_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,17 +162,41 @@ def _modulate(x, shift, scale):
     return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
-def _row_linear(p: Params, x, sharded: bool):
-    """A row-sharded layer (attention output, MLP down): the sum of the
-    ranks' partial products under tensor parallelism."""
-    if not sharded:
-        return linear(p, x)
+def _tp() -> tuple:
     ctx = tp_context()
     if ctx is None:
         raise ValueError("tensor-parallel block weights "
                          "(parallel.sharding.shard_params) run inside "
                          "ops.attention.tp_attention of their mesh")
-    return linear_row_sharded(p, x, *ctx)
+    return ctx
+
+
+def _row_linear(p: Params, x, sharded: bool):
+    """A row-sharded layer (attention output, MLP down): the sum of the
+    ranks' partial products under tensor parallelism."""
+    if not sharded:
+        return linear(p, x)
+    return linear_row_sharded(p, x, *_tp())
+
+
+def _col_linear(p: Params, x, sharded: bool):
+    """A column-sharded layer (qkv, MLP up) on the replicated ``x``:
+    this rank's output columns, the input's gradient summed over the
+    ranks under tensor parallelism."""
+    if not sharded:
+        return linear(p, x)
+    return linear_col_sharded(p, x, *_tp())
+
+
+def _qknorm(p: Params, sharded: bool) -> Params:
+    """The qk-RMSNorm weights, which every rank applies to its own heads:
+    under tensor parallelism their gradient is summed over the ranks."""
+    if not sharded:
+        return p
+    from ...parallel.mesh import copy_to
+    mesh, axis = _tp()
+    return {k: {"scale": copy_to(mesh, v["scale"], axis)}
+            for k, v in p.items()}
 
 
 def _double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
@@ -190,8 +215,10 @@ def _double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
     # joint [txt; img] attention (BFL order) over the raw fused qkv GEMM
     # outputs: head split, qk-RMSNorm, RoPE and softmax in one op
     txt_attn, img_attn = mmdit_double_attention(
-        linear(p["txt_qkv"], txt_in), linear(p["img_qkv"], img_in),
-        p["txt_qknorm"], p["img_qknorm"], cos, sin, heads, cfg.head_dim)
+        _col_linear(p["txt_qkv"], txt_in, sharded),
+        _col_linear(p["img_qkv"], img_in, sharded),
+        _qknorm(p["txt_qknorm"], sharded), _qknorm(p["img_qknorm"], sharded),
+        cos, sin, heads, cfg.head_dim)
 
     img = img + i_gate1[:, None, :] * _row_linear(p["img_proj"], img_attn,
                                                    sharded)
@@ -200,10 +227,12 @@ def _double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
 
     img_h = _modulate(_ln_no_affine(img), i_shift2, i_scale2)
     img = img + i_gate2[:, None, :] * _row_linear(
-        p["img_mlp2"], gelu_tanh(linear(p["img_mlp1"], img_h)), sharded)
+        p["img_mlp2"], gelu_tanh(_col_linear(p["img_mlp1"], img_h,
+                                             sharded)), sharded)
     txt_h = _modulate(_ln_no_affine(txt), t_shift2, t_scale2)
     txt = txt + t_gate2[:, None, :] * _row_linear(
-        p["txt_mlp2"], gelu_tanh(linear(p["txt_mlp1"], txt_h)), sharded)
+        p["txt_mlp2"], gelu_tanh(_col_linear(p["txt_mlp1"], txt_h,
+                                             sharded)), sharded)
     return img, txt
 
 
@@ -215,9 +244,10 @@ def _single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig):
     sharded = w2 != cfg.hidden + cfg.mlp_hidden
     shift, scale, gate = linear(p["mod"], F.silu(vec)).chunk(3, dim=-1)
     x_in = _modulate(_ln_no_affine(x), shift, scale)
-    proj = linear(p["linear1"], x_in)
+    proj = _col_linear(p["linear1"], x_in, sharded)
     # the attention reads q/k/v in place from proj's first 3h lanes
-    out = mmdit_single_attention(proj, p["qknorm"], cos, sin,
+    out = mmdit_single_attention(proj, _qknorm(p["qknorm"], sharded),
+                                 cos, sin,
                                  h_local // cfg.head_dim, cfg.head_dim)
     combined = torch.cat([out, gelu_tanh(proj[..., 3 * h_local:])], dim=-1)
     return x + gate[:, None, :] * _row_linear(p["linear2"], combined,
@@ -296,7 +326,15 @@ def apply(params: Params, img_tokens: torch.Tensor,
 
     def run(block_fn, *args):
         if remat:
-            return checkpoint(block_fn, *args, cfg, use_reentrant=False)
+            # the recompute re-enters this thread's attention contexts:
+            # on the card it runs on autograd's device thread
+            contexts = saved_contexts()
+
+            def block(*a):
+                with entered(contexts):
+                    return block_fn(*a)
+
+            return checkpoint(block, *args, cfg, use_reentrant=False)
         return block_fn(*args, cfg)
 
     for block in params["double"]:

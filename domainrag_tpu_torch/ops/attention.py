@@ -31,7 +31,11 @@ work one (batch, head) and one block of q rows at a time so that a
 50k-token check fits in memory. Launches are counted on
 :func:`flash_attention`: ``.launches`` (forward, also through
 :func:`flash_attention_lse`), ``.bwd_launches`` (the bf16 backward's one
-kernel) and ``.bwd_f32_launches`` (the f32 backward's one).
+kernel) and ``.bwd_f32_launches`` (the f32 backward's one; both also
+through :func:`flash_attention_lse`'s backward, where a gradient on the
+LSE output enters B6 as delta - dlse); ``.bwd_launches_by_shape`` counts
+both B6 kernels per (Sq, Skv, kv_valid), so that a ragged ring block's
+launches are told from its full ones.
 
 :func:`attention` is the dispatcher the unfused MMDiT composition calls
 (:592-620): a ``mask`` takes the dense masked path, a CPU tensor the dense
@@ -148,17 +152,18 @@ def flash_forward_reference(q, k, v, causal: bool = False,
 
 
 def flash_backward_reference(q, k, v, out, lse, dout, causal: bool = False,
-                             kv_valid: Optional[int] = None):
+                             kv_valid: Optional[int] = None, dlse=None):
     """The B6 numerics with every product in f32 (:287-380): delta =
     rowsum(dO*O); per block of q rows, p = exp(q k^T/sqrt(D) - lse) zeroed
     where masked, ds = p*(dp - delta) with dp = dO v^T, dq = ds k/sqrt(D),
-    dk += ds^T q/sqrt(D), dv += p^T dO. Returns (dq, dk, dv) in the
-    inputs' dtypes."""
+    dk += ds^T q/sqrt(D), dv += p^T dO. ``dlse`` (B, H, Sq), a gradient on
+    the LSE output, adds p*dlse to ds: delta becomes delta - dlse. Returns
+    (dq, dk, dv) in the inputs' dtypes."""
     b, h, s_q, d = q.shape
     s_kv = k.shape[2]
     kv_valid = s_kv if kv_valid is None else int(kv_valid)
     scale = 1.0 / math.sqrt(d)
-    delta = (dout.float() * out.float()).sum(-1)
+    delta = _delta(out, dout, dlse)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -267,17 +272,27 @@ def _kernel_forward(q, k, v, causal: bool, kv_valid: Optional[int]):
             lse.reshape(b, h, s_q))
 
 
+def _delta(out, dout, dlse=None) -> torch.Tensor:
+    """B6's delta, (B, H, Sq) f32: rowsum(dO*O), less ``dlse`` when the
+    LSE output has a gradient."""
+    delta = (dout.float() * out.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.float().reshape(delta.shape)
+    return delta
+
+
 def backward_buffers(q, k, v, out, lse, dout, causal: bool,
-                     kv_valid: Optional[int] = None) -> SimpleNamespace:
+                     kv_valid: Optional[int] = None,
+                     dlse=None) -> SimpleNamespace:
     """The B6 kernel's inputs (head width padded to 128, delta =
-    rowsum(dO*O) in f32, outside the kernel as in JAX; the lse and delta
-    rows zero padded to a multiple of ``BWD_Q_TILE``) and the dk/dv
+    rowsum(dO*O) - dlse in f32, outside the kernel as in JAX; the lse and
+    delta rows zero padded to a multiple of ``BWD_Q_TILE``) and the dk/dv
     outputs, allocated; :func:`launch_backward` runs the kernel and sets
     ``dq``."""
     _check((q, k, v, out, dout), "flash backward")
     b, h, s_q, d = q.shape
     s_kv = k.shape[2]
-    delta = (dout.float() * out.float()).sum(-1).reshape(b * h, s_q)
+    delta = _delta(out, dout, dlse).reshape(b * h, s_q)
     lse = lse.float().reshape(b * h, s_q)
     pad = -s_q % BWD_Q_TILE
     lse, delta = F.pad(lse, (0, pad)), F.pad(delta, (0, pad))
@@ -317,6 +332,9 @@ def launch_backward(buf: SimpleNamespace) -> None:
     if rc != 0:
         raise RuntimeError(f"flash backward kernel launch failed: CUDA "
                            f"error {rc}")
+    by_shape = flash_attention.bwd_launches_by_shape
+    key = (s_q, s_kv, buf.kv_valid)
+    by_shape[key] = by_shape.get(key, 0) + 1
     if buf.q.dtype == torch.bfloat16:
         flash_attention.bwd_launches += 1
         with torch.profiler.record_function(DQ_ACCUM_SPAN):
@@ -326,8 +344,8 @@ def launch_backward(buf: SimpleNamespace) -> None:
 
 
 def _kernel_backward(q, k, v, out, lse, dout, causal: bool,
-                     kv_valid: Optional[int]):
-    buf = backward_buffers(q, k, v, out, lse, dout, causal, kv_valid)
+                     kv_valid: Optional[int], dlse=None):
+    buf = backward_buffers(q, k, v, out, lse, dout, causal, kv_valid, dlse)
     launch_backward(buf)
     b, h, s_q, s_kv, d = buf.shape
 
@@ -343,10 +361,11 @@ def _forward(q, k, v, causal, kv_valid=None):
     return _kernel_forward(q, k, v, causal, kv_valid)
 
 
-def _backward(q, k, v, out, lse, dout, causal):
+def _backward(q, k, v, out, lse, dout, causal, kv_valid=None, dlse=None):
     if q.device.type == "cpu":
-        return flash_backward_reference(q, k, v, out, lse, dout, causal)
-    return _kernel_backward(q, k, v, out, lse, dout, causal, None)
+        return flash_backward_reference(q, k, v, out, lse, dout, causal,
+                                        kv_valid, dlse)
+    return _kernel_backward(q, k, v, out, lse, dout, causal, kv_valid, dlse)
 
 
 # ---------------------------------------------------------------------------
@@ -379,11 +398,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashAttention.apply(q, k, v, causal)
 
 
+class _FlashAttentionLse(torch.autograd.Function):
+    """The partial-softmax form with both outputs differentiable: a
+    gradient on the LSE adds p*dlse to ds, so the backward is B6 with
+    delta = rowsum(dO*O) - dlse and the block's ``kv_valid``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid):
+        out, lse = _forward(q, k, v, False, kv_valid)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kv_valid = kv_valid
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, lse, dout.contiguous(), False,
+                               ctx.kv_valid, dlse)
+        return dq, dk, dv, None
+
+
 def flash_attention_lse(q, k, v, kv_valid: Optional[int] = None):
     """Flash forward returning (out (B, H, Sq, D), lse (B, H, Sq, 1) f32):
-    the partial-softmax form (:270-284). Not differentiable."""
-    with torch.no_grad():
-        out, lse = _forward(q, k, v, False, kv_valid)
+    the partial-softmax form (:270-284) that the ring merges.
+    Differentiable in both outputs: the backward runs B6 with the LSE's
+    gradient folded into delta (the JAX function is not)."""
+    out, lse = _FlashAttentionLse.apply(q, k, v, kv_valid)
     return out, lse[..., None]
 
 
@@ -456,6 +496,29 @@ def sp_attention(mesh, axis: str = "data"):
         _SP_CONTEXT.value = prev
 
 
+def saved_contexts():
+    """The calling thread's attention contexts (:func:`tp_attention`,
+    :func:`sp_attention`, :func:`dense_attention`), which are
+    thread-local: a checkpointed block is recomputed in the backward,
+    which on the card runs on autograd's device thread, so the block
+    re-enters them (:func:`entered`)."""
+    return tp_context(), sp_context(), forced_dense()
+
+
+@contextlib.contextmanager
+def entered(contexts):
+    """Re-enter contexts that :func:`saved_contexts` returned."""
+    tp, sp, dense = contexts
+    with contextlib.ExitStack() as stack:
+        if tp is not None:
+            stack.enter_context(tp_attention(*tp))
+        if sp is not None:
+            stack.enter_context(sp_attention(*sp))
+        if dense:
+            stack.enter_context(dense_attention())
+        yield
+
+
 def tp_context():
     """(mesh, axis) of the enclosing :func:`tp_attention`, or None."""
     return getattr(_TP_CONTEXT, "value", None)
@@ -497,3 +560,4 @@ def _tp_sharded(q, k, v, causal: bool):
 flash_attention.launches = 0
 flash_attention.bwd_launches = 0
 flash_attention.bwd_f32_launches = 0
+flash_attention.bwd_launches_by_shape = {}  # (Sq, Skv, kv_valid) -> launches

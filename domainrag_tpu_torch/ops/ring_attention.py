@@ -17,8 +17,15 @@ Per step, on the card: B5, ``ops.attention.flash_attention_lse`` with the
 block's ``kv_valid`` (the ragged tail of a padded sequence), as the JAX
 package runs its flash kernel per block on the TPU; on the CPU (and
 inside ``dense_attention``) the dense fold :func:`_dense_block_lse`. A
-block with no valid key adds nothing and is skipped. Not differentiable:
-the ring's gradient comes with the trainer's slice (ROADMAP A7).
+block with no valid key adds nothing and is skipped.
+
+Differentiable, as the JAX ring is through ``shard_map``: rank i
+differentiates its own fold (:func:`fold_backward`): each block through
+B6 on the card (``flash_attention_lse``'s backward, the LSE's gradient
+in delta and the block's ``kv_valid``), or autograd of the dense fold on
+the CPU, and the LSE merge by autograd. Every rank holds q, k and v
+whole and sees the whole output's gradient, so dq is all-gathered over
+the axis and dk, dv are all-reduced.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .attention import flash_attention_lse, forced_dense
+from .attention import (entered, flash_attention_lse, forced_dense,
+                        saved_contexts)
 
 NEG_INF = -1e30
 
@@ -58,13 +66,19 @@ def _merge_partials(out_run, lse_run, out_i, lse_i):
             + out_i * torch.exp(lse_i - lse)), lse
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """True where a block runs the flash kernels (a CUDA tensor outside
+    ``dense_attention``); else the dense fold."""
+    return x.device.type != "cpu" and not forced_dense()
+
+
 def ring_step(q_blk, k_blk, v_blk, out, lse, kv_valid: int):
     """Fold one K/V block (its first ``kv_valid`` keys) into the running
     (out f32, lse f32) pair: B5 on a CUDA tensor, the dense fold on the
     CPU or inside ``dense_attention``."""
     if kv_valid <= 0:
         return out, lse
-    if q_blk.device.type != "cpu" and not forced_dense():
+    if _on_card(q_blk):
         o_i, lse_i = flash_attention_lse(q_blk, k_blk, v_blk,
                                          kv_valid=kv_valid)
         o_i = o_i.float()
@@ -75,28 +89,22 @@ def ring_step(q_blk, k_blk, v_blk, out, lse, kv_valid: int):
     return _merge_partials(out, lse, o_i, lse_i)
 
 
-def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
-                   axis: str = "data", seq_valid: Optional[int] = None,
-                   head_axis: Optional[str] = None) -> torch.Tensor:
-    """(B, H, S, D) with S divisible by the axis size (pad and pass
-    ``seq_valid`` for ragged lengths). Returns (B, H, S, D), the dense
-    softmax attention, on every rank.
+def _heads(x, mesh, head_axis):
+    """The head share of ``head_axis`` that this rank computes."""
+    if head_axis is None:
+        return x
+    h, nh = x.shape[1], mesh.shape[head_axis]
+    assert h % nh == 0, f"heads {h} not divisible by {head_axis} axis"
+    j, hl = mesh.index(head_axis), h // nh
+    return x[:, j * hl:(j + 1) * hl]
 
-    ``head_axis`` also splits the heads over that mesh axis (SP x TP: heads
-    over ``model``, sequence blocks around ``data``)."""
-    b, h, s, d = q.shape
-    n = mesh.shape[axis]
-    assert s % n == 0, "pad the sequence to a multiple of the axis size"
-    if head_axis is not None:
-        nh = mesh.shape[head_axis]
-        assert h % nh == 0, f"heads {h} not divisible by {head_axis} axis"
-        j, hl = mesh.index(head_axis), h // nh
-        q, k, v = (x[:, j * hl:(j + 1) * hl] for x in (q, k, v))
-    block = s // n
-    valid_len = s if seq_valid is None else int(seq_valid)
-    i = mesh.index(axis)
-    rows = slice(i * block, (i + 1) * block)
-    q_blk = q[:, :, rows].contiguous()
+
+def fold(q, k, v, i: int, n: int, valid_len: int) -> torch.Tensor:
+    """Rank i's fold of n: its query block of q (B, H, S, D) over the n
+    K/V blocks in the ring's order, i, i + 1, ... -> (B, H, S/n, D) f32.
+    Differentiable (B5 forward and B6 backward on the card)."""
+    block = q.shape[2] // n
+    q_blk = q[:, :, i * block:(i + 1) * block].contiguous()
     out = torch.zeros(q_blk.shape, dtype=torch.float32, device=q.device)
     lse = torch.full(q_blk.shape[:-1] + (1,), NEG_INF, dtype=torch.float32,
                      device=q.device)
@@ -106,10 +114,81 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
         cols = slice(owner * block, (owner + 1) * block)
         out, lse = ring_step(q_blk, k[:, :, cols].contiguous(),
                              v[:, :, cols].contiguous(), out, lse, kv_valid)
+    return out
+
+
+def fold_backward(q, k, v, dout_blk, i: int, n: int, valid_len: int):
+    """The gradient of rank i's fold: (dq of its query block, dk, dv of
+    the whole sequence from its block alone), given ``dout_blk``, the
+    output's gradient on its block. The ring's backward sums the ranks'
+    dk and dv and gathers their dq."""
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    with torch.enable_grad():
+        out = fold(q, k, v, i, n, valid_len).to(q.dtype)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout_blk)
+    block = q.shape[2] // n
+    return dq[:, :, i * block:(i + 1) * block], dk, dv
+
+
+def _forward(q, k, v, mesh, axis, valid_len, head_axis):
+    q, k, v = (_heads(x, mesh, head_axis) for x in (q, k, v))
+    out = fold(q, k, v, mesh.index(axis), mesh.shape[axis], valid_len)
     out = mesh.all_gather(out.to(q.dtype), axis, dim=2)
     if head_axis is not None:
         out = mesh.all_gather(out, head_axis, dim=1)
     return out
+
+
+class _Ring(torch.autograd.Function):
+    """The ring as one differentiable op. Every rank holds q, k, v and
+    the output's gradient whole: rank i differentiates its own fold
+    (:func:`fold_backward`) on its head share, then dq is gathered over
+    the axis and dk, dv summed; with ``head_axis`` all three are then
+    gathered over the head shares."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mesh, axis, valid_len, head_axis):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (mesh, axis, valid_len, head_axis)
+        # the backward may run on autograd's device thread
+        ctx.contexts = saved_contexts()
+        return _forward(q, k, v, mesh, axis, valid_len, head_axis)
+
+    @staticmethod
+    def backward(ctx, dout):
+        mesh, axis, valid_len, head_axis = ctx.args
+        q, k, v, dout = (_heads(x, mesh, head_axis)
+                         for x in ctx.saved_tensors + (dout,))
+        n, i = mesh.shape[axis], mesh.index(axis)
+        block = q.shape[2] // n
+        with entered(ctx.contexts):
+            dq, dk, dv = fold_backward(
+                q, k, v, dout[:, :, i * block:(i + 1) * block].contiguous(),
+                i, n, valid_len)
+        grads = (mesh.all_gather(dq, axis, dim=2), mesh.all_reduce(dk, axis),
+                 mesh.all_reduce(dv, axis))
+        if head_axis is not None:
+            grads = tuple(mesh.all_gather(g, head_axis, dim=1)
+                          for g in grads)
+        return grads + (None,) * 4
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
+                   axis: str = "data", seq_valid: Optional[int] = None,
+                   head_axis: Optional[str] = None) -> torch.Tensor:
+    """(B, H, S, D) with S divisible by the axis size (pad and pass
+    ``seq_valid`` for ragged lengths). Returns (B, H, S, D), the dense
+    softmax attention, on every rank; differentiable.
+
+    ``head_axis`` also splits the heads over that mesh axis (SP x TP: heads
+    over ``model``, sequence blocks around ``data``)."""
+    s = q.shape[2]
+    assert s % mesh.shape[axis] == 0, \
+        "pad the sequence to a multiple of the axis size"
+    valid_len = s if seq_valid is None else int(seq_valid)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _Ring.apply(q, k, v, mesh, axis, valid_len, head_axis)
+    return _forward(q, k, v, mesh, axis, valid_len, head_axis)
 
 
 def ring_attention_padded(q, k, v, mesh, axis: str = "data",

@@ -23,13 +23,16 @@ def shard_bundle(bundle: FluxBundle, mesh,
                  fsdp_axis: Optional[str] = None) -> FluxBundle:
     """A bundle whose MMDiT params are this rank's tensor-parallel share
     over ``model_axis`` of ``mesh`` and whose other models are the same
-    (whole on every rank). ``fsdp_axis`` (weight sharding for training)
-    comes with the trainer's slice of the port and raises."""
+    (whole on every rank). ``fsdp_axis`` validates the FSDP layout as
+    JAX's does (each FSDP leaf's dim 0 must divide over that axis); the
+    JAX serving path all-gathers an FSDP leaf before every use, so the
+    port's bundle holds those leaves gathered: JAX's numbers, with TP's
+    memory. Training shards them (``train.flow_match``)."""
     specs = sharding_mod.flux_param_specs(bundle.flux_params,
                                           model_axis=model_axis,
                                           fsdp_axis=fsdp_axis)
-    flux_params = sharding_mod.shard_params(bundle.flux_params, mesh, specs,
-                                            model_axis=model_axis,
-                                            fsdp_axis=fsdp_axis)
+    sharding_mod.validate_divisibility(bundle.flux_params, specs, mesh)
+    flux_params = sharding_mod.shard_params(bundle.flux_params, mesh,
+                                            model_axis=model_axis)
     return dataclasses.replace(bundle, tp_mesh=mesh, tp_axis=model_axis,
                                flux_params=flux_params)

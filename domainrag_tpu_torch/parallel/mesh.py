@@ -17,15 +17,27 @@ group per axis. The JAX mesh maps onto processes so:
   one a single-device run writes.
 - A process that has no group runs on one card, as it always did: a mesh
   built there has one rank, and never one per ``torch.cuda.device_count()``.
-- With ``--distributed``, each process is one worker over a disjoint
-  sample slice: JAX's multihost with one device per process, so its data
-  mesh is ``None``. ``parallel.multihost.barrier`` and
-  ``shared_timestamp`` go through the group. A mesh of several cards per
-  worker (JAX's ``local_devices()`` mesh) comes with the trainer's slice
-  of the port (ROADMAP A7) and raises until then.
+- With ``--distributed``, each host is one worker over a disjoint sample
+  slice: the processes of one host (torchrun's ``LOCAL_WORLD_SIZE``) are
+  that worker's mesh, as JAX's multihost worker meshes its
+  ``jax.local_devices()`` (``parallel.multihost.worker_mesh``).
+  ``parallel.multihost.barrier`` and ``shared_timestamp`` go through the
+  whole group.
 
 The group is NCCL on cards and gloo on the CPU (where the tests run it).
 An axis of size 1 needs no group: its collectives return their input.
+
+Under autograd the collectives need a rule for their gradient, which
+depends on what the ranks compute around them. :func:`reduce_from` and
+:func:`copy_to` are Megatron's conjugate pair for tensor parallelism: the
+sum of a row-sharded layer's partial outputs (all-reduce forward,
+identity backward) and the replicated input of a column-sharded layer, or
+a replicated weight used on the rank's own heads (identity forward,
+all-reduce of the gradient backward). :func:`gather_from` all-gathers
+with the reduce-scatter (:meth:`Mesh.reduce_scatter`) as its gradient:
+FSDP's weight gather, where every rank's loss is a share of the whole.
+The raw collectives of :class:`Mesh` refuse a tensor that requires
+grad, so that no gradient goes through one unruled.
 """
 
 from __future__ import annotations
@@ -99,10 +111,11 @@ class Mesh:
                              f"{self.axis_names}")
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               self.devices.shape))
-        if self.devices.size > _world():
+        world = _world()
+        if self.devices.size > world:
             raise ValueError(
                 f"a mesh of {self.devices.size} ranks needs a process group "
-                f"of as many; this one has {_world()} (start the processes "
+                f"of as many; this one has {world} (start the processes "
                 "with torchrun, one per card, or pass --distributed)")
         me = _rank()
         where = np.argwhere(self.devices == me)
@@ -116,6 +129,11 @@ class Mesh:
                 group = dist.new_group(ranks) if len(ranks) > 1 else None
                 if me in ranks:
                     self._groups[axis] = (group, ranks)
+        # a mesh over part of the group (a worker's) fences and broadcasts
+        # over its own ranks
+        every = sorted(int(r) for r in self.devices.flat)
+        self._all = (dist.new_group(every)
+                     if 1 < len(every) < world else None)
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
@@ -146,12 +164,21 @@ class Mesh:
 
     # -- collectives over one axis (the identity on an axis of size 1) --
 
+    @staticmethod
+    def _no_grad(x: torch.Tensor, what: str) -> None:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise RuntimeError(
+                f"Mesh.{what} has no gradient rule: under autograd use "
+                "parallel.mesh.reduce_from / copy_to / gather_from, "
+                "whose rule states what the ranks compute")
+
     def all_reduce(self, x: torch.Tensor, axis: str,
                    op: str = "sum") -> torch.Tensor:
         """The sum (or ``"max"``) of ``x`` over the ranks of ``axis``, on
         every one of them; reduces ``x`` in place when it is contiguous."""
         if self.shape[axis] == 1:
             return x
+        self._no_grad(x, "all_reduce")
         x = x.contiguous()
         dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
                                "max": dist.ReduceOp.MAX}[op],
@@ -165,10 +192,33 @@ class Mesh:
         n = self.shape[axis]
         if n == 1:
             return x
+        self._no_grad(x, "all_gather")
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=self.group(axis))
         return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str,
+                       dim: int = 0) -> torch.Tensor:
+        """This rank's slice along ``dim`` of the sum of ``x`` over the
+        ranks of ``axis`` (NCCL's reduce-scatter; gloo has none, so there
+        an all-reduce and this rank's slice)."""
+        n = self.shape[axis]
+        if n == 1:
+            return x
+        self._no_grad(x, "reduce_scatter")
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} ({x.shape[dim]}) not divisible by "
+                             f"{axis}={n}")
+        piece = x.shape[dim] // n
+        if dist.get_backend(self.group(axis)) == "nccl":
+            x = x.movedim(dim, 0).contiguous()
+            out = torch.empty((piece,) + tuple(x.shape[1:]), dtype=x.dtype,
+                              device=x.device)
+            dist.reduce_scatter_tensor(out, x, group=self.group(axis))
+            return out.movedim(0, dim)
+        x = self.all_reduce(x.clone(), axis)
+        return x.narrow(dim, self.index(axis) * piece, piece).contiguous()
 
     def broadcast(self, x: torch.Tensor, axis: str,
                   src: int = 0) -> torch.Tensor:
@@ -176,33 +226,118 @@ class Mesh:
         on the others' ``x``, which must have its shape)."""
         if self.shape[axis] == 1:
             return x
+        self._no_grad(x, "broadcast")
         x = x.contiguous()
         dist.broadcast(x, src=self.ranks(axis)[src], group=self.group(axis))
         return x
 
-    def send(self, x: torch.Tensor, axis: str, to: int) -> None:
-        """Send ``x`` to place ``to`` of ``axis`` (blocking)."""
-        dist.send(x.contiguous(), dst=self.ranks(axis)[to],
-                  group=self.group(axis))
-
-    def recv(self, like: torch.Tensor, axis: str, frm: int) -> torch.Tensor:
-        """A tensor shaped as ``like`` from place ``frm`` of ``axis``."""
-        out = torch.empty_like(like, memory_format=torch.contiguous_format)
-        dist.recv(out, src=self.ranks(axis)[frm], group=self.group(axis))
-        return out
+    def exchange(self, axis: str, sends, recvs) -> List[torch.Tensor]:
+        """One round of point-to-point transfers over ``axis``, posted
+        together (``batch_isend_irecv``, so that a ring of sends cannot
+        deadlock on NCCL's ordered streams): ``sends`` are (tensor, to)
+        and ``recvs`` (like, frm) pairs of places along the axis, in an
+        order that the peers' calls mirror. Returns the received tensors,
+        in ``recvs``' order."""
+        group, ranks = self.group(axis), self.ranks(axis)
+        ops = [dist.P2POp(dist.isend, x.contiguous(), ranks[to], group=group)
+               for x, to in sends]
+        got = [torch.empty_like(like, memory_format=torch.contiguous_format)
+               for like, _ in recvs]
+        ops += [dist.P2POp(dist.irecv, out, ranks[frm], group=group)
+                for out, (_, frm) in zip(got, recvs)]
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return got
 
     def broadcast_object(self, obj):
         """The mesh's rank 0's ``obj`` (picklable) on every rank."""
         if self.size == 1:
             return obj
         box = [obj]
-        dist.broadcast_object_list(box, src=int(self.devices.flat[0]))
+        dist.broadcast_object_list(box, src=int(self.devices.flat[0]),
+                                   group=self._all)
         return box[0]
 
     def barrier(self) -> None:
-        """Fence every rank of the group."""
+        """Fence every rank of the mesh."""
         if self.size > 1:
-            dist.barrier()
+            dist.barrier(group=self._all)
+
+
+# ---------------------------------------------------------------------------
+# collectives with a gradient rule (Megatron's conjugate operators)
+# ---------------------------------------------------------------------------
+
+def _wants_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.clone(), ctx.axis), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.reduce_scatter(g.contiguous(), ctx.axis, ctx.dim),
+                None, None, None)
+
+
+def reduce_from(mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Megatron's "reduce": the sum of ``x`` over ``axis`` (each rank's
+    partial output of a row-sharded layer); the gradient passes through
+    unchanged, since every rank's loss sees the whole sum."""
+    if mesh.shape[axis] == 1:
+        return x
+    if not _wants_grad(x):
+        return mesh.all_reduce(x, axis)
+    return _Reduce.apply(x, mesh, axis)
+
+
+def copy_to(mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Megatron's "copy": ``x`` itself (a replicated input that each rank
+    uses on its own share: a column-sharded layer's input, a norm weight
+    applied to the rank's heads); the gradient is summed over ``axis``,
+    since each rank's holds only its share's part."""
+    if mesh.shape[axis] == 1 or not _wants_grad(x):
+        return x
+    return _Copy.apply(x, mesh, axis)
+
+
+def gather_from(mesh, x: torch.Tensor, axis: str, dim: int = 0
+                ) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, concatenated on ``dim``; the
+    gradient is this rank's slice of the gradients summed over ``axis``
+    (a reduce-scatter): FSDP's gather of a weight that each rank then
+    uses on its own rows of the batch."""
+    if mesh.shape[axis] == 1:
+        return x
+    if not _wants_grad(x):
+        return mesh.all_gather(x, axis, dim)
+    return _Gather.apply(x, mesh, axis, dim)
 
 
 def create_mesh(model_parallel: int = 1,
@@ -248,3 +383,21 @@ def replicated(mesh: Mesh) -> NamedSharding:
 def data_sharded(mesh: Mesh, axis: str = "data") -> NamedSharding:
     """Leading-dim sharding for batches of samples."""
     return NamedSharding(mesh, P(axis))
+
+
+def local_rows(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's share of a whole ``x`` under a leading-dim
+    ``sharding``: the rows of its place along the spec's axis, or all of
+    ``x`` for ``P()``. Rows that do not divide over the axis raise, as
+    JAX's ``device_put`` of such a batch does."""
+    if not sharding.spec or sharding.spec[0] is None:
+        return x
+    axis = sharding.spec[0]
+    n = sharding.mesh.shape.get(axis, 1)
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} rows are not divisible over "
+                         f"{axis}={n}")
+    if n == 1:
+        return x
+    piece = x.shape[0] // n
+    return x.narrow(0, sharding.mesh.index(axis) * piece, piece)

@@ -2,13 +2,20 @@
 ``domainrag_tpu/parallel/multihost.py``).
 
 The port serves one card per process. Several cards run as independent
-processes (``--worker_id W --num_workers N``, one per card, as the
+workers (``--worker_id W --num_workers N``, one per card, as the
 reference's ``CUDA_VISIBLE_DEVICES=N nohup python ...`` scripts run, or
 ``--distributed`` under one ``torch.distributed`` group): each takes a
 disjoint round-robin sample slice (``core.config.worker_slice``), writes
 its stage artifacts worker-suffixed (retrieval partials, per-worker
 manifests), and worker 0 merges the partials into the single-file
 contracts the next stage reads.
+
+Under ``--distributed`` a worker is one host: the processes that torchrun
+started there (``LOCAL_WORLD_SIZE``, one per card), as JAX's multihost
+worker meshes its ``jax.local_devices()``. So ``worker_id = rank //
+local`` and ``num_workers = world // local`` (:func:`worker_index`,
+:func:`worker_count`), and a worker's processes run its slice as one mesh
+(:func:`worker_mesh`), whose first rank writes the worker's partials.
 
 Under a group (``parallel.mesh.initialize_distributed``), the process
 index and count are the group's rank and size, :func:`barrier` fences
@@ -44,6 +51,39 @@ def process_index() -> int:
 
 def process_count() -> int:
     return dist.get_world_size() if is_distributed() else 1
+
+
+def local_size() -> int:
+    """Processes per worker under a group: torchrun's ``LOCAL_WORLD_SIZE``
+    (1 without a group or without it). It must divide the group."""
+    if not is_distributed():
+        return 1
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    if local < 1 or process_count() % local:
+        raise ValueError(f"LOCAL_WORLD_SIZE={local} does not divide the "
+                         f"group of {process_count()} processes")
+    return local
+
+
+def worker_index() -> int:
+    """This process's worker (host) under ``--distributed``."""
+    return process_index() // local_size()
+
+
+def worker_count() -> int:
+    """The workers (hosts) of the group under ``--distributed``."""
+    return process_count() // local_size()
+
+
+def worker_mesh(build):
+    """This worker's mesh over its processes, ``build(ranks)`` of the
+    worker's global ranks (e.g. ``lambda r: create_mesh(2, devices=r)``).
+    Every process builds every worker's mesh, in worker order, since
+    ``torch.distributed.new_group`` is collective, and keeps its own."""
+    local = local_size()
+    meshes = [build(list(range(w * local, (w + 1) * local)))
+              for w in range(worker_count())]
+    return meshes[worker_index()]
 
 
 def barrier(name: str) -> None:

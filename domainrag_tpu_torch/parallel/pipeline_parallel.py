@@ -9,12 +9,17 @@ after the crossover at rank 0, the singles loop:
     rank 0 (d0) -> rank 1 (d1) -> ... -> rank S-1 (dS-1)
       -> rank 0 (s0) -> rank 1 (s1) -> ... -> rank S-1 (sS-1) -> rank 0
 
-Activations move by send/recv over the pipe axis's group. The schedule is
-the simplest one that computes the JAX result: one microbatch at a time,
-both trips, then the next (the JAX package runs an interleaved two-loop
-ring of M + 2S steps; any order gives the same numbers, since each
-microbatch's path through the blocks is the same). Rank 0 then broadcasts
-the finished activations over the axis.
+The schedule is JAX's interleaved two-loop ring of M + 2S steps
+(:168-236): at step t rank s runs its double chunk on microbatch t - s
+and its single chunk on microbatch t - S - s, and skips a slot whose
+microbatch lies outside [0, M) (JAX's warm-up and drain ghosts). So
+while rank s works on microbatch m, rank s + 1 works on m - 1: the stages
+overlap. After each step the activations move one rank on, all of a
+step's transfers posted together (``Mesh.exchange``: JAX's ``ppermute``,
+but only the live slots travel). Rank 0 collects the finished
+microbatches and broadcasts them over the axis. Each microbatch's path
+through the blocks is the serial one's, so the output is bit for bit
+the same.
 
 Depth padding: chunks are equalised with ALL-ZERO blocks. Under the
 gated-residual block structure a zero block is an exact identity (its
@@ -96,12 +101,15 @@ def pipelined_apply(params, stages: PipelineStages,
                     img_ids: torch.Tensor, txt_ids: torch.Tensor,
                     cfg: flux.FluxConfig, mesh, axis: str = "pipe",
                     guidance: Optional[torch.Tensor] = None,
-                    microbatches: Optional[int] = None) -> torch.Tensor:
+                    microbatches: Optional[int] = None, *,
+                    schedule: Optional[list] = None) -> torch.Tensor:
     """:func:`models.flux.model.apply` with the blocks pipelined over
     ``mesh``'s ``axis``: ``params`` supplies the embedder and final-layer
     weights, ``stages`` (:func:`prepare_stages` with the mesh) this rank's
     blocks. The batch is split into ``microbatches`` (default: one per
-    row). Every rank returns the whole (B, S_img, out_channels)."""
+    row). Every rank returns the whole (B, S_img, out_channels). A
+    ``schedule`` list gets this rank's steps, (t, "double" or "single",
+    microbatch), in order."""
     n = mesh.shape[axis]
     if stages.n_stages != n:
         raise ValueError(f"stages for {stages.n_stages} ranks on a "
@@ -118,20 +126,58 @@ def pipelined_apply(params, stages: PipelineStages,
                                           cfg, guidance)
     x = torch.cat([txt, img], dim=1)
     s = mesh.index(axis)
-    outs = []
-    for m in range(m_count):
-        rows = slice(m * mb, (m + 1) * mb)
-        v = vec[rows]
-        a = x[rows] if s == 0 else mesh.recv(x[rows], axis, s - 1)
-        a = run_doubles(stages.doubles, a, v, cos, sin, t_len, cfg)
-        if n > 1:       # on to the next rank; rank S-1's over the crossover
-            mesh.send(a, axis, (s + 1) % n)
-            a = mesh.recv(a, axis, (s - 1) % n)
-        a = run_singles(stages.singles, a, v, cos, sin, cfg)
-        if n > 1:       # rank S-1's is the finished microbatch, for rank 0
-            mesh.send(a, axis, (s + 1) % n)
-            if s == 0:
-                a = mesh.recv(a, axis, n - 1)
-        outs.append(a)
-    x = mesh.broadcast(torch.cat(outs, dim=0), axis, 0)
+    rows = [slice(m * mb, (m + 1) * mb) for m in range(m_count)]
+    if schedule is None:
+        schedule = []
+    if n == 1:
+        outs = []
+        for m, r in enumerate(rows):
+            a = run_doubles(stages.doubles, x[r], vec[r], cos, sin, t_len,
+                            cfg)
+            outs.append(run_singles(stages.singles, a, vec[r], cos, sin,
+                                    cfg))
+            schedule += [(m, "double", m), (m, "single", m)]
+        return flux._final(params, torch.cat(outs, dim=0)[:, t_len:], vec)
+
+    def live(m):
+        return 0 <= m < m_count
+
+    like = x[rows[0]]
+    mesh.all_reduce(torch.zeros(1, device=x.device), axis)  # group warm-up
+    a_d = a_s = None                # this step's inputs, once received
+    outs = [None] * m_count
+    for t in range(m_count + 2 * n):
+        m_d, m_s = t - s, t - n - s
+        if s == 0 and live(m_d):
+            a_d = x[rows[m_d]]
+        if live(m_d):
+            a_d = run_doubles(stages.doubles, a_d, vec[rows[m_d]], cos, sin,
+                              t_len, cfg)
+            schedule.append((t, "double", m_d))
+        if live(m_s):
+            a_s = run_singles(stages.singles, a_s, vec[rows[m_s]], cos, sin,
+                              cfg)
+            schedule.append((t, "single", m_s))
+        # on around the ring: each output to the next rank; rank S-1's
+        # doubles cross over to rank 0's singles, its singles are done
+        sends = [(a, (s + 1) % n) for a, m in ((a_d, m_d), (a_s, m_s))
+                 if live(m)]
+        nxt_d, nxt_s = m_d + 1, m_s + 1
+        recvs = []
+        if s > 0 and live(nxt_d):
+            recvs.append((like, s - 1))           # doubles input
+        if live(nxt_s):
+            recvs.append((like, (s - 1) % n))     # singles input
+        if s == 0 and live(t + 1 - 2 * n):
+            recvs.append((like, n - 1))           # a finished microbatch
+        got = mesh.exchange(axis, sends, recvs)
+        if s > 0 and live(nxt_d):
+            a_d = got.pop(0)
+        if live(nxt_s):
+            a_s = got.pop(0)
+        if s == 0 and live(t + 1 - 2 * n):
+            outs[t + 1 - 2 * n] = got.pop(0)
+    done = torch.cat(outs, dim=0) if s == 0 else torch.empty_like(x)
+    x = mesh.broadcast(done, axis, 0)
     return flux._final(params, x[:, t_len:], vec)
+

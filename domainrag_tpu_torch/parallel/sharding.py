@@ -27,9 +27,15 @@ Where the heads do not divide over the axis (JAX's attention fallback,
 qkv replicated, and the attention rows of the row-sharded layer held by
 rank 0 and zeros elsewhere, so that the sum over ranks adds them once.
 The model reads its local widths from the weights it is given
-(``models.flux.model``); the row-sharded layers sum over the axis.
-FSDP (``fsdp_axis``) shards weights for training, which comes with the
-trainer's slice of the port (ROADMAP A7).
+(``models.flux.model``); the row-sharded layers sum over the axis. That
+fallback serves but never trains: the other ranks would learn in its
+zeros, so the trainer refuses it (:func:`check_trainable`).
+
+FSDP (``fsdp_axis``, JAX's rule of :68-69): every leaf of two or more
+dims that no TP rule shards (the embedders, the modulation and final
+layers) is cut along dim 0 over that axis, so each rank holds, and
+steps, 1/n of it (ZeRO-3); the trainer gathers it before use.
+:func:`unshard_params` puts a rank's tree back together.
 """
 
 from __future__ import annotations
@@ -160,21 +166,65 @@ def _split(x: torch.Tensor, dim: int, segs: List[int], n: int, r: int,
     return torch.cat(parts, dim=dim).contiguous()
 
 
+def fsdp_leaf(spec, fsdp_axis: Optional[str]) -> bool:
+    """True for a leaf that FSDP cuts along dim 0 over ``fsdp_axis``."""
+    return fsdp_axis is not None and tuple(spec) == (fsdp_axis,)
+
+
+def _fsdp_split(params, specs, mesh, fsdp_axis):
+    n = mesh.shape.get(fsdp_axis, 1)
+    if n == 1:
+        return params
+    r = mesh.index(fsdp_axis)
+
+    def cut(names, leaf):
+        if not fsdp_leaf(_leaf_at(specs, names), fsdp_axis):
+            return leaf
+        piece = leaf.shape[0] // n
+        return leaf.narrow(0, r * piece, piece).contiguous()
+
+    return _map_with_path(cut, params)
+
+
+def whole_attention(params, n: int) -> bool:
+    """True where the heads do not divide over a TP axis of ``n`` ranks,
+    so :func:`shard_params` keeps the attention whole (the zero-row
+    fallback)."""
+    if n == 1:
+        return False
+    return any((_segments(owner, block)[0] // n) % _head_dim(block) != 0
+               for kind in ("double", "single") for block in params[kind]
+               for owner in block if _attention_segments(owner))
+
+
+def check_trainable(params, mesh, model_axis: str = "model") -> None:
+    """Refuse to train a tree whose TP split is the zero-row fallback:
+    rank 0 holds the attention rows of the row-sharded layers and the
+    others zeros, in which they would learn."""
+    n = mesh.shape.get(model_axis, 1)
+    if whole_attention(params, n):
+        raise ValueError(
+            f"the heads do not divide over {model_axis}={n}: the split "
+            "keeps the attention whole (rank 0's rows, zeros elsewhere), "
+            "which serves but cannot train; choose a model_parallel that "
+            "divides the heads")
+
+
 def shard_params(params, mesh, specs=None, **kw):
-    """This rank's tensor-parallel tree of a full Flux param tree (the JAX
-    ``device_put`` of each leaf with its spec): the blocks' sharded layers
-    split by segment over ``model_axis`` (default ``"model"``), every
-    other leaf shared. ``specs`` (default :func:`flux_param_specs` of
-    ``kw``) are validated against the mesh first."""
+    """This rank's tree of a full Flux param tree (the JAX ``device_put``
+    of each leaf with its spec): the blocks' sharded layers split by
+    segment over ``model_axis`` (default ``"model"``), and with
+    ``fsdp_axis`` the FSDP leaves cut along dim 0 over it; every other
+    leaf shared. ``specs`` (default :func:`flux_param_specs` of ``kw``)
+    are validated against the mesh first. An axis of one rank leaves the
+    leaves as they are (the same tensors)."""
     model_axis = kw.get("model_axis", "model")
-    if kw.get("fsdp_axis") is not None:
-        raise NotImplementedError(
-            "FSDP weight sharding (fsdp_axis) shards weights for training, "
-            "which comes with the trainer's slice of the port (ROADMAP A7)")
     if specs is None:
         specs = flux_param_specs(params, **kw)
     validate_divisibility(params, specs, mesh)
-    n = mesh.shape[model_axis]
+    if kw.get("fsdp_axis") is not None:
+        params = _fsdp_split(params, specs, mesh, kw["fsdp_axis"])
+    n = mesh.shape.get(model_axis, 1)
     if n == 1:
         return params
     r = mesh.index(model_axis)
@@ -214,4 +264,60 @@ def shard_params(params, mesh, specs=None, **kw):
     shared["double"] = [shard_block(b) for b in params["double"]]
     shared["single"] = [shard_block(b) for b in params["single"]]
     return shared
+
+
+def _unsplit(x: torch.Tensor, dim: int, segs: List[int], n: int, mesh,
+             axis: str) -> torch.Tensor:
+    """Inverse of :func:`_split` without a whole segment: every rank's
+    piece of each segment gathered over ``axis``, in order."""
+    gathered = mesh.all_gather(x, axis, dim)
+    local = x.shape[dim]
+    pieces, start = [], 0
+    for width in segs:
+        w = width // n
+        pieces += [gathered.narrow(dim, r * local + start, w)
+                   for r in range(n)]
+        start += w
+    return torch.cat(pieces, dim=dim)
+
+
+def unshard_params(local, full_shapes, mesh, model_axis: str = "model",
+                   fsdp_axis: Optional[str] = None):
+    """The whole tree of a rank's :func:`shard_params` share (a
+    collective: every rank of the mesh calls it and gets the whole
+    tree). ``full_shapes`` is a tree of the whole leaves, or of anything
+    with their ``shape`` (the params before sharding): it gives each
+    sharded layer's fused segments. The zero-row fallback has no inverse
+    here (it trains nowhere)."""
+    specs = flux_param_specs(full_shapes, model_axis=model_axis,
+                             fsdp_axis=fsdp_axis)
+    out = local
+    nd = mesh.shape.get(fsdp_axis, 1) if fsdp_axis else 1
+    if nd > 1:
+        out = _map_with_path(
+            lambda names, x: mesh.all_gather(x.detach(), fsdp_axis, 0)
+            if fsdp_leaf(_leaf_at(specs, names), fsdp_axis) else x, out)
+    n = mesh.shape.get(model_axis, 1)
+    if n == 1:
+        return out
+    check_trainable(full_shapes, mesh, model_axis)
+
+    def unshard_block(block: dict, full: dict) -> dict:
+        res = dict(block)
+        for owner in COL_SHARDED + ROW_SHARDED:
+            if owner not in block:
+                continue
+            segs = _segments(owner, full)
+            col = owner in COL_SHARDED
+            res[owner] = {key: _unsplit(x.detach(), int(col and key == "w"),
+                                        segs, n, mesh, model_axis)
+                          if key == "w" or (key == "b" and col) else x
+                          for key, x in block[owner].items()}
+        return res
+
+    out = dict(out)
+    for kind in ("double", "single"):
+        out[kind] = [unshard_block(b, f)
+                     for b, f in zip(out[kind], full_shapes[kind])]
+    return out
 

@@ -15,8 +15,10 @@ the data axis, stage 3 batches (sample, rank) rows over it (or pipelines
 the depth over a ``pipe`` axis), stage 4's hires fills ring their
 attention over it, and rank 0 alone writes, with a barrier after each
 stage. Several cards also run as workers over disjoint sample slices
-(``cfg.worker_id`` / ``num_workers``, or ``--distributed``), each on one
-card; worker 0 merges the retrieval partials and generate manifests.
+(``cfg.worker_id`` / ``num_workers``, or ``--distributed``); worker 0
+merges the retrieval partials and generate manifests. Under
+``--distributed`` a worker is a host, and its processes run its slice
+as one mesh (``parallel.multihost.worker_mesh``) whose first rank writes.
 """
 
 from __future__ import annotations
@@ -89,6 +91,27 @@ class PipelineRunner:
         mesh over every rank (JAX's one process over ``jax.devices()``)."""
         return multihost.is_distributed() and not self._workers()
 
+    def _span(self) -> int:
+        """The processes that run this one's samples with it: the whole
+        group as one mesh, a ``--distributed`` worker's host, or this
+        process alone."""
+        if self._group():
+            return multihost.process_count()
+        if self._workers() and multihost.is_distributed():
+            return multihost.local_size()
+        return 1
+
+    def _own_mesh(self, key, build):
+        """A mesh over this process's span, ``build(ranks)``: over the
+        whole group, or over each worker's ranks (every process builds
+        every worker's, in order); None for a process alone."""
+        if self._span() == 1:
+            return None
+        if self._group():
+            return self._mesh(key, lambda: build(list(range(
+                multihost.process_count()))))
+        return self._mesh(key, lambda: multihost.worker_mesh(build))
+
     def _mesh(self, key, build):
         cache = self.__dict__.setdefault("_meshes", {})
         if key not in cache:        # new_group is collective: build once
@@ -96,11 +119,12 @@ class PipelineRunner:
         return cache[key]
 
     def _writer(self) -> bool:
-        return not self._group() or multihost.process_index() == 0
+        """The first rank of this process's mesh (the process alone)."""
+        return multihost.process_index() % self._span() == 0
 
     def _stage_done(self, name: str) -> None:
-        """Under a mesh, the other ranks read what rank 0 wrote."""
-        if self._group():
+        """Under a mesh, the other ranks read what its first rank wrote."""
+        if self._span() > 1:
             multihost.barrier(f"{name}-done")
 
     def run_inpaint(self, resume: bool = False):
@@ -116,23 +140,13 @@ class PipelineRunner:
             return out
 
     def _data_mesh(self):
-        """A (data, model) mesh over every rank of the group when several
-        processes run as one (sharded retrieval + DP generation), else
-        None. A worker of ``--distributed`` holds one card, so its data
-        mesh is None (JAX's multihost mesh over ``local_devices()``); a
-        parallel degree above 1 there would need several cards per worker,
-        which comes with the last slice of the port (ROADMAP A7)."""
-        if self._workers() and multihost.is_distributed() and (
-                self.cfg.mesh.model_parallel_size > 1
-                or self.cfg.mesh.pipeline_parallel_size > 1):
-            raise NotImplementedError(
-                "a mesh of several cards per --distributed worker comes "
-                "with the last slice of the port (ROADMAP A7); each worker "
-                "serves one card")
-        if not self._group():
-            return None
-        return self._mesh("data", lambda: create_mesh(
-            model_parallel=self.cfg.mesh.model_parallel_size))
+        """A (data, model) mesh (sharded retrieval + DP generation) over
+        every rank of the group when several processes run as one, over
+        a ``--distributed`` worker's processes (JAX's multihost mesh over
+        ``local_devices()``), else None."""
+        return self._own_mesh("data", lambda ranks: create_mesh(
+            model_parallel=self.cfg.mesh.model_parallel_size,
+            devices=ranks))
 
     def _pipe_mesh(self):
         """Pipe mesh for depth-sharded PP serving when configured
@@ -141,15 +155,15 @@ class PipelineRunner:
         pp = self.cfg.mesh.pipeline_parallel_size
         if pp <= 1:
             return None
-        n = multihost.process_count() if self._group() else 1
+        n = self._span()
         if n < pp:              # a device is a process here: one per card
             raise ValueError(f"pipeline_parallel_size={pp} needs {pp} "
                              f"devices, found {n}")
         if n > pp:
             raise ValueError(f"pipeline_parallel_size={pp} on {n} "
                              "processes: launch one process per stage")
-        return self._mesh("pipe", lambda: Mesh(np.arange(pp),
-                                               (self.cfg.mesh.pipe_axis,)))
+        return self._own_mesh("pipe", lambda ranks: Mesh(
+            np.asarray(ranks), (self.cfg.mesh.pipe_axis,)))
 
     def _build_bank(self, mesh=None) -> retrieve_stage.EmbeddingBank:
         if mesh is not None and not mesh.is_writer():
@@ -240,7 +254,8 @@ class PipelineRunner:
                         corpus_roots=corpus_roots)
             if self._workers() and multihost.is_distributed():
                 multihost.barrier("generate-done")
-            if self._workers() and self.cfg.worker_id == 0:
+            if self._workers() and self.cfg.worker_id == 0 \
+                    and self._writer():
                 for dataset in self.cfg.datasets:
                     for shot in self.cfg.shots:
                         base = os.path.join(

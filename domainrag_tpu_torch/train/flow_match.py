@@ -16,12 +16,26 @@ optax's own clip (g * max/||g|| when ||g|| >= max; torch's
 whose update is optax's (eps outside the sqrt of the bias-corrected
 second moment, decoupled decay of every leaf). Params are updated in
 place: the tree handed to :func:`make_train_step` is the tree that
-trains. Single device: meshes, tensor parallelism and FSDP over more than
-one device come with the last slice of the port (ROADMAP A7) and raise.
+trains.
+
+Over a mesh (:func:`make_sharded_train_step`, the JAX entry of the same
+name) one step computes JAX's step on the global batch, one process per
+card. Each rank takes its rows of x0, txt and pooled over ``data`` and
+its share of the params: the blocks' TP layers over ``model``
+(``parallel.sharding``, trained through Megatron's conjugate collectives
+in ``models.common``), and with FSDP the other 2-d leaves cut along dim 0
+over ``data``, all-gathered before use (their gradient arrives
+reduce-scattered). t and eps are drawn for the global batch from one
+generator seeded alike on every rank, and each rank takes its rows, so
+the step does not depend on the mesh. The loss is the global mean;
+gradients are averaged over ``data``; the clip takes the norm of the
+logical tree (the squares of sharded leaves summed over their axes,
+replicated leaves counted once); AdamW steps each rank's share.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, List, Optional, Tuple
 
@@ -29,6 +43,9 @@ import torch
 
 from ..models.common import leaves
 from ..models.flux import model as flux_mod
+from ..ops.attention import tp_attention
+from ..parallel import mesh as mesh_mod
+from ..parallel import sharding as sharding_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,13 +61,18 @@ class TrainConfig:
     t_std: float = 1.0
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sum_squares: Optional[Callable] = None
                          ) -> torch.Tensor:
     """optax ``clip_by_global_norm``, in place: g / ||g|| * max when the
     global norm ||g|| >= max, g unchanged otherwise (both branches without
-    a host sync). Returns the norm."""
-    norm = torch.stack([torch.linalg.vector_norm(g.float()).square()
-                        for g in grads]).sum().sqrt()
+    a host sync). ``sum_squares`` maps the leaves' squared norms to those
+    of the whole leaves they are shares of (over a mesh). Returns the
+    norm."""
+    squares = [torch.linalg.vector_norm(g.float()).square() for g in grads]
+    if sum_squares is not None:
+        squares = sum_squares(squares)
+    norm = torch.stack(squares).sum().sqrt()
     clip = norm >= max_norm
     den = torch.where(clip, norm, torch.ones_like(norm))
     num = torch.where(clip, torch.full_like(norm, max_norm),
@@ -75,8 +97,8 @@ class Optimizer:
                                  weight_decay=cfg.weight_decay)
 
     def update(self, grads: List[torch.Tensor], opt_state: torch.optim.AdamW,
-               params) -> None:
-        clip_by_global_norm_(grads, self.cfg.grad_clip)
+               params, sum_squares: Optional[Callable] = None) -> None:
+        clip_by_global_norm_(grads, self.cfg.grad_clip, sum_squares)
         for p, g in zip(leaves(params), grads):
             p.grad = g
         opt_state.step()
@@ -121,39 +143,121 @@ def flow_match_loss(params, batch, generator: Optional[torch.Generator],
     return (v.float() - target.float()).square().mean()
 
 
-def train_step(params, opt_state, batch, generator,
-               flux_cfg: flux_mod.FluxConfig, train_cfg: TrainConfig,
-               optimizer: Optimizer, t=None, eps=None
-               ) -> Tuple[dict, torch.optim.AdamW, torch.Tensor]:
-    loss = flow_match_loss(params, batch, generator, flux_cfg, train_cfg,
-                           t=t, eps=eps)
-    grads = list(torch.autograd.grad(loss, leaves(params)))
-    optimizer.update(grads, opt_state, params)
-    return params, opt_state, loss.detach()
-
-
 def make_train_step(flux_cfg: flux_mod.FluxConfig, train_cfg: TrainConfig,
-                    params, mesh=None, model_parallel: int = 1,
-                    fsdp: bool = False
-                    ) -> Tuple[Callable, dict, torch.optim.AdamW]:
-    """The single-device counterpart of the JAX
-    ``make_sharded_train_step``: marks every leaf of ``params`` (f32
-    master weights, floating point) as trainable and returns
-    (step_fn, params, opt_state); ``step_fn(params, opt_state, batch,
-    generator, t=None, eps=None) -> (params, opt_state, loss)``."""
-    if mesh is not None or model_parallel > 1:
-        raise NotImplementedError("training over a mesh (FSDP / TP) comes "
-                                  "with the last slice of the port "
-                                  "(ROADMAP A7)")
+                    params) -> Tuple[Callable, dict, torch.optim.AdamW]:
+    """The one-device step: :func:`make_sharded_train_step` over a mesh of
+    this process alone, whose share is the whole tree (the tree handed in
+    trains in place). Returns (step_fn, params, opt_state)."""
+    mesh = mesh_mod.create_mesh(devices=[mesh_mod._rank()])
+    return make_sharded_train_step(mesh, flux_cfg, train_cfg, params)[:3]
+
+
+def _trainable(params) -> None:
     for p in leaves(params):
         if not p.is_floating_point():
             raise ValueError(f"non-float param leaf {p.dtype}")
         p.requires_grad_(True)
+
+
+def make_sharded_train_step(mesh, flux_cfg: flux_mod.FluxConfig,
+                            train_cfg: TrainConfig, params,
+                            data_axis: str = "data",
+                            model_axis: str = "model",
+                            fsdp: bool = False):
+    """The full training step over ``mesh``: params TP-sharded over
+    ``model`` (and with ``fsdp`` the other 2-d leaves over ``data``), the
+    batch over ``data``, the optimizer state like the params. Returns
+    (step_fn, sharded_params, opt_state, batch_shardings), as JAX's.
+
+    ``sharded_params`` is this rank's share of ``params`` (the same
+    tensors where a leaf is whole) and trains in place.
+    ``step_fn(params, opt_state, batch, generator, t=None, eps=None) ->
+    (params, opt_state, loss)`` takes the whole batch (every rank the
+    same); ``batch_shardings`` says which rows of each key a rank takes
+    (``parallel.mesh.local_rows``). t and eps, drawn from ``generator``
+    for the whole batch unless given, are sliced the same way. A batch
+    that does not divide over ``data``, and a TP split that cannot train
+    (``parallel.sharding.check_trainable``), raise."""
+    fsdp_axis = data_axis if fsdp else None
+    specs = sharding_mod.flux_param_specs(params, model_axis=model_axis,
+                                          fsdp_axis=fsdp_axis)
+    sharding_mod.validate_divisibility(params, specs, mesh)
+    sharding_mod.check_trainable(params, mesh, model_axis)
+    n_data = mesh.shape.get(data_axis, 1)
+    n_model = mesh.shape.get(model_axis, 1)
+    local = sharding_mod.shard_params(params, mesh, specs,
+                                      model_axis=model_axis,
+                                      fsdp_axis=fsdp_axis)
+    _trainable(local)
     optimizer = make_optimizer(train_cfg)
-    opt_state = optimizer.init(params)
+    opt_state = optimizer.init(local)
+    kinds = leaves(sharding_mod._map_with_path(
+        lambda names, _: _kind(sharding_mod._leaf_at(specs, names), n_data,
+                               n_model, model_axis, fsdp_axis), local))
+    rows = mesh_mod.NamedSharding(mesh, mesh_mod.P(data_axis))
+    batch_shardings = {"x0": rows, "txt": rows, "pooled": rows,
+                       "img_ids": mesh_mod.replicated(mesh),
+                       "txt_ids": mesh_mod.replicated(mesh)}
+
+    def gathered(tree):
+        """The tree the model runs on: FSDP leaves gathered over data."""
+        if n_data == 1 or fsdp_axis is None:
+            return tree
+        return sharding_mod._map_with_path(
+            lambda names, x: mesh_mod.gather_from(mesh, x, data_axis, 0)
+            if sharding_mod.fsdp_leaf(sharding_mod._leaf_at(specs, names),
+                                      fsdp_axis) else x, tree)
+
+    def sum_squares(squares):
+        """Each leaf's squared norm as the whole leaf's: TP shares summed
+        over ``model``, FSDP shares over ``data``."""
+        for kind, axis in (("tp", model_axis), ("fsdp", data_axis)):
+            at = [i for i, k in enumerate(kinds) if k == kind]
+            if at:
+                total = mesh.all_reduce(torch.stack([squares[i]
+                                                     for i in at]), axis)
+                for j, i in enumerate(at):
+                    squares[i] = total[j]
+        return squares
 
     def step(p, o, batch, generator, t=None, eps=None):
-        return train_step(p, o, batch, generator, flux_cfg, train_cfg,
-                          optimizer, t=t, eps=eps)
+        x0 = batch["x0"]
+        if t is None:
+            t = sample_timesteps(generator, x0.shape[0], train_cfg)
+        if eps is None:
+            eps = torch.randn(x0.shape, generator=generator,
+                              device=x0.device)
+        local_batch = {k: mesh_mod.local_rows(v, batch_shardings[k])
+                       for k, v in batch.items()}
+        t, eps = mesh_mod.local_rows(t, rows), mesh_mod.local_rows(eps, rows)
+        ctx = (tp_attention(mesh, model_axis) if n_model > 1
+               else contextlib.nullcontext())
+        with ctx:
+            loss = flow_match_loss(gathered(p), local_batch, None, flux_cfg,
+                                   train_cfg, t=t, eps=eps)
+            grads = list(torch.autograd.grad(loss, leaves(p)))
+        loss = loss.detach()
+        if n_data > 1:
+            # the global mean's gradient: FSDP shares arrive summed over
+            # the data ranks (the gather's reduce-scatter), the rest are
+            # summed here
+            grads = [g if k == "fsdp" else mesh.all_reduce(g, data_axis)
+                     for g, k in zip(grads, kinds)]
+            for g in grads:
+                g.div_(n_data)
+            loss = mesh.all_reduce(loss.clone(), data_axis) / n_data
+        optimizer.update(grads, o, p,
+                         sum_squares if n_data * n_model > 1 else None)
+        return p, o, loss
 
-    return step, params, opt_state
+    return step, local, opt_state, batch_shardings
+
+
+def _kind(spec, n_data, n_model, model_axis, fsdp_axis) -> str:
+    """How a leaf is held: ``"fsdp"`` (cut over data), ``"tp"`` (cut over
+    model) or ``"rep"`` (whole on every rank)."""
+    if n_data > 1 and sharding_mod.fsdp_leaf(spec, fsdp_axis):
+        return "fsdp"
+    if n_model > 1 and model_axis in tuple(spec):
+        return "tp"
+    return "rep"

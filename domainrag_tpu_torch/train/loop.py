@@ -2,9 +2,14 @@
 fine-tuning of the Flux MMDiT on the pipeline's own outputs (or any latent
 dataset).
 
-``fit`` runs the flow-matching step on one device with periodic
+``fit`` runs the sharded flow-matching step over a mesh with periodic
 checkpoints, graceful SIGINT stop and progress/ETA reporting, as the JAX
-``fit`` does over a mesh. Like it, ``fit`` refuses the W8A8 serving mode
+``fit`` does. Without a mesh it builds ``create_mesh(model_parallel)``
+over the processes launched together (``torchrun --nproc_per_node N``,
+one per card): one process is the 1 x 1 mesh, whose step is the one-card
+step. Rank 0 writes the checkpoints, of the gathered, unsharded tree, so
+a checkpoint from a mesh restores like one from one card. Like the JAX
+``fit``, it refuses the W8A8 serving mode
 (``models.common.set_int8_activations(True)``).
 """
 
@@ -24,6 +29,8 @@ from ..core.log import StepTimer, get_logger
 from ..core.progress import ProgressReporter
 from ..models import common
 from ..models.flux import model as flux_mod
+from ..parallel import sharding as sharding_mod
+from ..parallel.mesh import create_mesh
 from . import checkpoint as ckpt_mod
 from . import flow_match
 
@@ -92,11 +99,15 @@ def fit(params, flux_cfg: flux_mod.FluxConfig,
         seed: int = 0,
         log_every: int = 10,
         timer: Optional[StepTimer] = None):
-    """Run ``num_steps`` flow-matching steps on the device of ``params``
-    (f32 leaves, trained in place). t and eps come from a generator on
-    that device seeded with ``seed``. ``timer`` gets a ``step`` span per
-    step and a ``save`` span per checkpoint. Returns (final_params,
-    losses)."""
+    """Run ``num_steps`` sharded flow-matching steps on the device of
+    ``params`` (f32 leaves; each rank's share trains in place) over
+    ``mesh`` (default ``create_mesh(model_parallel)`` over the group),
+    FSDP over its data axis with ``fsdp``. Every rank reads the same
+    batches and takes its rows. t and eps come from a generator on that
+    device seeded with ``seed`` (the same on every rank). ``timer`` gets a
+    ``step`` span per step and a ``save`` span per checkpoint. Returns
+    (final_params, losses): the whole, unsharded tree on every rank, and
+    the global batch's losses."""
     if common.int8_activations_enabled():
         # W8A8 quantizes activations through round(), whose gradient is
         # zero almost everywhere: training would silently learn nothing
@@ -105,12 +116,25 @@ def fit(params, flux_cfg: flux_mod.FluxConfig,
             "(set_int8_activations(True) / --w8a8): activation round() has "
             "zero gradient. Disable it before fit().")
     train_cfg = train_cfg or flow_match.TrainConfig()
-    if mesh is not None or model_parallel > 1:
-        raise NotImplementedError("training over a mesh (FSDP / TP) comes "
-                                  "with the last slice of the port "
-                                  "(ROADMAP A7)")
-    step_fn, params, opt_state = flow_match.make_train_step(
-        flux_cfg, train_cfg, params)
+    if mesh is None:
+        mesh = create_mesh(model_parallel=model_parallel)
+    fsdp_axis = "data" if fsdp else None
+    whole = sharding_mod._map_with_path(
+        lambda _, x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+        params)
+    step_fn, params, opt_state, _ = flow_match.make_sharded_train_step(
+        mesh, flux_cfg, train_cfg, params, fsdp=fsdp)
+
+    def unsharded():
+        return sharding_mod.unshard_params(params, whole, mesh,
+                                           fsdp_axis=fsdp_axis)
+
+    def save(n):
+        tree = unsharded()          # a collective: every rank gathers
+        if mesh.is_writer():
+            with timer.span("save"):
+                ckpt_mod.save_checkpoint(checkpoint_dir, n, tree)
+
     dev = flow_match.leaves(params)[0].device
     generator = device_mod.generator(seed, dev)
     timer = timer or StepTimer()
@@ -135,9 +159,7 @@ def fit(params, flux_cfg: flux_mod.FluxConfig,
         reporter.update(ok=bool(np.isfinite(losses[-1])),
                         detail=f"loss={losses[-1]:.4f}")
         if checkpoint_dir and (step + 1) % checkpoint_every == 0:
-            with timer.span("save"):
-                ckpt_mod.save_checkpoint(checkpoint_dir, step + 1, params)
+            save(step + 1)
     if checkpoint_dir:
-        with timer.span("save"):
-            ckpt_mod.save_checkpoint(checkpoint_dir, num_steps, params)
-    return params, losses
+        save(num_steps)
+    return unsharded(), losses

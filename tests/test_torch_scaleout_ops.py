@@ -168,6 +168,52 @@ def test_pipelined_apply_matches_jax(group, n_stages):
     assert got["chunks"] == (d, g_, d, g_)
 
 
+def _pp_schedule(group):
+    drv.result(group, "pp")             # the suite ran through this point
+    got = {}
+    for r in range(4):
+        got.update(drv.load(group, f"pp_schedule.r{r}.pkl"))
+    return got
+
+
+@pytest.mark.parametrize("m", drv.PP_MICRO)
+@pytest.mark.parametrize("case", drv.PP_SCHEDULES, ids=["S2", "S4"])
+def test_interleaved_schedule(group, case, m):
+    """JAX's M + 2S-step ring: every rank's output torch.equal to the
+    serial chain and within the JAX test's tolerance of JAX's
+    ``pipelined_apply``; rank s runs its double chunk on microbatch t - s
+    and its single chunk on t - S - s at step t, so that rank s + 1 works
+    on m - 1 while rank s works on m, and the last chunk runs at step
+    M + 2S - 2 (the finished microbatch reaches rank 0 in the last)."""
+    n, cfg_kw, batch = case
+    got = _pp_schedule(group)
+    cfg = jflux.TINY_FLUX if cfg_kw is None else jflux.FluxConfig(**cfg_kw)
+    params = jflux.init(jax.random.PRNGKey(0 if cfg_kw is None else 1), cfg)
+    img, txt, pooled, t, g = (jnp.asarray(x)
+                              for x in drv.flux_inputs(cfg, batch))
+    want = np.asarray(jpp.pipelined_apply(
+        params, jpp.prepare_stages(params, n), img, txt, pooled, t,
+        jnp.asarray(jflux.make_image_ids(4, 4)),
+        jnp.asarray(jflux.make_text_ids(6)), cfg,
+        mesh=JMesh(np.array(jax.devices()[:n]), ("pipe",)), guidance=g,
+        microbatches=m))
+    for r in range(n):
+        res = got[(n, m, r)]
+        assert res["equal_serial"]
+        np.testing.assert_allclose(res["out"], want, rtol=2e-4, atol=3e-6)
+        assert res["steps"] == sorted(
+            [(r + i, "double", i) for i in range(m)]
+            + [(n + r + i, "single", i) for i in range(m)])
+    last = max(step for r in range(n) for step, _, _ in got[(n, m, r)]
+               ["steps"])
+    assert last == m + 2 * n - 2
+    if m > 1:       # stages overlap: rank 1 on m - 1 while rank 0 is on m
+        at = {(r, step): mb for r in range(n)
+              for step, kind, mb in got[(n, m, r)]["steps"]
+              if kind == "double"}
+        assert at[(0, 1)] == 1 and at[(1, 1)] == 0
+
+
 def test_multihost_through_the_group(group):
     seen = drv.result(group, "multihost")
     assert [s[:3] for s in seen] == [(True, r, 4) for r in range(4)]
@@ -220,7 +266,9 @@ def test_flux_param_specs_match_jax():
 def test_shard_params_splits_by_segment():
     """On a two-rank mesh the fused qkv keeps each rank's heads of q, of k
     and of v; linear1 its heads and MLP slice; linear2 the same rows; the
-    int8 w_q (K-major) and w_s follow; FSDP raises (trainer slice)."""
+    int8 w_q (K-major) and w_s follow; with FSDP over a data axis of 2
+    the other 2-d leaves are cut along dim 0 (JAX's rule) and the TP
+    shares are unchanged."""
     from domainrag_tpu_torch.models import quant as tquant
 
     class TwoRanks:                    # a rank of a 2-way model axis
@@ -258,8 +306,26 @@ def test_shard_params_splits_by_segment():
                            wq[:, r * mh:(r + 1) * mh])
         assert torch.equal(lq["double"][0]["img_mlp2"]["w_s"],
                            q8["double"][0]["img_mlp2"]["w_s"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        tsharding.shard_params(params, TwoRanks(0), fsdp_axis="data")
+    class Grid(TwoRanks):              # rank (r, r) of a 2 x 2 mesh
+        shape = {"data": 2, "model": 2}
+
+        def index(self, axis):
+            return self.r
+
+    for r in (0, 1):
+        tp = tsharding.shard_params(params, TwoRanks(r))
+        both = tsharding.shard_params(params, Grid(r), fsdp_axis="data")
+        w = params["img_in"]["w"]
+        assert torch.equal(both["img_in"]["w"],
+                           w[r * w.shape[0] // 2:(r + 1) * w.shape[0] // 2])
+        assert torch.equal(both["img_in"]["b"], params["img_in"]["b"])
+        mod = params["double"][0]["img_mod"]["w"]
+        assert torch.equal(both["double"][0]["img_mod"]["w"],
+                           mod[r * mod.shape[0] // 2:
+                               (r + 1) * mod.shape[0] // 2])
+        for key in ("img_qkv", "img_mlp2"):
+            assert torch.equal(both["double"][0][key]["w"],
+                               tp["double"][0][key]["w"])
 
 
 def test_prepare_stages_and_zero_blocks():

@@ -151,6 +151,6 @@ def test_pipe_mesh_needs_a_device_per_stage_as_jax():
     with pytest.raises(ValueError) as got:
         torch_orch.PipelineRunner._pipe_mesh(
             types.SimpleNamespace(**_runner(2 * n).__dict__,
-                                  _group=lambda: False))
+                                  _group=lambda: False, _span=lambda: 1))
     assert str(got.value) == str(want.value).replace(f"found {n}",
                                                      "found 1")

@@ -5,7 +5,8 @@ parameter, so that a call written for the JAX package binds the same
 values in the port. The port's own ``noise`` and ``timer`` come after, and
 only by keyword. The scale-out functions (``parallel/``,
 ``ops/ring_attention.py``, the contexts and W8A8 toggles, the stage's
-``generate_samples_dp``) take the JAX parameters too."""
+``generate_samples_dp``, the trainer's ``make_sharded_train_step``)
+take the JAX parameters too."""
 
 import inspect
 
@@ -308,6 +309,7 @@ def _scale_out_funcs():
     from domainrag_tpu.parallel import pipeline_parallel as jpp
     from domainrag_tpu.parallel import sharding as jsharding
     from domainrag_tpu.stages import generate as jgen
+    from domainrag_tpu.train import flow_match as jflow
     from domainrag_tpu_torch.ops import attention as tattn
     from domainrag_tpu_torch.ops import int8_gemm as tgemm
     from domainrag_tpu_torch.ops import ring_attention as tring
@@ -318,6 +320,7 @@ def _scale_out_funcs():
     from domainrag_tpu_torch.parallel import pipeline_parallel as tpp
     from domainrag_tpu_torch.parallel import sharding as tsharding
     from domainrag_tpu_torch.stages import generate as tgen
+    from domainrag_tpu_torch.train import flow_match as tflow
     names = {
         "mesh": (jmesh, tmesh, ("initialize_distributed", "create_mesh",
                                 "replicated", "data_sharded")),
@@ -337,9 +340,11 @@ def _scale_out_funcs():
                                      "disable_pallas_w8a8",
                                      "w8a8_pallas_enabled")),
         "generate": (jgen, tgen, ("generate_samples_dp",)),
+        "flow_match": (jflow, tflow, ("make_sharded_train_step",)),
     }
     extra = {"mesh.initialize_distributed": ["device"],
-             "collectives.shard_bank": ["device"]}
+             "collectives.shard_bank": ["device"],
+             "pp.pipelined_apply": ["schedule"]}
     return {f"{mod}.{n}": (getattr(jm, n), getattr(tm, n),
                            extra.get(f"{mod}.{n}", []))
             for mod, (jm, tm, ns) in names.items() for n in ns}

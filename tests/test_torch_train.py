@@ -274,12 +274,35 @@ def test_timesteps_are_logit_normal_and_seeded():
 
 
 def test_meshes_raise():
+    """A TP degree the processes cannot hold raises JAX's error (one
+    process is one card); the one-process mesh's step is the one-card
+    step."""
     cfg = bridge.config(jflux.TINY_FLUX, tflux.FluxConfig)
     params = _port(jflux.init(jax.random.PRNGKey(9), jflux.TINY_FLUX))
-    with pytest.raises(NotImplementedError):
-        tflow.make_train_step(cfg, tflow.TrainConfig(), params, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError) as want:
+        jloop.fit(jflux.init(jax.random.PRNGKey(9), jflux.TINY_FLUX),
+                  jflux.TINY_FLUX, [], 1,
+                  model_parallel=2 * len(jax.devices()))
+    with pytest.raises(ValueError) as got:
         tloop.fit(params, cfg, [], 1, model_parallel=2)
+    assert str(got.value) == str(want.value).replace(
+        f"{len(jax.devices())} devices", "1 devices").replace(
+        f"TP={2 * len(jax.devices())}", "TP=2")
+    from domainrag_tpu_torch.parallel import mesh as tmesh
+    batch = {k: torch.from_numpy(np.asarray(v))
+             for k, v in _batch(jflux.TINY_FLUX).items()}
+    t, eps = torch.tensor([0.3, 0.6]), torch.randn(batch["x0"].shape)
+    out = []
+    for mesh in (None, tmesh.create_mesh()):
+        tree = _port(jflux.init(jax.random.PRNGKey(9), jflux.TINY_FLUX))
+        step, tree, opt = (tflow.make_train_step(
+            cfg, tflow.TrainConfig(), tree) if mesh is None else
+            tflow.make_sharded_train_step(mesh, cfg, tflow.TrainConfig(),
+                                          tree)[:3])
+        _, _, loss = step(tree, opt, batch, None, t=t, eps=eps)
+        out.append((loss, tflow.leaves(tree)))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
 
 
 # ---------------------------------------------------------------------------

@@ -265,6 +265,50 @@ def ops_pp(rank, world, workdir):
         dump(workdir, "pp.pkl", out)
 
 
+# (S, config, batch) of the interleaved schedule's cases; M in PP_MICRO
+PP_SCHEDULES = ((2, None, 12), (4, UNEVEN, 12))
+PP_MICRO = (1, 3, 4)
+
+
+def ops_pp_schedule(rank, world, workdir):
+    """The interleaved schedule at S = 2, 4 and M = 1, 3, 4: every rank's
+    output, torch.equal to the serial chain of the same (depth-padded)
+    chunks one microbatch at a time, and each rank's recorded steps."""
+    import torch
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod
+    from domainrag_tpu_torch.parallel import pipeline_parallel as pp
+    out = {}
+    for n, cfg_kw, batch in PP_SCHEDULES:
+        params, flux = _port_flux(workdir, "tiny_flux.pkl" if cfg_kw is None
+                                  else "uneven_flux.pkl")
+        cfg = flux.TINY_FLUX if cfg_kw is None else flux.FluxConfig(**cfg_kw)
+        args, g = _flux_apply_args(cfg, batch)
+        mesh = mesh_mod.Mesh(np.arange(n), ("pipe",))
+        if not mesh.contains_me():
+            continue
+        stages = pp.prepare_stages(params, n, mesh=mesh)
+        whole = pp.prepare_stages(params, n)
+        for m in PP_MICRO:
+            steps = []
+            got = pp.pipelined_apply(params, stages, *args, cfg, mesh,
+                                     guidance=g, microbatches=m,
+                                     schedule=steps)
+            img, txt, vec, cos, sin = flux._embed(params, *args, cfg, g)
+            x, mb, t_len = torch.cat([txt, img], 1), batch // m, txt.shape[1]
+            serial = []
+            for i in range(m):
+                r = slice(i * mb, (i + 1) * mb)
+                a = pp.run_doubles(whole.doubles, x[r], vec[r], cos, sin,
+                                   t_len, cfg)
+                serial.append(pp.run_singles(whole.singles, a, vec[r], cos,
+                                             sin, cfg))
+            serial = flux._final(params, torch.cat(serial)[:, t_len:], vec)
+            out[(n, m, rank)] = {"out": got.numpy(), "steps": steps,
+                                 "equal_serial": bool(torch.equal(got,
+                                                                  serial))}
+    dump(workdir, f"pp_schedule.r{rank}.pkl", out)
+
+
 def ops_multihost(rank, world, workdir):
     import torch.distributed as dist
     from domainrag_tpu_torch.parallel import multihost
@@ -620,11 +664,183 @@ def stages_generate(rank, world, workdir):
         dump(workdir, "stage3.pkl", counters)
 
 
+# ---------------------------------------------------------------------------
+# training over a mesh: DP, TP, FSDP, fit, the ring's gradient
+# ---------------------------------------------------------------------------
+
+# (name, model_parallel, fsdp) of the 4-rank train meshes
+TRAIN_MESHES = (("data4", 1, False), ("data2_model2", 2, False),
+                ("data4_fsdp", 1, True), ("data2_model2_fsdp", 2, True))
+TRAIN_LR = 1e-3
+
+
+def train_batch(cfg, seed, batch=4, grid=4, s_txt=6):
+    rng = np.random.default_rng(seed)
+    from domainrag_tpu_torch.models.flux import model as flux
+    return {"x0": rng.standard_normal((batch, grid * grid, cfg.in_channels))
+            .astype(np.float32),
+            "txt": rng.standard_normal((batch, s_txt, cfg.text_dim))
+            .astype(np.float32),
+            "pooled": rng.standard_normal((batch, cfg.pooled_dim))
+            .astype(np.float32),
+            "img_ids": flux.make_image_ids(grid, grid),
+            "txt_ids": flux.make_text_ids(s_txt)}
+
+
+def _train_setup(workdir):
+    from domainrag_tpu_torch import bridge
+    from domainrag_tpu_torch.models.flux import model as flux
+    from domainrag_tpu_torch.train import flow_match as flow
+    cfg = flux.TINY_FLUX
+    steps = [({k: _t(v) for k, v in b.items()}, _t(t), _t(e))
+             for b, t, e in load(workdir, "train_steps.pkl")]
+    return (lambda: bridge.params(load(workdir, "tiny_flux.pkl"),
+                                  device="cpu"),
+            cfg, flow.TrainConfig(learning_rate=TRAIN_LR), steps)
+
+
+def train_meshes(rank, world, workdir):
+    """make_sharded_train_step over each mesh of ``TRAIN_MESHES``: two
+    steps from JAX's t and eps, then the whole tree gathered."""
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod, sharding
+    from domainrag_tpu_torch.train import flow_match as flow
+    fresh, cfg, train_cfg, steps = _train_setup(workdir)
+    out = {}
+    for name, mp, fsdp in TRAIN_MESHES:
+        mesh = mesh_mod.create_mesh(model_parallel=mp)
+        params = fresh()
+        step, local, opt, shardings = flow.make_sharded_train_step(
+            mesh, cfg, train_cfg, params, fsdp=fsdp)
+        losses = [step(local, opt, b, None, t=t, eps=e)[2].item()
+                  for b, t, e in steps]
+        whole = sharding.unshard_params(local, fresh(), mesh,
+                                        fsdp_axis="data" if fsdp else None)
+        out[name] = {"losses": losses, "params": np_tree(whole),
+                     "rows": tuple(mesh_mod.local_rows(
+                         steps[0][0][k], shardings[k]).shape[0]
+                         for k in ("x0", "txt", "pooled", "img_ids"))}
+    if rank == 0:
+        dump(workdir, "train_meshes.pkl", out)
+
+
+def train_tp_grads(rank, world, workdir):
+    """The gradients of the loss on a (1, 4) mesh (each rank 1 of the 4
+    heads and a quarter of every MLP), gathered, beside the errors: a
+    split that keeps the attention whole (3 heads over 2 ranks) and an
+    indivisible batch."""
+    import torch
+    from domainrag_tpu_torch.models.common import Init
+    from domainrag_tpu_torch.models.flux import model as flux
+    from domainrag_tpu_torch.ops.attention import tp_attention
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod, sharding
+    from domainrag_tpu_torch.train import flow_match as flow
+    fresh, cfg, train_cfg, steps = _train_setup(workdir)
+    mesh = mesh_mod.create_mesh(model_parallel=4)
+    local = sharding.shard_params(fresh(), mesh)
+    for p in flow.leaves(local):
+        p.requires_grad_(True)
+    b, t, e = steps[0]
+    with tp_attention(mesh):
+        loss = flow.flow_match_loss(local, b, None, cfg, train_cfg, t=t,
+                                    eps=e)
+        grads = torch.autograd.grad(loss, flow.leaves(local))
+    it = iter(grads)
+    tree = sharding._map_with_path(lambda _, x: next(it), local)
+    out = {"loss": loss.item(),
+           "grads": np_tree(sharding.unshard_params(tree, fresh(), mesh))}
+    three = flux.FluxConfig(**dict(UNEVEN, hidden=48, heads=3))
+    odd = flux.init(three, Init(torch.Generator().manual_seed(0),
+                                torch.device("cpu")))
+    out["whole_attention"] = _raises(lambda: flow.make_sharded_train_step(
+        mesh_mod.create_mesh(model_parallel=2), three, train_cfg, odd))
+    step, local, opt, _ = flow.make_sharded_train_step(
+        mesh_mod.create_mesh(), cfg, train_cfg, fresh())
+    odd_batch = {k: v[:3] if k in ("x0", "txt", "pooled") else v
+                 for k, v in b.items()}
+    out["indivisible_batch"] = _raises(lambda: step(
+        local, opt, odd_batch, None, t=t[:3], eps=e[:3]))
+    if rank == 0:
+        dump(workdir, "train_tp_grads.pkl", out)
+
+
+def train_fit(rank, world, workdir):
+    """fit(model_parallel=2, fsdp=True) over the group: a (2, 2) mesh,
+    three steps, a checkpoint every two."""
+    from domainrag_tpu_torch.train import flow_match as flow
+    from domainrag_tpu_torch.train import loop
+    fresh, cfg, train_cfg, _ = _train_setup(workdir)
+    batches = [{k: _t(v) for k, v in b.items()}
+               for b in load(workdir, "fit_batches.pkl")]
+    final, losses = loop.fit(fresh(), cfg, batches, 3, train_cfg,
+                             model_parallel=2, fsdp=True,
+                             checkpoint_dir=os.path.join(workdir, "ckpt"),
+                             checkpoint_every=2)
+    if rank == 0:
+        dump(workdir, "train_fit.pkl", {"losses": losses,
+                                        "params": np_tree(final)})
+
+
+def train_ring(rank, world, workdir):
+    """The gradients of sum(ring(q, k, v)^2) over the 4-rank data axis,
+    a ragged 50-token sequence, and the heads over a second axis."""
+    import torch
+    from domainrag_tpu_torch.ops import ring_attention as ring
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod
+    out = {}
+    for name, shape, mp, fn in RING_GRAD_CASES:
+        mesh = mesh_mod.create_mesh(model_parallel=mp)
+        q, k, v = (_t(x).requires_grad_(True)
+                   for x in qkv(*RING_GRAD_SEEDS[name], shape))
+        kw = {"head_axis": "model"} if mp > 1 else {}
+        o = getattr(ring, fn)(q, k, v, mesh, axis="data", **kw)
+        grads = torch.autograd.grad(o.square().sum(), (q, k, v))
+        out[name] = [g.numpy() for g in grads]
+    if rank == 0:
+        dump(workdir, "ring_grad.pkl", out)
+
+
+# (name, shape, model_parallel, function) of the ring's gradient cases
+RING_GRAD_CASES = (("dense", (1, 2, 64, 16), 1, "ring_attention"),
+                   ("ragged", (1, 2, 50, 16), 1, "ring_attention_padded"),
+                   ("heads", (1, 4, 64, 16), 2, "ring_attention"))
+RING_GRAD_SEEDS = {"dense": (20,), "ragged": (21,), "heads": (22,)}
+
+
+# ---------------------------------------------------------------------------
+# --distributed workers of several processes each
+# ---------------------------------------------------------------------------
+
+def workers_cli(rank, world, workdir):
+    """``pipeline --stages retrieve,generate --distributed`` on 4 processes
+    as 2 workers (hosts) of 2 (``LOCAL_WORLD_SIZE=2``), on stage 1's
+    output: each worker's mesh a data axis of 2, then a model axis of 2
+    (``--model_parallel 2``)."""
+    os.environ["LOCAL_WORLD_SIZE"] = "2"
+    from domainrag_tpu_torch.cli import main as cli
+    from domainrag_tpu_torch.parallel import multihost
+    argv = load(workdir, "argv.pkl")
+    seen = (multihost.worker_index(), multihost.worker_count(),
+            multihost.local_size())
+    for name, flags in (("workers", []),
+                        ("workers_mp2", ["--model_parallel", "2"])):
+        assert cli.main(argv + flags + [
+            "--stages", "retrieve,generate", "--distributed",
+            "--output_dir", os.path.join(workdir, name)]) == 0
+    dump(workdir, f"workers.r{rank}.pkl", seen)
+    if rank == 0:
+        dump(workdir, "workers.pkl", True)
+
+
 SUITES = {"ops": [("topk", ops_topk), ("ring", ops_ring),
                   ("tp_attention", ops_tp_attention),
                   ("tp_forward", ops_tp_forward), ("pp", ops_pp),
+                  ("pp_schedule", ops_pp_schedule),
                   ("multihost", ops_multihost)],
           "serve": [("dp", serve_dp), ("dp_stage", serve_dp_stage),
                     ("pp_serve", serve_pp), ("sp", serve_sp),
                     ("tp", serve_tp), ("errors", serve_errors)],
-          "stages": [("cli", stages_cli), ("stage3", stages_generate)]}
+          "stages": [("cli", stages_cli), ("stage3", stages_generate)],
+          "train": [("train_meshes", train_meshes),
+                    ("train_tp_grads", train_tp_grads),
+                    ("train_fit", train_fit), ("ring_grad", train_ring)],
+          "workers": [("workers", workers_cli)]}
