@@ -95,7 +95,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``native/``, g++ into ``build/``) must build and serve every CLIP and
    style resize of the run (``imaging.resize_counts``: no PIL), and the
    host top-k ``topk_ip_native`` must agree with ``topk_ip`` on the bank
-   at k 100, its host seconds printed;
+   at k 100, its host seconds printed; ``topk_ip_pallas`` (the JAX name
+   of B8) torch.equal to ``topk_ip_fused`` on the stage's queries and
+   bank at k 100, B8's counter moved by exactly one;
 10. the stage-3 slice on a small input: a head_dim-128 toy bundle
    generates on the card (kernels) and on the CPU (plain versions) from
    the same weights and noise, and the images must agree;
@@ -117,7 +119,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (default 5), denoised one rank at a time. It checks the written PNGs,
    that the image was finite before quantisation, and that every
    one-pass kernel ran 19 or 38 times per step per rank chunk (the
-   multi-pass one never); the step's MFU (``eval.flops``);
+   multi-pass one never); the step's MFU (``eval.flops``); before it,
+   ``models.flux.model.apply_rope`` (the JAX name of the rotation)
+   torch.equal to ``rope_interleaved`` on a 1 x 24 x 5337 x 128 bf16
+   tensor;
 14. stage 3's dataset sweep on the same bundle: ``process_dataset`` over
     stage 1's output with stage 2's ``all_shots_retrieval_results.json``
     as the refs, worker 0 of 100 (two samples), the same cuts; the run
@@ -172,7 +177,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    steps instead of 20), 2 backgrounds (default 5), ``max_rank_batch``
    1. It checks every artifact, finiteness, and that the multi-pass
    kernel ran 19 or 38 times per step per background and the one-pass
-   one never;
+   one never; before it, ``vae.encode_tiled(generator=)`` on a 2048 px
+   image in bf16 within 1e-3 (relative norm) of the blend of per-tile
+   samples, each drawn by a twin generator seeded alike (JAX hands every
+   tile the same key), and unequal to the mode;
 18. one full-width fill denoise step (batch 1, 2048 px, 384 channels)
     under ``torch.profiler`` (full table in ``OUT/profile_fill.txt``),
     with its MFU; then the same dataset under the velocity cache at
@@ -223,6 +231,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     written at the end under ``OUT`` and restored (then deleted); finite
     losses, changed params and the launch counts per step (B1 4, B2 8,
     B5 6, B6 6, B3 0), seconds per step, peak memory, checkpoint time;
+    then one step through ``train_step`` (JAX's name) and one through
+    ``make_train_step``'s step from the same params, t and eps: losses
+    within 1e-3 relative, the updates within 5e-2 in relative norm;
 24. one traced full-width train step (``OUT/profile_train.txt``), grouped
     into the fused forward, B5, B6 (with its dq_accum zeroing, scale and
     cast), GEMMs, the optimizer and the rest;
@@ -917,6 +928,25 @@ def _small_verdict(what, images, size, steps, launches, want):
         raise AssertionError(f"{what}: card and CPU images disagree")
 
 
+def _rope_jax_name(dev):
+    """``models.flux.model.apply_rope``, the JAX name of the interleaved
+    rotation, on a 1 x HEADS x (S_TXT + 4096) x HD bf16 tensor with the
+    stage's rope tables: torch.equal to ``rope_interleaved``."""
+    import torch
+    from domainrag_tpu_torch.models.flux import model as fm
+    from domainrag_tpu_torch.ops.mmdit_attention import rope_interleaved
+    cos, sin = _rope_tables(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    x = torch.randn((1, HEADS, cos.shape[0], HD), generator=g,
+                    device=dev).to(torch.bfloat16)
+    if not torch.equal(fm.apply_rope(x, cos, sin),
+                       rope_interleaved(x, cos, sin)):
+        raise AssertionError("apply_rope differs from rope_interleaved")
+    print(f"apply_rope (the JAX name of the rotation): torch.equal to "
+          f"rope_interleaved at {tuple(x.shape)} bf16")
+
+
 def phase_slice(dev, rows):
     import torch
     from PIL import Image
@@ -955,6 +985,7 @@ def phase_slice(dev, rows):
                                     width=SIZE, seed=0),
         redux=ReduxConfig(), top_ranks=RANKS, max_rank_batch=MAX_RANK_BATCH)
     sample = (target, refs, cfg)
+    _rope_jax_name(dev)
     paths, step, _ = _run_slice(bundle, sample, rows, "sample0", int8=False)
     print(f"stage 3 MFU: {_mfu(bundle.flux_cfg, (SIZE // 16) ** 2, step):.4f}"
           f" of the dense bf16 peak at {step:.3f} s per step "
@@ -1108,7 +1139,7 @@ def phase_fid(dense_paths, cached_paths, dev):
     from domainrag_tpu_torch.stages import encoders
     vit = clip.ClipVisionConfig()
     enc = encoders.ClipImageEncoder(
-        clip.init_vision(vit, Init(device_mod.generator(3, dev), dev)), vit,
+        clip.init_vision(Init(device_mod.generator(3, dev), dev), vit), vit,
         device=dev)
     t0 = time.perf_counter()
     value = fid.fid_from_paths(dense_paths, cached_paths, enc)
@@ -1377,6 +1408,49 @@ def phase_profile(bundle, size, out_name):
         print(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
 
 
+def _encode_sample_per_tile(bundle, dev):
+    """``vae.encode_tiled(generator=)`` on a FILL_SIZE image in the
+    stage's dtype: the JAX package hands every tile the same key, so every
+    tile samples the generator's draw on entry. Held within 1e-3 in
+    relative norm to the blend of per-tile ``encode``s, each sampling
+    from a twin generator seeded alike; the sample is not the mode."""
+    import torch
+    from domainrag_tpu_torch.models.flux import vae
+    cfg, p = bundle.vae_cfg, bundle.vae_params
+    tile, overlap = 96, 16                  # fill_batch's defaults
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    x = (torch.rand((1, FILL_SIZE, FILL_SIZE, 3), generator=g, device=dev)
+         * 2 - 1).to(bundle.compute_dtype)
+
+    def seeded():
+        twin = torch.Generator(device=dev)
+        twin.manual_seed(23)
+        return twin
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = vae.encode_tiled(p, x, cfg, tile, overlap, seeded())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = FILL_SIZE // cfg.spatial_factor
+    want = vae._tiled(lambda xt: vae.encode(p, xt, cfg, seeded()), x, n, n,
+                      cfg.spatial_factor, 1, cfg.latent_channels, tile,
+                      overlap)
+    mode = vae.encode_tiled(p, x, cfg, tile, overlap)
+    rel = _rel_norm(got, want)
+    n_tiles = len(vae._tile_starts(n, tile, overlap)) ** 2
+    print(f"encode_tiled(generator=) at {FILL_SIZE} px ({n_tiles} tiles, "
+          f"{x.dtype}): {secs:.3f} s; relative norm {rel:.3e} to the "
+          f"per-tile twin draws (bar 1e-3), {_rel_norm(got, mode):.3e} to "
+          f"the mode ({CARD})")
+    if not rel < 1e-3:
+        raise AssertionError("encode_tiled(generator=) differs from the "
+                             "per-tile twin draws")
+    if torch.equal(got, mode):
+        raise AssertionError("encode_tiled(generator=) drew no sample")
+
+
 def phase_compose(dev, rows, backgrounds):
     """Stage 4 at full width through ``compose.process_dataset`` on a
     synthetic UODD 1-shot sample whose backgrounds are ``backgrounds``
@@ -1403,6 +1477,7 @@ def phase_compose(dev, rows, backgrounds):
           f"channels): {_weight_bytes(bundle) / 1e9:.2f} GB of weights "
           f"drawn on the card in {time.perf_counter() - t0:.1f} s")
 
+    _encode_sample_per_tile(bundle, dev)
     root = OUT / "compose"
     shutil.rmtree(root, ignore_errors=True)
     _uodd_dataset(root / "datasets" / dataset, sample, shot)
@@ -2840,17 +2915,17 @@ def _towers():
     from domainrag_tpu_torch.models.flux import vae
     f32, bf16 = torch.float32, torch.bfloat16
     return [
-        ("vae", lambda i: vae.init(vae.FLUX_VAE, i), None, f32,
+        ("vae", lambda i: vae.init(i, vae.FLUX_VAE), None, f32,
          lambda p, c: export_vae_to_diffusers(p)),
-        ("t5", lambda i: t5.init(t5.T5_XXL, i), None, bf16, _hf_t5),
-        ("clip-text", lambda i: clip.init_text(clip.CLIP_L_TEXT, i), None,
+        ("t5", lambda i: t5.init(i, t5.T5_XXL), None, bf16, _hf_t5),
+        ("clip-text", lambda i: clip.init_text(i, clip.CLIP_L_TEXT), None,
          f32, _hf_clip_text),
-        ("siglip", lambda i: siglip.init(siglip.SIGLIP_SO400M, i),
+        ("siglip", lambda i: siglip.init(i, siglip.SIGLIP_SO400M),
          siglip.SIGLIP_SO400M, f32, _hf_siglip),
-        ("redux", lambda i: redux.init(redux.REDUX_DEV, i), None, f32,
+        ("redux", lambda i: redux.init(i, redux.REDUX_DEV), None, f32,
          _hf_redux),
-        ("clip-vision", lambda i: clip.init_vision(clip.ClipVisionConfig(),
-                                                   i),
+        ("clip-vision", lambda i: clip.init_vision(i,
+                                                   clip.ClipVisionConfig()),
          clip.ClipVisionConfig(), f32, _hf_clip_vision),
         ("resnet-stem", lambda i: resnet_stem.init(i), None, f32, _hf_stem),
         ("lama", lambda i: lama.init(i, lama.BIG_LAMA), None, f32, _hf_lama),
@@ -2888,7 +2963,7 @@ def _write_checkpoints(ckpt, dev):
     block_files = None
     for seed, (sub, cfg) in enumerate((("flux-dev", fm.FLUX_DEV),
                                        ("flux-fill", fm.FLUX_FILL_DEV)), 20):
-        tree, recipes[sub] = _draw(lambda i: fm.init(cfg, i), seed, dev,
+        tree, recipes[sub] = _draw(lambda i: fm.init(i, cfg), seed, dev,
                                    torch.bfloat16)
         sd = export_flux_to_diffusers(tree, cfg)
         blocks = {k: v for k, v in sd.items() if k.startswith(
@@ -3249,7 +3324,7 @@ def phase_small_trainer(dev):
     steps, grid, s_txt = 3, 8, 32
     rng = np.random.default_rng(21)
     cpu = torch.device("cpu")
-    base = fm.init(cfg, Init(torch.Generator().manual_seed(21), cpu))
+    base = fm.init(Init(torch.Generator().manual_seed(21), cpu), cfg)
     ids = (torch.as_tensor(fm.make_image_ids(grid, grid)),
            torch.as_tensor(fm.make_text_ids(s_txt)))
     data = [{"x0": rng.standard_normal((2, grid * grid, 64)),
@@ -3280,7 +3355,8 @@ def phase_small_trainer(dev):
                       torch.as_tensor(d["eps"], dtype=torch.float32))
                      for d in data]
             loss = flow_match.flow_match_loss(params, batches[0], None, cfg,
-                                              tcfg, *t_eps[0])
+                                              tcfg, t=t_eps[0][0],
+                                              eps=t_eps[0][1])
             grads = torch.autograd.grad(loss, flow_match.leaves(params))
             grad0 = torch.cat([gr.float().reshape(-1).cpu() for gr in grads])
             _reset_counts(mma)
@@ -3353,7 +3429,7 @@ def _full_train_setup(dev):
                               depth_single=TRAIN_DEPTH[1])
     g = torch.Generator(device=dev)
     g.manual_seed(5)
-    params = fm.init(cfg, Init(g, dev, torch.float32))
+    params = fm.init(Init(g, dev, torch.float32), cfg)
     img_ids = torch.as_tensor(fm.make_image_ids(TRAIN_GRID, TRAIN_GRID),
                               device=dev)
     txt_ids = torch.as_tensor(fm.make_text_ids(TRAIN_TXT), device=dev)
@@ -3371,6 +3447,68 @@ def _full_train_setup(dev):
                                          ).to(torch.bfloat16),
                    "img_ids": img_ids, "txt_ids": txt_ids}
     return cfg, params, batches
+
+
+def _train_step_twins(dev, cfg, params, batch):
+    """JAX's ``train_step`` and ``make_train_step``'s step, one step each
+    from the same params, t and eps (the params put back from a copy on
+    the card between them; one optimizer state alive at a time): the
+    losses within 1e-3 relative, the two updates within 5e-2 in relative
+    norm (a step that moves nothing reads 1). Two one-card steps differ
+    by the order of B6's dq reduce-adds."""
+    import torch
+    from domainrag_tpu_torch.train import flow_match
+    t_all = time.perf_counter()
+    tcfg = flow_match.TrainConfig(remat=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    x0 = batch["x0"]
+    t = flow_match.sample_timesteps(g, x0.shape[0], tcfg)
+    eps = torch.randn(x0.shape, generator=g, device=dev)
+    start = [p.detach().clone() for p in flow_match.leaves(params)]
+    optimizer = flow_match.make_optimizer(tcfg)
+    opt = optimizer.init(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, opt, loss_a = flow_match.train_step(params, opt, batch, None, cfg,
+                                           tcfg, optimizer, t=t, eps=eps)
+    torch.cuda.synchronize()
+    secs_a = time.perf_counter() - t0
+    update_a = [p.detach() - s
+                for p, s in zip(flow_match.leaves(params), start)]
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        for p, s in zip(flow_match.leaves(params), start):
+            p.copy_(s)
+    step, params, opt = flow_match.make_train_step(cfg, tcfg, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, opt, loss_b = step(params, opt, batch, None, t=t, eps=eps)
+    torch.cuda.synchronize()
+    secs_b = time.perf_counter() - t0
+    num = den = 0.0
+    for p, s, ua in zip(flow_match.leaves(params), start, update_a):
+        ub = p.detach() - s
+        num += (ua - ub).double().square().sum().item()
+        den += ub.double().square().sum().item()
+    del opt, start, update_a
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel_loss = abs(loss_a.item() - loss_b.item()) / abs(loss_b.item())
+    rel_update = (num / max(den, 1e-300)) ** 0.5
+    print(f"train_step vs make_train_step's step (same params, t, eps): "
+          f"loss {loss_a.item():.6f} / {loss_b.item():.6f} (relative "
+          f"{rel_loss:.3e}, bar 1e-3), update relative norm "
+          f"{rel_update:.3e} (bar 5e-2); one step each from a fresh "
+          f"optimizer state {secs_a:.3f} s / {secs_b:.3f} s, the check "
+          f"{time.perf_counter() - t_all:.1f} s in all ({CARD})")
+    if not rel_loss < 1e-3:
+        raise AssertionError("train_step: the loss differs from the step's")
+    if not rel_update < 5e-2:
+        raise AssertionError("train_step: the update differs from the "
+                             "step's")
 
 
 def phase_train(dev, rows):
@@ -3442,6 +3580,7 @@ def phase_train(dev, rows):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, checkpoint "
           f"step_{TRAIN_STEPS} {size / 1e9:.2f} GB written in "
           f"{spans.each['save'][0]:.2f} s, restored in {t_restore:.2f} s")
+    _train_step_twins(dev, cfg, params, next(batches()))
     return cfg, params, batches
 
 
@@ -4525,7 +4664,7 @@ def _mesh_tp(dev, rows):
                               depth_single=TP_CHECK_DEPTH[1])
     g = torch.Generator(device=dev)
     g.manual_seed(31)
-    params = fm.init(cfg, Init(g, dev, torch.float32))
+    params = fm.init(Init(g, dev, torch.float32), cfg)
     _, _, batches = _full_train_setup(dev)
     batch = next(batches())
     f32 = {k: v.float() if k in ("x0", "txt", "pooled") else v
@@ -5145,6 +5284,25 @@ def _native_topk(qfeats, bank, plain):
           f"{len(os.sched_getaffinity(0))} cores): {host_s:.3f} s ({CARD})")
 
 
+def _topk_jax_name(qt, bank):
+    """``topk_ip_pallas``, the JAX package's name for B8, on the stage's
+    queries and bank at k TOPK_K: torch.equal to ``topk_ip_fused``, and
+    B8's launch counter moves by exactly one for it."""
+    import torch
+    from domainrag_tpu_torch.ops import topk as tk
+    before = tk.topk_ip_fused.launches
+    got = tk.topk_ip_pallas(qt, bank, TOPK_K)
+    moved = tk.topk_ip_fused.launches - before
+    want = tk.topk_ip_fused(qt, bank, TOPK_K)
+    if moved != 1:
+        raise AssertionError(f"topk_ip_pallas moved B8's counter by {moved}")
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("topk_ip_pallas differs from topk_ip_fused")
+    print(f"topk_ip_pallas (the JAX name of B8): torch.equal to "
+          f"topk_ip_fused at {qt.shape[0]} x {bank.shape[0]} x "
+          f"{bank.shape[1]}, k {TOPK_K}; B8's counter moved by {moved}")
+
+
 def phase_retrieval(dev, rows, stage1):
     """Stage 2 at full width: a random CLIP ViT-B/32 (224 px, patch 32,
     12 x 768, 12 heads, proj 512) and ResNet-50 stem drawn on the card;
@@ -5189,7 +5347,7 @@ def phase_retrieval(dev, rows, stage1):
 
     ini = Init(device_mod.generator(0, dev), dev)
     vit_b32 = clip.ClipVisionConfig()      # the defaults are ViT-B/32's
-    clip_p = clip.init_vision(vit_b32, ini)
+    clip_p = clip.init_vision(ini, vit_b32)
     stem_p = resnet_stem.init(ini)
     n_params = sum(t.numel() for t in _leaves(clip_p)) + sum(
         t.numel() for t in _leaves(stem_p))
@@ -5276,6 +5434,7 @@ def phase_retrieval(dev, rows, stage1):
     default_ms = _ms(lambda: tk.topk_ip(qt, bank.features, TOPK_K), 10)
     fused_ms = _ms(lambda: tk.topk_ip_fused(qt, bank.features, TOPK_K), 10)
     _native_topk(qfeats, bank, plain)
+    _topk_jax_name(qt, bank.features)
     n_q = len(queries)
     tot = timer.totals
     print(f"stage 2 (DIOR {SHOTS}-shot, {n_q} queries, bank {TOPK_N} x 512 f32 "

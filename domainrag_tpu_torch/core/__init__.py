@@ -1,0 +1,1 @@
+from . import config, coco, manifest, imaging  # noqa: F401

@@ -4,8 +4,8 @@ policy (own copy of ``domainrag_tpu/core/imaging.py:16-215``).
 
 The CLIP and style-path resizes go through the native resampler
 (``native/imageproc.cpp``, threaded C++ byte-equal to PIL) when its
-library loads, and through PIL only when no library can be built, as in
-the JAX package; the bytes are the same either way.
+library loads and ``USE_NATIVE_RESIZE`` is set, and through PIL
+otherwise, as in the JAX package; the bytes are the same either way.
 ``resize_counts`` counts which one served."""
 
 from __future__ import annotations
@@ -25,6 +25,9 @@ SIGLIP_MEAN = np.array([0.5, 0.5, 0.5], dtype=np.float32)
 SIGLIP_STD = np.array([0.5, 0.5, 0.5], dtype=np.float32)
 
 
+# False sends every resize to PIL (read at each call)
+USE_NATIVE_RESIZE = True
+
 # resizes served by the native resampler and by PIL, since import (the
 # encoders resize on their prefetch threads too)
 resize_counts = {"native": 0, "pil": 0}
@@ -33,11 +36,11 @@ _counts_lock = threading.Lock()
 
 def _resize_rgb(image: Image.Image, size_wh, method) -> np.ndarray:
     """Resize an RGB PIL image to ``size_wh`` (w, h) -> uint8 HWC: the
-    native resampler for bicubic and bilinear when its library loads,
-    else PIL."""
+    native resampler for bicubic and bilinear when
+    :data:`USE_NATIVE_RESIZE` is set and its library loads, else PIL."""
     from ..native import build as native
     served = "pil"
-    if method in (Image.BICUBIC, Image.BILINEAR) \
+    if USE_NATIVE_RESIZE and method in (Image.BICUBIC, Image.BILINEAR) \
             and native.load_native() is not None:
         served = "native"
         out = native.resize_native(

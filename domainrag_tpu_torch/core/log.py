@@ -14,14 +14,22 @@ from typing import Callable, Dict, Iterator, Optional
 _FORMAT = "%(asctime)s [%(levelname)s] %(name)s: %(message)s"
 
 
-def get_logger(name: str = "domainrag_tpu_torch") -> logging.Logger:
-    """A logger that writes to stderr at INFO (one handler per name)."""
+def get_logger(name: str = "domainrag_tpu_torch",
+               log_file: Optional[str] = None,
+               level: int = logging.INFO) -> logging.Logger:
+    """A logger that writes to stderr (one handler per name, its level set
+    when that handler is added), and also to ``log_file`` when given."""
     logger = logging.getLogger(name)
     if not logger.handlers:
         handler = logging.StreamHandler()
         handler.setFormatter(logging.Formatter(_FORMAT))
         logger.addHandler(handler)
-        logger.setLevel(logging.INFO)
+        logger.setLevel(level)
+    if log_file:
+        os.makedirs(os.path.dirname(log_file) or ".", exist_ok=True)
+        fh = logging.FileHandler(log_file)
+        fh.setFormatter(logging.Formatter(_FORMAT))
+        logger.addHandler(fh)
     return logger
 
 
@@ -30,7 +38,7 @@ class StepTimer:
     ``torch.cuda.synchronize``) is called as each span opens and closes,
     so that a span holds the device work queued inside it."""
 
-    def __init__(self, sync: Optional[Callable[[], None]] = None):
+    def __init__(self, *, sync: Optional[Callable[[], None]] = None):
         self.totals: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
         self.sync = sync

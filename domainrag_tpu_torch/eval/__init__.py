@@ -1,0 +1,1 @@
+from . import fid  # noqa: F401

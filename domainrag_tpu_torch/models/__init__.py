@@ -1,0 +1,1 @@
+from . import clip, common, resnet_stem  # noqa: F401

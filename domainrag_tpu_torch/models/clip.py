@@ -63,9 +63,9 @@ TINY_TEXT = ClipTextConfig(vocab_size=100, max_len=16, hidden=64, layers=2,
 
 def _block_init(ini: Init, hidden: int, mlp_ratio: int) -> Params:
     return {
-        "ln1": layernorm_init(ini, hidden),
+        "ln1": layernorm_init(hidden, init=ini),
         "attn": mha_init(ini, hidden, bias=True),
-        "ln2": layernorm_init(ini, hidden),
+        "ln2": layernorm_init(hidden, init=ini),
         "fc1": linear_init(ini, hidden, hidden * mlp_ratio),
         "fc2": linear_init(ini, hidden * mlp_ratio, hidden),
     }
@@ -78,15 +78,15 @@ def _block_apply(p: Params, x: torch.Tensor, heads: int, mask=None
     return x + linear(p["fc2"], quick_gelu(h))
 
 
-def init_vision(cfg: ClipVisionConfig, ini: Init) -> Params:
+def init_vision(ini: Init, cfg: ClipVisionConfig) -> Params:
     scale = cfg.hidden ** -0.5
     return {
         "patch_w": ini.normal((cfg.patch_size * cfg.patch_size * 3,
                                cfg.hidden), scale),
         "class_emb": ini.normal((cfg.hidden,), scale),
         "pos_emb": ini.normal((cfg.seq_len, cfg.hidden), scale),
-        "ln_pre": layernorm_init(ini, cfg.hidden),
-        "ln_post": layernorm_init(ini, cfg.hidden),
+        "ln_pre": layernorm_init(cfg.hidden, init=ini),
+        "ln_post": layernorm_init(cfg.hidden, init=ini),
         "proj": ini.normal((cfg.hidden, cfg.projection_dim), scale),
         "blocks": [_block_init(ini, cfg.hidden, cfg.mlp_ratio)
                    for _ in range(cfg.layers)],
@@ -130,11 +130,11 @@ def encode_image(params: Params, images: torch.Tensor,
     return feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
 
 
-def init_text(cfg: ClipTextConfig, ini: Init) -> Params:
+def init_text(ini: Init, cfg: ClipTextConfig) -> Params:
     return {
         "tok_emb": ini.normal((cfg.vocab_size, cfg.hidden), 0.02),
         "pos_emb": ini.normal((cfg.max_len, cfg.hidden), 0.01),
-        "ln_final": layernorm_init(ini, cfg.hidden),
+        "ln_final": layernorm_init(cfg.hidden, init=ini),
         "proj": ini.normal((cfg.hidden, cfg.projection_dim),
                            cfg.hidden ** -0.5),
         "blocks": [_block_init(ini, cfg.hidden, cfg.mlp_ratio)
@@ -142,11 +142,13 @@ def init_text(cfg: ClipTextConfig, ini: Init) -> Params:
     }
 
 
-def apply_text(params: Params, token_ids: torch.Tensor, cfg: ClipTextConfig):
-    """token_ids (B, S) -> (hidden_states (B, S, H), pooled (B, H)), f32."""
+def apply_text(params: Params, token_ids: torch.Tensor, cfg: ClipTextConfig,
+               dtype: torch.dtype = torch.float32):
+    """token_ids (B, S) -> (hidden_states (B, S, H), pooled (B, H)) in
+    ``dtype``."""
     b, s = token_ids.shape
-    x = params["tok_emb"].float()[token_ids.long()]
-    x = x + params["pos_emb"].float()[:s]
+    x = params["tok_emb"].to(dtype)[token_ids.long()]
+    x = x + params["pos_emb"].to(dtype)[:s]
     mask = causal_mask(s, device=x.device)
     for block in params["blocks"]:
         x = _block_apply(block, x, cfg.heads, mask=mask)

@@ -2,7 +2,8 @@
 ``domainrag_tpu/models/common.py``).
 
 Models are plain functions over nested param dicts with the JAX package's
-keys: ``init(cfg, init_ctx) -> params`` and ``apply(params, x, ...)``.
+keys: ``init(ini, cfg) -> params``, with an :class:`Init` in the slot
+where JAX takes its PRNG key, and ``apply(params, x, ...)``.
 Linear weights keep the ``(in, out)`` layout; convolution weights are in
 torch's ``(out, in, kh, kw)`` layout (the bridge converts HWIO once) while
 activations stay NHWC at every public function. Weights may be stored in
@@ -96,10 +97,6 @@ class Init:
     def zeros(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.zeros(tuple(shape), device=self.device, dtype=self.dtype)
 
-    def ones_f32(self, shape: Sequence[int]) -> torch.Tensor:
-        return torch.ones(tuple(shape), device=self.device,
-                          dtype=torch.float32)
-
 
 def linear_init(init: Init, d_in: int, d_out: int, bias: bool = True,
                 std: Optional[float] = None) -> Params:
@@ -111,35 +108,41 @@ def linear_init(init: Init, d_in: int, d_out: int, bias: bool = True,
     return p
 
 
-def layernorm_init(init: Init, dim: int) -> Params:
-    return {"scale": init.ones_f32((dim,)),
-            "bias": torch.zeros(dim, device=init.device)}
+def _f32(fill: float, dim: int, init: Optional[Init]) -> torch.Tensor:
+    """A (dim,) f32 norm leaf on ``init``'s device, or on torch's default
+    device without one (as the JAX norm inits land on JAX's)."""
+    return torch.full((dim,), fill, dtype=torch.float32,
+                      device=None if init is None else init.device)
 
 
-def rmsnorm_init(init: Init, dim: int) -> Params:
-    return {"scale": init.ones_f32((dim,))}
+def layernorm_init(dim: int, *, init: Optional[Init] = None) -> Params:
+    return {"scale": _f32(1.0, dim, init), "bias": _f32(0.0, dim, init)}
 
 
-def groupnorm_init(init: Init, dim: int) -> Params:
-    return layernorm_init(init, dim)
+def rmsnorm_init(dim: int, *, init: Optional[Init] = None) -> Params:
+    return {"scale": _f32(1.0, dim, init)}
+
+
+def groupnorm_init(dim: int, *, init: Optional[Init] = None) -> Params:
+    return layernorm_init(dim, init=init)
 
 
 def conv_init(init: Init, kh: int, kw: int, c_in: int, c_out: int,
-              bias: bool = True) -> Params:
-    """Torch layout (out, in, kh, kw); std sqrt(1/fan_in) as in JAX."""
-    p = {"w": init.normal((c_out, c_in, kh, kw),
-                          math.sqrt(1.0 / (kh * kw * c_in)))}
+              bias: bool = True, groups: int = 1) -> Params:
+    """Torch layout (out, in // groups, kh, kw); std sqrt(1/fan_in) as in
+    JAX, whose fan-in is that of one group."""
+    fan_in = kh * kw * (c_in // groups)
+    p = {"w": init.normal((c_out, c_in // groups, kh, kw),
+                          math.sqrt(1.0 / fan_in))}
     if bias:
         p["b"] = init.zeros((c_out,))
     return p
 
 
-def batchnorm_init(init: Init, dim: int) -> Params:
+def batchnorm_init(dim: int, *, init: Optional[Init] = None) -> Params:
     """Inference-mode batchnorm (running statistics)."""
-    return {"scale": init.ones_f32((dim,)),
-            "bias": torch.zeros(dim, device=init.device),
-            "mean": torch.zeros(dim, device=init.device),
-            "var": init.ones_f32((dim,))}
+    return {"scale": _f32(1.0, dim, init), "bias": _f32(0.0, dim, init),
+            "mean": _f32(0.0, dim, init), "var": _f32(1.0, dim, init)}
 
 
 def mha_init(init: Init, dim: int, bias: bool = True) -> Params:
@@ -269,10 +272,11 @@ def _same_pads(size: int, k: int, stride: int):
 
 
 def conv2d(p: Params, x: torch.Tensor, stride: int = 1,
-           padding="SAME") -> torch.Tensor:
-    """NHWC conv with an (out, in, kh, kw) weight. ``padding`` is "SAME",
-    "VALID" or explicit ((top, bottom), (left, right)). The NCHW view of
-    NHWC data is channels-last, so cuDNN runs it without a copy."""
+           padding="SAME", groups: int = 1) -> torch.Tensor:
+    """NHWC conv with an (out, in // groups, kh, kw) weight. ``padding`` is
+    "SAME", "VALID" or explicit ((top, bottom), (left, right)). The NCHW
+    view of NHWC data is channels-last, so cuDNN runs it without a
+    copy."""
     w = p["w"].to(x.dtype)
     kh, kw = w.shape[2], w.shape[3]
     if padding == "SAME":
@@ -283,9 +287,10 @@ def conv2d(p: Params, x: torch.Tensor, stride: int = 1,
     (t, b), (l, r) = padding
     xn = x.permute(0, 3, 1, 2)
     if t == b and l == r:
-        y = F.conv2d(xn, w, stride=stride, padding=(t, l))
+        y = F.conv2d(xn, w, stride=stride, padding=(t, l), groups=groups)
     else:
-        y = F.conv2d(F.pad(xn, (l, r, t, b)), w, stride=stride)
+        y = F.conv2d(F.pad(xn, (l, r, t, b)), w, stride=stride,
+                     groups=groups)
     y = y.permute(0, 2, 3, 1)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
@@ -383,6 +388,22 @@ def max_pool(x: torch.Tensor, window: int, stride: int, padding
     return F.max_pool2d(xn, window, stride).permute(0, 2, 3, 1)
 
 
+def avg_pool(x: torch.Tensor, window: int, stride: int,
+             padding="VALID") -> torch.Tensor:
+    """NHWC average pool as the JAX ``lax.reduce_window`` sum makes it:
+    "SAME" pads zeros (the extra one after, at an odd total) and every
+    window is divided by ``window**2``, padding included."""
+    xn = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        (t, b), (l, r) = (_same_pads(x.shape[1], window, stride),
+                          _same_pads(x.shape[2], window, stride))
+        xn = F.pad(xn, (l, r, t, b))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be SAME or VALID, not {padding!r}")
+    s = F.avg_pool2d(xn, window, stride, divisor_override=1)
+    return (s / (window * window)).permute(0, 2, 3, 1)
+
+
 # ---------------------------------------------------------------------------
 # attention (dense; f32 softmax)
 # ---------------------------------------------------------------------------
@@ -407,14 +428,23 @@ def sdpa(q, k, v, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     return torch.matmul(probs.to(q.dtype), v)
 
 
-def mha(p: Params, x: torch.Tensor, n_heads: int, mask=None
-        ) -> torch.Tensor:
+def mha(p: Params, x: torch.Tensor, n_heads: int, mask=None,
+        attn_fn=None) -> torch.Tensor:
+    """``attn_fn(q, k, v, mask)`` over (B, H, S, Dh) replaces :func:`sdpa`
+    when given."""
     q = split_heads(linear(p["q"], x), n_heads)
     k = split_heads(linear(p["k"], x), n_heads)
     v = split_heads(linear(p["v"], x), n_heads)
-    return linear(p["o"], merge_heads(sdpa(q, k, v, mask)))
+    fn = attn_fn if attn_fn is not None else sdpa
+    return linear(p["o"], merge_heads(fn(q, k, v, mask)))
 
 
-def causal_mask(seq: int, device=None) -> torch.Tensor:
+def causal_mask(seq: int, *, device=None) -> torch.Tensor:
     return torch.tril(torch.ones((1, 1, seq, seq), dtype=torch.bool,
                                  device=device))
+
+
+def count_params(params) -> int:
+    """The number of elements in every tensor leaf of a param tree."""
+    return sum(math.prod(t.shape) for t in leaves(params)
+               if hasattr(t, "shape"))

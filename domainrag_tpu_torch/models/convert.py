@@ -53,6 +53,14 @@ _DTYPES = {"F32": torch.float32, "F16": torch.float16,
            "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
 
 
+def host_conversion():
+    """Context manager under which factory calls that name no device build
+    on the host (torch's ``torch.device("cpu")`` context), as the JAX
+    ``host_conversion`` keeps conversion off the accelerator. The
+    converters here take ``device=`` and place their tensors themselves."""
+    return torch.device("cpu")
+
+
 class _SafetensorsFile:
     """One safetensors file: its header, read once; each tensor mapped
     from the file when asked for (the mapping closes with the tensor)."""

@@ -1,0 +1,1 @@
+from . import scheduler  # noqa: F401

@@ -23,6 +23,8 @@ from torch.utils.checkpoint import checkpoint
 from ...ops.attention import entered, saved_contexts, tp_context
 from ...ops.mmdit_attention import (mmdit_double_attention,
                                     mmdit_single_attention)
+# the JAX name of the interleaved-pair rotation (f32, cast back)
+from ...ops.mmdit_attention import rope_interleaved as apply_rope  # noqa
 from ..common import (Init, Params, gelu_tanh, linear, linear_col_sharded,
                       linear_init, linear_row_sharded, linear_widths,
                       rmsnorm_init)
@@ -119,8 +121,8 @@ def make_text_ids(seq_len: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def _qknorm_init(ini: Init, head_dim: int) -> Params:
-    return {"q": rmsnorm_init(ini, head_dim),
-            "k": rmsnorm_init(ini, head_dim)}
+    return {"q": rmsnorm_init(head_dim, init=ini),
+            "k": rmsnorm_init(head_dim, init=ini)}
 
 
 def _double_block_init(ini: Init, cfg: FluxConfig) -> Params:
@@ -258,7 +260,7 @@ def _single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig):
 # full model
 # ---------------------------------------------------------------------------
 
-def init(cfg: FluxConfig, ini: Init) -> Params:
+def init(ini: Init, cfg: FluxConfig) -> Params:
     params: Params = {
         "img_in": linear_init(ini, cfg.in_channels, cfg.hidden),
         "txt_in": linear_init(ini, cfg.text_dim, cfg.hidden),

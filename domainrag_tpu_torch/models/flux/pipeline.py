@@ -79,7 +79,9 @@ class FluxBundle:
     t5_max_len: int = 512
     clip_max_len: int = 77
     compute_dtype: torch.dtype = torch.bfloat16
-    device: torch.device = torch.device("cuda")
+    # the port's own: the device every tensor of the bundle lives on
+    device: torch.device = dataclasses.field(default=torch.device("cuda"),
+                                             kw_only=True)
     # set by parallel.deploy.shard_bundle: the MMDiT holds this rank's
     # tensor-parallel share over this mesh's axis (ops.attention.tp_attention)
     tp_mesh: Optional[object] = None
@@ -136,26 +138,27 @@ def _random_bundle(cfgs: dict, seed: int, dev: torch.device,
     g = device_mod.generator(seed, dev)
     f32 = Init(g, dev, torch.float32)
     return FluxBundle(
-        flux_params=flux_mod.init(cfgs["flux_cfg"], Init(g, dev, flux_dtype)),
-        vae_params=vae_mod.init(cfgs["vae_cfg"], f32),
-        t5_params=t5_mod.init(cfgs["t5_cfg"], f32),
-        clip_text_params=clip_mod.init_text(cfgs["clip_text_cfg"], f32),
-        siglip_params=siglip_mod.init(cfgs["siglip_cfg"], f32),
-        redux_params=redux_mod.init(cfgs["redux_cfg"], f32),
+        flux_params=flux_mod.init(Init(g, dev, flux_dtype), cfgs["flux_cfg"]),
+        vae_params=vae_mod.init(f32, cfgs["vae_cfg"]),
+        t5_params=t5_mod.init(f32, cfgs["t5_cfg"]),
+        clip_text_params=clip_mod.init_text(f32, cfgs["clip_text_cfg"]),
+        siglip_params=siglip_mod.init(f32, cfgs["siglip_cfg"]),
+        redux_params=redux_mod.init(f32, cfgs["redux_cfg"]),
         compute_dtype=compute_dtype, device=dev, **cfgs, **extra)
 
 
-def tiny_bundle(seed: int = 0, device=None, fill: bool = False
+def tiny_bundle(seed: int = 0, fill: bool = False, *, device=None
                 ) -> FluxBundle:
     """Random tiny bundle (f32 compute) on ``device`` (the card unless
-    ``device="cpu"``); a Flux-Fill one with ``fill``."""
+    ``device="cpu"``); a Flux-Fill one with ``fill``. ``seed`` stands in
+    the slot of the JAX key."""
     cfgs = tiny_configs(fill)
     return _random_bundle(cfgs, seed, device_mod.resolve(device),
                           torch.float32, torch.float32,
                           **tiny_tokenizers(cfgs))
 
 
-def full_bundle(seed: int = 0, device=None, fill: bool = False
+def full_bundle(seed: int = 0, fill: bool = False, *, device=None
                 ) -> FluxBundle:
     """Random full-width FLUX.1-dev deployment drawn on the device: the
     12B MMDiT (3072 hidden, 24x128 heads, 19 + 38 blocks) in bf16, T5-XXL,

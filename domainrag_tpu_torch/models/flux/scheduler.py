@@ -60,8 +60,11 @@ def make_schedule(num_steps: int,
                   use_dynamic_shifting: bool = True,
                   base_shift: float = 0.5, max_shift: float = 1.15,
                   shift: float = 3.0,
-                  strength: float = 1.0) -> FlowSchedule:
-    """The (possibly strength-trimmed) sigma table, float32."""
+                  strength: float = 1.0,
+                  num_train_timesteps: int = 1000) -> FlowSchedule:
+    """The (possibly strength-trimmed) sigma table, float32.
+    ``num_train_timesteps`` is accepted and not read, as in the JAX
+    package (the time embedder scales sigma by 1000 itself)."""
     sigmas = np.linspace(1.0, 1.0 / num_steps, num_steps, dtype=np.float64)
     if use_dynamic_shifting:
         if image_seq_len is None:

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,9 +50,9 @@ FLUX_VAE = VaeConfig()
 
 def _resnet_init(ini: Init, c_in: int, c_out: int) -> Params:
     p = {
-        "norm1": groupnorm_init(ini, c_in),
+        "norm1": groupnorm_init(c_in, init=ini),
         "conv1": conv_init(ini, 3, 3, c_in, c_out),
-        "norm2": groupnorm_init(ini, c_out),
+        "norm2": groupnorm_init(c_out, init=ini),
         "conv2": conv_init(ini, 3, 3, c_out, c_out),
     }
     if c_in != c_out:
@@ -69,7 +69,7 @@ def _resnet(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def _attn_init(ini: Init, c: int) -> Params:
-    p = {"norm": groupnorm_init(ini, c)}
+    p = {"norm": groupnorm_init(c, init=ini)}
     for name in ("q", "k", "v", "o"):
         p[name] = conv_init(ini, 1, 1, c, c)
     return p
@@ -99,7 +99,7 @@ def _mid(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
     return _resnet(p["res2"], x, groups)
 
 
-def init(cfg: VaeConfig, ini: Init) -> Params:
+def init(ini: Init, cfg: VaeConfig = FLUX_VAE) -> Params:
     """Encoder and decoder weights (the JAX package's tree)."""
     blocks = cfg.block_out
     enc: Params = {"conv_in": conv_init(ini, 3, 3, 3, blocks[0]), "down": []}
@@ -113,7 +113,7 @@ def init(cfg: VaeConfig, ini: Init) -> Params:
             stage["down"] = conv_init(ini, 3, 3, c, c)
         enc["down"].append(stage)
     enc["mid"] = _mid_init(ini, c_prev)
-    enc["norm_out"] = groupnorm_init(ini, c_prev)
+    enc["norm_out"] = groupnorm_init(c_prev, init=ini)
     enc["conv_out"] = conv_init(ini, 3, 3, c_prev, 2 * cfg.latent_channels)
 
     dec: Params = {"conv_in": conv_init(ini, 3, 3, cfg.latent_channels,
@@ -129,7 +129,7 @@ def init(cfg: VaeConfig, ini: Init) -> Params:
         if i < len(blocks) - 1:
             stage["up"] = conv_init(ini, 3, 3, c, c)
         dec["up"].append(stage)
-    dec["norm_out"] = groupnorm_init(ini, c_prev)
+    dec["norm_out"] = groupnorm_init(c_prev, init=ini)
     dec["conv_out"] = conv_init(ini, 3, 3, c_prev, 3)
     return {"encoder": enc, "decoder": dec}
 
@@ -152,10 +152,18 @@ def encode_moments(params: Params, images: torch.Tensor,
 
 
 def encode(params: Params, images: torch.Tensor,
-           cfg: VaeConfig = FLUX_VAE) -> torch.Tensor:
+           cfg: VaeConfig = FLUX_VAE,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Normalized latents of the posterior's mode (the fill path draws no
-    sample)."""
-    mean = encode_moments(params, images, cfg)[..., :cfg.latent_channels]
+    sample), or, with a ``generator`` (in the slot of the JAX key), of a
+    sample: ``mean + exp(0.5 * clip(logvar, -30, 20)) * N(0, 1)``."""
+    moments = encode_moments(params, images, cfg)
+    mean = moments[..., :cfg.latent_channels]
+    if generator is not None:
+        logvar = moments[..., cfg.latent_channels:].clamp(-30.0, 20.0)
+        mean = mean + torch.exp(0.5 * logvar) * torch.randn(
+            mean.shape, generator=generator, device=mean.device,
+            dtype=mean.dtype)
     return (mean - cfg.shift_factor) * cfg.scaling_factor
 
 
@@ -241,14 +249,25 @@ def decode_tiled(params: Params, latents: torch.Tensor,
 
 def encode_tiled(params: Params, images: torch.Tensor,
                  cfg: VaeConfig = FLUX_VAE, tile: int = 96,
-                 overlap: int = 16) -> torch.Tensor:
+                 overlap: int = 16,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
     """:func:`encode` over overlapping tiles (``tile``/``overlap`` in
     latent cells, as :func:`decode_tiled`), blending the normalized
     latents (seams see a truncated receptive field, as in diffusers'
-    tiled VAE)."""
+    tiled VAE). With a ``generator`` every tile samples with the
+    generator's state on entry, so every tile gets the same normal draw:
+    the JAX package hands each tile the same key."""
     f = cfg.spatial_factor
     lh, lw = images.shape[1] // f, images.shape[2] // f
     if lh <= tile and lw <= tile:
-        return encode(params, images, cfg)
-    return _tiled(lambda x: encode(params, x, cfg), images, lh, lw, f, 1,
-                  cfg.latent_channels, tile, overlap)
+        return encode(params, images, cfg, generator)
+    state = None if generator is None else generator.get_state()
+
+    def encode_tile(x):
+        if state is not None:
+            generator.set_state(state)
+        return encode(params, x, cfg, generator)
+
+    return _tiled(encode_tile, images, lh, lw, f, 1, cfg.latent_channels,
+                  tile, overlap)

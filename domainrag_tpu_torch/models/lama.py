@@ -63,7 +63,7 @@ def _split(c: int, ratio: float) -> Tuple[int, int]:
 
 def _fourier_unit_init(ini: Init, c_in: int, c_out: int) -> Params:
     return {"conv": conv_init(ini, 1, 1, c_in * 2, c_out * 2, bias=False),
-            "bn": batchnorm_init(ini, c_out * 2)}
+            "bn": batchnorm_init(c_out * 2, init=ini)}
 
 
 def fourier_unit(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -83,7 +83,7 @@ def _spectral_init(ini: Init, c_in: int, c_out: int) -> Params:
     mid = c_out // 2
     return {
         "conv1": conv_init(ini, 1, 1, c_in, mid, bias=False),
-        "bn1": batchnorm_init(ini, mid),
+        "bn1": batchnorm_init(mid, init=ini),
         "fu": _fourier_unit_init(ini, mid, mid),
         "conv2": conv_init(ini, 1, 1, mid, c_out, bias=False),
     }
@@ -113,9 +113,9 @@ def _ffc_init(ini: Init, c_in: int, c_out: int, kernel: int,
     if in_g and out_g:
         p["g2g"] = _spectral_init(ini, in_g, out_g)
     if out_l:
-        p["bn_l"] = batchnorm_init(ini, out_l)
+        p["bn_l"] = batchnorm_init(out_l, init=ini)
     if out_g:
-        p["bn_g"] = batchnorm_init(ini, out_g)
+        p["bn_g"] = batchnorm_init(out_g, init=ini)
     return p
 
 
@@ -187,7 +187,7 @@ def init(ini: Init, cfg: LamaConfig = BIG_LAMA) -> Params:
         c_out = ngf * 2 ** (nd - i - 1)
         params["up"].append({
             "conv": conv_init(ini, 3, 3, c_in, c_out),
-            "bn": batchnorm_init(ini, c_out),
+            "bn": batchnorm_init(c_out, init=ini),
         })
     params["head"] = conv_init(ini, 7, 7, ngf, cfg.out_channels)
     return params

@@ -32,9 +32,10 @@ class ReduxEncoderConfig:
 
 
 REDUX_DEV = ReduxEncoderConfig()
+TINY_REDUX = ReduxEncoderConfig(siglip_hidden=48, txt_dim=32)
 
 
-def init(cfg: ReduxEncoderConfig, ini: Init) -> Params:
+def init(ini: Init, cfg: ReduxEncoderConfig = REDUX_DEV) -> Params:
     return {"up": linear_init(ini, cfg.siglip_hidden, cfg.mid_dim),
             "down": linear_init(ini, cfg.mid_dim, cfg.txt_dim)}
 

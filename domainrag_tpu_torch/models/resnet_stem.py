@@ -36,7 +36,7 @@ class ResNetStemConfig:
 
 def init(ini: Init, cfg: ResNetStemConfig = ResNetStemConfig()) -> Params:
     return {"conv1": conv_init(ini, 7, 7, 3, cfg.channels, bias=False),
-            "bn1": batchnorm_init(ini, cfg.channels)}
+            "bn1": batchnorm_init(cfg.channels, init=ini)}
 
 
 def apply_stem(params: Params, images: torch.Tensor,

@@ -42,20 +42,20 @@ TINY_SIGLIP = SiglipVisionConfig(image_size=28, patch_size=7, hidden=48,
                                  layers=2, heads=4, mlp_dim=96)
 
 
-def init(cfg: SiglipVisionConfig, ini: Init) -> Params:
+def init(ini: Init, cfg: SiglipVisionConfig = SIGLIP_SO400M) -> Params:
     params: Params = {
         "patch_w": ini.normal((cfg.patch_size * cfg.patch_size * 3,
                                cfg.hidden), 0.02),
         "patch_b": ini.zeros((cfg.hidden,)),
         "pos_emb": ini.normal((cfg.seq_len, cfg.hidden), 0.02),
-        "post_ln": layernorm_init(ini, cfg.hidden),
+        "post_ln": layernorm_init(cfg.hidden, init=ini),
         "blocks": [],
     }
     for _ in range(cfg.layers):
         params["blocks"].append({
-            "ln1": layernorm_init(ini, cfg.hidden),
+            "ln1": layernorm_init(cfg.hidden, init=ini),
             "attn": mha_init(ini, cfg.hidden, bias=True),
-            "ln2": layernorm_init(ini, cfg.hidden),
+            "ln2": layernorm_init(cfg.hidden, init=ini),
             "fc1": linear_init(ini, cfg.hidden, cfg.mlp_dim),
             "fc2": linear_init(ini, cfg.mlp_dim, cfg.hidden),
         })

@@ -5,13 +5,15 @@
 RMSNorm (no mean subtraction), relative position bias computed from
 block 0's table and shared by all layers, UNSCALED attention logits (T5
 bakes the 1/sqrt(d) into init), gated-gelu MLP, final RMSNorm. Runs in
-f32, the dtype the JAX package's ``encode_prompt`` runs it in.
+``dtype`` (f32 by default, the dtype the JAX package's ``encode_prompt``
+runs it in).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -56,10 +58,10 @@ def relative_position_bucket(relative_position: torch.Tensor,
     return ret + torch.where(is_small, n, val_if_large)
 
 
-def init(cfg: T5Config, ini: Init) -> Params:
+def init(ini: Init, cfg: T5Config = T5_XXL) -> Params:
     inner = cfg.heads * cfg.d_kv
     params: Params = {"embed": ini.normal((cfg.vocab_size, cfg.d_model), 1.0),
-                      "final_norm": rmsnorm_init(ini, cfg.d_model),
+                      "final_norm": rmsnorm_init(cfg.d_model, init=ini),
                       "blocks": []}
     for i in range(cfg.layers):
         attn = {
@@ -71,9 +73,9 @@ def init(cfg: T5Config, ini: Init) -> Params:
         if i == 0:
             attn["rel_bias"] = ini.normal((cfg.rel_buckets, cfg.heads), 0.02)
         params["blocks"].append({
-            "ln_attn": rmsnorm_init(ini, cfg.d_model),
+            "ln_attn": rmsnorm_init(cfg.d_model, init=ini),
             "attn": attn,
-            "ln_ff": rmsnorm_init(ini, cfg.d_model),
+            "ln_ff": rmsnorm_init(cfg.d_model, init=ini),
             "wi_0": linear_init(ini, cfg.d_model, cfg.d_ff, bias=False),
             "wi_1": linear_init(ini, cfg.d_model, cfg.d_ff, bias=False),
             "wo": linear_init(ini, cfg.d_ff, cfg.d_model, bias=False),
@@ -82,7 +84,8 @@ def init(cfg: T5Config, ini: Init) -> Params:
 
 
 def _self_attention(p: Params, x: torch.Tensor, bias: torch.Tensor,
-                    cfg: T5Config) -> torch.Tensor:
+                    mask: Optional[torch.Tensor], cfg: T5Config
+                    ) -> torch.Tensor:
     b, s, _ = x.shape
 
     def heads(t):
@@ -93,17 +96,23 @@ def _self_attention(p: Params, x: torch.Tensor, bias: torch.Tensor,
     v = heads(linear(p["v"], x))
     # NO 1/sqrt(d) scaling (T5 convention)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) + bias
+    if mask is not None:
+        # masked keys take -1e9 before the f32 softmax (JAX t5.py:107)
+        logits = logits.masked_fill(~mask.bool()[:, None, None, :], -1e9)
     probs = torch.softmax(logits, dim=-1)
     out = torch.matmul(probs.to(v.dtype), v)
     out = out.transpose(1, 2).reshape(b, s, cfg.heads * cfg.d_kv)
     return linear(p["o"], out)
 
 
-def apply(params: Params, token_ids: torch.Tensor, cfg: T5Config = T5_XXL
-          ) -> torch.Tensor:
-    """token_ids (B, S) -> encoder hidden states (B, S, d_model), f32."""
+def apply(params: Params, token_ids: torch.Tensor, cfg: T5Config = T5_XXL,
+          attention_mask: Optional[torch.Tensor] = None,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """token_ids (B, S) -> encoder hidden states (B, S, d_model) in
+    ``dtype``; keys where ``attention_mask`` (B, S) is 0 are not
+    attended."""
     s = token_ids.shape[1]
-    x = params["embed"].float()[token_ids.long()]
+    x = params["embed"].to(dtype)[token_ids.long()]
     pos = torch.arange(s, device=token_ids.device)
     rel = pos[None, :] - pos[:, None]                    # key - query
     buckets = relative_position_bucket(rel, cfg.rel_buckets,
@@ -112,7 +121,7 @@ def apply(params: Params, token_ids: torch.Tensor, cfg: T5Config = T5_XXL
     bias = table[buckets].permute(2, 0, 1)[None]         # (1, H, S, S)
     for block in params["blocks"]:
         h = rmsnorm(block["ln_attn"], x, cfg.layer_norm_eps)
-        x = x + _self_attention(block["attn"], h, bias, cfg)
+        x = x + _self_attention(block["attn"], h, bias, attention_mask, cfg)
         h = rmsnorm(block["ln_ff"], x, cfg.layer_norm_eps)
         gated = torch.nn.functional.gelu(linear(block["wi_0"], h),
                                          approximate="tanh") \

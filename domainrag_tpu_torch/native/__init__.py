@@ -1,0 +1,1 @@
+from .build import load_native, native_available  # noqa: F401

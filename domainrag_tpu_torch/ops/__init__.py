@@ -1,0 +1,1 @@
+from . import topk  # noqa: F401

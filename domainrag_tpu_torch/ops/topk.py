@@ -196,3 +196,6 @@ def topk_ip_fused(queries: torch.Tensor, bank: torch.Tensor, k: int
 
 
 topk_ip_fused.launches = 0
+
+# the JAX package's name for B8 (same function, same launch counter)
+topk_ip_pallas = topk_ip_fused

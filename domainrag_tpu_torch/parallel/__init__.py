@@ -1,0 +1,1 @@
+from . import collectives, deploy, mesh, sharding  # noqa: F401

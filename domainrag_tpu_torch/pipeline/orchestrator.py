@@ -355,7 +355,7 @@ def build_tiny_runner(cfg: PipelineConfig,
         cfg=cfg,
         lama_runner=inpaint_stage.LamaRunner(lama_mod.init(ini, lama_cfg),
                                              lama_cfg, device=dev),
-        clip_encoder=ClipImageEncoder(clip_mod.init_vision(clip_cfg, ini),
+        clip_encoder=ClipImageEncoder(clip_mod.init_vision(ini, clip_cfg),
                                       clip_cfg, batch_size=8, device=dev),
         style_encoder=StyleEncoder(resnet_stem.init(ini), batch_size=8,
                                    resize=64, device=dev),

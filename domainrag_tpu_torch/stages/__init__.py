@@ -1,0 +1,1 @@
+from . import encoders, retrieve  # noqa: F401

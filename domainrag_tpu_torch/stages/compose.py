@@ -369,7 +369,7 @@ def process_dataset(stage: ComposeStage, dataset: str, shot: int,
                     resume: bool = False,
                     failed_only: bool = False,
                     worker_id: int = 0,
-                    num_workers: int = 1,
+                    num_workers: int = 1, *,
                     timer: Optional[StepTimer] = None) -> dict:
     """Full dataset x shot sweep + result JSON + final collection.
     ``timer`` gets every sample's spans (``prior``, ``fill`` with the

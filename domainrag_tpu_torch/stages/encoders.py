@@ -30,7 +30,7 @@ class ClipImageEncoder:
     (TF32 off: ``core.device.resolve``)."""
 
     def __init__(self, params, cfg: tclip.ClipVisionConfig,
-                 batch_size: int = 32, device=None):
+                 batch_size: int = 32, *, device=None):
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = device_mod.resolve(device)
@@ -97,7 +97,7 @@ class StyleEncoder:
     """ResNet-stem style features with host preprocess + batch embed."""
 
     def __init__(self, params, cfg: resnet_stem.ResNetStemConfig = None,
-                 batch_size: int = 32, resize: int = 256, device=None):
+                 batch_size: int = 32, resize: int = 256, *, device=None):
         self.cfg = cfg or resnet_stem.ResNetStemConfig()
         self.batch_size = batch_size
         self.resize = resize

@@ -68,7 +68,7 @@ class EmbeddingBank:
     @classmethod
     def from_sources(cls, features_by_source: Dict[str, np.ndarray],
                      paths_by_source: Dict[str, List[str]],
-                     mesh=None, mesh_axis: str = "data",
+                     mesh=None, mesh_axis: str = "data", *,
                      device=None) -> "EmbeddingBank":
         feats, paths, sources = [], [], []
         for name, f in features_by_source.items():
@@ -277,7 +277,7 @@ def retrieve_dataset_shot(
         lamainpaint_dir: str, results_dir: str,
         cfg: RetrievalConfig = RetrievalConfig(),
         force_recompute_inpainted: bool = False,
-        worker_id: int = 0, num_workers: int = 1,
+        worker_id: int = 0, num_workers: int = 1, *,
         timer: Optional[StepTimer] = None) -> Dict[str, List[dict]]:
     """Mirrors ``retrieve_by_category_multi_source`` (ref :773-898):
     returns {category: [{sample_id, image_path, category, similar_images}]}
@@ -379,7 +379,7 @@ def run_retrieval(datasets: Sequence[str], shots: Sequence[int],
                   style_encoder: StyleEncoder, lamainpaint_dir: str,
                   results_dir: str,
                   cfg: RetrievalConfig = RetrievalConfig(),
-                  worker_id: int = 0, num_workers: int = 1,
+                  worker_id: int = 0, num_workers: int = 1, *,
                   timer: Optional[StepTimer] = None) -> dict:
     """Top-level sweep; writes ``all_shots_retrieval_results.json``
     (ref :1053-1097) — the contract consumed by the generate stage. With

@@ -15,8 +15,8 @@ optax's own clip (g * max/||g|| when ||g|| >= max; torch's
 ``clip_grad_norm_`` adds 1e-6 to the norm), then ``torch.optim.AdamW``,
 whose update is optax's (eps outside the sqrt of the bias-corrected
 second moment, decoupled decay of every leaf). Params are updated in
-place: the tree handed to :func:`make_train_step` is the tree that
-trains.
+place: the tree handed to :func:`train_step` (JAX's step on one device)
+or :func:`make_train_step` is the tree that trains.
 
 Over a mesh (:func:`make_sharded_train_step`, the JAX entry of the same
 name) one step computes JAX's step on the global batch, one process per
@@ -119,7 +119,7 @@ def sample_timesteps(generator: torch.Generator, batch: int,
 
 def flow_match_loss(params, batch, generator: Optional[torch.Generator],
                     flux_cfg: flux_mod.FluxConfig, train_cfg: TrainConfig,
-                    t: Optional[torch.Tensor] = None,
+                    *, t: Optional[torch.Tensor] = None,
                     eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """batch: dict with x0 (B, S, C) latent tokens, txt (B, S_t, D_t5),
     pooled (B, P), img_ids (S, 3), txt_ids (S_t, 3). ``t`` (B,) and ``eps``
@@ -141,6 +141,40 @@ def flow_match_loss(params, batch, generator: Optional[torch.Generator],
                        batch["img_ids"], batch["txt_ids"], flux_cfg,
                        guidance=guidance, remat=train_cfg.remat)
     return (v.float() - target.float()).square().mean()
+
+
+def _step(params, opt_state, batch, generator, flux_cfg, train_cfg,
+          optimizer: Optimizer, t, eps, gather=None, reduce=None,
+          sum_squares=None, ctx=None):
+    """Loss, gradient and update of one step, the body that
+    :func:`train_step` and :func:`make_sharded_train_step`'s step share:
+    the loss of ``gather(params)`` (``params`` itself without ``gather``)
+    inside ``ctx``, its gradient in ``params``' leaves, ``reduce(grads,
+    loss)`` over a mesh, then ``optimizer`` steps ``params`` in place."""
+    with ctx if ctx is not None else contextlib.nullcontext():
+        loss = flow_match_loss(params if gather is None else gather(params),
+                               batch, generator, flux_cfg, train_cfg, t=t,
+                               eps=eps)
+        grads = list(torch.autograd.grad(loss, leaves(params)))
+    loss = loss.detach()
+    if reduce is not None:
+        grads, loss = reduce(grads, loss)
+    optimizer.update(grads, opt_state, params, sum_squares)
+    return params, opt_state, loss
+
+
+def train_step(params, opt_state, batch, generator: torch.Generator,
+               flux_cfg: flux_mod.FluxConfig, train_cfg: TrainConfig,
+               optimizer: Optimizer, *, t: Optional[torch.Tensor] = None,
+               eps: Optional[torch.Tensor] = None):
+    """One step of the JAX ``train_step`` on this device: the loss of
+    ``batch``, its gradient and ``optimizer``'s update, which steps
+    ``params`` in place (``opt_state`` is ``optimizer.init(params)``).
+    ``generator`` stands in the slot of the JAX key and draws ``t`` and
+    ``eps`` unless they are given. Returns (params, opt_state, loss)."""
+    _trainable(params)
+    return _step(params, opt_state, batch, generator, flux_cfg, train_cfg,
+                 optimizer, t, eps)
 
 
 def make_train_step(flux_cfg: flux_mod.FluxConfig, train_cfg: TrainConfig,
@@ -220,6 +254,16 @@ def make_sharded_train_step(mesh, flux_cfg: flux_mod.FluxConfig,
                     squares[i] = total[j]
         return squares
 
+    def data_mean(grads, loss):
+        """The global mean's gradient: FSDP shares arrive summed over the
+        data ranks (the gather's reduce-scatter), the rest are summed
+        here."""
+        grads = [g if k == "fsdp" else mesh.all_reduce(g, data_axis)
+                 for g, k in zip(grads, kinds)]
+        for g in grads:
+            g.div_(n_data)
+        return grads, mesh.all_reduce(loss.clone(), data_axis) / n_data
+
     def step(p, o, batch, generator, t=None, eps=None):
         x0 = batch["x0"]
         if t is None:
@@ -230,25 +274,13 @@ def make_sharded_train_step(mesh, flux_cfg: flux_mod.FluxConfig,
         local_batch = {k: mesh_mod.local_rows(v, batch_shardings[k])
                        for k, v in batch.items()}
         t, eps = mesh_mod.local_rows(t, rows), mesh_mod.local_rows(eps, rows)
-        ctx = (tp_attention(mesh, model_axis) if n_model > 1
-               else contextlib.nullcontext())
-        with ctx:
-            loss = flow_match_loss(gathered(p), local_batch, None, flux_cfg,
-                                   train_cfg, t=t, eps=eps)
-            grads = list(torch.autograd.grad(loss, leaves(p)))
-        loss = loss.detach()
-        if n_data > 1:
-            # the global mean's gradient: FSDP shares arrive summed over
-            # the data ranks (the gather's reduce-scatter), the rest are
-            # summed here
-            grads = [g if k == "fsdp" else mesh.all_reduce(g, data_axis)
-                     for g, k in zip(grads, kinds)]
-            for g in grads:
-                g.div_(n_data)
-            loss = mesh.all_reduce(loss.clone(), data_axis) / n_data
-        optimizer.update(grads, o, p,
-                         sum_squares if n_data * n_model > 1 else None)
-        return p, o, loss
+        return _step(p, o, local_batch, None, flux_cfg, train_cfg, optimizer,
+                     t, eps, gather=gathered,
+                     reduce=data_mean if n_data > 1 else None,
+                     sum_squares=sum_squares if n_data * n_model > 1
+                     else None,
+                     ctx=tp_attention(mesh, model_axis) if n_model > 1
+                     else None)
 
     return step, local, opt_state, batch_shardings
 

@@ -97,7 +97,7 @@ def fit(params, flux_cfg: flux_mod.FluxConfig,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 100,
         seed: int = 0,
-        log_every: int = 10,
+        log_every: int = 10, *,
         timer: Optional[StepTimer] = None):
     """Run ``num_steps`` sharded flow-matching steps on the device of
     ``params`` (f32 leaves; each rank's share trains in place) over

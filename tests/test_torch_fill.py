@@ -131,9 +131,9 @@ def test_vae_init_trees_match_jax():
     want = bridge.params(jax.tree.map(np.asarray,
                                       jvae.init(jax.random.PRNGKey(0), cfg)),
                          device="cpu")
-    got = tvae.init(bridge.config(cfg, tvae.VaeConfig),
-                    tvae.Init(torch.Generator().manual_seed(0),
-                              torch.device("cpu")))
+    got = tvae.init(tvae.Init(torch.Generator().manual_seed(0),
+                              torch.device("cpu")),
+                    bridge.config(cfg, tvae.VaeConfig))
     shapes = lambda tree: jax.tree.map(  # noqa: E731
         lambda x: tuple(x.shape), tree)
     assert shapes(got) == shapes(want)

@@ -566,7 +566,7 @@ def test_chain_stages_1_to_4(tmp_path):
 
     # stage 2
     clip_enc = encoders.ClipImageEncoder(
-        clip.init_vision(clip.TINY_VISION, ini), clip.TINY_VISION,
+        clip.init_vision(ini, clip.TINY_VISION), clip.TINY_VISION,
         batch_size=4, device="cpu")
     style_enc = encoders.StyleEncoder(resnet_stem.init(ini), resize=32,
                                       device="cpu")

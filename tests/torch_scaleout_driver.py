@@ -749,8 +749,8 @@ def train_tp_grads(rank, world, workdir):
     out = {"loss": loss.item(),
            "grads": np_tree(sharding.unshard_params(tree, fresh(), mesh))}
     three = flux.FluxConfig(**dict(UNEVEN, hidden=48, heads=3))
-    odd = flux.init(three, Init(torch.Generator().manual_seed(0),
-                                torch.device("cpu")))
+    odd = flux.init(Init(torch.Generator().manual_seed(0),
+                         torch.device("cpu")), three)
     out["whole_attention"] = _raises(lambda: flow.make_sharded_train_step(
         mesh_mod.create_mesh(model_parallel=2), three, train_cfg, odd))
     step, local, opt, _ = flow.make_sharded_train_step(
