@@ -9,8 +9,8 @@ Run from the repository root with no arguments::
 fused MMDiT kernels (B1-B3), generic flash kernels (B5, B6 in bf16 and
 f32), W8A8 GEMM (B4) and fused top-k (B8) from its ``csrc/`` and times
 each beside this commit's on the same inputs, in turns: parent, change,
-change, parent; and the f32 train step with the parent's f32 B5 in its
-place.)
+change, parent; and the bf16 and f32 train steps with the parent's B6
+in its place.)
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -47,8 +47,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bf16 peak; B6: the least work, 10*B*H*S^2*D FLOP, at the bf16 peak,
    and in f32 three TF32 products per f32 product at the TF32 peak), and
    B5 above the multi-pass ceiling at (1, 24, 50393, 128) bf16, compared
-   on two heads; they run right after the MMDiT kernels, so that a fault
-   in B5 or B6 fails the run within a few minutes;
+   on two heads; every B6 call checked against its plain version (here,
+   at a TP rank's shape and on the ring's blocks) runs twice, and the two
+   runs' dq, dk and dv must be torch.equal (B6 adds dq over the kv blocks
+   in ascending order); they run right after the MMDiT kernels, so that a
+   fault in B5 or B6 fails the run within a few minutes;
 6. the int8 kernels against their plain versions: the W8A8 GEMM (B4,
    K-major int8 weights; wgmma, gemv and mma instances) with torch.equal
    at every (M, K, N) of the stage-3 and stage-4 int8 paths and at ragged
@@ -122,7 +125,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    multi-pass one never); the step's MFU (``eval.flops``); before it,
    ``models.flux.model.apply_rope`` (the JAX name of the rotation)
    torch.equal to ``rope_interleaved`` on a 1 x 24 x 5337 x 128 bf16
-   tensor;
+   tensor; then stage 3 repeats itself: ``pipeline.generate`` for one
+   rank's prior at 1024 px, 2 steps, twice from the same seed, the
+   latents torch.equal and the images equal;
 14. stage 3's dataset sweep on the same bundle: ``process_dataset`` over
     stage 1's output with stage 2's ``all_shots_retrieval_results.json``
     as the refs, worker 0 of 100 (two samples), the same cuts; the run
@@ -233,7 +238,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     B5 6, B6 6, B3 0), seconds per step, peak memory, checkpoint time;
     then one step through ``train_step`` (JAX's name) and one through
     ``make_train_step``'s step from the same params, t and eps: losses
-    within 1e-3 relative, the updates within 5e-2 in relative norm;
+    and every updated leaf torch.equal;
 24. one traced full-width train step (``OUT/profile_train.txt``), grouped
     into the fused forward, B5, B6 (with its dq_accum zeroing, scale and
     cast), GEMMs, the optimizer and the rest;
@@ -241,12 +246,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``latent_batches_from_images`` yields): no fused kernel, B5 12 and B6
     6 launches, finite loss, changed params; the f32 kernel rows take
     these counts; with ``--parent``, four steady f32 steps timed in
-    turns, the parent's f32 B5 in two;
+    turns, the parent's B6 in two (and after phase 24, four bf16 steps
+    the same way);
 26. training over a mesh (``phase_train_mesh``): ``fit(mesh=
     create_mesh(), fsdp=True)`` on the one-rank NCCL group against the
     one-card step from the same params, batches and seed, run twice (2
-    steps: the first loss torch.equal; then within the one-card runs'
-    own spread, B6's dq sum order varying from run to run); a TP train step at 2 ranks in
+    steps: both losses and every leaf torch.equal across the three runs);
+    a TP train step at 2 ranks in
     threads (full width cut to 1 + 1 blocks; the gathered gradients
     against the unsharded step's on the same kernels), then rank 0 of 4
     (6 of 24 heads) alone at the trainer's cut, forward + backward ms
@@ -991,6 +997,54 @@ def phase_slice(dev, rows):
           f" of the dense bf16 peak at {step:.3f} s per step "
           f"(eval.flops, {CARD})")
     return bundle, sample, paths, step
+
+
+REPEAT_STEPS = 2          # the serving repeat's cut
+
+
+def phase_slice_repeat(bundle, sample):
+    """Stage 3 repeats itself: ``pipeline.generate`` for the sample's first
+    rank (its Redux prior computed once) at SIZE px, REPEAT_STEPS steps,
+    twice from the same seed; the denoised latents (the decode's input)
+    must be torch.equal and the uint8 images equal."""
+    import torch
+    from domainrag_tpu_torch.models.flux import pipeline as fp
+    from domainrag_tpu_torch.stages.generate import GenerateStage
+    target, refs, cfg = sample
+    t0 = time.perf_counter()
+    embeds, pooled = GenerateStage(bundle, cfg)._priors_for_sample(
+        refs[:1], target)
+    s = cfg.sampling
+    latents = []
+    decode = fp._decode_tokens
+
+    def keep(vae_params, tokens, *args, **kwargs):
+        latents.append(tokens.clone())
+        return decode(vae_params, tokens, *args, **kwargs)
+
+    images = []
+    fp._decode_tokens = keep
+    try:
+        for _ in range(2):
+            images.append(fp.generate(
+                bundle, embeds, pooled, height=s.height, width=s.width,
+                num_steps=REPEAT_STEPS, guidance=s.guidance_scale,
+                seed=[s.seed], scheduler_overrides={
+                    "use_dynamic_shifting": s.use_dynamic_shifting,
+                    "base_shift": s.base_shift, "max_shift": s.max_shift}))
+    finally:
+        fp._decode_tokens = decode
+    torch.cuda.synchronize()
+    same = torch.equal(latents[0], latents[1])
+    print(f"stage 3 repeat: one rank, {s.height} px, {REPEAT_STEPS} steps, "
+          f"seed {s.seed}, twice: latents {tuple(latents[0].shape)} "
+          f"torch.equal {same}, images equal "
+          f"{np.array_equal(images[0], images[1])}, "
+          f"{time.perf_counter() - t0:.2f} s in all ({CARD})")
+    if not (same and np.array_equal(images[0], images[1])
+            and bool(torch.isfinite(latents[0]).all())):
+        raise AssertionError("stage 3 does not repeat itself from the same "
+                             "seed")
 
 
 def _run_slice(bundle, sample, rows, out_name, int8, calls=STEPS):
@@ -1807,30 +1861,6 @@ def _check_w8a8_rows(ig, g, dev, m, k, n, dtype):
           f"rows and none past them")
 
 
-def _parent_b4(xq, wkn, xs, ws, b, out_dtype):
-    """The parent commit's B4 (its csrc, its C interface: w_q (K, N), N
-    contiguous) on this row's inputs; ``wkn`` is the (K, N) copy."""
-    import ctypes
-    import torch
-    fn = _parent_lib("int8_gemm").w8a8_gemm
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 6 + [i] * 4 + [p]
-    fn.restype = ctypes.c_int
-    m, k = xq.shape
-    n = wkn.shape[1]
-
-    def run():
-        out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-        rc = fn(xq.data_ptr(), wkn.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-                b.data_ptr(), out.data_ptr(), m, n, k,
-                int(out_dtype == torch.float32),
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"the parent's B4 failed: CUDA error {rc}")
-        return out
-    return run
-
-
 def phase_int8_gemm(dev):
     """B4 through its wrapper ``w8a8_linear`` (K-major weights) against its
     plain version with torch.equal at every (M, K, N) of the stage-3 (1024
@@ -1921,9 +1951,9 @@ def phase_int8_gemm(dev):
               f"{row['bound_ms']:.4f} ({row['bound_by']}); the JAX gate "
               f"sends this shape to {gate}")
         if PARENT:
-            parent = _parent_b4(xq, wkn, xs, ws, b, torch.bfloat16)
             change = lambda: ig._launch(xq, wq, xs, ws, b,   # noqa: E731
                                         torch.bfloat16)[0]
+            parent = _parent_call(ig, "int8_gemm", change)
             same = torch.equal(parent(), change())
             _in_turns(f"B4 {name}", parent, change, 10,
                       [_rel_norm(parent(), change())])
@@ -2393,72 +2423,114 @@ def _parent_call(module, name, fn):
     return run
 
 
-def _parent_kernel_forward():
-    """``attn._kernel_forward`` run by the parent commit's B5 (its csrc, its
-    C interface: ``flash_fwd`` without the f32 term scratch; f32 on FFMA);
-    it counts no launch."""
-    import ctypes
-    import torch
-    from domainrag_tpu_torch.ops import attention as attn
-    fn = _parent_lib("flash_attention").flash_fwd
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
-    fn.restype = ctypes.c_int
-
-    def forward(q, k, v, causal, kv_valid):
-        b, h, s_q, d = q.shape
-        s_kv = k.shape[2]
-        kv_valid = s_kv if kv_valid is None else int(kv_valid)
-        qp = attn._rows(q * (attn.LOG2_E / math.sqrt(d)))
-        kp, vp = attn._rows(k), attn._rows(v)
-        out = torch.empty_like(qp)
-        lse = torch.empty((b * h, s_q), dtype=torch.float32, device=q.device)
-        rc = fn(attn._DTYPES[q.dtype], qp.data_ptr(), kp.data_ptr(),
-                vp.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), b * h, s_q, s_kv, kv_valid,
-                int(causal), torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"the parent's B5 failed: CUDA error {rc}")
-        return (out.reshape(b, h, s_q, attn.HEAD_DIM)[..., :d],
-                lse.reshape(b, h, s_q))
-    return forward
-
-
 def _parent_b5_turns(name, q, k, v, out, lse, reps):
-    """The parent's B5 on this row's inputs, timed in turns with this
+    """The parent's B5 (behind this commit's wrapper: the forward's C
+    interface is unchanged) on this row's inputs, timed in turns with this
     commit's; ``out`` and ``lse`` are this commit's outputs."""
     from domainrag_tpu_torch.ops import attention as attn
 
     def change():
         return attn._kernel_forward(q, k, v, False, None)
-    fwd = _parent_kernel_forward()
-    parent = lambda: fwd(q, k, v, False, None)          # noqa: E731
+    parent = _parent_call(attn, "flash_attention", change)
     p_out, p_lse = parent()
     _in_turns(name, parent, change, reps,
               [_rel_norm(p_out, out), _rel_norm(p_lse, lse)])
     del p_out, p_lse
 
 
-def _parent_b6(buf, change, reps):
-    """The parent commit's B6 (its one kernel in each dtype, behind this
-    commit's wrapper: the backward's C interface is unchanged) on the same
-    inputs as ``buf``, into outputs of its own, timed in turns with this
-    commit's ``change``."""
+def _parent_launch_backward():
+    """``launch_backward`` with the parent commit's B6 (its one kernel in
+    each dtype, dq added in arrival order) by its C interface (no turns)
+    and its wrapper's steps: the f32 tensor dq is added into zeroed, in
+    bf16 scaled and cast after; it sets ``buf.dq`` and writes ``buf.dk``,
+    ``buf.dv``, and counts no launch."""
+    import ctypes
     import torch
     from domainrag_tpu_torch.ops import attention as attn
+    lib = _parent_lib("flash_attention")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fns = {torch.bfloat16: lib.flash_bwd_bf16, torch.float32: lib.flash_bwd_f32}
+
+    def launch(buf):
+        fn = fns[buf.q.dtype]
+        fn.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        b, h, s_q, s_kv, d = buf.shape
+        scale = 1.0 / math.sqrt(d)
+        acc = torch.zeros((b * h, s_q, attn.HEAD_DIM), dtype=torch.float32,
+                          device=buf.q.device)
+        rc = fn(*(t.data_ptr() for t in (buf.q, buf.k, buf.v, buf.dout,
+                                          buf.lse, buf.delta, acc, buf.dk,
+                                          buf.dv)),
+                b * h, s_q, s_kv, buf.kv_valid, int(buf.causal), scale,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's B6 failed: CUDA error {rc}")
+        buf.dq = acc.mul_(scale).to(buf.q.dtype) \
+            if buf.q.dtype == torch.bfloat16 else acc
+    return launch
+
+
+def _parent_b6(name, buf, change, reps):
+    """The parent commit's B6 on the same inputs as ``buf``, into outputs
+    of its own, timed in turns with this commit's ``change``; the line
+    starts with ``name``."""
+    import torch
     mine = SimpleNamespace(**vars(buf))
     mine.dk, mine.dv = torch.empty_like(buf.dk), torch.empty_like(buf.dv)
-    parent = _parent_call(attn, "flash_attention",
-                          lambda: attn.launch_backward(mine))
+    launch = _parent_launch_backward()
+    parent = lambda: launch(mine)                       # noqa: E731
     parent()
     change()
     torch.cuda.synchronize()
-    _in_turns("B6 f32" if buf.q.dtype == torch.float32 else "B6 bf16",
-              parent, change, reps,
+    _in_turns(f"B6 {name}", parent, change, reps,
               [_rel_norm(x, y) for x, y in ((mine.dq, buf.dq),
                                             (mine.dk, buf.dk),
                                             (mine.dv, buf.dv))])
     del mine
+
+
+def _parent_step_turns(tag, run, reps=3):
+    """``run()``, one train step, timed in turns with the parent's B6 in
+    place of this commit's (parent, change, change, parent): the median of
+    ``reps`` steps per turn."""
+    import torch
+    from domainrag_tpu_torch.ops import attention as attn
+    change, parent = attn.launch_backward, _parent_launch_backward()
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    t = []
+    for launch in (parent, change, change, parent):
+        attn.launch_backward = launch
+        try:
+            t.append(statistics.median(timed() for _ in range(reps)))
+        finally:
+            attn.launch_backward = change
+    print(f"{tag} parent vs this commit (the parent's B6 in place; parent, "
+          f"change, change, parent; the median of {reps} steps each): "
+          f"{t[0]:.3f} / {t[1]:.3f} / {t[2]:.3f} / {t[3]:.3f} s ({CARD})")
+
+
+def _b6_repeats(name, run):
+    """``run()`` -> (dq, dk, dv) of one B6 call, made twice: raises unless
+    the two runs are torch.equal (B6 adds dq over the kv blocks in a fixed
+    order). Returns the first run's."""
+    import torch
+    first = [x.clone() for x in run()]
+    second = run()
+    torch.cuda.synchronize()
+    for nm, a, b in zip(("dq", "dk", "dv"), first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{name}: {nm} differs between two runs of the same "
+                f"backward (relative norm {_rel_norm(b, a):.3e})")
+    print(f"kernel {name}: dq, dk, dv torch.equal over two runs")
+    return first
 
 
 def phase_flash_kernels(dev):
@@ -2467,9 +2539,9 @@ def phase_flash_kernels(dev):
     each dtype), B5 above _MAX_MULTIPASS at (1,
     24, 50393, 128) bf16 (compared on two heads with the blocked plain
     version), a small causal + kv_valid case with ragged lengths in both
-    dtypes and the RAGGED_BWD bf16 backward cases. With ``--parent`` the
-    parent commit's B6 (bf16, and its two f32 kernels) is timed beside
-    this one."""
+    dtypes and the RAGGED_BWD bf16 backward cases; every B6 call runs
+    twice, torch.equal. With ``--parent`` the parent commit's B6 (bf16 and
+    f32, by its own C interface) is timed beside this one."""
     import torch
     import torch.nn.functional as F
     from domainrag_tpu_torch.ops import attention as attn
@@ -2498,7 +2570,8 @@ def phase_flash_kernels(dev):
         if (lse - want_lse).abs().max().item() > LSE_ATOL:
             raise AssertionError(f"{tag}: lse disagrees")
         _poison(k)
-        got = attn._kernel_backward(q, k, v, want, want_lse, do, True, 613)
+        got = _b6_repeats(tag, lambda: attn._kernel_backward(
+            q, k, v, want, want_lse, do, True, 613))
         ref = attn.flash_backward_reference(q, k, v, want, want_lse, do,
                                             True, 613)
         for nm, a, b in zip(("dq", "dk", "dv"), got, ref):
@@ -2507,13 +2580,13 @@ def phase_flash_kernels(dev):
         q, k, v, do = qkvo((b_, h_, s_q, s_kv, 128), torch.bfloat16)
         want, want_lse = attn.flash_forward_reference(q, k, v, causal,
                                                       kv_valid)
-        _poison(k)
-        got = attn._kernel_backward(q, k, v, want, want_lse, do, causal,
-                                    kv_valid)
-        ref = attn.flash_backward_reference(q, k, v, want, want_lse, do,
-                                            causal, kv_valid)
         tag = (f"flash bwd bf16 {s_q}x{s_kv} causal {causal} kv_valid "
                f"{kv_valid}")
+        _poison(k)
+        got = _b6_repeats(tag, lambda: attn._kernel_backward(
+            q, k, v, want, want_lse, do, causal, kv_valid))
+        ref = attn.flash_backward_reference(q, k, v, want, want_lse, do,
+                                            causal, kv_valid)
         for nm, a, b in zip(("dq", "dk", "dv"), got, ref):
             _check_grad(f"{tag} {nm}", a, b, False)
 
@@ -2547,10 +2620,14 @@ def phase_flash_kernels(dev):
             _parent_b5_turns(name, q, k, v, out, lse, reps[0])
         # backward from the plain forward's out/lse
         buf = attn.backward_buffers(q, k, v, want, want_lse, do, False)
-        attn.launch_backward(buf)
+
+        def b6():
+            attn.launch_backward(buf)
+            return buf.dq, buf.dk, buf.dv
+        unpad = [x.reshape(q.shape)
+                 for x in _b6_repeats(f"flash_bwd_{tag}", b6)]
         ref = attn.flash_backward_reference(q, k, v, want, want_lse, do)
         torch.cuda.synchronize()
-        unpad = [x.reshape(q.shape) for x in (buf.dq, buf.dk, buf.dv)]
         errs = [_check_grad(f"flash_bwd_{tag} {nm}", a, b, f32)
                 for nm, a, b in zip(("dq", "dk", "dv"), unpad, ref)]
         plain_ms = _ms(lambda: attn.flash_backward_reference(
@@ -2574,7 +2651,7 @@ def phase_flash_kernels(dev):
             print(f"kernel {name}: bound on f32 FMA (the route not taken) "
                   f"{_flash_bound(10, shape, f32, 8)['bound_ms']:.3f} ms")
         if PARENT:
-            _parent_b6(buf, lambda: attn.launch_backward(buf), reps[3])
+            _parent_b6(tag, buf, lambda: attn.launch_backward(buf), reps[3])
         del q, k, v, do, out, want, buf, ref, leaves, sdpa, unpad
         torch.cuda.empty_cache()
 
@@ -3452,10 +3529,9 @@ def _full_train_setup(dev):
 def _train_step_twins(dev, cfg, params, batch):
     """JAX's ``train_step`` and ``make_train_step``'s step, one step each
     from the same params, t and eps (the params put back from a copy on
-    the card between them; one optimizer state alive at a time): the
-    losses within 1e-3 relative, the two updates within 5e-2 in relative
-    norm (a step that moves nothing reads 1). Two one-card steps differ
-    by the order of B6's dq reduce-adds."""
+    the card between them; one optimizer state alive at a time): both run
+    ``flow_match._step`` on the same kernels, and B6 adds dq in a fixed
+    order, so the losses and every updated leaf must be torch.equal."""
     import torch
     from domainrag_tpu_torch.train import flow_match
     t_all = time.perf_counter()
@@ -3474,8 +3550,7 @@ def _train_step_twins(dev, cfg, params, batch):
                                            tcfg, optimizer, t=t, eps=eps)
     torch.cuda.synchronize()
     secs_a = time.perf_counter() - t0
-    update_a = [p.detach() - s
-                for p, s in zip(flow_match.leaves(params), start)]
+    after_a = [p.detach().clone() for p in flow_match.leaves(params)]
     del opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -3488,27 +3563,32 @@ def _train_step_twins(dev, cfg, params, batch):
     _, opt, loss_b = step(params, opt, batch, None, t=t, eps=eps)
     torch.cuda.synchronize()
     secs_b = time.perf_counter() - t0
-    num = den = 0.0
-    for p, s, ua in zip(flow_match.leaves(params), start, update_a):
-        ub = p.detach() - s
-        num += (ua - ub).double().square().sum().item()
-        den += ub.double().square().sum().item()
-    del opt, start, update_a
+    differ = num = den = 0
+    moved = False
+    for p, s, a in zip(flow_match.leaves(params), start, after_a):
+        b = p.detach()
+        moved = moved or not torch.equal(b, s)
+        if not torch.equal(a, b):
+            differ += 1
+            num += (a - b).double().square().sum().item()
+        den += (b - s).double().square().sum().item()
+    del opt, start, after_a
     gc.collect()
     torch.cuda.empty_cache()
-    rel_loss = abs(loss_a.item() - loss_b.item()) / abs(loss_b.item())
     rel_update = (num / max(den, 1e-300)) ** 0.5
     print(f"train_step vs make_train_step's step (same params, t, eps): "
-          f"loss {loss_a.item():.6f} / {loss_b.item():.6f} (relative "
-          f"{rel_loss:.3e}, bar 1e-3), update relative norm "
-          f"{rel_update:.3e} (bar 5e-2); one step each from a fresh "
-          f"optimizer state {secs_a:.3f} s / {secs_b:.3f} s, the check "
-          f"{time.perf_counter() - t_all:.1f} s in all ({CARD})")
-    if not rel_loss < 1e-3:
+          f"loss {loss_a.item():.6f} / {loss_b.item():.6f} (torch.equal: "
+          f"{torch.equal(loss_a, loss_b)}), {differ} of "
+          f"{len(flow_match.leaves(params))} updated leaves differ "
+          f"(update relative norm {rel_update:.3e}; torch.equal required); "
+          f"one step each from a fresh optimizer state {secs_a:.3f} s / "
+          f"{secs_b:.3f} s, the check {time.perf_counter() - t_all:.1f} s "
+          f"in all ({CARD})")
+    if not torch.equal(loss_a, loss_b):
         raise AssertionError("train_step: the loss differs from the step's")
-    if not rel_update < 5e-2:
+    if differ or not moved:
         raise AssertionError("train_step: the update differs from the "
-                             "step's")
+                             "step's (or moved nothing)")
 
 
 def phase_train(dev, rows):
@@ -3660,6 +3740,9 @@ def phase_profile_train(dev, cfg, params, batches):
           + f"; B6 includes its dq_accum ops, {accum:.3f} ms")
     for ms, n, name in kernels[:10]:
         print(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
+    if PARENT:
+        _parent_step_turns("bf16 train step",
+                           lambda: step(params, opt, batch, g))
 
 
 def _range_device_ms(prof, name):
@@ -3681,7 +3764,7 @@ def phase_train_f32(dev, cfg, params, batches, rows):
     and in its remat recompute and B6 in its backward. The counts are set
     to 0 just before and read just after; the f32 rows take them. With
     ``--parent``, four steady steps follow, timed in turns with the
-    parent's f32 B5 in two."""
+    parent's B6 in two."""
     import torch
     from domainrag_tpu_torch.ops import attention as attn
     from domainrag_tpu_torch.ops import mmdit_attention as mma
@@ -3722,37 +3805,15 @@ def phase_train_f32(dev, cfg, params, batches, rows):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if not PARENT:
         return
-    # steady f32 steps: this commit's B5 and the parent's f32 B5 (FFMA) in
-    # its place, in turns
+    # steady f32 steps, in turns with the parent's B6
     step, params, opt = flow_match.make_train_step(
         cfg, flow_match.TrainConfig(remat=True), params)
     g = torch.Generator(device=dev)
     g.manual_seed(5)
     batch = next(f32)
     step(params, opt, batch, g)                 # the moments are allocated
-
-    def timed():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(params, opt, batch, g)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    change = attn._kernel_forward
-    parent_f32 = _parent_kernel_forward()
-
-    def parent(q, k, v, causal, kv_valid):
-        fn = parent_f32 if q.dtype == torch.float32 else change
-        return fn(q, k, v, causal, kv_valid)
-    t = []
-    for forward in (parent, change, change, parent):
-        attn._kernel_forward = forward
-        try:
-            t.append(timed())
-        finally:
-            attn._kernel_forward = change
-    print(f"f32 train step parent vs this commit (parent, change, change, "
-          f"parent): {t[0]:.3f} / {t[1]:.3f} / {t[2]:.3f} / {t[3]:.3f} s")
+    _parent_step_turns("f32 train step",
+                       lambda: step(params, opt, batch, g))
 
 
 TOPK_Q, TOPK_N, TOPK_D, TOPK_K = 200, 118_287 + 60_000, 512, 100
@@ -4554,16 +4615,12 @@ class _FsdpAlone(_RankAlone):
 def _mesh_fit(dev, rows):
     """``fit(mesh=create_mesh(), fsdp=True)`` on the one-rank NCCL mesh,
     with a checkpoint, against the one-card step (``make_train_step``),
-    run twice, from the same params, batches and seed, 2 steps. B6 adds
-    dq over the kv blocks by TMA reduce-add, whose order varies from run
-    to run, so the one-card step does not repeat itself bit for bit after
-    its first backward. So the first loss (a forward) must be torch.equal,
-    and the update (params after less params before) of fit must lie as
-    near the first one-card run's as the second one-card run's does: its
-    distance, relative to the first run's update, at most twice the two
-    one-card runs' (plus 1e-6). A fit that does not update reads 1, one
-    that steps the wrong way 2. The second loss within 1e-3 relative.
-    The checkpoint must restore fit's final tree, torch.equal."""
+    run twice, from the same params, batches and seed, 2 steps. On one
+    rank the three run one step body on the same kernels, and B6 adds dq
+    over the kv blocks in a fixed order, so both losses and every leaf
+    after the 2 steps must be torch.equal across the three runs (and the
+    leaves must have moved). The checkpoint must restore fit's final
+    tree, torch.equal."""
     import shutil
     import torch
     from domainrag_tpu_torch.core import device as device_mod
@@ -4593,36 +4650,31 @@ def _mesh_fit(dev, rows):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
 
-    def update_apart(a, b):
-        """||(a - p0) - (b - p0)|| / ||b - p0|| over the tree."""
-        num = den = 0.0
-        for x, y, p0 in zip(a, b, start):
-            num += (x.detach() - y.detach()).float().square().sum().item()
-            den += (y.detach() - p0).float().square().sum().item()
-        return (num / den) ** 0.5
+    def differ(a, b):
+        """The leaves of ``a`` that are not torch.equal to ``b``'s."""
+        return sum(not torch.equal(x.detach(), y.detach())
+                   for x, y in zip(a, b))
 
     (want, one), (again, two) = runs
-    spread = update_apart(two, one)
-    dist = update_apart(flow_match.leaves(final), one)
-    noop = update_apart(start, one)
+    fit_leaves = flow_match.leaves(final)
+    apart = (differ(two, one), differ(fit_leaves, one))
+    moved = differ(one, start)
     restored = ckpt.restore_checkpoint(str(root))["params"]
     same = all(torch.equal(x, y.detach().cpu()) for x, y in zip(
-        flow_match.leaves(restored), flow_match.leaves(final)))
+        flow_match.leaves(restored), fit_leaves))
     del restored
     shutil.rmtree(root)
-    bar = 2 * spread + 1e-6
     print(f"[{CARD}] fit over the one-rank NCCL mesh (fsdp=True) vs the "
           f"one-card step (two runs), 2 steps from the same params, batches "
-          f"and seed: losses {losses} vs {want} and {again}; update "
-          f"distance to the first one-card run's {dist:.3e} (relative), "
-          f"second one-card run's {spread:.3e}, bar {bar:.3e}; an update "
-          f"of nothing reads {noop:.3e}; checkpoint restores fit's tree: "
-          f"{same}; {secs:.3f} s for fit's 2 steps and its checkpoint (the "
-          "first step allocates the optimizer's state)")
-    if losses[0] != want[0] or abs(losses[1] - want[1]) > 1e-3 * abs(
-            want[1]) or not dist <= bar:
-        raise AssertionError("fit over the one-rank mesh differs from the "
-                             "one-card step")
+          f"and seed: losses {losses} vs {want} and {again}; leaves not "
+          f"torch.equal to the first one-card run's: second run {apart[0]}, "
+          f"fit {apart[1]} of {len(one)} ({moved} moved from the start); "
+          f"checkpoint restores fit's tree: {same}; {secs:.3f} s for fit's 2 "
+          "steps and its checkpoint (the first step allocates the "
+          "optimizer's state)")
+    if losses != want or again != want or any(apart) or not moved:
+        raise AssertionError("fit over the one-rank mesh and the one-card "
+                             "step do not repeat one another bit for bit")
     if not same:
         raise AssertionError("fit over the one-rank mesh: its checkpoint "
                              "does not restore its final tree")
@@ -4754,12 +4806,16 @@ def _flash_tp_rows(dev, rows, heads, counts):
         _flash_bound(4, shape, False))
     rows[name]["launches"] = counts[0]
     buf = attn.backward_buffers(q, k, v, want, want_lse, do, False)
-    attn.launch_backward(buf)
-    ref = attn.flash_backward_reference(q, k, v, want, want_lse, do)
     name = f"flash_bwd_bf16_tp_rank_h{heads}_s{S_TRAIN}"
+
+    def b6():
+        attn.launch_backward(buf)
+        return buf.dq, buf.dk, buf.dv
+    got = _b6_repeats(name, b6)
+    ref = attn.flash_backward_reference(q, k, v, want, want_lse, do)
     errs = [_check_grad(f"{name} d{nm}", a.reshape(
         q.shape[:3] + (-1,))[..., :HD], b, False)
-        for nm, a, b in zip("qkv", (buf.dq, buf.dk, buf.dv), ref)]
+        for nm, a, b in zip("qkv", got, ref)]
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     sdpa = F.scaled_dot_product_attention(*leaves)
     rows[name] = _flash_row(
@@ -4771,6 +4827,8 @@ def _flash_tp_rows(dev, rows, heads, counts):
                                         retain_graph=True), 10),
         _flash_bound(10, shape, False, 8))
     rows[name]["launches"] = counts[1]
+    if PARENT:
+        _parent_b6(name, buf, lambda: attn.launch_backward(buf), 10)
 
 
 def _mesh_fsdp(dev, rows):
@@ -4832,10 +4890,10 @@ def _mesh_ring(dev, rows):
         out, lse = attn._kernel_forward(qb, kb, vb, False, kv_valid)
         dlse = torch.randn(lse.shape, generator=g, device=dev)
         args = (qb, kb, vb, out, lse, dob, False, kv_valid, dlse)
-        _poison(kb)
-        got = attn._kernel_backward(*args)
-        want = attn.flash_backward_reference(*args)
         name = f"flash_bwd_bf16_ring_block_s{blk}_kv{kv_valid}"
+        _poison(kb)
+        got = _b6_repeats(name, lambda: attn._kernel_backward(*args))
+        want = attn.flash_backward_reference(*args)
         errs = [_check_grad(f"{name} d{nm}", a, b, False)
                 for nm, a, b in zip("qkv", got, want)]
         leaves = [x.detach().requires_grad_() for x in (qb, kb, vb)]
@@ -4847,6 +4905,10 @@ def _mesh_ring(dev, rows):
             _ms(lambda: torch.autograd.grad(sdpa, leaves, dob,
                                             retain_graph=True), 20),
             _flash_bound(10, shape[:3] + (kv_valid, HD), False, 8))
+        if PARENT:
+            buf = attn.backward_buffers(*args)
+            _parent_b6(name, buf, lambda: attn.launch_backward(buf), 20)
+            del buf
     # the entry point, differentiated: every rank of 4 in turn (a mesh
     # stand-in of its index: their outputs and gradients add up to the
     # ring's), on the whole sequence and on a ragged one, then the
@@ -5504,6 +5566,7 @@ def main() -> int:
     phase_small_caches(dev)
     phase_small_int8(dev)
     bundle, sample, backgrounds, bf16_step = phase_slice(dev, rows)
+    phase_slice_repeat(bundle, sample)
     _init_group()
     phase_generate_batch(bundle, sample)
     phase_scale_out(bundle, dev, rows)

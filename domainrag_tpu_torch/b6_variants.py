@@ -6,13 +6,18 @@ Run on a machine with the card, from the repository root::
 
     python3 -m domainrag_tpu_torch.b6_variants
 
-The kernel stages each 64 x 64 dQ half in shared memory and has the TMA
-unit add it into the f32 dq_accum. The variants replace that block by
-``atomicAdd`` from registers, scalar or float2, in copies of the source
-built in a ``tempfile.mkdtemp()`` directory; the repository is not
-touched. Each build runs the whole backward through ``launch_backward``
-(dq_accum zeroing, kernel, scale and cast), two rounds in turns; dq is
-compared with the committed kernel's.
+The kernel stages each 64 x 64 dQ half in shared memory; its dQ writer
+has the TMA unit add the tile into the f32 dq_accum in the kv block's
+turn (ascending block order, the same bits every run). The variants, in
+copies of the source built in a ``tempfile.mkdtemp()`` directory (the
+repository is not touched): ``tma_unordered`` drops the turns, so the
+writer adds each tile as soon as it is staged (in an order that varies
+from run to run: the cost of the order); ``atomic_scalar`` and
+``atomic_float2`` replace the staging and the writer by ``atomicAdd``
+from registers. Each build runs the whole backward through
+``launch_backward`` (dq_accum and turns zeroed, kernel, scale and cast),
+two rounds in turns; dq is compared with the committed kernel's, which
+must repeat itself bit for bit.
 """
 
 from __future__ import annotations
@@ -27,8 +32,15 @@ from pathlib import Path
 
 from .ops import attention as attn
 
+# the consumers' dQ staging, to the end of their loop over q tiles
 STAGE_START = "      // stage this dQ half"
-STAGE_END = "    if (issuer) bulk_wait_read0();\n\n    // every kv row"
+STAGE_END = "      if (leader) mbar_arrive(&dq_full[b]);\n    }\n"
+# the dQ writer (the bf16 kernel's comes first in the source)
+WRITER_START = "    } else if (threadIdx.x == 32 && n_it > 0) {\n"
+WRITER_END = "        pass_turn(turn, blockIdx.x + 1);\n      }\n"
+# the writer's turns
+TURNS = ("        wait_turn(turn, blockIdx.x);\n",
+         "        bulk_wait0();\n        pass_turn(turn, blockIdx.x + 1);\n")
 SCALAR = """\
           atomicAdd(dst + 8 * j, dqa[4 * j + 2 * hr]);
           atomicAdd(dst + 8 * j + 1, dqa[4 * j + 2 * hr + 1]);
@@ -49,19 +61,34 @@ LOOP = """\
       }
     }
 """
-# the dq_accum pointer the atomic variants write through
-FIELD = ("  const float* lse;", "  float* dq;\n  const float* lse;")
-HOST = ("  P.lse = static_cast<const float*>(lse);",
+# the dq_accum pointer the atomic variants write through (the bf16
+# kernel's struct and entry)
+FIELD = ("  bf16* dk;  ", "  float* dq;\n  bf16* dk;  ")
+HOST = ("  P.dk = static_cast<bf16*>(dk);",
         "  P.dq = static_cast<float*>(dq_accum);\n"
-        "  P.lse = static_cast<const float*>(lse);")
+        "  P.dk = static_cast<bf16*>(dk);")
+
+
+def _cut(src: str, start: str, end: str, body: str) -> str:
+    """``src`` with the first ``start`` .. ``end`` (both included)
+    replaced by ``body``."""
+    a = src.index(start)
+    b = src.index(end, a) + len(end)
+    return src[:a] + body + src[b:]
 
 
 def variants(src: str) -> dict:
-    start, end = src.index(STAGE_START), src.index(STAGE_END)
-    out = {"tma_reduce": src}
+    out = {"tma_ordered": src}
+    v = src
+    for old in TURNS:
+        if v.index(old) > v.index(WRITER_END):
+            raise RuntimeError(f"tma_unordered: {old!r} is not the bf16 "
+                               "writer's")
+        v = v.replace(old, "", 1)
+    out["tma_unordered"] = v
     for name, body in (("atomic_scalar", SCALAR), ("atomic_float2", FLOAT2)):
-        v = src[:start] + LOOP % body + src[end + len("    if (issuer) "
-                                                      "bulk_wait_read0();"):]
+        v = _cut(src, STAGE_START, STAGE_END, LOOP % body)
+        v = _cut(v, WRITER_START, WRITER_END, "")
         for old, new in (FIELD, HOST):
             if v.count(old) != 1:
                 raise RuntimeError(f"{name}: {old!r} is not unique")
@@ -123,7 +150,9 @@ def main() -> int:
             times[name].append(statistics.median(a.elapsed_time(b)
                                                  for a, b in ev))
             print(f"{name}: {times[name][-1]:.3f} ms (dq within {rel:.2e} "
-                  f"of tma_reduce's)", flush=True)
+                  f"of tma_ordered's)", flush=True)
+            if name == "tma_ordered" and rel != 0.0:
+                raise AssertionError("tma_ordered: dq does not repeat itself")
         for name, t in times.items():
             print(f"B6 bf16 2x24x4608x128 {name}: {t[0]:.3f} / {t[1]:.3f} ms")
     finally:

@@ -54,20 +54,22 @@
 //    memory; once both halves are there (named barrier), each warpgroup
 //    takes 64 of dQ's 128 lanes: dS K over the block's 128 kv rows
 //    (m64n64k16, A = dS MN-major, B = K MN-major), staged in shared memory
-//    and added into an f32 dq_accum by the TMA unit
+//    (two tiles deep) for the dQ writer, one thread of the producer
+//    warpgroup, which has the TMA unit add the tile into an f32 dq_accum
 //    (cp.reduce.async.bulk.tensor .add; atomicAdd from registers, scalar or
-//    float2, was slower on the H100: PERF.md, b6_variants.py).
-//    The wrapper zeroes dq_accum, then scales it by 1/sqrt(D) and rounds it
-//    to bf16. S and dP are computed once (10 B*H*Sq*Skv*D FLOP, the least
-//    work) where the TPU split recomputes both (14); 128-row kv tiles make
-//    S_kv/128 adds per dq element (4.1 GB through L2 at the trainer's
-//    shape). dq's sum order across blocks varies from run to run (dk and
-//    dv are deterministic). Every product is bf16 in, f32 accumulate; P and
-//    dS are rounded to bf16 for the three products that consume them (the
-//    FlashAttention-2 choice), within 1e-2 relative Frobenius norm of the
-//    f32 plain version (chip_smoke.py measures it). Registers per consumer
-//    thread: dK 64 + dV 64, S^T 32 + dP^T 32 (then the bf16 A fragments
-//    16 + 16), dQ 32, no spills; shared memory 194 KB, one block per SM.
+//    float2, was slower on the H100: PERF.md, b6_variants.py) in the
+//    block's turn (below). The wrapper zeroes dq_accum and the turns, then
+//    scales dq_accum by 1/sqrt(D) and rounds it to bf16. S and dP are
+//    computed once (10 B*H*Sq*Skv*D FLOP, the least work) where the TPU
+//    split recomputes both (14); 128-row kv tiles make S_kv/128 adds per
+//    dq element (4.1 GB through L2 at the trainer's shape). Every product
+//    is bf16 in, f32 accumulate; P and dS are rounded to bf16 for the three
+//    products that consume them (the FlashAttention-2 choice), within 1e-2
+//    relative Frobenius norm of the f32 plain version (chip_smoke.py
+//    measures it). Registers per consumer thread: dK 64 + dV 64, S^T 32 +
+//    dP^T 32 (then the bf16 A fragments 16 + 16), dQ 32, no spills; shared
+//    memory 226 KB (the dQ staging two tiles deep: 64 KB), one block per
+//    SM.
 //  * f32 backward: the bf16 kernel's loop on the tensor cores, every f32
 //    product as 3xTF32 (x = hi + lo, hi = x rounded to TF32, lo = x - hi;
 //    a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, f32 accumulate: CUTLASS's
@@ -89,12 +91,32 @@
 //    its own sums and one chain over all q tiles drifts); dS^T goes
 //    to shared memory and, after a named barrier, each warp takes a 16 x
 //    32 piece of dQ = dS K / sqrt(D) over the block's 128 kv rows, staged
-//    in the TMA box layout and added into the f32 dq by the TMA unit
-//    (cp.reduce.async.bulk.tensor .add), so dq needs no pass after the
-//    kernel. Every fragment read from the swizzled tiles is free of bank
-//    conflicts. Shared memory 226 KB (K, V 128 KB; two Q/dO stages 64 KB;
-//    dS^T 16 KB; dQ staging 16 KB), one block per SM. dq's sum order
-//    across blocks varies from run to run; dk and dv are deterministic.
+//    in the TMA box layout for the dQ writer, which has the TMA unit add
+//    it into the f32 dq (cp.reduce.async.bulk.tensor .add) in the block's
+//    turn, so dq needs no pass after the kernel. Every fragment read from
+//    the swizzled tiles is free of bank conflicts. Shared memory 226 KB
+//    (K, V 128 KB; two Q/dO stages 64 KB; dS^T 16 KB; dQ staging 16 KB),
+//    one block per SM.
+//  * dq's order, both backward kernels: each dq element is a sum over the
+//    kv blocks, added in ascending block order, as the TPU's dq kernel
+//    adds them along its sequential grid axis, so the same inputs give the
+//    same bits (dk and dv live in registers and are deterministic anyway).
+//    The wrapper zeroes one int32 turn per (b*h, q tile). The dQ writer of
+//    kv block j waits (acquire load, GPU scope) until the tile's turn reads
+//    j, issues the reduce-add, waits for it to complete
+//    (cp.async.bulk.wait_group 0, not .read), fences the async proxy
+//    against the generic one and stores j + 1 (release). The blocks that
+//    reach a tile are 0, 1, ..., so j's turn comes: causal blocks start at
+//    the first q tile that reaches their rows, which for j - 1 is no later
+//    than for j, and blocks past kv_valid (which add nothing) come after
+//    every block that adds. A block waits only on a lower-numbered block of
+//    its (b, h), dispatched before it (grid x fastest, never reversed), so
+//    no wait falls on a block that has not started. The writer works up to
+//    a tile behind the consumers (bf16: two staged tiles; f32: one staged
+//    tile, whose products take far longer than a handoff), so a turn's
+//    handoff hides behind compute once the blocks of a (b, h) settle into
+//    a stagger of one handoff each (b6_variants.py times the unordered
+//    add).
 //  * f32 forward: both products on the tensor cores as bf16 terms. A split
 //    pass writes each f32 value of q, k and v as three bf16 planes, x = x0
 //    + x1 + x2 (+ under 2^-27 |x|), into a scratch the wrapper allocates;
@@ -475,9 +497,11 @@ constexpr int KV_ELEMS = BW_KV * D;     // a K or V tile: two boxes of 64 lanes
 constexpr int Q_ELEMS = BW_Q * D;       // a Q or dO tile: two boxes
 constexpr int DS_ELEMS = BW_KV * BW_Q;  // dS^T: 128 kv rows x 64 q
 constexpr int DQ_FLOATS = BW_Q * 64;    // a dQ half: two boxes of 64 x 32 f32
+constexpr int DQ_BUFS = 2;              // dQ tiles staged (both halves each)
 constexpr int BW_SMEM = 1024 + 2 * (2 * KV_ELEMS + BW_STAGES * 2 * Q_ELEMS +
                                     2 * DS_ELEMS) +
-                        BW_STAGES * 2 * BW_Q * 4 + 2 * DQ_FLOATS * 4;
+                        BW_STAGES * 2 * BW_Q * 4 +
+                        DQ_BUFS * 2 * DQ_FLOATS * 4;
 
 struct Bwd {
   CUtensorMap tq, tdo, tk, tv;   // (bh, rows, 128) bf16, boxes of 64 lanes
@@ -487,6 +511,9 @@ struct Bwd {
   const float* delta;            // (bh, s_q_pad) rowsum(dO * O)
   bf16* dk;                      // (bh, s_kv, 128)
   bf16* dv;
+  int* turns;                    // (bh, ceil(s_q / 64)), zeroed by the
+                                 // caller: the kv blocks that have added
+                                 // into each dq tile
   int s_q, s_kv, kv_valid, causal, s_q_pad;
   float scale;                   // 1/sqrt(D) of the unpadded head width
 };
@@ -523,7 +550,8 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
 __global__ void __launch_bounds__(BW_THREADS, 1)
     bwd_bf16_kernel(const __grid_constant__ Bwd P) {
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[BW_STAGES], empty[BW_STAGES], kvbar;
+  __shared__ __align__(8) uint64_t full[BW_STAGES], empty[BW_STAGES], kvbar,
+      dq_full[DQ_BUFS], dq_empty[DQ_BUFS];
   bf16* sK = reinterpret_cast<bf16*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   bf16* sV = sK + KV_ELEMS;
@@ -532,7 +560,7 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   bf16* sS = sO + BW_STAGES * Q_ELEMS;       // dS^T, two buffers
   float* sL = reinterpret_cast<float*>(sS + 2 * DS_ELEMS);  // lse per stage
   float* sD = sL + BW_STAGES * BW_Q;                         // delta
-  float* sA = sD + BW_STAGES * BW_Q;         // dQ halves, one per consumer
+  float* sA = sD + BW_STAGES * BW_Q;         // DQ_BUFS staged dQ tiles
 
   const int kv0 = blockIdx.x * BW_KV;
   const int bh = blockIdx.y;
@@ -545,6 +573,10 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     for (int s = 0; s < BW_STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);     // lane 0 of each consumer warp
+    }
+    for (int b = 0; b < DQ_BUFS; ++b) {
+      mbar_init(&dq_full[b], 2);   // one thread of each consumer warpgroup
+      mbar_init(&dq_empty[b], 1);  // the dQ writer
     }
     mbar_init(&kvbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -576,6 +608,25 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
         bulk_g2s(sL + s * BW_Q, P.lse + row, BW_Q * 4, &full[s]);
         bulk_g2s(sD + s * BW_Q, P.delta + row, BW_Q * 4, &full[s]);
       }
+    } else if (threadIdx.x == 32 && n_it > 0) {
+      // the dQ writer: per q tile, in this block's turn (the kv blocks
+      // before it have added theirs), the TMA unit adds the staged tile
+      // into dq_accum; the turn passes once the add has completed
+      for (int it = 0; it < n_it; ++it) {
+        const int b = it % DQ_BUFS, tile = it0 + it;
+        mbar_wait(&dq_full[b], (it / DQ_BUFS) & 1);
+        int* turn = P.turns + (long long)bh * n_q + tile;
+        wait_turn(turn, blockIdx.x);
+        // four boxes of 32 lanes: half h >> 1, box h & 1 of it
+        for (int h = 0; h < 4; ++h)
+          tma_add_3d(&P.tdq, sA + b * 2 * DQ_FLOATS + h * BW_Q * 32, 32 * h,
+                     tile * BW_Q, bh);
+        bulk_commit();
+        bulk_wait_read0();
+        mbar_arrive(&dq_empty[b]);
+        bulk_wait0();
+        pass_turn(turn, blockIdx.x + 1);
+      }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
@@ -584,8 +635,7 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     const int g = lane >> 2, tig = lane & 3;
     const int rw = 64 * cw + 16 * warp + g;  // the thread's first kv row
     const float scale_log2 = P.scale * LOG2_E;
-    const bool issuer = (threadIdx.x & 127) == 0;   // of the dQ adds
-    float* dq_half = sA + cw * DQ_FLOATS;
+    const bool leader = (threadIdx.x & 127) == 0;   // signals a staged half
 
     float dk[64], dv[64];
 #pragma unroll
@@ -674,9 +724,7 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       wgmma_commit();
 
       // dQ[:, 64 cw .. 64 cw + 63] = dS K over all 128 kv rows of the block,
-      // once both warpgroups' dS^T halves are in shared memory (and the
-      // last tile's dQ half has been read out of dq_half)
-      if (issuer) bulk_wait_read0();
+      // once both warpgroups' dS^T halves are in shared memory
       bar_sync(BAR_DS, 256);
       float dqa[32];
       wgmma_fence();
@@ -692,9 +740,12 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       if (lane == 0) mbar_arrive(&empty[s]);
 
       // stage this dQ half (128-byte swizzled rows of 32 f32: 16-byte
-      // chunk k of row r at k ^ (r & 7)), then one thread has the TMA unit
-      // add it into dq_accum (rows past s_q are not written; the sum order
-      // over blocks varies from run to run)
+      // chunk k of row r at k ^ (r & 7)) in buffer it % DQ_BUFS, once the
+      // writer has added the tile it held; the writer adds it into dq_accum
+      // in this block's turn (rows past s_q are not written)
+      const int b = it % DQ_BUFS;
+      float* dq_half = sA + (b * 2 + cw) * DQ_FLOATS;
+      if (it >= DQ_BUFS) mbar_wait(&dq_empty[b], (it / DQ_BUFS - 1) & 1);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -708,13 +759,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
         }
       fence_proxy_async();
       bar_sync(BAR_DQ + cw, 128);
-      if (issuer) {
-        tma_add_3d(&P.tdq, dq_half, 64 * cw, q0, bh);
-        tma_add_3d(&P.tdq, dq_half + BW_Q * 32, 64 * cw + 32, q0, bh);
-        bulk_commit();
-      }
+      if (leader) mbar_arrive(&dq_full[b]);
     }
-    if (issuer) bulk_wait_read0();
 
     // every kv row of the block is written, zeros where no q reached it
 #pragma unroll
@@ -763,6 +809,9 @@ struct BwdF32 {
   const float* delta;            // (bh, s_q_pad) rowsum(dO * O)
   float* dk;                     // (bh, s_kv, 128)
   float* dv;
+  int* turns;                    // (bh, ceil(s_q / 32)), zeroed by the
+                                 // caller: the kv blocks that have added
+                                 // into each dq tile
   int s_q, s_kv, kv_valid, causal, s_q_pad;
   float scale;                   // 1/sqrt(D) of the unpadded head width
 };
@@ -891,7 +940,8 @@ __device__ __forceinline__ void tile_products(float (&acc)[16][4],
 __global__ void __launch_bounds__(FB_THREADS, 1)
     bwd_f32_kernel(const __grid_constant__ BwdF32 P) {
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[FB_STAGES], empty[FB_STAGES], kvbar;
+  __shared__ __align__(8) uint64_t full[FB_STAGES], empty[FB_STAGES], kvbar,
+      dq_full, dq_empty;
   float* sK = reinterpret_cast<float*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   float* sV = sK + FB_KV_FLOATS;
@@ -914,6 +964,8 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);     // lane 0 of each consumer warp
     }
+    mbar_init(&dq_full, 1);        // the consumers' first thread
+    mbar_init(&dq_empty, 1);       // the dQ writer
     mbar_init(&kvbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -943,6 +995,23 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
         bulk_g2s(sL + s * FB_Q, P.lse + row, FB_Q * 4, &full[s]);
         bulk_g2s(sD + s * FB_Q, P.delta + row, FB_Q * 4, &full[s]);
       }
+    } else if (threadIdx.x == 32 && n_it > 0) {
+      // the dQ writer: per q tile, in this block's turn (the kv blocks
+      // before it have added theirs), the TMA unit adds the staged tile
+      // into dq; the turn passes once the add has completed
+      for (int it = 0; it < n_it; ++it) {
+        const int tile = it0 + it;
+        mbar_wait(&dq_full, it & 1);
+        int* turn = P.turns + (long long)bh * n_q + tile;
+        wait_turn(turn, blockIdx.x);
+        for (int h = 0; h < 4; ++h)
+          tma_add_3d(&P.tdq, sA + h * FB_Q * 32, 32 * h, tile * FB_Q, bh);
+        bulk_commit();
+        bulk_wait_read0();
+        mbar_arrive(&dq_empty);
+        bulk_wait0();
+        pass_turn(turn, blockIdx.x + 1);
+      }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
@@ -950,7 +1019,6 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
     const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
     const int rw = 16 * warp;                 // the warp's first kv row
     const int mq = warp & 1, nd = warp >> 1;  // its dQ rows 16 mq, lanes 32 nd
-    const bool issuer = threadIdx.x == 128;   // of the dQ adds
 
     float dk[16][4], dv[16][4];
 #pragma unroll
@@ -1030,8 +1098,7 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);   // Q, dO, lse, delta read
 
-      // the last dQ staging read by the TMA unit, dS^T complete
-      if (issuer) bulk_wait_read0();
+      // dS^T complete
       bar_sync(FB_BAR_DS, 256);
 
       // dQ = dS K / sqrt(D): the warp takes q rows 16 mq.. x lanes 32 nd..
@@ -1064,9 +1131,10 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
             mma3(dq[h][nb], ah, al, bh_, bl_);
           }
         }
-      // stage dQ in the tensor map's box layout; one thread has the TMA
-      // unit add it into dq (rows past s_q are not written; the sum order
-      // over blocks varies from run to run)
+      // stage dQ in the tensor map's box layout once the writer has added
+      // the last tile; the writer adds it into dq in this block's turn
+      // (rows past s_q are not written)
+      if (it > 0) mbar_wait(&dq_empty, (it - 1) & 1);
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
@@ -1079,13 +1147,8 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
                               P.scale);
       fence_proxy_async();
       bar_sync(FB_BAR_DQ, 256);
-      if (issuer) {
-        for (int h = 0; h < 4; ++h)
-          tma_add_3d(&P.tdq, sA + h * FB_Q * 32, 32 * h, q0, bh);
-        bulk_commit();
-      }
+      if (threadIdx.x == 128) mbar_arrive(&dq_full);
     }
-    if (issuer) bulk_wait_read0();
 
     // every kv row of the block is written, zeros where no q reached it
 #pragma unroll
@@ -1199,14 +1262,15 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
 // B6, bf16: dq, dk and dv in one launch. lse and delta: (bh, s_q_pad) f32,
 // s_q_pad = s_q rounded up to a multiple of 64, zero padded; dq_accum:
 // (bh, s_q, 128) f32, zeroed by the caller, receives sum_kv dS K (not yet
-// scaled by 1/sqrt(D), summed in an order that varies from run to run);
-// dk, dv: (bh, s_kv, 128) bf16. scale = 1/sqrt(D) of the unpadded width.
+// scaled by 1/sqrt(D)), added over the kv blocks in ascending order; dk,
+// dv: (bh, s_kv, 128) bf16. scale = 1/sqrt(D) of the unpadded width.
+// turns: bh * ceil(s_q / 64) int32, zeroed by the caller.
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, void* dq_accum, void* dk,
                               void* dv, int bh, int s_q, int s_kv,
                               int kv_valid, int causal, float scale,
-                              void* stream) {
+                              void* turns, void* stream) {
   Bwd P;
   if (!(map_rows(&P.tq, q, s_q, bh, BW_Q) &&
         map_rows(&P.tdo, dout, s_q, bh, BW_Q) &&
@@ -1218,6 +1282,7 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
   P.delta = static_cast<const float*>(delta);
   P.dk = static_cast<bf16*>(dk);
   P.dv = static_cast<bf16*>(dv);
+  P.turns = static_cast<int*>(turns);
   P.s_q = s_q;
   P.s_kv = s_kv;
   P.kv_valid = kv_valid;
@@ -1234,13 +1299,15 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
 // B6, f32: dq, dk and dv in one launch, every product in 3xTF32. lse and
 // delta: (bh, s_q_pad) f32, s_q_pad = s_q rounded up to a multiple of 64,
 // zero padded; dq: (bh, s_q, 128) f32, zeroed by the caller, receives
-// sum_kv dS K / sqrt(D) (summed in an order that varies from run to run);
-// dk, dv: (bh, s_kv, 128) f32. scale = 1/sqrt(D) of the unpadded width.
+// sum_kv dS K / sqrt(D), added over the kv blocks in ascending order; dk,
+// dv: (bh, s_kv, 128) f32. scale = 1/sqrt(D) of the unpadded width.
+// turns: bh * ceil(s_q / 32) int32, zeroed by the caller.
 extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq, void* dk, void* dv,
                              int bh, int s_q, int s_kv, int kv_valid,
-                             int causal, float scale, void* stream) {
+                             int causal, float scale, void* turns,
+                             void* stream) {
   BwdF32 P;
   if (!(map_rows_f32(&P.tq, q, s_q, bh, FB_Q) &&
         map_rows_f32(&P.tdo, dout, s_q, bh, FB_Q) &&
@@ -1252,6 +1319,7 @@ extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v,
   P.delta = static_cast<const float*>(delta);
   P.dk = static_cast<float*>(dk);
   P.dv = static_cast<float*>(dv);
+  P.turns = static_cast<int*>(turns);
   P.s_q = s_q;
   P.s_kv = s_kv;
   P.kv_valid = kv_valid;

@@ -114,6 +114,36 @@ __device__ __forceinline__ void bulk_wait_read0() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// Waits until this thread's bulk groups have completed: their writes to
+// global memory (a reduce-add's included) are done.
+__device__ __forceinline__ void bulk_wait0() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Turns between blocks over a global counter that the caller zeroes: a
+// block waits until the counter reads its turn, does its async-proxy
+// (TMA) writes, waits for them (bulk_wait0) and passes the turn on.
+// wait_turn: acquire at GPU scope, then a proxy fence, so that this
+// thread's later TMA operations see what the turn's last holder wrote.
+__device__ __forceinline__ void wait_turn(const int* turn, int mine) {
+  int seen;
+  do {
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+                 : "=r"(seen)
+                 : "l"(turn)
+                 : "memory");
+  } while (seen != mine);
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// pass_turn: a proxy fence over this thread's completed TMA writes, then
+// `next` stored with release semantics at GPU scope.
+__device__ __forceinline__ void pass_turn(int* turn, int next) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(turn), "r"(next)
+               : "memory");
+}
+
 // `bytes` (a multiple of 16) contiguous bytes into shared memory, both
 // addresses 16-byte aligned; completion counted in bytes on *bar.
 __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,

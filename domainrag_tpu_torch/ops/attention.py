@@ -17,8 +17,10 @@ custom backward, as the JAX package's ``flash_attention`` (:455-493):
   the stored LSE and delta = rowsum(dO*O): p = exp(s/sqrt(D) - lse) in
   natural units on an unscaled q, ds = p*(dp - delta), dq = ds k/sqrt(D),
   dk = ds^T q/sqrt(D), dv = p^T dO. In each dtype one kernel computes all
-  three and adds dq into an f32 tensor across blocks (its sum order varies
-  from run to run), which the wrapper zeroes first. In bf16 that is an
+  three and adds dq into an f32 tensor over the kv blocks in ascending
+  order, as the TPU's dq kernel does along its sequential grid axis, so a
+  backward repeats itself bit for bit; the wrapper zeroes that tensor and
+  one int32 turn per (B*H, q tile) first. In bf16 that tensor is an
   accumulator the wrapper then scales by 1/sqrt(D) and rounds to bf16; in
   f32 (every product as 3xTF32 on the tensor cores) the kernel scales, and
   it is dq.
@@ -64,6 +66,7 @@ LOG2_E = 1.4426950408889634
 LN_2 = 0.6931471805599453
 HEAD_DIM = 128          # the kernels' head width; narrower heads are padded
 BWD_Q_TILE = 64         # lse/delta rows are padded to a multiple of this
+DQ_TURN_ROWS = {torch.bfloat16: 64, torch.float32: 32}   # q rows per turn
 F32_TERM_PLANES = 3     # bf16 planes per f32 tensor of the f32 forward
 DQ_ACCUM_SPAN = "flash_bwd_dq_accum"   # profiler range of its dq_accum ops
 _ROWS = 4096            # q rows per block of the plain versions
@@ -205,8 +208,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         f = ctypes.c_float
         lib.flash_fwd.argtypes = [i] + [p] * 5 + [i] * 5 + [p, p]
-        lib.flash_bwd_bf16.argtypes = [p] * 9 + [i] * 5 + [f, p]
-        lib.flash_bwd_f32.argtypes = [p] * 9 + [i] * 5 + [f, p]
+        lib.flash_bwd_bf16.argtypes = [p] * 9 + [i] * 5 + [f, p, p]
+        lib.flash_bwd_f32.argtypes = [p] * 9 + [i] * 5 + [f, p, p]
         for fn in (lib.flash_fwd, lib.flash_bwd_bf16, lib.flash_bwd_f32):
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -307,28 +310,33 @@ def backward_buffers(q, k, v, out, lse, dout, causal: bool,
 
 
 def launch_backward(buf: SimpleNamespace) -> None:
-    """Run B6, one kernel, on ``buf``. bf16: ``dq_accum`` zeroed, the
-    kernel (dq into ``dq_accum``, dk, dv), then ``dq`` =
-    bf16(dq_accum/sqrt(D)); the two tensor ops run in a profiler range
-    named ``DQ_ACCUM_SPAN``. f32: ``dq`` zeroed, then the kernel, which
-    adds dq/sqrt(D) into it and writes dk, dv."""
+    """Run B6, one kernel, on ``buf``. In a profiler range named
+    ``DQ_ACCUM_SPAN`` it zeroes the f32 tensor that the kernel adds dq
+    into (bf16: ``dq_accum``; f32: ``dq`` itself) and ``dq_turns``, one
+    int32 per (B*H, tile of ``DQ_TURN_ROWS[dtype]`` q rows), which orders
+    the kv blocks' adds. The kernel adds dq (f32: already scaled by
+    1/sqrt(D)) and writes dk, dv; in bf16 ``dq`` is then
+    bf16(dq_accum/sqrt(D)), in the same range."""
     b, h, s_q, s_kv, d = buf.shape
     scale = 1.0 / math.sqrt(d)
     lib = _lib()
     common = (buf.q.data_ptr(), buf.k.data_ptr(), buf.v.data_ptr(),
               buf.dout.data_ptr(), buf.lse.data_ptr(), buf.delta.data_ptr())
-    if buf.q.dtype == torch.bfloat16:
-        with torch.profiler.record_function(DQ_ACCUM_SPAN):
+    dev = buf.q.device
+    with torch.profiler.record_function(DQ_ACCUM_SPAN):
+        if buf.q.dtype == torch.bfloat16:
             buf.dq_accum = acc = torch.zeros(
-                (b * h, s_q, HEAD_DIM), dtype=torch.float32,
-                device=buf.q.device)
-        fn = lib.flash_bwd_bf16
-    else:
-        buf.dq = acc = torch.zeros_like(buf.q)
-        fn = lib.flash_bwd_f32
+                (b * h, s_q, HEAD_DIM), dtype=torch.float32, device=dev)
+        else:
+            buf.dq = acc = torch.zeros_like(buf.q)
+        tiles = -(-s_q // DQ_TURN_ROWS[buf.q.dtype])
+        buf.dq_turns = torch.zeros(b * h * tiles, dtype=torch.int32,
+                                   device=dev)
+    fn = lib.flash_bwd_bf16 if buf.q.dtype == torch.bfloat16 \
+        else lib.flash_bwd_f32
     rc = fn(*common, acc.data_ptr(), buf.dk.data_ptr(), buf.dv.data_ptr(),
             b * h, s_q, s_kv, buf.kv_valid, int(buf.causal), scale,
-            _stream(buf.q))
+            buf.dq_turns.data_ptr(), _stream(buf.q))
     if rc != 0:
         raise RuntimeError(f"flash backward kernel launch failed: CUDA "
                            f"error {rc}")

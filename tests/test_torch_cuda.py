@@ -428,29 +428,46 @@ def test_flash_backward_unreached_kv_rows_are_zero(dev, dtype, s_q, s_kv,
         assert bool(torch.isfinite(g_).all())
 
 
-# dq is summed across kv blocks by the TMA unit in an order that varies
-# from run to run: a bf16 dq repeats within 1e-3 in relative norm (2e-5
-# measured on the H100), an f32 one within REPEAT_F32 (f32 sums of 36
-# block terms in another order: ~1e-7)
-REPEAT_F32 = 1e-6
+# B6 adds dq over the kv blocks in ascending order (the turns of
+# csrc/flash_attention.cu), so a backward repeats itself bit for bit:
+# (b, h, s_q, s_kv, causal, kv_valid, dlse). 36 kv blocks add into every
+# dq row at 4608 keys; causal blocks start at different q tiles; a ragged
+# kv_valid leaves a part block (1044 of 1152 keys, the ring's ragged
+# block) and whole blocks past it; the LSE's gradient enters as delta -
+# dlse (the ring's backward); the trainer's shape fills the card.
+REPEAT_CASES = [
+    (2, 4, 640, 640, False, None, False),
+    (1, 2, 256, 4608, False, None, False),
+    (1, 2, 1000, 1000, True, None, False),
+    (1, 2, 1152, 1408, False, 1044, False),
+    (2, 4, 1152, 1152, False, 1044, True),
+    (2, 24, 4608, 4608, False, None, False),
+]
+REPEAT_IDS = ["s640", "skv4608", "causal_s1000", "kv_valid_1044",
+              "dlse_kv_valid_1044", "trainer_2x24x4608"]
+REPEAT_RUNS = 5
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-def test_flash_backward_repeatable(dev, dtype):
-    """Two runs of the same backward: dq within its bar, dk and dv
-    bit-equal."""
-    q, k, v, dout = _qkv(dev, dtype, 2, 4, 640, 640, 128, seed=13)
-    if dtype == torch.float32:      # 36 kv blocks add into each dq row
-        q, k, v, dout = _qkv(dev, dtype, 1, 2, 256, 4608, 128, seed=13)
-    out, lse = attn.flash_forward_reference(q, k, v)
-    first = attn._kernel_backward(q, k, v, out, lse, dout, False, None)
-    second = attn._kernel_backward(q, k, v, out, lse, dout, False, None)
+@pytest.mark.parametrize("b,h,s_q,s_kv,causal,kv_valid,dlse", REPEAT_CASES,
+                         ids=REPEAT_IDS)
+def test_flash_backward_repeatable(dev, dtype, b, h, s_q, s_kv, causal,
+                                   kv_valid, dlse):
+    """The same backward run REPEAT_RUNS times: dq, dk and dv of every run
+    torch.equal to the first run's."""
+    q, k, v, dout = _qkv(dev, dtype, b, h, s_q, s_kv, 128, seed=13)
+    out, lse = attn.flash_forward_reference(q, k, v, causal, kv_valid)
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    dl = torch.randn(lse.shape, generator=g, device=dev) if dlse else None
+    runs = [attn._kernel_backward(q, k, v, out, lse, dout, causal, kv_valid,
+                                  dl) for _ in range(REPEAT_RUNS)]
     torch.cuda.synchronize()
-    bar = 1e-3 if dtype == torch.bfloat16 else REPEAT_F32
-    assert _rel(second[0], first[0]) < bar
-    assert torch.equal(second[1], first[1])
-    assert torch.equal(second[2], first[2])
+    assert bool(torch.isfinite(runs[0][0]).all())
+    for i, run in enumerate(runs[1:], 1):
+        for name, got, first in zip(("dq", "dk", "dv"), run, runs[0]):
+            assert torch.equal(got, first), (i, name, _rel(got, first))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

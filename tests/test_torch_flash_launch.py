@@ -6,12 +6,15 @@ answers the call.
 - bf16: one call of ``flash_bwd_bf16`` per backward with 64-bit pointers
   (ctypes ``c_void_p``) to the padded rows, the lse and delta rows padded
   to a multiple of 64, an f32 ``dq_accum`` of (B*H, Sq, 128) that is all
-  zeros when the kernel starts, and the caller's stream; ``dq`` is then
+  zeros when the kernel starts, the int32 ``dq_turns`` (one per (B*H,
+  64-row q tile), all zeros when the kernel starts: they order dq's adds
+  over the kv blocks) and the caller's stream; ``dq`` is then
   bf16(dq_accum / sqrt(D)); one count in ``flash_attention.bwd_launches``;
   a non-zero return code raises and counts nothing.
 - f32: one call of ``flash_bwd_f32`` with the same arguments, ``dq``
   itself (f32, zeros when the kernel starts) in the accumulator's place,
-  so that ``dq`` is what the kernel wrote; one count in
+  so that ``dq`` is what the kernel wrote, and one zeroed turn per (B*H,
+  32-row q tile); one count in
   ``flash_attention.bwd_f32_launches``; a non-zero return code raises and
   counts nothing.
 """
@@ -56,6 +59,16 @@ def _floats(ptr, n):
     return np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr))
 
 
+def _turns_zeroed(buf, turns, bh, sq, rows):
+    """``turns`` is ``buf.dq_turns``: int32, one per (bh, q tile of
+    ``rows``), all zeros."""
+    n = bh * -(-sq // rows)
+    assert turns == buf.dq_turns.data_ptr()
+    assert buf.dq_turns.dtype == torch.int32 and buf.dq_turns.numel() == n
+    got = np.ctypeslib.as_array((ctypes.c_int32 * n).from_address(turns))
+    return bool((got == 0).all())
+
+
 @pytest.fixture
 def stub(monkeypatch):
     """Installs a stand-in library; returns a function taking the bodies."""
@@ -86,8 +99,9 @@ def test_bf16_backward_launch_contract(stub, monkeypatch):
     seen = {}
 
     def kernel(q, k, v, dout, lse, delta, dq_accum, dk, dv, bh, sq, skv,
-               kv_valid, causal, scale, stream):
+               kv_valid, causal, scale, turns, stream):
         buf = bufs[-1]
+        seen["turns"] = _turns_zeroed(buf, turns, bh, sq, 64)
         assert (q, k, v, dout) == tuple(
             t.data_ptr() for t in (buf.q, buf.k, buf.v, buf.dout))
         assert (lse, delta, dq_accum, dk, dv) == tuple(
@@ -110,9 +124,9 @@ def test_bf16_backward_launch_contract(stub, monkeypatch):
     assert lib.flash_bwd_f32.calls == []
     p = ctypes.c_void_p
     assert lib.flash_bwd_bf16.argtypes[:9] == [p] * 9
-    assert lib.flash_bwd_bf16.argtypes[-1] is p
-    assert lib.flash_bwd_bf16.argtypes[-2] is ctypes.c_float
-    assert seen["zeros"]
+    assert lib.flash_bwd_bf16.argtypes[-2:] == [p, p]
+    assert lib.flash_bwd_bf16.argtypes[-3] is ctypes.c_float
+    assert seen["zeros"] and seen["turns"]
     bh, sq, skv, kv_valid, causal, scale, stream = seen["args"]
     assert (bh, sq, skv, kv_valid, causal, stream) == (b * h, s_q, s_kv, 80,
                                                        1, STREAM)
@@ -163,8 +177,9 @@ def test_f32_backward_launches_dq_then_dkv(stub, monkeypatch):
     seen = {}
 
     def kernel(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, skv, kv_valid,
-               causal, scale, stream):
+               causal, scale, turns, stream):
         buf = bufs[-1]
+        seen["turns"] = _turns_zeroed(buf, turns, bh, sq, 32)
         assert (q, k, v, dout, lse, delta, dq, dk, dv) == tuple(
             t.data_ptr() for t in (buf.q, buf.k, buf.v, buf.dout, buf.lse,
                                    buf.delta, buf.dq, buf.dk, buf.dv))
@@ -185,8 +200,8 @@ def test_f32_backward_launches_dq_then_dkv(stub, monkeypatch):
     assert lib.flash_bwd_bf16.calls == []
     p = ctypes.c_void_p
     assert lib.flash_bwd_f32.argtypes[:9] == [p] * 9
-    assert lib.flash_bwd_f32.argtypes[-2:] == [ctypes.c_float, p]
-    assert seen["zeros"]
+    assert lib.flash_bwd_f32.argtypes[-3:] == [ctypes.c_float, p, p]
+    assert seen["zeros"] and seen["turns"]
     bh, sq, skv, kv_valid, causal, scale, stream = seen["args"]
     assert (bh, sq, skv, kv_valid, causal, stream) == (b * h, s_q, s_kv,
                                                        s_kv, 0, STREAM)
