@@ -227,27 +227,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
 22. a small trainer card vs CPU: a head_dim-128 toy MMDiT (hidden 256,
     one double and one single block) at 128 px, three ``train_step``s
     from the same weights, batches, t and eps, with bf16 and with f32
-    batches, losses, first-step gradients and updates within stated
-    limits, launch counts asserted;
+    batches, both computed in f32 (a bf16 batch is promoted, as JAX's
+    flow_match_loss promotes it), losses, first-step gradients and
+    updates within stated limits, compute dtype and launch counts
+    asserted;
 23. the trainer at FLUX.1-dev width cut in depth to 2 double + 4 single
     blocks (default 19 + 38; 1.31 B f32 params drawn on the card):
     ``train.loop.fit`` with remat for 4 steps on synthetic bf16 batches
     (batch 2, 1024 px = 4096 image tokens, 512 T5 tokens), one checkpoint
     written at the end under ``OUT`` and restored (then deleted); finite
-    losses, changed params and the launch counts per step (B1 4, B2 8,
-    B5 6, B6 6, B3 0), seconds per step, peak memory, checkpoint time;
-    then one step through ``train_step`` (JAX's name) and one through
-    ``make_train_step``'s step from the same params, t and eps: losses
-    and every updated leaf torch.equal;
+    losses, changed params, compute dtype float32 and the launch counts
+    per step (B5 f32 12, B6 f32 6; B1, B2, B3 and B6 bf16 0), which the
+    f32 kernel rows take, seconds per step, peak memory, checkpoint
+    time; then one step through ``train_step`` (JAX's name) and one
+    through ``make_train_step``'s step from the same params, t and eps:
+    losses and every updated leaf torch.equal;
 24. one traced full-width train step (``OUT/profile_train.txt``), grouped
     into the fused forward, B5, B6 (with its dq_accum zeroing, scale and
     cast), GEMMs, the optimizer and the rest;
 25. one full-width ``fit`` step on f32 batches (the dtype
-    ``latent_batches_from_images`` yields): no fused kernel, B5 12 and B6
-    6 launches, finite loss, changed params; the f32 kernel rows take
-    these counts; with ``--parent``, four steady f32 steps timed in
-    turns, the parent's B6 in two (and after phase 24, four bf16 steps
-    the same way);
+    ``latent_batches_from_images`` yields), the same computation as a
+    bf16 batch's: no fused kernel, B5 12 and B6 f32 6 launches, finite
+    loss, changed params; with ``--parent``, four steady f32 steps timed
+    in turns, the parent's B6 in two (and after phase 24, four bf16-batch
+    steps the same way);
 26. training over a mesh (``phase_train_mesh``): ``fit(mesh=
     create_mesh(), fsdp=True)`` on the one-rank NCCL group against the
     one-card step from the same params, batches and seed, run twice (2
@@ -255,16 +258,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
     a TP train step at 2 ranks in
     threads (full width cut to 1 + 1 blocks; the gathered gradients
     against the unsharded step's on the same kernels), then rank 0 of 4
-    (6 of 24 heads) alone at the trainer's cut, forward + backward ms
-    and B5 12 / B6 6 launches, with B5 and B6 rows at its shape; an
-    FSDP rank of 4 alone (its params, gradients and AdamW bytes against
-    the whole, and its step's time); the ring's gradient at the
-    trainer's 4608 tokens over 4 ranks: B6 with the LSE's gradient
-    against its plain version on a 1152-key block and a ragged one
-    (rows with kernel, plain and SDPA-backward times), every rank's fold
-    differentiated in turn (B5 16, B6 16) and gathered against autograd
-    of f32 dense attention; ``ops/image.py`` on the card against the
-    CPU;
+    (6 of 24 heads) alone at the trainer's cut on a bf16 batch
+    (computed in f32), forward + backward ms and B5 12 / B6 f32 6
+    launches, with B5 and B6 rows at its shape in f32 and bf16; an FSDP
+    rank of 4 alone (its params, gradients and AdamW bytes against the
+    whole, its step's time and its launches); the ring's gradient at the
+    trainer's 4608 tokens over 4 ranks, in f32 and in bf16: B5 and B6
+    with the LSE's gradient against their plain versions on a 1152-key
+    block and a ragged one (B6 rows with kernel, plain and SDPA-backward
+    times), every rank's fold differentiated in turn and gathered
+    against autograd of f32 dense attention, with exact B5 / B6 counts;
+    ``ops/image.py`` on the card against the CPU;
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.
 """
@@ -1335,13 +1339,12 @@ def _flash_counts():
     return f.launches, f.bwd_launches, f.bwd_f32_launches
 
 
-def _flash_launches(rows, tag, counts):
-    """Writes a trainer run's B5 and B6 counts (``_flash_counts``) into the
-    rows at the trainer's attention shape in ``tag``'s dtype, and no other
-    row: one B6 kernel in each dtype."""
-    kinds = {"fwd": counts[0], "bwd": counts[1 if tag == "bf16" else 2]}
-    for kind, n in kinds.items():
-        rows[f"flash_{kind}_{tag}_b{TRAIN_B}_s{S_TRAIN}"]["launches"] = n
+def _flash_launches(rows, counts):
+    """Writes a trainer run's B5 and B6 f32 counts (``_flash_counts``) into
+    the f32 rows at the trainer's attention shape, and no other row: the
+    trainer computes in f32 for a batch of any dtype."""
+    rows[f"flash_fwd_f32_b{TRAIN_B}_s{S_TRAIN}"]["launches"] = counts[0]
+    rows[f"flash_bwd_f32_b{TRAIN_B}_s{S_TRAIN}"]["launches"] = counts[2]
 
 
 def _read_counts(mma, rows, regime, depth, passes):
@@ -3384,12 +3387,57 @@ def _leaves_cat(tree):
                       for t in flow_match.leaves(tree)])
 
 
+def _trainer_counts(mma):
+    """(B1, B2, B3, B5, B6 bf16, B6 f32) launches."""
+    d, s = mma.mmdit_double_attention, mma.mmdit_single_attention
+    return (d.launches, s.launches, d.mp_launches + s.mp_launches,
+            *_flash_counts())
+
+
+def _trainer_want(blocks, steps=1):
+    """``_trainer_counts`` of ``steps`` train steps with remat over
+    ``blocks`` blocks, for a batch of any dtype: a bf16 batch computes in
+    f32, as JAX's flow_match_loss promotes it, so every block runs the
+    unfused composition, B5 f32 in its forward and in its remat recompute
+    and B6 f32 in its backward, and no fused or bf16 attention kernel."""
+    return (0, 0, 0, 2 * blocks * steps, 0, blocks * steps)
+
+
+@contextlib.contextmanager
+def _compute_dtypes():
+    """The set of dtypes that ``flux.apply`` computes in (its x_t's) while
+    the context is open: the trainer's compute dtype."""
+    from domainrag_tpu_torch.models.flux import model as fm
+    seen, real = set(), fm.apply
+
+    def spy(params, img_tokens, *args, **kw):
+        seen.add(img_tokens.dtype)
+        return real(params, img_tokens, *args, **kw)
+    fm.apply = spy
+    try:
+        yield seen
+    finally:
+        fm.apply = real
+
+
+def _f32_compute(what, seen, counts, want):
+    """Raises unless the trainer computed in f32 only (``seen``, from
+    ``_compute_dtypes``) and launched ``want``."""
+    import torch
+    if seen != {torch.float32}:
+        raise AssertionError(f"{what}: computed in {sorted(map(str, seen))}"
+                             ", not float32 alone")
+    if counts != want:
+        raise AssertionError(f"{what}: kernel launch counts {counts} differ "
+                             f"from {want}")
+
+
 def phase_small_trainer(dev):
     """A head_dim-128 toy MMDiT (hidden 256, one double and one single
     block) at 128 px: three ``train_step``s on the card and on the CPU
-    from the same weights, batches, t and eps, once with bf16 batches (the
-    fused forward, B5/B6 in the backward) and once with f32 batches (B5/B6
-    only). Also the first step's gradients, card vs CPU."""
+    from the same weights, batches, t and eps, once with bf16 batches and
+    once with f32 batches, both computed in f32 (B5/B6 f32 only). Also
+    the first step's gradients, card vs CPU."""
     import torch
     from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.models.flux import model as fm
@@ -3410,11 +3458,6 @@ def phase_small_trainer(dev):
              "t": 1 / (1 + np.exp(-rng.standard_normal(2))),
              "eps": rng.standard_normal((2, grid * grid, 64))}
             for _ in range(steps)]
-    # per step: each block's fused forward twice (forward and the remat
-    # recompute), the unfused recompute's B5 and B6 once per block; f32
-    # runs B5 in each forward instead, and the f32 B6
-    want_counts = {torch.bfloat16: (2, 2, 2, 2, 0),
-                   torch.float32: (0, 0, 4, 0, 2)}
     for dtype in (torch.bfloat16, torch.float32):
         runs = []
         for where in (dev, cpu):
@@ -3438,32 +3481,31 @@ def phase_small_trainer(dev):
             grad0 = torch.cat([gr.float().reshape(-1).cpu() for gr in grads])
             _reset_counts(mma)
             losses = []
-            for b, (t, e) in zip(batches, t_eps):
-                params, opt, l_ = step(params, opt, b, None, t=t, eps=e)
-                losses.append(l_.item())
-            counts = (mma.mmdit_double_attention.launches,
-                      mma.mmdit_single_attention.launches, *_flash_counts())
-            runs.append((losses, grad0, _leaves_cat(params), counts))
-        (l_card, g_card, p_card, counts), (l_cpu, g_cpu, p_cpu, _) = runs
+            with _compute_dtypes() as seen:
+                for b, (t, e) in zip(batches, t_eps):
+                    params, opt, l_ = step(params, opt, b, None, t=t, eps=e)
+                    losses.append(l_.item())
+            runs.append((losses, grad0, _leaves_cat(params),
+                         _trainer_counts(mma), seen))
+        (l_card, g_card, p_card, counts, seen), (l_cpu, g_cpu, p_cpu, _,
+                                                 _) = runs
         p0 = _leaves_cat(base)
         d_card, d_cpu = p_card - p0, p_cpu - p0
         grad_rel = ((g_card - g_cpu).norm() / g_cpu.norm()).item()
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
         upd_rel = ((d_card - d_cpu).norm() / d_cpu.norm()).item()
         upd_max = (d_card - d_cpu).abs().max().item()
-        want = tuple(steps * n for n in want_counts[dtype])
-        print(f"small trainer ({dtype}, {steps} steps, 128 px, head_dim 128):"
-              f" losses card {[round(x, 6) for x in l_card]} CPU "
+        want = _trainer_want(2, steps)
+        print(f"small trainer (batch dtype {dtype}, compute dtype "
+              f"{sorted(map(str, seen))}, {steps} steps, 128 px, head_dim "
+              f"128): losses card {[round(x, 6) for x in l_card]} CPU "
               f"{[round(x, 6) for x in l_cpu]} (max rel {loss_rel:.3e}), "
               f"first-step grads rel_norm {grad_rel:.3e}, param updates "
               f"rel_norm {upd_rel:.3e} max abs {upd_max:.3e} (lr "
-              f"{tcfg.learning_rate}); launches B1/B2/B5/B6/B6 f32 "
-              f"{counts}"
-              f" (expected {want})")
-        f32 = dtype == torch.float32
-        lim = SMALL_TRAIN_F32 if f32 else SMALL_TRAIN_BF16
-        if counts != want:
-            raise AssertionError("small trainer: launch counts differ")
+              f"{tcfg.learning_rate}); launches B1/B2/B3/B5/B6/B6 f32 "
+              f"{counts} (expected {want})")
+        _f32_compute(f"small trainer ({dtype})", seen, counts, want)
+        lim = SMALL_TRAIN
         if not (all(np.isfinite(l_card)) and loss_rel < lim[0]
                 and grad_rel < lim[1] and upd_rel < lim[2]):
             raise AssertionError(f"small trainer ({dtype}): card and CPU "
@@ -3472,12 +3514,10 @@ def phase_small_trainer(dev):
 
 # card vs CPU limits of the small trainer: (loss rel, first-step grads
 # rel norm, param updates rel norm), about 5x what was measured on the
-# H100. f32: summation order only, then Adam (g/(|g|+eps) ~ sign g)
-# amplifies it for near-zero gradients. bf16: the kernels round P against
-# a running max and P, dS to bf16, the CPU plain versions do not, and Adam
-# turns the sign of small gradients.
-SMALL_TRAIN_F32 = (1e-6, 1e-5, 5e-4)
-SMALL_TRAIN_BF16 = (1e-3, 2e-2, 0.15)
+# H100 with f32 batches. Both batch dtypes compute in f32: summation order
+# only, then Adam (g/(|g|+eps) ~ sign g) amplifies it for near-zero
+# gradients.
+SMALL_TRAIN = (1e-6, 1e-5, 5e-4)
 
 
 class _Spans:
@@ -3531,8 +3571,10 @@ def _train_step_twins(dev, cfg, params, batch):
     from the same params, t and eps (the params put back from a copy on
     the card between them; one optimizer state alive at a time): both run
     ``flow_match._step`` on the same kernels, and B6 adds dq in a fixed
-    order, so the losses and every updated leaf must be torch.equal."""
+    order, so the losses and every updated leaf must be torch.equal. The
+    bf16 batch computes in f32: two steps' launches are counted."""
     import torch
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
     from domainrag_tpu_torch.train import flow_match
     t_all = time.perf_counter()
     tcfg = flow_match.TrainConfig(remat=True)
@@ -3545,9 +3587,11 @@ def _train_step_twins(dev, cfg, params, batch):
     optimizer = flow_match.make_optimizer(tcfg)
     opt = optimizer.init(params)
     torch.cuda.synchronize()
+    _reset_counts(mma)
     t0 = time.perf_counter()
-    _, opt, loss_a = flow_match.train_step(params, opt, batch, None, cfg,
-                                           tcfg, optimizer, t=t, eps=eps)
+    with _compute_dtypes() as seen:
+        _, opt, loss_a = flow_match.train_step(params, opt, batch, None, cfg,
+                                               tcfg, optimizer, t=t, eps=eps)
     torch.cuda.synchronize()
     secs_a = time.perf_counter() - t0
     after_a = [p.detach().clone() for p in flow_match.leaves(params)]
@@ -3560,9 +3604,13 @@ def _train_step_twins(dev, cfg, params, batch):
     step, params, opt = flow_match.make_train_step(cfg, tcfg, params)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, opt, loss_b = step(params, opt, batch, None, t=t, eps=eps)
+    with _compute_dtypes() as seen_b:
+        _, opt, loss_b = step(params, opt, batch, None, t=t, eps=eps)
     torch.cuda.synchronize()
     secs_b = time.perf_counter() - t0
+    seen |= seen_b
+    counts = _trainer_counts(mma)
+    want = _trainer_want(cfg.depth_double + cfg.depth_single, 2)
     differ = num = den = 0
     moved = False
     for p, s, a in zip(flow_match.leaves(params), start, after_a):
@@ -3583,7 +3631,10 @@ def _train_step_twins(dev, cfg, params, batch):
           f"(update relative norm {rel_update:.3e}; torch.equal required); "
           f"one step each from a fresh optimizer state {secs_a:.3f} s / "
           f"{secs_b:.3f} s, the check {time.perf_counter() - t_all:.1f} s "
-          f"in all ({CARD})")
+          f"in all ({CARD}); batch dtype {batch['x0'].dtype}, compute dtype "
+          f"{sorted(map(str, seen))}, launches B1/B2/B3/B5/B6/B6 f32 "
+          f"{counts} (expected {want})")
+    _f32_compute("train_step and the step", seen, counts, want)
     if not torch.equal(loss_a, loss_b):
         raise AssertionError("train_step: the loss differs from the step's")
     if differ or not moved:
@@ -3594,8 +3645,9 @@ def _train_step_twins(dev, cfg, params, batch):
 def phase_train(dev, rows):
     """The trainer at FLUX.1-dev width cut in depth: ``fit`` with remat
     for TRAIN_STEPS steps on synthetic bf16 batches (batch 2, 1024 px =
-    4096 image tokens, 512 T5 tokens), one checkpoint at the end under
-    OUT, restored; the launch counts per step."""
+    4096 image tokens, 512 T5 tokens), computed in f32 as JAX's
+    flow_match_loss promotes them, one checkpoint at the end under OUT,
+    restored; the launch counts per step, which the f32 rows take."""
     import shutil
     import torch
     from domainrag_tpu_torch.ops import mmdit_attention as mma
@@ -3605,7 +3657,8 @@ def phase_train(dev, rows):
     print(f"trainer cuts: depth {TRAIN_DEPTH[0]} double + {TRAIN_DEPTH[1]} "
           f"single blocks (FLUX.1-dev has 19 + 38), {TRAIN_STEPS} steps, "
           f"batch {TRAIN_B}, {TRAIN_GRID * 16} px ({TRAIN_GRID ** 2} image "
-          f"tokens) + {TRAIN_TXT} T5 tokens, synthetic bf16 batches")
+          f"tokens) + {TRAIN_TXT} T5 tokens, synthetic bf16 batches "
+          f"(computed in f32)")
     torch.cuda.reset_peak_memory_stats()
     cfg, params, batches = _full_train_setup(dev)
     n_params = sum(t.numel() for t in flow_match.leaves(params))
@@ -3616,26 +3669,20 @@ def phase_train(dev, rows):
     shutil.rmtree(root, ignore_errors=True)
     spans = _Spans()
     _reset_counts(mma)
-    params, losses = loop.fit(
-        params, cfg, batches(), TRAIN_STEPS,
-        flow_match.TrainConfig(remat=True), checkpoint_dir=str(root),
-        checkpoint_every=1000, seed=0, log_every=1, timer=spans)
+    with _compute_dtypes() as seen:
+        params, losses = loop.fit(
+            params, cfg, batches(), TRAIN_STEPS,
+            flow_match.TrainConfig(remat=True), checkpoint_dir=str(root),
+            checkpoint_every=1000, seed=0, log_every=1, timer=spans)
     torch.cuda.synchronize()
-    counts = (mma.mmdit_double_attention.launches,
-              mma.mmdit_single_attention.launches,
-              mma.mmdit_double_attention.mp_launches
-              + mma.mmdit_single_attention.mp_launches, *_flash_counts())
-    d, sg = cfg.depth_double, cfg.depth_single
-    # per step: each fused block twice (forward, remat recompute), then one
-    # unfused recompute per block in the backward: B5 once, B6 once
-    want = tuple(TRAIN_STEPS * n for n in (2 * d, 2 * sg, 0, d + sg, d + sg,
-                                           0))
-    print(f"launches on the path: B1 {counts[0]}, B2 {counts[1]}, B3 "
-          f"{counts[2]}, B5 {counts[3]}, B6 {counts[4]}, B6 f32 "
+    counts = _trainer_counts(mma)
+    want = _trainer_want(cfg.depth_double + cfg.depth_single, TRAIN_STEPS)
+    print(f"launches on the path (batch dtype bfloat16, compute dtype "
+          f"{sorted(map(str, seen))}): B1 {counts[0]}, B2 {counts[1]}, B3 "
+          f"{counts[2]}, B5 {counts[3]}, B6 bf16 {counts[4]}, B6 f32 "
           f"{counts[5]} (expected {want})")
-    if counts != want:
-        raise AssertionError("trainer: kernel launch counts differ")
-    _flash_launches(rows, "bf16", counts[3:])
+    _f32_compute("trainer", seen, counts, want)
+    _flash_launches(rows, counts[3:])
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"trainer losses {losses}")
     moved = (probe - before).abs().max().item()
@@ -3741,7 +3788,7 @@ def phase_profile_train(dev, cfg, params, batches):
     for ms, n, name in kernels[:10]:
         print(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
     if PARENT:
-        _parent_step_turns("bf16 train step",
+        _parent_step_turns("bf16-batch train step",
                            lambda: step(params, opt, batch, g))
 
 
@@ -3757,16 +3804,15 @@ def _range_device_ms(prof, name):
     return total
 
 
-def phase_train_f32(dev, cfg, params, batches, rows):
+def phase_train_f32(dev, cfg, params, batches):
     """One full-width ``fit`` step (the phase_train model) on f32 batches,
-    the dtype ``latent_batches_from_images`` yields: the fused kernels want
-    bf16, so every block runs the unfused composition, B5 in its forward
-    and in its remat recompute and B6 in its backward. The counts are set
-    to 0 just before and read just after; the f32 rows take them. With
-    ``--parent``, four steady steps follow, timed in turns with the
-    parent's B6 in two."""
+    the dtype ``latent_batches_from_images`` yields: the same computation
+    as a bf16 batch's step (both f32: every block runs the unfused
+    composition, B5 f32 in its forward and in its remat recompute and B6
+    f32 in its backward). The counts are set to 0 just before and read
+    just after. With ``--parent``, four steady steps follow, timed in
+    turns with the parent's B6 in two."""
     import torch
-    from domainrag_tpu_torch.ops import attention as attn
     from domainrag_tpu_torch.ops import mmdit_attention as mma
     from domainrag_tpu_torch.train import flow_match, loop
 
@@ -3779,26 +3825,22 @@ def phase_train_f32(dev, cfg, params, batches, rows):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _reset_counts(mma)
-    params, losses = loop.fit(params, cfg, f32, 1,
-                              flow_match.TrainConfig(remat=True), seed=1,
-                              log_every=1)
+    with _compute_dtypes() as seen:
+        params, losses = loop.fit(params, cfg, f32, 1,
+                                  flow_match.TrainConfig(remat=True), seed=1,
+                                  log_every=1)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = (mma.mmdit_double_attention.launches,
-              mma.mmdit_single_attention.launches,
-              mma.mmdit_double_attention.mp_launches
-              + mma.mmdit_single_attention.mp_launches, *_flash_counts())
-    n = cfg.depth_double + cfg.depth_single
-    want = (0, 0, 0, 2 * n, 0, n)
-    print(f"launches on the path (f32 trainer, one step): B1 {counts[0]}, "
-          f"B2 {counts[1]}, B3 {counts[2]}, B5 {counts[3]}, B6 bf16 "
-          f"{counts[4]}, B6 f32 {counts[5]} (expected {want})")
-    if counts != want:
-        raise AssertionError("f32 trainer: kernel launch counts differ")
+    counts = _trainer_counts(mma)
+    want = _trainer_want(cfg.depth_double + cfg.depth_single)
+    print(f"launches on the path (f32 trainer, one step; batch dtype "
+          f"float32, compute dtype {sorted(map(str, seen))}): B1 "
+          f"{counts[0]}, B2 {counts[1]}, B3 {counts[2]}, B5 {counts[3]}, B6 "
+          f"bf16 {counts[4]}, B6 f32 {counts[5]} (expected {want})")
+    _f32_compute("f32 trainer", seen, counts, want)
     moved = (probe.detach() - before).abs().max().item()
     if len(losses) != 1 or not np.isfinite(losses[0]) or not moved > 0:
         raise AssertionError(f"f32 trainer: loss {losses}, max |dw| {moved}")
-    _flash_launches(rows, "f32", counts[3:])
     print(f"f32 trainer: loss {losses[0]:.5f}, params moved (max |dw| "
           f"{moved:.3e} on one leaf), {secs:.3f} s for the step (the first, "
           f"with the optimizer's state allocated), max_memory_allocated "
@@ -4620,10 +4662,12 @@ def _mesh_fit(dev, rows):
     over the kv blocks in a fixed order, so both losses and every leaf
     after the 2 steps must be torch.equal across the three runs (and the
     leaves must have moved). The checkpoint must restore fit's final
-    tree, torch.equal."""
+    tree, torch.equal. The bf16 batches compute in f32: the six steps'
+    launches are counted."""
     import shutil
     import torch
     from domainrag_tpu_torch.core import device as device_mod
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
     from domainrag_tpu_torch.parallel import mesh as mesh_mod
     from domainrag_tpu_torch.train import checkpoint as ckpt
     from domainrag_tpu_torch.train import flow_match, loop
@@ -4633,22 +4677,27 @@ def _mesh_fit(dev, rows):
     tcfg = flow_match.TrainConfig(remat=True)
     start = [p.detach().clone() for p in flow_match.leaves(params)]
     runs = []
-    for _ in range(2):
-        step, tree, opt = flow_match.make_train_step(
-            cfg, tcfg, _tree(lambda t: t.detach().clone(), params))
-        g = device_mod.generator(0, dev)
-        runs.append(([step(tree, opt, b, g)[2].item() for b in data],
-                     flow_match.leaves(tree)))
-        del opt
-    root = OUT / "mesh_ckpt"
-    shutil.rmtree(root, ignore_errors=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    final, losses = loop.fit(params, cfg, iter(data), 2, tcfg,
-                             mesh=mesh_mod.create_mesh(), fsdp=True,
-                             checkpoint_dir=str(root), seed=0, log_every=1)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    _reset_counts(mma)
+    with _compute_dtypes() as seen:
+        for _ in range(2):
+            step, tree, opt = flow_match.make_train_step(
+                cfg, tcfg, _tree(lambda t: t.detach().clone(), params))
+            g = device_mod.generator(0, dev)
+            runs.append(([step(tree, opt, b, g)[2].item() for b in data],
+                         flow_match.leaves(tree)))
+            del opt
+        root = OUT / "mesh_ckpt"
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, losses = loop.fit(params, cfg, iter(data), 2, tcfg,
+                                 mesh=mesh_mod.create_mesh(), fsdp=True,
+                                 checkpoint_dir=str(root), seed=0,
+                                 log_every=1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = _trainer_counts(mma)
+    want_counts = _trainer_want(cfg.depth_double + cfg.depth_single, 6)
 
     def differ(a, b):
         """The leaves of ``a`` that are not torch.equal to ``b``'s."""
@@ -4671,7 +4720,10 @@ def _mesh_fit(dev, rows):
           f"fit {apart[1]} of {len(one)} ({moved} moved from the start); "
           f"checkpoint restores fit's tree: {same}; {secs:.3f} s for fit's 2 "
           "steps and its checkpoint (the first step allocates the "
-          "optimizer's state)")
+          f"optimizer's state); bf16 batches, compute dtype "
+          f"{sorted(map(str, seen))}, launches B1/B2/B3/B5/B6/B6 f32 over "
+          f"the 6 steps {counts} (expected {want_counts})")
+    _f32_compute("fit over the one-rank mesh", seen, counts, want_counts)
     if losses != want or again != want or any(apart) or not moved:
         raise AssertionError("fit over the one-rank mesh and the one-card "
                              "step do not repeat one another bit for bit")
@@ -4704,7 +4756,8 @@ def _mesh_tp(dev, rows):
     collectives of ``_ThreadMesh``) at full width cut to 1 + 1 blocks,
     the gathered gradients against the unsharded step's on the same
     kernels. Timing: rank 0 of 4 (6 of 24 heads) alone at the trainer's
-    cut, forward + backward with remat, and its exact B5/B6 counts."""
+    cut, forward + backward with remat on a bf16 batch (computed in f32),
+    and its exact B5/B6 counts."""
     import torch
     from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.models.flux import model as fm
@@ -4764,78 +4817,92 @@ def _mesh_tp(dev, rows):
         return _tp_loss_grads(local, batch, cfg, tcfg, t, eps, alone)
 
     _reset_counts(mma)
-    fwd_bwd()
+    with _compute_dtypes() as seen:
+        fwd_bwd()
     torch.cuda.synchronize()
-    counts = _flash_counts() + (mma.mmdit_double_attention.launches
-                                + mma.mmdit_single_attention.launches,)
-    n = cfg.depth_double + cfg.depth_single
-    want_counts = (2 * n, n, 0, 0)
+    counts = _trainer_counts(mma)
+    want_counts = _trainer_want(cfg.depth_double + cfg.depth_single)
     ms = _ms(fwd_bwd, 10, 2)
     print(f"[{CARD}] TP rank 0 of {MESH_RANKS} ({heads} of {HEADS} heads) "
           f"alone, trainer cut {TRAIN_DEPTH}, bf16 batch {TRAIN_B} x "
-          f"{S_TRAIN} tokens, remat: forward + backward {ms:.1f} ms; "
-          f"launches B5 {counts[0]}, B6 {counts[1]}, B6 f32 {counts[2]}, "
-          f"fused {counts[3]} (expected {want_counts})")
-    if counts != want_counts:
-        raise AssertionError("TP rank: launch counts differ")
+          f"{S_TRAIN} tokens, compute dtype {sorted(map(str, seen))}, "
+          f"remat: forward + backward {ms:.1f} ms; launches "
+          f"B1/B2/B3/B5/B6/B6 f32 {counts} (expected {want_counts})")
+    _f32_compute("TP rank", seen, counts, want_counts)
     _flash_tp_rows(dev, rows, heads, counts)
     del params, local
     torch.cuda.empty_cache()
 
 
 def _flash_tp_rows(dev, rows, heads, counts):
-    """B5 and B6 at a TP rank's attention shape (2, 6, 4608, 128) bf16:
-    against the plain versions, with the kernel, plain and SDPA times."""
+    """B5 and B6 at a TP rank's attention shape (2, 6, 4608, 128), in f32
+    (the rank's train step, which takes ``counts``, its
+    ``_trainer_counts``) and in bf16 (held, on no train step): against the
+    plain versions, every B6 call twice torch.equal, with the kernel,
+    plain and SDPA times."""
     import torch
     import torch.nn.functional as F
     from domainrag_tpu_torch.ops import attention as attn
     g = torch.Generator(device=dev)
     g.manual_seed(32)
     shape = (TRAIN_B, heads, S_TRAIN, S_TRAIN, HD)
-    q, k, v, do = (torch.randn((TRAIN_B, heads, S_TRAIN, HD), generator=g,
-                               device=dev).to(torch.bfloat16)
-                   for _ in range(4))
-    out, lse = attn._kernel_forward(q, k, v, False, None)
-    want, want_lse = attn.flash_forward_reference(q, k, v)
-    name = f"flash_fwd_bf16_tp_rank_h{heads}_s{S_TRAIN}"
-    rows[name] = _flash_row(
-        name, "ops/attention.py:110", _check(name, out, want),
-        _ms(lambda: attn._kernel_forward(q, k, v, False, None), 20),
-        _ms(lambda: attn.flash_forward_reference(q, k, v), 3, 1),
-        _ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
-        _flash_bound(4, shape, False))
-    rows[name]["launches"] = counts[0]
-    buf = attn.backward_buffers(q, k, v, want, want_lse, do, False)
-    name = f"flash_bwd_bf16_tp_rank_h{heads}_s{S_TRAIN}"
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        tag = "f32" if f32 else "bf16"
+        q, k, v, do = (torch.randn((TRAIN_B, heads, S_TRAIN, HD),
+                                   generator=g, device=dev).to(dtype)
+                       for _ in range(4))
+        out, lse = attn._kernel_forward(q, k, v, False, None)
+        want, want_lse = attn.flash_forward_reference(q, k, v)
+        name = f"flash_fwd_{tag}_tp_rank_h{heads}_s{S_TRAIN}"
+        err = (_check_grad(name, out, want, True) if f32
+               else _check(name, out, want))
+        if (lse - want_lse).abs().max().item() > LSE_ATOL:
+            raise AssertionError(f"{name}: lse disagrees")
+        rows[name] = _flash_row(
+            name, "ops/attention.py:110", err,
+            _ms(lambda: attn._kernel_forward(q, k, v, False, None), 20),
+            _ms(lambda: attn.flash_forward_reference(q, k, v), 3, 1),
+            _ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+            _flash_bound(24, shape, f32, 4, PEAK_BF16) if f32
+            else _flash_bound(4, shape, f32))
+        rows[name]["launches"] = counts[3] if f32 else 0
+        buf = attn.backward_buffers(q, k, v, want, want_lse, do, False)
+        name = f"flash_bwd_{tag}_tp_rank_h{heads}_s{S_TRAIN}"
 
-    def b6():
-        attn.launch_backward(buf)
-        return buf.dq, buf.dk, buf.dv
-    got = _b6_repeats(name, b6)
-    ref = attn.flash_backward_reference(q, k, v, want, want_lse, do)
-    errs = [_check_grad(f"{name} d{nm}", a.reshape(
-        q.shape[:3] + (-1,))[..., :HD], b, False)
-        for nm, a, b in zip("qkv", got, ref)]
-    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    sdpa = F.scaled_dot_product_attention(*leaves)
-    rows[name] = _flash_row(
-        name, "ops/attention.py:296,336", max(errs),
-        _ms(lambda: attn.launch_backward(buf), 10),
-        _ms(lambda: attn.flash_backward_reference(q, k, v, want, want_lse,
-                                                  do), 3, 1),
-        _ms(lambda: torch.autograd.grad(sdpa, leaves, do,
-                                        retain_graph=True), 10),
-        _flash_bound(10, shape, False, 8))
-    rows[name]["launches"] = counts[1]
-    if PARENT:
-        _parent_b6(name, buf, lambda: attn.launch_backward(buf), 10)
+        def b6():
+            attn.launch_backward(buf)
+            return buf.dq, buf.dk, buf.dv
+        got = _b6_repeats(name, b6)
+        ref = attn.flash_backward_reference(q, k, v, want, want_lse, do)
+        errs = [_check_grad(f"{name} d{nm}", a.reshape(
+            q.shape[:3] + (-1,))[..., :HD], b, f32)
+            for nm, a, b in zip("qkv", got, ref)]
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        sdpa = F.scaled_dot_product_attention(*leaves)
+        rows[name] = _flash_row(
+            name, "ops/attention.py:296,336", max(errs),
+            _ms(lambda: attn.launch_backward(buf), 10),
+            _ms(lambda: attn.flash_backward_reference(q, k, v, want,
+                                                      want_lse, do), 3, 1),
+            _ms(lambda: torch.autograd.grad(sdpa, leaves, do,
+                                            retain_graph=True), 10),
+            _flash_bound(30, shape, f32, 8, PEAK_TF32) if f32
+            else _flash_bound(10, shape, f32, 8))
+        rows[name]["launches"] = counts[5] if f32 else counts[4]
+        if PARENT:
+            _parent_b6(name, buf, lambda: attn.launch_backward(buf), 10)
+        del q, k, v, do, out, want, buf, got, ref, leaves, sdpa
+        torch.cuda.empty_cache()
 
 
 def _mesh_fsdp(dev, rows):
     """Rank 0 of an FSDP data axis of 4 at the trainer's cut, alone (the
     gathers stand in): the bytes of its params, gradients and AdamW state
-    against the whole tree's, and its step's time."""
+    against the whole tree's, its step's time, and the launches of its
+    first step on a bf16 batch (computed in f32)."""
     import torch
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
     from domainrag_tpu_torch.train import flow_match
     cfg, params, batches = _full_train_setup(dev)
     whole = sum(t.numel() * t.element_size()
@@ -4848,7 +4915,12 @@ def _mesh_fsdp(dev, rows):
         mesh, cfg, flow_match.TrainConfig(remat=True), params, fsdp=True)
     g = torch.Generator(device=dev)
     g.manual_seed(33)
-    step(local, opt, batch, g)                   # the moments are allocated
+    _reset_counts(mma)
+    with _compute_dtypes() as seen:
+        step(local, opt, batch, g)               # the moments are allocated
+    torch.cuda.synchronize()
+    counts = _trainer_counts(mma)
+    want = _trainer_want(cfg.depth_double + cfg.depth_single)
     ms = _ms(lambda: step(local, opt, batch, g), 2, 0)
     mine = sum(t.numel() * t.element_size()
                for t in flow_match.leaves(local))
@@ -4859,7 +4931,10 @@ def _mesh_fsdp(dev, rows):
           f"{TRAIN_B * MESH_RANKS}: params {mine / 1e9:.3f} GB of "
           f"{whole / 1e9:.3f} GB ({mine / whole:.3f}), grads "
           f"{mine / 1e9:.3f} GB, AdamW state {state / 1e9:.3f} GB of "
-          f"{2 * whole / 1e9:.3f} GB; step {ms:.1f} ms")
+          f"{2 * whole / 1e9:.3f} GB; step {ms:.1f} ms; compute dtype "
+          f"{sorted(map(str, seen))}, launches B1/B2/B3/B5/B6/B6 f32 "
+          f"{counts} (expected {want})")
+    _f32_compute("FSDP rank", seen, counts, want)
     if not (mine < whole and state <= 2 * mine + 1e6):
         raise AssertionError("FSDP rank: its share is not a share")
     del params, local, opt
@@ -4867,9 +4942,11 @@ def _mesh_fsdp(dev, rows):
 
 
 def _mesh_ring(dev, rows):
-    """The ring's gradient at the trainer's sequence over 4 ranks: B6 with
-    the LSE's gradient against its plain version on one block (2 x 24 x
-    1152 x 1152 x 128 bf16) and a ragged one; then ``ring_attention``
+    """The ring's gradient at the trainer's sequence over 4 ranks, in f32
+    (the trainer's compute dtype, which a bf16 batch takes too) and in
+    bf16: on one block (2 x 24 x 1152 x 1152 x 128) and a ragged one, B5
+    against its plain version and B6 with the LSE's gradient against its
+    plain version, twice torch.equal; then ``ring_attention``
     differentiated by autograd (``_Ring``'s backward on autograd's device
     thread) on each of 4 ranks in turn, summed, on the whole and on a
     ragged sequence, and on the one-rank mesh of the NCCL group, against
@@ -4877,89 +4954,112 @@ def _mesh_ring(dev, rows):
     import torch
     import torch.nn.functional as F
     from domainrag_tpu_torch.ops import attention as attn
+    from domainrag_tpu_torch.ops import mmdit_attention as mma
     from domainrag_tpu_torch.ops import ring_attention as ring
+    from domainrag_tpu_torch.parallel import mesh as mesh_mod
     g = torch.Generator(device=dev)
     g.manual_seed(34)
     n, blk = MESH_RANKS, S_TRAIN // MESH_RANKS
-    q, k, v, do = (torch.randn((TRAIN_B, HEADS, S_TRAIN, HD), generator=g,
-                               device=dev).to(torch.bfloat16)
-                   for _ in range(4))
-    shape = (TRAIN_B, HEADS, blk, blk, HD)
-    for kv_valid in (blk, RING_RAGGED - (n - 1) * blk):
-        qb, kb, vb, dob = (x[:, :, :blk].contiguous() for x in (q, k, v, do))
-        out, lse = attn._kernel_forward(qb, kb, vb, False, kv_valid)
-        dlse = torch.randn(lse.shape, generator=g, device=dev)
-        args = (qb, kb, vb, out, lse, dob, False, kv_valid, dlse)
-        name = f"flash_bwd_bf16_ring_block_s{blk}_kv{kv_valid}"
-        _poison(kb)
-        got = _b6_repeats(name, lambda: attn._kernel_backward(*args))
-        want = attn.flash_backward_reference(*args)
-        errs = [_check_grad(f"{name} d{nm}", a, b, False)
-                for nm, a, b in zip("qkv", got, want)]
-        leaves = [x.detach().requires_grad_() for x in (qb, kb, vb)]
-        sdpa = F.scaled_dot_product_attention(*leaves)
-        rows[name] = _flash_row(
-            name, "ops/attention.py:296,336", max(errs),
-            _ms(lambda: attn._kernel_backward(*args), 20),
-            _ms(lambda: attn.flash_backward_reference(*args), 3, 1),
-            _ms(lambda: torch.autograd.grad(sdpa, leaves, dob,
-                                            retain_graph=True), 20),
-            _flash_bound(10, shape[:3] + (kv_valid, HD), False, 8))
-        if PARENT:
-            buf = attn.backward_buffers(*args)
-            _parent_b6(name, buf, lambda: attn.launch_backward(buf), 20)
-            del buf
-    # the entry point, differentiated: every rank of 4 in turn (a mesh
-    # stand-in of its index: their outputs and gradients add up to the
-    # ring's), on the whole sequence and on a ragged one, then the
-    # one-rank mesh of the NCCL group; B6 counted per (Sq, Skv, kv_valid)
-    from domainrag_tpu_torch.ops import mmdit_attention as mma
-    from domainrag_tpu_torch.parallel import mesh as mesh_mod
-    _reset_counts(mma)
-    rels, ragged = [], RING_RAGGED - (n - 1) * blk
-    for s_valid in (S_TRAIN, RING_RAGGED):
-        xs = [x[:, :, :s_valid] for x in (q, k, v, do)]
-        got = [0.0] * 4
-        for i in range(n):
-            leaves = [x.detach().requires_grad_() for x in xs[:3]]
-            # zero-padded to S_TRAIN: the last block holds `ragged` keys
-            out = ring.ring_attention(
-                *(F.pad(x, (0, 0, 0, S_TRAIN - s_valid)) for x in leaves),
-                _RingAlone("data", n, i), seq_valid=s_valid)[:, :, :s_valid]
-            part = (out,) + torch.autograd.grad(out, leaves, xs[3])
-            got = [a + b.float() for a, b in zip(got, part)]
-            del out, part, leaves
-        rels.append(_ring_rels(got, xs, attn))
-        del got
-    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    out = ring.ring_attention(*leaves, mesh_mod.create_mesh())
-    got = (out,) + torch.autograd.grad(out, leaves, do)
-    rels.append(_ring_rels(got, (q, k, v, do), attn))
-    del out, got, leaves
-    torch.cuda.synchronize()
-    counts = _flash_counts()
-    by_shape = dict(attn.flash_attention.bwd_launches_by_shape)
-    # per rank of n: B5 n in the forward and n in the backward's recompute,
-    # B6 n; the ragged sequence's block n - 1 holds `ragged` keys
-    want_shape = {(blk, blk, blk): n * n + n * (n - 1),
-                  (blk, blk, ragged): n, (S_TRAIN, S_TRAIN, S_TRAIN): 1}
-    want = (2 * 2 * n * n + 2, 2 * n * n + 1)
-    for kv in (blk, ragged):
-        rows[f"flash_bwd_bf16_ring_block_s{blk}_kv{kv}"]["launches"] = \
-            by_shape.get((blk, blk, kv), 0)
-    worst = max(max(r) for r in rels)
-    print(f"[{CARD}] ring gradient through ring_attention: {n} ranks in "
-          f"turn over {TRAIN_B} x {HEADS} x {S_TRAIN} x {HD} bf16, {n} "
-          f"ranks over the ragged {RING_RAGGED}, the one-rank NCCL mesh: "
-          f"out/dq/dk/dv rel_norm "
-          + "; ".join(", ".join(f"{x:.3e}" for x in r) for r in rels)
-          + f" (tol {GRAD_REL}) against autograd of f32 dense attention; "
-          f"B5 {counts[0]}, B6 {counts[1]} (expected {want}); B6 by (Sq, "
-          f"Skv, kv_valid) {by_shape} (expected {want_shape})")
-    if worst >= GRAD_REL or counts[:2] != want or by_shape != want_shape:
-        raise AssertionError("the ring's gradient differs")
-    del q, k, v, do
-    torch.cuda.empty_cache()
+    ragged = RING_RAGGED - (n - 1) * blk
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        tag = "f32" if f32 else "bf16"
+        q, k, v, do = (torch.randn((TRAIN_B, HEADS, S_TRAIN, HD),
+                                   generator=g, device=dev).to(dtype)
+                       for _ in range(4))
+        shape = (TRAIN_B, HEADS, blk, blk, HD)
+        for kv_valid in (blk, ragged):
+            qb, kb, vb, dob = (x[:, :, :blk].contiguous()
+                               for x in (q, k, v, do))
+            out, lse = attn._kernel_forward(qb, kb, vb, False, kv_valid)
+            want_out, want_lse = attn.flash_forward_reference(
+                qb, kb, vb, False, kv_valid)
+            tag_fwd = f"flash_fwd_{tag}_ring_block_s{blk}_kv{kv_valid}"
+            if f32:
+                _check_grad(tag_fwd, out, want_out, True)
+            else:
+                _check(tag_fwd, out, want_out)
+            if (lse - want_lse).abs().max().item() > LSE_ATOL:
+                raise AssertionError(f"{tag_fwd}: lse disagrees")
+            dlse = torch.randn(lse.shape, generator=g, device=dev)
+            args = (qb, kb, vb, out, lse, dob, False, kv_valid, dlse)
+            name = f"flash_bwd_{tag}_ring_block_s{blk}_kv{kv_valid}"
+            _poison(kb)
+            got = _b6_repeats(name, lambda: attn._kernel_backward(*args))
+            want = attn.flash_backward_reference(*args)
+            errs = [_check_grad(f"{name} d{nm}", a, b, f32)
+                    for nm, a, b in zip("qkv", got, want)]
+            leaves = [x.detach().requires_grad_() for x in (qb, kb, vb)]
+            sdpa = F.scaled_dot_product_attention(*leaves)
+            bshape = shape[:3] + (kv_valid, HD)
+            rows[name] = _flash_row(
+                name, "ops/attention.py:296,336", max(errs),
+                _ms(lambda: attn._kernel_backward(*args), 20),
+                _ms(lambda: attn.flash_backward_reference(*args), 3, 1),
+                _ms(lambda: torch.autograd.grad(sdpa, leaves, dob,
+                                                retain_graph=True), 20),
+                _flash_bound(30, bshape, f32, 8, PEAK_TF32) if f32
+                else _flash_bound(10, bshape, f32, 8))
+            if PARENT:
+                buf = attn.backward_buffers(*args)
+                _parent_b6(name, buf, lambda: attn.launch_backward(buf), 20)
+                del buf
+            del out, lse, want_out, want_lse, got, want, leaves, sdpa
+        # the entry point, differentiated: every rank of 4 in turn (a mesh
+        # stand-in of its index: their outputs and gradients add up to the
+        # ring's), on the whole sequence and on a ragged one, then the
+        # one-rank mesh of the NCCL group; B6 counted per (Sq, Skv,
+        # kv_valid)
+        _reset_counts(mma)
+        rels = []
+        for s_valid in (S_TRAIN, RING_RAGGED):
+            xs = [x[:, :, :s_valid] for x in (q, k, v, do)]
+            got = [0.0] * 4
+            for i in range(n):
+                leaves = [x.detach().requires_grad_() for x in xs[:3]]
+                # zero-padded to S_TRAIN: the last block holds `ragged` keys
+                out = ring.ring_attention(
+                    *(F.pad(x, (0, 0, 0, S_TRAIN - s_valid))
+                      for x in leaves),
+                    _RingAlone("data", n, i),
+                    seq_valid=s_valid)[:, :, :s_valid]
+                part = (out,) + torch.autograd.grad(out, leaves, xs[3])
+                got = [a + b.float() for a, b in zip(got, part)]
+                del out, part, leaves
+            rels.append(_ring_rels(got, xs, attn))
+            del got
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = ring.ring_attention(*leaves, mesh_mod.create_mesh())
+        got = (out,) + torch.autograd.grad(out, leaves, do)
+        rels.append(_ring_rels(got, (q, k, v, do), attn))
+        del out, got, leaves
+        torch.cuda.synchronize()
+        counts = _flash_counts()
+        by_shape = dict(attn.flash_attention.bwd_launches_by_shape)
+        # per rank of n: B5 n in the forward and n in the backward's
+        # recompute, B6 n (the kernel of the dtype); the ragged sequence's
+        # block n - 1 holds `ragged` keys
+        want_shape = {(blk, blk, blk): n * n + n * (n - 1),
+                      (blk, blk, ragged): n, (S_TRAIN, S_TRAIN, S_TRAIN): 1}
+        b6 = 2 * n * n + 1
+        want = (2 * 2 * n * n + 2, 0 if f32 else b6, b6 if f32 else 0)
+        for kv in (blk, ragged):
+            rows[f"flash_bwd_{tag}_ring_block_s{blk}_kv{kv}"]["launches"] = \
+                by_shape.get((blk, blk, kv), 0)
+        worst = max(max(r) for r in rels)
+        tol = F32_REL if f32 else GRAD_REL
+        print(f"[{CARD}] ring gradient through ring_attention: {n} ranks in "
+              f"turn over {TRAIN_B} x {HEADS} x {S_TRAIN} x {HD} {tag}, {n} "
+              f"ranks over the ragged {RING_RAGGED}, the one-rank NCCL "
+              f"mesh: out/dq/dk/dv rel_norm "
+              + "; ".join(", ".join(f"{x:.3e}" for x in r) for r in rels)
+              + f" (tol {tol}) against autograd of f32 dense attention; "
+              f"B5/B6 bf16/B6 f32 {counts} (expected {want}); B6 by (Sq, "
+              f"Skv, kv_valid) {by_shape} (expected {want_shape})")
+        if worst >= tol or counts != want or by_shape != want_shape:
+            raise AssertionError(f"the ring's gradient ({tag}) differs")
+        del q, k, v, do
+        torch.cuda.empty_cache()
 
 
 def _ring_rels(got, xs, attn):
@@ -5592,7 +5692,7 @@ def main() -> int:
     phase_small_trainer(dev)
     cfg, params, batches = phase_train(dev, rows)
     phase_profile_train(dev, cfg, params, batches)
-    phase_train_f32(dev, cfg, params, batches, rows)
+    phase_train_f32(dev, cfg, params, batches)
     del params, batches
     gc.collect()
     torch.cuda.empty_cache()

@@ -5,12 +5,14 @@ Objective: x_t = (1 - t) x0 + t eps, target velocity v* = eps - x0,
 loss = E ||v_theta(x_t, t) - v*||^2 with logit-normal t sampling (the
 SD3/Flux recipe).
 
-The model computes in the batch's dtype (bf16 batches run the fused
-attention kernels in the forward, the generic flash kernels in the
-backward); params, grads and optimizer moments stay f32. x_t is mixed in
-f32 and rounded to the batch's dtype: the JAX code multiplies a bf16
-batch by an f32 t and so promotes it, and its bf16 batch would train in
-f32; the port keeps bf16, so that bf16 batches reach the fused kernels. The optimizer is optax's ``chain(clip_by_global_norm, adamw)``:
+The dtypes are JAX's, line by line: eps is drawn in (or rounded to) the
+batch's dtype, x_t = (1 - t) x0 + t eps takes the promotion of x0 and the
+f32 t and is not rounded back, the target eps - x0 stays in the batch's
+dtype, and the loss is the f32 mean. So a bf16 batch trains in f32, as in
+JAX: ``flux.apply`` takes its dtype from x_t, casts txt and pooled to it
+and every weight in ``models.common.linear``, and its attention takes the
+unfused composition (the generic flash kernels in f32, forward and
+backward). Params, grads and optimizer moments are f32. The optimizer is optax's ``chain(clip_by_global_norm, adamw)``:
 optax's own clip (g * max/||g|| when ||g|| >= max; torch's
 ``clip_grad_norm_`` adds 1e-6 to the norm), then ``torch.optim.AdamW``,
 whose update is optax's (eps outside the sqrt of the bias-corrected
@@ -125,15 +127,16 @@ def flow_match_loss(params, batch, generator: Optional[torch.Generator],
     pooled (B, P), img_ids (S, 3), txt_ids (S_t, 3). ``t`` (B,) and ``eps``
     (like x0) are drawn from ``generator`` unless given."""
     x0 = batch["x0"]
-    b, dev, dtype = x0.shape[0], x0.device, x0.dtype
+    b, dev = x0.shape[0], x0.device
     if t is None:
         t = sample_timesteps(generator, b, train_cfg)
     if eps is None:
         eps = torch.randn(x0.shape, generator=generator, device=dev)
     t = t.to(device=dev, dtype=torch.float32)
-    eps = eps.to(device=dev, dtype=dtype)
+    eps = eps.to(device=dev, dtype=x0.dtype)
     tb = t[:, None, None]
-    x_t = ((1.0 - tb) * x0.float() + tb * eps.float()).to(dtype)
+    # f32 t promotes a bf16 batch: x_t, and so the model, is f32
+    x_t = (1.0 - tb) * x0 + tb * eps
     target = eps - x0
     guidance = torch.full((b,), train_cfg.guidance_value, device=dev) \
         if flux_cfg.guidance_embed else None

@@ -612,6 +612,56 @@ def test_fused_autograd_card_vs_cpu(dev, monkeypatch, onepass):
         assert _rel(g_, w_) < 2e-2, _rel(g_, w_)
 
 
+def test_bf16_batch_train_step_runs_f32_attention(dev):
+    """A bf16 batch's train step on a head_dim-128 toy (one double and one
+    single block, remat) computes in f32, as JAX's flow_match_loss
+    promotes it: per block B5 f32 twice (the forward and the remat
+    recompute) and B6 f32 once, no fused kernel and no bf16 B6. Two steps
+    from the same params and seed are torch.equal."""
+    import dataclasses
+
+    from domainrag_tpu_torch.models.common import Init
+    from domainrag_tpu_torch.models.flux import model as fm
+    from domainrag_tpu_torch.train import flow_match
+    cfg = dataclasses.replace(fm.TINY_FLUX, hidden=256, heads=2, head_dim=128,
+                              depth_double=1, depth_single=1,
+                              axes_dim=(16, 56, 56))
+    grid, s_txt, n = 8, 32, 2
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+    batch = {"x0": rnd(2, grid * grid, cfg.in_channels),
+             "txt": rnd(2, s_txt, cfg.text_dim),
+             "pooled": rnd(2, cfg.pooled_dim),
+             "img_ids": torch.as_tensor(fm.make_image_ids(grid, grid),
+                                        device=dev),
+             "txt_ids": torch.as_tensor(fm.make_text_ids(s_txt),
+                                        device=dev)}
+    runs = []
+    for _ in range(2):
+        ini = torch.Generator(device=dev)
+        ini.manual_seed(16)
+        step, params, opt = flow_match.make_train_step(
+            cfg, flow_match.TrainConfig(remat=True),
+            fm.init(Init(ini, dev, torch.float32), cfg))
+        seed = torch.Generator(device=dev)
+        seed.manual_seed(17)
+        before = _counts(), mma.mmdit_double_attention.mp_launches
+        _, _, loss = step(params, opt, batch, seed)
+        torch.cuda.synchronize()
+        after = _counts(), mma.mmdit_double_attention.mp_launches
+        assert after[1] == before[1]
+        assert [a - b for a, b in zip(after[0], before[0])] == \
+            [0, 0, 0, 2 * n, 0, n]
+        assert bool(torch.isfinite(loss))
+        runs.append((loss, flow_match.leaves(params)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # int8 serving: the W8A8 GEMM B4 (csrc/int8_gemm.cu) and the int8 attention
 # B7 (csrc/int8_attention.cu)

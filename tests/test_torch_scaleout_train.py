@@ -10,7 +10,9 @@ batch 4), with JAX's t and eps injected into the port. Limits, and why
 (``tests/test_torch_train.py`` and ``test_torch_train_step.py`` state
 them for one device):
 - each step's loss within rtol 1e-5 of JAX's (the same algorithm, other
-  summation orders), and within 1e-6 of the port's one-process step;
+  summation orders), and within 1e-6 of the port's one-process step; a
+  bf16 batch (the TP + FSDP mesh's last case) is held to the same limits,
+  since both packages promote it and train in f32;
 - the params after two steps: each leaf's update within 1e-3 of JAX's in
   relative norm and every element within 2.2 lr per step (Adam's
   g / (|g| + eps) amplifies the gradients' relative error where |g| is
@@ -73,6 +75,25 @@ def inputs():
     return params, steps
 
 
+def _steps_in(steps, dtype):
+    """``steps`` with the batch lanes rounded to ``dtype`` and JAX's eps
+    drawn in it from the same key (both stored as f32 numpy), the t
+    alike."""
+    if dtype == "float32":
+        return steps
+    out = []
+    for b, _, _, key in steps:
+        b = {k: np.asarray(jnp.asarray(v, dtype), np.float32)
+             if k in drv.TRAIN_LANES else v for k, v in b.items()}
+        t, e = _t_eps(key, jnp.asarray(b["x0"], dtype))
+        out.append((b, t, np.asarray(e, np.float32), key))
+    return out
+
+
+def _dtypes():
+    return sorted({m[3] for m in drv.TRAIN_MESHES})
+
+
 @pytest.fixture(scope="module")
 def group(tmp_path_factory, inputs):
     """The ``train`` suite run once in four gloo processes; its
@@ -81,6 +102,10 @@ def group(tmp_path_factory, inputs):
     work = str(tmp_path_factory.mktemp("scaleout_train"))
     drv.dump(work, "tiny_flux.pkl", params)
     drv.dump(work, "train_steps.pkl", [s[:3] for s in steps])
+    for dtype in _dtypes():
+        if dtype != "float32":
+            drv.dump(work, f"train_steps_{dtype}.pkl",
+                     [s[:3] for s in _steps_in(steps, dtype)])
     drv.dump(work, "fit_batches.pkl",
              [drv.train_batch(CFG, 40 + i) for i in range(3)])
     drv.launch(work, 4, "train")
@@ -92,38 +117,55 @@ def _port_cfg():
             bridge.config(JTRAIN, tflow.TrainConfig))
 
 
-def _torch(batch):
-    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+def _torch(batch, dtype="float32"):
+    return {k: torch.from_numpy(np.asarray(v)).to(getattr(torch, dtype))
+            if k in drv.TRAIN_LANES else torch.from_numpy(np.asarray(v))
+            for k, v in batch.items()}
 
 
 @pytest.fixture(scope="module")
 def one_process(inputs):
-    """The port's one-device step, two steps: (losses, tree)."""
+    """The port's one-device step, two steps, per batch dtype: (losses,
+    tree)."""
     params, steps = inputs
     cfg, train_cfg = _port_cfg()
-    step, tree, opt = tflow.make_train_step(
-        cfg, train_cfg, bridge.params(params, device="cpu"))
-    losses = [step(tree, opt, _torch(b), None, t=torch.from_numpy(t),
-                   eps=torch.from_numpy(e))[2].item()
-              for b, t, e, _ in steps]
-    return losses, drv.np_tree(tree)
+    out = {}
+    for dtype in _dtypes():
+        step, tree, opt = tflow.make_train_step(
+            cfg, train_cfg, bridge.params(params, device="cpu"))
+        losses = [step(tree, opt, _torch(b, dtype), None,
+                       t=torch.from_numpy(t),
+                       eps=torch.from_numpy(e))[2].item()
+                  for b, t, e, _ in _steps_in(steps, dtype)]
+        out[dtype] = (losses, drv.np_tree(tree))
+    return out
 
 
 @pytest.fixture(scope="module")
 def jax_runs(inputs):
-    """JAX's make_sharded_train_step on each mesh: (losses, tree)."""
+    """JAX's make_sharded_train_step on each mesh, on batches of the
+    mesh's dtype: (losses, tree)."""
     params, steps = inputs
     out = {}
-    for name, mp, fsdp in drv.TRAIN_MESHES:
+    for name, mp, fsdp, dtype in drv.TRAIN_MESHES:
         mesh = jmesh.create_mesh(model_parallel=mp,
                                  devices=jax.devices()[:4])
         step, sp, opt, shardings = jflow.make_sharded_train_step(
             mesh, CFG, JTRAIN, jax.tree.map(jnp.asarray, params), fsdp=fsdp)
         losses = []
         for b, _, _, key in steps:
-            batch = {k: jax.device_put(jnp.asarray(v), shardings[k])
-                     for k, v in b.items()}
-            sp, opt, loss = step(sp, opt, batch, key)
+            batch = {k: jax.device_put(
+                jnp.asarray(v, dtype) if k in drv.TRAIN_LANES
+                else jnp.asarray(v), shardings[k]) for k, v in b.items()}
+            run = step
+            if dtype != "float32":
+                # under jit, XLA's CPU backend may keep bf16 values in f32
+                # (excess precision): the bf16 eps draw and eps - x0 go
+                # unrounded. Without it the step computes the dtypes the
+                # program states, as JAX's eager flow_match_loss does.
+                run = step.lower(sp, opt, batch, key).compile(
+                    compiler_options={"xla_allow_excess_precision": False})
+            sp, opt, loss = run(sp, opt, batch, key)
             losses.append(float(loss))
         out[name] = (losses, _np_tree(sp))
     return out
@@ -160,11 +202,12 @@ def test_sharded_step_matches_jax(group, inputs, jax_runs, one_process,
     want_losses, want_tree = jax_runs[name]
     np.testing.assert_allclose(got["losses"], want_losses, rtol=1e-5)
     _updates_close(got["params"], want_tree, params, 1e-3, 2.2)
-    one_losses, one_tree = one_process
+    mp, dtype = {m[0]: (m[1], m[3]) for m in drv.TRAIN_MESHES}[name]
+    one_losses, one_tree = one_process[dtype]
     np.testing.assert_allclose(got["losses"], one_losses, rtol=1e-6)
     _updates_close(got["params"], one_tree, params, 5e-4, 0.1)
     # the batch's rows over data, the ids whole
-    n_data = 4 // dict((m[0], m[1]) for m in drv.TRAIN_MESHES)[name]
+    n_data = 4 // mp
     assert got["rows"] == (4 // n_data,) * 3 + (16,)
 
 

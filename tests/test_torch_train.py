@@ -13,10 +13,9 @@ Limits, and why:
   loss and 1e-4 on the gradients (errors compound over the blocks, and
   small gradient leaves carry larger relative error, so each leaf is held
   to 1e-4 of the largest gradient);
-- the loss of a bf16 batch against JAX ``flux.apply`` on the same
-  bf16-rounded x_t: bf16 rounding noise, bounded against JAX's own bf16
-  distance from f32 (the test states the numbers;
-  ``test_torch_train_bf16.py``);
+- the loss of a bf16 batch against JAX's own ``flow_match_loss``: both
+  packages promote x_t to f32 and compute in f32, so the f32 limits
+  above hold (``test_torch_train_bf16.py``);
 - one train step against optax (``test_torch_train_step.py``): each
   leaf's update within 1e-3 of JAX's in relative norm, and every element
   within 2.2 lr. A step is about

@@ -668,9 +668,14 @@ def stages_generate(rank, world, workdir):
 # training over a mesh: DP, TP, FSDP, fit, the ring's gradient
 # ---------------------------------------------------------------------------
 
-# (name, model_parallel, fsdp) of the 4-rank train meshes
-TRAIN_MESHES = (("data4", 1, False), ("data2_model2", 2, False),
-                ("data4_fsdp", 1, True), ("data2_model2_fsdp", 2, True))
+# (name, model_parallel, fsdp, batch dtype) of the 4-rank train meshes: a
+# bf16 batch trains in f32, as JAX's flow_match_loss promotes it
+TRAIN_MESHES = (("data4", 1, False, "float32"),
+                ("data2_model2", 2, False, "float32"),
+                ("data4_fsdp", 1, True, "float32"),
+                ("data2_model2_fsdp", 2, True, "float32"),
+                ("data2_model2_fsdp_bf16", 2, True, "bfloat16"))
+TRAIN_LANES = ("x0", "txt", "pooled")      # the batch keys in its dtype
 TRAIN_LR = 1e-3
 
 
@@ -687,26 +692,38 @@ def train_batch(cfg, seed, batch=4, grid=4, s_txt=6):
             "txt_ids": flux.make_text_ids(s_txt)}
 
 
+def _train_steps(workdir, dtype="float32"):
+    """The (batch, t, eps) of each step; a bf16 run's batch lanes hold
+    bf16 values (stored as f32) and are cast to bf16 here."""
+    import torch
+    name = "train_steps.pkl" if dtype == "float32" else \
+        f"train_steps_{dtype}.pkl"
+    return [({k: _t(v).to(getattr(torch, dtype)) if k in TRAIN_LANES
+              else _t(v) for k, v in b.items()}, _t(t), _t(e))
+            for b, t, e in load(workdir, name)]
+
+
 def _train_setup(workdir):
     from domainrag_tpu_torch import bridge
     from domainrag_tpu_torch.models.flux import model as flux
     from domainrag_tpu_torch.train import flow_match as flow
     cfg = flux.TINY_FLUX
-    steps = [({k: _t(v) for k, v in b.items()}, _t(t), _t(e))
-             for b, t, e in load(workdir, "train_steps.pkl")]
     return (lambda: bridge.params(load(workdir, "tiny_flux.pkl"),
                                   device="cpu"),
-            cfg, flow.TrainConfig(learning_rate=TRAIN_LR), steps)
+            cfg, flow.TrainConfig(learning_rate=TRAIN_LR),
+            _train_steps(workdir))
 
 
 def train_meshes(rank, world, workdir):
     """make_sharded_train_step over each mesh of ``TRAIN_MESHES``: two
-    steps from JAX's t and eps, then the whole tree gathered."""
+    steps from JAX's t and eps on batches of the mesh's dtype, then the
+    whole tree gathered."""
     from domainrag_tpu_torch.parallel import mesh as mesh_mod, sharding
     from domainrag_tpu_torch.train import flow_match as flow
-    fresh, cfg, train_cfg, steps = _train_setup(workdir)
+    fresh, cfg, train_cfg, _ = _train_setup(workdir)
     out = {}
-    for name, mp, fsdp in TRAIN_MESHES:
+    for name, mp, fsdp, dtype in TRAIN_MESHES:
+        steps = _train_steps(workdir, dtype)
         mesh = mesh_mod.create_mesh(model_parallel=mp)
         params = fresh()
         step, local, opt, shardings = flow.make_sharded_train_step(
