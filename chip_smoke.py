@@ -72,7 +72,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 1000 beside the plain version and torch.topk(q @ bank.T), at k 1000
    with the merge pass's share of one traced call, and at k 1 beside the
    matmul alone (the GEMM's share);
-8. stage 1 at big-lama width: ``BIG_LAMA`` (18 FFC blocks, ngf 64) drawn
+8. the run-time draws (``core.prng``, JAX's threefry2x32) on the card
+   against the same draws on the CPU at the main path's shapes: the
+   stage-4 noise at 2048 px (1 x 16384 x 64 f32), the trainer's t and
+   eps at 2 x 4608 x 64 in bf16 and f32, a chain of 16 splits and the
+   loader's picks (``choice`` with and without replacement): integers,
+   keys, uniforms and bf16 normals torch.equal, f32 normals within
+   ``PRNG_ULP`` (8) ulp and 2e-6; each draw's card and CPU time;
+9. stage 1 at big-lama width: ``BIG_LAMA`` (18 FFC blocks, ngf 64) drawn
    on the card, ``lama.apply`` on one 256x256 image on the card and on
    the CPU from the same weights within ``LAMA_BAR`` (1e-4 max abs on
    the [0, 1] output; both against an f64 run on the card, beside a TF32
@@ -81,7 +88,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    classes, 1-3 boxes each): the file tree, the manifest (all done) and
    ``category_mapping.json``, seconds per image and the load / mask /
    lama / save spans;
-9. stage 2 at full width: a random CLIP ViT-B/32 and ResNet-50 stem
+10. stage 2 at full width: a random CLIP ViT-B/32 and ResNet-50 stem
    (87.86 M f32 params) on the card, 512 synthetic corpus JPEGs through
    ``load_or_compute_source_features``, the bank filled with random unit
    rows to COCO train2017 + miniImageNet size (178287 x 512 f32, 365 MB),
@@ -101,21 +108,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at k 100, its host seconds printed; ``topk_ip_pallas`` (the JAX name
    of B8) torch.equal to ``topk_ip_fused`` on the stage's queries and
    bank at k 100, B8's counter moved by exactly one;
-10. the stage-3 slice on a small input: a head_dim-128 toy bundle
+11. the stage-3 slice on a small input: a head_dim-128 toy bundle
    generates on the card (kernels) and on the CPU (plain versions) from
-   the same weights and noise, and the images must agree;
-11. the stage-4 fill on a small input: a head_dim-128 toy Fill bundle with
+   the same weights and noise (the seeds' draws), and the images must
+   agree;
+12. the stage-4 fill on a small input: a head_dim-128 toy Fill bundle with
    the one-pass ceiling lowered (so the toy runs the multi-pass kernel)
    and the VAE tiled, on the card and on the CPU, from the same weights
    and noise; then the denoise caches on the same toy bundles, card
-   against CPU within phase 10's bar: generate under the velocity cache
+   against CPU within phase 11's bar: generate under the velocity cache
    at interval 2 (order 1 and 0) and the block cache at interval 2, and
    the tiled fill with an anchor tuple, each with the fused launches of
    the forwards the cache leaves;
-12. the small int8 slices: both toy bundles quantized (every block
+13. the small int8 slices: both toy bundles quantized (every block
    linear), generate and the tiled multi-pass fill under W8A8 + int8 QK +
    int8 P.V, card against CPU, launch counts asserted;
-13. the stage-3 slice at full width: a random FLUX.1-dev bundle (MMDiT,
+14. the stage-3 slice at full width: a random FLUX.1-dev bundle (MMDiT,
    T5-XXL, CLIP-L, SigLIP so400m, Redux, VAE; ~46 GB) drawn on the card,
    and ``GenerateStage.generate_sample`` on a synthetic sample at
    1024x1024, cut to 4 denoise steps (stage default 50) and 2 ranks
@@ -128,7 +136,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tensor; then stage 3 repeats itself: ``pipeline.generate`` for one
    rank's prior at 1024 px, 2 steps, twice from the same seed, the
    latents torch.equal and the images equal;
-14. stage 3's dataset sweep on the same bundle: ``process_dataset`` over
+15. stage 3's dataset sweep on the same bundle: ``process_dataset`` over
     stage 1's output with stage 2's ``all_shots_retrieval_results.json``
     as the refs, worker 0 of 100 (two samples), the same cuts; the run
     tree (``batch_params.txt`` header and totals, the manifest with both
@@ -155,7 +163,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     doubles with 1 zero block, 10 singles with 2) in ring order and
     ``pipelined_apply`` over the one-rank pipe mesh, torch.equal to
     ``apply``; each per-rank time beside the card's name and limit;
-15. one full-width denoise step (batch 1, 1024 px) under
+16. one full-width denoise step (batch 1, 1024 px) under
     ``torch.profiler``, its device time grouped into the attention
     kernels, the GEMMs and the rest (full table in ``profile.txt`` under
     ``OUT``, the script's output directory), with its MFU; then the same
@@ -165,43 +173,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
     per step and per image, peak memory and the relative L2 to the dense
     images, and a CLIP-FID (``eval.fid``, random ViT-B/32) between the
     dense and the velocity-2 PNGs, which must be finite;
-16. stage 3 under the CLI's ``--w8a8 --int8_qk``: the same bundle's MMDiT
+17. stage 3 under the CLI's ``--w8a8 --int8_qk``: the same bundle's MMDiT
     quantized (quantize_tree, 11.9 GB), the same sample; B4 314 and the
     one-pass B7 19 / 38 launches per step per rank chunk, the bf16 fused
     kernels never; seconds per step and the mean uint8 difference to the
     bf16 images (a report); one rank under the velocity cache at interval
     2 (B4 314 per model call, never per step); then one traced step with
     int8 P.V added (``OUT/profile_int8.txt``);
-17. stage 4 at full width: the stage-3 bundle is freed and a random
+18. stage 4 at full width: the stage-3 bundle is freed and a random
    FLUX.1-Fill-dev bundle drawn (384 input channels), and
    ``compose.process_dataset`` runs a synthetic UODD 1-shot dataset (one
-   1024x1024 sample, two bboxes) whose two backgrounds are phase 13's
+   1024x1024 sample, two bboxes) whose two backgrounds are phase 14's
    PNGs. UODD's parameters lift it to 2048x2048 (17625 tokens, the
    multi-pass regime), strength 0.4, guidance 30, the VAE tiled (9 tiles
    per encode and decode). Cuts: 10 steps (stage default 50, so 4 denoise
    steps instead of 20), 2 backgrounds (default 5), ``max_rank_batch``
    1. It checks every artifact, finiteness, and that the multi-pass
    kernel ran 19 or 38 times per step per background and the one-pass
-   one never; before it, ``vae.encode_tiled(generator=)`` on a 2048 px
-   image in bf16 within 1e-3 (relative norm) of the blend of per-tile
-   samples, each drawn by a twin generator seeded alike (JAX hands every
-   tile the same key), and unequal to the mode;
-18. one full-width fill denoise step (batch 1, 2048 px, 384 channels)
+   one never; before it, ``vae.encode_tiled(key=)`` on a 2048 px image
+   in bf16 within 1e-3 (relative norm) of the blend of per-tile
+   ``encode(key=)`` samples (JAX hands every tile the same key), and
+   unequal to the mode;
+19. one full-width fill denoise step (batch 1, 2048 px, 384 channels)
     under ``torch.profiler`` (full table in ``OUT/profile_fill.txt``),
     with its MFU; then the same dataset under the velocity cache at
     interval 2 (2 multi-pass forwards per background) and "auto"
     (calibrated on the fill core once first), launch counts asserted;
-19. stage 4 under ``--w8a8 --int8_qk``: the Fill MMDiT quantized, the
+20. stage 4 under ``--w8a8 --int8_qk``: the Fill MMDiT quantized, the
     same dataset through ``compose.process_dataset``; B4 314 and the
     multi-pass B7 19 / 38 per step per background, B3 never; then one
     traced fill step with int8 P.V (``OUT/profile_fill_int8.txt``);
-20. the Fill bundle is freed; the serving path above the multi-pass
+21. the Fill bundle is freed; the serving path above the multi-pass
     ceiling: both attention
     wrappers at 1241 + 49152 = 50393 joint tokens (a 4096x3072 image),
     where they take the unfused composition and so B5; launches counted
     on this run alone (B5 2, the fused kernels 0), heads 0-1 of each
     output against the plain B5 forward;
-21. the CLI from a checkpoint tree on disk, at full width and depth
+22. the CLI from a checkpoint tree on disk, at full width and depth
     (``phase_cli``): random weights drawn on the card by the port's inits,
     each subtree from its own seed, written in the published layouts as
     safetensors (written here, the format's inverse) under ``OUT``:
@@ -212,7 +220,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     written (the Fill MMDiT links the dev MMDiT's block shards: the run's
     disk writes stay under 45 GiB), 61 GB as the loader reads it;
     then ``cli.main(["pipeline", "--checkpoints", ...])`` in this process
-    on a synthetic UODD 1-shot sample (phase 17's) and CLI_CORPUS corpus
+    on a synthetic UODD 1-shot sample (phase 18's) and CLI_CORPUS corpus
     JPEGs, CLI_STEPS steps: before the stages run, every converted leaf
     equals the drawn one (drawn again from its generator state;
     ``torch.equal``, bf16 -> bf16, bf16 -> f32 for T5, f32 -> f32) and the
@@ -224,14 +232,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
     seconds per subtree, peak host RSS, card memory and seconds per stage
     and per image, beside the card's name and power limit; the tree is
     deleted, pass or fail;
-22. a small trainer card vs CPU: a head_dim-128 toy MMDiT (hidden 256,
+23. a small trainer card vs CPU: a head_dim-128 toy MMDiT (hidden 256,
     one double and one single block) at 128 px, three ``train_step``s
-    from the same weights, batches, t and eps, with bf16 and with f32
+    from the same weights, batches and keys (t and eps drawn on each
+    side from ``fit``'s key walk), with bf16 and with f32
     batches, both computed in f32 (a bf16 batch is promoted, as JAX's
     flow_match_loss promotes it), losses, first-step gradients and
     updates within stated limits, compute dtype and launch counts
     asserted;
-23. the trainer at FLUX.1-dev width cut in depth to 2 double + 4 single
+24. the trainer at FLUX.1-dev width cut in depth to 2 double + 4 single
     blocks (default 19 + 38; 1.31 B f32 params drawn on the card):
     ``train.loop.fit`` with remat for 4 steps on synthetic bf16 batches
     (batch 2, 1024 px = 4096 image tokens, 512 T5 tokens), one checkpoint
@@ -240,18 +249,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
     per step (B5 f32 12, B6 f32 6; B1, B2, B3 and B6 bf16 0), which the
     f32 kernel rows take, seconds per step, peak memory, checkpoint
     time; then one step through ``train_step`` (JAX's name) and one
-    through ``make_train_step``'s step from the same params, t and eps:
+    through ``make_train_step``'s step from the same params and key:
     losses and every updated leaf torch.equal;
-24. one traced full-width train step (``OUT/profile_train.txt``), grouped
+25. one traced full-width train step (``OUT/profile_train.txt``), grouped
     into the fused forward, B5, B6 (with its dq_accum zeroing, scale and
     cast), GEMMs, the optimizer and the rest;
-25. one full-width ``fit`` step on f32 batches (the dtype
+26. one full-width ``fit`` step on f32 batches (the dtype
     ``latent_batches_from_images`` yields), the same computation as a
     bf16 batch's: no fused kernel, B5 12 and B6 f32 6 launches, finite
     loss, changed params; with ``--parent``, four steady f32 steps timed
-    in turns, the parent's B6 in two (and after phase 24, four bf16-batch
+    in turns, the parent's B6 in two (and after phase 25, four bf16-batch
     steps the same way);
-26. training over a mesh (``phase_train_mesh``): ``fit(mesh=
+27. training over a mesh (``phase_train_mesh``): ``fit(mesh=
     create_mesh(), fsdp=True)`` on the one-rank NCCL group against the
     one-card step from the same params, batches and seed, run twice (2
     steps: both losses and every leaf torch.equal across the three runs);
@@ -762,8 +771,7 @@ def phase_small_slice(dev):
     pairs = np.asarray([[0, 2], [1, 2]])
     size, steps = 64, 3
     seq = (size // cpu.latent_factor) ** 2
-    noise = torch.randn((2, seq, cpu.vae_cfg.latent_channels * 4),
-                        generator=torch.Generator().manual_seed(3))
+    noise = fp._noise(cpu, [3, 30], seq, cpu.vae_cfg.latent_channels * 4)
     images = []
     for bundle in (card, cpu):
         e, p = fp.redux_prior_pairs_indexed(bundle, uniq, pairs, "",
@@ -799,8 +807,7 @@ def phase_small_fill(dev):
     mask[:, 16:40, 8:30] = 0.0                 # keep region
     px = rng.uniform(-1, 1, (1, 1, 28, 28, 3)).astype(np.float32)
     seq = (size // cpu.latent_factor) ** 2
-    noise = torch.randn((1, seq, cpu.vae_cfg.latent_channels * 4),
-                        generator=torch.Generator().manual_seed(4))
+    noise = fp._noise(cpu, [4], seq, cpu.vae_cfg.latent_channels * 4)
     sigmas = torch.as_tensor(sched.make_schedule(
         steps, image_seq_len=seq, strength=strength).sigmas)
     gate = mma._MAX_ONEPASS
@@ -845,11 +852,11 @@ def _model_calls(form, n_steps):
 
 def phase_small_caches(dev):
     """The denoise caches on small inputs, card against CPU: the
-    head_dim-128 toy bundles of phases 10 and 11 generate under the
+    head_dim-128 toy bundles of phases 11 and 12 generate under the
     velocity cache at interval 2 (order 1 and 0) and the block cache at
     interval 2, and fill with an anchor tuple (the one-pass ceiling
-    lowered and the VAE tiled, as phase 11), from the same weights and
-    noise; phase 10's bar. The card's fused-kernel launches are the
+    lowered and the VAE tiled, as phase 12), from the same weights and
+    noise; phase 11's bar. The card's fused-kernel launches are the
     forwards the cache leaves (the block cache's cached steps launch
     none)."""
     import torch
@@ -868,8 +875,7 @@ def phase_small_caches(dev):
     pairs = np.asarray([[0, 2], [1, 2]])
     size, steps = 64, 4
     seq = (size // cpu.latent_factor) ** 2
-    noise = torch.randn((2, seq, cpu.vae_cfg.latent_channels * 4),
-                        generator=torch.Generator().manual_seed(3))
+    noise = fp._noise(cpu, [3, 30], seq, cpu.vae_cfg.latent_channels * 4)
     cases = (("velocity 2, order 1", dict(vcache_interval=2), 2),
              ("velocity 2, order 0", dict(vcache_interval=2,
                                           vcache_order=0), 2),
@@ -897,8 +903,7 @@ def phase_small_caches(dev):
     mask = np.ones((1, size, size), np.float32)
     mask[:, 16:40, 8:30] = 0.0
     px = rng.uniform(-1, 1, (1, 1, 28, 28, 3)).astype(np.float32)
-    noise = torch.randn((1, seq, cpu.vae_cfg.latent_channels * 4),
-                        generator=torch.Generator().manual_seed(4))
+    noise = fp._noise(cpu, [4], seq, cpu.vae_cfg.latent_channels * 4)
     sigmas = torch.as_tensor(sched.make_schedule(
         steps, image_seq_len=seq, strength=strength).sigmas)
     gate = mma._MAX_ONEPASS
@@ -1466,12 +1471,12 @@ def phase_profile(bundle, size, out_name):
 
 
 def _encode_sample_per_tile(bundle, dev):
-    """``vae.encode_tiled(generator=)`` on a FILL_SIZE image in the
-    stage's dtype: the JAX package hands every tile the same key, so every
-    tile samples the generator's draw on entry. Held within 1e-3 in
-    relative norm to the blend of per-tile ``encode``s, each sampling
-    from a twin generator seeded alike; the sample is not the mode."""
+    """``vae.encode_tiled(key=)`` on a FILL_SIZE image in the stage's
+    dtype: the JAX package hands every tile the same key, so every tile
+    samples JAX's draw from it. Held within 1e-3 in relative norm to the
+    blend of per-tile ``encode(key=)``s; the sample is not the mode."""
     import torch
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.models.flux import vae
     cfg, p = bundle.vae_cfg, bundle.vae_params
     tile, overlap = 96, 16                  # fill_batch's defaults
@@ -1480,32 +1485,28 @@ def _encode_sample_per_tile(bundle, dev):
     x = (torch.rand((1, FILL_SIZE, FILL_SIZE, 3), generator=g, device=dev)
          * 2 - 1).to(bundle.compute_dtype)
 
-    def seeded():
-        twin = torch.Generator(device=dev)
-        twin.manual_seed(23)
-        return twin
-
+    key = prng.PRNGKey(23, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = vae.encode_tiled(p, x, cfg, tile, overlap, seeded())
+    got = vae.encode_tiled(p, x, cfg, tile, overlap, key)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     n = FILL_SIZE // cfg.spatial_factor
-    want = vae._tiled(lambda xt: vae.encode(p, xt, cfg, seeded()), x, n, n,
+    want = vae._tiled(lambda xt: vae.encode(p, xt, cfg, key), x, n, n,
                       cfg.spatial_factor, 1, cfg.latent_channels, tile,
                       overlap)
     mode = vae.encode_tiled(p, x, cfg, tile, overlap)
     rel = _rel_norm(got, want)
     n_tiles = len(vae._tile_starts(n, tile, overlap)) ** 2
-    print(f"encode_tiled(generator=) at {FILL_SIZE} px ({n_tiles} tiles, "
+    print(f"encode_tiled(key=) at {FILL_SIZE} px ({n_tiles} tiles, "
           f"{x.dtype}): {secs:.3f} s; relative norm {rel:.3e} to the "
-          f"per-tile twin draws (bar 1e-3), {_rel_norm(got, mode):.3e} to "
-          f"the mode ({CARD})")
+          f"per-tile encode(key=) blend (bar 1e-3), "
+          f"{_rel_norm(got, mode):.3e} to the mode ({CARD})")
     if not rel < 1e-3:
-        raise AssertionError("encode_tiled(generator=) differs from the "
-                             "per-tile twin draws")
+        raise AssertionError("encode_tiled(key=) differs from the per-tile "
+                             "encode(key=) blend")
     if torch.equal(got, mode):
-        raise AssertionError("encode_tiled(generator=) drew no sample")
+        raise AssertionError("encode_tiled(key=) drew no sample")
 
 
 def phase_compose(dev, rows, backgrounds):
@@ -2142,8 +2143,7 @@ def phase_small_int8(dev):
             mask = np.ones((1, size, size), np.float32)
             mask[:, 16:40, 8:30] = 0.0
             px = rng.uniform(-1, 1, (1, 1, 28, 28, 3)).astype(np.float32)
-            noise = torch.randn((1, seq, cpu.vae_cfg.latent_channels * 4),
-                                generator=torch.Generator().manual_seed(6))
+            noise = fp._noise(cpu, [6], seq, cpu.vae_cfg.latent_channels * 4)
             sigmas = torch.as_tensor(sched.make_schedule(
                 steps, image_seq_len=seq, strength=strength).sigmas)
             forwards = len(sigmas) - 1
@@ -2151,8 +2151,8 @@ def phase_small_int8(dev):
         else:
             steps = forwards = 3
             uniq = rng.uniform(-1, 1, (3, 28, 28, 3)).astype(np.float32)
-            noise = torch.randn((2, seq, cpu.vae_cfg.latent_channels * 4),
-                                generator=torch.Generator().manual_seed(7))
+            noise = fp._noise(cpu, [7, 70], seq,
+                              cpu.vae_cfg.latent_channels * 4)
         try:
             with _int8_modes(w8a8=True, qk=True, pv=True):
                 for bundle in (card, cpu):
@@ -3435,10 +3435,13 @@ def _f32_compute(what, seen, counts, want):
 def phase_small_trainer(dev):
     """A head_dim-128 toy MMDiT (hidden 256, one double and one single
     block) at 128 px: three ``train_step``s on the card and on the CPU
-    from the same weights, batches, t and eps, once with bf16 batches and
-    once with f32 batches, both computed in f32 (B5/B6 f32 only). Also
-    the first step's gradients, card vs CPU."""
+    from the same weights, batches and keys (``fit``'s chain from
+    PRNGKey(21): t and eps drawn where the step runs, the card's within
+    ``PRNG_ULP`` of the CPU's), once with bf16 batches and once with f32
+    batches, both computed in f32 (B5/B6 f32 only). Also the first step's
+    gradients, card vs CPU."""
     import torch
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.models.flux import model as fm
     from domainrag_tpu_torch.ops import mmdit_attention as mma
@@ -3454,9 +3457,7 @@ def phase_small_trainer(dev):
            torch.as_tensor(fm.make_text_ids(s_txt)))
     data = [{"x0": rng.standard_normal((2, grid * grid, 64)),
              "txt": rng.standard_normal((2, s_txt, cfg.text_dim)),
-             "pooled": rng.standard_normal((2, cfg.pooled_dim)),
-             "t": 1 / (1 + np.exp(-rng.standard_normal(2))),
-             "eps": rng.standard_normal((2, grid * grid, 64))}
+             "pooled": rng.standard_normal((2, cfg.pooled_dim))}
             for _ in range(steps)]
     for dtype in (torch.bfloat16, torch.float32):
         runs = []
@@ -3471,19 +3472,19 @@ def phase_small_trainer(dev):
                                                   device=where),
                         "img_ids": ids[0].to(where),
                         "txt_ids": ids[1].to(where)} for d in data]
-            t_eps = [(torch.as_tensor(d["t"], dtype=torch.float32),
-                      torch.as_tensor(d["eps"], dtype=torch.float32))
-                     for d in data]
-            loss = flow_match.flow_match_loss(params, batches[0], None, cfg,
-                                              tcfg, t=t_eps[0][0],
-                                              eps=t_eps[0][1])
+            key, keys = prng.PRNGKey(21, device=where), []
+            for _ in data:
+                key, sub = prng.split(key)
+                keys.append(sub)
+            loss = flow_match.flow_match_loss(params, batches[0], keys[0],
+                                              cfg, tcfg)
             grads = torch.autograd.grad(loss, flow_match.leaves(params))
             grad0 = torch.cat([gr.float().reshape(-1).cpu() for gr in grads])
             _reset_counts(mma)
             losses = []
             with _compute_dtypes() as seen:
-                for b, (t, e) in zip(batches, t_eps):
-                    params, opt, l_ = step(params, opt, b, None, t=t, eps=e)
+                for b, k in zip(batches, keys):
+                    params, opt, l_ = step(params, opt, b, k)
                     losses.append(l_.item())
             runs.append((losses, grad0, _leaves_cat(params),
                          _trainer_counts(mma), seen))
@@ -3568,21 +3569,18 @@ def _full_train_setup(dev):
 
 def _train_step_twins(dev, cfg, params, batch):
     """JAX's ``train_step`` and ``make_train_step``'s step, one step each
-    from the same params, t and eps (the params put back from a copy on
+    from the same params and key (the params put back from a copy on
     the card between them; one optimizer state alive at a time): both run
     ``flow_match._step`` on the same kernels, and B6 adds dq in a fixed
     order, so the losses and every updated leaf must be torch.equal. The
     bf16 batch computes in f32: two steps' launches are counted."""
     import torch
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.ops import mmdit_attention as mma
     from domainrag_tpu_torch.train import flow_match
     t_all = time.perf_counter()
     tcfg = flow_match.TrainConfig(remat=True)
-    g = torch.Generator(device=dev)
-    g.manual_seed(29)
-    x0 = batch["x0"]
-    t = flow_match.sample_timesteps(g, x0.shape[0], tcfg)
-    eps = torch.randn(x0.shape, generator=g, device=dev)
+    key = prng.PRNGKey(29, device=dev)
     start = [p.detach().clone() for p in flow_match.leaves(params)]
     optimizer = flow_match.make_optimizer(tcfg)
     opt = optimizer.init(params)
@@ -3590,8 +3588,8 @@ def _train_step_twins(dev, cfg, params, batch):
     _reset_counts(mma)
     t0 = time.perf_counter()
     with _compute_dtypes() as seen:
-        _, opt, loss_a = flow_match.train_step(params, opt, batch, None, cfg,
-                                               tcfg, optimizer, t=t, eps=eps)
+        _, opt, loss_a = flow_match.train_step(params, opt, batch, key, cfg,
+                                               tcfg, optimizer)
     torch.cuda.synchronize()
     secs_a = time.perf_counter() - t0
     after_a = [p.detach().clone() for p in flow_match.leaves(params)]
@@ -3605,7 +3603,7 @@ def _train_step_twins(dev, cfg, params, batch):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _compute_dtypes() as seen_b:
-        _, opt, loss_b = step(params, opt, batch, None, t=t, eps=eps)
+        _, opt, loss_b = step(params, opt, batch, key)
     torch.cuda.synchronize()
     secs_b = time.perf_counter() - t0
     seen |= seen_b
@@ -3624,7 +3622,7 @@ def _train_step_twins(dev, cfg, params, batch):
     gc.collect()
     torch.cuda.empty_cache()
     rel_update = (num / max(den, 1e-300)) ** 0.5
-    print(f"train_step vs make_train_step's step (same params, t, eps): "
+    print(f"train_step vs make_train_step's step (same params and key): "
           f"loss {loss_a.item():.6f} / {loss_b.item():.6f} (torch.equal: "
           f"{torch.equal(loss_a, loss_b)}), {differ} of "
           f"{len(flow_match.leaves(params))} updated leaves differ "
@@ -3719,14 +3717,14 @@ def phase_profile_train(dev, cfg, params, batches):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.ops import attention as attn
     from domainrag_tpu_torch.train import flow_match
 
     step, params, opt = flow_match.make_train_step(
         cfg, flow_match.TrainConfig(remat=True), params)
     it = batches()
-    g = torch.Generator(device=dev)
-    g.manual_seed(9)
+    g = prng.PRNGKey(9, device=dev)
     step(params, opt, next(it), g)              # the moments are allocated
     batch = next(it)
     torch.cuda.synchronize()
@@ -3813,6 +3811,7 @@ def phase_train_f32(dev, cfg, params, batches):
     just after. With ``--parent``, four steady steps follow, timed in
     turns with the parent's B6 in two."""
     import torch
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.ops import mmdit_attention as mma
     from domainrag_tpu_torch.train import flow_match, loop
 
@@ -3850,8 +3849,7 @@ def phase_train_f32(dev, cfg, params, batches):
     # steady f32 steps, in turns with the parent's B6
     step, params, opt = flow_match.make_train_step(
         cfg, flow_match.TrainConfig(remat=True), params)
-    g = torch.Generator(device=dev)
-    g.manual_seed(5)
+    g = prng.PRNGKey(5, device=dev)
     batch = next(f32)
     step(params, opt, batch, g)                 # the moments are allocated
     _parent_step_turns("f32 train step",
@@ -3969,6 +3967,109 @@ def _topk_merge_share(q, bank, k):
             if name in e.key:
                 ms[name] += us / 1e3
     return ms
+
+
+# card vs CPU limits of the run-time draws (core/prng.py): integers, keys
+# and uniforms torch.equal; f32 normals within PRNG_ULP ulp and PRNG_ABS
+# (the card's log1p may differ from the CPU's in the last bits); bf16
+# normals torch.equal (2e-6 is below a bf16 ulp; each of the 128 bf16
+# uniforms' f32 erf_inv lies at least 555 f32 ulp from a bf16 tie).
+PRNG_ULP, PRNG_ABS = 8, 2e-6
+
+
+def _f32_ulps(a, b):
+    """The largest distance of two f32 tensors in ulps."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs().max().item() if a.numel() else 0
+
+
+def phase_prng(dev):
+    """The run-time draws (``core.prng``, JAX's threefry2x32) on the card
+    against the same draws on the CPU, at the main path's shapes: the
+    stage-4 noise at 2048 px (``pipeline._noise``, 1 x 16384 x 64 f32), the
+    trainer's t and eps at 2 x 4608 x 64 in bf16 and f32
+    (``flow_match._draw_t_eps``), a chain of 16 splits (``fit``'s key
+    walk) and the loader's picks (``choice`` without and with
+    replacement). Each draw's time on the card (CUDA events) beside the
+    CPU's (one call, host clock)."""
+    import torch
+    from domainrag_tpu_torch.core import prng
+    from domainrag_tpu_torch.models.flux import pipeline as fp
+    from domainrag_tpu_torch.train import flow_match
+
+    cpu = torch.device("cpu")
+    tcfg = flow_match.TrainConfig()
+
+    def chain(where):
+        key, subs = prng.PRNGKey(0, device=where), []
+        for _ in range(16):
+            key, sub = prng.split(key)
+            subs.append(sub)
+        return torch.stack(subs)
+
+    def t_eps(dtype):
+        def draw(where):
+            x0 = torch.zeros((TRAIN_B, S_TRAIN, 64), dtype=dtype,
+                             device=where)
+            return flow_match._draw_t_eps(prng.PRNGKey(0, device=where), x0,
+                                          tcfg)
+        return draw
+
+    def pick(n, k, replace):
+        def draw(where):
+            sub = prng.split(prng.PRNGKey(0, device=where))[1]
+            return prng.choice(sub, n, (k,), replace=replace)
+        return draw
+
+    draws = [
+        ("stage-4 noise 2048 px (seed 0)", "normal",
+         lambda where: fp._noise(SimpleNamespace(device=where), [0],
+                                 (FILL_SIZE // 16) ** 2, 64)),
+        ("trainer t, eps bf16", "t_eps", t_eps(torch.bfloat16)),
+        ("trainer t, eps f32", "t_eps", t_eps(torch.float32)),
+        ("split chain x16", "exact", chain),
+        ("choice 2 of 200, no replacement", "exact", pick(200, 2, False)),
+        ("choice 4096 of 5000, no replacement", "exact",
+         pick(5000, 4096, False)),
+        ("choice 8 of 3, replacement", "exact", pick(3, 8, True)),
+    ]
+    report = []
+    for name, kind, fn in draws:
+        got = fn(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fn(cpu)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        ms = _ms(lambda: fn(dev), 10)
+        pairs = list(zip(got, want)) if kind == "t_eps" else [(got, want)]
+        ulp = err = 0.0
+        for g, w in pairs:
+            g = g.cpu()
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"prng {name}: {g.dtype} {tuple(g.shape)}"
+                                     f" on the card, {w.dtype} "
+                                     f"{tuple(w.shape)} on the CPU")
+            if kind == "exact" or g.dtype == torch.bfloat16:
+                ok = torch.equal(g, w)
+            else:
+                ulp = max(ulp, _f32_ulps(g, w))
+                err = max(err, (g - w).abs().max().item())
+                ok = ulp <= PRNG_ULP and err <= PRNG_ABS
+            if not ok:
+                raise AssertionError(
+                    f"prng {name}: the card's draw differs from the CPU's "
+                    f"(max {ulp} ulp, {err:.3e} abs)")
+        shapes = [tuple(g.shape) for g, _ in pairs]
+        print(f"prng {name}: {shapes} card {ms:.3f} ms, CPU {cpu_ms:.1f} ms;"
+              f" card vs CPU max {ulp:.0f} f32 ulp, {err:.3e} abs "
+              f"(integers, uniforms and bf16 torch.equal; {CARD})")
+        report.append({"draw": name, "shapes": shapes, "ms": ms,
+                       "cpu_ms": cpu_ms, "max_ulp": ulp, "max_abs": err})
+    print("prng draws: " + json.dumps(report, separators=(",", ":")))
 
 
 def phase_topk_kernel(dev):
@@ -4666,7 +4767,7 @@ def _mesh_fit(dev, rows):
     launches are counted."""
     import shutil
     import torch
-    from domainrag_tpu_torch.core import device as device_mod
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.ops import mmdit_attention as mma
     from domainrag_tpu_torch.parallel import mesh as mesh_mod
     from domainrag_tpu_torch.train import checkpoint as ckpt
@@ -4682,9 +4783,11 @@ def _mesh_fit(dev, rows):
         for _ in range(2):
             step, tree, opt = flow_match.make_train_step(
                 cfg, tcfg, _tree(lambda t: t.detach().clone(), params))
-            g = device_mod.generator(0, dev)
-            runs.append(([step(tree, opt, b, g)[2].item() for b in data],
-                         flow_match.leaves(tree)))
+            key, losses = prng.PRNGKey(0, device=dev), []
+            for b in data:              # fit's key walk from its seed
+                key, sub = prng.split(key)
+                losses.append(step(tree, opt, b, sub)[2].item())
+            runs.append((losses, flow_match.leaves(tree)))
             del opt
         root = OUT / "mesh_ckpt"
         shutil.rmtree(root, ignore_errors=True)
@@ -4759,6 +4862,7 @@ def _mesh_tp(dev, rows):
     cut, forward + backward with remat on a bf16 batch (computed in f32),
     and its exact B5/B6 counts."""
     import torch
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.models.flux import model as fm
     from domainrag_tpu_torch.ops import mmdit_attention as mma
@@ -4774,8 +4878,8 @@ def _mesh_tp(dev, rows):
     batch = next(batches())
     f32 = {k: v.float() if k in ("x0", "txt", "pooled") else v
            for k, v in batch.items()}
-    t = torch.sigmoid(torch.randn((TRAIN_B,), generator=g, device=dev))
-    eps = torch.randn(batch["x0"].shape, generator=g, device=dev)
+    t, eps = flow_match._draw_t_eps(prng.PRNGKey(31, device=dev), f32["x0"],
+                                    tcfg)
     loss1, want = _tp_loss_grads(params, f32, cfg, tcfg, t, eps,
                                  _RankAlone("model", 1, 0))
     want = _by_path(want)
@@ -4902,6 +5006,7 @@ def _mesh_fsdp(dev, rows):
     against the whole tree's, its step's time, and the launches of its
     first step on a bf16 batch (computed in f32)."""
     import torch
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.ops import mmdit_attention as mma
     from domainrag_tpu_torch.train import flow_match
     cfg, params, batches = _full_train_setup(dev)
@@ -4913,8 +5018,7 @@ def _mesh_fsdp(dev, rows):
     mesh = _FsdpAlone("data", MESH_RANKS, 0)
     step, local, opt, _ = flow_match.make_sharded_train_step(
         mesh, cfg, flow_match.TrainConfig(remat=True), params, fsdp=True)
-    g = torch.Generator(device=dev)
-    g.manual_seed(33)
+    g = prng.PRNGKey(33, device=dev)
     _reset_counts(mma)
     with _compute_dtypes() as seen:
         step(local, opt, batch, g)               # the moments are allocated
@@ -5659,6 +5763,7 @@ def main() -> int:
     rows.update(phase_int8_gemm(dev))
     rows.update(phase_int8_attention(dev))
     rows.update(phase_topk_kernel(dev))
+    phase_prng(dev)
     stage1 = phase_inpaint(dev)
     phase_retrieval(dev, rows, stage1)
     phase_small_slice(dev)

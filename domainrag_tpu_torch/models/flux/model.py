@@ -25,9 +25,9 @@ from ...ops.mmdit_attention import (mmdit_double_attention,
                                     mmdit_single_attention)
 # the JAX name of the interleaved-pair rotation (f32, cast back)
 from ...ops.mmdit_attention import rope_interleaved as apply_rope  # noqa
-from ..common import (Init, Params, gelu_tanh, linear, linear_col_sharded,
-                      linear_init, linear_row_sharded, linear_widths,
-                      rmsnorm_init)
+from ..common import (Init, Params, gelu_tanh, int8_activations_enabled,
+                      linear, linear_col_sharded, linear_init,
+                      linear_row_sharded, linear_widths, rmsnorm_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +84,20 @@ def _mlp_embedder_init(ini: Init, d_in: int, hidden: int) -> Params:
             "out": linear_init(ini, hidden, hidden)}
 
 
+def _vec_linear(p: Params, vec: torch.Tensor) -> torch.Tensor:
+    """``linear`` on the per-sample conditioning vectors (B, D), one
+    sample at a time: BLAS takes another kernel for one row than for
+    several, so, computed together, a sample's embeddings and modulation
+    would depend on the batch it came in (a data-parallel rank's rows
+    would not be the whole batch's, bit for bit). W8A8 keeps its one
+    kernel launch per layer."""
+    if vec.shape[0] == 1 or ("w_q" in p and int8_activations_enabled()):
+        return linear(p, vec)
+    return torch.cat([linear(p, v) for v in vec.split(1)])
+
+
 def _mlp_embedder(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return linear(p["out"], F.silu(linear(p["in"], x)))
+    return _vec_linear(p["out"], F.silu(_vec_linear(p["in"], x)))
 
 
 def rope_cos_sin(ids: torch.Tensor, axes_dim: Tuple[int, ...], theta: int
@@ -208,9 +220,9 @@ def _double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
     sharded = linear_widths(p["img_mlp1"])[1] != cfg.mlp_hidden
     vec_act = F.silu(vec)
     (i_shift1, i_scale1, i_gate1, i_shift2, i_scale2,
-     i_gate2) = linear(p["img_mod"], vec_act).chunk(6, dim=-1)
+     i_gate2) = _vec_linear(p["img_mod"], vec_act).chunk(6, dim=-1)
     (t_shift1, t_scale1, t_gate1, t_shift2, t_scale2,
-     t_gate2) = linear(p["txt_mod"], vec_act).chunk(6, dim=-1)
+     t_gate2) = _vec_linear(p["txt_mod"], vec_act).chunk(6, dim=-1)
 
     img_in = _modulate(_ln_no_affine(img), i_shift1, i_scale1)
     txt_in = _modulate(_ln_no_affine(txt), t_shift1, t_scale1)
@@ -244,7 +256,8 @@ def _single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig):
     w1, w2 = linear_widths(p["linear1"])[1], linear_widths(p["linear2"])[0]
     h_local = (w1 - w2) // 2
     sharded = w2 != cfg.hidden + cfg.mlp_hidden
-    shift, scale, gate = linear(p["mod"], F.silu(vec)).chunk(3, dim=-1)
+    shift, scale, gate = _vec_linear(p["mod"], F.silu(vec)).chunk(3,
+                                                                  dim=-1)
     x_in = _modulate(_ln_no_affine(x), shift, scale)
     proj = _col_linear(p["linear1"], x_in, sharded)
     # the attention reads q/k/v in place from proj's first 3h lanes
@@ -303,7 +316,8 @@ def _embed(params: Params, img_tokens, txt_tokens, pooled, timestep,
 
 
 def _final(params: Params, img, vec):
-    shift, scale = linear(params["final_mod"], F.silu(vec)).chunk(2, dim=-1)
+    shift, scale = _vec_linear(params["final_mod"], F.silu(vec)).chunk(
+        2, dim=-1)
     img = _modulate(_ln_no_affine(img), shift, scale)
     return linear(params["final_proj"], img)
 

@@ -26,8 +26,8 @@ interval, an anchor tuple, ``"auto"`` or ``"sched:K"``) on both paths,
 and the block-residual cache (``model.apply_with_cache``) on
 ``generate``, with their one-time calibrations. The JAX static unroll and
 tail mask of the cached loop is a plain loop over each group's steps
-here. The calibrations' probe latents come from the port's per-seed
-draw (:func:`_noise`), not ``jax.random``.
+here. The noise per seed and the calibrations' probe latents are the
+JAX package's draws from ``PRNGKey(seed)`` (``core.prng``).
 
 Scale-out (``parallel/``): ``generate`` and ``fill_batch`` take the JAX
 package's ``mesh`` / ``data_axis`` / ``pipe_axis`` / ``microbatches``
@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ...core import device as device_mod
+from ...core import prng
 from ...core import text as text_util
 from ...core.log import StepTimer, get_logger
 from .. import clip as clip_mod
@@ -314,12 +315,11 @@ def _decode_tokens(vae_params, tokens, grid_h, grid_w, vae_cfg,
 
 def _noise(bundle: FluxBundle, seeds: Sequence[int], seq: int, c: int
            ) -> torch.Tensor:
-    """(B, seq, c) f32 standard normal, one generator per seed on the
-    bundle's device. The JAX package draws from ``jax.random``, whose bits
-    differ: comparisons hand both the same noise instead."""
+    """(B, seq, c) f32 standard normal on the bundle's device, the JAX
+    package's draw per seed: ``normal(PRNGKey(s), (seq, c), f32)``."""
     return torch.stack([
-        torch.randn((seq, c), generator=device_mod.generator(s, bundle.device),
-                    device=bundle.device, dtype=torch.float32)
+        prng.normal(prng.PRNGKey(s, device=bundle.device), (seq, c),
+                    torch.float32)
         for s in seeds])
 
 
@@ -590,7 +590,7 @@ def _probe_inputs(bundle: FluxBundle, prompt_embeds, pooled, height: int,
     """A calibration's single-sample probe: (latents (1, S, C) in
     ``compute_dtype``, embeds, pooled, sigmas, grid_h, grid_w). The latents
     are ``probe_noise`` when given, else the per-seed draw of :func:`_noise`
-    (the JAX package draws ``jax.random.normal(PRNGKey(seed))``)."""
+    (JAX's ``normal(PRNGKey(seed), (1, S, C), f32)``)."""
     dev, dt = bundle.device, bundle.compute_dtype
     lf = bundle.latent_factor
     grid_h, grid_w = height // lf, width // lf
@@ -976,9 +976,9 @@ def generate(bundle: FluxBundle, prompt_embeds: torch.Tensor,
     (a ``calibrate`` span of ``timer``).
 
     ``noise``: (B, S_img, 4*latent_channels) initial latents in place of
-    the per-seed draw (how tests hand the JAX package's noise to the
-    port). ``timer`` gets a ``step`` span per denoise step and a
-    ``decode`` span. Images with a non-finite value before quantisation
+    the per-seed draw, which is the JAX package's (:func:`_noise`).
+    ``timer`` gets a ``step`` span per denoise step and a ``decode``
+    span. Images with a non-finite value before quantisation
     are counted in ``generate.nonfinite_images``. The parameters are the
     JAX package's, in its order and with its defaults; ``noise`` and
     ``timer`` are the port's own and keyword-only.

@@ -24,6 +24,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...core import prng
 from ..common import (Init, Params, conv2d, conv_init, groupnorm,
                       groupnorm_init)
 
@@ -153,17 +154,18 @@ def encode_moments(params: Params, images: torch.Tensor,
 
 def encode(params: Params, images: torch.Tensor,
            cfg: VaeConfig = FLUX_VAE,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+           key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Normalized latents of the posterior's mode (the fill path draws no
-    sample), or, with a ``generator`` (in the slot of the JAX key), of a
-    sample: ``mean + exp(0.5 * clip(logvar, -30, 20)) * N(0, 1)``."""
+    sample), or, with a PRNG ``key`` (``core.prng``), of a sample: ``mean
+    + exp(0.5 * clip(logvar, -30, 20)) * normal(key, mean.shape,
+    mean.dtype)``, JAX's draw."""
     moments = encode_moments(params, images, cfg)
     mean = moments[..., :cfg.latent_channels]
-    if generator is not None:
+    if key is not None:
+        key = prng.check_key(key, "vae.encode").to(mean.device)
         logvar = moments[..., cfg.latent_channels:].clamp(-30.0, 20.0)
-        mean = mean + torch.exp(0.5 * logvar) * torch.randn(
-            mean.shape, generator=generator, device=mean.device,
-            dtype=mean.dtype)
+        mean = mean + torch.exp(0.5 * logvar) * prng.normal(
+            key, mean.shape, mean.dtype)
     return (mean - cfg.shift_factor) * cfg.scaling_factor
 
 
@@ -250,24 +252,15 @@ def decode_tiled(params: Params, latents: torch.Tensor,
 def encode_tiled(params: Params, images: torch.Tensor,
                  cfg: VaeConfig = FLUX_VAE, tile: int = 96,
                  overlap: int = 16,
-                 generator: Optional[torch.Generator] = None
-                 ) -> torch.Tensor:
+                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`encode` over overlapping tiles (``tile``/``overlap`` in
     latent cells, as :func:`decode_tiled`), blending the normalized
     latents (seams see a truncated receptive field, as in diffusers'
-    tiled VAE). With a ``generator`` every tile samples with the
-    generator's state on entry, so every tile gets the same normal draw:
-    the JAX package hands each tile the same key."""
+    tiled VAE). Every tile samples with the same ``key``, as in the JAX
+    package."""
     f = cfg.spatial_factor
     lh, lw = images.shape[1] // f, images.shape[2] // f
     if lh <= tile and lw <= tile:
-        return encode(params, images, cfg, generator)
-    state = None if generator is None else generator.get_state()
-
-    def encode_tile(x):
-        if state is not None:
-            generator.set_state(state)
-        return encode(params, x, cfg, generator)
-
-    return _tiled(encode_tile, images, lh, lw, f, 1, cfg.latent_channels,
-                  tile, overlap)
+        return encode(params, images, cfg, key)
+    return _tiled(lambda x: encode(params, x, cfg, key), images, lh, lw, f,
+                  1, cfg.latent_channels, tile, overlap)

@@ -27,10 +27,10 @@ its share of the params: the blocks' TP layers over ``model``
 (``parallel.sharding``, trained through Megatron's conjugate collectives
 in ``models.common``), and with FSDP the other 2-d leaves cut along dim 0
 over ``data``, all-gathered before use (their gradient arrives
-reduce-scattered). t and eps are drawn for the global batch from one
-generator seeded alike on every rank, and each rank takes its rows, so
-the step does not depend on the mesh. The loss is the global mean;
-gradients are averaged over ``data``; the clip takes the norm of the
+reduce-scattered). t and eps are drawn for the global batch from the
+step's key, as JAX draws them (``core.prng``), and each rank takes its
+rows, so the step does not depend on the mesh. The loss is the global
+mean; gradients are averaged over ``data``; the clip takes the norm of the
 logical tree (the squares of sharded leaves summed over their axes,
 replicated leaves counted once); AdamW steps each rank's share.
 """
@@ -43,6 +43,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from ..core import prng
 from ..models.common import leaves
 from ..models.flux import model as flux_mod
 from ..ops.attention import tp_attention
@@ -112,26 +113,44 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
     return Optimizer(cfg)
 
 
-def sample_timesteps(generator: torch.Generator, batch: int,
+def sample_timesteps(key: torch.Tensor, batch: int,
                      cfg: TrainConfig) -> torch.Tensor:
-    """Logit-normal t in (0, 1), drawn on the generator's device."""
-    z = torch.randn((batch,), generator=generator, device=generator.device)
+    """Logit-normal t in (0, 1), JAX's draw from the PRNG ``key``, on the
+    key's device."""
+    key = prng.check_key(key, "sample_timesteps")
+    z = prng.normal(key, (batch,), torch.float32)
     return torch.sigmoid(z * cfg.t_std + cfg.t_mean)
 
 
-def flow_match_loss(params, batch, generator: Optional[torch.Generator],
+def _draw_t_eps(key: Optional[torch.Tensor], x0: torch.Tensor,
+               train_cfg: TrainConfig, t: Optional[torch.Tensor] = None,
+               eps: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (t, eps) of JAX's ``flow_match_loss`` for the batch ``x0``:
+    ``k_t, k_eps = split(key)``, t from :func:`sample_timesteps`, eps
+    ``normal(k_eps, x0.shape, x0.dtype)``, drawn on x0's device. A ``t``
+    or ``eps`` given is kept (``key`` may be None when both are)."""
+    if t is None or eps is None:
+        key = prng.check_key(key, "flow_match_loss").to(x0.device)
+        k_t, k_eps = prng.split(key)
+        if t is None:
+            t = sample_timesteps(k_t, x0.shape[0], train_cfg)
+        if eps is None:
+            eps = prng.normal(k_eps, x0.shape, x0.dtype)
+    return t, eps
+
+
+def flow_match_loss(params, batch, key: Optional[torch.Tensor],
                     flux_cfg: flux_mod.FluxConfig, train_cfg: TrainConfig,
                     *, t: Optional[torch.Tensor] = None,
                     eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """batch: dict with x0 (B, S, C) latent tokens, txt (B, S_t, D_t5),
     pooled (B, P), img_ids (S, 3), txt_ids (S_t, 3). ``t`` (B,) and ``eps``
-    (like x0) are drawn from ``generator`` unless given."""
+    (like x0) are drawn from the PRNG ``key`` as JAX draws them
+    (:func:`_draw_t_eps`) unless given."""
     x0 = batch["x0"]
     b, dev = x0.shape[0], x0.device
-    if t is None:
-        t = sample_timesteps(generator, b, train_cfg)
-    if eps is None:
-        eps = torch.randn(x0.shape, generator=generator, device=dev)
+    t, eps = _draw_t_eps(key, x0, train_cfg, t, eps)
     t = t.to(device=dev, dtype=torch.float32)
     eps = eps.to(device=dev, dtype=x0.dtype)
     tb = t[:, None, None]
@@ -146,7 +165,7 @@ def flow_match_loss(params, batch, generator: Optional[torch.Generator],
     return (v.float() - target.float()).square().mean()
 
 
-def _step(params, opt_state, batch, generator, flux_cfg, train_cfg,
+def _step(params, opt_state, batch, key, flux_cfg, train_cfg,
           optimizer: Optimizer, t, eps, gather=None, reduce=None,
           sum_squares=None, ctx=None):
     """Loss, gradient and update of one step, the body that
@@ -156,7 +175,7 @@ def _step(params, opt_state, batch, generator, flux_cfg, train_cfg,
     loss)`` over a mesh, then ``optimizer`` steps ``params`` in place."""
     with ctx if ctx is not None else contextlib.nullcontext():
         loss = flow_match_loss(params if gather is None else gather(params),
-                               batch, generator, flux_cfg, train_cfg, t=t,
+                               batch, key, flux_cfg, train_cfg, t=t,
                                eps=eps)
         grads = list(torch.autograd.grad(loss, leaves(params)))
     loss = loss.detach()
@@ -166,17 +185,17 @@ def _step(params, opt_state, batch, generator, flux_cfg, train_cfg,
     return params, opt_state, loss
 
 
-def train_step(params, opt_state, batch, generator: torch.Generator,
+def train_step(params, opt_state, batch, key: Optional[torch.Tensor],
                flux_cfg: flux_mod.FluxConfig, train_cfg: TrainConfig,
                optimizer: Optimizer, *, t: Optional[torch.Tensor] = None,
                eps: Optional[torch.Tensor] = None):
     """One step of the JAX ``train_step`` on this device: the loss of
     ``batch``, its gradient and ``optimizer``'s update, which steps
     ``params`` in place (``opt_state`` is ``optimizer.init(params)``).
-    ``generator`` stands in the slot of the JAX key and draws ``t`` and
-    ``eps`` unless they are given. Returns (params, opt_state, loss)."""
+    The PRNG ``key`` draws ``t`` and ``eps`` as JAX's does unless they
+    are given. Returns (params, opt_state, loss)."""
     _trainable(params)
-    return _step(params, opt_state, batch, generator, flux_cfg, train_cfg,
+    return _step(params, opt_state, batch, key, flux_cfg, train_cfg,
                  optimizer, t, eps)
 
 
@@ -208,11 +227,12 @@ def make_sharded_train_step(mesh, flux_cfg: flux_mod.FluxConfig,
 
     ``sharded_params`` is this rank's share of ``params`` (the same
     tensors where a leaf is whole) and trains in place.
-    ``step_fn(params, opt_state, batch, generator, t=None, eps=None) ->
+    ``step_fn(params, opt_state, batch, key, t=None, eps=None) ->
     (params, opt_state, loss)`` takes the whole batch (every rank the
     same); ``batch_shardings`` says which rows of each key a rank takes
-    (``parallel.mesh.local_rows``). t and eps, drawn from ``generator``
-    for the whole batch unless given, are sliced the same way. A batch
+    (``parallel.mesh.local_rows``). t and eps, drawn from the PRNG
+    ``key`` for the whole batch as JAX's ``flow_match_loss`` draws them
+    unless given, are sliced the same way. A batch
     that does not divide over ``data``, and a TP split that cannot train
     (``parallel.sharding.check_trainable``), raise."""
     fsdp_axis = data_axis if fsdp else None
@@ -267,13 +287,8 @@ def make_sharded_train_step(mesh, flux_cfg: flux_mod.FluxConfig,
             g.div_(n_data)
         return grads, mesh.all_reduce(loss.clone(), data_axis) / n_data
 
-    def step(p, o, batch, generator, t=None, eps=None):
-        x0 = batch["x0"]
-        if t is None:
-            t = sample_timesteps(generator, x0.shape[0], train_cfg)
-        if eps is None:
-            eps = torch.randn(x0.shape, generator=generator,
-                              device=x0.device)
+    def step(p, o, batch, key, t=None, eps=None):
+        t, eps = _draw_t_eps(key, batch["x0"], train_cfg, t, eps)
         local_batch = {k: mesh_mod.local_rows(v, batch_shardings[k])
                        for k, v in batch.items()}
         t, eps = mesh_mod.local_rows(t, rows), mesh_mod.local_rows(eps, rows)

@@ -22,7 +22,7 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
-from ..core import device as device_mod
+from ..core import prng
 from ..core import imaging
 from ..core.interrupt import should_stop
 from ..core.log import StepTimer, get_logger
@@ -38,18 +38,20 @@ logger = get_logger("domainrag_tpu_torch.train")
 
 
 def latent_batches_from_images(image_dirs, vae_params, vae_cfg, bundle,
-                               batch_size: int, generator: torch.Generator,
+                               batch_size: int, key: torch.Tensor,
                                prompt: str = "") -> Iterator[dict]:
     """Stream training batches from directories of images: VAE-encode (the
     posterior's mode, f32) to packed latent tokens, pair with the (shared)
-    encoded prompt. Images are picked by ``generator`` (with replacement
-    only when there are fewer images than ``batch_size``)."""
+    encoded prompt. Each batch's images are JAX's picks from the PRNG
+    ``key``: ``key, sub = split(key)``, then ``choice(sub, n, (batch_size,),
+    replace=n < batch_size)``."""
     from ..models.flux import pipeline as fp
     from ..models.flux import vae as vae_mod
 
     paths = sorted(p for d in image_dirs
                    for p in globlib.glob(os.path.join(d, "*.png"))
                    + globlib.glob(os.path.join(d, "*.jpg")))
+    key = prng.check_key(key, "latent_batches_from_images")
     if not paths:
         return
     dev = bundle.device
@@ -57,13 +59,9 @@ def latent_batches_from_images(image_dirs, vae_params, vae_cfg, bundle,
         txt, pooled = fp.encode_prompt(bundle, [prompt])
     lf = bundle.latent_factor
     while True:
-        if len(paths) < batch_size:
-            picks = torch.randint(len(paths), (batch_size,),
-                                  generator=generator,
-                                  device=generator.device)
-        else:
-            picks = torch.randperm(len(paths), generator=generator,
-                                   device=generator.device)[:batch_size]
+        key, sub = prng.split(key)
+        picks = prng.choice(sub, len(paths), (batch_size,),
+                            replace=len(paths) < batch_size)
         pixels = []
         size = None
         for idx in picks.tolist():
@@ -103,8 +101,9 @@ def fit(params, flux_cfg: flux_mod.FluxConfig,
     ``params`` (f32 leaves; each rank's share trains in place) over
     ``mesh`` (default ``create_mesh(model_parallel)`` over the group),
     FSDP over its data axis with ``fsdp``. Every rank reads the same
-    batches and takes its rows. t and eps come from a generator on that
-    device seeded with ``seed`` (the same on every rank). ``timer`` gets a
+    batches and takes its rows. Each step's t and eps come from JAX's key
+    chain on that device: ``key = PRNGKey(seed)``, then ``key, sub =
+    split(key)`` per step (the same on every rank). ``timer`` gets a
     ``step`` span per step and a ``save`` span per checkpoint. Returns
     (final_params, losses): the whole, unsharded tree on every rank, and
     the global batch's losses."""
@@ -136,7 +135,7 @@ def fit(params, flux_cfg: flux_mod.FluxConfig,
                 ckpt_mod.save_checkpoint(checkpoint_dir, n, tree)
 
     dev = flow_match.leaves(params)[0].device
-    generator = device_mod.generator(seed, dev)
+    key = prng.PRNGKey(seed, device=dev)
     timer = timer or StepTimer()
     reporter = ProgressReporter(num_steps, label="train-steps",
                                 log_every=log_every)
@@ -152,9 +151,9 @@ def fit(params, flux_cfg: flux_mod.FluxConfig,
             logger.warning("data exhausted at step %d", step)
             break
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        key, sub = prng.split(key)
         with timer.span("step"):
-            params, opt_state, loss = step_fn(params, opt_state, batch,
-                                              generator)
+            params, opt_state, loss = step_fn(params, opt_state, batch, sub)
             losses.append(float(loss))
         reporter.update(ok=bool(np.isfinite(losses[-1])),
                         detail=f"loss={losses[-1]:.4f}")

@@ -10,8 +10,8 @@ For every module of ``domainrag_tpu`` and its counterpart in
 - every public function and method that both define takes JAX's
   parameters in JAX's order, of JAX's kinds, with JAX's defaults (a dtype
   through :data:`AS_TORCH`, a config through ``bridge.config``); where
-  JAX takes a PRNG key the port takes, in that slot, the ``Init``,
-  generator or seed of :data:`KEY_SLOTS`;
+  JAX takes a PRNG key the port takes, in that slot, the ``Init`` or
+  seed of :data:`KEY_SLOTS`, or a ``core.prng`` key named ``key``;
 - the port's own parameters come after JAX's, keyword-only.
 
 :data:`EXCLUDED` holds everything the check leaves out, each with its
@@ -53,8 +53,8 @@ KEY_SLOTS = {
     ("models.common", "mha_init"): "init",
     ("models.flux.model", "init"): "ini",
     ("models.flux.vae", "init"): "ini",
-    ("models.flux.vae", "encode"): "generator",
-    ("models.flux.vae", "encode_tiled"): "generator",
+    ("models.flux.vae", "encode"): "key",
+    ("models.flux.vae", "encode_tiled"): "key",
     ("models.flux.pipeline", "tiny_bundle"): "seed",
     ("models.t5", "init"): "ini",
     ("models.clip", "init_vision"): "ini",
@@ -63,10 +63,10 @@ KEY_SLOTS = {
     ("models.redux", "init"): "ini",
     ("models.lama", "init"): "ini",
     ("models.resnet_stem", "init"): "ini",
-    ("train.flow_match", "sample_timesteps"): "generator",
-    ("train.flow_match", "flow_match_loss"): "generator",
-    ("train.flow_match", "train_step"): "generator",
-    ("train.loop", "latent_batches_from_images"): "generator",
+    ("train.flow_match", "sample_timesteps"): "key",
+    ("train.flow_match", "flow_match_loss"): "key",
+    ("train.flow_match", "train_step"): "key",
+    ("train.loop", "latent_batches_from_images"): "key",
 }
 
 EXCLUDED = {
@@ -692,28 +692,26 @@ def vae_trees():
     return jp, bridge.params(jax.tree.map(np.asarray, jp), device="cpu")
 
 
-def _posterior(moments, noise, cfg):
-    c = cfg.latent_channels
-    mean, logvar = moments[..., :c], np.clip(moments[..., c:], -30.0, 20.0)
-    return (mean + np.exp(0.5 * logvar) * noise - cfg.shift_factor) \
-        * cfg.scaling_factor
-
-
 def test_vae_encode_samples_with_a_generator(vae_trees):
+    """With a PRNG key in JAX's slot the port samples the posterior with
+    JAX's draw: JAX's own ``encode(key)`` within 1e-4. A torch.Generator
+    in that slot raises TypeError naming prng.PRNGKey; without a key the
+    latents are the mode."""
     from domainrag_tpu.models.flux import vae as jvae
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.models.flux import vae as tvae
     jp, tp = vae_trees
     cfg = bridge.config(jvae.TINY_VAE, tvae.VaeConfig)
     x = _rng(9).uniform(-1, 1, (2, 16, 12, 3)).astype(np.float32)
     moments = np.asarray(jvae.encode_moments(jp, jnp.asarray(x),
                                              jvae.TINY_VAE))
-    twin = torch.Generator().manual_seed(11)
-    noise = torch.randn(moments[..., :cfg.latent_channels].shape,
-                        generator=twin).numpy()
-    got = tvae.encode(tp, torch.from_numpy(x), cfg,
-                      torch.Generator().manual_seed(11))
-    np.testing.assert_allclose(got.numpy(), _posterior(moments, noise, cfg),
-                               rtol=1e-4, atol=1e-4)
+    want = np.asarray(jvae.encode(jp, jnp.asarray(x), jvae.TINY_VAE,
+                                  key=jax.random.PRNGKey(11)))
+    got = tvae.encode(tp, torch.from_numpy(x), cfg, prng.PRNGKey(11))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(TypeError, match="prng.PRNGKey"):
+        tvae.encode(tp, torch.from_numpy(x), cfg,
+                    torch.Generator().manual_seed(11))
     mode = tvae.encode(tp, torch.from_numpy(x), cfg)
     want_mode = (moments[..., :cfg.latent_channels] - cfg.shift_factor) \
         * cfg.scaling_factor
@@ -723,9 +721,10 @@ def test_vae_encode_samples_with_a_generator(vae_trees):
 def test_vae_encode_tiled_draws_the_same_noise_in_every_tile(vae_trees,
                                                              monkeypatch):
     """JAX hands every tile the same key, so every tile gets the same
-    normal draw. JAX's ``encode_tiled`` with its draw replaced by the
-    port generator's first draw is the port's output."""
+    normal draw; the port's ``encode_tiled(key)`` is JAX's own within
+    1e-4."""
     from domainrag_tpu.models.flux import vae as jvae
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.models.flux import vae as tvae
     jp, tp = vae_trees
     cfg = bridge.config(jvae.TINY_VAE, tvae.VaeConfig)
@@ -733,27 +732,27 @@ def test_vae_encode_tiled_draws_the_same_noise_in_every_tile(vae_trees,
     x = _rng(10).uniform(-1, 1, (1, 28, 12, 3)).astype(np.float32)
     f = cfg.spatial_factor
     shape = (1, tile, tile, cfg.latent_channels)
-    noise = torch.randn(shape, generator=torch.Generator().manual_seed(12))
     draws = []
+    normal = jax.random.normal
 
     def same_draw(key, s, dtype=jnp.float32):
         draws.append((np.asarray(jax.random.key_data(key)
                                  if jnp.issubdtype(key.dtype,
                                                    jax.dtypes.prng_key)
                                  else key).tobytes(), tuple(s)))
-        return jnp.asarray(noise.numpy(), dtype)
+        return normal(key, s, dtype)
 
     monkeypatch.setattr(jax.random, "normal", same_draw)
     want = np.asarray(jvae.encode_tiled(jp, jnp.asarray(x), jvae.TINY_VAE,
                                         tile, overlap,
-                                        key=jax.random.PRNGKey(0)))
+                                        key=jax.random.PRNGKey(12)))
     monkeypatch.undo()
     n_tiles = len(range(0, max(28 // f - overlap, 1), tile - overlap)) * \
         len(range(0, max(12 // f - overlap, 1), tile - overlap))
     assert n_tiles > 1 and len(draws) == n_tiles
     assert len(set(draws)) == 1 and draws[0][1] == shape
     got = tvae.encode_tiled(tp, torch.from_numpy(x), cfg, tile, overlap,
-                            torch.Generator().manual_seed(12))
+                            prng.PRNGKey(12))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 

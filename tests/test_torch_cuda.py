@@ -22,6 +22,7 @@ it.
 import pytest
 import torch
 
+from domainrag_tpu_torch.core import prng
 from domainrag_tpu_torch.ops import attention as attn
 from domainrag_tpu_torch.ops import mmdit_attention as mma
 
@@ -646,8 +647,7 @@ def test_bf16_batch_train_step_runs_f32_attention(dev):
         step, params, opt = flow_match.make_train_step(
             cfg, flow_match.TrainConfig(remat=True),
             fm.init(Init(ini, dev, torch.float32), cfg))
-        seed = torch.Generator(device=dev)
-        seed.manual_seed(17)
+        seed = prng.PRNGKey(17, device=dev)
         before = _counts(), mma.mmdit_double_attention.mp_launches
         _, _, loss = step(params, opt, batch, seed)
         torch.cuda.synchronize()
@@ -660,6 +660,49 @@ def test_bf16_batch_train_step_runs_f32_attention(dev):
     assert torch.equal(runs[0][0], runs[1][0])
     for a, b in zip(runs[0][1], runs[1][1]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# run-time draws (core/prng.py, JAX's threefry) on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _ulps(a, b):
+    """Distance of two float tensors of one dtype in its own ulps."""
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+
+    def ordered(x):
+        i = x.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & (2 ** (8 * x.element_size() - 1) - 1)),
+                           i)
+    return (ordered(a) - ordered(b)).abs().max().item()
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1])
+def test_prng_draws_card_vs_cpu(dev, seed):
+    """Integers, keys and uniforms torch.equal; f32 normals within 8 ulp
+    and 2e-6, bf16 normals within 1 ulp (the f32 erf_inv's last bit may
+    round either way)."""
+    cpu = torch.device("cpu")
+    keys = {d: prng.PRNGKey(seed, device=d) for d in (dev, cpu)}
+    for _ in range(4):
+        keys = {d: prng.split(k)[1] for d, k in keys.items()}
+    assert torch.equal(keys[dev].cpu(), keys[cpu])
+    for shape in [(), (7,), (16384, 64), (2, 4608, 64)]:
+        for fn, kw in [(prng.bits, {}), (prng.uniform, {}),
+                       (prng.uniform, {"dtype": torch.bfloat16})]:
+            assert torch.equal(fn(keys[dev], shape, **kw).cpu(),
+                               fn(keys[cpu], shape, **kw))
+        for dtype, ulps in [(torch.float32, 8), (torch.bfloat16, 1)]:
+            got = prng.normal(keys[dev], shape, dtype).cpu()
+            want = prng.normal(keys[cpu], shape, dtype)
+            assert got.dtype == dtype and _ulps(got, want) <= ulps
+            if dtype == torch.float32:
+                assert (got - want).abs().max().item() <= 2e-6
+    for n, shape, replace in [(5000, (8,), False), (3, (8,), True),
+                              (200, (200,), False)]:
+        assert torch.equal(
+            prng.choice(keys[dev], n, shape, replace=replace).cpu(),
+            prng.choice(keys[cpu], n, shape, replace=replace))
 
 
 # ---------------------------------------------------------------------------

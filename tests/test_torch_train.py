@@ -38,7 +38,7 @@ from domainrag_tpu.ops import mmdit_attention as jmma
 from domainrag_tpu.train import flow_match as jflow
 from domainrag_tpu.train import loop as jloop
 from domainrag_tpu_torch import bridge
-from domainrag_tpu_torch.core import interrupt
+from domainrag_tpu_torch.core import interrupt, prng
 from domainrag_tpu_torch.models.flux import model as tflux
 from domainrag_tpu_torch.ops import mmdit_attention as tmma
 from domainrag_tpu_torch.train import checkpoint as tckpt
@@ -265,8 +265,8 @@ def test_remat_gives_the_same_grads(cfg):
 
 def test_timesteps_are_logit_normal_and_seeded():
     cfg = tflow.TrainConfig(t_mean=0.5, t_std=2.0)
-    a = tflow.sample_timesteps(torch.Generator().manual_seed(3), 4096, cfg)
-    b = tflow.sample_timesteps(torch.Generator().manual_seed(3), 4096, cfg)
+    a = tflow.sample_timesteps(prng.PRNGKey(3), 4096, cfg)
+    b = tflow.sample_timesteps(prng.PRNGKey(3), 4096, cfg)
     assert torch.equal(a, b) and bool(((a > 0) & (a < 1)).all())
     z = torch.logit(a.double())
     assert abs(z.mean().item() - 0.5) < 0.1 and abs(z.std().item() - 2) < 0.1

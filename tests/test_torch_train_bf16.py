@@ -19,6 +19,7 @@ import torch
 from domainrag_tpu.models.flux import model as jflux
 from domainrag_tpu.train import flow_match as jflow
 from domainrag_tpu_torch import bridge
+from domainrag_tpu_torch.core import prng
 from domainrag_tpu_torch.models.flux import model as tflux
 from domainrag_tpu_torch.train import flow_match as tflow
 from test_torch_train import (CONFIG_IDS, CONFIGS, HD128, _batch, _jax_t_eps,
@@ -59,7 +60,7 @@ def test_bf16_batch_computes_in_f32_as_jax(monkeypatch):
     step, params, opt = tflow.make_train_step(cfg, tflow.TrainConfig(),
                                               _port(jparams))
     monkeypatch.setattr(tflux, "apply", _spy(seen_port, tflux.apply))
-    _, _, loss = step(params, opt, tbatch, torch.Generator().manual_seed(0))
+    _, _, loss = step(params, opt, tbatch, prng.PRNGKey(0))
     assert seen_port == ["torch.float32"] and torch.isfinite(loss)
     assert all(p.dtype == torch.float32 for p in tflow.leaves(params))
 

@@ -20,6 +20,7 @@ from domainrag_tpu.models.flux import pipeline as jfp
 from domainrag_tpu.train import flow_match as jflow
 from domainrag_tpu.train import loop as jloop
 from domainrag_tpu_torch import bridge
+from domainrag_tpu_torch.core import prng
 from domainrag_tpu_torch.models.flux import model as tflux
 from domainrag_tpu_torch.train import flow_match as tflow
 from domainrag_tpu_torch.train import loop as tloop
@@ -104,7 +105,7 @@ def test_bridged_tree_trains():
     assert all(p.requires_grad and p.is_leaf for p in tflow.leaves(params))
     batch = {k: torch.from_numpy(np.asarray(v))
              for k, v in _batch(jflux.TINY_FLUX).items()}
-    step(params, opt, batch, torch.Generator().manual_seed(1))
+    step(params, opt, batch, prng.PRNGKey(1))
     moved = [not torch.equal(a, b) for a, b in
              zip(before, tflow.leaves(params))]
     assert all(moved)                 # weight decay moves even zero grads
@@ -116,8 +117,9 @@ def test_bridged_tree_trains():
 
 def test_latent_batches_match_jax(tmp_path):
     """One image in the directory, so both packages pick it for every slot
-    whatever their generators; the batch (latents, prompt embeddings,
-    ids) agrees with JAX's vae.encode + pack_latents and encode_prompt."""
+    (JAX's picks from the same key are checked in test_torch_seeded.py);
+    the batch (latents, prompt embeddings, ids) agrees with JAX's
+    vae.encode + pack_latents and encode_prompt."""
     from test_torch_generate import _port_bundle
     jb = jfp.tiny_bundle(jax.random.PRNGKey(0))
     tb = _port_bundle(jb)
@@ -129,7 +131,7 @@ def test_latent_batches_match_jax(tmp_path):
         jax.random.PRNGKey(0), prompt="a photo"))
     got = next(tloop.latent_batches_from_images(
         [str(tmp_path)], tb.vae_params, tb.vae_cfg, tb, 2,
-        torch.Generator().manual_seed(0), prompt="a photo"))
+        prng.PRNGKey(0), prompt="a photo"))
     assert set(got) == set(want)
     assert got["x0"].dtype == torch.float32
     for k in want:
@@ -138,4 +140,4 @@ def test_latent_batches_match_jax(tmp_path):
                                    atol=1e-4, rtol=1e-4, err_msg=k)
     assert list(tloop.latent_batches_from_images(
         [str(tmp_path / "empty")], tb.vae_params, tb.vae_cfg, tb, 2,
-        torch.Generator())) == []
+        prng.PRNGKey(0))) == []
