@@ -78,7 +78,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    eps at 2 x 4608 x 64 in bf16 and f32, a chain of 16 splits and the
    loader's picks (``choice`` with and without replacement): integers,
    keys, uniforms and bf16 normals torch.equal, f32 normals within
-   ``PRNG_ULP`` (8) ulp and 2e-6; each draw's card and CPU time;
+   ``PRNG_ULP`` (8) ulp and 2e-6; each draw's card and CPU time; then
+   the random inits at full width (``phase_init_draws``): the first
+   double and single block of ``full_bundle(PRNGKey(0))``'s MMDiT (f32)
+   and its T5-XXL embedding (32128 x 4096), each drawn on the card and on
+   the CPU from the same key, every leaf within ``INIT_ULP`` (3) f32 ulp;
+   each ``full_bundle`` draw (stages 3 and 4) prints its seconds and GB/s
+   where it is drawn, and the last lines before the result sum them;
 9. stage 1 at big-lama width: ``BIG_LAMA`` (18 FFC blocks, ngf 64) drawn
    on the card, ``lama.apply`` on one 256x256 image on the card and on
    the CPU from the same weights within ``LAMA_BAR`` (1e-4 max abs on
@@ -211,7 +217,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     output against the plain B5 forward;
 22. the CLI from a checkpoint tree on disk, at full width and depth
     (``phase_cli``): random weights drawn on the card by the port's inits,
-    each subtree from its own seed, written in the published layouts as
+    each tower from its own seed and both MMDiTs from one (the Fill
+    MMDiT's blocks are the dev blocks), written in the published layouts as
     safetensors (written here, the format's inverse) under ``OUT``:
     ``flux-dev/`` and ``flux-fill/`` (bf16, through
     ``export_flux_to_diffusers``), ``vae/``, ``t5/`` (T5-XXL, bf16),
@@ -222,9 +229,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     then ``cli.main(["pipeline", "--checkpoints", ...])`` in this process
     on a synthetic UODD 1-shot sample (phase 18's) and CLI_CORPUS corpus
     JPEGs, CLI_STEPS steps: before the stages run, every converted leaf
-    equals the drawn one (drawn again from its generator state;
-    ``torch.equal``, bf16 -> bf16, bf16 -> f32 for T5, f32 -> f32) and the
-    two bundles hold the same tower tensors; after, every stage's
+    equals the drawn one (drawn again from its key, JAX shape, scale and
+    dtypes; ``torch.equal``, bf16 -> bf16, bf16 -> f32 for T5, f32 ->
+    f32), the Fill MMDiT's blocks equal the dev bundle's, and the two
+    bundles hold the same tower tensors; after, every stage's
     artifacts, the four ``stage/*`` timings, and B1/B2 19 / 38 launches
     per step per rank, B3 19 / 38 per denoise step per background and no
     other kernel; then ``generate --w8a8 --int8_qk`` from the same tree
@@ -327,6 +335,7 @@ SOURCES = ("mmdit_attention", "flash_attention", "int8_gemm",
            "int8_attention", "topk")
 PARENT = None             # --parent DIR: a checkout of the parent commit
 CARD = None               # the card's name and power limit (nvidia-smi)
+DRAWS = {}                # full_bundle's draws: stage -> seconds, GB
 
 
 def _ms(fn, reps: int, warmup: int = 2) -> float:
@@ -363,6 +372,30 @@ def _weight_bytes(bundle) -> int:
     return sum(_bytes(getattr(bundle, f.name))
                for f in dataclasses.fields(bundle)
                if f.name.endswith("_params"))
+
+
+def _drawn_bundle(fp, seed, fill, stage):
+    """``full_bundle(PRNGKey(seed), fill)`` on the card, its draw timed:
+    every leaf through ``core.prng`` (JAX's threefry), as JAX's inits
+    draw it."""
+    import torch
+    from domainrag_tpu_torch.core import prng
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = fp.full_bundle(prng.PRNGKey(seed), fill)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    trees = [getattr(bundle, f.name) for f in dataclasses.fields(bundle)
+             if f.name.endswith("_params")]
+    n = sum(t.numel() for tree in trees for t in _leaves(tree))
+    gb = _weight_bytes(bundle) / 1e9
+    print(f"full_bundle draw ({stage}, {bundle.flux_cfg.in_channels} MMDiT "
+          f"input channels): {gb:.2f} GB of weights, {n / 1e9:.3f}e9 "
+          f"elements drawn on the card through core.prng in {seconds:.1f} s"
+          f" ({gb / seconds:.2f} GB/s of weights, {n / seconds / 1e9:.3f}e9 "
+          f"elements/s; {CARD})")
+    DRAWS[stage] = {"seconds": seconds, "gb": gb, "elements": n}
+    return bundle
 
 
 def _leaves(tree):
@@ -743,13 +776,15 @@ def phase_mp_kernels(dev):
 def _small_bundle(dev, fill=False):
     """A toy bundle whose MMDiT has head_dim 128 (the kernels' width)."""
     import torch
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.models.flux import pipeline as fp
     cfgs = fp.tiny_configs(fill)
     cfgs["flux_cfg"] = dataclasses.replace(
         cfgs["flux_cfg"], hidden=256, heads=2, head_dim=128, depth_double=2,
         depth_single=2, axes_dim=(16, 56, 56))
-    return fp._random_bundle(cfgs, 7, torch.device("cpu"), torch.bfloat16,
-                             torch.bfloat16, **fp.tiny_tokenizers(cfgs))
+    return fp._random_bundle(cfgs, prng.PRNGKey(7), torch.device("cpu"),
+                             torch.bfloat16, torch.bfloat16,
+                             **fp.tiny_tokenizers(cfgs))
 
 
 def _to_card(cpu, dev):
@@ -972,11 +1007,7 @@ def phase_slice(dev, rows):
     print(f"slice cuts: {STEPS} denoise steps (stage default 50), {RANKS} "
           f"ranks (stage default 5), max_rank_batch {MAX_RANK_BATCH}, "
           f"{SIZE}x{SIZE}")
-    t0 = time.perf_counter()
-    bundle = fp.full_bundle(seed=0)
-    torch.cuda.synchronize()
-    print(f"full-width bundle: {_weight_bytes(bundle) / 1e9:.2f} GB of "
-          f"weights drawn on the card in {time.perf_counter() - t0:.1f} s")
+    bundle = _drawn_bundle(fp, 0, False, "stage 3")
 
     rng = np.random.default_rng(0)
     inputs = OUT / "inputs"
@@ -1195,15 +1226,13 @@ def phase_fid(dense_paths, cached_paths, dev):
     the card between the dense stage-3 PNGs and the velocity-cached ones
     of the same sample: finite, printed, not judged."""
     import torch
-    from domainrag_tpu_torch.core import device as device_mod
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.eval import fid
     from domainrag_tpu_torch.models import clip
-    from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.stages import encoders
     vit = clip.ClipVisionConfig()
     enc = encoders.ClipImageEncoder(
-        clip.init_vision(Init(device_mod.generator(3, dev), dev), vit), vit,
-        device=dev)
+        clip.init_vision(prng.PRNGKey(3, device=dev), vit), vit, device=dev)
     t0 = time.perf_counter()
     value = fid.fid_from_paths(dense_paths, cached_paths, enc)
     print(f"CLIP-FID (random ViT-B/32 on the card) dense vs velocity-2 "
@@ -1528,12 +1557,7 @@ def phase_compose(dev, rows, backgrounds):
           f"(stage default 5), max_rank_batch {MAX_RANK_BATCH}; {dataset}: "
           f"{SIZE}x{SIZE} source lifted to {FILL_SIZE}x{FILL_SIZE}, guidance "
           f"{params.guidance_scale}, tiled VAE")
-    t0 = time.perf_counter()
-    bundle = fp.full_bundle(seed=1, fill=True)
-    torch.cuda.synchronize()
-    print(f"full-width Fill bundle ({bundle.flux_cfg.in_channels} input "
-          f"channels): {_weight_bytes(bundle) / 1e9:.2f} GB of weights "
-          f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    bundle = _drawn_bundle(fp, 1, True, "stage 4")
 
     _encode_sample_per_tile(bundle, dev)
     root = OUT / "compose"
@@ -2807,50 +2831,47 @@ def _write_sharded(directory, tensors, prefix="model"):
     return paths
 
 
-def _recording_init():
-    """The port's ``Init`` that also keeps, for each tensor it draws
-    (keyed by data pointer), how to draw it again: the generator's state
-    before the draw, the shape, the scale and the dtype."""
-    from domainrag_tpu_torch.models.common import Init
-
-    @dataclasses.dataclass
-    class RecordingInit(Init):
-        recipes: dict = dataclasses.field(default_factory=dict)
-
-        def normal(self, shape, std):
-            state = self.generator.get_state()
-            t = super().normal(shape, std)
-            self.recipes[t.data_ptr()] = (state, tuple(shape), std,
-                                          self.dtype)
-            return t
-
-    return RecordingInit
-
-
-def _draw(init_fn, seed, dev, dtype):
-    """A tree drawn by a port ``init`` on the card, and its recipe tree:
-    each leaf's draw (``_recording_init``), or a CPU copy of the leaves
-    not drawn at random (biases, norm scales, batchnorm statistics)."""
+def _draw(init_fn, seed, dev, dtype=None):
+    """A tree drawn by a port ``init`` on the card from ``PRNGKey(seed)``,
+    its random leaves stored in ``dtype`` (None: as drawn), and its recipe
+    tree: each random leaf's draw (the arguments of its
+    ``models.common._draw`` call: key, JAX shape, scale, dtypes), or a CPU
+    copy of the leaves not drawn at random (biases, norm scales,
+    batchnorm statistics)."""
     import torch
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    ini = _recording_init()(g, dev, dtype)
-    tree = init_fn(ini)
-    recipes = _tree(lambda t: ini.recipes.get(t.data_ptr(),
-                                              t.detach().cpu().clone()),
-                    tree)
-    return tree, recipes
+    from domainrag_tpu_torch.core import prng
+    from domainrag_tpu_torch.models import common
+    drawn, plain = {}, common._draw
+
+    def recording(key, shape, std, leaf_dtype, draw_dtype=torch.float32,
+                  oihw=False):
+        t = plain(key, shape, std, leaf_dtype, draw_dtype, oihw)
+        drawn[t.data_ptr()] = [key.clone(), tuple(shape), std, leaf_dtype,
+                               draw_dtype, oihw]
+        return t
+    common._draw = recording
+    try:
+        tree = init_fn(prng.PRNGKey(seed, device=dev))
+    finally:
+        common._draw = plain
+
+    def leaf(t):
+        recipe = drawn.get(t.data_ptr())
+        if recipe is None:
+            return t, t.detach().cpu().clone()
+        if dtype is not None:
+            t, recipe[3] = t.to(dtype), dtype
+        return t, tuple(recipe)
+    pairs = _tree(leaf, tree)
+    return _tree(lambda p: p[0], pairs), _tree(lambda p: p[1], pairs)
 
 
 def _redraw(recipe, dev):
-    import torch
-    if isinstance(recipe, torch.Tensor):
-        return recipe.to(dev)
-    state, shape, std, dtype = recipe
-    g = torch.Generator(device=dev)
-    g.set_state(state)
-    x = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
-    return x.mul_(std).to(dtype)
+    from domainrag_tpu_torch.models import common
+    if isinstance(recipe, tuple):
+        key, *rest = recipe
+        return common._draw(key.to(dev), *rest)
+    return recipe.to(dev)
 
 
 def _flat_paths(tree, path=()):
@@ -3018,14 +3039,17 @@ def _dir_bytes(path):
 
 def _write_checkpoints(ckpt, dev):
     """The checkpoint tree ``models.convert`` reads, of random full-width
-    weights drawn on the card by the port's inits, each subtree from its
+    weights drawn on the card by the port's inits, each tower from its
     own seed and written in its published layout: the towers, then the
     FLUX.1-dev and FLUX.1-Fill-dev MMDiTs in bf16 through
-    ``export_flux_to_diffusers``. The Fill MMDiT writes its own embedders
-    and final layer and links the dev MMDiT's block shards (full width
-    and depth still; its blocks then equal the dev blocks), which keeps
-    the tree at ~37 GB and the run's disk writes under 45 GiB. Returns the
-    recipe tree and the bytes of each subtree."""
+    ``export_flux_to_diffusers``. The Fill MMDiT is drawn from the dev
+    MMDiT's key, as ``build_tiny_runner`` draws both bundles from one key:
+    a split gives its i-th key whatever the count, so its blocks are the
+    dev blocks. It draws and writes its own embedders and final layer (the
+    init at depth 0) and links the dev MMDiT's block shards (full width
+    and depth still), which keeps the tree at ~37 GB and the run's disk
+    writes under 45 GiB. Returns the recipe tree and the bytes of each
+    subtree."""
     import gc
     import shutil
     import torch
@@ -3041,10 +3065,11 @@ def _write_checkpoints(ckpt, dev):
         seconds[sub] = time.perf_counter() - t0
         del tree
     block_files = None
-    for seed, (sub, cfg) in enumerate((("flux-dev", fm.FLUX_DEV),
-                                       ("flux-fill", fm.FLUX_FILL_DEV)), 20):
-        tree, recipes[sub] = _draw(lambda i: fm.init(i, cfg), seed, dev,
-                                   torch.bfloat16)
+    for sub, cfg in (("flux-dev", fm.FLUX_DEV),
+                     ("flux-fill", dataclasses.replace(
+                         fm.FLUX_FILL_DEV, depth_double=0, depth_single=0))):
+        tree, recipes[sub] = _draw(
+            lambda k: fm.init(k, cfg, dtype=torch.bfloat16), 20, dev)
         sd = export_flux_to_diffusers(tree, cfg)
         blocks = {k: v for k, v in sd.items() if k.startswith(
             ("transformer_blocks.", "single_transformer_blocks."))}
@@ -3056,8 +3081,6 @@ def _write_checkpoints(ckpt, dev):
         else:
             for path in block_files:
                 (ckpt / sub / path.name).symlink_to(path)
-            for part in ("double", "single"):
-                recipes[sub][part] = recipes["flux-dev"][part]
         seconds[sub] = time.perf_counter() - t0
         del tree, sd, blocks
         gc.collect()
@@ -3104,12 +3127,26 @@ def _rss():
 
 def _check_runner(runner, recipes, dev):
     """The converted trees equal the drawn ones; the two bundles hold the
-    same tower tensors."""
+    same tower tensors. The Fill MMDiT's blocks, drawn from the dev
+    MMDiT's keys and read from its linked shards, equal the dev bundle's
+    blocks (held to their draws just before)."""
     import torch
     fb, fill = runner.flux_bundle, runner.fill_bundle
     n = _check_loaded("flux-dev", fb.flux_params, recipes["flux-dev"], dev)
-    n += _check_loaded("flux-fill", fill.flux_params, recipes["flux-fill"],
-                       dev)
+    blocks = ("double", "single")
+    n += _check_loaded(
+        "flux-fill",
+        {k: v for k, v in fill.flux_params.items() if k not in blocks},
+        {k: v for k, v in recipes["flux-fill"].items() if k not in blocks},
+        dev)
+    for part in blocks:
+        a, b = _flat_paths(fill.flux_params[part]), \
+            _flat_paths(fb.flux_params[part])
+        if [p for p, _ in a] != [p for p, _ in b] or not all(
+                torch.equal(x, y) for (_, x), (_, y) in zip(a, b)):
+            raise AssertionError(f"flux-fill {part}: the Fill MMDiT's "
+                                 f"blocks differ from the dev MMDiT's")
+        n += len(a)
     for sub, attr in (("vae", "vae_params"), ("t5", "t5_params"),
                       ("clip-text", "clip_text_params"),
                       ("siglip", "siglip_params"),
@@ -3442,7 +3479,6 @@ def phase_small_trainer(dev):
     gradients, card vs CPU."""
     import torch
     from domainrag_tpu_torch.core import prng
-    from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.models.flux import model as fm
     from domainrag_tpu_torch.ops import mmdit_attention as mma
     from domainrag_tpu_torch.train import flow_match
@@ -3452,7 +3488,7 @@ def phase_small_trainer(dev):
     steps, grid, s_txt = 3, 8, 32
     rng = np.random.default_rng(21)
     cpu = torch.device("cpu")
-    base = fm.init(Init(torch.Generator().manual_seed(21), cpu), cfg)
+    base = fm.init(prng.PRNGKey(21), cfg)
     ids = (torch.as_tensor(fm.make_image_ids(grid, grid)),
            torch.as_tensor(fm.make_text_ids(s_txt)))
     data = [{"x0": rng.standard_normal((2, grid * grid, 64)),
@@ -3541,13 +3577,13 @@ class _Spans:
 
 def _full_train_setup(dev):
     import torch
-    from domainrag_tpu_torch.models.common import Init
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.models.flux import model as fm
     cfg = dataclasses.replace(fm.FLUX_DEV, depth_double=TRAIN_DEPTH[0],
                               depth_single=TRAIN_DEPTH[1])
+    params = fm.init(prng.PRNGKey(5, device=dev), cfg)
     g = torch.Generator(device=dev)
     g.manual_seed(5)
-    params = fm.init(Init(g, dev, torch.float32), cfg)
     img_ids = torch.as_tensor(fm.make_image_ids(TRAIN_GRID, TRAIN_GRID),
                               device=dev)
     txt_ids = torch.as_tensor(fm.make_text_ids(TRAIN_TXT), device=dev)
@@ -4072,6 +4108,72 @@ def phase_prng(dev):
     print("prng draws: " + json.dumps(report, separators=(",", ":")))
 
 
+# the random inits on the card against the CPU: every f32 leaf within
+# INIT_ULP ulp (a leaf is a normal times its scale)
+INIT_ULP = 3
+
+
+def phase_init_draws(dev):
+    """The random inits (``models.common._draw`` through ``core.prng``) at
+    full width on the card against the same keys' CPU draws: the first
+    double block and the first single block of the FLUX.1-dev MMDiT of
+    ``full_bundle(PRNGKey(0))`` (kept in f32 here) and its T5-XXL
+    embedding, from the keys the inits split for them. Every leaf within
+    ``INIT_ULP`` f32 ulp; each tree's card and CPU seconds."""
+    import torch
+    from domainrag_tpu_torch.core import prng
+    from domainrag_tpu_torch.models import common, t5
+    from domainrag_tpu_torch.models.flux import model as fm
+
+    cpu = torch.device("cpu")
+    cfg, t5_cfg = fm.FLUX_DEV, t5.T5_XXL
+
+    def keys(where):
+        bundle = prng.split(prng.PRNGKey(0, device=where), 6)
+        flux = prng.split(bundle[0], 8 + cfg.depth_double + cfg.depth_single)
+        embed = prng.split(bundle[2], t5_cfg.layers * 3 + 2)[0]
+        return flux[8], flux[8 + cfg.depth_double], embed
+
+    trees = [
+        ("double block 0", lambda k: fm._double_block_init(k[0], cfg)),
+        ("single block 0", lambda k: fm._single_block_init(k[1], cfg)),
+        ("T5-XXL embed", lambda k: {"embed": common.normal_init(
+            k[2], (t5_cfg.vocab_size, t5_cfg.d_model), 1.0)}),
+    ]
+    report = []
+    for name, draw in trees:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = draw(keys(dev))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = draw(keys(cpu))
+        cpu_s = time.perf_counter() - t0
+        paths = _flat_paths(got)
+        n = ulp = 0
+        for (path, g), (_, w) in zip(paths, _flat_paths(want)):
+            g = g.cpu()
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"init {name} {path}: {g.dtype} "
+                                     f"{tuple(g.shape)} on the card, "
+                                     f"{w.dtype} {tuple(w.shape)} on the CPU")
+            ulp = max(ulp, _f32_ulps(g, w))
+            n += g.numel()
+        if ulp > INIT_ULP:
+            raise AssertionError(f"init {name}: the card's tree is {ulp} "
+                                 f"ulp from the CPU's (bar {INIT_ULP})")
+        print(f"init draw {name}: {len(paths)} leaves, {n / 1e6:.1f} M "
+              f"elements; card {card_s:.3f} s ({n / card_s / 1e9:.3f}e9 "
+              f"elements/s), CPU {cpu_s:.1f} s; card vs CPU max {ulp} f32 "
+              f"ulp ({CARD})")
+        report.append({"tree": name, "elements": n, "card_s": card_s,
+                       "cpu_s": cpu_s, "max_ulp": ulp})
+        del got, want
+    torch.cuda.empty_cache()
+    print("init draws: " + json.dumps(report, separators=(",", ":")))
+
+
 def phase_topk_kernel(dev):
     """B8 against its plain version: torch.equal on integer banks with
     ties at the stage's shape (200 x 178287 x 512, k 100, 500 and 1000)
@@ -4539,18 +4641,18 @@ def _scale_out_tp(dev):
     partials). Each rank's body is then timed alone (``_RankAlone``:
     the all-reduces it would wait for are not in the time)."""
     import torch
-    from domainrag_tpu_torch.core import device as device_mod
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.models import common, quant
-    from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.models.flux import model as fm
     from domainrag_tpu_torch.ops import attention as attn
     from domainrag_tpu_torch.parallel import mesh as mesh_mod
     from domainrag_tpu_torch.parallel import sharding
 
     cfg = fm.FLUX_DEV
-    ini = Init(device_mod.generator(47, dev), dev, torch.bfloat16)
-    full = {"double": [fm._double_block_init(ini, cfg)],
-            "single": [fm._single_block_init(ini, cfg)]}
+    k_double, k_single = prng.split(prng.PRNGKey(47, device=dev))
+    bf16 = torch.bfloat16
+    full = {"double": [fm._double_block_init(k_double, cfg, bf16)],
+            "single": [fm._single_block_init(k_single, cfg, bf16)]}
     g = torch.Generator(device=dev)
     g.manual_seed(47)
     s_img = (SIZE // 16) ** 2
@@ -4863,7 +4965,6 @@ def _mesh_tp(dev, rows):
     and its exact B5/B6 counts."""
     import torch
     from domainrag_tpu_torch.core import prng
-    from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.models.flux import model as fm
     from domainrag_tpu_torch.ops import mmdit_attention as mma
     from domainrag_tpu_torch.parallel import sharding
@@ -4871,9 +4972,7 @@ def _mesh_tp(dev, rows):
     tcfg = flow_match.TrainConfig(remat=True)
     cfg = dataclasses.replace(fm.FLUX_DEV, depth_double=TP_CHECK_DEPTH[0],
                               depth_single=TP_CHECK_DEPTH[1])
-    g = torch.Generator(device=dev)
-    g.manual_seed(31)
-    params = fm.init(Init(g, dev, torch.float32), cfg)
+    params = fm.init(prng.PRNGKey(31, device=dev), cfg)
     _, _, batches = _full_train_setup(dev)
     batch = next(batches())
     f32 = {k: v.float() if k in ("x0", "txt", "pooled") else v
@@ -5303,15 +5402,14 @@ def phase_inpaint(dev):
     import shutil
     import torch
     from PIL import Image
-    from domainrag_tpu_torch.core import device as device_mod
     from domainrag_tpu_torch.core.log import StepTimer
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.models import lama
-    from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.stages import inpaint
 
     shutil.rmtree(STAGE_ROOT, ignore_errors=True)
     cfg = lama.BIG_LAMA
-    params = lama.init(Init(device_mod.generator(0, dev), dev), cfg)
+    params = lama.init(prng.PRNGKey(0, device=dev), cfg)
     n_params = sum(t.numel() for t in _leaves(params))
     cpu_params = _tree(lambda t: t.cpu(), params)
     rng = np.random.default_rng(11)
@@ -5583,13 +5681,12 @@ def phase_retrieval(dev, rows, stage1):
     and ``all_shots_retrieval_results.json`` stay for the stage-3 batch
     phase."""
     import torch
-    from domainrag_tpu_torch.core import device as device_mod
     from domainrag_tpu_torch.core import imaging
     from domainrag_tpu_torch.core.config import RetrievalConfig
     from domainrag_tpu_torch.core.log import StepTimer
     from domainrag_tpu_torch.models import clip, resnet_stem
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.native import build as native
-    from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.ops import topk as tk
     from domainrag_tpu_torch.stages import encoders, retrieve
 
@@ -5611,10 +5708,10 @@ def phase_retrieval(dev, rows, stage1):
           f"{time.perf_counter() - t0:.1f} s; {len(queries)} DIOR queries "
           f"800x800 from stage 1 ({CARD})")
 
-    ini = Init(device_mod.generator(0, dev), dev)
+    k_clip, k_stem = prng.split(prng.PRNGKey(0, device=dev))
     vit_b32 = clip.ClipVisionConfig()      # the defaults are ViT-B/32's
-    clip_p = clip.init_vision(ini, vit_b32)
-    stem_p = resnet_stem.init(ini)
+    clip_p = clip.init_vision(k_clip, vit_b32)
+    stem_p = resnet_stem.init(k_stem)
     n_params = sum(t.numel() for t in _leaves(clip_p)) + sum(
         t.numel() for t in _leaves(stem_p))
     clip_enc = encoders.ClipImageEncoder(clip_p, vit_b32,
@@ -5764,6 +5861,7 @@ def main() -> int:
     rows.update(phase_int8_attention(dev))
     rows.update(phase_topk_kernel(dev))
     phase_prng(dev)
+    phase_init_draws(dev)
     stage1 = phase_inpaint(dev)
     phase_retrieval(dev, rows, stage1)
     phase_small_slice(dev)
@@ -5804,6 +5902,8 @@ def main() -> int:
     phase_train_mesh(dev, rows)
     import torch.distributed as dist
     dist.destroy_process_group()
+    print(f"full_bundle draws through core.prng ({CARD}): "
+          + json.dumps(DRAWS, separators=(",", ":")))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())},

@@ -9,7 +9,7 @@ path turns TF32 off everywhere where it starts (:func:`resolve`).
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -29,9 +29,3 @@ def resolve(device: DeviceLike = None) -> torch.device:
     torch.set_float32_matmul_precision("highest")
     return dev
 
-
-def generator(seed: int, device: Optional[torch.device]) -> torch.Generator:
-    """A seeded generator that draws on ``device`` itself."""
-    g = torch.Generator(device=device)
-    g.manual_seed(int(seed))
-    return g

@@ -6,8 +6,10 @@ trainer's t, eps and image picks) through ``jax.random`` with its default
 implementation, threefry2x32, in its partitionable form
 (``jax_threefry_partitionable``, on by default). This module computes the
 same values from the same seed or key, so a seed means the same noise in
-the port as in the JAX package. It is the port's only source of run-time
-draws; ``models.common.Init`` draws the random parameter inits.
+the port as in the JAX package. It is the port's only source of random
+values: the run-time draws and the random parameter inits
+(``models.common.normal_init``, ``linear_init``, ``conv_init`` and every
+model's ``init``) alike.
 
 A key is a ``(2,)`` int64 tensor holding two uint32 words, on the device
 its draws are made on (:func:`PRNGKey`, :func:`split`). Every uint32 lane
@@ -26,7 +28,11 @@ shift: torch's own uint32 has too few operations.
 
 The integers and uniforms are equal to JAX's on every device. The
 normals differ from XLA's by the ulp or two its ``log1p`` may differ
-by (``tests/test_torch_prng.py``).
+by (``tests/test_torch_prng.py``), and are the same bits on the card as
+on the CPU (:func:`_erf_inv_f32`). A draw of more elements than its
+device's :data:`CHUNK` is made in flat chunks of the counter (chunk
+[a, b) hashes ``arange(a, b)``, so the bits are the same), which bounds
+its int64 temporaries.
 """
 
 from __future__ import annotations
@@ -41,6 +47,11 @@ MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _INT32 = (-2 ** 31, 2 ** 31 - 1)
+# the most elements one pass of a draw hashes: 2^25 int64 counters are
+# 268 MB a temporary on the card; on the CPU 2^20 (8 MB) keep a pass's
+# temporaries near the caches, which draws ~3x faster there
+CHUNK = {"cpu": 1 << 20}
+CHUNK_DEFAULT = 1 << 25
 
 Shape = Union[int, Sequence[int]]
 
@@ -93,23 +104,24 @@ def _shape(shape: Shape) -> Tuple[int, ...]:
 
 
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
-    return ((x << d) & MASK) | (x >> (32 - d))
+    return (x << d).bitwise_and_(MASK).bitwise_or_(x >> (32 - d))
 
 
 def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The threefry2x32 hash (20 rounds) of the counter words (x0, x1)
-    under ``key``: two int64 tensors of uint32 values."""
+    under ``key``: two int64 tensors of uint32 values (in place on new
+    tensors; the inputs are kept)."""
     k0, k1 = key[0], key[1]
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = (x0 + ks[0]) & MASK
-    x1 = (x1 + ks[1]) & MASK
+    x0 = (x0 + ks[0]).bitwise_and_(MASK)
+    x1 = (x1 + ks[1]).bitwise_and_(MASK)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & MASK
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK
+            x0.add_(x1).bitwise_and_(MASK)
+            x1 = _rotl(x1, r).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(MASK)
+        x1.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(MASK)
     return x0, x1
 
 
@@ -122,11 +134,42 @@ def _counters(shape: Tuple[int, ...], device) -> Tuple[torch.Tensor,
     return n >> 32, n & MASK
 
 
+def _flat(draw, key: torch.Tensor, shape: Tuple[int, ...],
+          dtype: torch.dtype) -> torch.Tensor:
+    """``draw(key, a, b)`` (the draw of the flat elements [a, b)) over the
+    whole of ``shape``: in one pass up to the device's :data:`CHUNK`
+    elements, else chunk by chunk into one output. On the meta device a
+    draw is its shape alone."""
+    n = math.prod(shape)
+    if key.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=key.device)
+    chunk = CHUNK.get(key.device.type, CHUNK_DEFAULT)
+    if n <= chunk:
+        return draw(key, 0, n).reshape(shape)
+    out = torch.empty(n, dtype=dtype, device=key.device)
+    for a in range(0, n, chunk):
+        b = min(a + chunk, n)
+        out[a:b] = draw(key, a, b)
+    return out.reshape(shape)
+
+
+def _bits_range(key: torch.Tensor, a: int, b: int, width: int
+                ) -> torch.Tensor:
+    """The bits of the flat elements [a, b) of a draw."""
+    n = torch.arange(a, b, dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(key, n >> 32, n & MASK)
+    out = b0.bitwise_xor_(b1)
+    return out if width == 32 else out.bitwise_and_((1 << width) - 1)
+
+
 def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
     """``jax.random.split``: ``num`` keys (an int or a shape) as rows of a
     ``(*num, 2)`` tensor, the hash of the counters 0 .. num - 1 under
     ``key``."""
     key = check_key(key, "split")
+    if key.device.type == "meta":
+        return torch.empty(_shape(num) + (2,), dtype=torch.int64,
+                           device=key.device)
     hi, lo = _counters(_shape(num), key.device)
     b0, b1 = threefry2x32(key, hi, lo)
     return torch.stack([b0, b1], dim=-1)
@@ -139,10 +182,8 @@ def bits(key: torch.Tensor, shape: Shape = (), width: int = 32
     key = check_key(key, "bits")
     if width not in (8, 16, 32):
         raise TypeError(f"bits draws 8, 16 or 32 bits, not {width}")
-    hi, lo = _counters(_shape(shape), key.device)
-    b0, b1 = threefry2x32(key, hi, lo)
-    out = b0 ^ b1
-    return out if width == 32 else out & ((1 << width) - 1)
+    return _flat(lambda k, a, b: _bits_range(k, a, b, width), key,
+                 _shape(shape), torch.int64)
 
 
 _FLOAT = {torch.float32: (32, 23, torch.int32, 0x3F800000),
@@ -155,27 +196,40 @@ def _float_info(dtype: torch.dtype):
     return _FLOAT[dtype]
 
 
-def uniform(key: torch.Tensor, shape: Shape = (),
-            dtype: torch.dtype = torch.float32, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in [minval, maxval) on the key's device."""
-    key = check_key(key, "uniform")
-    shape = _shape(shape)
+def _uniform_range(key: torch.Tensor, a: int, b: int, dtype: torch.dtype,
+                   minval: float, maxval: float) -> torch.Tensor:
+    """The uniforms of the flat elements [a, b) of a draw."""
     nbits, nmant, view, one = _float_info(dtype)
     rng_bits = 8 if nmant < 8 else nbits
-    r = bits(key, shape, rng_bits)
-    mant = (r >> (rng_bits - nmant)) | one
+    r = _bits_range(key, a, b, rng_bits)
+    mant = (r >> (rng_bits - nmant)).bitwise_or_(one)
     floats = mant.to(view).view(dtype) - torch.ones((), dtype=dtype)
     lo = torch.tensor(minval, dtype=dtype, device=key.device)
     hi = torch.tensor(maxval, dtype=dtype, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
+def uniform(key: torch.Tensor, shape: Shape = (),
+            dtype: torch.dtype = torch.float32, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in [minval, maxval) on the key's device."""
+    key = check_key(key, "uniform")
+    _float_info(dtype)
+    return _flat(lambda k, a, b: _uniform_range(k, a, b, dtype, minval,
+                                                maxval),
+                 key, _shape(shape), dtype)
+
+
 def _erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
-    """XLA's f32 erf_inv, op for op (no fused multiply-adds)."""
-    w = -torch.log1p(-(x * x))
+    """XLA's f32 erf_inv, op for op (no fused multiply-adds). Its
+    ``log1p`` and square root are taken in f64 and rounded: the correctly
+    rounded f32 values (a square root always; a ``log1p`` but where the
+    f64 result lies within its own error of an f32 rounding edge), which
+    torch's f32 kernels on the CPU do not always give; every other op is
+    an IEEE f32 add or multiply. So the card draws the CPU's normals."""
+    w = -torch.log1p((-(x * x)).double()).float()
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     coeff = [torch.where(lt, torch.tensor(a, dtype=torch.float32,
                                           device=x.device),
                          torch.tensor(b, dtype=torch.float32,
@@ -188,6 +242,16 @@ def _erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, big, p * x)
 
 
+def _normal_range(key: torch.Tensor, a: int, b: int, dtype: torch.dtype
+                  ) -> torch.Tensor:
+    """The normals of the flat elements [a, b) of a draw."""
+    minus_one = torch.tensor(-1.0, dtype=dtype)
+    lo = float(torch.nextafter(minus_one, torch.zeros((), dtype=dtype)))
+    u = _uniform_range(key, a, b, dtype, lo, 1.0)
+    e = _erf_inv_f32(u.float()).to(dtype)
+    return e * torch.tensor(math.sqrt(2), dtype=dtype, device=key.device)
+
+
 def normal(key: torch.Tensor, shape: Shape = (),
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``jax.random.normal``: ``sqrt(2) * erf_inv(u)``, u uniform in
@@ -195,11 +259,8 @@ def normal(key: torch.Tensor, shape: Shape = (),
     ``dtype``."""
     key = check_key(key, "normal")
     _float_info(dtype)
-    minus_one = torch.tensor(-1.0, dtype=dtype)
-    lo = float(torch.nextafter(minus_one, torch.zeros((), dtype=dtype)))
-    u = uniform(key, shape, dtype, lo, 1.0)
-    e = _erf_inv_f32(u.float()).to(dtype)
-    return e * torch.tensor(math.sqrt(2), dtype=dtype, device=key.device)
+    return _flat(lambda k, a, b: _normal_range(k, a, b, dtype), key,
+                 _shape(shape), dtype)
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int

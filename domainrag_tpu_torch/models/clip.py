@@ -22,9 +22,10 @@ import dataclasses
 import torch
 
 from ..core import device as device_mod
-from .common import (Init, Params, RenamedKeys, causal_mask, ckpt_linear,
-                     ckpt_tensor, layernorm, layernorm_init,
-                     linear, linear_init, mha, mha_init, quick_gelu)
+from ..core import prng
+from .common import (Params, RenamedKeys, causal_mask, ckpt_linear,
+                     ckpt_tensor, layernorm, layernorm_init, linear,
+                     linear_init, mha, mha_init, normal_init, quick_gelu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,13 +62,14 @@ TINY_TEXT = ClipTextConfig(vocab_size=100, max_len=16, hidden=64, layers=2,
                            heads=4, projection_dim=32, eos_token_id=99)
 
 
-def _block_init(ini: Init, hidden: int, mlp_ratio: int) -> Params:
+def _block_init(key, hidden: int, mlp_ratio: int) -> Params:
+    k1, k2, k3 = prng.split(key, 3)
     return {
-        "ln1": layernorm_init(hidden, init=ini),
-        "attn": mha_init(ini, hidden, bias=True),
-        "ln2": layernorm_init(hidden, init=ini),
-        "fc1": linear_init(ini, hidden, hidden * mlp_ratio),
-        "fc2": linear_init(ini, hidden * mlp_ratio, hidden),
+        "ln1": layernorm_init(hidden, device=key.device),
+        "attn": mha_init(k1, hidden, bias=True),
+        "ln2": layernorm_init(hidden, device=key.device),
+        "fc1": linear_init(k2, hidden, hidden * mlp_ratio),
+        "fc2": linear_init(k3, hidden * mlp_ratio, hidden),
     }
 
 
@@ -78,18 +80,19 @@ def _block_apply(p: Params, x: torch.Tensor, heads: int, mask=None
     return x + linear(p["fc2"], quick_gelu(h))
 
 
-def init_vision(ini: Init, cfg: ClipVisionConfig) -> Params:
+def init_vision(key, cfg: ClipVisionConfig) -> Params:
+    ks = prng.split(prng.check_key(key, "init_vision"), cfg.layers + 4)
     scale = cfg.hidden ** -0.5
     return {
-        "patch_w": ini.normal((cfg.patch_size * cfg.patch_size * 3,
-                               cfg.hidden), scale),
-        "class_emb": ini.normal((cfg.hidden,), scale),
-        "pos_emb": ini.normal((cfg.seq_len, cfg.hidden), scale),
-        "ln_pre": layernorm_init(cfg.hidden, init=ini),
-        "ln_post": layernorm_init(cfg.hidden, init=ini),
-        "proj": ini.normal((cfg.hidden, cfg.projection_dim), scale),
-        "blocks": [_block_init(ini, cfg.hidden, cfg.mlp_ratio)
-                   for _ in range(cfg.layers)],
+        "patch_w": normal_init(ks[0], (cfg.patch_size * cfg.patch_size * 3,
+                                       cfg.hidden), scale),
+        "class_emb": normal_init(ks[1], (cfg.hidden,), scale),
+        "pos_emb": normal_init(ks[2], (cfg.seq_len, cfg.hidden), scale),
+        "ln_pre": layernorm_init(cfg.hidden, device=key.device),
+        "ln_post": layernorm_init(cfg.hidden, device=key.device),
+        "proj": normal_init(ks[3], (cfg.hidden, cfg.projection_dim), scale),
+        "blocks": [_block_init(ks[4 + i], cfg.hidden, cfg.mlp_ratio)
+                   for i in range(cfg.layers)],
     }
 
 
@@ -130,15 +133,16 @@ def encode_image(params: Params, images: torch.Tensor,
     return feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
 
 
-def init_text(ini: Init, cfg: ClipTextConfig) -> Params:
+def init_text(key, cfg: ClipTextConfig) -> Params:
+    ks = prng.split(prng.check_key(key, "init_text"), cfg.layers + 3)
     return {
-        "tok_emb": ini.normal((cfg.vocab_size, cfg.hidden), 0.02),
-        "pos_emb": ini.normal((cfg.max_len, cfg.hidden), 0.01),
-        "ln_final": layernorm_init(cfg.hidden, init=ini),
-        "proj": ini.normal((cfg.hidden, cfg.projection_dim),
-                           cfg.hidden ** -0.5),
-        "blocks": [_block_init(ini, cfg.hidden, cfg.mlp_ratio)
-                   for _ in range(cfg.layers)],
+        "tok_emb": normal_init(ks[0], (cfg.vocab_size, cfg.hidden), 0.02),
+        "pos_emb": normal_init(ks[1], (cfg.max_len, cfg.hidden), 0.01),
+        "ln_final": layernorm_init(cfg.hidden, device=key.device),
+        "proj": normal_init(ks[2], (cfg.hidden, cfg.projection_dim),
+                            cfg.hidden ** -0.5),
+        "blocks": [_block_init(ks[3 + i], cfg.hidden, cfg.mlp_ratio)
+                   for i in range(cfg.layers)],
     }
 
 

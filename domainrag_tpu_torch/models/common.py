@@ -2,8 +2,8 @@
 ``domainrag_tpu/models/common.py``).
 
 Models are plain functions over nested param dicts with the JAX package's
-keys: ``init(ini, cfg) -> params``, with an :class:`Init` in the slot
-where JAX takes its PRNG key, and ``apply(params, x, ...)``.
+keys: ``init(key, cfg) -> params``, ``key`` a ``core.prng`` key split and
+drawn as the JAX init splits and draws it, and ``apply(params, x, ...)``.
 Linear weights keep the ``(in, out)`` layout; convolution weights are in
 torch's ``(out, in, kh, kw)`` layout (the bridge converts HWIO once) while
 activations stay NHWC at every public function. Weights may be stored in
@@ -12,14 +12,14 @@ the dtype they are cast to at use; norm scales stay float32.
 
 from __future__ import annotations
 
-import dataclasses
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import prng
 from ..ops.int8_gemm import w8a8_linear
 
 Params = Dict[str, Any]
@@ -77,77 +77,95 @@ def ckpt_linear(sd, prefix: str, device: torch.device,
 
 
 # ---------------------------------------------------------------------------
-# initializers (same scales as the JAX package's; drawn on the device)
+# initializers: the JAX package's, drawn through core.prng
 # ---------------------------------------------------------------------------
+#
+# Each init takes a ``core.prng`` key where JAX's takes its PRNG key,
+# splits it as JAX's does and draws each leaf with ``prng.normal`` in
+# JAX's shape, on the key's device: the same key gives JAX's tree (f32
+# normals within the ulp or two of ``prng.normal``). A port-only
+# ``dtype=`` stores the weights rounded from JAX's f32 leaf.
 
-@dataclasses.dataclass
-class Init:
-    """Random-init context: one generator, the device it draws on, and the
-    dtype weights are stored in."""
-
-    generator: torch.Generator
-    device: torch.device
-    dtype: torch.dtype = torch.float32
-
-    def normal(self, shape: Sequence[int], std: float) -> torch.Tensor:
-        x = torch.randn(tuple(shape), generator=self.generator,
-                        device=self.device, dtype=torch.float32)
-        return x.mul_(std).to(self.dtype)
-
-    def zeros(self, shape: Sequence[int]) -> torch.Tensor:
-        return torch.zeros(tuple(shape), device=self.device, dtype=self.dtype)
+def _draw(key, shape, std: float, dtype: torch.dtype,
+          draw_dtype: torch.dtype = torch.float32, oihw: bool = False
+          ) -> torch.Tensor:
+    """The one draw of every random leaf: ``normal(key, shape,
+    draw_dtype) * std`` in ``draw_dtype``, stored in ``dtype``; a 4-D
+    HWIO draw turned to OIHW with ``oihw``."""
+    x = prng.normal(key, shape, draw_dtype) * torch.tensor(
+        std, dtype=draw_dtype, device=key.device)
+    if oihw:
+        x = x.permute(3, 2, 0, 1).contiguous()
+    return x.to(dtype)
 
 
-def linear_init(init: Init, d_in: int, d_out: int, bias: bool = True,
-                std: Optional[float] = None) -> Params:
+def normal_init(key, shape, std=0.02, dtype=torch.float32) -> torch.Tensor:
+    """``normal(key, shape, dtype) * std``, in ``dtype`` as JAX's."""
+    return _draw(prng.check_key(key, "normal_init"), shape, std, dtype,
+                 dtype)
+
+
+def lecun_init(key, shape, fan_in, dtype=torch.float32) -> torch.Tensor:
+    key = prng.check_key(key, "lecun_init")
+    return normal_init(key, shape, math.sqrt(1.0 / fan_in), dtype)
+
+
+def linear_init(key, d_in: int, d_out: int, bias: bool = True,
+                std: Optional[float] = None, *,
+                dtype: torch.dtype = torch.float32) -> Params:
+    key = prng.check_key(key, "linear_init")
     if std is None:
         std = math.sqrt(1.0 / d_in)
-    p = {"w": init.normal((d_in, d_out), std)}
+    kw, _ = prng.split(key)
+    p = {"w": _draw(kw, (d_in, d_out), std, dtype)}
     if bias:
-        p["b"] = init.zeros((d_out,))
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=key.device)
     return p
 
 
-def _f32(fill: float, dim: int, init: Optional[Init]) -> torch.Tensor:
-    """A (dim,) f32 norm leaf on ``init``'s device, or on torch's default
-    device without one (as the JAX norm inits land on JAX's)."""
-    return torch.full((dim,), fill, dtype=torch.float32,
-                      device=None if init is None else init.device)
+def _f32(fill: float, dim: int, device) -> torch.Tensor:
+    """A (dim,) f32 norm leaf on ``device``, or on torch's default device
+    without one (as the JAX norm inits land on JAX's)."""
+    return torch.full((dim,), fill, dtype=torch.float32, device=device)
 
 
-def layernorm_init(dim: int, *, init: Optional[Init] = None) -> Params:
-    return {"scale": _f32(1.0, dim, init), "bias": _f32(0.0, dim, init)}
+def layernorm_init(dim: int, *, device=None) -> Params:
+    return {"scale": _f32(1.0, dim, device), "bias": _f32(0.0, dim, device)}
 
 
-def rmsnorm_init(dim: int, *, init: Optional[Init] = None) -> Params:
-    return {"scale": _f32(1.0, dim, init)}
+def rmsnorm_init(dim: int, *, device=None) -> Params:
+    return {"scale": _f32(1.0, dim, device)}
 
 
-def groupnorm_init(dim: int, *, init: Optional[Init] = None) -> Params:
-    return layernorm_init(dim, init=init)
+def groupnorm_init(dim: int, *, device=None) -> Params:
+    return layernorm_init(dim, device=device)
 
 
-def conv_init(init: Init, kh: int, kw: int, c_in: int, c_out: int,
+def conv_init(key, kh: int, kw: int, c_in: int, c_out: int,
               bias: bool = True, groups: int = 1) -> Params:
-    """Torch layout (out, in // groups, kh, kw); std sqrt(1/fan_in) as in
-    JAX, whose fan-in is that of one group."""
+    """JAX's HWIO draw (kh, kw, c_in // groups, c_out) with std
+    sqrt(1/fan_in), fan-in that of one group, turned to torch's (out,
+    in // groups, kh, kw) as ``bridge`` turns a JAX kernel."""
+    key = prng.check_key(key, "conv_init")
     fan_in = kh * kw * (c_in // groups)
-    p = {"w": init.normal((c_out, c_in // groups, kh, kw),
-                          math.sqrt(1.0 / fan_in))}
+    p = {"w": _draw(key, (kh, kw, c_in // groups, c_out),
+                    math.sqrt(1.0 / fan_in), torch.float32, oihw=True)}
     if bias:
-        p["b"] = init.zeros((c_out,))
+        p["b"] = torch.zeros((c_out,), dtype=torch.float32,
+                             device=key.device)
     return p
 
 
-def batchnorm_init(dim: int, *, init: Optional[Init] = None) -> Params:
+def batchnorm_init(dim: int, *, device=None) -> Params:
     """Inference-mode batchnorm (running statistics)."""
-    return {"scale": _f32(1.0, dim, init), "bias": _f32(0.0, dim, init),
-            "mean": _f32(0.0, dim, init), "var": _f32(1.0, dim, init)}
+    return {"scale": _f32(1.0, dim, device), "bias": _f32(0.0, dim, device),
+            "mean": _f32(0.0, dim, device), "var": _f32(1.0, dim, device)}
 
 
-def mha_init(init: Init, dim: int, bias: bool = True) -> Params:
-    return {name: linear_init(init, dim, dim, bias=bias)
-            for name in ("q", "k", "v", "o")}
+def mha_init(key, dim: int, bias: bool = True) -> Params:
+    ks = prng.split(prng.check_key(key, "mha_init"), 4)
+    return {name: linear_init(k, dim, dim, bias=bias)
+            for name, k in zip(("q", "k", "v", "o"), ks)}
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..core import device as device_mod
+from ..core import prng
 from ..core import text as text_util
 from ..core.log import StepTimer, get_logger
 from . import clip as clip_mod
@@ -42,7 +43,7 @@ from . import lama as lama_mod
 from . import redux as redux_mod
 from . import siglip as siglip_mod
 from . import t5 as t5_mod
-from .common import Init, Params, ckpt_linear, ckpt_tensor
+from .common import Params, ckpt_linear, ckpt_tensor
 from .flux import model as flux_mod
 from .flux import vae as vae_mod
 
@@ -515,15 +516,6 @@ def lama_leaf_order(params) -> list:
     return out
 
 
-class _Shapes(Init):
-    """An ``Init`` that draws nothing: empty tensors of the shapes (on the
-    meta device, a template that costs no memory; ``torch.randn`` there
-    takes a slow decomposition)."""
-
-    def normal(self, shape, std):
-        return torch.empty(tuple(shape), device=self.device, dtype=self.dtype)
-
-
 def convert_lama(sd, cfg, *, device=None) -> Params:
     """big-lama generator state dict -> param tree on ``device`` (the card
     unless ``device="cpu"``), f32, by ORDERED shape matching (the
@@ -539,7 +531,8 @@ def convert_lama(sd, cfg, *, device=None) -> Params:
     them; a torch ``ConvTranspose2d`` stores (I, O, kh, kw), so such a
     weight with c_in != c_out is refused."""
     dev = device_mod.resolve(device)
-    template = lama_mod.init(_Shapes(None, torch.device("meta")), cfg)
+    # the shapes alone: drawn on the meta device, it costs no memory
+    template = lama_mod.init(prng.PRNGKey(0, device="meta"), cfg)
     expected = lama_leaf_order(template)
 
     tensors = [(k, v) for k, v in sd.items() if np.ndim(v) > 0]

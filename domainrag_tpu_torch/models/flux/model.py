@@ -20,12 +20,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ...core import prng
 from ...ops.attention import entered, saved_contexts, tp_context
 from ...ops.mmdit_attention import (mmdit_double_attention,
                                     mmdit_single_attention)
 # the JAX name of the interleaved-pair rotation (f32, cast back)
 from ...ops.mmdit_attention import rope_interleaved as apply_rope  # noqa
-from ..common import (Init, Params, gelu_tanh, int8_activations_enabled,
+from ..common import (Params, gelu_tanh, int8_activations_enabled,
                       linear, linear_col_sharded, linear_init,
                       linear_row_sharded, linear_widths, rmsnorm_init)
 
@@ -79,9 +80,11 @@ def timestep_embedding(t: torch.Tensor, dim: int,
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-def _mlp_embedder_init(ini: Init, d_in: int, hidden: int) -> Params:
-    return {"in": linear_init(ini, d_in, hidden),
-            "out": linear_init(ini, hidden, hidden)}
+def _mlp_embedder_init(key, d_in: int, hidden: int, dtype: torch.dtype
+                       ) -> Params:
+    k1, k2 = prng.split(key)
+    return {"in": linear_init(k1, d_in, hidden, dtype=dtype),
+            "out": linear_init(k2, hidden, hidden, dtype=dtype)}
 
 
 def _vec_linear(p: Params, vec: torch.Tensor) -> torch.Tensor:
@@ -132,36 +135,43 @@ def make_text_ids(seq_len: int) -> np.ndarray:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _qknorm_init(ini: Init, head_dim: int) -> Params:
-    return {"q": rmsnorm_init(head_dim, init=ini),
-            "k": rmsnorm_init(head_dim, init=ini)}
+def _qknorm_init(head_dim: int, device) -> Params:
+    return {"q": rmsnorm_init(head_dim, device=device),
+            "k": rmsnorm_init(head_dim, device=device)}
 
 
-def _double_block_init(ini: Init, cfg: FluxConfig) -> Params:
+def _double_block_init(key, cfg: FluxConfig,
+                       dtype: torch.dtype = torch.float32) -> Params:
+    ks = prng.split(key, 10)
     h, mh = cfg.hidden, cfg.mlp_hidden
+
+    def lin(i, d_in, d_out):
+        return linear_init(ks[i], d_in, d_out, dtype=dtype)
     return {
-        "img_mod": linear_init(ini, h, 6 * h),
-        "txt_mod": linear_init(ini, h, 6 * h),
-        "img_qkv": linear_init(ini, h, 3 * h),
-        "txt_qkv": linear_init(ini, h, 3 * h),
-        "img_qknorm": _qknorm_init(ini, cfg.head_dim),
-        "txt_qknorm": _qknorm_init(ini, cfg.head_dim),
-        "img_proj": linear_init(ini, h, h),
-        "txt_proj": linear_init(ini, h, h),
-        "img_mlp1": linear_init(ini, h, mh),
-        "img_mlp2": linear_init(ini, mh, h),
-        "txt_mlp1": linear_init(ini, h, mh),
-        "txt_mlp2": linear_init(ini, mh, h),
+        "img_mod": lin(0, h, 6 * h),
+        "txt_mod": lin(1, h, 6 * h),
+        "img_qkv": lin(2, h, 3 * h),
+        "txt_qkv": lin(3, h, 3 * h),
+        "img_qknorm": _qknorm_init(cfg.head_dim, key.device),
+        "txt_qknorm": _qknorm_init(cfg.head_dim, key.device),
+        "img_proj": lin(4, h, h),
+        "txt_proj": lin(5, h, h),
+        "img_mlp1": lin(6, h, mh),
+        "img_mlp2": lin(7, mh, h),
+        "txt_mlp1": lin(8, h, mh),
+        "txt_mlp2": lin(9, mh, h),
     }
 
 
-def _single_block_init(ini: Init, cfg: FluxConfig) -> Params:
+def _single_block_init(key, cfg: FluxConfig,
+                       dtype: torch.dtype = torch.float32) -> Params:
+    ks = prng.split(key, 3)
     h, mh = cfg.hidden, cfg.mlp_hidden
     return {
-        "mod": linear_init(ini, h, 3 * h),
-        "linear1": linear_init(ini, h, 3 * h + mh),
-        "linear2": linear_init(ini, h + mh, h),
-        "qknorm": _qknorm_init(ini, cfg.head_dim),
+        "mod": linear_init(ks[0], h, 3 * h, dtype=dtype),
+        "linear1": linear_init(ks[1], h, 3 * h + mh, dtype=dtype),
+        "linear2": linear_init(ks[2], h + mh, h, dtype=dtype),
+        "qknorm": _qknorm_init(cfg.head_dim, key.device),
     }
 
 
@@ -273,22 +283,31 @@ def _single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig):
 # full model
 # ---------------------------------------------------------------------------
 
-def init(ini: Init, cfg: FluxConfig) -> Params:
+def init(key, cfg: FluxConfig, *, dtype: torch.dtype = torch.float32
+         ) -> Params:
+    """JAX's tree from the same key: ``split(key, 8 + depth_double +
+    depth_single)``, the embedders and final layers on keys 0-5 (guidance
+    on 6), key 7 unused, the blocks from key 8. Weights and biases are
+    stored in ``dtype`` (JAX's f32 leaves rounded), the qk norms in f32."""
+    ks = prng.split(prng.check_key(key, "init"),
+                    8 + cfg.depth_double + cfg.depth_single)
+    h = cfg.hidden
     params: Params = {
-        "img_in": linear_init(ini, cfg.in_channels, cfg.hidden),
-        "txt_in": linear_init(ini, cfg.text_dim, cfg.hidden),
-        "time_in": _mlp_embedder_init(ini, cfg.time_embed_dim, cfg.hidden),
-        "vector_in": _mlp_embedder_init(ini, cfg.pooled_dim, cfg.hidden),
-        "final_mod": linear_init(ini, cfg.hidden, 2 * cfg.hidden),
-        "final_proj": linear_init(ini, cfg.hidden, cfg.out_channels),
-        "double": [_double_block_init(ini, cfg)
-                   for _ in range(cfg.depth_double)],
-        "single": [_single_block_init(ini, cfg)
-                   for _ in range(cfg.depth_single)],
+        "img_in": linear_init(ks[0], cfg.in_channels, h, dtype=dtype),
+        "txt_in": linear_init(ks[1], cfg.text_dim, h, dtype=dtype),
+        "time_in": _mlp_embedder_init(ks[2], cfg.time_embed_dim, h, dtype),
+        "vector_in": _mlp_embedder_init(ks[3], cfg.pooled_dim, h, dtype),
+        "final_mod": linear_init(ks[4], h, 2 * h, dtype=dtype),
+        "final_proj": linear_init(ks[5], h, cfg.out_channels, dtype=dtype),
+        "double": [_double_block_init(ks[8 + i], cfg, dtype)
+                   for i in range(cfg.depth_double)],
+        "single": [_single_block_init(ks[8 + cfg.depth_double + i], cfg,
+                                      dtype)
+                   for i in range(cfg.depth_single)],
     }
     if cfg.guidance_embed:
-        params["guidance_in"] = _mlp_embedder_init(ini, cfg.time_embed_dim,
-                                                   cfg.hidden)
+        params["guidance_in"] = _mlp_embedder_init(
+            ks[6], cfg.time_embed_dim, h, dtype)
     return params
 
 

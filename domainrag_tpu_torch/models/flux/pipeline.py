@@ -53,7 +53,7 @@ from .. import clip as clip_mod
 from .. import redux as redux_mod
 from .. import siglip as siglip_mod
 from .. import t5 as t5_mod
-from ..common import Init, leaves
+from ..common import leaves
 from . import model as flux_mod
 from . import scheduler as sched_mod
 from . import vae as vae_mod
@@ -130,42 +130,53 @@ def tiny_tokenizers(cfgs: dict) -> dict:
         t5_max_len=16, clip_max_len=16)
 
 
-def _random_bundle(cfgs: dict, seed: int, dev: torch.device,
+def _random_bundle(cfgs: dict, key, dev: torch.device,
                    flux_dtype: torch.dtype, compute_dtype: torch.dtype,
                    **extra) -> FluxBundle:
-    """Random weights drawn on ``dev`` by the port's own inits (the JAX
-    ``init`` scales). The MMDiT is stored in ``flux_dtype``; the towers
-    and the VAE in f32, the dtypes they run in."""
-    g = device_mod.generator(seed, dev)
-    f32 = Init(g, dev, torch.float32)
+    """Random weights drawn on ``dev`` by the port's inits from ``key``,
+    split in six as the JAX ``tiny_bundle``
+    splits it: the MMDiT, the VAE, T5, the CLIP text tower, SigLIP and
+    Redux, in that order. The MMDiT is stored in ``flux_dtype`` (JAX's
+    f32 leaves rounded); the towers and the VAE in f32, the dtypes they
+    run in."""
+    ks = prng.split(key.to(dev), 6)
     return FluxBundle(
-        flux_params=flux_mod.init(Init(g, dev, flux_dtype), cfgs["flux_cfg"]),
-        vae_params=vae_mod.init(f32, cfgs["vae_cfg"]),
-        t5_params=t5_mod.init(f32, cfgs["t5_cfg"]),
-        clip_text_params=clip_mod.init_text(f32, cfgs["clip_text_cfg"]),
-        siglip_params=siglip_mod.init(f32, cfgs["siglip_cfg"]),
-        redux_params=redux_mod.init(f32, cfgs["redux_cfg"]),
+        flux_params=flux_mod.init(ks[0], cfgs["flux_cfg"], dtype=flux_dtype),
+        vae_params=vae_mod.init(ks[1], cfgs["vae_cfg"]),
+        t5_params=t5_mod.init(ks[2], cfgs["t5_cfg"]),
+        clip_text_params=clip_mod.init_text(ks[3], cfgs["clip_text_cfg"]),
+        siglip_params=siglip_mod.init(ks[4], cfgs["siglip_cfg"]),
+        redux_params=redux_mod.init(ks[5], cfgs["redux_cfg"]),
         compute_dtype=compute_dtype, device=dev, **cfgs, **extra)
 
 
-def tiny_bundle(seed: int = 0, fill: bool = False, *, device=None
+def _bundle_key(key, name: str):
+    return prng.PRNGKey(0) if key is None else prng.check_key(key, name)
+
+
+def tiny_bundle(key=None, fill: bool = False, *, device=None
                 ) -> FluxBundle:
     """Random tiny bundle (f32 compute) on ``device`` (the card unless
-    ``device="cpu"``); a Flux-Fill one with ``fill``. ``seed`` stands in
-    the slot of the JAX key."""
+    ``device="cpu"``); a Flux-Fill one with ``fill``. The JAX
+    ``tiny_bundle``'s trees from the same key (``None``: ``PRNGKey(0)``),
+    the key moved to ``device`` and every leaf drawn there."""
     cfgs = tiny_configs(fill)
-    return _random_bundle(cfgs, seed, device_mod.resolve(device),
+    return _random_bundle(cfgs, _bundle_key(key, "tiny_bundle"),
+                          device_mod.resolve(device),
                           torch.float32, torch.float32,
                           **tiny_tokenizers(cfgs))
 
 
-def full_bundle(seed: int = 0, fill: bool = False, *, device=None
+def full_bundle(key=None, fill: bool = False, *, device=None
                 ) -> FluxBundle:
     """Random full-width FLUX.1-dev deployment drawn on the device: the
     12B MMDiT (3072 hidden, 24x128 heads, 19 + 38 blocks) in bf16, T5-XXL,
     CLIP-L text, SigLIP so400m, Redux 1152->12288->4096 and the FLUX VAE
     (encoder and decoder) in f32 — about 46 GB. ``fill`` gives the
-    FLUX.1-Fill-dev MMDiT (384 input channels)."""
+    FLUX.1-Fill-dev MMDiT (384 input channels). ``key`` (``None``:
+    ``PRNGKey(0)``) is split and drawn as in :func:`tiny_bundle`, through
+    the same inits: the MMDiT's leaves are JAX's f32 draws rounded to
+    bf16."""
     flux_cfg = flux_mod.FLUX_FILL_DEV if fill else flux_mod.FLUX_DEV
     cfgs = dict(flux_cfg=flux_cfg, vae_cfg=vae_mod.FLUX_VAE,
                 t5_cfg=t5_mod.T5_XXL, clip_text_cfg=clip_mod.CLIP_L_TEXT,
@@ -178,8 +189,9 @@ def full_bundle(seed: int = 0, fill: bool = False, *, device=None
             eos_id=clip_cfg.eos_token_id),
         t5_tokenizer=text_util.StubTokenizer(
             vocab_size=cfgs["t5_cfg"].vocab_size, bos_id=None, eos_id=1))
-    return _random_bundle(cfgs, seed, device_mod.resolve(device),
-                          torch.bfloat16, torch.bfloat16, **tokenizers)
+    return _random_bundle(cfgs, _bundle_key(key, "full_bundle"),
+                          device_mod.resolve(device), torch.bfloat16,
+                          torch.bfloat16, **tokenizers)
 
 
 # ---------------------------------------------------------------------------

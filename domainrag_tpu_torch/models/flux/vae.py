@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ...core import prng
-from ..common import (Init, Params, conv2d, conv_init, groupnorm,
+from ..common import (Params, conv2d, conv_init, groupnorm,
                       groupnorm_init)
 
 
@@ -49,15 +49,16 @@ TINY_VAE = VaeConfig(latent_channels=4, block_out=(8, 16), layers_per_block=1,
 FLUX_VAE = VaeConfig()
 
 
-def _resnet_init(ini: Init, c_in: int, c_out: int) -> Params:
+def _resnet_init(key, c_in: int, c_out: int) -> Params:
+    k1, k2, k3 = prng.split(key, 3)
     p = {
-        "norm1": groupnorm_init(c_in, init=ini),
-        "conv1": conv_init(ini, 3, 3, c_in, c_out),
-        "norm2": groupnorm_init(c_out, init=ini),
-        "conv2": conv_init(ini, 3, 3, c_out, c_out),
+        "norm1": groupnorm_init(c_in, device=key.device),
+        "conv1": conv_init(k1, 3, 3, c_in, c_out),
+        "norm2": groupnorm_init(c_out, device=key.device),
+        "conv2": conv_init(k2, 3, 3, c_out, c_out),
     }
     if c_in != c_out:
-        p["shortcut"] = conv_init(ini, 1, 1, c_in, c_out)
+        p["shortcut"] = conv_init(k3, 1, 1, c_in, c_out)
     return p
 
 
@@ -69,10 +70,11 @@ def _resnet(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
     return x + h
 
 
-def _attn_init(ini: Init, c: int) -> Params:
-    p = {"norm": groupnorm_init(c, init=ini)}
-    for name in ("q", "k", "v", "o"):
-        p[name] = conv_init(ini, 1, 1, c, c)
+def _attn_init(key, c: int) -> Params:
+    ks = prng.split(key, 4)
+    p = {"norm": groupnorm_init(c, device=key.device)}
+    for name, k in zip(("q", "k", "v", "o"), ks):
+        p[name] = conv_init(k, 1, 1, c, c)
     return p
 
 
@@ -89,9 +91,10 @@ def _attn(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
     return x + conv2d(p["o"], out)
 
 
-def _mid_init(ini: Init, c: int) -> Params:
-    return {"res1": _resnet_init(ini, c, c), "attn": _attn_init(ini, c),
-            "res2": _resnet_init(ini, c, c)}
+def _mid_init(key, c: int) -> Params:
+    k1, k2, k3 = prng.split(key, 3)
+    return {"res1": _resnet_init(k1, c, c), "attn": _attn_init(k2, c),
+            "res2": _resnet_init(k3, c, c)}
 
 
 def _mid(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -100,38 +103,43 @@ def _mid(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
     return _resnet(p["res2"], x, groups)
 
 
-def init(ini: Init, cfg: VaeConfig = FLUX_VAE) -> Params:
-    """Encoder and decoder weights (the JAX package's tree)."""
+def init(key, cfg: VaeConfig = FLUX_VAE) -> Params:
+    """Encoder and decoder weights (the JAX package's tree), drawn from
+    ``iter(split(key, 1024))`` in JAX's order."""
+    ks = iter(prng.split(prng.check_key(key, "init"), 1024))
+    dev = key.device
     blocks = cfg.block_out
-    enc: Params = {"conv_in": conv_init(ini, 3, 3, 3, blocks[0]), "down": []}
+    enc: Params = {"conv_in": conv_init(next(ks), 3, 3, 3, blocks[0]),
+                   "down": []}
     c_prev = blocks[0]
     for i, c in enumerate(blocks):
         stage: Params = {"res": []}
         for _ in range(cfg.layers_per_block):
-            stage["res"].append(_resnet_init(ini, c_prev, c))
+            stage["res"].append(_resnet_init(next(ks), c_prev, c))
             c_prev = c
         if i < len(blocks) - 1:
-            stage["down"] = conv_init(ini, 3, 3, c, c)
+            stage["down"] = conv_init(next(ks), 3, 3, c, c)
         enc["down"].append(stage)
-    enc["mid"] = _mid_init(ini, c_prev)
-    enc["norm_out"] = groupnorm_init(c_prev, init=ini)
-    enc["conv_out"] = conv_init(ini, 3, 3, c_prev, 2 * cfg.latent_channels)
+    enc["mid"] = _mid_init(next(ks), c_prev)
+    enc["norm_out"] = groupnorm_init(c_prev, device=dev)
+    enc["conv_out"] = conv_init(next(ks), 3, 3, c_prev,
+                                2 * cfg.latent_channels)
 
-    dec: Params = {"conv_in": conv_init(ini, 3, 3, cfg.latent_channels,
+    dec: Params = {"conv_in": conv_init(next(ks), 3, 3, cfg.latent_channels,
                                         blocks[-1]),
-                   "mid": _mid_init(ini, blocks[-1]),
+                   "mid": _mid_init(next(ks), blocks[-1]),
                    "up": []}
     c_prev = blocks[-1]
     for i, c in enumerate(reversed(blocks)):
         stage = {"res": []}
         for _ in range(cfg.layers_per_block + 1):
-            stage["res"].append(_resnet_init(ini, c_prev, c))
+            stage["res"].append(_resnet_init(next(ks), c_prev, c))
             c_prev = c
         if i < len(blocks) - 1:
-            stage["up"] = conv_init(ini, 3, 3, c, c)
+            stage["up"] = conv_init(next(ks), 3, 3, c, c)
         dec["up"].append(stage)
-    dec["norm_out"] = groupnorm_init(c_prev, init=ini)
-    dec["conv_out"] = conv_init(ini, 3, 3, c_prev, 3)
+    dec["norm_out"] = groupnorm_init(c_prev, device=dev)
+    dec["conv_out"] = conv_init(next(ks), 3, 3, c_prev, 3)
     return {"encoder": enc, "decoder": dec}
 
 

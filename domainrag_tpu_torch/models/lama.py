@@ -30,7 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .common import (Init, Params, batchnorm, batchnorm_init, conv2d,
+from ..core import prng
+from .common import (Params, batchnorm, batchnorm_init, conv2d,
                      conv2d_transpose, conv_init)
 
 
@@ -61,9 +62,9 @@ def _split(c: int, ratio: float) -> Tuple[int, int]:
 # Fourier unit / spectral transform
 # ---------------------------------------------------------------------------
 
-def _fourier_unit_init(ini: Init, c_in: int, c_out: int) -> Params:
-    return {"conv": conv_init(ini, 1, 1, c_in * 2, c_out * 2, bias=False),
-            "bn": batchnorm_init(c_out * 2, init=ini)}
+def _fourier_unit_init(key, c_in: int, c_out: int) -> Params:
+    return {"conv": conv_init(key, 1, 1, c_in * 2, c_out * 2, bias=False),
+            "bn": batchnorm_init(c_out * 2, device=key.device)}
 
 
 def fourier_unit(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -79,13 +80,14 @@ def fourier_unit(p: Params, x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _spectral_init(ini: Init, c_in: int, c_out: int) -> Params:
+def _spectral_init(key, c_in: int, c_out: int) -> Params:
+    k1, k2, k3 = prng.split(key, 3)
     mid = c_out // 2
     return {
-        "conv1": conv_init(ini, 1, 1, c_in, mid, bias=False),
-        "bn1": batchnorm_init(mid, init=ini),
-        "fu": _fourier_unit_init(ini, mid, mid),
-        "conv2": conv_init(ini, 1, 1, mid, c_out, bias=False),
+        "conv1": conv_init(k1, 1, 1, c_in, mid, bias=False),
+        "bn1": batchnorm_init(mid, device=key.device),
+        "fu": _fourier_unit_init(k2, mid, mid),
+        "conv2": conv_init(k3, 1, 1, mid, c_out, bias=False),
     }
 
 
@@ -99,23 +101,26 @@ def spectral_transform(p: Params, x: torch.Tensor) -> torch.Tensor:
 # FFC conv block
 # ---------------------------------------------------------------------------
 
-def _ffc_init(ini: Init, c_in: int, c_out: int, kernel: int,
+def _ffc_init(key, c_in: int, c_out: int, kernel: int,
               ratio_in: float, ratio_out: float) -> Params:
+    """``split(key, 4)``, one key per branch; a branch that a ratio of 0
+    leaves out leaves its key unused."""
     in_l, in_g = _split(c_in, ratio_in)
     out_l, out_g = _split(c_out, ratio_out)
+    ks = prng.split(key, 4)
     p: Params = {}
     if in_l and out_l:
-        p["l2l"] = conv_init(ini, kernel, kernel, in_l, out_l, bias=False)
+        p["l2l"] = conv_init(ks[0], kernel, kernel, in_l, out_l, bias=False)
     if in_l and out_g:
-        p["l2g"] = conv_init(ini, kernel, kernel, in_l, out_g, bias=False)
+        p["l2g"] = conv_init(ks[1], kernel, kernel, in_l, out_g, bias=False)
     if in_g and out_l:
-        p["g2l"] = conv_init(ini, kernel, kernel, in_g, out_l, bias=False)
+        p["g2l"] = conv_init(ks[2], kernel, kernel, in_g, out_l, bias=False)
     if in_g and out_g:
-        p["g2g"] = _spectral_init(ini, in_g, out_g)
+        p["g2g"] = _spectral_init(ks[3], in_g, out_g)
     if out_l:
-        p["bn_l"] = batchnorm_init(out_l, init=ini)
+        p["bn_l"] = batchnorm_init(out_l, device=key.device)
     if out_g:
-        p["bn_g"] = batchnorm_init(out_g, init=ini)
+        p["bn_g"] = batchnorm_init(out_g, device=key.device)
     return p
 
 
@@ -161,12 +166,16 @@ def ffc_bn_act(p: Params, xl: torch.Tensor, xg: Optional[torch.Tensor],
 # generator
 # ---------------------------------------------------------------------------
 
-def init(ini: Init, cfg: LamaConfig = BIG_LAMA) -> Params:
-    """Random weights drawn from ``ini``'s generator on its device (the
-    JAX package's scales; batchnorm at identity statistics)."""
+def init(key, cfg: LamaConfig = BIG_LAMA) -> Params:
+    """JAX's tree, drawn from ``iter(split(key, 8 + n_downsampling + 2 *
+    n_blocks))`` in JAX's order on the key's device (batchnorm at
+    identity statistics). The up convs' (kh, kw, c_in, c_out) draws are
+    kept as (c_out, c_in, kh, kw), unflipped, as ``bridge`` keeps JAX's."""
+    ks = iter(prng.split(prng.check_key(key, "init"),
+                         8 + cfg.n_downsampling + 2 * cfg.n_blocks))
     ngf, nd, ratio = cfg.ngf, cfg.n_downsampling, cfg.global_ratio
     params: Params = {
-        "stem": _ffc_init(ini, cfg.in_channels, ngf, 7, 0.0, 0.0),
+        "stem": _ffc_init(next(ks), cfg.in_channels, ngf, 7, 0.0, 0.0),
         "down": [],
         "blocks": [],
         "up": [],
@@ -175,21 +184,22 @@ def init(ini: Init, cfg: LamaConfig = BIG_LAMA) -> Params:
         c_in = ngf * 2 ** i
         c_out = ngf * 2 ** (i + 1)
         r_out = ratio if i == nd - 1 else 0.0
-        params["down"].append(_ffc_init(ini, c_in, c_out, 3, 0.0, r_out))
+        params["down"].append(_ffc_init(next(ks), c_in, c_out, 3, 0.0,
+                                        r_out))
     feat = cfg.bottleneck
     for _ in range(cfg.n_blocks):
         params["blocks"].append({
-            "conv1": _ffc_init(ini, feat, feat, 3, ratio, ratio),
-            "conv2": _ffc_init(ini, feat, feat, 3, ratio, ratio),
+            "conv1": _ffc_init(next(ks), feat, feat, 3, ratio, ratio),
+            "conv2": _ffc_init(next(ks), feat, feat, 3, ratio, ratio),
         })
     for i in range(nd):
         c_in = ngf * 2 ** (nd - i)
         c_out = ngf * 2 ** (nd - i - 1)
         params["up"].append({
-            "conv": conv_init(ini, 3, 3, c_in, c_out),
-            "bn": batchnorm_init(c_out, init=ini),
+            "conv": conv_init(next(ks), 3, 3, c_in, c_out),
+            "bn": batchnorm_init(c_out, device=key.device),
         })
-    params["head"] = conv_init(ini, 7, 7, ngf, cfg.out_channels)
+    params["head"] = conv_init(next(ks), 7, 7, ngf, cfg.out_channels)
     return params
 
 

@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core import device as device_mod
-from .common import Init, Params, ckpt_linear, linear, linear_init
+from ..core import prng
+from .common import Params, ckpt_linear, linear, linear_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,9 +36,10 @@ REDUX_DEV = ReduxEncoderConfig()
 TINY_REDUX = ReduxEncoderConfig(siglip_hidden=48, txt_dim=32)
 
 
-def init(ini: Init, cfg: ReduxEncoderConfig = REDUX_DEV) -> Params:
-    return {"up": linear_init(ini, cfg.siglip_hidden, cfg.mid_dim),
-            "down": linear_init(ini, cfg.mid_dim, cfg.txt_dim)}
+def init(key, cfg: ReduxEncoderConfig = REDUX_DEV) -> Params:
+    k1, k2 = prng.split(prng.check_key(key, "init"))
+    return {"up": linear_init(k1, cfg.siglip_hidden, cfg.mid_dim),
+            "down": linear_init(k2, cfg.mid_dim, cfg.txt_dim)}
 
 
 def apply(params: Params, siglip_tokens: torch.Tensor) -> torch.Tensor:

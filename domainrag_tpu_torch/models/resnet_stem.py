@@ -24,7 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .common import (Init, Params, batchnorm, batchnorm_init, conv2d,
+from .common import (Params, batchnorm, batchnorm_init, conv2d,
                      conv_init, max_pool)
 
 
@@ -34,9 +34,11 @@ class ResNetStemConfig:
     eps: float = 1e-5
 
 
-def init(ini: Init, cfg: ResNetStemConfig = ResNetStemConfig()) -> Params:
-    return {"conv1": conv_init(ini, 7, 7, 3, cfg.channels, bias=False),
-            "bn1": batchnorm_init(cfg.channels, init=ini)}
+def init(key, cfg: ResNetStemConfig = ResNetStemConfig()) -> Params:
+    """The conv drawn straight from ``key``, batchnorm at identity
+    statistics, as in JAX."""
+    return {"conv1": conv_init(key, 7, 7, 3, cfg.channels, bias=False),
+            "bn1": batchnorm_init(cfg.channels, device=key.device)}
 
 
 def apply_stem(params: Params, images: torch.Tensor,

@@ -13,9 +13,10 @@ import dataclasses
 import torch
 
 from ..core import device as device_mod
-from .common import (Init, Params, RenamedKeys, ckpt_linear, ckpt_tensor,
-                     gelu_tanh, layernorm, layernorm_init,
-                     linear, linear_init, mha, mha_init)
+from ..core import prng
+from .common import (Params, RenamedKeys, ckpt_linear, ckpt_tensor,
+                     gelu_tanh, layernorm, layernorm_init, linear,
+                     linear_init, mha, mha_init, normal_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,22 +43,25 @@ TINY_SIGLIP = SiglipVisionConfig(image_size=28, patch_size=7, hidden=48,
                                  layers=2, heads=4, mlp_dim=96)
 
 
-def init(ini: Init, cfg: SiglipVisionConfig = SIGLIP_SO400M) -> Params:
+def init(key, cfg: SiglipVisionConfig = SIGLIP_SO400M) -> Params:
+    ks = prng.split(prng.check_key(key, "init"), cfg.layers + 3)
+    dev = key.device
     params: Params = {
-        "patch_w": ini.normal((cfg.patch_size * cfg.patch_size * 3,
-                               cfg.hidden), 0.02),
-        "patch_b": ini.zeros((cfg.hidden,)),
-        "pos_emb": ini.normal((cfg.seq_len, cfg.hidden), 0.02),
-        "post_ln": layernorm_init(cfg.hidden, init=ini),
+        "patch_w": normal_init(ks[0], (cfg.patch_size * cfg.patch_size * 3,
+                                       cfg.hidden), 0.02),
+        "patch_b": torch.zeros((cfg.hidden,), device=dev),
+        "pos_emb": normal_init(ks[1], (cfg.seq_len, cfg.hidden), 0.02),
+        "post_ln": layernorm_init(cfg.hidden, device=dev),
         "blocks": [],
     }
-    for _ in range(cfg.layers):
+    for i in range(cfg.layers):
+        k1, k2, k3 = prng.split(ks[2 + i], 3)
         params["blocks"].append({
-            "ln1": layernorm_init(cfg.hidden, init=ini),
-            "attn": mha_init(ini, cfg.hidden, bias=True),
-            "ln2": layernorm_init(cfg.hidden, init=ini),
-            "fc1": linear_init(ini, cfg.hidden, cfg.mlp_dim),
-            "fc2": linear_init(ini, cfg.mlp_dim, cfg.hidden),
+            "ln1": layernorm_init(cfg.hidden, device=dev),
+            "attn": mha_init(k1, cfg.hidden, bias=True),
+            "ln2": layernorm_init(cfg.hidden, device=dev),
+            "fc1": linear_init(k2, cfg.hidden, cfg.mlp_dim),
+            "fc2": linear_init(k3, cfg.mlp_dim, cfg.hidden),
         })
     return params
 

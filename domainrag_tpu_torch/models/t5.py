@@ -18,8 +18,9 @@ from typing import Optional
 import torch
 
 from ..core import device as device_mod
-from .common import (Init, Params, RenamedKeys, ckpt_linear, ckpt_tensor,
-                     linear, linear_init, rmsnorm, rmsnorm_init)
+from ..core import prng
+from .common import (Params, RenamedKeys, ckpt_linear, ckpt_tensor, linear,
+                     linear_init, normal_init, rmsnorm, rmsnorm_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,27 +59,41 @@ def relative_position_bucket(relative_position: torch.Tensor,
     return ret + torch.where(is_small, n, val_if_large)
 
 
-def init(ini: Init, cfg: T5Config = T5_XXL) -> Params:
+def _attn_init(key, cfg: T5Config, with_rel_bias: bool) -> Params:
+    ks = prng.split(key, 5)
     inner = cfg.heads * cfg.d_kv
-    params: Params = {"embed": ini.normal((cfg.vocab_size, cfg.d_model), 1.0),
-                      "final_norm": rmsnorm_init(cfg.d_model, init=ini),
+    p = {
+        "q": linear_init(ks[0], cfg.d_model, inner, bias=False),
+        "k": linear_init(ks[1], cfg.d_model, inner, bias=False),
+        "v": linear_init(ks[2], cfg.d_model, inner, bias=False),
+        "o": linear_init(ks[3], inner, cfg.d_model, bias=False),
+    }
+    if with_rel_bias:
+        p["rel_bias"] = normal_init(ks[4], (cfg.rel_buckets, cfg.heads),
+                                    0.02)
+    return p
+
+
+def init(key, cfg: T5Config = T5_XXL) -> Params:
+    """JAX's tree: ``split(key, 3 * layers + 2)``, the embedding on key 0,
+    each block's attention, ``wi_0`` and (split in two) ``wi_1`` / ``wo``
+    on the next three; the relative bias on block 0 only."""
+    ks = prng.split(prng.check_key(key, "init"), cfg.layers * 3 + 2)
+    dev = key.device
+    params: Params = {"embed": normal_init(ks[0], (cfg.vocab_size,
+                                                   cfg.d_model), 1.0),
+                      "final_norm": rmsnorm_init(cfg.d_model, device=dev),
                       "blocks": []}
     for i in range(cfg.layers):
-        attn = {
-            "q": linear_init(ini, cfg.d_model, inner, bias=False),
-            "k": linear_init(ini, cfg.d_model, inner, bias=False),
-            "v": linear_init(ini, cfg.d_model, inner, bias=False),
-            "o": linear_init(ini, inner, cfg.d_model, bias=False),
-        }
-        if i == 0:
-            attn["rel_bias"] = ini.normal((cfg.rel_buckets, cfg.heads), 0.02)
+        k_attn, k_ff0, k_ff1 = ks[1 + 3 * i:4 + 3 * i]
+        kf = prng.split(k_ff1, 2)
         params["blocks"].append({
-            "ln_attn": rmsnorm_init(cfg.d_model, init=ini),
-            "attn": attn,
-            "ln_ff": rmsnorm_init(cfg.d_model, init=ini),
-            "wi_0": linear_init(ini, cfg.d_model, cfg.d_ff, bias=False),
-            "wi_1": linear_init(ini, cfg.d_model, cfg.d_ff, bias=False),
-            "wo": linear_init(ini, cfg.d_ff, cfg.d_model, bias=False),
+            "ln_attn": rmsnorm_init(cfg.d_model, device=dev),
+            "attn": _attn_init(k_attn, cfg, with_rel_bias=(i == 0)),
+            "ln_ff": rmsnorm_init(cfg.d_model, device=dev),
+            "wi_0": linear_init(k_ff0, cfg.d_model, cfg.d_ff, bias=False),
+            "wi_1": linear_init(kf[0], cfg.d_model, cfg.d_ff, bias=False),
+            "wo": linear_init(kf[1], cfg.d_ff, cfg.d_model, bias=False),
         })
     return params
 

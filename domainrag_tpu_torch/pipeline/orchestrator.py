@@ -32,12 +32,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..core import device as device_mod
+from ..core import prng
 from ..core.config import PipelineConfig
 from ..core.log import StepTimer, get_logger
 from ..models import clip as clip_mod
 from ..models import lama as lama_mod
 from ..models import resnet_stem
-from ..models.common import Init
 from ..models.flux import pipeline as flux_pipeline
 from ..parallel import multihost
 from ..parallel.mesh import Mesh, create_mesh
@@ -346,20 +346,22 @@ def build_tiny_runner(cfg: PipelineConfig,
                       seed: int = 0, *, device=None) -> PipelineRunner:
     """Random tiny-model runner on ``device`` (the card unless
     ``device="cpu"``): full pipeline mechanics without real weights
-    (tests, smoke runs — SURVEY.md §4.4)."""
+    (tests, smoke runs — SURVEY.md §4.4). The JAX runner's trees:
+    ``split(PRNGKey(seed), 4)``, LaMa, the vision tower and the stem on
+    keys 0-2 and both bundles on key 3."""
     dev = device_mod.resolve(device)
-    ini = Init(device_mod.generator(seed, dev), dev)
+    ks = prng.split(prng.PRNGKey(seed, device=dev), 4)
     lama_cfg = lama_mod.TINY_LAMA
     clip_cfg = clip_mod.TINY_VISION
     return PipelineRunner(
         cfg=cfg,
-        lama_runner=inpaint_stage.LamaRunner(lama_mod.init(ini, lama_cfg),
+        lama_runner=inpaint_stage.LamaRunner(lama_mod.init(ks[0], lama_cfg),
                                              lama_cfg, device=dev),
-        clip_encoder=ClipImageEncoder(clip_mod.init_vision(ini, clip_cfg),
+        clip_encoder=ClipImageEncoder(clip_mod.init_vision(ks[1], clip_cfg),
                                       clip_cfg, batch_size=8, device=dev),
-        style_encoder=StyleEncoder(resnet_stem.init(ini), batch_size=8,
+        style_encoder=StyleEncoder(resnet_stem.init(ks[2]), batch_size=8,
                                    resize=64, device=dev),
-        flux_bundle=flux_pipeline.tiny_bundle(seed, device=dev),
-        fill_bundle=flux_pipeline.tiny_bundle(seed, device=dev, fill=True),
+        flux_bundle=flux_pipeline.tiny_bundle(ks[3], device=dev),
+        fill_bundle=flux_pipeline.tiny_bundle(ks[3], device=dev, fill=True),
         corpus_sources=corpus_sources or {},
     )

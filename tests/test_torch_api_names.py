@@ -10,8 +10,8 @@ For every module of ``domainrag_tpu`` and its counterpart in
 - every public function and method that both define takes JAX's
   parameters in JAX's order, of JAX's kinds, with JAX's defaults (a dtype
   through :data:`AS_TORCH`, a config through ``bridge.config``); where
-  JAX takes a PRNG key the port takes, in that slot, the ``Init`` or
-  seed of :data:`KEY_SLOTS`, or a ``core.prng`` key named ``key``;
+  JAX takes a PRNG key the port takes, in that slot (:data:`KEY_SLOTS`),
+  a ``core.prng`` key named ``key``;
 - the port's own parameters come after JAX's, keyword-only.
 
 :data:`EXCLUDED` holds everything the check leaves out, each with its
@@ -48,21 +48,23 @@ AS_TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16,
 
 # (module, function) -> the port's parameter in the slot of the JAX key
 KEY_SLOTS = {
-    ("models.common", "linear_init"): "init",
-    ("models.common", "conv_init"): "init",
-    ("models.common", "mha_init"): "init",
-    ("models.flux.model", "init"): "ini",
-    ("models.flux.vae", "init"): "ini",
+    ("models.common", "normal_init"): "key",
+    ("models.common", "lecun_init"): "key",
+    ("models.common", "linear_init"): "key",
+    ("models.common", "conv_init"): "key",
+    ("models.common", "mha_init"): "key",
+    ("models.flux.model", "init"): "key",
+    ("models.flux.vae", "init"): "key",
     ("models.flux.vae", "encode"): "key",
     ("models.flux.vae", "encode_tiled"): "key",
-    ("models.flux.pipeline", "tiny_bundle"): "seed",
-    ("models.t5", "init"): "ini",
-    ("models.clip", "init_vision"): "ini",
-    ("models.clip", "init_text"): "ini",
-    ("models.siglip", "init"): "ini",
-    ("models.redux", "init"): "ini",
-    ("models.lama", "init"): "ini",
-    ("models.resnet_stem", "init"): "ini",
+    ("models.flux.pipeline", "tiny_bundle"): "key",
+    ("models.t5", "init"): "key",
+    ("models.clip", "init_vision"): "key",
+    ("models.clip", "init_text"): "key",
+    ("models.siglip", "init"): "key",
+    ("models.redux", "init"): "key",
+    ("models.lama", "init"): "key",
+    ("models.resnet_stem", "init"): "key",
     ("train.flow_match", "sample_timesteps"): "key",
     ("train.flow_match", "flow_match_loss"): "key",
     ("train.flow_match", "train_step"): "key",
@@ -71,10 +73,6 @@ KEY_SLOTS = {
 
 EXCLUDED = {
     "names": {
-        ("models.common", "normal_init"):
-            "a PRNG-key initialiser: the port's Init.normal draws it",
-        ("models.common", "lecun_init"):
-            "a PRNG-key initialiser: the port's Init.normal draws it",
         ("ops.mmdit_attention", "lanes_from_qkv3"):
             "a TPU lane layout of the Pallas kernels",
         ("ops.mmdit_attention", "qkv3_from_lanes"):
@@ -97,8 +95,6 @@ EXCLUDED = {
             "the default logger is named after each package",
         ("utils", "get_logger", "name"):
             "the default logger is named after each package",
-        ("models.flux.pipeline", "tiny_bundle", "key"):
-            "JAX's None is PRNGKey(0): the port's seed 0",
         ("eval.flops", "mfu", "peak_tflops"):
             "the peak of the card (989 dense bf16 TFLOP/s), not a TPU's",
     },
@@ -362,69 +358,8 @@ def test_package_reexports_in_a_fresh_process(rel):
 
 
 # ---------------------------------------------------------------------------
-# F5: the key's slot. The inits take JAX's order and draw the same trees
+# F5: the key's slot. The inits take JAX's order
 # ---------------------------------------------------------------------------
-
-def _digest(tree):
-    """sha256 of a param tree's leaves, in order: dtype, shape and bytes
-    (bf16 widened to f32, exactly)."""
-    import hashlib
-    from domainrag_tpu_torch.models.common import leaves
-    h = hashlib.sha256()
-    for t in leaves(tree):
-        if not isinstance(t, torch.Tensor):
-            continue
-        h.update(str((t.dtype, tuple(t.shape))).encode())
-        t = t.float() if t.dtype == torch.bfloat16 else t
-        h.update(t.contiguous().view(torch.uint8).numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
-def _ini(seed, dtype=torch.float32):
-    from domainrag_tpu_torch.models.common import Init
-    return Init(torch.Generator().manual_seed(seed), torch.device("cpu"),
-                dtype)
-
-
-def _draws():
-    from domainrag_tpu_torch.models import clip, redux, siglip, t5
-    from domainrag_tpu_torch.models.flux import model as fm
-    from domainrag_tpu_torch.models.flux import vae
-    return {
-        "flux": lambda: fm.init(_ini(1), fm.TINY_FLUX),
-        "flux_bf16": lambda: fm.init(_ini(1, torch.bfloat16), fm.TINY_FLUX),
-        "vae": lambda: vae.init(_ini(2), vae.TINY_VAE),
-        "t5": lambda: t5.init(_ini(3), t5.TINY_T5),
-        "clip_vision": lambda: clip.init_vision(_ini(4), clip.TINY_VISION),
-        "clip_text": lambda: clip.init_text(_ini(5), clip.TINY_TEXT),
-        "siglip": lambda: siglip.init(_ini(6), siglip.TINY_SIGLIP),
-        "redux": lambda: redux.init(_ini(7), redux.TINY_REDUX),
-    }
-
-
-# The digests of these trees as the inits drew them before they took
-# JAX's order: ``init(cfg, Init(...))`` and ``tiny_bundle(seed, device,
-# fill)``, with the same generators and configs.
-BEFORE_REORDER = {
-    "flux": "e3bfd9d28e3e3dcf", "flux_bf16": "efd60bea1a4ff8e2",
-    "vae": "84f2c145ce12ef58", "t5": "089efec21de9c3da",
-    "clip_vision": "8d1c7161318aea29", "clip_text": "68a72e0c34b5ffb4",
-    "siglip": "210da291fe332b0d", "redux": "16d12e35a034179b",
-    "bundle": "12988320adca436d", "bundle_fill": "1ebef5b00624b2dd",
-}
-
-
-@pytest.mark.parametrize("name", sorted(BEFORE_REORDER))
-def test_reordered_inits_draw_the_same_trees(name):
-    from domainrag_tpu_torch.models.flux import pipeline as tfp
-    if name.startswith("bundle"):
-        b = tfp.tiny_bundle(0, name == "bundle_fill", device="cpu")
-        tree = [b.flux_params, b.vae_params, b.t5_params,
-                b.clip_text_params, b.siglip_params, b.redux_params]
-    else:
-        tree = _draws()[name]()
-    assert _digest(tree) == BEFORE_REORDER[name]
-
 
 def _shapes(tree, hwio_to_oihw=False, path=()):
     """{path: shape} of a param tree's leaves (JAX's HWIO kernels read as
@@ -443,24 +378,25 @@ def _shapes(tree, hwio_to_oihw=False, path=()):
 
 @pytest.mark.parametrize("name", ["vae", "t5", "siglip", "redux"])
 def test_init_with_the_key_alone_takes_jax_default_config(name):
-    """``init(ini)`` binds as JAX's ``init(key)``: the default config, the
-    full-width one, here drawn as shapes only (JAX's through
-    ``jax.eval_shape``)."""
-    from domainrag_tpu_torch.models.convert import _Shapes
+    """``init(key)`` binds as JAX's ``init(key)``: the default config, the
+    full-width one, here drawn as shapes only (on the meta device; JAX's
+    through ``jax.eval_shape``)."""
+    from domainrag_tpu_torch.core import prng
     mods = {"vae": "models.flux.vae", "t5": "models.t5",
             "siglip": "models.siglip", "redux": "models.redux"}
     jm, tm = _modules_pair(mods[name])
     want = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
-    got = tm.init(_Shapes(None, torch.device("meta")))
+    got = tm.init(prng.PRNGKey(0, device="meta"))
     assert _shapes(got) == _shapes(want, name == "vae")
 
 
 def test_jax_order_positional_calls_bind():
     from domainrag_tpu.models.flux import model as jflux
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.models import common
     from domainrag_tpu_torch.models.flux import model as tflux
     from domainrag_tpu_torch.models.flux import pipeline as tfp
-    got = tflux.init(_ini(1), tflux.TINY_FLUX)
+    got = tflux.init(prng.PRNGKey(1), tflux.TINY_FLUX)
     want = jax.eval_shape(lambda k: jflux.init(k, jflux.TINY_FLUX),
                           jax.random.PRNGKey(1))
     assert _shapes(got) == _shapes(want)
@@ -469,9 +405,10 @@ def test_jax_order_positional_calls_bind():
         [(torch.float32, torch.empty(0).device.type)] * 2
     assert torch.equal(ln["scale"], torch.ones(6))
     assert torch.equal(ln["bias"], torch.zeros(6))
-    bound = inspect.signature(tfp.tiny_bundle).bind(0, True)
-    assert bound.arguments == {"seed": 0, "fill": True}
-    b = tfp.tiny_bundle(0, True, device="cpu")
+    key = prng.PRNGKey(0)
+    bound = inspect.signature(tfp.tiny_bundle).bind(key, True)
+    assert bound.arguments == {"key": key, "fill": True}
+    b = tfp.tiny_bundle(key, True, device="cpu")
     assert b.flux_cfg.in_channels == tfp.tiny_configs(True)[
         "flux_cfg"].in_channels
 
@@ -529,7 +466,9 @@ def test_count_params_matches_jax():
     from domainrag_tpu_torch.models.flux import model as tflux
     want = jcommon.count_params(jax.eval_shape(
         lambda k: jflux.init(k, jflux.TINY_FLUX), jax.random.PRNGKey(0)))
-    assert tcommon.count_params(tflux.init(_ini(0), tflux.TINY_FLUX)) == want
+    from domainrag_tpu_torch.core import prng
+    assert tcommon.count_params(tflux.init(prng.PRNGKey(0),
+                                           tflux.TINY_FLUX)) == want
 
 
 def test_grouped_conv_matches_jax():
@@ -538,7 +477,8 @@ def test_grouped_conv_matches_jax():
     jp = jcommon.conv_init(jax.random.PRNGKey(3), 3, 3, 4, 6, groups=2)
     tp = bridge.params(jax.tree.map(np.asarray, jp), device="cpu")
     assert tuple(tp["w"].shape) == (6, 2, 3, 3)
-    assert tuple(tcommon.conv_init(_ini(0), 3, 3, 4, 6, groups=2)[
+    from domainrag_tpu_torch.core import prng
+    assert tuple(tcommon.conv_init(prng.PRNGKey(0), 3, 3, 4, 6, groups=2)[
         "w"].shape) == (6, 2, 3, 3)
     x = _rng(3).standard_normal((2, 9, 8, 4)).astype(np.float32)
     for stride, padding in ((1, "SAME"), (2, "SAME"), (2, ((0, 1), (0, 1)))):

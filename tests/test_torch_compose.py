@@ -271,7 +271,7 @@ def test_dataset_params_match_jax():
 
 @pytest.fixture(scope="module")
 def bundle():
-    return tfp.tiny_bundle(0, device="cpu", fill=True)
+    return tfp.tiny_bundle(device="cpu", fill=True)
 
 
 def _bgs(tmp_path, n, rng):

@@ -39,6 +39,7 @@ from domainrag_tpu.models import t5 as jt5
 from domainrag_tpu.models.flux import model as jflux
 from domainrag_tpu.models.flux import vae as jvae
 from domainrag_tpu_torch import bridge
+from domainrag_tpu_torch.core import prng
 from domainrag_tpu_torch.core.config import PipelineConfig
 from domainrag_tpu_torch.models import clip as tclip
 from domainrag_tpu_torch.models import convert as tconvert
@@ -527,8 +528,7 @@ def test_big_lama_template_needs_no_memory():
     """``convert_lama`` takes its template from ``lama.init`` on the meta
     device, drawing nothing: at big-lama width the check costs no
     weights."""
-    tree = tlama.init(tconvert._Shapes(None, torch.device("meta")),
-                      tlama.BIG_LAMA)
+    tree = tlama.init(prng.PRNGKey(0, device="meta"), tlama.BIG_LAMA)
     leaves = tconvert.lama_leaf_order(tree)
     assert all(t.is_meta for _, t in leaves)
     assert sum(t.numel() for _, t in leaves) > 20e6

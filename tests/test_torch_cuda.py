@@ -621,7 +621,6 @@ def test_bf16_batch_train_step_runs_f32_attention(dev):
     from the same params and seed are torch.equal."""
     import dataclasses
 
-    from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.models.flux import model as fm
     from domainrag_tpu_torch.train import flow_match
     cfg = dataclasses.replace(fm.TINY_FLUX, hidden=256, heads=2, head_dim=128,
@@ -642,11 +641,9 @@ def test_bf16_batch_train_step_runs_f32_attention(dev):
                                         device=dev)}
     runs = []
     for _ in range(2):
-        ini = torch.Generator(device=dev)
-        ini.manual_seed(16)
         step, params, opt = flow_match.make_train_step(
             cfg, flow_match.TrainConfig(remat=True),
-            fm.init(Init(ini, dev, torch.float32), cfg))
+            fm.init(prng.PRNGKey(16, device=dev), cfg))
         seed = prng.PRNGKey(17, device=dev)
         before = _counts(), mma.mmdit_double_attention.mp_launches
         _, _, loss = step(params, opt, batch, seed)
@@ -703,6 +700,36 @@ def test_prng_draws_card_vs_cpu(dev, seed):
         assert torch.equal(
             prng.choice(keys[dev], n, shape, replace=replace).cpu(),
             prng.choice(keys[cpu], n, shape, replace=replace))
+
+
+def _init_pairs(got, want, path=()):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), path
+        return [x for k in want for x in _init_pairs(got[k], want[k],
+                                                     path + (k,))]
+    if isinstance(want, list):
+        assert len(got) == len(want), path
+        return [x for i, (g, w) in enumerate(zip(got, want))
+                for x in _init_pairs(g, w, path + (i,))]
+    return [(path, got, want)]
+
+
+@pytest.mark.parametrize("name", ["flux", "vae"])
+def test_init_trees_card_vs_cpu(dev, name):
+    """A TINY_FLUX and a TINY_VAE tree drawn from a key on the card: the
+    same key's CPU tree within 3 f32 ulp, leaf by leaf, on the card."""
+    from domainrag_tpu_torch.models.flux import model as fm
+    from domainrag_tpu_torch.models.flux import vae as fvae
+    init, cfg = {"flux": (fm.init, fm.TINY_FLUX),
+                 "vae": (fvae.init, fvae.TINY_VAE)}[name]
+    cpu = torch.device("cpu")
+    got = init(prng.PRNGKey(3, device=dev), cfg)
+    want = init(prng.PRNGKey(3, device=cpu), cfg)
+    for path, g, w in _init_pairs(got, want):
+        assert g.device.type == "cuda", path
+        g = g.cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape, path
+        assert _ulps(g, w) <= 3, (path, _ulps(g, w))
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from domainrag_tpu.models.flux import pipeline as jfp
 from domainrag_tpu.models.flux import scheduler as jsched
 from domainrag_tpu.models.flux import vae as jvae
 from domainrag_tpu_torch import bridge
+from domainrag_tpu_torch.core import prng
 from domainrag_tpu_torch.models import clip as tclip
 from domainrag_tpu_torch.models import redux as tredux
 from domainrag_tpu_torch.models import siglip as tsiglip
@@ -131,9 +132,7 @@ def test_vae_init_trees_match_jax():
     want = bridge.params(jax.tree.map(np.asarray,
                                       jvae.init(jax.random.PRNGKey(0), cfg)),
                          device="cpu")
-    got = tvae.init(tvae.Init(torch.Generator().manual_seed(0),
-                              torch.device("cpu")),
-                    bridge.config(cfg, tvae.VaeConfig))
+    got = tvae.init(prng.PRNGKey(0), bridge.config(cfg, tvae.VaeConfig))
     shapes = lambda tree: jax.tree.map(  # noqa: E731
         lambda x: tuple(x.shape), tree)
     assert shapes(got) == shapes(want)

@@ -34,6 +34,7 @@ from domainrag_tpu.stages import generate as jgen
 from domainrag_tpu.stages import migrate as jmig
 from domainrag_tpu_torch.core.config import (FluxSamplingConfig,
                                              GenerateConfig, ReduxConfig)
+from domainrag_tpu_torch.core import prng
 from domainrag_tpu_torch.core.log import StepTimer
 from domainrag_tpu_torch.models.flux import pipeline as tfp
 from domainrag_tpu_torch.stages import generate as tgen
@@ -521,17 +522,14 @@ def test_chain_stages_1_to_4(tmp_path):
     writes ``all_shots_retrieval_results.json``; stage 3 reads that JSON
     and the backgrounds and writes the run tree; stage 4 reads the run
     tree (and the dataset's annotations) and writes the composites."""
-    from domainrag_tpu_torch.core import device as device_mod
     from domainrag_tpu_torch.core.coco import write_coco
     from domainrag_tpu_torch.core.config import (ComposeConfig,
                                                  DatasetParams,
                                                  ResolutionPolicy)
     from domainrag_tpu_torch.models import clip, lama, resnet_stem
-    from domainrag_tpu_torch.models.common import Init
     from domainrag_tpu_torch.stages import compose, encoders, inpaint
     from domainrag_tpu_torch.stages import retrieve
 
-    cpu = torch.device("cpu")
     rng = np.random.default_rng(21)
     datasets = tmp_path / "datasets"
     train = datasets / DS / "train"
@@ -557,8 +555,8 @@ def test_chain_stages_1_to_4(tmp_path):
     out = tmp_path / "output"
 
     # stage 1
-    ini = Init(device_mod.generator(0, cpu), cpu)
-    runner = inpaint.LamaRunner(lama.init(ini, lama.TINY_LAMA),
+    ks = prng.split(prng.PRNGKey(0), 3)
+    runner = inpaint.LamaRunner(lama.init(ks[0], lama.TINY_LAMA),
                                 lama.TINY_LAMA, device="cpu")
     s1 = inpaint.run_inpaint([DS], [SHOT], runner, str(datasets), str(out))
     assert s1 == {f"{DS}/{SHOT}": {"processed": 2, "skipped": 0,
@@ -566,9 +564,9 @@ def test_chain_stages_1_to_4(tmp_path):
 
     # stage 2
     clip_enc = encoders.ClipImageEncoder(
-        clip.init_vision(ini, clip.TINY_VISION), clip.TINY_VISION,
+        clip.init_vision(ks[1], clip.TINY_VISION), clip.TINY_VISION,
         batch_size=4, device="cpu")
-    style_enc = encoders.StyleEncoder(resnet_stem.init(ini), resize=32,
+    style_enc = encoders.StyleEncoder(resnet_stem.init(ks[2]), resize=32,
                                       device="cpu")
     results = str(out / "retrieval_results")
     feats, kept = retrieve.load_or_compute_source_features(
@@ -586,7 +584,7 @@ def test_chain_stages_1_to_4(tmp_path):
         sampling=FluxSamplingConfig(num_steps=STEPS, height=SIZE,
                                     width=SIZE), top_ranks=2)
     s3 = tgen.process_dataset(
-        tgen.GenerateStage(tfp.tiny_bundle(0, device="cpu"), gcfg), DS,
+        tgen.GenerateStage(tfp.tiny_bundle(device="cpu"), gcfg), DS,
         SHOT, rr, str(out / "lamainpaint"), str(out))
     assert s3 == {"processed": 2, "failed": 0, "skipped": 0, "fallback": 0}
     (run,) = os.listdir(out / "result" / f"{DS}_{SHOT}shot_retrieval")
@@ -598,7 +596,7 @@ def test_chain_stages_1_to_4(tmp_path):
         dataset_params={DS: DatasetParams(strength=0.5, guidance_scale=4.0,
                                           upscale_dimension=32)})
     result = compose.process_dataset(
-        compose.ComposeStage(tfp.tiny_bundle(0, device="cpu", fill=True),
+        compose.ComposeStage(tfp.tiny_bundle(device="cpu", fill=True),
                              ccfg, process_id="c", seed=0),
         DS, SHOT, str(datasets), str(out))
     composed = [f for f in _files(str(out / "outpaint_hires"))

@@ -34,7 +34,7 @@ from domainrag_tpu_torch.core import imaging as timaging
 from domainrag_tpu_torch.core.coco import write_coco as twrite_coco
 from domainrag_tpu_torch.models import common as tcommon
 from domainrag_tpu_torch.models import lama as tlama
-from domainrag_tpu_torch.models.common import Init
+from domainrag_tpu_torch.core import prng
 from domainrag_tpu_torch.stages import inpaint as tinpaint
 
 # tiny shapes: one intra-op thread is fastest, and the test workers share
@@ -89,8 +89,7 @@ def test_config_and_init_tree_match_jax(tiny):
         assert bridge.config(getattr(jlama, name), tlama.LamaConfig) \
             == getattr(tlama, name)
     assert tlama.BIG_LAMA.bottleneck == 512 and tlama.BIG_LAMA.n_blocks == 18
-    port = tlama.init(Init(torch.Generator().manual_seed(0),
-                           torch.device("cpu")), tlama.TINY_LAMA)
+    port = tlama.init(prng.PRNGKey(0), tlama.TINY_LAMA)
     assert _shapes(port) == _shapes(tiny[1])
     # the up-convs' kernels: (c_out, c_in, 3, 3), the layout of
     # conv2d_transpose

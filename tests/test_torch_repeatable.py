@@ -105,7 +105,7 @@ def test_jax_fit_repeats(setup):
 def test_port_generate_repeats(monkeypatch):
     """``generate`` on ``tiny_bundle``, twice from the same seed: the
     latents handed to the decode are torch.equal, the images equal."""
-    bundle = tpipe.tiny_bundle(0, device="cpu")
+    bundle = tpipe.tiny_bundle(device="cpu")
     g = torch.Generator().manual_seed(8)
     cfg = bundle.flux_cfg
     embeds = torch.randn((1, 6, cfg.text_dim), generator=g)

@@ -54,7 +54,7 @@ def group(tmp_path_factory):
     work = str(root)
     assert cli.main(argv + ["--output_dir", os.path.join(work, "one")]) == 0
     stage = gen_stage.GenerateStage(
-        tfp.tiny_bundle(0, device="cpu"),
+        tfp.tiny_bundle(device="cpu"),
         GenerateConfig(sampling=FluxSamplingConfig(num_steps=2, height=32,
                                                    width=32, seed=0)))
     with open(os.path.join(work, "one", "retrieval_results",

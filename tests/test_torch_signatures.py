@@ -48,8 +48,8 @@ def test_port_only_parameters_are_keyword_only(name):
 
 @pytest.fixture(scope="module")
 def bundle():
-    return tfp.tiny_bundle(0, device="cpu"), tfp.tiny_bundle(0, device="cpu",
-                                                             fill=True)
+    return tfp.tiny_bundle(device="cpu"), tfp.tiny_bundle(device="cpu",
+                                                          fill=True)
 
 
 def _cond(b, n=1):

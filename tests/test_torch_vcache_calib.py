@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from domainrag_tpu.models.flux import pipeline as jfp
+from domainrag_tpu_torch.core import prng
 from domainrag_tpu_torch.models.flux import pipeline as tfp
 from test_torch_vcache import (SEEDS, SIZE, STEPS, _budgets,  # noqa: F401
                                _curve, _t, gen, prior)
@@ -62,7 +63,7 @@ def test_calibration_never_shared_across_bundles(prior):
     te, tp = _t(prior[0]), _t(prior[1])
 
     def one(seed):
-        b = tfp.tiny_bundle(seed, device="cpu")
+        b = tfp.tiny_bundle(prng.PRNGKey(seed), device="cpu")
         tfp.generate(b, te, tp, height=16, width=16, num_steps=4,
                      seed=[0, 1], velocity_cache_interval="sched:2")
         tok = tfp._params_token(b)
@@ -73,7 +74,7 @@ def test_calibration_never_shared_across_bundles(prior):
     before = len(tfp._VCACHE_SCHEDULES)
     assert one(11) is not one(12)
     assert len(tfp._VCACHE_SCHEDULES) == before + 2
-    b = tfp.tiny_bundle(13, device="cpu")
+    b = tfp.tiny_bundle(prng.PRNGKey(13), device="cpu")
     t0 = tfp._params_token(b)
     assert tfp._params_token(b) is t0
     b.flux_params = {k: v for k, v in b.flux_params.items()}

@@ -653,7 +653,7 @@ def stages_generate(rank, world, workdir):
                            "all_shots_retrieval_results.json")) as f:
         results = json.load(f)
     stage = gen_stage.GenerateStage(
-        tfp.tiny_bundle(0, device="cpu"),
+        tfp.tiny_bundle(device="cpu"),
         GenerateConfig(sampling=FluxSamplingConfig(num_steps=2, height=32,
                                                    width=32, seed=0)))
     counters = gen_stage.process_dataset(
@@ -746,7 +746,7 @@ def train_tp_grads(rank, world, workdir):
     split that keeps the attention whole (3 heads over 2 ranks) and an
     indivisible batch."""
     import torch
-    from domainrag_tpu_torch.models.common import Init
+    from domainrag_tpu_torch.core import prng
     from domainrag_tpu_torch.models.flux import model as flux
     from domainrag_tpu_torch.ops.attention import tp_attention
     from domainrag_tpu_torch.parallel import mesh as mesh_mod, sharding
@@ -766,8 +766,7 @@ def train_tp_grads(rank, world, workdir):
     out = {"loss": loss.item(),
            "grads": np_tree(sharding.unshard_params(tree, fresh(), mesh))}
     three = flux.FluxConfig(**dict(UNEVEN, hidden=48, heads=3))
-    odd = flux.init(Init(torch.Generator().manual_seed(0),
-                         torch.device("cpu")), three)
+    odd = flux.init(prng.PRNGKey(0), three)
     out["whole_attention"] = _raises(lambda: flow.make_sharded_train_step(
         mesh_mod.create_mesh(model_parallel=2), three, train_cfg, odd))
     step, local, opt, _ = flow.make_sharded_train_step(
