@@ -230,7 +230,9 @@ def _add_common(p: argparse.ArgumentParser):
                    help="use each dataset's canonical shot sweep "
                         "(NWPU: 3/5/10/20, Camouflage: 1/2/3/5, else 1/5/10)")
     p.add_argument("--trace_dir", default=None,
-                   help="write a torch.profiler Chrome trace of the run here")
+                   help="write a torch.profiler Chrome trace of the run "
+                        "here; only under it are the stages' spans "
+                        "device-synchronised and annotated in the trace")
     p.add_argument("--block_cache_interval", default=1,
                    type=lambda v: v if v == "auto" else int(v),
                    help="block-residual caching: the blocks run every N "

@@ -198,13 +198,15 @@ def full_bundle(key=None, fill: bool = False, *, device=None
 # prompt + prior encoding
 # ---------------------------------------------------------------------------
 
-def encode_prompt(bundle: FluxBundle, prompts: Sequence[str]
+def encode_prompt(bundle: FluxBundle, prompts: Sequence[str], *,
+                  timer: Optional[StepTimer] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(T5 embeds (N, S, D_t5), CLIP pooled (N, D_clip)) per prompt, f32.
 
     Consults ``bundle.prompt_cache`` first: when every prompt is cached
     the text towers never run (and may have been released —
-    :func:`release_text_encoders`)."""
+    :func:`release_text_encoders`). When they run, the tokenizers and
+    both towers are a ``prior/text`` span of ``timer``."""
     cache = bundle.prompt_cache
     if cache is not None and all(p in cache for p in prompts):
         return (torch.cat([cache[p][0] for p in prompts]),
@@ -215,16 +217,18 @@ def encode_prompt(bundle: FluxBundle, prompts: Sequence[str]
         raise ValueError(
             f"text encoders released but prompts not in the cache: "
             f"{missing!r} — precompute_prompts() them first")
-    t5_ids = text_util.batch_tokenize(bundle.t5_tokenizer, prompts,
-                                      bundle.t5_max_len)
-    clip_ids = text_util.batch_tokenize(bundle.clip_tokenizer, prompts,
-                                        bundle.clip_max_len)
-    dev = bundle.device
-    t5_out = t5_mod.apply(bundle.t5_params,
-                          torch.as_tensor(t5_ids, device=dev), bundle.t5_cfg)
-    _, pooled = clip_mod.apply_text(bundle.clip_text_params,
-                                    torch.as_tensor(clip_ids, device=dev),
-                                    bundle.clip_text_cfg)
+    with (timer or StepTimer()).span("prior/text"):
+        t5_ids = text_util.batch_tokenize(bundle.t5_tokenizer, prompts,
+                                          bundle.t5_max_len)
+        clip_ids = text_util.batch_tokenize(bundle.clip_tokenizer, prompts,
+                                            bundle.clip_max_len)
+        dev = bundle.device
+        t5_out = t5_mod.apply(bundle.t5_params,
+                              torch.as_tensor(t5_ids, device=dev),
+                              bundle.t5_cfg)
+        _, pooled = clip_mod.apply_text(bundle.clip_text_params,
+                                        torch.as_tensor(clip_ids, device=dev),
+                                        bundle.clip_text_cfg)
     return t5_out, pooled
 
 
@@ -250,30 +254,39 @@ def release_text_encoders(bundle: FluxBundle) -> None:
     bundle.clip_text_params = None
 
 
-def _image_tokens(bundle: FluxBundle, images: np.ndarray) -> torch.Tensor:
+def _image_tokens(bundle: FluxBundle, images: np.ndarray, *,
+                  timer: Optional[StepTimer] = None) -> torch.Tensor:
+    """SigLIP + Redux tokens of preprocessed images; the copy to the
+    device and both towers are a ``prior/image`` span of ``timer``."""
     if bundle.siglip_params is None:
         raise ValueError("bundle lacks Redux weights")
-    x = torch.as_tensor(np.asarray(images, np.float32), device=bundle.device)
-    sig = siglip_mod.apply(bundle.siglip_params, x, bundle.siglip_cfg)
-    return redux_mod.apply(bundle.redux_params, sig)
+    with (timer or StepTimer()).span("prior/image"):
+        x = torch.as_tensor(np.asarray(images, np.float32),
+                            device=bundle.device)
+        sig = siglip_mod.apply(bundle.siglip_params, x, bundle.siglip_cfg)
+        return redux_mod.apply(bundle.redux_params, sig)
 
 
 def redux_prior(bundle: FluxBundle, images: np.ndarray,
                 prompts: Sequence[str],
                 prompt_embeds_scale: Sequence[float],
-                pooled_prompt_embeds_scale: Sequence[float]
+                pooled_prompt_embeds_scale: Sequence[float], *,
+                timer: Optional[StepTimer] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """images (N, S, S, 3) siglip-preprocessed -> fused
-    ((1, S_txt + S_img, D), (1, P))."""
-    txt, pooled = encode_prompt(bundle, prompts)
-    return redux_mod.combine_prior(txt, pooled, _image_tokens(bundle, images),
+    ((1, S_txt + S_img, D), (1, P)). ``timer`` (the port's own) gets the
+    ``prior/text`` and ``prior/image`` spans."""
+    txt, pooled = encode_prompt(bundle, prompts, timer=timer)
+    return redux_mod.combine_prior(txt, pooled,
+                                   _image_tokens(bundle, images, timer=timer),
                                    prompt_embeds_scale,
                                    pooled_prompt_embeds_scale)
 
 
 def redux_prior_pairs(bundle: FluxBundle, images: np.ndarray, prompt: str,
                       prompt_embeds_scale: Sequence[float],
-                      pooled_prompt_embeds_scale: Sequence[float]
+                      pooled_prompt_embeds_scale: Sequence[float], *,
+                      timer: Optional[StepTimer] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched K-image priors: images (N, K, S, S, 3) siglip-preprocessed,
     one shared prompt, scales (K,). Returns ((N, S_txt + S_img, D),
@@ -284,7 +297,7 @@ def redux_prior_pairs(bundle: FluxBundle, images: np.ndarray, prompt: str,
     return redux_prior_pairs_indexed(
         bundle, images.reshape((n * k,) + images.shape[2:]),
         np.arange(n * k).reshape(n, k), prompt, prompt_embeds_scale,
-        pooled_prompt_embeds_scale)
+        pooled_prompt_embeds_scale, timer=timer)
 
 
 def redux_prior_pairs_indexed(bundle: FluxBundle,
@@ -292,19 +305,22 @@ def redux_prior_pairs_indexed(bundle: FluxBundle,
                               pair_idx: np.ndarray,
                               prompt: str,
                               prompt_embeds_scale: Sequence[float],
-                              pooled_prompt_embeds_scale: Sequence[float]
+                              pooled_prompt_embeds_scale: Sequence[float],
+                              *, timer: Optional[StepTimer] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dual-image priors with the SigLIP tower run once per UNIQUE image
     and the per-pair embeddings gathered by index. ``unique_images``
     (U, S, S, 3); ``pair_idx`` (N, K) indices into it. The text encoders
     run once for the shared prompt. Returns ((N, S_txt + S_img, D),
-    (N, P))."""
+    (N, P)). ``timer`` (the port's own) gets a ``prior/text`` span where
+    the text towers run and a ``prior/image`` span."""
     pair_idx = np.asarray(pair_idx)
     n, k = pair_idx.shape
-    txt1, pooled1 = encode_prompt(bundle, [prompt])
+    txt1, pooled1 = encode_prompt(bundle, [prompt], timer=timer)
     txt = txt1[:, None].expand((n, k) + tuple(txt1.shape[1:]))
     pooled = pooled1[:, None].expand((n, k) + tuple(pooled1.shape[1:]))
-    img_unique = _image_tokens(bundle, unique_images)      # (U, S_i, D)
+    img_unique = _image_tokens(bundle, unique_images,
+                               timer=timer)                # (U, S_i, D)
     img_embeds = img_unique[torch.as_tensor(pair_idx, device=bundle.device)]
     return redux_mod.combine_prior_pairs(txt, pooled, img_embeds,
                                          prompt_embeds_scale,
@@ -1314,7 +1330,9 @@ def fill_batch(bundle: FluxBundle, images: np.ndarray, masks: np.ndarray,
     last two calibrate once on the fill core against the call's first
     sample (:func:`calibrate_fill_vcache`, a ``calibrate`` span of
     ``timer``). ``noise``: (B, S_img, 4*latent_channels) in place of the
-    per-seed draw, as in :func:`generate`; ``timer`` gets the spans of
+    per-seed draw, as in :func:`generate`; ``timer`` gets a
+    ``fill/inputs`` span (the images and masks to the compute dtype on the
+    device, the noise drawn, the prior cast) and the spans of
     :func:`_fill_float`. Images with a non-finite value before
     quantisation are counted in ``fill_batch.nonfinite_images``. The
     parameters are the JAX package's, in its order and with its
@@ -1338,18 +1356,21 @@ def fill_batch(bundle: FluxBundle, images: np.ndarray, masks: np.ndarray,
     grid_h, grid_w = h // lf, w // lf
     seq = grid_h * grid_w
     hires = hires_threshold_px > 0 and h * w >= hires_threshold_px
-    schedule = sched_mod.make_schedule(num_steps, image_seq_len=seq,
-                                       strength=strength)
-    sigmas = torch.as_tensor(schedule.sigmas, dtype=torch.float32,
-                             device=dev)
-    img = torch.as_tensor(from_uint8(np.asarray(images)), device=dev).to(dt)
-    m = torch.as_tensor((np.asarray(masks, np.float32) / 255.0) > 0.5,
-                        device=dev).to(dt)
-    if noise is None:
-        noise = _noise(bundle, seeds, seq, bundle.vae_cfg.latent_channels * 4)
-    noise = noise.to(device=dev, dtype=dt)
-    embeds = prompt_embeds.to(device=dev, dtype=dt)
-    pooled_c = pooled.to(device=dev, dtype=dt)
+    with timer.span("fill/inputs"):
+        schedule = sched_mod.make_schedule(num_steps, image_seq_len=seq,
+                                           strength=strength)
+        sigmas = torch.as_tensor(schedule.sigmas, dtype=torch.float32,
+                                 device=dev)
+        img = torch.as_tensor(from_uint8(np.asarray(images)),
+                              device=dev).to(dt)
+        m = torch.as_tensor((np.asarray(masks, np.float32) / 255.0) > 0.5,
+                            device=dev).to(dt)
+        if noise is None:
+            noise = _noise(bundle, seeds, seq,
+                           bundle.vae_cfg.latent_channels * 4)
+        noise = noise.to(device=dev, dtype=dt)
+        embeds = prompt_embeds.to(device=dev, dtype=dt)
+        pooled_c = pooled.to(device=dev, dtype=dt)
     with _tp_context(bundle):
         if isinstance(vci, str):
             with timer.span("calibrate"):

@@ -251,7 +251,7 @@ class PipelineRunner:
                         mesh=mesh, pipe_mesh=pipe_mesh,
                         pipe_axis=self.cfg.mesh.pipe_axis,
                         reference_artifacts=reference_artifacts,
-                        corpus_roots=corpus_roots)
+                        corpus_roots=corpus_roots, timer=self.timer)
             if self._workers() and multihost.is_distributed():
                 multihost.barrier("generate-done")
             if self._workers() and self.cfg.worker_id == 0 \
@@ -308,7 +308,7 @@ class PipelineRunner:
                         self.cfg.output_dir, resume=resume,
                         failed_only=failed_only,
                         worker_id=self.cfg.worker_id,
-                        num_workers=self.cfg.num_workers)
+                        num_workers=self.cfg.num_workers, timer=self.timer)
             self._stage_done("compose")
         return out
 

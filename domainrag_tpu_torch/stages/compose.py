@@ -150,43 +150,45 @@ class ComposeStage:
         params = self.dataset_params(dataset)
         lf = self.bundle.latent_factor
 
-        # resolution policy + /16 alignment for the fill model
-        processed, up, down, was_up, was_down = imaging.apply_resolution(
-            original_image, params.upscale_dimension,
-            self.cfg.resolution.max_dimension)
-        aligned_w = imaging.to_multiple_of(processed.width, lf, lf * 4)
-        aligned_h = imaging.to_multiple_of(processed.height, lf, lf * 4)
-        if (aligned_w, aligned_h) != processed.size:
-            processed = processed.resize((aligned_w, aligned_h),
-                                         Image.BICUBIC)
-        # bbox transform covers BOTH the policy resize and the /16
-        # alignment (the reference scaled by the policy factor only because
-        # it never re-aligned; our fill model needs /latent_factor dims)
-        sx = aligned_w / original_image.width
-        sy = aligned_h / original_image.height
-        scaled_bboxes = [[int(x * sx), int(y * sy),
-                          int(w * sx), int(h * sy)]
-                         for (x, y, w, h) in bboxes]
+        with timer.span("prepare"):
+            # resolution policy + /16 alignment for the fill model
+            processed, up, down, was_up, was_down = imaging.apply_resolution(
+                original_image, params.upscale_dimension,
+                self.cfg.resolution.max_dimension)
+            aligned_w = imaging.to_multiple_of(processed.width, lf, lf * 4)
+            aligned_h = imaging.to_multiple_of(processed.height, lf, lf * 4)
+            if (aligned_w, aligned_h) != processed.size:
+                processed = processed.resize((aligned_w, aligned_h),
+                                             Image.BICUBIC)
+            # bbox transform covers BOTH the policy resize and the /16
+            # alignment (the reference scaled by the policy factor only
+            # because it never re-aligned; our fill model needs
+            # /latent_factor dims)
+            sx = aligned_w / original_image.width
+            sy = aligned_h / original_image.height
+            scaled_bboxes = [[int(x * sx), int(y * sy),
+                              int(w * sx), int(h * sy)]
+                             for (x, y, w, h) in bboxes]
 
-        keep_mask = imaging.outpaint_keep_mask(aligned_w, aligned_h,
-                                               scaled_bboxes)
-        processed_np = np.asarray(processed)
+            keep_mask = imaging.outpaint_keep_mask(aligned_w, aligned_h,
+                                                   scaled_bboxes)
+            processed_np = np.asarray(processed)
 
-        # optional shape bucketing: pad to the bucket multiple with edge
-        # pixels; padding is keep-masked (0) so the fill never redraws it,
-        # and the output is cropped back before restore.
-        bucket = self.cfg.resolution_bucket
-        pad_h = pad_w = 0
-        if bucket and bucket > 0:
-            bucket_h = -aligned_h % max(bucket, lf)
-            bucket_w = -aligned_w % max(bucket, lf)
-            if bucket_h or bucket_w:
-                pad_h, pad_w = bucket_h, bucket_w
-                processed_np = np.pad(processed_np,
-                                      ((0, pad_h), (0, pad_w), (0, 0)),
-                                      mode="edge")
-                keep_mask = np.pad(keep_mask, ((0, pad_h), (0, pad_w)),
-                                   mode="constant", constant_values=0)
+            # optional shape bucketing: pad to the bucket multiple with
+            # edge pixels; padding is keep-masked (0) so the fill never
+            # redraws it, and the output is cropped back before restore.
+            bucket = self.cfg.resolution_bucket
+            pad_h = pad_w = 0
+            if bucket and bucket > 0:
+                bucket_h = -aligned_h % max(bucket, lf)
+                bucket_w = -aligned_w % max(bucket, lf)
+                if bucket_h or bucket_w:
+                    pad_h, pad_w = bucket_h, bucket_w
+                    processed_np = np.pad(processed_np,
+                                          ((0, pad_h), (0, pad_w), (0, 0)),
+                                          mode="edge")
+                    keep_mask = np.pad(keep_mask, ((0, pad_h), (0, pad_w)),
+                                       mode="constant", constant_values=0)
 
         log: dict = {
             "sample_id": sample_id, "sample_prefix": sample_id,
@@ -208,13 +210,14 @@ class ComposeStage:
         size = self.bundle.siglip_cfg.image_size
         n_bg = len(bg_paths)
         with timer.span("prior"):
-            bg_images = [imaging.load_rgb(p) for p in bg_paths]
-            pxs = np.stack([imaging.siglip_preprocess(b, size)
-                            for b in bg_images])
+            with timer.span("prior/inputs"):
+                bg_images = [imaging.load_rgb(p) for p in bg_paths]
+                pxs = np.stack([imaging.siglip_preprocess(b, size)
+                                for b in bg_images])
             embeds_all, pooled_all = flux_pipeline.redux_prior_pairs(
                 self.bundle, pxs[:, None], params.redux_prompt,
                 prompt_embeds_scale=[params.image_prompt_scale],
-                pooled_prompt_embeds_scale=[1.0])
+                pooled_prompt_embeds_scale=[1.0], timer=timer)
 
         seeds = [self.seed if self.seed is not None
                  else random.randint(0, 2**32 - 1) for _ in bg_paths]
@@ -372,8 +375,10 @@ def process_dataset(stage: ComposeStage, dataset: str, shot: int,
                     num_workers: int = 1, *,
                     timer: Optional[StepTimer] = None) -> dict:
     """Full dataset x shot sweep + result JSON + final collection.
-    ``timer`` gets every sample's spans (``prior``, ``fill`` with the
-    fill's ``encode``/``step``/``decode``, ``save``)."""
+    ``timer`` gets every sample's spans (``prepare``, ``prior`` with
+    ``prior/inputs``, ``prior/text`` and ``prior/image``, ``fill`` with
+    the fill's ``fill/inputs``/``encode``/``step``/``decode``,
+    ``save``)."""
     coco = CocoAnnotations.load_shot(os.path.join(datasets_dir, dataset),
                                      shot)
     result_root = os.path.join(output_dir, "result")

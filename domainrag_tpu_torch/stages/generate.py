@@ -124,18 +124,25 @@ class GenerateStage:
         return unique, pair_idx
 
     def _priors_for_sample(self, refs: List[dict], target_path: str,
-                           prior_inputs=None):
+                           prior_inputs=None,
+                           timer: Optional[StepTimer] = None):
         """All ranks' (ref, target) priors in one batched tower forward,
         the shared target encoded once; ``prior_inputs`` are
-        :meth:`_prior_inputs`' arrays when the caller prefetched them."""
-        unique, pair_idx = (prior_inputs if prior_inputs is not None
-                            else self._prior_inputs(refs, target_path))
+        :meth:`_prior_inputs`' arrays when the caller prefetched them,
+        else they are made here in a ``prior/inputs`` span of ``timer``,
+        which also gets the towers' ``prior/text`` and ``prior/image``."""
+        timer = timer or StepTimer()
+        if prior_inputs is None:
+            with timer.span("prior/inputs"):
+                prior_inputs = self._prior_inputs(refs, target_path)
+        unique, pair_idx = prior_inputs
         r = self.cfg.redux
         return flux_pipeline.redux_prior_pairs_indexed(
             self.bundle, unique, pair_idx, r.prompt,
             prompt_embeds_scale=[r.ref_image_scale, r.target_image_scale],
             pooled_prompt_embeds_scale=[r.ref_text_scale,
-                                        r.target_text_scale])
+                                        r.target_text_scale],
+            timer=timer)
 
     def generate_sample(self, sample_id: str, target_path: str,
                         refs: List[dict], sample_dir: str,
@@ -144,7 +151,9 @@ class GenerateStage:
                         prior_inputs=None, writer=None):
         """All ranks of one sample; returns the written image paths.
 
-        ``timer`` gets ``prior``, ``denoise`` (with the pipeline's ``step``
+        ``timer`` gets ``prior`` (holding ``prior/inputs`` where the
+        inputs are not given, ``prior/text`` where the text towers run,
+        and ``prior/image``), ``denoise`` (with the pipeline's ``step``
         and ``decode``) and, without a writer, ``save``. ``prior_inputs``:
         precomputed :meth:`_prior_inputs`. ``writer``: an executor; the
         PNG/provenance writes of the decoded host arrays are submitted
@@ -160,7 +169,7 @@ class GenerateStage:
             os.makedirs(sample_dir, exist_ok=True)
         with timer.span("prior"):
             embeds, pooleds = self._priors_for_sample(refs, target_path,
-                                                      prior_inputs)
+                                                      prior_inputs, timer)
 
         def run(e, p, n):
             out = flux_pipeline.generate(
@@ -292,7 +301,8 @@ def generate_samples_dp(stage: GenerateStage, items: List[dict], mesh,
             stage.bundle, np.stack(unique_imgs), pair_idx, r.prompt,
             prompt_embeds_scale=[r.ref_image_scale, r.target_image_scale],
             pooled_prompt_embeds_scale=[r.ref_text_scale,
-                                        r.target_text_scale])
+                                        r.target_text_scale],
+            timer=timer)
     with timer.span("denoise"):
         images = flux_pipeline.generate(
             stage.bundle, embeds, pooleds, height=s.height, width=s.width,

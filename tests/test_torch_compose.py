@@ -197,10 +197,14 @@ def test_compose_images_match_jax(runs):
 
 
 def test_compose_spans(runs):
-    """Each of the 3 samples: one prior, one fill of 2 encodes, 2 steps
-    (strength 0.5 of 4) and a decode, one save per background."""
+    """Each of the 3 samples: one preparation, one prior (its inputs, the
+    text towers and the image towers), one fill (its inputs, 2 encodes,
+    2 steps (strength 0.5 of 4) and a decode), one save per
+    background."""
     timer = runs["port"][2]
-    assert timer.counts == {"prior": 3, "fill": 3, "encode": 6, "step": 6,
+    assert timer.counts == {"prepare": 3, "prior": 3, "prior/inputs": 3,
+                            "prior/text": 3, "prior/image": 3, "fill": 3,
+                            "fill/inputs": 3, "encode": 6, "step": 6,
                             "decode": 3, "save": 6}
 
 

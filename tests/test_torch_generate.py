@@ -224,7 +224,8 @@ def test_generate_stage_writes_artifacts_and_chunks(bundles, tmp_path):
 
 def test_generate_stage_times_each_step_and_decode(bundles, tmp_path):
     """The stage's timer gets a synced span per denoise step of every rank
-    chunk and one decode span per chunk."""
+    chunk and one decode span per chunk, and the prior's inputs, text
+    towers and image towers inside the prior."""
     _, tb = bundles
     target, refs = _sample_files(tmp_path, 3)
     cfg = GenerateConfig(
@@ -234,7 +235,8 @@ def test_generate_stage_times_each_step_and_decode(bundles, tmp_path):
     timer = StepTimer(sync=lambda: syncs.append(1))
     tgen.GenerateStage(tb, cfg).generate_sample(
         "s", target, refs, str(tmp_path / "s"), timer=timer)
-    assert timer.counts == {"prior": 1, "denoise": 1, "step": 4,
+    assert timer.counts == {"prior": 1, "prior/inputs": 1, "prior/text": 1,
+                            "prior/image": 1, "denoise": 1, "step": 4,
                             "decode": 2, "save": 1}
     assert len(syncs) == 2 * sum(timer.counts.values())
 
