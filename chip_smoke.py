@@ -29,7 +29,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 129 rows, batch 1 and 2), with the main-path shape's time, the plain
    version's, one PyTorch library call's (SDPA on pre-normed q/k/v, a
    yardstick only) and the least time the card could take
-   (``bound_ms``);
+   (``bound_ms``); then the LayerNorm + AdaLN-modulation kernel
+   (``csrc/adaln.cu``) against the eager pair at the joint streams of the
+   benchmark's batches (5 x 5337 and 5 x 17625 rows, width 3072): >=
+   99.9% of the outputs bit-equal and the rest the modulation of a
+   normalized value 1 bf16 ulp away, the same bits twice, timed in turns with the eager pair beside
+   ``F.layer_norm`` alone and the bytes' bound (4 bytes an element); the
+   stage phases check its launches (4 per double block, 1 per single
+   block, 1 in the output layer, per forward);
 4. the same for the multi-pass kernel (joint lengths above 17408) at the
    fill's lengths: 1241 + 16384 = 17625 tokens (2048 px) and 1241 +
    30625 = 31866 (the 2800 px cap), both variants at B = 1, and the
@@ -332,7 +339,12 @@ PEAK_F32 = 67e12          # H100 SXM f32 FMA FLOP/s (no tensor cores)
 PEAK_TF32 = 495e12        # H100 SXM dense TF32 FLOP/s (tensor cores)
 PEAK_INT8 = 1979e12       # H100 SXM dense int8 OP/s
 SOURCES = ("mmdit_attention", "flash_attention", "int8_gemm",
-           "int8_attention", "topk")
+           "int8_attention", "topk", "adaln")
+# LayerNorm + modulation rows: (name, batch, joint-stream rows, the
+# stage's denoise steps per image at its defaults: 50; 50 x strength 0.4)
+ADALN_ROWS = (("adaln_modulate_s5337", 5, S_TXT + (SIZE // 16) ** 2, 50),
+              ("adaln_modulate_s17625", 5, S_TXT + (FILL_SIZE // 16) ** 2,
+               20))
 PARENT = None             # --parent DIR: a checkout of the parent commit
 CARD = None               # the card's name and power limit (nvidia-smi)
 DRAWS = {}                # full_bundle's draws: stage -> seconds, GB
@@ -630,6 +642,105 @@ def phase_kernels(dev):
     del txt, img, proj
     _edge_checks(dev, randn, norm)
     return rows
+
+
+def _bf16_step(t, k):
+    """t moved ``k`` bf16 ulps (the bit patterns ordered as integers)."""
+    import torch
+    u = t.view(torch.int16).to(torch.int32) & 0xFFFF
+    o = torch.where(u >= 0x8000, 0x8000 - u, u) + k
+    u = torch.where(o < 0, 0x8000 - o, o)
+    return torch.where(u >= 0x8000, u - 0x10000, u).to(
+        torch.int16).view(torch.bfloat16)
+
+
+def phase_adaln(dev):
+    """The LayerNorm + modulation kernel against the eager pair
+    (``_modulate(_ln_no_affine(x), shift, scale)``) at the joint stream of
+    each benchmark batch, shift and scale the .chunk views of a (B, 6h)
+    modulation: >= 99.9% of the outputs bit-equal, every other one the
+    eager modulation of a normalized value 1 bf16 ulp from the eager one
+    (the f32 sums' order reaches the output through that rounding alone),
+    two runs torch.equal; then timed in turns with the eager pair
+    (plain, kernel, kernel, plain), beside ``F.layer_norm`` alone (a
+    yardstick: no modulation) and the bytes' bound."""
+    import torch
+    import torch.nn.functional as F
+    from domainrag_tpu_torch.models.flux import model as fm
+    from domainrag_tpu_torch.ops import adaln
+
+    hd = HEADS * HD
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    rows = {}
+    for name, batch, s, _ in ADALN_ROWS:
+        x = (3.0 * torch.randn(batch, s, hd, generator=g, device=dev)
+             + 0.5).to(torch.bfloat16)
+        shift, scale = (0.5 * torch.randn(batch, 6 * hd, generator=g,
+                                          device=dev)).to(
+            torch.bfloat16).chunk(6, dim=-1)[:2]
+
+        def kernel():
+            return adaln.ln_modulate(x, shift, scale)
+
+        def plain():
+            return fm._modulate(fm._ln_no_affine(x), shift, scale)
+
+        got, again = kernel(), kernel()
+        n = fm._ln_no_affine(x)
+        same = got.view(torch.int16) == fm._modulate(n, shift, scale).view(
+            torch.int16)
+        near = same.clone()
+        for k in (1, -1):
+            near |= got == fm._modulate(_bf16_step(n, k), shift, scale)
+        equal = same.float().mean().item()
+        off, moved = (~near).sum().item(), (near & ~same).sum().item()
+        print(f"kernel {name}: {equal:.7f} of {got.numel()} outputs "
+              f"bit-equal to the eager pair, {moved} the "
+              f"modulation of a normalized value 1 ulp away, {off} "
+              f"neither; repeat torch.equal {torch.equal(got, again)}")
+        if equal < 0.999 or off or not torch.equal(got, again):
+            raise AssertionError(f"{name} disagrees with the eager pair")
+        del got, again, n, same, near
+        turns = [_ms(plain, 10), _ms(kernel, 50), _ms(kernel, 50),
+                 _ms(plain, 10)]
+        row = {"name": name, "route": "cuda",
+               "source": "domainrag_tpu_torch/csrc/adaln.cu",
+               "replaces": "none (XLA fuses models/flux/model.py "
+                           "_ln_no_affine + _modulate)",
+               "launches": 0, "equal_share": equal,
+               "ms": (turns[1] + turns[2]) / 2,
+               "plain_ms": (turns[0] + turns[3]) / 2,
+               "library_ms": _ms(lambda: F.layer_norm(x, (hd,), eps=1e-6),
+                                 50),
+               "bound_ms": 4 * x.numel() / PEAK_BYTES * 1e3,
+               "bound_by": "bytes"}
+        print(f"kernel {name} ({batch}x{s}x{hd}): turns plain / kernel / "
+              f"kernel / plain {' / '.join(f'{t:.4f}' for t in turns)} ms; "
+              f"F.layer_norm alone {row['library_ms']:.4f} ms; bound_ms "
+              f"{row['bound_ms']:.4f} (bytes), the kernel at "
+              f"{100 * row['bound_ms'] / row['ms']:.1f}% of it ({CARD})")
+        rows[name] = row
+        del x, shift, scale
+    return rows
+
+
+def _adaln_launches(rows, regime, cfg, passes, replays=0):
+    """The LayerNorm + modulation kernel ran once per site per pass (4 per
+    double block, 1 per single block, 1 in the output layer) and once per
+    block-cache replay (the output layer alone); writes the launches per
+    image at the stage's default steps into the stage's row."""
+    from domainrag_tpu_torch.ops import adaln
+    per_forward = 4 * cfg.depth_double + cfg.depth_single + 1
+    got = adaln.ln_modulate.launches
+    print(f"launches on the path: LayerNorm + modulation {got} (expected "
+          f"{per_forward} x {passes} passes + {replays} replays)")
+    if got != per_forward * passes + replays:
+        raise AssertionError("LayerNorm + modulation launches differ from "
+                             "the path")
+    name, _, _, steps = ADALN_ROWS[regime == "multi-pass"]
+    if name in rows:
+        rows[name]["launches"] = per_forward * steps
 
 
 # (batch, text rows, image rows) at the padded row space's edges: the text
@@ -1087,11 +1198,13 @@ def phase_slice_repeat(bundle, sample):
                              "seed")
 
 
-def _run_slice(bundle, sample, rows, out_name, int8, calls=STEPS):
+def _run_slice(bundle, sample, rows, out_name, int8, calls=STEPS,
+               replays=0):
     """``GenerateStage.generate_sample`` on the synthetic sample, with the
     launch counts of the path read just after (bf16: B1/B2; int8: B4 and
-    the one-pass B7): ``calls`` MMDiT forwards per rank chunk. Returns the
-    PNG paths, seconds per step and the timer."""
+    the one-pass B7): ``calls`` MMDiT forwards per rank chunk, and
+    ``replays`` that run the output layer alone. Returns the PNG paths,
+    seconds per step and the timer."""
     import torch
     from PIL import Image
     from domainrag_tpu_torch.core.log import StepTimer
@@ -1112,7 +1225,8 @@ def _run_slice(bundle, sample, rows, out_name, int8, calls=STEPS):
         _read_i8_counts(mma, rows, "one-pass", bundle.flux_cfg,
                         calls * chunks, S_TXT, (SIZE // 16) ** 2)
     else:
-        _read_counts(mma, rows, "one-pass", bundle.flux_cfg, calls * chunks)
+        _read_counts(mma, rows, "one-pass", bundle.flux_cfg, calls * chunks,
+                     replays * chunks)
 
     if len(paths) != len(refs):
         raise AssertionError(f"{len(paths)} images for {len(refs)} ranks")
@@ -1204,9 +1318,11 @@ def phase_slice_caches(bundle, sample, dense_paths, dense_step):
                               "velocity-sched"))
             calib = (f"calibration {timer.totals['calibrate']:.3f} s once "
                      f"-> {form}; ")
+        calls = _model_calls(form, STEPS)
         paths, step, timer = _run_slice(
             bundle, (target, refs, s_cfg), {}, f"sample0_{tag}", int8=False,
-            calls=_model_calls(form, STEPS))
+            calls=calls,
+            replays=STEPS - calls if "block_cache_interval" in kw else 0)
         per_image = timer.totals["denoise"] / len(paths)
         print(f"stage 3 cache {name}: {calib}{step:.3f} s per denoise step "
               f"averaged (dense {dense_step:.3f}), {per_image:.3f} s per "
@@ -1345,8 +1461,10 @@ def phase_generate_batch(bundle, sample):
 
 
 def _reset_counts(mma):
+    from domainrag_tpu_torch.ops import adaln
     from domainrag_tpu_torch.ops import attention as attn
     from domainrag_tpu_torch.ops import int8_gemm
+    adaln.ln_modulate.launches = 0
     for wrapper in (mma.mmdit_double_attention, mma.mmdit_single_attention):
         wrapper.launches = wrapper.mp_launches = 0
         wrapper.i8_launches = wrapper.i8_mp_launches = 0
@@ -1381,10 +1499,11 @@ def _flash_launches(rows, counts):
     rows[f"flash_bwd_f32_b{TRAIN_B}_s{S_TRAIN}"]["launches"] = counts[2]
 
 
-def _read_counts(mma, rows, regime, depth, passes):
+def _read_counts(mma, rows, regime, depth, passes, replays=0):
     """The launch counts of a path's run: the regime's kernel ran once per
     block per pass (19 double and 38 single blocks), the other regime's
-    never. Writes them into the regime's rows."""
+    never; ``replays`` forwards ran the output layer alone (a block
+    cache's). Writes them into the regime's rows."""
     d, s = mma.mmdit_double_attention, mma.mmdit_single_attention
     counts = {"one-pass": (d.launches, s.launches),
               "multi-pass": (d.mp_launches, s.mp_launches)}
@@ -1398,6 +1517,7 @@ def _read_counts(mma, rows, regime, depth, passes):
     if counts[regime] != want or counts[other] != (0, 0) \
             or any(_flash_counts()) or any(_i8_counts(mma)):
         raise AssertionError("kernel launch counts differ from the path")
+    _adaln_launches(rows, regime, depth, passes, replays)
     prefix = "mmdit_mp_" if regime == "multi-pass" else "mmdit_"
     for name, row in rows.items():
         if name.startswith(prefix + "joint"):
@@ -1813,6 +1933,7 @@ def _read_i8_counts(mma, rows, regime, cfg, passes, s_txt, s_img):
             or b7[other] != (0, 0) or any(bf16) or any(_flash_counts()):
         raise AssertionError(f"int8 launch counts differ from the path: "
                              f"{sorted(got_shapes.items())}")
+    _adaln_launches({}, regime, cfg, passes)
     for shape, n in got_shapes.items():      # stage 3's run, then 4's
         name = _gemm_name(shape)
         if name in rows:
@@ -5855,6 +5976,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels(dev)
+    rows.update(phase_adaln(dev))
     rows.update(phase_mp_kernels(dev))
     rows.update(phase_flash_kernels(dev))
     rows.update(phase_int8_gemm(dev))

@@ -385,7 +385,8 @@ def groupnorm(p: Params, x: torch.Tensor, groups: int = 32,
     mean_c = mean.repeat_interleave(cg, dim=-1)
     a = inv_c * p["scale"][None]
     off = p["bias"][None] - mean_c * a
-    y = x.float() * a[:, None, None, :] + off[:, None, None, :]
+    y = x.float() * a[:, None, None, :]
+    y += off[:, None, None, :]           # in place: one temporary fewer
     return y.to(x.dtype)
 
 

@@ -5,8 +5,9 @@ Hidden 3072 = 24 heads x 128, 19 double-stream + 38 single-stream
 blocks, 3-axis RoPE with axes_dim (16, 56, 56), AdaLN modulation from a
 timestep + guidance + pooled-text vector. Runs in the caller's dtype
 (bf16 at full width) with f32 LayerNorm statistics. Each block's
-attention goes through ``ops.mmdit_attention``: the Hopper kernels on
-the card, the plain version on the CPU.
+attention goes through ``ops.mmdit_attention`` and each LayerNorm +
+modulation through ``ops.adaln``: the Hopper kernels on the card, the
+plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...core import prng
+from ...ops import adaln
+# the plain LayerNorm + modulation, under the JAX package's names
+from ...ops.adaln import ln_no_affine as _ln_no_affine
+from ...ops.adaln import modulate as _modulate
 from ...ops.attention import entered, saved_contexts, tp_context
 from ...ops.mmdit_attention import (mmdit_double_attention,
                                     mmdit_single_attention)
@@ -175,15 +180,14 @@ def _single_block_init(key, cfg: FluxConfig,
     }
 
 
-def _ln_no_affine(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf - mean).square().mean(-1, keepdim=True)
-    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
-
-
-def _modulate(x, shift, scale):
-    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+def _ln_modulate(x, shift, scale):
+    """``_modulate(_ln_no_affine(x), shift, scale)``: one kernel launch
+    (``ops.adaln``) where x is on the card in a form the kernel takes and
+    no autograd graph is recorded, else the two functions (the CPU, f32
+    runs and training keep them bit for bit)."""
+    if adaln.takes(x, shift, scale):
+        return adaln.ln_modulate(x, shift, scale)
+    return _modulate(_ln_no_affine(x), shift, scale)
 
 
 def _tp() -> tuple:
@@ -234,8 +238,8 @@ def _double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
     (t_shift1, t_scale1, t_gate1, t_shift2, t_scale2,
      t_gate2) = _vec_linear(p["txt_mod"], vec_act).chunk(6, dim=-1)
 
-    img_in = _modulate(_ln_no_affine(img), i_shift1, i_scale1)
-    txt_in = _modulate(_ln_no_affine(txt), t_shift1, t_scale1)
+    img_in = _ln_modulate(img, i_shift1, i_scale1)
+    txt_in = _ln_modulate(txt, t_shift1, t_scale1)
     # joint [txt; img] attention (BFL order) over the raw fused qkv GEMM
     # outputs: head split, qk-RMSNorm, RoPE and softmax in one op
     txt_attn, img_attn = mmdit_double_attention(
@@ -249,11 +253,11 @@ def _double_block(p: Params, img, txt, vec, cos, sin, cfg: FluxConfig):
     txt = txt + t_gate1[:, None, :] * _row_linear(p["txt_proj"], txt_attn,
                                                    sharded)
 
-    img_h = _modulate(_ln_no_affine(img), i_shift2, i_scale2)
+    img_h = _ln_modulate(img, i_shift2, i_scale2)
     img = img + i_gate2[:, None, :] * _row_linear(
         p["img_mlp2"], gelu_tanh(_col_linear(p["img_mlp1"], img_h,
                                              sharded)), sharded)
-    txt_h = _modulate(_ln_no_affine(txt), t_shift2, t_scale2)
+    txt_h = _ln_modulate(txt, t_shift2, t_scale2)
     txt = txt + t_gate2[:, None, :] * _row_linear(
         p["txt_mlp2"], gelu_tanh(_col_linear(p["txt_mlp1"], txt_h,
                                              sharded)), sharded)
@@ -268,7 +272,7 @@ def _single_block(p: Params, x, vec, cos, sin, cfg: FluxConfig):
     sharded = w2 != cfg.hidden + cfg.mlp_hidden
     shift, scale, gate = _vec_linear(p["mod"], F.silu(vec)).chunk(3,
                                                                   dim=-1)
-    x_in = _modulate(_ln_no_affine(x), shift, scale)
+    x_in = _ln_modulate(x, shift, scale)
     proj = _col_linear(p["linear1"], x_in, sharded)
     # the attention reads q/k/v in place from proj's first 3h lanes
     out = mmdit_single_attention(proj, _qknorm(p["qknorm"], sharded),
@@ -337,7 +341,7 @@ def _embed(params: Params, img_tokens, txt_tokens, pooled, timestep,
 def _final(params: Params, img, vec):
     shift, scale = _vec_linear(params["final_mod"], F.silu(vec)).chunk(
         2, dim=-1)
-    img = _modulate(_ln_no_affine(img), shift, scale)
+    img = _ln_modulate(img, shift, scale)
     return linear(params["final_proj"], img)
 
 

@@ -62,12 +62,43 @@ def _resnet_init(key, c_in: int, c_out: int) -> Params:
     return p
 
 
-def _resnet(p: Params, x: torch.Tensor, groups: int) -> torch.Tensor:
-    h = conv2d(p["conv1"], F.silu(groupnorm(p["norm1"], x, groups)))
-    h = conv2d(p["conv2"], F.silu(groupnorm(p["norm2"], h, groups)))
+def _resnet(p: Params, x: torch.Tensor, groups: int,
+            conv=conv2d) -> torch.Tensor:
+    """The residual block; ``conv`` runs its convolutions (the decoder's
+    :func:`_conv_rows`). The activations and the sum are taken in place
+    on fresh tensors: the same values, and one full-size tensor fewer."""
+    h = conv(p["conv1"], F.silu(groupnorm(p["norm1"], x, groups),
+                                inplace=True))
+    h = conv(p["conv2"], F.silu(groupnorm(p["norm2"], h, groups),
+                                inplace=True))
     if "shortcut" in p:
-        x = conv2d(p["shortcut"], x)
-    return x + h
+        x = conv(p["shortcut"], x)
+    h += x
+    return h
+
+
+# The decoder's convolutions run this many output rows per call: cuDNN's
+# f32 workspace for a channels-last convolution grows with the rows of
+# the call (2.1 GB for one 1024 x 1024 x 256 image at once on an H100).
+DECODE_ROWS = 128
+
+
+def _conv_rows(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``conv2d(p, x)`` (stride 1, SAME padding), :data:`DECODE_ROWS`
+    output rows at a time, each from its rows of x and their halo."""
+    h, r = x.shape[1], p["w"].shape[2] // 2
+    if h <= DECODE_ROWS:
+        return conv2d(p, x)
+    out = None
+    for r0 in range(0, h, DECODE_ROWS):
+        r1 = min(r0 + DECODE_ROWS, h)
+        lo, hi = max(r0 - r, 0), min(r1 + r, h)
+        y = conv2d(p, x[:, lo:hi],
+                   padding=((lo - (r0 - r), r1 + r - hi), (r, r)))
+        if out is None:
+            out = y.new_empty((x.shape[0], h) + tuple(y.shape[2:]))
+        out[:, r0:r1] = y
+    return out
 
 
 def _attn_init(key, c: int) -> Params:
@@ -187,12 +218,12 @@ def decode(params: Params, latents: torch.Tensor,
     x = _mid(dec["mid"], x, g)
     for stage in dec["up"]:
         for res in stage["res"]:
-            x = _resnet(res, x, g)
+            x = _resnet(res, x, g, _conv_rows)
         if "up" in stage:
             x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-            x = conv2d(stage["up"], x)
+            x = _conv_rows(stage["up"], x)
     x = F.silu(groupnorm(dec["norm_out"], x, g))
-    return conv2d(dec["conv_out"], x)
+    return _conv_rows(dec["conv_out"], x)
 
 
 def _blend_profile(n: int, ramp_lo: int, ramp_hi: int,

@@ -1058,3 +1058,139 @@ def test_first_stage_use_pallas_launches_b8_once(dev):
     want = tk.topk_ip_numpy(q.cpu().numpy(), bank.cpu().numpy(), 100)[1]
     np.testing.assert_array_equal(
         np.array([[r["index"] for r in row] for row in fused]), want)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm + AdaLN modulation (csrc/adaln.cu) against the eager pair
+# ---------------------------------------------------------------------------
+
+from domainrag_tpu_torch.models.flux import model as fm    # noqa: E402
+from domainrag_tpu_torch.ops import adaln                  # noqa: E402
+
+# (batch, rows, width): both streams of the 1024 px batch, the 2048 px
+# joint stream, batch 1, ragged row counts, and widths from 8 to 4096
+# (64 is the tiny configs', 200 fills part of a warp's lanes)
+ADALN_SHAPES = [(5, 1241, 3072), (5, 4096, 3072), (5, 17625, 3072),
+                (1, 4096, 3072), (3, 777, 3072), (2, 300, 64), (2, 33, 8),
+                (2, 101, 200), (1, 50, 4096)]
+
+
+def _adaln_inputs(dev, b, s, h, seed=0):
+    """x with a non-zero mean; shift and scale the .chunk views of a
+    (B, 6h) modulation (the double block's second pair)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = (3.0 * torch.randn(b, s, h, generator=g, device=dev) + 0.5).to(
+        torch.bfloat16)
+    mod = (0.5 * torch.randn(b, 6 * h, generator=g, device=dev)).to(
+        torch.bfloat16)
+    shift, scale = mod.chunk(6, dim=-1)[3:5]
+    return x, shift, scale
+
+
+def _bf16_step(t, k):
+    """t moved ``k`` bf16 ulps (the bit patterns ordered as integers)."""
+    u = t.view(torch.int16).to(torch.int32) & 0xFFFF
+    o = torch.where(u >= 0x8000, 0x8000 - u, u) + k
+    u = torch.where(o < 0, 0x8000 - o, o)
+    return torch.where(u >= 0x8000, u - 0x10000, u).to(
+        torch.int16).view(torch.bfloat16)
+
+
+def _adaln_close(got, x, shift, scale):
+    """>= 99.9% of the outputs bit-equal to the eager pair's, and every
+    other one the eager modulation of a normalized value 1 bf16 ulp from
+    the eager one: only the f32 sums' order differs, and it reaches the
+    output through the rounding of the normalized row alone (where
+    ``p + shift`` cancels, that 1 ulp is many of the output's)."""
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    n = fm._ln_no_affine(x)
+    same = got.view(torch.int16) == fm._modulate(n, shift, scale).view(
+        torch.int16)
+    equal = same.float().mean().item()
+    assert equal >= 0.999, f"{equal:.6f} of the outputs bit-equal"
+    near = same
+    for k in (1, -1):
+        near = near | (got == fm._modulate(_bf16_step(n, k), shift, scale))
+    assert bool(near.all()), (f"{(~near).sum().item()} outputs off by more "
+                              f"than 1 ulp of the normalized row")
+
+
+@pytest.mark.parametrize("b,s,h", ADALN_SHAPES)
+def test_adaln_kernel_matches_eager_pair(dev, b, s, h):
+    x, shift, scale = _adaln_inputs(dev, b, s, h)
+    assert adaln.takes(x, shift, scale)
+    n = adaln.ln_modulate.launches
+    got = adaln.ln_modulate(x, shift, scale)
+    torch.cuda.synchronize()
+    assert adaln.ln_modulate.launches == n + 1
+    _adaln_close(got, x, shift, scale)
+    assert torch.equal(adaln.ln_modulate(x, shift, scale), got)
+
+
+def test_adaln_kernel_reads_the_final_slice_in_place(dev):
+    """The output layer's input: the image rows of the 1024 px joint
+    stream (a view), with the (B, 2h) final modulation's chunks."""
+    x, _, _ = _adaln_inputs(dev, 5, 1241 + 4096, 3072)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    shift, scale = torch.randn(5, 6144, generator=g, device=dev).to(
+        torch.bfloat16).chunk(2, dim=-1)
+    img = x[:, 1241:]
+    assert not img.is_contiguous()
+    got = fm._ln_modulate(img, shift, scale)
+    _adaln_close(got, img, shift, scale)
+    assert torch.equal(got, adaln.ln_modulate(img.contiguous(), shift,
+                                              scale))
+
+
+def test_adaln_rows_do_not_depend_on_the_launch(dev):
+    """A row's bits are the same in batch 5, alone in batch 1, and in a
+    launch over fewer rows (the data-parallel pin)."""
+    x, shift, scale = _adaln_inputs(dev, 5, 4096, 3072, seed=3)
+    whole = adaln.ln_modulate(x, shift, scale)
+    for i in range(5):
+        alone = adaln.ln_modulate(x[i:i + 1], shift[i:i + 1],
+                                  scale[i:i + 1])
+        assert torch.equal(alone, whole[i:i + 1])
+    assert torch.equal(adaln.ln_modulate(x[:, :1000], shift, scale),
+                       whole[:, :1000])
+
+
+def test_adaln_tiny_flux_forward_card(dev, monkeypatch):
+    """The tiny Flux forward in bf16 on the card: the kernel path against
+    the eager pair's (``adaln.takes`` refusing), relative L2 <= 1e-3, and
+    11 launches a forward (4 x 2 double blocks, 2 single, the output)."""
+    cfg = fm.TINY_FLUX
+    params = fm.init(prng.PRNGKey(0, device=dev), cfg, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    b, grid, s_txt = 2, 8, 16
+    bf = torch.bfloat16
+
+    def forward():
+        return fm.apply(
+            params,
+            torch.randn(b, grid * grid, cfg.in_channels, generator=g,
+                        device=dev).to(bf),
+            torch.randn(b, s_txt, cfg.text_dim, generator=g,
+                        device=dev).to(bf),
+            torch.randn(b, cfg.pooled_dim, generator=g, device=dev).to(bf),
+            torch.tensor([0.7, 0.3], device=dev),
+            torch.as_tensor(fm.make_image_ids(grid, grid), device=dev),
+            torch.as_tensor(fm.make_text_ids(s_txt), device=dev), cfg,
+            guidance=torch.tensor([2.5, 4.0], device=dev))
+
+    state = g.get_state()
+    n = adaln.ln_modulate.launches
+    with torch.inference_mode():
+        got = forward()
+        torch.cuda.synchronize()
+        assert adaln.ln_modulate.launches == n + 11
+        g.set_state(state)
+        with monkeypatch.context() as m:
+            m.setattr(adaln, "takes", lambda *a: False)
+            want = forward()
+    assert adaln.ln_modulate.launches == n + 11
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert rel <= 1e-3, f"relative L2 {rel:.3e}"
