@@ -1,6 +1,7 @@
-"""The denoise step's share of the card's dense bf16 peak: the MMDiT
-forward's exact FLOPs at the cell's batch and token counts (the frozen
-``counts.flops``) over the mean synchronised step, in percent."""
+"""The denoise step's share of the card's dense bf16 peak: the forward's
+exact FLOPs at the cell's batch and token counts (the family's frozen
+``counts``, ``ctx.forward_flops``) over the mean synchronised step, in
+percent."""
 
 from gpubench.counts import flops
 
@@ -9,6 +10,5 @@ def read(ctx):
     spans = [b - a for name, a, b in ctx.spans if name == "step"]
     if not spans:
         return None
-    f = flops.flux_forward_flops(ctx.transformer, ctx.s_img, ctx.s_txt,
-                                 ctx.batch)["total"]
-    return 100.0 * f / (sum(spans) / len(spans)) / flops.PEAK_BF16
+    return 100.0 * ctx.forward_flops / (sum(spans) / len(spans)) \
+        / flops.PEAK_BF16

@@ -3,8 +3,11 @@
 Every product (linear, convolution, attention's two products) goes
 through :func:`operand`, so the controls can put the reference in the
 program's place one precision lower: ``tf32`` (TF32 tensor cores, for
-a float32 stage) or ``fp8`` (operands rounded to float8 e4m3 with a
-per-tensor scale, for a bfloat16 stage). ``f32`` is the reference.
+a float32 stage), ``fp8`` (operands rounded to float8 e4m3 with a
+per-tensor scale, for a bfloat16 stage) or ``int4`` (operands rounded to
+symmetric int4, [-7, 7], with a scale per token of an activation and
+per output channel of a weight, for an int8 stage). ``f32`` is the
+reference.
 """
 
 from __future__ import annotations
@@ -17,13 +20,14 @@ import torch.nn.functional as F
 
 _MODE = "f32"
 FP8_MAX = 448.0
+INT4_MAX = 7.0
 
 
 @contextlib.contextmanager
 def precision(mode: str):
     """Compute the reference in ``mode`` inside the block."""
     global _MODE
-    if mode not in ("f32", "tf32", "fp8"):
+    if mode not in ("f32", "tf32", "fp8", "int4"):
         raise ValueError(mode)
     saved = (_MODE, torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
@@ -37,12 +41,19 @@ def precision(mode: str):
          torch.backends.cudnn.allow_tf32) = saved
 
 
-def operand(x: torch.Tensor) -> torch.Tensor:
-    """An f32 operand of a product, rounded as the mode says."""
+def operand(x: torch.Tensor, dim=-1) -> torch.Tensor:
+    """An f32 operand of a product, rounded as the mode says. ``dim``: the
+    axis (or axes) the product contracts, over which ``int4`` takes each
+    scale (None: one scale for the tensor)."""
     x = x.float()
     if _MODE == "fp8":
         scale = x.abs().amax().clamp_min(1e-30) / FP8_MAX
         return (x / scale).to(torch.float8_e4m3fn).float() * scale
+    if _MODE == "int4":
+        amax = x.abs().amax() if dim is None \
+            else x.abs().amax(dim, keepdim=True)
+        scale = amax.clamp_min(1e-30) / INT4_MAX
+        return torch.round(x / scale).clamp(-INT4_MAX, INT4_MAX) * scale
     return x
 
 
@@ -57,7 +68,8 @@ def conv(w: dict, prefix: str, x: torch.Tensor, stride: int = 1,
          padding=1) -> torch.Tensor:
     """NCHW convolution with ``{prefix}.weight`` (out, in, kh, kw)."""
     b = w.get(f"{prefix}.bias")
-    return F.conv2d(operand(x), operand(w[f"{prefix}.weight"]),
+    return F.conv2d(operand(x, None), operand(w[f"{prefix}.weight"],
+                                              (1, 2, 3)),
                     None if b is None else b.float(), stride=stride,
                     padding=padding)
 
@@ -110,7 +122,7 @@ def attention(q, k, v, scale: float, mask=None, bias=None,
                 s = s.masked_fill(~mask, float("-inf"))
             p = torch.softmax(s, dim=-1)
             out[r, hs] = torch.matmul(operand(p),
-                                      operand(v[r, hs]))
+                                      operand(v[r, hs], -2))
             del s, p
     return out
 

@@ -74,16 +74,16 @@ def cell_metrics(bench: dict, cell: str, trace: bool) -> list:
 
 def measure(cell, seed: int, seconds: float, trace: bool,
             device: str = "cuda", controls: bool = False,
-            max_samples: Optional[int] = None, int8: bool = False):
+            max_samples: Optional[int] = None):
     """One run; returns (result fields, the numbers compared). With
-    ``controls`` the fields also hold the controls' readings
-    (``check.control``); ``max_samples`` closes the window after that
-    many samples (the CPU tests' runs), where the deadline has not;
-    ``int8`` runs the program's int8 path in its place (a control)."""
+    ``controls`` the fields also hold the controls' readings (the
+    family's ``control``); ``max_samples`` closes the window after that
+    many samples (the CPU tests' runs), where the deadline has not."""
     import torch
-    from . import check, harness
+    from . import harness
     from . import trace as trace_mod
 
+    fam = cell.family
     cuda = torch.device(device).type == "cuda"
 
     def sync():
@@ -97,21 +97,20 @@ def measure(cell, seed: int, seconds: float, trace: bool,
     tmp = tempfile.mkdtemp(prefix="gpubench-", dir=os.environ.get("TMPDIR"))
     try:
         t_in = time.perf_counter()
-        samples = harness.make_samples(cell, seed, tmp, t["samples"])
+        samples = fam.make_samples(cell, seed, tmp, t["samples"])
         sync()
-        t_w = time.perf_counter()
-        bundle = harness.build_bundle(cell, seed, int8, device)
-        sync()
-        setup = {"start_s": t_in - T0, "inputs_s": t_w - t_in,
-                 "weights_s": time.perf_counter() - t_w}
         out_dir = os.path.join(tmp, "out")
-        with harness.int8_modes(int8):
-            stage = harness.make_stage(cell, bundle)
+        t_w = time.perf_counter()
+        with fam.serving_modes(cell):
+            bundle = fam.build_bundle(cell, seed, device)
+            sync()
+            setup = {"start_s": t_in - T0, "inputs_s": t_w - t_in,
+                     "weights_s": time.perf_counter() - t_w}
+            stage = fam.make_stage(cell, bundle)
             try:
-                harness.run_sample(cell, stage, samples[0], out_dir,
-                                   harness.BenchTimer(
-                                       max_steps=t["warm_steps"],
-                                       device=device))
+                fam.run_sample(cell, stage, samples[0], out_dir,
+                               harness.BenchTimer(max_steps=t["warm_steps"],
+                                                  device=device))
             except harness.WindowClosed:
                 pass
             sync()
@@ -121,7 +120,7 @@ def measure(cell, seed: int, seconds: float, trace: bool,
                 torch.cuda.reset_peak_memory_stats()
             setup_s = time.perf_counter() - T0
 
-            rec = harness.recorder(cell, seed)
+            rec = fam.recorder(cell, seed)
             spans = []
             prof = None
             if trace:
@@ -141,8 +140,8 @@ def measure(cell, seed: int, seconds: float, trace: bool,
                     closed = False
                     try:
                         with rec if i == 0 else contextlib.nullcontext():
-                            harness.run_sample(cell, stage, sample, out_dir,
-                                               timer)
+                            fam.run_sample(cell, stage, sample, out_dir,
+                                           timer)
                     except harness.WindowClosed:
                         closed = True
                     spans += timer.spans
@@ -173,7 +172,7 @@ def measure(cell, seed: int, seconds: float, trace: bool,
         del stage, bundle
         harness.free_program()
         t_ref = time.perf_counter()
-        numbers = check.compare(cell, seed, samples[0], rec, device)
+        numbers = fam.compare(cell, seed, samples[0], rec, device)
         log(f"set-up {setup_s:.3f} s ("
             + ", ".join(f"{k} {v:.3f}" for k, v in setup.items()) + "); "
             f"window {window:.3f} s, {len(done)} steps of batch "
@@ -184,11 +183,9 @@ def measure(cell, seed: int, seconds: float, trace: bool,
             + f"; reference {time.perf_counter() - t_ref:.3f} s; numbers "
             + json.dumps(numbers))
         if controls:
-            fields["control"] = check.control(cell, seed, samples[0], rec,
-                                              device)
-        fields["failed"] = sum(
-            int(not torch.isfinite(m["out"].float()).all().item())
-            for m in rec.model.values())
+            fields["control"] = fam.control(cell, seed, samples[0], rec,
+                                            device)
+        fields["failed"] = fam.failed(rec)
         return fields, numbers
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -208,11 +205,12 @@ def _totals(spans) -> dict:
 
 
 def per_layer(bench, cell, fields) -> dict:
-    t = cell.traffic
+    """The cell's per-layer metrics. Each reader's ``ctx`` carries the
+    window's synchronised spans, the reduced trace, the set-up's timings
+    and the family's counts of one forward (``counts``)."""
     ctx = types.SimpleNamespace(
         spans=fields["spans"], trace=fields.get("trace"),
-        setup=fields["setup"], batch=cell.batch, s_img=t["s_img"],
-        s_txt=t["s_txt"], transformer=cell.config["sizes"]["transformer"])
+        setup=fields["setup"], **cell.family.counts(cell))
     out = {}
     for m in cell_metrics(bench, cell.name, trace=True):
         value = _reader(m["name"])(ctx)

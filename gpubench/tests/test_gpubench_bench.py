@@ -20,10 +20,10 @@ import sys
 import pytest
 import torch
 
-from gpubench import harness, run, weights
+from gpubench import check, harness, run, weights
+from gpubench.families import flux
 from gpubench.reference.ops import precision
 from gpubench.tests.tiny import tiny_cell, tiny_config
-from gpubench.tools import derive_layout
 
 torch.set_num_threads(1)
 ROOT = harness.ROOT
@@ -50,7 +50,7 @@ def test_cell_resolves_by_name(name):
     cell = harness.Cell.load(BENCH, name)
     assert {"prior_gap", "gemm_gap", "velocity_gap",
             "euler_gap"} <= set(cell.spec["limits"])
-    assert cell.fill == ("encode_gap" in cell.spec["limits"])
+    assert flux._fill(cell) == ("encode_gap" in cell.spec["limits"])
     assert cell.config["reduced"] == []
     for m in run.cell_metrics(BENCH, name, trace=True):
         assert os.path.exists(os.path.join(ROOT, "gpubench", "metrics",
@@ -65,7 +65,7 @@ def test_frozen_layout_is_the_port_export(name):
     today (the port's inits and export layouts at full width)."""
     with open(os.path.join(ROOT, "gpubench", "configs", f"{name}.json")) as f:
         frozen = json.load(f)
-    fresh = derive_layout.config_file(name)
+    fresh = flux.config_file(name)
     assert frozen["layout"] == json.loads(json.dumps(fresh["layout"]))
     assert frozen["sizes"] == json.loads(json.dumps(fresh["sizes"]))
 
@@ -90,7 +90,7 @@ def test_maker_feeds_the_port_converters(fill):
     from domainrag_tpu_torch.models.flux import model as fm
     from domainrag_tpu_torch.models.flux import vae
     config = tiny_config(fill)
-    cfgs = harness.port_configs(config)
+    cfgs = flux.port_configs(config)
     comps = weights.components(config, 3, "cpu")
     key = prng.PRNGKey(0, device="meta")
     cases = {
@@ -258,27 +258,25 @@ def test_float8_in_the_programs_place_fails(fill):
     the sampled block's linears and, where the cell holds it, its
     attention) and, in the Fill cell, of the encode."""
     import tempfile
-    from gpubench import check
     limits = _cell_limits(fill)
     cell = tiny_cell(fill)
     seed = 4
-    rec = harness.Recorder([0], rows=range(cell.batch), block=1)
+    rec = flux.Recorder([0], rows=range(cell.batch), block=1)
     with tempfile.TemporaryDirectory() as tmp:
-        samples = harness.make_samples(cell, seed, tmp, 1)
-        stage = harness.make_stage(
-            cell, harness.build_bundle(cell, seed, False, "cpu"))
+        samples = flux.make_samples(cell, seed, tmp, 1)
+        stage = flux.make_stage(cell, flux.build_bundle(cell, seed, "cpu"))
         with rec:
-            harness.run_sample(cell, stage, samples[0],
-                               os.path.join(tmp, "out"),
-                               harness.BenchTimer(device="cpu"))
+            flux.run_sample(cell, stage, samples[0],
+                            os.path.join(tmp, "out"),
+                            harness.BenchTimer(device="cpu"))
         got = {}
         with torch.inference_mode():
             comps = weights.components(cell.config, seed, "cpu")
-            control = check._mmdit_control(cell, comps, rec, "cpu")
+            control = flux._mmdit_control(cell, comps, rec, "cpu")
             if fill:
                 for mode in ("f32", "fp8"):
                     with precision(mode):
-                        got[mode] = check.encode_reference(
+                        got[mode] = flux.encode_reference(
                             cell, comps, samples[0], rec, "cpu")[0]
     held = {"velocity_gap", "gemm_gap", "attn_gap"} & set(limits)
     assert {"velocity_gap", "gemm_gap"} <= held
@@ -300,7 +298,7 @@ def test_import_check_compares_whole_names(monkeypatch):
 
 def test_the_run_path_loads_no_jax():
     code = ("import gpubench.run as r, gpubench.harness, gpubench.check, "
-            "gpubench.trace, gpubench.control; "
+            "gpubench.trace, gpubench.control, gpubench.families.flux; "
             "import domainrag_tpu_torch.stages.generate, "
             "domainrag_tpu_torch.stages.compose, "
             "domainrag_tpu_torch.models.convert, domainrag_tpu_torch.cli.main; "

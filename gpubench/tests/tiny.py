@@ -9,17 +9,17 @@ import json
 import os
 
 from gpubench import harness
-from gpubench.tools import derive_layout
+from gpubench.families import flux
 
 ROOT = harness.ROOT
 
 
 def tiny_config(fill: bool) -> dict:
     return {"name": "tiny-fill" if fill else "tiny-dev",
-            "served_dtype": {k: "float32" for k in derive_layout.SERVED},
-            "sizes": derive_layout.port_sizes(fill, tiny=True),
+            "served_dtype": {k: "float32" for k in flux.SERVED},
+            "sizes": flux.port_sizes(fill, tiny=True),
             "t5_max_len": 16,
-            "layout": derive_layout.derive(fill, tiny=True)}
+            "layout": flux.derive(fill, tiny=True)}
 
 
 def tiny_traffic(fill: bool) -> dict:
